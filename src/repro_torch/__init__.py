@@ -1,0 +1,10 @@
+"""PyTorch / CUDA port of the Mixture-of-Rookies reproduction.
+
+Mirrors the layout and names of the JAX package ``repro`` (``configs/``,
+``core/``, ``kernels/``, ``models/``, ``serving/``, ``launch/``) for the
+slice it covers so far: the slotted continuous-batching engine on the
+dense family in MoR modes ``dense`` / ``exact`` / ``tiled`` / ``kernel``.
+It imports ``torch`` and numpy only, never ``jax`` and nothing of
+``repro``.  Entry points run on ``cuda`` unless the caller passes
+``device="cpu"``.
+"""

@@ -1,0 +1,323 @@
+"""MoR execution plans: one predictor pass per layer call, reused
+everywhere downstream (``repro.core.executor``).
+
+Modes:
+
+  dense  — plain matmul, predictor off.
+  exact  — full compute, then zero the neurons the hybrid predictor
+           would have skipped (neuron-granular; accuracy mode).
+  tiled  — tile-granular skipping in plain PyTorch: the oracle for the
+           kernels.
+  kernel — the fused ``mor_tile_mask`` predictor feeds
+           ``gather_matmul``, which only reads live weight tiles under a
+           static ``capacity`` budget; the down projection skips dead
+           contraction blocks via ``masked_matmul_kdim``.
+
+A plan holds a MoRLayer (possibly layer-stacked) and static knobs.  The
+calibrated per-layer budget ``cap_live`` is a HOST float (or an (L,)
+array): PyTorch does not retrace, so a host value is what keeps the
+kernels' slot budgets free of device syncs.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.predictor import MoRLayer, hybrid_predict
+from repro_torch.core.policy import (expand_tile_mask,
+                                     tile_mask_from_neuron_mask)
+
+MODES = ("dense", "exact", "tiled", "kernel")
+
+
+def _act(h: torch.Tensor, activation: str) -> torch.Tensor:
+    if activation == "relu":
+        return F.relu(h)
+    if activation == "relu2":
+        return torch.square(F.relu(h))
+    raise ValueError(f"MoR requires a ReLU-family activation, got "
+                     f"{activation!r}")
+
+
+def _dense_stats(device) -> Dict[str, torch.Tensor]:
+    one = torch.ones((), dtype=torch.float32, device=device)
+    z = torch.zeros((), dtype=torch.float32, device=device)
+    zi = torch.zeros((), dtype=torch.int32, device=device)
+    return {"frac_computed": one, "frac_tiles_live": one,
+            "frac_tiles_computed": one.clone(),
+            "frac_mispredicted_zero": z, "n_tiles": zi,
+            "tiles_skipped": zi.clone()}
+
+
+class MoRPrediction:
+    """The result of ONE predictor pass, shared by every consumer.
+
+    ``computed``: (T, N) bool neuron mask, or None in kernel mode.
+    ``tiles``: (T/tile_m, N/tile_n) bool tile-liveness mask.
+    ``kept``: tiles actually computed under the capacity budget.
+    ``kernel_counts``: (n_live, n_computed) from ``gather_matmul``."""
+
+    __slots__ = ("computed", "tiles", "kept", "kernel_counts")
+
+    def __init__(self, computed: Optional[torch.Tensor],
+                 tiles: torch.Tensor, kept: Optional[torch.Tensor] = None):
+        self.computed = computed
+        self.tiles = tiles
+        self.kept = tiles if kept is None else kept
+        self.kernel_counts = None
+
+    def keep_mask(self, T: int, N: int, tile_m: int, tile_n: int):
+        return expand_tile_mask(self.kept, tile_m, tile_n, T, N)
+
+    def stats(self) -> Dict[str, torch.Tensor]:
+        n_tiles = float(self.tiles.numel())
+        if self.kernel_counts is not None:
+            n_live, n_comp = self.kernel_counts
+            tiles_live = n_live.float() / n_tiles
+            tiles_computed = n_comp.float() / n_tiles
+            n_computed = n_comp.int()
+        else:
+            tiles_live = self.tiles.float().mean()
+            tiles_computed = self.kept.float().mean()
+            n_computed = self.kept.sum(dtype=torch.int32)
+        if self.computed is not None:
+            frac_computed = self.computed.float().mean()
+        else:
+            # kernel mode: the neuron mask never exists; report the
+            # tile-level compute fraction (its tight upper bound)
+            frac_computed = tiles_live
+        n_tiles_i = torch.full((), int(n_tiles), dtype=torch.int32,
+                               device=self.tiles.device)
+        return {"frac_computed": frac_computed,
+                "frac_tiles_live": tiles_live,
+                "frac_tiles_computed": tiles_computed,
+                "frac_mispredicted_zero": torch.zeros(
+                    (), dtype=torch.float32, device=self.tiles.device),
+                "n_tiles": n_tiles_i,
+                "tiles_skipped": n_tiles_i - n_computed}
+
+
+class MoRExecutionPlan:
+    """Per-layer MoR execution plan.
+
+    ``capacity_frac`` (static) provisions the gather_matmul slot list;
+    ``cap_live`` (host float, or an (L,) array for a layer-stacked plan)
+    is the telemetry-calibrated budget clamped under it."""
+
+    def __init__(self, mor: Optional[MoRLayer], *, mode: str = "dense",
+                 tile_m: int = 8, tile_n: int = 128,
+                 capacity_frac: float = 1.0, cap_live=None):
+        if mode not in MODES:
+            raise ValueError(f"unknown MoR mode {mode!r}")
+        self.mor = mor
+        self.mode = mode
+        self.tile_m = tile_m
+        self.tile_n = tile_n
+        self.capacity_frac = capacity_frac
+        self.cap_live = cap_live
+
+    def __repr__(self):
+        return (f"MoRExecutionPlan(mode={self.mode!r}, tile_m={self.tile_m},"
+                f" tile_n={self.tile_n}, capacity_frac={self.capacity_frac},"
+                f" calibrated={self.mor is not None},"
+                f" per_layer_capacity={self.cap_live is not None})")
+
+    def layer(self, l: int) -> "MoRExecutionPlan":
+        """The plan of layer ``l`` of a layer-stacked plan."""
+        mor = None if self.mor is None else {k: v[l]
+                                             for k, v in self.mor.items()}
+        cap = None
+        if self.cap_live is not None:
+            c = np.asarray(self.cap_live, np.float32)
+            cap = float(c[l]) if c.ndim else float(c)
+        return MoRExecutionPlan(mor, mode=self.mode, tile_m=self.tile_m,
+                                tile_n=self.tile_n,
+                                capacity_frac=self.capacity_frac,
+                                cap_live=cap)
+
+    @property
+    def active(self) -> bool:
+        """True when the predictor actually runs (calibrated + not dense)."""
+        return self.mor is not None and self.mode != "dense"
+
+    # -- the single predictor pass -----------------------------------------
+    def predict(self, x: torch.Tensor, w: torch.Tensor, *,
+                preact_full: Optional[torch.Tensor] = None,
+                residual: Optional[torch.Tensor] = None,
+                row_mask: Optional[torch.Tensor] = None) -> MoRPrediction:
+        """Run the hybrid predictor exactly once -> MoRPrediction.
+        ``kernel`` mode goes through the fused ``ops.mor_tile_mask``;
+        every other mode uses the plain ``hybrid_predict``."""
+        assert self.active, "predict() on an inactive plan"
+        mor = self.mor
+        if self.mode == "kernel" and preact_full is None:
+            from repro_torch.kernels import ops as kops
+            # proxy rookie at base precision through a plain matmul
+            slot = torch.clamp(mor["proxy_slot"], min=0).long()
+            proxy_cols = w.index_select(1, slot)
+            proxy_pre = x.float() @ proxy_cols.float()
+            proxy_relu_in = (proxy_pre * mor["bn_scale"][slot]
+                             + mor["bn_bias"][slot])
+            if residual is not None:
+                proxy_relu_in = proxy_relu_in + residual.float(
+                ).index_select(-1, slot)
+            proxy_neg = (proxy_relu_in < 0.0) | (mor["proxy_slot"] < 0)
+            pn = proxy_neg.to(torch.int8)
+            if row_mask is not None:
+                pn = torch.where(row_mask[:, None], pn,
+                                 torch.full((), 2, dtype=torch.int8,
+                                            device=pn.device))
+            # proxies themselves are always computed: fold ~is_proxy
+            # into the kernel's enable row
+            mor_eff = dict(mor)
+            mor_eff["enable"] = mor["enable"] & ~mor["is_proxy"]
+            tiles = kops.mor_tile_mask(x, w, mor_eff, pn, residual=residual,
+                                       tile_m=self.tile_m,
+                                       tile_n=self.tile_n)
+            return MoRPrediction(None, tiles,
+                                 kept=self._capacity_clip(tiles))
+        computed = hybrid_predict(x, w, mor, preact_full=preact_full,
+                                  residual=residual)
+        if row_mask is not None:
+            computed = computed & row_mask[..., None]
+        tiles = tile_mask_from_neuron_mask(
+            computed.reshape(-1, computed.shape[-1]), self.tile_m,
+            self.tile_n)
+        kept = (self._capacity_clip(tiles)
+                if self.mode == "kernel" or self.cap_live is not None
+                else None)
+        return MoRPrediction(computed, tiles, kept=kept)
+
+    def _capacity_clip(self, tiles: torch.Tensor) -> torch.Tensor:
+        """Capacity truncation mirroring gather_matmul's slot list: only
+        the first ``capacity`` live tiles (row-major) are computed."""
+        if self.capacity_frac >= 1.0 and self.cap_live is None:
+            return tiles
+        n_tiles = tiles.shape[0] * tiles.shape[1]
+        capacity = max(1, int(self.capacity_frac * n_tiles))
+        if self.cap_live is not None:
+            f = np.float32(self.cap_live) * np.float32(n_tiles)
+            capacity = min(capacity, max(1, int(np.ceil(f))))
+        flat = tiles.reshape(-1)
+        live_rank = torch.cumsum(flat, 0) - 1
+        return (flat & (live_rank < capacity)).reshape(tiles.shape)
+
+    # -- mask-consuming matmuls --------------------------------------------
+    def masked_matmul(self, x: torch.Tensor, w: torch.Tensor,
+                      pred: MoRPrediction) -> torch.Tensor:
+        """x @ w with ``pred``'s tile mask applied — dead tiles are exact
+        zeros.  Returns float32 pre-activations; in kernel mode the
+        kernel's output is in x.dtype first (as in the JAX package)."""
+        T, N = x.shape[0], w.shape[1]
+        if self.mode == "kernel":
+            from repro_torch.kernels import ops as kops
+            pre, n_live, n_comp = kops.gather_matmul(
+                x, w, pred.tiles, capacity_frac=self.capacity_frac,
+                capacity_frac_live=self.cap_live, tile_m=self.tile_m,
+                tile_n=self.tile_n, with_counts=True)
+            pred.kernel_counts = (n_live, n_comp)
+            return pre.float()
+        pre = (x @ w).float()
+        keep = pred.keep_mask(T, N, self.tile_m, self.tile_n)
+        return torch.where(keep, pre, 0.0)
+
+    def down_matmul(self, h: torch.Tensor, w_down: torch.Tensor,
+                    pred: Optional[MoRPrediction]) -> torch.Tensor:
+        """h @ w_down with dead hidden tiles skipped along the
+        contraction (kernel mode); other modes rely on the zeros."""
+        if pred is None or self.mode != "kernel":
+            return h @ w_down
+        from repro_torch.kernels import ops as kops
+        return kops.masked_matmul_kdim(h, w_down, pred.kept,
+                                       tile_m=self.tile_m,
+                                       tile_k=self.tile_n).to(h.dtype)
+
+    # -- the relu_matmul / ffn entry points ---------------------------------
+    def relu_matmul(self, x: torch.Tensor, w: torch.Tensor, *,
+                    activation: str = "relu",
+                    residual: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """y = act(x @ w) with MoR skipping; exactly ONE predictor
+        evaluation regardless of mode."""
+        y, _, stats = self._relu_matmul_pred(x, w, activation=activation,
+                                             residual=residual)
+        return y, stats
+
+    def _relu_matmul_pred(self, x, w, *, activation: str,
+                          residual: Optional[torch.Tensor] = None,
+                          row_mask: Optional[torch.Tensor] = None):
+        T, N = x.shape[0], w.shape[1]
+        if not self.active:
+            pre = x @ w
+            y = _act(pre + (residual if residual is not None else 0.0),
+                     activation)
+            return y, None, _dense_stats(x.device)
+        mor = self.mor
+        if self.mode == "exact":
+            pre = (x @ w).float()
+            pre_bn = pre * mor["bn_scale"] + mor["bn_bias"]
+            if residual is not None:
+                pre_bn = pre_bn + residual
+            pred = self.predict(x, w, preact_full=pre, residual=residual,
+                                row_mask=row_mask)
+            y = torch.where(pred.computed, _act(pre_bn, activation),
+                            0.0).to(x.dtype)
+            truly_nonzero = pre_bn > 0
+            if row_mask is not None:
+                truly_nonzero = truly_nonzero & row_mask[:, None]
+            stats = pred.stats()
+            stats["frac_mispredicted_zero"] = (
+                ~pred.computed & truly_nonzero).float().mean()
+            return y, pred, stats
+
+        # tiled / kernel: one predictor pass -> tile mask -> masked matmul
+        pred = self.predict(x, w, residual=residual, row_mask=row_mask)
+        pre = self.masked_matmul(x, w, pred)
+        pre_bn = pre * mor["bn_scale"] + mor["bn_bias"]
+        if residual is not None:
+            pre_bn = pre_bn + residual
+        keep = pred.keep_mask(T, N, self.tile_m, self.tile_n)
+        y = torch.where(keep, _act(pre_bn, activation), 0.0).to(x.dtype)
+        return y, pred, pred.stats()
+
+    def ffn(self, x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+            *, activation: str, w_gate: Optional[torch.Tensor] = None,
+            row_mask: Optional[torch.Tensor] = None,
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Full FFN with MoR on the ReLU pre-activation.  GLU case: the
+        SINGLE gate prediction gates the up matmul and the down matmul
+        (dead hidden rows skipped along the contraction)."""
+        if w_gate is not None:
+            g, pred, stats = self._relu_matmul_pred(x, w_gate,
+                                                    activation=activation,
+                                                    row_mask=row_mask)
+            if pred is not None and self.mode in ("tiled", "kernel"):
+                u = self.masked_matmul(x, w_up, pred).to(x.dtype)
+            else:
+                u = x @ w_up
+            h = (g * u).to(x.dtype)
+        else:
+            h, pred, stats = self._relu_matmul_pred(x, w_up,
+                                                    activation=activation,
+                                                    row_mask=row_mask)
+        return self.down_matmul(h, w_down, pred), stats
+
+
+def as_plan(mor, *, mode: str = "dense", tile_m: int = 8, tile_n: int = 128,
+            capacity_frac: float = 1.0) -> MoRExecutionPlan:
+    """Coerce ``mor`` (a plan, a MoRLayer dict, or None) into a plan; an
+    existing plan's own mode and tiling win."""
+    if isinstance(mor, MoRExecutionPlan):
+        return mor
+    if mor is not None and not _looks_like_mor_layer(mor):
+        mor = None
+    return MoRExecutionPlan(mor, mode=mode if mor is not None else "dense",
+                            tile_m=tile_m, tile_n=tile_n,
+                            capacity_frac=capacity_frac)
+
+
+def _looks_like_mor_layer(mor) -> bool:
+    return isinstance(mor, dict) and "enable" in mor and "bn_scale" in mor

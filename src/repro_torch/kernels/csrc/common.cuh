@@ -1,0 +1,41 @@
+// Shared geometry and conversions for the MoR kernels (sm_90a).
+//
+// Every kernel keeps the reference's mask geometry: a mask decision
+// covers TM = 8 rows x TN = 128 columns (repro/configs/base.py
+// MoRConfig.tile_m / tile_n).  A block is TN x KS threads: thread
+// (tx, ty) owns output column tx of the block's tile and sums the
+// contraction indices k = ty, ty + KS, ... of each KC-wide chunk, so a
+// warp reads 32 neighbouring columns of one weight row (coalesced).
+// The KS partial sums meet in shared memory in a fixed order, so every
+// result is deterministic run to run.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mor {
+
+constexpr int TM = 8;     // rows per mask decision
+constexpr int TN = 128;   // columns per mask decision
+constexpr int KS = 4;     // contraction lanes per column
+constexpr int KC = 128;   // contraction chunk staged in shared memory
+
+enum DType : int { F32 = 0, BF16 = 1 };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+// round to nearest even, as torch's float -> bfloat16 cast
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+}  // namespace mor

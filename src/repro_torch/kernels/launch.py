@@ -1,0 +1,41 @@
+"""What every CUDA launch wrapper checks before it hands pointers to
+the C interface: device, dtype and contiguity, and the current stream."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+
+_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def lib():
+    return build.load()
+
+
+def dtype_code(x: torch.Tensor, w: torch.Tensor) -> int:
+    """The C interface's dtype code; x and w must share it."""
+    if x.dtype != w.dtype or x.dtype not in _CODES:
+        raise TypeError(f"kernels take float32 or bfloat16 x and w of one "
+                        f"dtype, got {x.dtype} and {w.dtype}")
+    return _CODES[x.dtype]
+
+
+def ptr(t: Optional[torch.Tensor], device: torch.device) -> Optional[int]:
+    """Device pointer of a contiguous tensor on ``device`` (None -> null)."""
+    if t is None:
+        return None
+    if t.device != device:
+        raise ValueError(f"tensor on {t.device}, kernel runs on {device}")
+    if not t.is_contiguous():
+        raise ValueError("kernels take contiguous tensors")
+    return t.data_ptr()
+
+
+def cuda_stream(device: torch.device) -> int:
+    """Handle of PyTorch's current stream on ``device``."""
+    if device.type != "cuda":
+        raise ValueError(f"no CUDA kernel for tensors on {device}")
+    return torch.cuda.current_stream(device).cuda_stream

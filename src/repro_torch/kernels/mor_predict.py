@@ -1,0 +1,88 @@
+"""Fused MoR tile-mask predictor: the CUDA kernel
+(``csrc/mor_predict.cu``), its plain PyTorch version, and the launch
+counter.
+
+Replaces ``repro/kernels/mor_predict.py`` ``mor_tile_mask`` (Pallas).
+Bound on the H100: bytes — the whole weight is read for its signs; see
+the source for what the design does about it.
+
+The coef table carries six rows: [m, b, bn_scale, bn_bias, enable,
+res_scale]; ``proxy_neg`` is tri-state int8 (0/1 = the proxy rookie's
+verdict, 2 = forced skip: padding).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import check
+from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
+
+N_COEF_ROWS = 6
+TILE_M, TILE_N = 8, 128     # the CUDA kernel's fixed mask geometry
+
+# kernel launches since the last reset (the smoke run zeroes it)
+launches = 0
+
+
+def mor_tile_mask_plain(x: torch.Tensor, w: torch.Tensor,
+                        coef: torch.Tensor, proxy_neg: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None, *,
+                        tile_m: int = TILE_M,
+                        tile_n: int = TILE_N) -> torch.Tensor:
+    """Plain version (the port of ``repro.kernels.ref.mor_tile_mask_ref``
+    on the kernel's padded interface).  x: (M, K), w: (K, N) with
+    M % tile_m == 0 and N % tile_n == 0 -> (M/tile_m, N/tile_n) int32."""
+    M, N = x.shape[0], w.shape[1]
+    xs = torch.where(x > 0, 1.0, -1.0).float()
+    ws = torch.where(w >= 0, 1.0, -1.0).float()
+    p_bin = xs @ ws                       # exact: integers below 2^24
+    m, b, sc, bi, en = coef[0], coef[1], coef[2], coef[3], coef[4]
+    p_hat = (m * p_bin + b) * sc + bi
+    if residual is not None:
+        p_hat = p_hat + coef[5] * residual
+    skip = ((p_hat < 0.0) & (en > 0.5) & (proxy_neg == 1)) | (proxy_neg > 1)
+    t = (~skip).reshape(M // tile_m, tile_m, N // tile_n, tile_n)
+    return t.any(dim=3).any(dim=1).int()
+
+
+def mor_tile_mask(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
+                  proxy_neg: torch.Tensor,
+                  residual: Optional[torch.Tensor] = None, *,
+                  tile_m: int = TILE_M, tile_n: int = TILE_N
+                  ) -> torch.Tensor:
+    """Padded-interface entry: the CUDA kernel for a CUDA tensor, the
+    plain version for a CPU tensor, an error for anything else."""
+    if x.device.type == "cpu":
+        return mor_tile_mask_plain(x, w, coef, proxy_neg, residual,
+                                   tile_m=tile_m, tile_n=tile_n)
+    return _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n)
+
+
+def _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n):
+    global launches
+    stream = cuda_stream(x.device)
+    if (tile_m, tile_n) != (TILE_M, TILE_N):
+        raise ValueError(f"the CUDA kernel takes tile ({TILE_M}, {TILE_N}),"
+                         f" got ({tile_m}, {tile_n})")
+    M, K = x.shape
+    N = w.shape[1]
+    if M % TILE_M or N % TILE_N or w.shape[0] != K:
+        raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
+    if coef.shape != (N_COEF_ROWS, N) or coef.dtype != torch.float32:
+        raise ValueError("coef must be (6, N) float32")
+    if proxy_neg.shape != (M, N) or proxy_neg.dtype != torch.int8:
+        raise ValueError("proxy_neg must be (M, N) int8")
+    if residual is not None and (residual.shape != (M, N)
+                                 or residual.dtype != torch.float32):
+        raise ValueError("residual must be (M, N) float32")
+    code = dtype_code(x, w)
+    out = torch.empty((M // TILE_M, N // TILE_N), dtype=torch.int32,
+                      device=x.device)
+    args = [x, w, coef, proxy_neg, residual, out]
+    err = lib().mor_tile_mask(*(ptr(a, x.device) for a in args), M, K, N,
+                              code, stream)
+    launches += 1
+    check(err, "mor_tile_mask")
+    return out

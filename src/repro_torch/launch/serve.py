@@ -1,0 +1,173 @@
+"""Serving CLI: the continuous-batching MoR engine under a mixed
+prompt-length trace (``repro.launch.serve`` on the slotted layout).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --requests 8 --prompt-min 8 --prompt-max 64 --gen-len 16 \
+      --mor kernel --compare
+
+Initialises the model from a seed (random weights), calibrates the MoR
+predictor on synthetic batches when ``--mor`` is not dense, serves the
+trace through ``Engine(layout="slotted")`` and reports tokens/s, the
+per-layer skip fractions from the serving telemetry and, with
+``--compare``, the token agreement against the dense engine.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, reduce_config
+from repro_torch.data.pipeline import synthetic_lm_batch
+from repro_torch.models import get_model
+from repro_torch.serving import Engine
+from repro_torch.serving.telemetry import mor_group_map
+
+SEED = 0
+CALIB_STEPS = 4
+CALIB_SEQ = 128
+
+
+def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed):
+    """Mixed trace: log-uniform prompt lengths in [pmin, pmax] and
+    generation lengths in [gmin, gmax] (``repro.launch.serve._trace``,
+    so both packages serve the same requests from one seed)."""
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(n_requests):
+        plen = (int(np.exp(rng.uniform(np.log(pmin), np.log(pmax))))
+                if pmax > pmin else pmin)
+        glen = (int(np.exp(rng.uniform(np.log(gmin), np.log(gmax))))
+                if gmax > gmin else gmax)
+        prompt = np.asarray(
+            synthetic_lm_batch(cfg, 1, plen, seed=seed, step=1000 + i)
+            ["tokens"][0], np.int32)
+        reqs.append((prompt, glen))
+    return reqs
+
+
+def calib_batches(cfg, batch: int, device, seed: int = SEED):
+    s = 0
+    while True:
+        b = synthetic_lm_batch(cfg, batch, CALIB_SEQ, seed=seed, step=s)
+        yield {"tokens": torch.as_tensor(b["tokens"], device=device)}
+        s += 1
+
+
+def run_engine(cfg, params, reqs, *, mor, mor_mode, n_slots, max_len,
+               capacities=None, timed_passes: int = 3):
+    """Serve ``reqs``: one warm-up pass, then the best of
+    ``timed_passes`` timed passes (each ends in a flush that waits for
+    the device).  -> (engine, {request index: tokens}, report)."""
+    eng = Engine(cfg, params, mor=mor, mor_mode=mor_mode, n_slots=n_slots,
+                 max_len=max_len, capacities=capacities)
+    eng.run(list(reqs))
+    wall = float("inf")
+    for _ in range(timed_passes):
+        eng.reset_counters()
+        t0 = time.perf_counter()
+        results = eng.run(list(reqs))
+        wall = min(wall, max(time.perf_counter() - t0, 1e-9))
+    base = min(results)
+    results = {rid - base: toks for rid, toks in results.items()}
+    rep = eng.report()
+    rep["requests_finished"] = len(results)
+    total = rep["prefill_tokens"] + rep["decode_tokens"]
+    rep["tokens_per_s"] = total / wall
+    rep["decode_tokens_per_s"] = rep["decode_tokens"] / wall
+    rep["wall_s"] = wall
+    tel = rep.pop("telemetry", None) or {}
+    for name, vals in tel.get("mor_stats", {}).items():
+        if name in ("frac_computed", "frac_tiles_live",
+                    "frac_tiles_computed"):
+            rep["per_layer_" + name] = np.round(np.asarray(vals), 4).tolist()
+    return eng, results, rep
+
+
+def token_agreement(a, b) -> float:
+    return float(np.mean([np.mean(np.asarray(a[r]) == np.asarray(b[r]))
+                          for r in b]))
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--batch", type=int, default=8,
+                    help="slot-pool size (n_slots)")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="trace length (default: one per slot)")
+    ap.add_argument("--prompt-min", type=int, default=16)
+    ap.add_argument("--prompt-max", type=int, default=0,
+                    help="default: --prompt-min (uniform prompts)")
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--mor", default="dense",
+                    choices=("dense", "exact", "tiled", "kernel"))
+    ap.add_argument("--capacity", type=float, default=0.0,
+                    help="static gather_matmul capacity fraction for every "
+                         "MoR layer (0 = cfg.mor.capacity)")
+    ap.add_argument("--compare", action="store_true",
+                    help="also run the dense engine; report token agreement")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--out-json", default=None)
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is visible "
+                         "(pass --device cpu to run the plain versions)")
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = reduce_config(cfg)
+    api = get_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = api.init(gen, cfg)
+
+    mor = None
+    report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}
+    if args.mor != "dense":
+        from repro_torch.core.deploy import calibrate_lm
+        params, mor, cal = calibrate_lm(
+            params, cfg, api.forward, calib_batches(cfg, args.batch, device),
+            CALIB_STEPS)
+        report["calibration"] = cal
+
+    pmin = args.prompt_min
+    pmax = args.prompt_max or pmin
+    reqs = make_trace(cfg, args.requests or args.batch, pmin, pmax,
+                      args.gen_len, args.gen_len, SEED)
+    max_len = pmax + args.gen_len + 2
+    capacities = None
+    if args.capacity > 0 and args.mor != "dense":
+        capacities = {k: args.capacity for k in mor_group_map(cfg)}
+        report["static_capacity"] = args.capacity
+
+    _, results, rep = run_engine(cfg, params, reqs, mor=mor,
+                                 mor_mode=args.mor, n_slots=args.batch,
+                                 max_len=max_len, capacities=capacities)
+    report.update(rep)
+    print(f"[serve] {cfg.name} mor={args.mor} layout=slotted "
+          f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
+          f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
+          f"{pmin}-{pmax})")
+    if args.compare and args.mor != "dense":
+        _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
+                                         mor_mode="dense",
+                                         n_slots=args.batch,
+                                         max_len=max_len)
+        agree = token_agreement(results, results_d)
+        report["dense_tokens_per_s"] = rep_d["tokens_per_s"]
+        report["token_agreement_vs_dense"] = agree
+        print(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
+              f"token agreement {agree:.3f}")
+    if args.out_json:
+        with open(args.out_json, "w") as f:
+            json.dump(report, f, indent=1)
+    return report
+
+
+if __name__ == "__main__":
+    main()

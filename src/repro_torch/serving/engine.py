@@ -1,0 +1,261 @@
+"""The continuous-batching serving engine, slotted cache layout
+(``repro.serving.engine`` with ``layout="slotted"``).
+
+One chunk step per dispatch drives the whole request stream: the
+scheduler packs each dispatch ((B, chunk) mixed or (B, 1) decode-only),
+the model's ``prefill_chunk`` updates the slot cache in place, the
+telemetry accumulates per-layer tile liveness from every dispatch's MoR
+stats, and ``calibrate_capacities`` turns that into per-layer
+gather_matmul capacity fractions.
+
+The hot loop is device-resident: each slot's last sampled token stays on
+the device (``_pending``), each dispatch's sampled tokens and the
+kernels' tile counters are logged as device tensors, and host inputs go
+up through pinned buffers without blocking.  Nothing is read back until
+the flush at the end of ``run``, so no dispatch waits for the device.
+
+Sampling is greedy.  The paged layout, prefix cache, speculation, shadow
+scoring, observability, meshes and preemption are later slices.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import get_model
+from repro_torch.serving import kv_pool
+from repro_torch.serving.policy import Policy
+from repro_torch.serving.scheduler import Request, RequestRejected, Scheduler
+from repro_torch.serving.telemetry import (ServingTelemetry,
+                                           calibrate_capacity, mor_group_map)
+
+__all__ = ["Engine", "Request", "RequestRejected"]
+
+
+def _zero_counters() -> Dict:
+    return {"prefill_tokens": 0, "decode_tokens": 0, "dispatches": 0,
+            "wall_s": 0.0, "requests_rejected": 0}
+
+
+class Engine:
+    """Continuous-batching serving engine over a fixed slot pool.
+
+    ``params`` decide the device.  ``mor`` is the RAW calibrated MoR tree
+    ({layer group -> stacked MoRLayer}) from ``deploy.calibrate_lm``; the
+    engine attaches the execution plans itself so that capacity
+    calibration can re-attach them with per-layer budgets."""
+
+    def __init__(self, cfg: ModelConfig, params, *, mor: Optional[Dict] = None,
+                 mor_mode: str = "dense", n_slots: int = 8,
+                 max_len: int = 256, chunk: int = 0,
+                 capacities: Optional[Dict] = None, telemetry: bool = True,
+                 layout: str = "slotted", temperature: float = 0.0,
+                 policy: Optional[Policy] = None):
+        if layout != "slotted":
+            raise NotImplementedError(
+                f"layout {layout!r}: the paged pool and its gqa_paged_flash "
+                f"kernel are the next slice of the port; use 'slotted'")
+        if temperature > 0.0:
+            raise NotImplementedError(
+                "temperature sampling comes with the speculation / SLO "
+                "slice of the port; this engine samples greedily")
+        self.cfg = cfg
+        self.api = get_model(cfg)
+        self.params = params
+        self.device = params["embed"].device
+        self.mor_mode = mor_mode
+        self.raw_mor = mor if mor_mode != "dense" else None
+        self.chunk = chunk or cfg.serve_chunk
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.layout = layout
+        self.capacities = capacities
+        self.mor = self._attach(capacities)
+        self.cache = kv_pool.init(cfg, n_slots, max_len, self.chunk,
+                                  device=self.device)
+        self.scheduler = Scheduler(n_slots, self.chunk, policy=policy)
+        self.policy: Policy = self.scheduler.policy
+        self.telemetry = ServingTelemetry() if telemetry else None
+        self._next_rid = 0
+        self._aux_log: List[Dict] = []
+        self._pending = torch.zeros((n_slots,), dtype=torch.int32,
+                                    device=self.device)
+        self._tok_log: List = []
+        self.results: Dict[int, List[int]] = {}
+        self.counters = _zero_counters()
+        self.rejections: Dict[str, int] = {}
+
+    # -- plan attachment ---------------------------------------------------
+    def _attach(self, capacities: Optional[Dict]):
+        if self.raw_mor is None:
+            return None
+        from repro_torch.core.deploy import attach_plans
+        caps = None
+        if capacities is not None:
+            gmap = mor_group_map(self.cfg)
+            caps = {gmap.get(k, k): v for k, v in capacities.items()}
+        return attach_plans(self.raw_mor, self.cfg, self.mor_mode,
+                            capacities=caps)
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """Host array -> device tensor without waiting for the device:
+        a pinned staging copy and an asynchronous transfer on CUDA."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.clone().to(self.device)
+
+    # -- flushes -----------------------------------------------------------
+    def _flush_tokens(self) -> None:
+        if self._tok_log:
+            # ONE device -> host transfer for the whole log
+            fetched = torch.stack([e[1] for e in self._tok_log]).cpu()
+            for (emits, _), toks in zip(self._tok_log, fetched.numpy()):
+                for s, rid in emits:
+                    self.results.setdefault(rid, []).append(int(toks[s]))
+            self._tok_log.clear()
+
+    def _flush_telemetry(self) -> None:
+        if self.telemetry is not None:
+            for aux in self._aux_log:
+                self.telemetry.update(
+                    {g: {k: v.cpu().numpy() for k, v in st.items()}
+                     for g, st in aux.items()})
+        self._aux_log.clear()
+
+    # -- request API -------------------------------------------------------
+    def _reject(self, reason: str, msg: str) -> None:
+        self.counters["requests_rejected"] += 1
+        self.rejections[reason] = self.rejections.get(reason, 0) + 1
+        raise RequestRejected(reason, msg)
+
+    def submit(self, prompt, max_new_tokens: int = 16) -> int:
+        """Queue a request; returns its rid.  Unservable requests raise
+        ``RequestRejected`` before touching the queue."""
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            self._reject("empty_prompt", "prompt must have >= 1 token")
+        if max_new_tokens < 1:
+            self._reject("nonpositive_max_new_tokens",
+                         f"max_new_tokens={max_new_tokens} must be >= 1")
+        if prompt.size + max_new_tokens + 1 > self.max_len:
+            self._reject("oversize",
+                         f"prompt {prompt.size} + max_new "
+                         f"{max_new_tokens} exceeds max_len {self.max_len}")
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            self._reject("bad_token", "prompt token ids must lie in "
+                         f"[0, {self.cfg.vocab_size})")
+        rid = self._next_rid
+        self._next_rid += 1
+        self.scheduler.add(Request(rid, prompt, max_new_tokens))
+        return rid
+
+    @torch.no_grad()
+    def step(self) -> List[int]:
+        """One scheduler iteration: admit, dispatch, ingest.  Returns the
+        rids that finished this step."""
+        t0 = time.perf_counter()
+        sched = self.scheduler
+        admitted = sched.admit()
+        if admitted:
+            mask = np.zeros((self.n_slots,), bool)
+            mask[admitted] = True
+            kv_pool.reset_slots(self.cache, self._upload(mask))
+        kind = sched.peek_kind()
+        if kind is None:
+            return []
+        tokens, n_valid, use_pending, emits = sched.build_batch(kind)
+        sched.dispatch_kinds[kind] += 1
+        ndec = int(use_pending.sum()) if kind == "mixed" else 0
+        tok = self._upload(tokens)
+        nv = self._upload(n_valid)
+        up = self._upload(use_pending)
+        # splice each decoding slot's device-resident last token in
+        tok[:, 0] = torch.where(up, self._pending, tok[:, 0])
+        logits, aux = self.api.prefill_chunk(
+            self.params, self.cfg, tok, self.cache, n_valid=nv,
+            mor=self.mor, mor_mode=self.mor_mode)
+        last = torch.clamp(nv - 1, min=0).long()
+        lg = logits[torch.arange(self.n_slots, device=self.device), last]
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)   # greedy, first max
+        self._pending = torch.where(nv > 0, nxt, self._pending)
+        if emits:
+            self._tok_log.append((emits, nxt))
+        if self.telemetry is not None and aux:
+            self._aux_log.append(aux)
+        finished = sched.feed(n_valid)
+        self.counters["dispatches"] += 1
+        nv_total = int(n_valid.sum())
+        if kind == "decode":
+            self.counters["decode_tokens"] += nv_total
+        else:
+            self.counters["decode_tokens"] += ndec
+            self.counters["prefill_tokens"] += nv_total - ndec
+        self.counters["wall_s"] += time.perf_counter() - t0
+        return [req.rid for _, req in finished]
+
+    def reset_counters(self) -> None:
+        """Zero the throughput counters (e.g. between a warm-up pass and
+        a timed pass); the cache contents survive."""
+        self.counters = _zero_counters()
+        self.rejections = {}
+        self.scheduler.dispatch_kinds = {"mixed": 0, "decode": 0}
+
+    def run(self, requests=None) -> Dict[int, List[int]]:
+        """Drive the queue (plus optional (prompt, max_new) pairs) to
+        completion; returns {rid: generated tokens} for the requests
+        submitted by THIS call (all-time results stay in ``results``)."""
+        first_rid = self._next_rid
+        for prompt, max_new in requests or ():
+            self.submit(prompt, max_new)
+        while self.scheduler.has_work:
+            self.step()
+        self._flush_tokens()
+        self._flush_telemetry()
+        if requests:
+            return {rid: toks for rid, toks in self.results.items()
+                    if rid >= first_rid}
+        return dict(self.results)
+
+    # -- telemetry-driven capacity calibration -----------------------------
+    def calibrate_capacities(self, quantile: float = 0.95,
+                             floor: float = 0.05) -> Dict[str, np.ndarray]:
+        """Set per-layer gather_matmul capacities from the accumulated
+        tile-liveness histograms and re-attach the execution plans."""
+        if self.telemetry is None or self.raw_mor is None:
+            raise ValueError("capacity calibration needs telemetry and a "
+                             "calibrated MoR tree")
+        self._flush_telemetry()
+        caps = calibrate_capacity(self.telemetry, quantile=quantile,
+                                  floor=floor)
+        self.capacities = caps
+        self.mor = self._attach(caps)
+        return caps
+
+    def report(self) -> Dict:
+        self._flush_tokens()
+        c = dict(self.counters)
+        # counters["wall_s"] is HOST dispatch time (the loop never waits
+        # for the device): an upper bound on throughput.  launch.serve
+        # replaces the rates with a wall clock that ends in a sync.
+        wall = max(c["wall_s"], 1e-9)
+        rep = {
+            "n_slots": self.n_slots, "chunk": self.chunk,
+            "mor_mode": self.mor_mode, "layout": self.layout,
+            "device": str(self.device),
+            "requests_finished": len(self.results),
+            "tokens_per_s": (c["decode_tokens"] + c["prefill_tokens"]) / wall,
+            "decode_tokens_per_s": c["decode_tokens"] / wall,
+            **c,
+        }
+        if self.telemetry is not None:
+            self._flush_telemetry()
+            rep["telemetry"] = self.telemetry.summary()
+        if self.capacities is not None:
+            rep["per_layer_capacity"] = {
+                k: np.asarray(v).tolist() for k, v in self.capacities.items()}
+        return rep

@@ -1,0 +1,163 @@
+"""Continuous-batching scheduler (a copy of the slotted-layout part of
+``repro.serving.scheduler``; host numpy only).
+
+Requests share a fixed pool of ``n_slots`` cache slots.  Prompts are
+consumed in fixed-size chunks; a dispatch is MIXED — every prefilling
+slot contributes its next chunk while every decoding slot contributes
+its one pending token in the same (B, C) batch.  When all remaining work
+is decode, dispatches shrink to (B, 1).  Finished sequences are evicted
+immediately and their slot is recycled.  The scheduler never sees token
+VALUES (count-based), so the engine keeps tokens on the device.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from repro_torch.serving.policy import FCFSPolicy, Policy
+
+FREE, PREFILL, DECODE = "free", "prefill", "decode"
+
+
+class RequestRejected(ValueError):
+    """A request the engine can never serve, raised at submit time."""
+
+    def __init__(self, reason: str, msg: str):
+        super().__init__(msg)
+        self.reason = reason
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                  # (P,) int32 token ids
+    max_new_tokens: int = 16
+    priority: int = 0
+
+
+@dataclass
+class PendingEntry:
+    req: Request
+    offset: int = 0
+    n_generated: int = 0
+    seq: int = 0                        # arrival order (stable ties)
+
+
+@dataclass
+class _Slot:
+    state: str = FREE
+    req: Optional[Request] = None
+    offset: int = 0                     # prompt tokens already prefilled
+    n_generated: int = 0                # tokens emitted so far
+    seq: int = 0
+
+
+class Scheduler:
+    def __init__(self, n_slots: int, chunk: int,
+                 policy: Optional[Policy] = None):
+        if n_slots < 1 or chunk < 1:
+            raise ValueError(f"n_slots {n_slots} and chunk {chunk} must "
+                             f"be >= 1")
+        self.n_slots = n_slots
+        self.chunk = chunk
+        self.policy = policy or FCFSPolicy()
+        self.slots = [_Slot() for _ in range(n_slots)]
+        self.waiting: List[PendingEntry] = []
+        self._seq = 0
+        self.dispatch_kinds = {"mixed": 0, "decode": 0}
+
+    def add(self, req: Request) -> None:
+        self.waiting.append(PendingEntry(req, seq=self._seq))
+        self._seq += 1
+
+    def admit(self) -> List[int]:
+        """Move waiting requests (policy order) into free slots; returns
+        the admitted slot indices (their cache rows must be reset)."""
+        self.policy.order(self.waiting)
+        newly: List[int] = []
+        for s, slot in enumerate(self.slots):
+            if not self.waiting:
+                break
+            if slot.state is not FREE:
+                continue
+            entry = self.waiting.pop(0)
+            self.slots[s] = _Slot(state=PREFILL, req=entry.req,
+                                  offset=entry.offset,
+                                  n_generated=entry.n_generated,
+                                  seq=entry.seq)
+            newly.append(s)
+        return newly
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting) or any(s.state is not FREE
+                                         for s in self.slots)
+
+    def peek_kind(self) -> Optional[str]:
+        if any(s.state is PREFILL for s in self.slots):
+            return "mixed"
+        if any(s.state is DECODE for s in self.slots):
+            return "decode"
+        return None
+
+    def build_batch(self, kind: str
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                               List[Tuple[int, int]]]:
+        """-> (tokens (B, C), n_valid (B,), use_pending (B,), emits).
+
+        ``tokens`` carries each prefilling slot's next prompt chunk;
+        slots flagged in ``use_pending`` feed their device-resident last
+        sampled token instead.  ``emits`` lists the (slot, rid) pairs
+        that emit a generated token from THIS dispatch.  A positive
+        ``prefill_budget`` caps the prompt tokens of a mixed dispatch;
+        the first prefilling slot always gets at least one token."""
+        C = self.chunk if kind == "mixed" else 1
+        budget = self.policy.prefill_budget
+        left = budget if (kind == "mixed" and budget > 0) else None
+        tokens = np.zeros((self.n_slots, C), np.int32)
+        n_valid = np.zeros((self.n_slots,), np.int32)
+        use_pending = np.zeros((self.n_slots,), bool)
+        emits: List[Tuple[int, int]] = []
+        prefilling = 0
+        for s, slot in enumerate(self.slots):
+            if slot.state is PREFILL:
+                take = min(C, len(slot.req.prompt) - slot.offset)
+                if left is not None:
+                    take = min(take, left if prefilling else max(left, 1))
+                    if take <= 0:
+                        continue
+                    left -= take
+                tokens[s, :take] = slot.req.prompt[slot.offset:
+                                                   slot.offset + take]
+                n_valid[s] = take
+                prefilling += 1
+                if slot.offset + take >= len(slot.req.prompt):
+                    emits.append((s, slot.req.rid))
+            elif slot.state is DECODE:
+                use_pending[s] = True
+                n_valid[s] = 1
+                emits.append((s, slot.req.rid))
+        return tokens, n_valid, use_pending, emits
+
+    def feed(self, n_valid: np.ndarray) -> List[Tuple[int, Request]]:
+        """Advance slot states after a dispatch (count-based).  Returns
+        the finished (slot, request) pairs; their slots are freed."""
+        finished = []
+        for s, slot in enumerate(self.slots):
+            nv = int(n_valid[s])
+            if nv == 0:
+                continue
+            if slot.state is PREFILL:
+                slot.offset += nv
+                if slot.offset >= len(slot.req.prompt):
+                    slot.state = DECODE
+                    slot.n_generated = 1
+            elif slot.state is DECODE:
+                slot.n_generated += 1
+            if slot.state is DECODE and \
+                    slot.n_generated >= slot.req.max_new_tokens:
+                finished.append((s, slot.req))
+                self.slots[s] = _Slot()
+        return finished

@@ -1,0 +1,103 @@
+"""Serving telemetry: per-layer tile-liveness histograms and the
+liveness-quantile capacity calibration (``repro.serving.telemetry``).
+
+Every engine dispatch returns ``aux`` whose ``mor_stats`` entry holds
+per-layer (L-stacked) realised skip statistics.  The telemetry bins each
+layer's live-tile fraction into a fixed histogram; ``calibrate_capacity``
+reads a quantile of that distribution per layer and provisions each
+layer's ``gather_matmul`` capacity from it.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+
+from repro_torch.configs.base import ModelConfig
+
+# aux keys that carry per-layer MoR stats, in the order groups appear
+STAT_KEYS = ("mor_stats", "dense_mor_stats", "moe_mor_stats")
+
+
+def mor_group_map(cfg: ModelConfig) -> Dict[str, str]:
+    """aux stat-group key -> mor-tree layer-group key."""
+    if cfg.family == "hybrid":
+        return {"mor_stats": "shared"}
+    if cfg.family == "moe":
+        return {"dense_mor_stats": "dense_layers",
+                "moe_mor_stats": "moe_layers"}
+    return {"mor_stats": "layers"}
+
+
+class ServingTelemetry:
+    """Host-side accumulator over chunk-step aux dicts (already moved to
+    host numpy by the engine's flush)."""
+
+    def __init__(self, n_bins: int = 32):
+        self.n_bins = n_bins
+        self.hist: Dict[str, np.ndarray] = {}
+        self.sums: Dict[str, Dict[str, np.ndarray]] = {}
+        self.shapes: Dict[str, tuple] = {}
+        self.n_updates = 0
+
+    def update(self, aux: Dict) -> None:
+        seen = False
+        for key in STAT_KEYS:
+            stats = aux.get(key)
+            if not stats:
+                continue
+            seen = True
+            live = np.asarray(stats["frac_tiles_live"], np.float64)
+            self.shapes.setdefault(key, live.shape)
+            live = live.reshape(-1)
+            L = live.shape[0]
+            if key not in self.hist:
+                self.hist[key] = np.zeros((L, self.n_bins), np.int64)
+                self.sums[key] = {
+                    "frac_computed": np.zeros(L),
+                    "frac_tiles_live": np.zeros(L),
+                    "frac_tiles_computed": np.zeros(L),
+                    "frac_mispredicted_zero": np.zeros(L),
+                }
+            bins = np.clip((live * self.n_bins).astype(np.int64), 0,
+                           self.n_bins - 1)
+            self.hist[key][np.arange(L), bins] += 1
+            for name, acc in self.sums[key].items():
+                if name in stats:
+                    acc += np.asarray(stats[name], np.float64).reshape(-1)
+        if seen:
+            self.n_updates += 1
+
+    def liveness_quantile(self, q: float) -> Dict[str, np.ndarray]:
+        """Per layer, the smallest bin upper edge whose cumulative mass
+        reaches ``q``."""
+        out = {}
+        for key, h in self.hist.items():
+            cdf = np.cumsum(h, axis=1) / np.maximum(h.sum(1, keepdims=True),
+                                                    1)
+            idx = np.argmax(cdf >= q, axis=1)
+            out[key] = ((idx + 1) / self.n_bins).reshape(
+                self.shapes.get(key, idx.shape))
+        return out
+
+    def summary(self) -> Dict:
+        out: Dict = {"n_dispatches": self.n_updates}
+        for key, sums in self.sums.items():
+            n = max(self.n_updates, 1)
+            shape = self.shapes.get(key)
+            out[key] = {name: (acc / n).reshape(shape if shape
+                                                else acc.shape).tolist()
+                        for name, acc in sums.items()}
+        return out
+
+
+def calibrate_capacity(tel: ServingTelemetry, *, quantile: float = 0.95,
+                       floor: float = 0.05,
+                       headroom: float = 0.0) -> Dict[str, np.ndarray]:
+    """Per layer, provision the gather_matmul capacity at the
+    ``quantile`` of the observed live-tile fraction (+ headroom), floored
+    so a layer is never starved.  -> {stat group -> fractions}."""
+    if tel.n_updates == 0:
+        raise ValueError("calibrate_capacity needs serving telemetry")
+    return {key: np.clip(q + headroom, floor, 1.0)
+            for key, q in tel.liveness_quantile(quantile).items()}
