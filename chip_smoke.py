@@ -3,23 +3,36 @@
   python3 chip_smoke.py
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the build: the three MoR kernels compiled for sm_90a from
+2. the build: the four kernels compiled for sm_90a from
    ``src/repro_torch/kernels/csrc`` (seconds, ``-Xptxas -v`` lines);
-3. each kernel against its plain PyTorch version at the slice's shapes
-   (granite-3-2b gate/up: K=2048, N=8192; down: K=8192, N=2048; M=8 rows
-   for a decode dispatch of 8 slots, M=256 for 8 slots x chunk 32), in
-   bf16: masks and counters bit-equal, products within the tolerance
-   below, each timed (CUDA events, L2 flushed between launches) beside
-   its plain version, a one-call library yardstick and its bound;
-4. the slice: a reduced float32 model served on the card in kernel mode
-   must give the CPU plain versions' tokens; then granite-3-2b at full
-   width (all 40 layers, bf16, random weights from a seed) is
-   calibrated and serves a mixed trace of 8 requests through
-   ``Engine(layout="slotted", mor_mode="kernel")`` — the launch counters
-   are zeroed just before and read just after, and must equal 40 x
-   dispatches (x 2 for gather_matmul) — then the same trace in tiled and
-   dense mode, and once more in kernel mode at capacity 0.5;
-5. the JSON kernels line, then the last line
+3. each kernel against its plain PyTorch version at the slice's shapes,
+   in bf16, each timed (CUDA events, L2 flushed between launches) beside
+   its plain version, a one-call library yardstick and its bound: the
+   MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
+   (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots
+   and M=256 for 8 slots x chunk 32 (masks and counters bit-equal,
+   products within the tolerance below); ``gqa_paged_flash`` at a
+   decode dispatch (8 slots x 1 row over ragged contexts up to 4,096
+   tokens, 512 pages of 8, null entries, a page shared by two slots, a
+   column-sliced table), a mixed dispatch (8 x 32 rows, contexts up to
+   96) and a small sliding-window case, on the rows that see a key;
+4. the references: a reduced float32 model served on the card must give
+   the CPU plain versions' tokens, telemetry and prefix counters, on the
+   slotted layout in kernel mode and on the paged layout (sliding window
+   16, so that prompts wrap the ring over shared pages: prefix hits,
+   skipped chunks and copy-on-write) in kernel mode;
+5. the slice: granite-3-2b at full width (all 40 layers, bf16, random
+   weights from a seed) is calibrated, then serves
+   - 8 mixed requests through ``Engine(layout="slotted",
+     mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
+   - the main path, 12 requests of a 128-token shared prefix plus 8-64
+     unique tokens (two identical, of page-aligned length) through
+     ``Engine(layout="paged", mor_mode="kernel")``, then paged dense and
+     slotted kernel on the same trace;
+   each counted path has its launch counters zeroed just before and
+   read just after: 40 x dispatches (x 2 for gather_matmul, 0 for
+   gqa_paged_flash on the slotted path);
+6. the JSON kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and no phase catches its own
@@ -46,8 +59,9 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 # vacuous.
 RTOL, ATOL_REL = 2.0 ** -7, 1e-3
 # greedy-token agreement bar between the full-width kernel run and the
-# tiled / dense runs.  Kernel and tiled differ only in summation order
-# (bf16 rounding noise), dense also in skipping nothing; a near-tie in
+# tiled / dense / slotted runs.  Kernel and tiled differ only in
+# summation order (bf16 rounding noise), dense also in skipping nothing,
+# slotted in the attention's summation order; a near-tie in
 # the random-weight logits can still flip one token and the rest of that
 # request with it.  A broken kernel gives tokens unrelated to the other
 # path's (agreement near 1/49155), so 0.25 separates the two.
@@ -221,6 +235,116 @@ def kernel_case_kdim(M, gen, flush):
             "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
 
 
+def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
+                  G=4, D=64):
+    """A paged pool holding slot b's first ``ctx[b]`` positions (its last
+    page partly written), the C query rows ending at position ctx[b] - 1,
+    a table that is a column slice of a wider one, ``n_null`` null
+    entries inside the written range of every slot but the first, and
+    slot 1's block 0 pointing at slot 0's (a shared page)."""
+    import torch
+    B, dev = len(ctx), "cuda"
+    n_live = [-(-c // page) for c in ctx]
+    n_pages = 1 + sum(n_live)
+    kp = torch.randn((n_pages, page, hkv, D), generator=gen,
+                     device=dev).bfloat16()
+    vp = torch.randn((n_pages, page, hkv, D), generator=gen,
+                     device=dev).bfloat16()
+    pp = torch.full((n_pages, page), -1, dtype=torch.int32, device=dev)
+    wide = torch.zeros((B, W + extra_cols), dtype=torch.int32, device=dev)
+    nxt = 1
+    for b, (c, n) in enumerate(zip(ctx, n_live)):
+        ids = torch.arange(nxt, nxt + n, dtype=torch.int32, device=dev)
+        wide[b, :n] = ids
+        rows = torch.arange(n * page, device=dev).reshape(n, page)
+        pp[ids.long()] = torch.where(rows < c, rows, -1).int()
+        nxt += n
+    wide[1, 0] = wide[0, 0]
+    for b in range(1, B):
+        cols = torch.randperm(n_live[b], generator=gen, device=dev)[:n_null]
+        wide[b, cols] = 0
+    qpos = (torch.tensor(ctx, device=dev)[:, None] - C
+            + torch.arange(C, device=dev)[None, :]).int()
+    q = torch.randn((B, C, hkv * G, D), generator=gen, device=dev
+                    ).bfloat16()
+    return q, kp, vp, pp, wide[:, :W], qpos
+
+
+def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null)
+    assert not tbl.is_contiguous()
+    args = (q, kp, vp, pp, tbl, qpos)
+    got = pa.gqa_paged_flash(*args, window=window)
+    want = pa.gqa_paged_flash_plain(*args, window=window)
+    torch.cuda.synchronize()
+    B, _, H, D = q.shape
+    page, hkv = kp.shape[1], kp.shape[2]
+    live = tbl > 0
+    gp = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    rel = qpos[:, :, None] - gp[:, None, :]
+    ok = (gp[:, None, :] >= 0) & (rel >= 0)
+    if window > 0:
+        ok = ok & (rel < window)
+    seen = ok.any(-1)
+    assert bool(seen.all()), "every query row sees a key here"
+    err = _close(got[seen], want[seen])
+    r = {"max_abs_err": err, "B": B, "C": C, "W": W, "window": window}
+    if not time_it:
+        return r
+    # library yardstick: one SDPA call over the pre-gathered K/V (heads
+    # expanded to H) with the same boolean mask; the gather is set-up
+    gk = torch.where(live[..., None, None, None], kp[tbl.long()], 0)
+    gv = torch.where(live[..., None, None, None], vp[tbl.long()], 0)
+    gk, gv = (t.reshape(B, -1, hkv, D).repeat_interleave(H // hkv, 2)
+              .transpose(1, 2).contiguous() for t in (gk, gv))
+    qt = q.transpose(1, 2).contiguous()
+    mask = ok[:, None]
+    r["ms"] = _timer(lambda: pa.gqa_paged_flash(*args, window=window),
+                     flush)
+    r["plain_ms"] = _timer(lambda: pa.gqa_paged_flash_plain(
+        *args, window=window), flush)
+    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+        qt, gk, gv, attn_mask=mask), flush)
+    # bytes: every distinct live page's K, V and tags once, q and the
+    # output once, the table and qpos; operations: q.k and p.v (4 D) for
+    # every (query row, head, key) pair the masks let through
+    n_pages = int(torch.unique(tbl[live]).numel())
+    nbytes = (n_pages * page * (2 * hkv * D * 2 + 4) + 2 * q.numel() * 2
+              + tbl.numel() * 4 + qpos.numel() * 4)
+    pairs = int(ok.sum()) * H
+    r["bound_ms"], r["bound_by"] = _bound(nbytes, pairs * 4 * D, "bf16")
+    r["live_pages"] = n_pages
+    return r
+
+
+def kernel_paged(gen, flush):
+    """-> (row, per-case results): decode and mixed dispatches timed, a
+    sliding-window case held for correctness only."""
+    import torch
+    g = torch.Generator().manual_seed(SEED)
+    decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
+    mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
+    cases = {
+        "decode": paged_case(gen, flush, decode_ctx, 1, 512, n_null=5),
+        "mixed": paged_case(gen, flush, mixed_ctx, 32, 12, n_null=1),
+        "window": paged_case(gen, flush, [40, 70, 100, 128], 4, 16,
+                             window=40, n_null=1, time_it=False),
+    }
+    for name, r in cases.items():
+        log("kernel", name="gqa_paged_flash", case=name,
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+    row = {"name": "gqa_paged_flash", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+           "replaces": "src/repro/kernels/paged_attention.py:178",
+           **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"]),
+           "window_max_abs_err": cases["window"]["max_abs_err"]}
+    return row
+
+
 KERNELS = [
     ("mor_tile_mask", "src/repro_torch/kernels/csrc/mor_predict.cu",
      "src/repro/kernels/mor_predict.py:76", kernel_case_mor),
@@ -247,6 +371,7 @@ def phase_kernels():
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, **_fields(per_m[8]),
                       "at_m256": _fields(per_m[256])}
+    rows["gqa_paged_flash"] = kernel_paged(gen, flush)
     if torch.cuda.get_device_name(0).find("H100") < 0:
         log("kernel", note="bounds use the H100 SXM's published rates")
     return rows
@@ -267,8 +392,14 @@ def _to(tree, device):
 
 def phase_reference():
     """Reduced float32 granite served in kernel mode on the card (CUDA
-    kernels) and on the CPU (their plain versions): the same tokens and
-    the same per-layer tile fractions."""
+    kernels) and on the CPU (their plain versions): the same tokens, the
+    same per-layer tile fractions and, on the paged layout, the same
+    prefix counters.  The paged run keeps a sliding window of 16 (a
+    ring of 24 rows): its prompts of 20-32 tokens wrap the ring over
+    pages they share with the prefix cache, which is what makes the pool
+    copy on write (without a window no slot writes a shared page
+    again)."""
+    import numpy as np
     import torch
     from repro_torch.configs import get_config, reduce_config
     from repro_torch.core.deploy import calibrate_lm
@@ -281,27 +412,44 @@ def phase_reference():
     params, mor, _ = calibrate_lm(params, cfg, api.forward,
                                   calib_batches(cfg, 4, "cpu"), 2)
     reqs = make_trace(cfg, 6, 4, 24, 6, 6, SEED)
-    out = {}
-    for dev in ("cpu", "cuda"):
-        eng = Engine(cfg, _to(params, dev), mor=_to(mor, dev),
-                     mor_mode="kernel", n_slots=4, max_len=32,
-                     capacities={"mor_stats": 0.5})
-        out[dev] = (eng.run(list(reqs)), eng.telemetry.summary())
-    assert out["cuda"][0] == out["cpu"][0], "card and CPU tokens differ"
-    assert out["cuda"][1] == out["cpu"][1], "card and CPU telemetry differ"
-    log("reference", model="granite-3-2b reduced f32", requests=len(reqs),
-        tokens_equal=True,
-        frac_tiles_computed=out["cuda"][1]["mor_stats"][
-            "frac_tiles_computed"])
+    wcfg = cfg.replace(sliding_window=16)
+    wreqs = make_trace(wcfg, 6, 4, 16, 6, 6, SEED, shared_prefix=16)
+    longest = max((p for p, _ in wreqs), key=len)
+    assert len(longest) >= 24
+    wreqs += [(longest[:24].copy(), 6), (longest[:24].copy(), 6)]
+    runs = {"slotted": (cfg, reqs, dict(layout="slotted", max_len=32)),
+            "paged": (wcfg, wreqs, dict(layout="paged", max_len=40))}
+    for layout, (c, rq, kw) in runs.items():
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(c, _to(params, dev), mor=_to(mor, dev),
+                         mor_mode="kernel", n_slots=4,
+                         capacities={"mor_stats": 0.5}, **kw)
+            out[dev] = (eng.run(list(rq)), eng.telemetry.summary())
+        assert out["cuda"][0] == out["cpu"][0], \
+            f"{layout}: card and CPU tokens differ"
+        assert out["cuda"][1] == out["cpu"][1], \
+            f"{layout}: card and CPU telemetry differ"
+        pc = out["cuda"][1].get("prefix_cache", {})
+        if layout == "paged":
+            assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0 \
+                and pc["pages_cowed"] > 0, pc
+        log("reference", model=f"granite-3-2b reduced f32 {layout}",
+            window=c.sliding_window, requests=len(rq), tokens_equal=True,
+            telemetry_equal=True,
+            frac_tiles_computed=np.round(out["cuda"][1]["mor_stats"][
+                "frac_tiles_computed"], 4).tolist(),
+            **{k: pc[k] for k in ("prefix_hits", "chunks_skipped",
+                                  "pages_cowed") if k in pc})
 
 
-def _serve(cfg, params, mor, mode, reqs, capacities=None):
+def _serve(cfg, params, mor, mode, reqs, capacities=None, **engine_kw):
     """One counted pass, then one timed pass; -> (tokens, report, engine)."""
     import torch
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, mor=mor, mor_mode=mode, n_slots=8,
                  max_len=max(len(p) for p, _ in reqs) + 18,
-                 capacities=capacities)
+                 capacities=capacities, **engine_kw)
     first = eng.run(list(reqs))
     dispatches = eng.counters["dispatches"]
     eng.reset_counters()
@@ -319,6 +467,7 @@ def _serve(cfg, params, mor, mode, reqs, capacities=None):
     rep["tokens_per_s"] = (rep["prefill_tokens"] + rep["decode_tokens"]) \
         / wall
     rep["first_pass_dispatches"] = dispatches
+    rep["pass_s"] = wall
     return first, rep, eng
 
 
@@ -340,12 +489,15 @@ def _profile(eng, reqs):
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    log("profile", mode=eng.mor_mode, dispatches=eng.counters["dispatches"],
+    paged = sum(us for key, us, _ in rows if "gqa_paged" in key)
+    tag = f"{eng.layout}-{eng.mor_mode}"
+    log("profile", path=tag, dispatches=eng.counters["dispatches"],
         wall_ms=round(wall_us / 1e3, 2), device_busy_ms=round(busy / 1e3, 2),
-        idle_share=round(1 - busy / wall_us, 4) if busy else "not measured")
+        idle_share=round(1 - busy / wall_us, 4) if busy else "not measured",
+        gqa_paged_flash_share=round(paged / busy, 4) if busy else 0.0)
     for key, us, n in rows[:12]:
-        log("profile", mode=eng.mor_mode, kernel=repr(key[:60]), ms=round(us / 1e3, 3),
-            calls=n, share=round(us / busy, 4))
+        log("profile", path=tag, kernel=repr(key[:60]),
+            ms=round(us / 1e3, 3), calls=n, share=round(us / busy, 4))
 
 
 def _agree(a, b):
@@ -354,15 +506,138 @@ def _agree(a, b):
                           for r in b]))
 
 
-def phase_slice():
-    import numpy as np
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.core.deploy import calibrate_lm
+def _counted(fn):
+    """Run ``fn`` with every launch counter zeroed just before and read
+    just after -> (fn's result, {kernel: launches})."""
     from repro_torch.kernels import gather_matmul as gm
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import mor_predict as mp
-    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.kernels import paged_attention as pa
+    mods = {"mor_tile_mask": mp, "gather_matmul": gm,
+            "masked_matmul_kdim": mm, "gqa_paged_flash": pa}
+    for m in mods.values():
+        m.launches = 0
+    out = fn()
+    return out, {k: m.launches for k, m in mods.items()}
+
+
+def _want_launches(L, dispatches, paged):
+    return {"mor_tile_mask": L * dispatches,
+            "gather_matmul": 2 * L * dispatches,
+            "masked_matmul_kdim": L * dispatches,
+            "gqa_paged_flash": L * dispatches if paged else 0}
+
+
+def _check_tokens(cfg, reqs, toks):
+    assert len(toks) == len(reqs)
+    assert all(len(toks[i]) == g for i, (_, g) in enumerate(reqs))
+    assert all(0 <= t < cfg.vocab_size for v in toks.values() for t in v)
+
+
+def slice_slotted(cfg, params, mor):
+    """The slotted path: 8 mixed requests in kernel mode
+    (counted), tiled, dense and kernel at capacity 0.5."""
+    import numpy as np
+    from repro_torch.launch.serve import make_trace
+    reqs = make_trace(cfg, 8, 8, 64, 16, 16, SEED)
+    kw = dict(layout="slotted")
+    (tok_k, rep_k, eng_k), launches = _counted(
+        lambda: _serve(cfg, params, mor, "kernel", reqs, **kw))
+    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    want = _want_launches(cfg.n_layers, counted, paged=False)
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    tel = rep_k["telemetry"]["mor_stats"]
+    assert all(np.isfinite(tel["frac_tiles_live"]))
+    log("slice", path="slotted", mode="kernel",
+        tok_s=round(rep_k["tokens_per_s"], 2),
+        repeat_agreement=round(rep_k["repeat_agreement"], 4),
+        dispatches=rep_k["dispatches"], launches=json.dumps(launches),
+        skip_frac_per_layer=[round(1 - v, 4)
+                             for v in tel["frac_tiles_computed"]])
+    tok_t, rep_t, _ = _serve(cfg, params, mor, "tiled", reqs, **kw)
+    tok_d, rep_d, eng_d = _serve(cfg, params, None, "dense", reqs, **kw)
+    agree_t, agree_d = _agree(tok_k, tok_t), _agree(tok_k, tok_d)
+    first_t = float(np.mean([tok_k[r][0] == tok_t[r][0] for r in tok_t]))
+    log("slice", path="slotted", mode="tiled",
+        tok_s=round(rep_t["tokens_per_s"], 2),
+        repeat_agreement=round(rep_t["repeat_agreement"], 4),
+        agreement_kernel_vs_tiled=round(agree_t, 4),
+        first_token_agreement=round(first_t, 4))
+    log("slice", path="slotted", mode="dense",
+        tok_s=round(rep_d["tokens_per_s"], 2),
+        repeat_agreement=round(rep_d["repeat_agreement"], 4),
+        agreement_kernel_vs_dense=round(agree_d, 4))
+    assert agree_t >= AGREE_MIN and agree_d >= AGREE_MIN, (agree_t, agree_d)
+    tok_c, rep_c, _ = _serve(cfg, params, mor, "kernel", reqs,
+                             capacities={"mor_stats": 0.5}, **kw)
+    tel_c = rep_c["telemetry"]["mor_stats"]
+    assert max(tel_c["frac_tiles_computed"]) <= 0.5 + 1e-6
+    log("slice", path="slotted", mode="kernel", capacity=0.5,
+        tok_s=round(rep_c["tokens_per_s"], 2),
+        agreement_vs_capacity_1=round(_agree(tok_c, tok_k), 4),
+        frac_tiles_computed_mean=round(
+            float(np.mean(tel_c["frac_tiles_computed"])), 4))
+    return eng_k, eng_d, reqs
+
+
+def slice_paged(cfg, params, mor):
+    """The main path: a shared-prefix trace through the paged kernel-mode
+    engine (counted), then paged dense and slotted kernel on the same
+    trace, timed, and held to greedy agreement."""
+    from repro_torch.launch.serve import make_trace
+    reqs = make_trace(cfg, 12, 8, 64, 16, 16, SEED, shared_prefix=128)
+    aligned = reqs[0][0][:len(reqs[0][0]) // 8 * 8]
+    reqs[0] = (aligned, 16)
+    reqs[11] = (aligned.copy(), 16)
+    (tok_k, rep_k, eng_k), launches = _counted(
+        lambda: _serve(cfg, params, mor, "kernel", reqs))
+    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    want = _want_launches(cfg.n_layers, counted, paged=True)
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    pc = rep_k["prefix_cache"]
+    # the counters describe the timed (warm) pass; pages_cowed stays 0
+    # on a windowless model (see phase_reference)
+    assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0, pc
+    pool = eng_k.pool
+    page_bytes = (cfg.n_layers * pool.page * cfg.n_kv_heads * cfg.head_dim
+                  * 2 * 2)
+    log("slice", path="paged", mode="kernel",
+        tok_s=round(rep_k["tokens_per_s"], 2),
+        repeat_agreement=round(rep_k["repeat_agreement"], 4),
+        dispatches=rep_k["dispatches"],
+        first_pass_dispatches=rep_k["first_pass_dispatches"],
+        launches=json.dumps(launches), n_pages=pool.n_pages,
+        n_blocks=pool.n_blocks, page_kv_bytes=page_bytes,
+        pool_gb=round((pool.n_pages + 1) * page_bytes / 1e9, 3),
+        prefix=json.dumps({k: pc[k] for k in (
+            "hit_rate", "prefix_hits", "prefix_queries", "pages_shared",
+            "chunks_skipped", "tokens_skipped", "pages_cowed",
+            "pages_evicted")}))
+    tok_d, rep_d, _ = _serve(cfg, params, None, "dense", reqs)
+    tok_s, rep_s, _ = _serve(cfg, params, mor, "kernel", reqs,
+                             layout="slotted")
+    agree_d, agree_s = _agree(tok_k, tok_d), _agree(tok_k, tok_s)
+    for name, rep in (("paged kernel", rep_k), ("paged dense", rep_d),
+                      ("slotted kernel", rep_s)):
+        log("slice", trace="shared-prefix", path=name,
+            tok_s=round(rep["tokens_per_s"], 2),
+            decode_tok_s=round(rep["decode_tokens"] / rep["pass_s"], 2),
+            pass_s=round(rep["pass_s"], 3), dispatches=rep["dispatches"],
+            prefill_tokens=rep["prefill_tokens"])
+    log("slice", trace="shared-prefix",
+        agreement_paged_kernel_vs_paged_dense=round(agree_d, 4),
+        agreement_paged_kernel_vs_slotted_kernel=round(agree_s, 4))
+    assert agree_d >= AGREE_MIN and agree_s >= AGREE_MIN, (agree_d, agree_s)
+    return eng_k, reqs, launches
+
+
+def phase_slice():
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import calibrate_lm
+    from repro_torch.launch.serve import calib_batches
     from repro_torch.models import get_model
     cfg = get_config("granite-3-2b")
     api = get_model(cfg)
@@ -379,55 +654,12 @@ def phase_slice():
     torch.cuda.synchronize()
     log("slice", calibrate_s=round(time.perf_counter() - t0, 2),
         **{k: round(v, 4) for k, v in cal.items()})
-    reqs = make_trace(cfg, 8, 8, 64, 16, 16, SEED)
-
-    # the main path: counts zeroed just before, read just after
-    mp.launches = gm.launches = mm.launches = 0
-    tok_k, rep_k, eng_k = _serve(cfg, params, mor, "kernel", reqs)
-    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
-    launches = {"mor_tile_mask": mp.launches, "gather_matmul": gm.launches,
-                "masked_matmul_kdim": mm.launches}
-    want = {"mor_tile_mask": cfg.n_layers * counted,
-            "gather_matmul": 2 * cfg.n_layers * counted,
-            "masked_matmul_kdim": cfg.n_layers * counted}
-    assert launches == want, (launches, want)
-    assert all(v > 0 for v in launches.values())
-    assert len(tok_k) == len(reqs)
-    assert all(len(tok_k[i]) == g for i, (_, g) in enumerate(reqs))
-    assert all(0 <= t < cfg.vocab_size for v in tok_k.values() for t in v)
-    tel = rep_k["telemetry"]["mor_stats"]
-    assert all(np.isfinite(tel["frac_tiles_live"]))
-    log("slice", mode="kernel", tok_s=round(rep_k["tokens_per_s"], 2),
-        repeat_agreement=round(rep_k["repeat_agreement"], 4),
-        dispatches=rep_k["dispatches"], launches=json.dumps(launches),
-        skip_frac_per_layer=[round(1 - v, 4)
-                             for v in tel["frac_tiles_computed"]])
-
-    tok_t, rep_t, _ = _serve(cfg, params, mor, "tiled", reqs)
-    tok_d, rep_d, eng_d = _serve(cfg, params, None, "dense", reqs)
-    agree_t, agree_d = _agree(tok_k, tok_t), _agree(tok_k, tok_d)
-    first_t = float(np.mean([tok_k[r][0] == tok_t[r][0] for r in tok_t]))
-    log("slice", mode="tiled", tok_s=round(rep_t["tokens_per_s"], 2),
-        repeat_agreement=round(rep_t["repeat_agreement"], 4),
-        agreement_kernel_vs_tiled=round(agree_t, 4),
-        first_token_agreement=round(first_t, 4))
-    log("slice", mode="dense", tok_s=round(rep_d["tokens_per_s"], 2),
-        repeat_agreement=round(rep_d["repeat_agreement"], 4),
-        agreement_kernel_vs_dense=round(agree_d, 4))
-    assert agree_t >= AGREE_MIN and agree_d >= AGREE_MIN, (agree_t, agree_d)
-
-    tok_c, rep_c, _ = _serve(cfg, params, mor, "kernel", reqs,
-                          capacities={"mor_stats": 0.5})
-    tel_c = rep_c["telemetry"]["mor_stats"]
-    assert max(tel_c["frac_tiles_computed"]) <= 0.5 + 1e-6
-    log("slice", mode="kernel", capacity=0.5,
-        tok_s=round(rep_c["tokens_per_s"], 2),
-        agreement_vs_capacity_1=round(_agree(tok_c, tok_k), 4),
-        frac_tiles_computed_mean=round(
-            float(np.mean(tel_c["frac_tiles_computed"])), 4))
+    eng_sk, eng_sd, reqs_s = slice_slotted(cfg, params, mor)
+    eng_pk, reqs_p, launches = slice_paged(cfg, params, mor)
     # profiled last, so that the profiler cannot touch the timings above
-    _profile(eng_k, reqs)
-    _profile(eng_d, reqs)
+    _profile(eng_pk, reqs_p)
+    _profile(eng_sk, reqs_s)
+    _profile(eng_sd, reqs_s)
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
     return launches

@@ -1,3 +1,3 @@
-"""The MoR kernels for Hopper (CUDA C++ in ``csrc/``, built on first
-use), their plain PyTorch versions, and the padding wrappers
-(``ops``)."""
+"""The port's kernels for Hopper (CUDA C++ in ``csrc/``, built on first
+use): the three MoR kernels with their padding wrappers (``ops``) and
+the GQA paged flash attention, each beside its plain PyTorch version."""

@@ -19,18 +19,20 @@ from pathlib import Path
 from typing import Dict, Optional
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("mor_predict.cu", "gather_matmul.cu", "masked_matmul.cu")
+SOURCES = ("mor_predict.cu", "gather_matmul.cu", "masked_matmul.cu",
+           "paged_attention.cu")
 HEADERS = ("common.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> argtypes (pointers and the stream as void*, sizes as int)
 SIGNATURES = {
     "mor_tile_mask": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "gather_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "masked_matmul_kdim": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gqa_paged_flash": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

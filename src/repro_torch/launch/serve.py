@@ -1,15 +1,17 @@
 """Serving CLI: the continuous-batching MoR engine under a mixed
-prompt-length trace (``repro.launch.serve`` on the slotted layout).
+prompt-length trace (``repro.launch.serve``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --requests 8 --prompt-min 8 --prompt-max 64 --gen-len 16 \
-      --mor kernel --compare
+      --shared-prefix 128 --mor kernel --compare
 
 Initialises the model from a seed (random weights), calibrates the MoR
 predictor on synthetic batches when ``--mor`` is not dense, serves the
-trace through ``Engine(layout="slotted")`` and reports tokens/s, the
-per-layer skip fractions from the serving telemetry and, with
-``--compare``, the token agreement against the dense engine.
+trace through the engine (``--layout paged`` by default, with prefix
+caching; ``slotted`` for the contiguous baseline) and reports tokens/s,
+the per-layer skip fractions from the serving telemetry, the prefix
+counters and, with ``--compare``, the token agreement against the dense
+engine on the same layout.
 """
 from __future__ import annotations
 
@@ -31,11 +33,20 @@ CALIB_STEPS = 4
 CALIB_SEQ = 128
 
 
-def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed):
+def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed,
+               shared_prefix: int = 0):
     """Mixed trace: log-uniform prompt lengths in [pmin, pmax] and
     generation lengths in [gmin, gmax] (``repro.launch.serve._trace``,
-    so both packages serve the same requests from one seed)."""
+    so both packages serve the same requests from one seed).
+    ``shared_prefix`` > 0 prepends the SAME ``shared_prefix``-token
+    prefix to every request (system-prompt traffic, which the prefix
+    cache dedups)."""
     rng = np.random.default_rng(seed)
+    prefix = np.zeros((0,), np.int32)
+    if shared_prefix:
+        prefix = np.asarray(
+            synthetic_lm_batch(cfg, 1, shared_prefix, seed=seed, step=999)
+            ["tokens"][0], np.int32)
     reqs = []
     for i in range(n_requests):
         plen = (int(np.exp(rng.uniform(np.log(pmin), np.log(pmax))))
@@ -45,7 +56,7 @@ def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed):
         prompt = np.asarray(
             synthetic_lm_batch(cfg, 1, plen, seed=seed, step=1000 + i)
             ["tokens"][0], np.int32)
-        reqs.append((prompt, glen))
+        reqs.append((np.concatenate([prefix, prompt]), glen))
     return reqs
 
 
@@ -58,12 +69,13 @@ def calib_batches(cfg, batch: int, device, seed: int = SEED):
 
 
 def run_engine(cfg, params, reqs, *, mor, mor_mode, n_slots, max_len,
-               capacities=None, timed_passes: int = 3):
+               capacities=None, timed_passes: int = 3, **engine_kw):
     """Serve ``reqs``: one warm-up pass, then the best of
     ``timed_passes`` timed passes (each ends in a flush that waits for
-    the device).  -> (engine, {request index: tokens}, report)."""
+    the device).  ``engine_kw`` (layout, page, prefix_cache) go to the
+    engine.  -> (engine, {request index: tokens}, report)."""
     eng = Engine(cfg, params, mor=mor, mor_mode=mor_mode, n_slots=n_slots,
-                 max_len=max_len, capacities=capacities)
+                 max_len=max_len, capacities=capacities, **engine_kw)
     eng.run(list(reqs))
     wall = float("inf")
     for _ in range(timed_passes):
@@ -104,6 +116,20 @@ def main(argv=None):
     ap.add_argument("--prompt-max", type=int, default=0,
                     help="default: --prompt-min (uniform prompts)")
     ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--layout", default="paged",
+                    choices=("paged", "slotted"),
+                    help="KV cache layout (slotted = contiguous baseline)")
+    ap.add_argument("--page", type=int, default=0,
+                    help="tokens per KV page (default cfg.serve_page)")
+    ap.add_argument("--prefix-cache", dest="prefix_cache",
+                    action="store_true", default=True,
+                    help="prefix caching across requests (default on; "
+                         "paged layout only)")
+    ap.add_argument("--no-prefix-cache", dest="prefix_cache",
+                    action="store_false")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend a shared N-token prefix to every "
+                         "request (shared-prompt trace)")
     ap.add_argument("--mor", default="dense",
                     choices=("dense", "exact", "tiled", "kernel"))
     ap.add_argument("--capacity", type=float, default=0.0,
@@ -138,8 +164,12 @@ def main(argv=None):
     pmin = args.prompt_min
     pmax = args.prompt_max or pmin
     reqs = make_trace(cfg, args.requests or args.batch, pmin, pmax,
-                      args.gen_len, args.gen_len, SEED)
-    max_len = pmax + args.gen_len + 2
+                      args.gen_len, args.gen_len, SEED,
+                      shared_prefix=args.shared_prefix)
+    max_len = args.shared_prefix + pmax + args.gen_len + 2
+    engine_kw = {"layout": args.layout}
+    if args.layout == "paged":
+        engine_kw.update(page=args.page, prefix_cache=args.prefix_cache)
     capacities = None
     if args.capacity > 0 and args.mor != "dense":
         capacities = {k: args.capacity for k in mor_group_map(cfg)}
@@ -147,17 +177,25 @@ def main(argv=None):
 
     _, results, rep = run_engine(cfg, params, reqs, mor=mor,
                                  mor_mode=args.mor, n_slots=args.batch,
-                                 max_len=max_len, capacities=capacities)
+                                 max_len=max_len, capacities=capacities,
+                                 **engine_kw)
     report.update(rep)
-    print(f"[serve] {cfg.name} mor={args.mor} layout=slotted "
+    print(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
           f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
           f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
           f"{pmin}-{pmax})")
+    if "prefix_cache" in rep:
+        pc = rep["prefix_cache"]
+        print(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "
+              f"({pc['prefix_hits']}/{pc['prefix_queries']} requests), "
+              f"{pc['pages_shared']} pages shared, "
+              f"{pc['chunks_skipped']} prefill chunks skipped, "
+              f"{pc['pages_cowed']} pages copy-on-written")
     if args.compare and args.mor != "dense":
         _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
                                          mor_mode="dense",
                                          n_slots=args.batch,
-                                         max_len=max_len)
+                                         max_len=max_len, **engine_kw)
         agree = token_agreement(results, results_d)
         report["dense_tokens_per_s"] = rep_d["tokens_per_s"]
         report["token_agreement_vs_dense"] = agree

@@ -1,5 +1,5 @@
-"""GQA attention: the teacher-forced forward and the slot-pool chunk step
-with its ring-buffer decode cache.
+"""GQA attention: the teacher-forced forward and the serving chunk step
+over the slotted ring cache or the paged pool.
 
 Scores and softmax statistics are float32; activations stay in the
 model's compute dtype (``repro.models.layers.attention``).
@@ -11,6 +11,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.paged_attention import gqa_paged_flash
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.rope import apply_rope
 
@@ -112,10 +113,15 @@ def gqa_forward(params, cfg: ModelConfig, x, positions):
 
 # --- decode cache -----------------------------------------------------------
 
+def ring_rows(cfg: ModelConfig, max_len: int) -> int:
+    """Rows of a slot's kv ring: the window (with the serving chunk
+    slack already added by ``kv_pool.ring_cfg``), at most ``max_len``."""
+    return min(cfg.sliding_window or max_len, max_len)
+
+
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    n_layers: int, device) -> Dict[str, torch.Tensor]:
-    W = cfg.sliding_window or max_len
-    Lr = min(W, max_len)
+    Lr = ring_rows(cfg, max_len)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
     return {
         "k": torch.zeros((n_layers, batch, Lr, hkv, hd), dtype=dtype,
@@ -127,25 +133,54 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid):
-    """Slot-pool chunk step (slotted layout): consume x (B, C, d) at
-    per-slot positions ``pos`` (B,), with ``valid`` (B, C) marking real
-    tokens.  UPDATES ``cache`` ({k, v (B, Lr, hkv, hd), pos (B, Lr)}) IN
-    PLACE and returns the attention output.
+def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
+              block_table=None):
+    """Serving chunk step: consume x (B, C, d) at per-slot positions
+    ``pos`` (B,), with ``valid`` (B, C) marking real tokens.  UPDATES
+    ``cache`` IN PLACE and returns the attention output.
 
-    JAX drops invalid tokens with an out-of-range ``mode="drop"``
-    scatter; torch has none, so every token writes its ring row and an
-    invalid token writes back the row's current value.  The C rows of
-    one slot are distinct (C <= Lr), so the write order is immaterial
-    and an idle slot's cache stays bit-identical across the dispatch."""
+    Slotted layout (``block_table`` None): ``cache`` is {k, v (B, Lr,
+    hkv, hd), pos (B, Lr)}.  JAX drops invalid tokens with an
+    out-of-range ``mode="drop"`` scatter; torch has none, so every token
+    writes its ring row and an invalid token writes back the row's
+    current value.  The C rows of one slot are distinct (C <= Lr), so
+    the write order is immaterial and an idle slot's cache stays
+    bit-identical across the dispatch.
+
+    Paged layout: ``cache`` is one layer's pools {k, v (n_pages + 1,
+    page, hkv, hd), pos (n_pages + 1, page)} and ``block_table`` (B, W)
+    the (possibly column-sliced) table: ring row ``r = qpos % (W *
+    page)`` lives at page ``block_table[b, r // page]``, offset ``r %
+    page``.  The pool made every page this dispatch writes exclusively
+    owned beforehand (copy-on-write is host-side)."""
     B, C, _ = x.shape
-    Lr = cache["k"].shape[1]
-    if C > Lr:
-        raise ValueError(f"chunk {C} exceeds the kv ring length {Lr}")
     q, k, v = _qkv(params, cfg, x)
     qpos = pos[:, None].long() + torch.arange(C, device=x.device)[None, :]
     q = apply_rope(q, qpos, cfg.rope_theta)
     k = apply_rope(k, qpos, cfg.rope_theta)
+    if block_table is not None:
+        ck, cv, cp = cache["k"], cache["v"], cache["pos"]
+        page = ck.shape[1]
+        r = qpos % (block_table.shape[1] * page)
+        pidx = torch.gather(block_table, 1, r // page).long()
+        # no mode="drop" scatter in torch, and a dropped token's (page,
+        # offset) may be the null page 0, whose tags must stay -1: an
+        # invalid token writes the pool's trailing scratch page instead,
+        # which no table holds, so every real page stays bit-identical
+        pidx = torch.where(valid, pidx, ck.shape[0] - 1)
+        off = r % page
+        qpos = qpos.int()
+        # write before attend: the kernel reads this dispatch's own rows,
+        # queued after these writes on the same stream
+        ck[pidx, off] = k
+        cv[pidx, off] = v
+        cp[pidx, off] = qpos
+        o = gqa_paged_flash(q, ck, cv, cp, block_table, qpos,
+                            window=cfg.sliding_window)
+        return o.reshape(B, C, -1) @ params["wo"].to(x.dtype)
+    Lr = cache["k"].shape[1]
+    if C > Lr:
+        raise ValueError(f"chunk {C} exceeds the kv ring length {Lr}")
     rows = qpos % Lr
     bidx = torch.arange(B, device=x.device)[:, None].expand(B, C)
     vk = valid[..., None, None]

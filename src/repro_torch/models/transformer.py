@@ -126,10 +126,15 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     of the residual stream and out of the cache writes.  The cache is
     UPDATED IN PLACE (layer views of the stacked kv tensors, then
     ``cache["pos"] += n_valid``).  aux["mor_stats"] carries the per-layer
-    (L-stacked) realised skip statistics."""
+    (L-stacked) realised skip statistics.
+
+    A cache carrying a top-level ``block_table`` is the PAGED layout
+    (``serving.kv_pool.PagedPool``): every layer reads and writes its kv
+    pages through that shared (B, W) table instead of slot rows."""
     _check_family(cfg)
     B, C = tokens.shape
     pos = cache["pos"]
+    block_table = cache.get("block_table")
     valid = torch.arange(C, device=tokens.device)[None, :] < \
         n_valid[:, None]
     vm = valid[..., None]
@@ -142,7 +147,7 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         lp = layer_slice(stack, l)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         a = attn.gqa_chunk(lp["attn"], cfg, h, layer_slice(caches, l), pos,
-                           valid)
+                           valid, block_table)
         x = x + torch.where(vm, a, 0.0).to(x.dtype)
         h2 = apply_norm(cfg.norm, lp["ln2"], x)
         f, st = mlp_apply(lp["mlp"], cfg, h2, mor=_layer_plan(mor_stack, l),

@@ -1,12 +1,20 @@
-"""The continuous-batching serving engine, slotted cache layout
-(``repro.serving.engine`` with ``layout="slotted"``).
+"""The continuous-batching serving engine (``repro.serving.engine``).
 
 One chunk step per dispatch drives the whole request stream: the
 scheduler packs each dispatch ((B, chunk) mixed or (B, 1) decode-only),
-the model's ``prefill_chunk`` updates the slot cache in place, the
-telemetry accumulates per-layer tile liveness from every dispatch's MoR
-stats, and ``calibrate_capacities`` turns that into per-layer
-gather_matmul capacity fractions.
+the paged kv pool allocates / copy-on-writes the pages the dispatch will
+touch (host-side, count-based: no device sync), the model's
+``prefill_chunk`` updates the cache in place, the telemetry accumulates
+per-layer tile liveness from every dispatch's MoR stats, and
+``calibrate_capacities`` turns that into per-layer gather_matmul
+capacity fractions.
+
+Cache layouts: ``layout="paged"`` (default) runs on ``kv_pool.PagedPool``
+(block-table indirection, refcounted pages, prefix caching: requests
+sharing a prompt prefix map their leading table entries to the same
+physical pages, and fully-hit prefill chunks are never dispatched).
+``layout="slotted"`` is the contiguous slot layout, kept as the
+differential baseline.
 
 The hot loop is device-resident: each slot's last sampled token stays on
 the device (``_pending``), each dispatch's sampled tokens and the
@@ -14,8 +22,10 @@ kernels' tile counters are logged as device tensors, and host inputs go
 up through pinned buffers without blocking.  Nothing is read back until
 the flush at the end of ``run``, so no dispatch waits for the device.
 
-Sampling is greedy.  The paged layout, prefix cache, speculation, shadow
-scoring, observability, meshes and preemption are later slices.
+Sampling is greedy.  Speculation, shadow scoring, observability, the
+mesh-sharded layout and preemption are later slices: where the JAX
+engine would spill a victim to free pages, this one raises
+``PoolExhausted``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,11 @@ from repro_torch.serving.telemetry import (ServingTelemetry,
 __all__ = ["Engine", "Request", "RequestRejected"]
 
 
+_NO_PREEMPTION = ("the paged pool is exhausted; the JAX engine would "
+                  "spill a victim slot here, and preemption is queue A 11 "
+                  "of the port (raise spare_pages)")
+
+
 def _zero_counters() -> Dict:
     return {"prefill_tokens": 0, "decode_tokens": 0, "dispatches": 0,
             "wall_s": 0.0, "requests_rejected": 0}
@@ -53,12 +68,14 @@ class Engine:
                  mor_mode: str = "dense", n_slots: int = 8,
                  max_len: int = 256, chunk: int = 0,
                  capacities: Optional[Dict] = None, telemetry: bool = True,
-                 layout: str = "slotted", temperature: float = 0.0,
+                 layout: str = "paged", page: int = 0,
+                 prefix_cache: bool = True,
+                 spare_pages: Optional[int] = None, temperature: float = 0.0,
                  policy: Optional[Policy] = None):
-        if layout != "slotted":
+        if layout not in ("paged", "slotted"):
             raise NotImplementedError(
-                f"layout {layout!r}: the paged pool and its gqa_paged_flash "
-                f"kernel are the next slice of the port; use 'slotted'")
+                f"layout {layout!r}: the mesh-sharded paged pool is queue "
+                f"A 14 of the port; use 'paged' or 'slotted'")
         if temperature > 0.0:
             raise NotImplementedError(
                 "temperature sampling comes with the speculation / SLO "
@@ -75,8 +92,16 @@ class Engine:
         self.layout = layout
         self.capacities = capacities
         self.mor = self._attach(capacities)
-        self.cache = kv_pool.init(cfg, n_slots, max_len, self.chunk,
-                                  device=self.device)
+        if layout == "paged":
+            self.pool: Optional[kv_pool.PagedPool] = kv_pool.PagedPool(
+                cfg, n_slots, max_len, chunk=self.chunk, page=page,
+                spare_pages=spare_pages, prefix_cache=prefix_cache,
+                device=self.device)
+            self.cache = self.pool.build()
+        else:
+            self.pool = None
+            self.cache = kv_pool.init(cfg, n_slots, max_len, self.chunk,
+                                      device=self.device)
         self.scheduler = Scheduler(n_slots, self.chunk, policy=policy)
         self.policy: Policy = self.scheduler.policy
         self.telemetry = ServingTelemetry() if telemetry else None
@@ -101,14 +126,6 @@ class Engine:
         return attach_plans(self.raw_mor, self.cfg, self.mor_mode,
                             capacities=caps)
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        """Host array -> device tensor without waiting for the device:
-        a pinned staging copy and an asynchronous transfer on CUDA."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.clone().to(self.device)
-
     # -- flushes -----------------------------------------------------------
     def _flush_tokens(self) -> None:
         if self._tok_log:
@@ -125,6 +142,8 @@ class Engine:
                 self.telemetry.update(
                     {g: {k: v.cpu().numpy() for k, v in st.items()}
                      for g, st in aux.items()})
+            if self.pool is not None and self.pool.prefix is not None:
+                self.telemetry.update_prefix(self._prefix_counters())
         self._aux_log.clear()
 
     # -- request API -------------------------------------------------------
@@ -154,40 +173,77 @@ class Engine:
         self.scheduler.add(Request(rid, prompt, max_new_tokens))
         return rid
 
+    def _place(self, slot: int, entry) -> int:
+        """Scheduler admission hook (paged layout): prefix-cache
+        admission through the pool; returns the prompt offset to start
+        from."""
+        return self.pool.admit(slot, entry.req.prompt)
+
     @torch.no_grad()
     def step(self) -> List[int]:
         """One scheduler iteration: admit, dispatch, ingest.  Returns the
         rids that finished this step."""
         t0 = time.perf_counter()
         sched = self.scheduler
-        admitted = sched.admit()
-        if admitted:
+        pool = self.pool
+        admitted = sched.admit(self._place if pool is not None else None)
+        if admitted and pool is None:
             mask = np.zeros((self.n_slots,), bool)
             mask[admitted] = True
-            kv_pool.reset_slots(self.cache, self._upload(mask))
+            kv_pool.reset_slots(self.cache,
+                                kv_pool.upload(mask, self.device))
         kind = sched.peek_kind()
         if kind is None:
             return []
-        tokens, n_valid, use_pending, emits = sched.build_batch(kind)
+        tokens, n_valid, use_pending, emits, _, prefilling = \
+            sched.build_batch(kind)
+        cache = self.cache
+        if pool is not None:
+            # pre-dispatch: publish the prefix of windowed prompts about
+            # to wrap their ring, then allocate / copy-on-write every
+            # page this dispatch will touch and apply the edits (one
+            # upload when dirty, none when clean)
+            for s, off, take in prefilling:
+                pool.maybe_publish_prewrap(s, sched.slots[s].req.prompt,
+                                           off, take)
+            try:
+                pool.plan_writes(n_valid)
+            except kv_pool.PoolExhausted as e:
+                raise kv_pool.PoolExhausted(_NO_PREEMPTION) from e
+            pool.flush(cache)
+            # the attends never touch the provably-null tail columns;
+            # the table itself is only edited host-side, through flush
+            W = pool.active_blocks(n_valid)
+            cache = dict(cache, block_table=cache["block_table"][:, :W])
         sched.dispatch_kinds[kind] += 1
         ndec = int(use_pending.sum()) if kind == "mixed" else 0
-        tok = self._upload(tokens)
-        nv = self._upload(n_valid)
-        up = self._upload(use_pending)
+        tok = kv_pool.upload(tokens, self.device)
+        nv = kv_pool.upload(n_valid, self.device)
+        up = kv_pool.upload(use_pending, self.device)
         # splice each decoding slot's device-resident last token in
         tok[:, 0] = torch.where(up, self._pending, tok[:, 0])
         logits, aux = self.api.prefill_chunk(
-            self.params, self.cfg, tok, self.cache, n_valid=nv,
+            self.params, self.cfg, tok, cache, n_valid=nv,
             mor=self.mor, mor_mode=self.mor_mode)
         last = torch.clamp(nv - 1, min=0).long()
         lg = logits[torch.arange(self.n_slots, device=self.device), last]
         nxt = torch.argmax(lg, dim=-1).to(torch.int32)   # greedy, first max
         self._pending = torch.where(nv > 0, nxt, self._pending)
+        if pool is not None:
+            pool.advance(n_valid)
         if emits:
             self._tok_log.append((emits, nxt))
         if self.telemetry is not None and aux:
             self._aux_log.append(aux)
-        finished = sched.feed(n_valid)
+        finished, entering = sched.feed(n_valid)
+        if pool is not None:
+            # publish AFTER the dispatch that wrote the prompt's last
+            # pages; release AFTER publish so a request finishing in the
+            # same step still shares its pages
+            for s, req in entering:
+                pool.publish(s, req.prompt)
+            for s, _ in finished:
+                pool.release(s)
         self.counters["dispatches"] += 1
         nv_total = int(n_valid.sum())
         if kind == "decode":
@@ -199,11 +255,17 @@ class Engine:
         return [req.rid for _, req in finished]
 
     def reset_counters(self) -> None:
-        """Zero the throughput counters (e.g. between a warm-up pass and
-        a timed pass); the cache contents survive."""
+        """Zero the throughput AND prefix-cache counters (e.g. between a
+        warm-up pass and a timed pass), so that a report's hit rate and
+        skipped chunks describe the same pass as its token counts; the
+        cache contents survive."""
         self.counters = _zero_counters()
         self.rejections = {}
+        self.scheduler.chunks_skipped = 0
+        self.scheduler.tokens_skipped = 0
         self.scheduler.dispatch_kinds = {"mixed": 0, "decode": 0}
+        if self.pool is not None:
+            self.pool.reset_event_counters()
 
     def run(self, requests=None) -> Dict[int, List[int]]:
         """Drive the queue (plus optional (prompt, max_new) pairs) to
@@ -236,6 +298,33 @@ class Engine:
         self.mor = self._attach(caps)
         return caps
 
+    def update_mor(self, raw_mor: Dict) -> None:
+        """Swap the calibrated MoR tree in place (the online
+        recalibration hook), keeping the current capacities."""
+        if self.raw_mor is None:
+            raise ValueError("engine was built without a MoR tree")
+        self.raw_mor = raw_mor
+        self.mor = self._attach(self.capacities)
+
+    def _prefix_counters(self) -> Dict:
+        """Prefix-cache counters merged across the pool (pages, hits)
+        and the scheduler (chunks whose dispatch was skipped)."""
+        pc = self.pool.report()
+        return {
+            "hit_rate": pc.get("hit_rate", 0.0),
+            "prefix_queries": pc.get("prefix_queries", 0),
+            "prefix_hits": pc.get("prefix_hits", 0),
+            "tokens_reused": pc.get("tokens_reused", 0),
+            "pages_shared": pc.get("pages_shared", 0),
+            "pages_published": pc.get("pages_published", 0),
+            "pages_cowed": pc.get("pages_cowed", 0),
+            "pages_evicted": pc.get("pages_evicted", 0),
+            "snapshots": pc.get("snapshots", 0),
+            "snap_restores": pc.get("snap_restores", 0),
+            "chunks_skipped": self.scheduler.chunks_skipped,
+            "tokens_skipped": self.scheduler.tokens_skipped,
+        }
+
     def report(self) -> Dict:
         self._flush_tokens()
         c = dict(self.counters)
@@ -252,6 +341,10 @@ class Engine:
             "decode_tokens_per_s": c["decode_tokens"] / wall,
             **c,
         }
+        if self.pool is not None:
+            rep["page"] = self.pool.page
+            if self.pool.prefix is not None:
+                rep["prefix_cache"] = self._prefix_counters()
         if self.telemetry is not None:
             self._flush_telemetry()
             rep["telemetry"] = self.telemetry.summary()

@@ -1,5 +1,5 @@
-"""Continuous-batching scheduler (a copy of the slotted-layout part of
-``repro.serving.scheduler``; host numpy only).
+"""Continuous-batching scheduler (a copy of ``repro.serving.scheduler``
+without preemption and speculation; host numpy only).
 
 Requests share a fixed pool of ``n_slots`` cache slots.  Prompts are
 consumed in fixed-size chunks; a dispatch is MIXED — every prefilling
@@ -7,7 +7,9 @@ slot contributes its next chunk while every decoding slot contributes
 its one pending token in the same (B, C) batch.  When all remaining work
 is decode, dispatches shrink to (B, 1).  Finished sequences are evicted
 immediately and their slot is recycled.  The scheduler never sees token
-VALUES (count-based), so the engine keeps tokens on the device.
+VALUES (count-based), so the engine keeps tokens on the device.  A
+placement hook at admission lets the paged engine start a request's
+prefill past its prefix-cache hit.
 """
 from __future__ import annotations
 
@@ -66,27 +68,54 @@ class Scheduler:
         self.slots = [_Slot() for _ in range(n_slots)]
         self.waiting: List[PendingEntry] = []
         self._seq = 0
+        # set by ``admit`` when the placement hook deferred (pool
+        # exhausted)
+        self.deferred = False
+        # prefix-cache accounting: admission-time hits shrink a
+        # request's remaining prefill
+        self.chunks_skipped = 0
+        self.tokens_skipped = 0
         self.dispatch_kinds = {"mixed": 0, "decode": 0}
 
     def add(self, req: Request) -> None:
         self.waiting.append(PendingEntry(req, seq=self._seq))
         self._seq += 1
 
-    def admit(self) -> List[int]:
+    def admit(self, place=None) -> List[int]:
         """Move waiting requests (policy order) into free slots; returns
-        the admitted slot indices (their cache rows must be reset)."""
+        the admitted slot indices.
+
+        ``place(slot, entry) -> offset`` is the engine's placement hook:
+        the paged engine binds it to ``PagedPool.admit``, so a
+        prefix-cache hit starts the prefill past the hit (whole chunks
+        whose pages fully hit are never dispatched).  Returning ``None``
+        defers admission: the entry stays at the head of the queue,
+        ``self.deferred`` is set, and admission stops."""
         self.policy.order(self.waiting)
         newly: List[int] = []
+        self.deferred = False
         for s, slot in enumerate(self.slots):
             if not self.waiting:
                 break
             if slot.state is not FREE:
                 continue
-            entry = self.waiting.pop(0)
-            self.slots[s] = _Slot(state=PREFILL, req=entry.req,
-                                  offset=entry.offset,
+            entry = self.waiting[0]
+            off = entry.offset if place is None else place(s, entry)
+            if off is None:
+                self.deferred = True
+                break
+            off = int(off)
+            self.waiting.pop(0)
+            P = len(entry.req.prompt)
+            assert 0 <= off < P
+            self.slots[s] = _Slot(state=PREFILL, req=entry.req, offset=off,
                                   n_generated=entry.n_generated,
                                   seq=entry.seq)
+            if off:
+                cold = -(-P // self.chunk)
+                warm = -(-(P - off) // self.chunk)
+                self.chunks_skipped += cold - warm
+                self.tokens_skipped += off
             newly.append(s)
         return newly
 
@@ -104,15 +133,22 @@ class Scheduler:
 
     def build_batch(self, kind: str
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
-                               List[Tuple[int, int]]]:
-        """-> (tokens (B, C), n_valid (B,), use_pending (B,), emits).
+                               List[Tuple[int, int]],
+                               List[Tuple[int, int]],
+                               List[Tuple[int, int, int]]]:
+        """-> (tokens (B, C), n_valid (B,), use_pending (B,), emits,
+        finishing, prefilling).
 
         ``tokens`` carries each prefilling slot's next prompt chunk;
         slots flagged in ``use_pending`` feed their device-resident last
         sampled token instead.  ``emits`` lists the (slot, rid) pairs
-        that emit a generated token from THIS dispatch.  A positive
-        ``prefill_budget`` caps the prompt tokens of a mixed dispatch;
-        the first prefilling slot always gets at least one token."""
+        that emit a generated token from THIS dispatch.  ``finishing``
+        lists the (slot, offset) pairs whose prompt completes this
+        dispatch; ``prefilling`` every (slot, offset, take) consuming
+        prompt tokens (the paged engine's pre-wrap publish hook).  A
+        positive ``prefill_budget`` caps the prompt tokens of a mixed
+        dispatch; the first prefilling slot always gets at least one
+        token."""
         C = self.chunk if kind == "mixed" else 1
         budget = self.policy.prefill_budget
         left = budget if (kind == "mixed" and budget > 0) else None
@@ -120,7 +156,8 @@ class Scheduler:
         n_valid = np.zeros((self.n_slots,), np.int32)
         use_pending = np.zeros((self.n_slots,), bool)
         emits: List[Tuple[int, int]] = []
-        prefilling = 0
+        finishing: List[Tuple[int, int]] = []
+        prefilling: List[Tuple[int, int, int]] = []
         for s, slot in enumerate(self.slots):
             if slot.state is PREFILL:
                 take = min(C, len(slot.req.prompt) - slot.offset)
@@ -132,19 +169,27 @@ class Scheduler:
                 tokens[s, :take] = slot.req.prompt[slot.offset:
                                                    slot.offset + take]
                 n_valid[s] = take
-                prefilling += 1
+                prefilling.append((s, slot.offset, take))
                 if slot.offset + take >= len(slot.req.prompt):
                     emits.append((s, slot.req.rid))
+                    finishing.append((s, slot.offset))
             elif slot.state is DECODE:
                 use_pending[s] = True
                 n_valid[s] = 1
                 emits.append((s, slot.req.rid))
-        return tokens, n_valid, use_pending, emits
+        return tokens, n_valid, use_pending, emits, finishing, prefilling
 
-    def feed(self, n_valid: np.ndarray) -> List[Tuple[int, Request]]:
+    def feed(self, n_valid: np.ndarray
+             ) -> Tuple[List[Tuple[int, Request]],
+                        List[Tuple[int, Request]]]:
         """Advance slot states after a dispatch (count-based).  Returns
-        the finished (slot, request) pairs; their slots are freed."""
+        ``(finished, entering_decode)`` as (slot, request) pairs:
+        finished requests' slots are freed; slots entering decode just
+        completed their prompt (the paged engine publishes their prompt
+        pages into the prefix trie, AFTER the dispatch that wrote
+        them)."""
         finished = []
+        entering = []
         for s, slot in enumerate(self.slots):
             nv = int(n_valid[s])
             if nv == 0:
@@ -154,10 +199,11 @@ class Scheduler:
                 if slot.offset >= len(slot.req.prompt):
                     slot.state = DECODE
                     slot.n_generated = 1
+                    entering.append((s, slot.req))
             elif slot.state is DECODE:
                 slot.n_generated += 1
             if slot.state is DECODE and \
                     slot.n_generated >= slot.req.max_new_tokens:
                 finished.append((s, slot.req))
                 self.slots[s] = _Slot()
-        return finished
+        return finished, entering

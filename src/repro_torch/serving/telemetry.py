@@ -9,7 +9,7 @@ layer's ``gather_matmul`` capacity from it.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -39,6 +39,7 @@ class ServingTelemetry:
         self.sums: Dict[str, Dict[str, np.ndarray]] = {}
         self.shapes: Dict[str, tuple] = {}
         self.n_updates = 0
+        self.prefix: Optional[Dict] = None
 
     def update(self, aux: Dict) -> None:
         seen = False
@@ -80,8 +81,15 @@ class ServingTelemetry:
                 self.shapes.get(key, idx.shape))
         return out
 
+    def update_prefix(self, counters: Dict) -> None:
+        """Record the latest prefix-cache counters (cumulative values:
+        the engine recomputes them from the pool at each flush)."""
+        self.prefix = dict(counters)
+
     def summary(self) -> Dict:
         out: Dict = {"n_dispatches": self.n_updates}
+        if self.prefix is not None:
+            out["prefix_cache"] = dict(self.prefix)
         for key, sums in self.sums.items():
             n = max(self.n_updates, 1)
             shape = self.shapes.get(key)

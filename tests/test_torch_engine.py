@@ -73,7 +73,7 @@ def test_slotted_engine_matches_jax(setup, mode, capacity):
     kw = dict(mor_mode=mode, n_slots=2, max_len=24, capacities=caps)
     jeng = JEngine(jcfg, params, mor=jmor, layout="slotted", **kw)
     want = jeng.run(list(reqs))
-    teng = Engine(cfg, tparams, mor=tmor, **kw)
+    teng = Engine(cfg, tparams, mor=tmor, layout="slotted", **kw)
     got = teng.run(list(reqs))
     assert got == want
     assert [len(got[r]) for r in sorted(got)] == [g for _, g in TRACE]
@@ -96,7 +96,7 @@ def test_calibrated_capacities_match_jax(setup):
     jcfg, params, jmor, cfg, tparams, tmor, reqs = setup
     kw = dict(mor_mode="tiled", n_slots=2, max_len=24)
     jeng = JEngine(jcfg, params, mor=jmor, layout="slotted", **kw)
-    teng = Engine(cfg, tparams, mor=tmor, **kw)
+    teng = Engine(cfg, tparams, mor=tmor, layout="slotted", **kw)
     jeng.run(list(reqs))
     teng.run(list(reqs))
     jcaps = jeng.calibrate_capacities(quantile=0.5)
@@ -112,7 +112,7 @@ def test_hot_loop_reads_nothing_back_before_the_flush(setup, monkeypatch):
     stay device tensors until ``run`` flushes."""
     _, _, _, cfg, tparams, tmor, reqs = setup
     eng = Engine(cfg, tparams, mor=tmor, mor_mode="kernel", n_slots=2,
-                 max_len=24)
+                 max_len=24, layout="slotted")
     for p, g in reqs:
         eng.submit(p, g)
     calls = []

@@ -18,6 +18,7 @@ from repro_torch.kernels import gather_matmul as tgm
 from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import mor_predict as tmp
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import paged_attention as tpa
 
 RTOL = ATOL = 1e-5
 
@@ -128,13 +129,13 @@ def test_masked_matmul_kdim_matches_jax(shape):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("call", ["mor", "gather", "kdim"])
+@pytest.mark.parametrize("call", ["mor", "gather", "kdim", "paged"])
 def test_kernel_entry_raises_off_cpu_without_fallback(call):
     """A tensor that is not on the CPU never reaches a plain version:
     off the CPU the entry launches the CUDA kernel or raises."""
     x = torch.empty((8, 128), device="meta")
     w = torch.empty((128, 128), device="meta")
-    before = (tmp.launches, tgm.launches, tmm.launches)
+    before = (tmp.launches, tgm.launches, tmm.launches, tpa.launches)
     with pytest.raises(ValueError, match="no CUDA kernel"):
         if call == "mor":
             tmp.mor_tile_mask(x, w, torch.empty((6, 128), device="meta"),
@@ -143,15 +144,26 @@ def test_kernel_entry_raises_off_cpu_without_fallback(call):
         elif call == "gather":
             tgm.gather_matmul(x, w, torch.ones((1, 1), dtype=torch.bool),
                               capacity=1)
+        elif call == "paged":
+            pool = torch.empty((3, 8, 2, 64), device="meta")
+            tpa.gqa_paged_flash(
+                torch.empty((2, 1, 4, 64), device="meta"), pool, pool,
+                torch.empty((3, 8), dtype=torch.int32, device="meta"),
+                torch.ones((2, 1), dtype=torch.int32),
+                torch.zeros((2, 1), dtype=torch.int32, device="meta"))
         else:
             tmm.masked_matmul_kdim(x, w, torch.ones((1, 1),
                                                     dtype=torch.int32))
-    assert (tmp.launches, tgm.launches, tmm.launches) == before
+    assert (tmp.launches, tgm.launches, tmm.launches,
+            tpa.launches) == before
 
 
 def test_kernel_sources_are_in_the_package():
     """The CUDA sources the build compiles ship with the package."""
     from repro_torch.kernels import build
+    assert "paged_attention.cu" in build.SOURCES
+    assert set(build.SIGNATURES) >= {"mor_tile_mask", "gather_matmul",
+                                     "masked_matmul_kdim", "gqa_paged_flash"}
     for name in build.SOURCES + build.HEADERS:
         src = (build._CSRC / name).read_text()
         assert "repro/kernels" in src or name.endswith(".cuh")

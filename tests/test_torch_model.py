@@ -123,8 +123,8 @@ def test_port_has_no_jax_imports():
 def test_engine_rejects_what_it_does_not_serve(models):
     from repro_torch.serving import Engine, RequestRejected
     _, _, _, cfg, _, params = models
-    with pytest.raises(NotImplementedError, match="paged"):
-        Engine(cfg, params, layout="paged")
+    with pytest.raises(NotImplementedError, match="queue A 14"):
+        Engine(cfg, params, layout="paged-sharded")
     with pytest.raises(NotImplementedError, match="greedily"):
         Engine(cfg, params, temperature=0.7)
     eng = Engine(cfg, params, n_slots=2, max_len=16)
