@@ -3,36 +3,48 @@
   python3 chip_smoke.py
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the build: the four kernels compiled for sm_90a from
-   ``src/repro_torch/kernels/csrc`` (seconds, ``-Xptxas -v`` lines);
-3. each kernel against its plain PyTorch version at the slice's shapes,
+2. the build: the five kernel sources compiled for sm_90a from
+   ``src/repro_torch/kernels/csrc`` (seconds, one ``-Xptxas -v`` line per
+   entry function);
+3. each kernel against its plain PyTorch version at the slices' shapes,
    in bf16, each timed (CUDA events, L2 flushed between launches) beside
    its plain version, a one-call library yardstick and its bound: the
    MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
    (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots
-   and M=256 for 8 slots x chunk 32 (masks and counters bit-equal,
-   products within the tolerance below); ``gqa_paged_flash`` at a
-   decode dispatch (8 slots x 1 row over ragged contexts up to 4,096
-   tokens, 512 pages of 8, null entries, a page shared by two slots, a
-   column-sliced table), a mixed dispatch (8 x 32 rows, contexts up to
-   96) and a small sliding-window case, on the rows that see a key;
-4. the references: a reduced float32 model served on the card must give
-   the CPU plain versions' tokens, telemetry and prefix counters, on the
-   slotted layout in kernel mode and on the paged layout (sliding window
-   16, so that prompts wrap the ring over shared pages: prefix hits,
-   skipped chunks and copy-on-write) in kernel mode;
-5. the slice: granite-3-2b at full width (all 40 layers, bf16, random
-   weights from a seed) is calibrated, then serves
+   and M=256 for 8 slots x chunk 32, and on the expert grid at
+   deepseek-v2-236b's widths (E=160 experts, d=5120, f=1536, capacity
+   C=8 and C=256, rows past each expert's count of a top-6 routing
+   forced dead) (masks and counters bit-equal, products within the
+   tolerance below); ``gqa_paged_flash`` at a decode dispatch (8 slots x
+   1 row over ragged contexts up to 4,096 tokens, 512 pages of 8, null
+   entries, a page shared by two slots, a column-sliced table), a mixed
+   dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
+   case, and ``mla_paged_flash`` at the same decode and mixed table
+   layouts with 128 heads, latent rank 512 and rope width 64, on the
+   rows that see a key;
+4. the references: reduced float32 models served on the card must give
+   the CPU plain versions' tokens, telemetry and prefix counters:
+   granite on the slotted layout and on the paged layout (sliding
+   window 16, so that prompts wrap the ring over shared pages: prefix
+   hits, skipped chunks and copy-on-write), and deepseek-v2 (MLA + MoE)
+   on the paged layout with per-expert budgets, all in kernel mode;
+5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
+   random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
      mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
-   - the main path, 12 requests of a 128-token shared prefix plus 8-64
-     unique tokens (two identical, of page-aligned length) through
+   - 12 requests of a 128-token shared prefix plus 8-64 unique tokens
+     (two identical, of page-aligned length) through
      ``Engine(layout="paged", mor_mode="kernel")``, then paged dense and
      slotted kernel on the same trace;
+6. this slice's main path: deepseek-v2-236b at its published widths,
+   cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
+   shared-prefix trace through ``Engine(layout="paged")`` in kernel,
+   tiled and dense mode, then a profiled pass of each;
    each counted path has its launch counters zeroed just before and
-   read just after: 40 x dispatches (x 2 for gather_matmul, 0 for
-   gqa_paged_flash on the slotted path);
-6. the JSON kernels line, then the last line
+   read just after: per dispatch one launch per layer of the predictor,
+   the down product and the layer's paged attention, two of
+   gather_matmul (an MoE layer launches each once for all its experts);
+7. the card line again, the JSON kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and no phase catches its own
@@ -87,12 +99,21 @@ def phase_card():
 
 
 def phase_build():
+    """Build the kernels; one line per compiled entry function with what
+    ``-Xptxas -v`` says of it (registers, shared memory, spills)."""
+    import re
     from repro_torch.kernels import build
     lib = build.build()
-    lines = [ln.strip() for ln in build.LAST_BUILD["log"].splitlines()
-             if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    for ln in lines:
-        print(f"[smoke] ptxas: {ln}", flush=True)
+    entry, spill = None, ""
+    for ln in build.LAST_BUILD["log"].splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            entry, spill = m.group(1), ""
+        elif entry and "spill" in ln:
+            spill = ln.split(",", 1)[-1].strip()
+        elif entry and "registers" in ln:
+            print(f"[smoke] ptxas: {entry[:48]}: "
+                  f"{ln.split(':', 1)[-1].strip()}; {spill}", flush=True)
     log("build", seconds=round(build.LAST_BUILD["seconds"], 2),
         library=Path(lib).name)
     build.load()
@@ -345,33 +366,286 @@ def kernel_paged(gen, flush):
     return row
 
 
+def _routing_rows(gen, T, E=160, k=6):
+    """(E,) routed-token counts and the (E, C=T) real-row mask of a top-k
+    routing of T tokens (the serving capacity C = T)."""
+    import torch
+    dev = "cuda"
+    scores = torch.rand((T, E), generator=gen, device=dev)
+    top = torch.topk(scores, k, dim=-1).indices
+    counts = torch.bincount(top.reshape(-1), minlength=E)
+    rows = torch.arange(T, device=dev)[None, :] < counts[:, None]
+    return counts, rows
+
+
+def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
+    import torch
+    from repro_torch.kernels import mor_predict as mp
+    dev = "cuda"
+    counts, rows = _routing_rows(gen, C, E)
+    x = torch.where(rows[..., None], torch.randn(
+        (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
+    w = (torch.randn((E, d, f), generator=gen, device=dev)
+         * d ** -0.5).bfloat16()
+    dead = (torch.arange(f, device=dev) // 128) % 2 == 1
+    coef = torch.stack([
+        torch.rand((E, f), generator=gen, device=dev) * 0.04 + 0.01,
+        torch.where(dead, -1e3, torch.randn((E, f), generator=gen,
+                                            device=dev)),
+        torch.rand((E, f), generator=gen, device=dev) + 0.5,
+        torch.randn((E, f), generator=gen, device=dev) * 0.1,
+        (dead | (torch.rand((E, f), generator=gen, device=dev) < 0.8)
+         ).float(),
+        torch.zeros((E, f), device=dev)], 1).contiguous()
+    pn = (torch.rand((E, C, f), generator=gen, device=dev) < 0.7).to(
+        torch.int8)
+    pn = torch.where(dead, torch.ones_like(pn), pn)
+    pn = torch.where(rows[..., None], pn, torch.full_like(pn, 2)).contiguous()
+    got = mp.mor_tile_mask(x, w, coef, pn)
+    want = mp.mor_tile_mask_plain(x, w, coef, pn)
+    torch.cuda.synchronize()
+    diff = int((got != want).sum())
+    assert diff == 0, f"mor_tile_mask (experts): {diff} mask bits differ"
+    live = float(want.float().mean())
+    assert 0.0 < live < 1.0, live
+    ms = _timer(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
+    plain_ms = _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
+    # what these inputs need: every proxy state (the early exit reads
+    # them), and for each expert holding a token its rows of x, its
+    # whole gate weight and its coef table; the tile bits out
+    busy = int((counts > 0).sum())
+    row_blocks = int((-(-counts // 8)).sum())
+    nbytes = (E * C * f + busy * (d * f * 2 + 6 * f * 4)
+              + row_blocks * 8 * d * 2 + E * (C // 8) * (f // 128) * 4)
+    bound_ms, by = _bound(nbytes, row_blocks * 8 * 2 * d * f, "int8")
+    return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
+            "E": E, "C": C, "experts_with_tokens": busy, "frac_live": live}
+
+
+def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
+    import torch
+    from repro_torch.kernels import gather_matmul as gm
+    dev = "cuda"
+    counts, rows = _routing_rows(gen, C, E)
+    x = torch.where(rows[..., None], torch.randn(
+        (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
+    w = (torch.randn((E, d, f), generator=gen, device=dev)
+         * d ** -0.5).bfloat16()
+    nm, nn = C // 8, f // 128
+    rb_live = rows.reshape(E, nm, 8).any(-1)
+    mask = rb_live[..., None] & (torch.rand((E, nm, nn), generator=gen,
+                                            device=dev) < 0.7)
+    cap = nm * nn
+    # per-expert calibrated budgets: half of the experts at 0.5
+    cap_live = torch.where(torch.arange(E, device=dev) % 2 == 1,
+                           max(1, nm * nn // 2), cap).int()
+    got, gl, gc = gm.gather_matmul(x, w, mask, capacity=cap,
+                                   cap_live=cap_live)
+    want, wl, wc = gm.gather_matmul_plain(x, w, mask, capacity=cap,
+                                          cap_live=cap_live)
+    torch.cuda.synchronize()
+    assert torch.equal(gl, wl) and torch.equal(gc, wc), "counters differ"
+    err = _close(got, want)
+    ms = _timer(lambda: gm.gather_matmul(x, w, mask, capacity=cap,
+                                         cap_live=cap_live), flush)
+    plain_ms = _timer(lambda: gm.gather_matmul_plain(
+        x, w, mask, capacity=cap, cap_live=cap_live), flush)
+    lib_ms = _timer(lambda: torch.bmm(x, w), flush)
+    flat = mask.reshape(E, -1)
+    lim = torch.clamp(cap_live, min=1, max=cap)[:, None]
+    kept = (flat & (torch.cumsum(flat, -1) - 1 < lim)).reshape(E, nm, nn)
+    n_comp = int(kept.sum())
+    cols = int(kept.any(1).sum())
+    rblocks = int(kept.any(2).sum())
+    nbytes = cols * d * 128 * 2 + rblocks * 8 * d * 2 + E * C * f * 2
+    bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * d, "bf16")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "E": E, "C": C, "tiles_computed": n_comp,
+            "tiles_live": int(wl.sum())}
+
+
+def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
+    import torch
+    from repro_torch.kernels import masked_matmul as mm
+    dev = "cuda"
+    counts, rows = _routing_rows(gen, C, E)
+    nm, nk = C // 8, f // 128
+    rb_live = rows.reshape(E, nm, 8).any(-1)
+    mask = rb_live[..., None] & (torch.rand((E, nm, nk), generator=gen,
+                                            device=dev) < 0.6)
+    keep = mask.repeat_interleave(8, 1).repeat_interleave(128, 2)
+    keep = keep & rows[..., None]
+    h = torch.where(keep, torch.randn((E, C, f), generator=gen, device=dev),
+                    0.0).bfloat16()
+    w = (torch.randn((E, f, d), generator=gen, device=dev)
+         * f ** -0.5).bfloat16()
+    got = mm.masked_matmul_kdim(h, w, mask)
+    want = mm.masked_matmul_kdim_plain(h, w, mask)
+    torch.cuda.synchronize()
+    err = _close(got, want)
+    ms = _timer(lambda: mm.masked_matmul_kdim(h, w, mask), flush)
+    plain_ms = _timer(lambda: mm.masked_matmul_kdim_plain(h, w, mask),
+                      flush)
+    lib_ms = _timer(lambda: torch.bmm(h, w), flush)
+    n_pairs = int(mask.sum())
+    k_live = int(mask.any(1).sum())
+    nbytes = n_pairs * 8 * 128 * 2 + k_live * 128 * d * 2 + E * C * d * 2
+    bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * d, "bf16")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+            "E": E, "C": C}
+
+
+def _mla_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, h=128,
+                kr=512, rd=64):
+    """The latent pools holding slot b's first ``ctx[b]`` positions, with
+    the table layout of ``_paged_inputs`` (null entries, a shared page,
+    a column-sliced table)."""
+    import torch
+    B, dev = len(ctx), "cuda"
+    n_live = [-(-c // page) for c in ctx]
+    n_pages = 1 + sum(n_live)
+    ck = torch.randn((n_pages, page, kr), generator=gen,
+                     device=dev).bfloat16()
+    cpe = torch.randn((n_pages, page, rd), generator=gen,
+                      device=dev).bfloat16()
+    pp = torch.full((n_pages, page), -1, dtype=torch.int32, device=dev)
+    wide = torch.zeros((B, W + extra_cols), dtype=torch.int32, device=dev)
+    nxt = 1
+    for b, (c, n) in enumerate(zip(ctx, n_live)):
+        ids = torch.arange(nxt, nxt + n, dtype=torch.int32, device=dev)
+        wide[b, :n] = ids
+        rows = torch.arange(n * page, device=dev).reshape(n, page)
+        pp[ids.long()] = torch.where(rows < c, rows, -1).int()
+        nxt += n
+    wide[1, 0] = wide[0, 0]
+    for b in range(1, B):
+        cols = torch.randperm(n_live[b], generator=gen, device=dev)[:n_null]
+        wide[b, cols] = 0
+    qpos = (torch.tensor(ctx, device=dev)[:, None] - C
+            + torch.arange(C, device=dev)[None, :]).int()
+    # latent queries of the magnitude W_uk gives: unit rows / sqrt(kr)
+    q_lat = (torch.randn((B, C, h, kr), generator=gen, device=dev)
+             * kr ** -0.25).bfloat16()
+    q_pe = torch.randn((B, C, h, rd), generator=gen, device=dev).bfloat16()
+    return q_lat, q_pe, ck, cpe, pp, wide[:, :W], qpos
+
+
+def mla_case(gen, flush, ctx, C, W, n_null=0, time_it=True):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import paged_attention as pa
+    q_lat, q_pe, ck, cpe, pp, tbl, qpos = _mla_inputs(gen, ctx, C, W,
+                                                      n_null=n_null)
+    assert not tbl.is_contiguous()
+    B, _, h, kr = q_lat.shape
+    rd, page = q_pe.shape[-1], ck.shape[1]
+    scale = (128 + rd) ** -0.5                 # (qk_nope + qk_rope)^-1/2
+    args = (q_lat, q_pe, ck, cpe, pp, tbl, qpos)
+    got = pa.mla_paged_flash(*args, scale=scale)
+    want = pa.mla_paged_flash_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    live = tbl > 0
+    gp = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    ok = (gp[:, None, :] >= 0) & (gp[:, None, :] <= qpos[:, :, None])
+    seen = ok.any(-1)
+    assert bool(seen.all()), "every query row sees a key here"
+    err = _close(got[seen], want[seen])
+    r = {"max_abs_err": err, "B": B, "C": C, "W": W}
+    if not time_it:
+        return r
+    # library yardstick: one SDPA call over the pre-gathered latents,
+    # q = [q_lat, q_pe], k = [c_kv, k_pe] and v = c_kv, the one latent
+    # "head" broadcast to the h query heads, the same boolean mask
+    gk = torch.where(live[..., None, None], ck[tbl.long()], 0).reshape(
+        B, 1, -1, kr)
+    ge = torch.where(live[..., None, None], cpe[tbl.long()], 0).reshape(
+        B, 1, -1, rd)
+    kk = torch.cat([gk, ge], -1).expand(B, h, -1, kr + rd)
+    vv = gk.expand(B, h, -1, kr)
+    qq = torch.cat([q_lat, q_pe], -1).transpose(1, 2).contiguous()
+    mask = ok[:, None]
+    r["ms"] = _timer(lambda: pa.mla_paged_flash(*args, scale=scale), flush)
+    r["plain_ms"] = _timer(lambda: pa.mla_paged_flash_plain(
+        *args, scale=scale), flush)
+    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, scale=scale), flush)
+    # bytes: every distinct live page's latent and rope rows and tags
+    # once, q and the output once, the table and qpos; operations: the
+    # scores (kr + rd) and the latent accumulation (kr), 2 flops each,
+    # for every (query row, head, key) pair the masks let through
+    n_pages = int(torch.unique(tbl[live]).numel())
+    nbytes = (n_pages * page * ((kr + rd) * 2 + 4)
+              + (q_lat.numel() + q_pe.numel() + q_lat.numel()) * 2
+              + tbl.numel() * 4 + qpos.numel() * 4)
+    pairs = int(ok.sum()) * h
+    r["bound_ms"], r["bound_by"] = _bound(nbytes,
+                                          pairs * 2 * (2 * kr + rd), "bf16")
+    r["live_pages"] = n_pages
+    return r
+
+
+def kernel_mla(gen, flush):
+    """-> the mla_paged_flash row: decode and mixed dispatches at
+    deepseek-v2-236b's widths, timed."""
+    import torch
+    g = torch.Generator().manual_seed(SEED + 1)
+    decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
+    mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
+    cases = {"decode": mla_case(gen, flush, decode_ctx, 1, 512, n_null=5),
+             "mixed": mla_case(gen, flush, mixed_ctx, 32, 12, n_null=1)}
+    for name, r in cases.items():
+        log("kernel", name="mla_paged_flash", case=name,
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+    return {"name": "mla_paged_flash", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:302",
+            **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"])}
+
+
 KERNELS = [
     ("mor_tile_mask", "src/repro_torch/kernels/csrc/mor_predict.cu",
-     "src/repro/kernels/mor_predict.py:76", kernel_case_mor),
+     "src/repro/kernels/mor_predict.py:76", kernel_case_mor,
+     expert_case_mor),
     ("gather_matmul", "src/repro_torch/kernels/csrc/gather_matmul.cu",
-     "src/repro/kernels/gather_matmul.py:58", kernel_case_gather),
+     "src/repro/kernels/gather_matmul.py:58", kernel_case_gather,
+     expert_case_gather),
     ("masked_matmul_kdim", "src/repro_torch/kernels/csrc/masked_matmul.cu",
-     "src/repro/kernels/masked_matmul.py:104", kernel_case_kdim),
+     "src/repro/kernels/masked_matmul.py:104", kernel_case_kdim,
+     expert_case_kdim),
 ]
 
 
 def phase_kernels():
+    """-> {kernel: row}: each MoR kernel at granite's widths (M = 8 and
+    256) and on the expert grid at deepseek-v2-236b's (E = 160, C = 8
+    and 256), then the two paged attentions."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows = {}
-    for name, source, replaces, case in KERNELS:
-        per_m = {}
+    for name, source, replaces, case, expert_case in KERNELS:
+        per = {}
         for M in (8, 256):
-            r = case(M, gen, flush)
-            per_m[M] = r
+            per[f"m{M}"] = r = case(M, gen, flush)
             log("kernel", name=name, M=M,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
+        for C in (8, 256):
+            per[f"experts_c{C}"] = r = expert_case(C, gen, flush)
+            log("kernel", name=name, grid="experts",
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+            torch.cuda.empty_cache()
         rows[name] = {"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, **_fields(per_m[8]),
-                      "at_m256": _fields(per_m[256])}
+                      "replaces": replaces, **_fields(per["m8"]),
+                      **{f"at_{k}": _fields(v) for k, v in per.items()
+                         if k != "m8"}}
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
+    rows["mla_paged_flash"] = kernel_mla(gen, flush)
     if torch.cuda.get_device_name(0).find("H100") < 0:
         log("kernel", note="bounds use the H100 SXM's published rates")
     return rows
@@ -443,6 +717,57 @@ def phase_reference():
                                   "pages_cowed") if k in pc})
 
 
+def reference_deepseek():
+    """Reduced float32 deepseek-v2 (MLA + MoE; its experts widened to
+    moe_d_ff 256, two column tiles, of which ``calibrate_moe``'s
+    injection makes the trailing one dead) served in kernel mode through
+    the paged engine with prefix caching and per-expert budgets, on the
+    card (CUDA kernels, the expert grid) and on the CPU (the plain
+    versions): the same tokens, the same (L, E) tile fractions and the
+    same prefix counters."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.deploy import calibrate_moe
+    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine
+    cfg = reduce_config(get_config("deepseek-v2-236b")).replace(moe_d_ff=256)
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(SEED), cfg)
+    params, mor, _ = calibrate_moe(params, cfg, api.forward,
+                                   calib_batches(cfg, 4, "cpu"), 2,
+                                   inject_dead_frac=0.5)
+    reqs = make_trace(cfg, 6, 4, 16, 6, 6, SEED, shared_prefix=16)
+    reqs.append((reqs[0][0].copy(), 6))
+    E = cfg.n_experts
+    caps = {"dense_mor_stats": 0.5,
+            "moe_mor_stats": np.linspace(0.25, 1.0, E)[None]}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, _to(params, dev), mor=_to(mor, dev),
+                     mor_mode="kernel", n_slots=4, max_len=48,
+                     capacities=caps)
+        out[dev] = (eng.run(list(reqs)), eng.telemetry.summary())
+    assert out["cuda"][0] == out["cpu"][0], \
+        "deepseek: card and CPU tokens differ"
+    assert out["cuda"][1] == out["cpu"][1], \
+        "deepseek: card and CPU telemetry differ"
+    tel = out["cuda"][1]
+    pc = tel["prefix_cache"]
+    assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0, pc
+    moe = np.asarray(tel["moe_mor_stats"]["frac_tiles_computed"])
+    assert moe.shape == (cfg.n_layers - cfg.first_k_dense, E)
+    assert float(moe.max()) < 1.0, moe
+    log("reference", model="deepseek-v2-236b reduced f32 paged (moe_d_ff "
+        "256)", requests=len(reqs), tokens_equal=True,
+        telemetry_equal=True,
+        moe_frac_tiles_computed=np.round(moe, 4).tolist(),
+        dense_frac_tiles_computed=np.round(tel["dense_mor_stats"][
+            "frac_tiles_computed"], 4).tolist(),
+        **{k: pc[k] for k in ("prefix_hits", "chunks_skipped")})
+
+
 def _serve(cfg, params, mor, mode, reqs, capacities=None, **engine_kw):
     """One counted pass, then one timed pass; -> (tokens, report, engine)."""
     import torch
@@ -489,13 +814,13 @@ def _profile(eng, reqs):
             for e in prof.key_averages() if e.self_device_time_total > 0]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    paged = sum(us for key, us, _ in rows if "gqa_paged" in key)
-    tag = f"{eng.layout}-{eng.mor_mode}"
+    paged = sum(us for key, us, _ in rows if "paged_kernel" in key)
+    tag = f"{eng.cfg.name}-{eng.layout}-{eng.mor_mode}"
     log("profile", path=tag, dispatches=eng.counters["dispatches"],
         wall_ms=round(wall_us / 1e3, 2), device_busy_ms=round(busy / 1e3, 2),
         idle_share=round(1 - busy / wall_us, 4) if busy else "not measured",
-        gqa_paged_flash_share=round(paged / busy, 4) if busy else 0.0)
-    for key, us, n in rows[:12]:
+        paged_attention_share=round(paged / busy, 4) if busy else 0.0)
+    for key, us, n in rows[:8]:
         log("profile", path=tag, kernel=repr(key[:60]),
             ms=round(us / 1e3, 3), calls=n, share=round(us / busy, 4))
 
@@ -513,19 +838,28 @@ def _counted(fn):
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import mor_predict as mp
     from repro_torch.kernels import paged_attention as pa
-    mods = {"mor_tile_mask": mp, "gather_matmul": gm,
-            "masked_matmul_kdim": mm, "gqa_paged_flash": pa}
-    for m in mods.values():
-        m.launches = 0
+    counters = {"mor_tile_mask": (mp, "launches"),
+                "gather_matmul": (gm, "launches"),
+                "masked_matmul_kdim": (mm, "launches"),
+                "gqa_paged_flash": (pa, "launches"),
+                "mla_paged_flash": (pa, "mla_launches")}
+    for m, attr in counters.values():
+        setattr(m, attr, 0)
     out = fn()
-    return out, {k: m.launches for k, m in mods.items()}
+    return out, {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
 
-def _want_launches(L, dispatches, paged):
+def _want_launches(L, dispatches, paged, mla=False):
+    """Per dispatch: every layer's FFN launches the predictor, two
+    compacted products (gate, up) and the down product once (a MoE
+    layer once for all its experts: the expert grid), and its attention
+    the paged kernel of its kind on the paged layout."""
+    attn = L * dispatches if paged else 0
     return {"mor_tile_mask": L * dispatches,
             "gather_matmul": 2 * L * dispatches,
             "masked_matmul_kdim": L * dispatches,
-            "gqa_paged_flash": L * dispatches if paged else 0}
+            "gqa_paged_flash": 0 if mla else attn,
+            "mla_paged_flash": attn if mla else 0}
 
 
 def _check_tokens(cfg, reqs, toks):
@@ -665,6 +999,95 @@ def phase_slice():
     return launches
 
 
+def slice_deepseek():
+    """This slice's main path: deepseek-v2-236b at its published widths,
+    cut to 3 layers (layer 0 dense, layers 1-2 MoE), calibrated with
+    ``calibrate_moe``, serves the shared-prefix trace through
+    ``Engine(layout="paged")`` with prefix caching in kernel mode
+    (counted: per dispatch 3 launches of mla_paged_flash, mor_tile_mask
+    and masked_matmul_kdim, 6 of gather_matmul), then in tiled and dense
+    mode, each held to greedy agreement with kernel mode, then one
+    profiled pass of each.  -> the kernel-mode launch counts."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import calibrate_moe
+    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.models import get_model
+    cfg = get_config("deepseek-v2-236b").replace(n_layers=3)
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for v in _leaves(params))
+    log("slice", model=cfg.name, layers=cfg.n_layers,
+        depth_cut="60 -> 3 (layer 0 dense, layers 1-2 MoE)",
+        d_model=cfg.d_model, heads=cfg.n_heads, experts=cfg.n_experts,
+        top_k=cfg.top_k, moe_d_ff=cfg.moe_d_ff, dtype=cfg.dtype,
+        params=n_params,
+        param_gb=round(sum(v.numel() * v.element_size()
+                           for v in _leaves(params)) / 1e9, 2),
+        init_s=round(time.perf_counter() - t0, 2))
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate_moe(params, cfg, api.forward,
+                                     calib_batches(cfg, 8, "cuda"), 4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
+                                                   2),
+        **{k: round(v, 4) for k, v in cal.items()})
+    reqs = make_trace(cfg, 12, 8, 64, 16, 16, SEED, shared_prefix=128)
+    aligned = reqs[0][0][:len(reqs[0][0]) // 8 * 8]
+    reqs[0] = (aligned, 16)
+    reqs[11] = (aligned.copy(), 16)
+    (tok_k, rep_k, eng_k), launches = _counted(
+        lambda: _serve(cfg, params, mor, "kernel", reqs))
+    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    want = _want_launches(cfg.n_layers, counted, paged=True, mla=True)
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    pc = rep_k["prefix_cache"]
+    assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0, pc
+    tel = rep_k["telemetry"]
+    moe = np.asarray(tel["moe_mor_stats"]["frac_tiles_computed"])
+    assert moe.shape == (cfg.n_layers - cfg.first_k_dense, cfg.n_experts)
+    assert np.all(np.isfinite(moe))
+    log("slice", path="deepseek paged", mode="kernel",
+        dispatches=rep_k["dispatches"],
+        first_pass_dispatches=rep_k["first_pass_dispatches"],
+        launches=json.dumps(launches),
+        launches_per_dispatch=json.dumps(
+            {k: v / counted for k, v in launches.items()}),
+        dense_frac_tiles_computed=np.round(tel["dense_mor_stats"][
+            "frac_tiles_computed"], 4).tolist(),
+        moe_frac_tiles_computed_mean=np.round(moe.mean(1), 4).tolist(),
+        prefix=json.dumps({k: pc[k] for k in (
+            "hit_rate", "prefix_hits", "prefix_queries", "pages_shared",
+            "chunks_skipped", "tokens_skipped", "pages_cowed",
+            "pages_evicted")}))
+    tok_t, rep_t, eng_t = _serve(cfg, params, mor, "tiled", reqs)
+    tok_d, rep_d, eng_d = _serve(cfg, params, None, "dense", reqs)
+    agree_t, agree_d = _agree(tok_k, tok_t), _agree(tok_k, tok_d)
+    for name, rep in (("kernel", rep_k), ("tiled", rep_t),
+                      ("dense", rep_d)):
+        log("slice", path="deepseek paged", trace="shared-prefix",
+            mode=name, tok_s=round(rep["tokens_per_s"], 2),
+            decode_tok_s=round(rep["decode_tokens"] / rep["pass_s"], 2),
+            pass_s=round(rep["pass_s"], 3), dispatches=rep["dispatches"],
+            prefill_tokens=rep["prefill_tokens"],
+            decode_tokens=rep["decode_tokens"],
+            repeat_agreement=round(rep["repeat_agreement"], 4))
+    log("slice", path="deepseek paged", agreement_kernel_vs_tiled=round(
+        agree_t, 4), agreement_kernel_vs_dense=round(agree_d, 4))
+    assert agree_t >= AGREE_MIN and agree_d >= AGREE_MIN, (agree_t, agree_d)
+    # profiled last, so that the profiler cannot touch the timings above
+    for eng in (eng_k, eng_t, eng_d):
+        _profile(eng, reqs)
+    log("slice", model=cfg.name, peak_mem_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 2))
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -683,14 +1106,24 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    phase_card()
+    smi = phase_card()
     phase_build()
     rows = phase_kernels()
     phase_reference()
-    launches = phase_slice()
-    for name, n in launches.items():
-        rows[name]["launches"] = n
+    reference_deepseek()
+    granite = phase_slice()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    deepseek = slice_deepseek()
+    # "launches": this slice's main path (deepseek paged); the paged
+    # GQA kernel runs on the granite paged path only
+    for name, row in rows.items():
+        row["launches"] = (granite if name == "gqa_paged_flash"
+                           else deepseek)[name]
+        row["launches_by_path"] = {"deepseek_paged": deepseek[name],
+                                   "granite_paged": granite[name]}
     log("done", seconds=round(time.perf_counter() - t0, 1))
+    print(smi, flush=True)                # every number above is this card's
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

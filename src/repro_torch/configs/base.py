@@ -170,10 +170,12 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """Dense-family subset of ``repro.configs.base.reduce_config``."""
-    if cfg.family != "dense" or cfg.mla or cfg.sliding_window:
+    """The dense, MoE and MLA branches of ``repro.configs.base.
+    reduce_config``: the same family at tiny widths."""
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only plain dense GQA configs are ported so far")
+            f"{cfg.name} ({cfg.family}): only the dense and moe families "
+            f"are ported so far")
     kw: Dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
@@ -186,5 +188,14 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
     )
     if cfg.n_heads:
         kw.update(n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) or 1, d_head=32)
+    if cfg.family == "moe":
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2),
+                  n_shared_experts=min(cfg.n_shared_experts, 1),
+                  moe_d_ff=64, first_k_dense=min(cfg.first_k_dense, 1))
+    if cfg.mla:
+        kw.update(kv_lora_rank=32, q_lora_rank=48, qk_nope_head_dim=16,
+                  qk_rope_head_dim=8, v_head_dim=16, d_head=24)
+    if cfg.sliding_window:
+        kw.update(sliding_window=16)
     kw.setdefault("serve_chunk", 8)
     return cfg.replace(**kw)

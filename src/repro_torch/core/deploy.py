@@ -21,29 +21,53 @@ from repro_torch.core.clustering import cluster_layer
 from repro_torch.core.executor import MoRExecutionPlan
 from repro_torch.core.policy import build_mor_layer
 
+# calibrate_moe's dead-column injection, in observed pre-activation
+# sigmas (the JAX package's default ``inject_scale``)
+INJECT_SCALE = 4.0
+
 
 def attach_plans(mor, cfg: ModelConfig, mode: str,
                  capacities: Optional[Dict] = None):
     """Wrap calibrated layer-stacked MoR groups ({group -> stacked
-    MoRLayer}) in execution plans carrying the mode, tile geometry and
-    capacity from ``cfg.mor``.  ``capacities`` ({group -> (L,) fractions
-    or a scalar}) attaches per-layer calibrated budgets as ``cap_live``;
-    a scalar applies to every layer."""
+    MoRLayer}, or for a MoE model's expert group {"experts": (L, E)-
+    stacked MoRLayer}) in execution plans carrying the mode, tile
+    geometry and capacity from ``cfg.mor``.  ``capacities`` ({group ->
+    (L,) or (L, E) fractions, or a scalar}) attaches the calibrated
+    budgets as ``cap_live``: host floats for a dense group, and for the
+    expert group one (L, E) float32 tensor on the MoR tree's device,
+    uploaded here once so that no dispatch uploads a budget."""
     if mor is None or mode == "dense":
         return mor
     caps = capacities or {}
 
-    def wrap(layer, cap):
-        if layer is None:
-            return None
-        cap_live = None
-        if cap is not None:
-            cap_live = np.broadcast_to(np.asarray(cap, np.float32),
-                                       tuple(layer["m"].shape[:1]))
+    def plan(layer, cap_live):
         return MoRExecutionPlan(layer, mode=mode, tile_m=cfg.mor.tile_m,
                                 tile_n=cfg.mor.tile_n,
                                 capacity_frac=cfg.mor.capacity,
                                 cap_live=cap_live)
+
+    def wrap(layer, cap):
+        if layer is None:
+            return None
+        if "experts" in layer:
+            inner = layer["experts"]
+            if isinstance(inner, MoRExecutionPlan):
+                inner = inner.mor
+            if inner is None:
+                return {"experts": None}
+            cap_live = None
+            if cap is not None:
+                lead = tuple(inner["m"].shape[:-1])          # (L, E)
+                c = np.asarray(cap, np.float32)
+                c = np.broadcast_to(c.reshape(lead) if c.ndim else c, lead)
+                cap_live = torch.tensor(np.array(c),
+                                        device=inner["m"].device)
+            return {"experts": plan(inner, cap_live)}
+        cap_live = None
+        if cap is not None:
+            cap_live = np.broadcast_to(np.asarray(cap, np.float32),
+                                       tuple(layer["m"].shape[:1]))
+        return plan(layer, cap_live)
 
     return {k: wrap(v, caps.get(k)) for k, v in mor.items()}
 
@@ -106,3 +130,150 @@ def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
         "enabled_frac": float(mor_stack["enable"].float().mean()),
     }
     return new_params, {layer_key: mor_stack}, report
+
+
+def calibrate_moe(params: Dict, cfg: ModelConfig, forward: Callable,
+                  batches: Iterator[Dict], n_batches: int, *,
+                  cluster_experts: bool = True,
+                  inject_dead_frac: float = 0.0) -> Tuple[Dict, Dict, Dict]:
+    """Calibrate a layer-stacked MoE LM (``repro.core.deploy.
+    calibrate_moe``).
+
+    The leading dense layers get the ``calibrate_lm`` treatment; every
+    (layer, expert) FFN gets its own hybrid predictor fitted from
+    routing-independent taps (``moe_taps``: each expert is evaluated
+    over the full token stream its dispatch subsamples).
+    ``cluster_experts=False`` builds binary-rookie-only expert layers
+    (identity permutation, no proxies).  ``inject_dead_frac`` > 0 folds
+    a bias of -``INJECT_SCALE`` observed pre-activation sigmas into the
+    trailing fraction of each expert's (permuted) columns, emulating a
+    trained model's column-skewed ReLU sparsity on random weights.
+
+    The permutations are applied on the weights' device, one expert at
+    a time: a host float32 copy of one full-width MoE layer's experts
+    would be 15 GB.  ``params`` itself is left as it was.
+
+    -> (params with permuted weights, {"dense_layers"?: stacked MoRLayer,
+        "moe_layers": {"experts": (L_moe, E)-stacked MoRLayer}}, report).
+    """
+    if cfg.family != "moe":
+        raise ValueError(f"calibrate_moe needs a moe config, got "
+                         f"{cfg.family!r}")
+    L_d = cfg.first_k_dense
+    L_m = cfg.n_layers - L_d
+    E = cfg.n_experts
+    f = cfg.moe_d_ff or cfg.d_ff
+    moe_p = params["moe_layers"]["moe"]
+    w_stack = moe_p.get("w_gate", moe_p["w_up"])           # (L_m, E, d, f)
+    device = w_stack.device
+
+    acc_e = init_accumulator((L_m, E, f), device)
+    acc_d = None
+    if L_d:
+        mlp_d = params["dense_layers"]["mlp"]
+        N_d = mlp_d.get("w_gate", mlp_d["w_up"]).shape[-1]
+        acc_d = init_accumulator((L_d, N_d), device)
+    seen = 0
+    with torch.no_grad():
+        for batch in batches:
+            aux = forward(params, cfg, batch, with_taps=True)[1]
+            taps = aux.pop("taps")                    # (L_m, E, T, f)
+            acc_e = update_accumulator(acc_e, taps["p_bin"],
+                                       taps["p_base"])
+            del taps
+            if L_d:
+                dt_ = aux["dense_taps"]
+                acc_d = update_accumulator(acc_d, dt_["p_bin"],
+                                           dt_["p_base"])
+            del aux
+            seen += 1
+            if seen >= n_batches:
+                break
+    m, b, c = (t.cpu().numpy() for t in finalize_regression(acc_e))
+    # observed per-column base pre-activation sigma (for the injection)
+    n = np.maximum(acc_e["count"].cpu().numpy(), 1.0)[..., None]
+    sig = np.sqrt(np.maximum(acc_e["syy"].cpu().numpy() / n
+                             - (acc_e["sy"].cpu().numpy() / n) ** 2, 0.0))
+
+    tn = min(cfg.mor.tile_n, f)
+    n_dead = 0
+    if inject_dead_frac > 0:
+        # whole trailing column tiles, so that deadness is tile-resolvable
+        n_dead = max(int(inject_dead_frac * f) // tn * tn, tn)
+        n_dead = min(n_dead, f - tn)              # keep a live leading tile
+
+    moe_new = dict(moe_p)
+    if cluster_experts:
+        for key in ("w_gate", "w_up", "w_down"):
+            if key in moe_p:
+                moe_new[key] = moe_p[key].clone()
+    layer_stacks = []
+    for l in range(L_m):
+        per_expert = []
+        for e in range(E):
+            cl = (cluster_layer(w_stack[l, e], cfg.mor.max_cluster_angle)
+                  if cluster_experts else None)
+            ml = build_mor_layer(m[l, e], b[l, e], c[l, e], cl, cfg.mor,
+                                 device)
+            if cluster_experts:
+                perm = ml["perm"].long()
+                for key in ("w_gate", "w_up"):
+                    if key in moe_new:
+                        moe_new[key][l, e] = moe_new[key][l, e].index_select(
+                            1, perm)
+                moe_new["w_down"][l, e] = moe_new["w_down"][l, e
+                                                           ].index_select(
+                    0, perm)
+            if n_dead:
+                perm_np = ml["perm"].cpu().numpy()
+                bias = ml["bn_bias"].cpu().numpy().copy()
+                bias[f - n_dead:] -= INJECT_SCALE * sig[l, e][perm_np][
+                    f - n_dead:]
+                ml["bn_bias"] = torch.as_tensor(bias.astype(np.float32),
+                                                device=device)
+                # a column whose folded bias exceeds its dynamic range is
+                # statically dead: enabling its rookie is always safe
+                en = ml["enable"].clone()
+                en[f - n_dead:] = True
+                ml["enable"] = en
+            per_expert.append(ml)
+        layer_stacks.append({k: torch.stack([ml[k] for ml in per_expert])
+                             for k in per_expert[0]})
+    experts = {k: torch.stack([ls[k] for ls in layer_stacks])
+               for k in layer_stacks[0]}                  # (L_m, E, ...)
+    new_params = dict(params)
+    new_params["moe_layers"] = dict(params["moe_layers"], moe=moe_new)
+
+    mor: Dict = {"moe_layers": {"experts": experts}}
+    report = {
+        "pearson_mean": float(c.mean()),
+        "pearson_frac_above_T": float((c > cfg.mor.corr_threshold).mean()),
+        "enabled_frac": float(experts["enable"].float().mean()),
+        "injected_dead_cols": int(n_dead),
+    }
+
+    if L_d:
+        md, bd, cd = (t.cpu().numpy() for t in finalize_regression(acc_d))
+        lp = params["dense_layers"]
+        wd = lp["mlp"].get("w_gate", lp["mlp"]["w_up"])
+        dense_layers = [build_mor_layer(
+            md[l], bd[l], cd[l],
+            cluster_layer(wd[l], cfg.mor.max_cluster_angle), cfg.mor,
+            device) for l in range(L_d)]
+        dense_stack = {k: torch.stack([ml[k] for ml in dense_layers])
+                       for k in dense_layers[0]}
+        perm = dense_stack["perm"].long()
+
+        def permute_stack(w, axis):
+            return torch.stack([w[l].index_select(axis, perm[l])
+                                for l in range(L_d)])
+
+        mlp = dict(lp["mlp"])
+        if "w_gate" in mlp:
+            mlp["w_gate"] = permute_stack(mlp["w_gate"], 1)
+        mlp["w_up"] = permute_stack(mlp["w_up"], 1)
+        mlp["w_down"] = permute_stack(mlp["w_down"], 0)
+        new_params["dense_layers"] = dict(lp, mlp=mlp)
+        mor["dense_layers"] = dense_stack
+        report["dense_pearson_mean"] = float(cd.mean())
+    return new_params, mor, report

@@ -16,7 +16,10 @@ Modes:
 A plan holds a MoRLayer (possibly layer-stacked) and static knobs.  The
 calibrated per-layer budget ``cap_live`` is a HOST float (or an (L,)
 array): PyTorch does not retrace, so a host value is what keeps the
-kernels' slot budgets free of device syncs.
+kernels' slot budgets free of device syncs.  An expert plan (MoE) holds
+an (E,)-stacked MoRLayer per layer and runs ``expert_ffn``: the same
+body with the expert axis written out where the JAX package vmaps, its
+per-expert budget an (E,) float32 device tensor.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.predictor import MoRLayer, hybrid_predict
+from repro_torch.core.predictor import (MoRLayer, cols, hybrid_predict,
+                                        proxy_relu_in)
 from repro_torch.core.policy import (expand_tile_mask,
                                      tile_mask_from_neuron_mask)
 
@@ -58,7 +62,9 @@ class MoRPrediction:
     ``computed``: (T, N) bool neuron mask, or None in kernel mode.
     ``tiles``: (T/tile_m, N/tile_n) bool tile-liveness mask.
     ``kept``: tiles actually computed under the capacity budget.
-    ``kernel_counts``: (n_live, n_computed) from ``gather_matmul``."""
+    ``kernel_counts``: (n_live, n_computed) from ``gather_matmul``.
+    An expert stack puts a leading E dim on each, and its stats are
+    (E,)-shaped."""
 
     __slots__ = ("computed", "tiles", "kept", "kernel_counts")
 
@@ -73,29 +79,31 @@ class MoRPrediction:
         return expand_tile_mask(self.kept, tile_m, tile_n, T, N)
 
     def stats(self) -> Dict[str, torch.Tensor]:
-        n_tiles = float(self.tiles.numel())
+        lead = self.tiles.shape[:-2]
+        dev = self.tiles.device
+        n_tiles = float(self.tiles.shape[-2] * self.tiles.shape[-1])
         if self.kernel_counts is not None:
             n_live, n_comp = self.kernel_counts
             tiles_live = n_live.float() / n_tiles
             tiles_computed = n_comp.float() / n_tiles
             n_computed = n_comp.int()
         else:
-            tiles_live = self.tiles.float().mean()
-            tiles_computed = self.kept.float().mean()
-            n_computed = self.kept.sum(dtype=torch.int32)
+            tiles_live = self.tiles.float().mean((-2, -1))
+            tiles_computed = self.kept.float().mean((-2, -1))
+            n_computed = self.kept.sum((-2, -1), dtype=torch.int32)
         if self.computed is not None:
-            frac_computed = self.computed.float().mean()
+            frac_computed = self.computed.float().mean((-2, -1))
         else:
             # kernel mode: the neuron mask never exists; report the
             # tile-level compute fraction (its tight upper bound)
             frac_computed = tiles_live
-        n_tiles_i = torch.full((), int(n_tiles), dtype=torch.int32,
-                               device=self.tiles.device)
+        n_tiles_i = torch.full(lead, int(n_tiles), dtype=torch.int32,
+                               device=dev)
         return {"frac_computed": frac_computed,
                 "frac_tiles_live": tiles_live,
                 "frac_tiles_computed": tiles_computed,
                 "frac_mispredicted_zero": torch.zeros(
-                    (), dtype=torch.float32, device=self.tiles.device),
+                    lead, dtype=torch.float32, device=dev),
                 "n_tiles": n_tiles_i,
                 "tiles_skipped": n_tiles_i - n_computed}
 
@@ -104,8 +112,9 @@ class MoRExecutionPlan:
     """Per-layer MoR execution plan.
 
     ``capacity_frac`` (static) provisions the gather_matmul slot list;
-    ``cap_live`` (host float, or an (L,) array for a layer-stacked plan)
-    is the telemetry-calibrated budget clamped under it."""
+    ``cap_live`` (host float, or an (L,) array for a layer-stacked plan;
+    for an expert plan an (E,) or (L, E) float32 device tensor) is the
+    telemetry-calibrated budget clamped under it."""
 
     def __init__(self, mor: Optional[MoRLayer], *, mode: str = "dense",
                  tile_m: int = 8, tile_n: int = 128,
@@ -129,9 +138,11 @@ class MoRExecutionPlan:
         """The plan of layer ``l`` of a layer-stacked plan."""
         mor = None if self.mor is None else {k: v[l]
                                              for k, v in self.mor.items()}
-        cap = None
-        if self.cap_live is not None:
-            c = np.asarray(self.cap_live, np.float32)
+        cap = self.cap_live
+        if torch.is_tensor(cap):
+            cap = cap[l]
+        elif cap is not None:
+            c = np.asarray(cap, np.float32)
             cap = float(c[l]) if c.ndim else float(c)
         return MoRExecutionPlan(mor, mode=self.mode, tile_m=self.tile_m,
                                 tile_n=self.tile_n,
@@ -150,24 +161,20 @@ class MoRExecutionPlan:
                 row_mask: Optional[torch.Tensor] = None) -> MoRPrediction:
         """Run the hybrid predictor exactly once -> MoRPrediction.
         ``kernel`` mode goes through the fused ``ops.mor_tile_mask``;
-        every other mode uses the plain ``hybrid_predict``."""
+        every other mode uses the plain ``hybrid_predict``.  ``row_mask``
+        (..., T) marks real rows; the others (an expert buffer's
+        capacity padding) are forced dead."""
         assert self.active, "predict() on an inactive plan"
         mor = self.mor
         if self.mode == "kernel" and preact_full is None:
             from repro_torch.kernels import ops as kops
-            # proxy rookie at base precision through a plain matmul
-            slot = torch.clamp(mor["proxy_slot"], min=0).long()
-            proxy_cols = w.index_select(1, slot)
-            proxy_pre = x.float() @ proxy_cols.float()
-            proxy_relu_in = (proxy_pre * mor["bn_scale"][slot]
-                             + mor["bn_bias"][slot])
-            if residual is not None:
-                proxy_relu_in = proxy_relu_in + residual.float(
-                ).index_select(-1, slot)
-            proxy_neg = (proxy_relu_in < 0.0) | (mor["proxy_slot"] < 0)
+            # proxy rookie at base precision through a plain matmul over
+            # a gathered float32 copy of the proxy columns
+            proxy_neg = (proxy_relu_in(x, w, mor, residual=residual) < 0.0
+                         ) | cols(mor["proxy_slot"] < 0)
             pn = proxy_neg.to(torch.int8)
             if row_mask is not None:
-                pn = torch.where(row_mask[:, None], pn,
+                pn = torch.where(row_mask[..., None], pn,
                                  torch.full((), 2, dtype=torch.int8,
                                             device=pn.device))
             # proxies themselves are always computed: fold ~is_proxy
@@ -183,9 +190,8 @@ class MoRExecutionPlan:
                                   residual=residual)
         if row_mask is not None:
             computed = computed & row_mask[..., None]
-        tiles = tile_mask_from_neuron_mask(
-            computed.reshape(-1, computed.shape[-1]), self.tile_m,
-            self.tile_n)
+        tiles = tile_mask_from_neuron_mask(computed, self.tile_m,
+                                           self.tile_n)
         kept = (self._capacity_clip(tiles)
                 if self.mode == "kernel" or self.cap_live is not None
                 else None)
@@ -193,16 +199,22 @@ class MoRExecutionPlan:
 
     def _capacity_clip(self, tiles: torch.Tensor) -> torch.Tensor:
         """Capacity truncation mirroring gather_matmul's slot list: only
-        the first ``capacity`` live tiles (row-major) are computed."""
-        if self.capacity_frac >= 1.0 and self.cap_live is None:
+        the first ``capacity`` live tiles (row-major) of each FFN (each
+        expert) are computed."""
+        cap_live = self.cap_live
+        if self.capacity_frac >= 1.0 and cap_live is None:
             return tiles
-        n_tiles = tiles.shape[0] * tiles.shape[1]
+        n_tiles = tiles.shape[-2] * tiles.shape[-1]
         capacity = max(1, int(self.capacity_frac * n_tiles))
-        if self.cap_live is not None:
-            f = np.float32(self.cap_live) * np.float32(n_tiles)
+        if torch.is_tensor(cap_live):
+            # per expert, float32 on the device: ceil(frac * n_tiles)
+            f = torch.ceil(cap_live.float() * n_tiles)
+            capacity = torch.clamp(f, min=1, max=capacity)[..., None]
+        elif cap_live is not None:
+            f = np.float32(cap_live) * np.float32(n_tiles)
             capacity = min(capacity, max(1, int(np.ceil(f))))
-        flat = tiles.reshape(-1)
-        live_rank = torch.cumsum(flat, 0) - 1
+        flat = tiles.flatten(-2)
+        live_rank = torch.cumsum(flat, -1) - 1
         return (flat & (live_rank < capacity)).reshape(tiles.shape)
 
     # -- mask-consuming matmuls --------------------------------------------
@@ -211,7 +223,7 @@ class MoRExecutionPlan:
         """x @ w with ``pred``'s tile mask applied — dead tiles are exact
         zeros.  Returns float32 pre-activations; in kernel mode the
         kernel's output is in x.dtype first (as in the JAX package)."""
-        T, N = x.shape[0], w.shape[1]
+        T, N = x.shape[-2], w.shape[-1]
         if self.mode == "kernel":
             from repro_torch.kernels import ops as kops
             pre, n_live, n_comp = kops.gather_matmul(
@@ -249,7 +261,7 @@ class MoRExecutionPlan:
     def _relu_matmul_pred(self, x, w, *, activation: str,
                           residual: Optional[torch.Tensor] = None,
                           row_mask: Optional[torch.Tensor] = None):
-        T, N = x.shape[0], w.shape[1]
+        T, N = x.shape[-2], w.shape[-1]
         if not self.active:
             pre = x @ w
             y = _act(pre + (residual if residual is not None else 0.0),
@@ -258,7 +270,7 @@ class MoRExecutionPlan:
         mor = self.mor
         if self.mode == "exact":
             pre = (x @ w).float()
-            pre_bn = pre * mor["bn_scale"] + mor["bn_bias"]
+            pre_bn = pre * cols(mor["bn_scale"]) + cols(mor["bn_bias"])
             if residual is not None:
                 pre_bn = pre_bn + residual
             pred = self.predict(x, w, preact_full=pre, residual=residual,
@@ -267,16 +279,16 @@ class MoRExecutionPlan:
                             0.0).to(x.dtype)
             truly_nonzero = pre_bn > 0
             if row_mask is not None:
-                truly_nonzero = truly_nonzero & row_mask[:, None]
+                truly_nonzero = truly_nonzero & row_mask[..., None]
             stats = pred.stats()
             stats["frac_mispredicted_zero"] = (
-                ~pred.computed & truly_nonzero).float().mean()
+                ~pred.computed & truly_nonzero).float().mean((-2, -1))
             return y, pred, stats
 
         # tiled / kernel: one predictor pass -> tile mask -> masked matmul
         pred = self.predict(x, w, residual=residual, row_mask=row_mask)
         pre = self.masked_matmul(x, w, pred)
-        pre_bn = pre * mor["bn_scale"] + mor["bn_bias"]
+        pre_bn = pre * cols(mor["bn_scale"]) + cols(mor["bn_bias"])
         if residual is not None:
             pre_bn = pre_bn + residual
         keep = pred.keep_mask(T, N, self.tile_m, self.tile_n)
@@ -306,6 +318,28 @@ class MoRExecutionPlan:
         return self.down_matmul(h, w_down, pred), stats
 
 
+    def expert_ffn(self, eb: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor, *, activation: str,
+                   w_gate: Optional[torch.Tensor] = None,
+                   row_mask: Optional[torch.Tensor] = None,
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``ffn`` over a stack of experts: eb (E, C, d), weights (E, d, f)
+        / (E, f, d), ``self.mor`` an (E,)-stacked MoRLayer and
+        ``self.cap_live`` None or an (E,) float32 device tensor.
+
+        The JAX package runs the per-expert plan under ``jax.vmap``; here
+        the expert axis is written out: every step of ``ffn`` carries the
+        leading E dim, and kernel mode launches each kernel ONCE for all
+        experts (the expert grid), with per-expert budgets and counters
+        and no host loop.  One predictor evaluation per call, as JAX
+        counts one per trace of the vmapped body.  ``row_mask`` (E, C)
+        marks the rows of each expert's capacity buffer that hold routed
+        tokens.  -> (out (E, C, d), stats with (E,)-shaped leaves)."""
+        assert self.active, "expert_ffn() on an inactive plan"
+        return self.ffn(eb, w_up, w_down, activation=activation,
+                        w_gate=w_gate, row_mask=row_mask)
+
+
 def as_plan(mor, *, mode: str = "dense", tile_m: int = 8, tile_n: int = 128,
             capacity_frac: float = 1.0) -> MoRExecutionPlan:
     """Coerce ``mor`` (a plan, a MoRLayer dict, or None) into a plan; an
@@ -321,3 +355,18 @@ def as_plan(mor, *, mode: str = "dense", tile_m: int = 8, tile_n: int = 128,
 
 def _looks_like_mor_layer(mor) -> bool:
     return isinstance(mor, dict) and "enable" in mor and "bn_scale" in mor
+
+
+def as_expert_plan(em, *, mode: str = "dense", tile_m: int = 8,
+                   tile_n: int = 128, capacity_frac: float = 1.0
+                   ) -> MoRExecutionPlan:
+    """Coerce an expert-MoR entry (``mor["experts"]``: an attached plan,
+    an (E,)-stacked MoRLayer, or None) into a plan for ``expert_ffn``;
+    an attached plan's own mode, tiling and budget win, and
+    ``mode="dense"`` turns the predictor off, as ``as_plan`` does."""
+    if isinstance(em, MoRExecutionPlan):
+        return em
+    if em is None or not _looks_like_mor_layer(em):
+        return MoRExecutionPlan(None)
+    return MoRExecutionPlan(em, mode=mode, tile_m=tile_m, tile_n=tile_n,
+                            capacity_frac=capacity_frac)

@@ -82,19 +82,21 @@ def build_mor_layer(m: np.ndarray, b: np.ndarray, c: np.ndarray,
 
 def tile_mask_from_neuron_mask(computed: torch.Tensor, tile_m: int,
                                tile_n: int) -> torch.Tensor:
-    """(M, N) bool 'must compute' mask -> (ceil(M/tile_m),
+    """(..., M, N) bool 'must compute' mask -> (..., ceil(M/tile_m),
     ceil(N/tile_n)) bool tile mask: live iff ANY neuron of the tile must
-    be computed for ANY row of the block."""
-    M, N = computed.shape
+    be computed for ANY row of the block (a leading expert dim is kept)."""
+    M, N = computed.shape[-2:]
     pm, pn = (-M) % tile_m, (-N) % tile_n
     padded = F.pad(computed, (0, pn, 0, pm))
-    t = padded.reshape((M + pm) // tile_m, tile_m, (N + pn) // tile_n,
-                       tile_n)
-    return t.any(dim=3).any(dim=1)
+    t = padded.reshape(*computed.shape[:-2], (M + pm) // tile_m, tile_m,
+                       (N + pn) // tile_n, tile_n)
+    return t.any(dim=-1).any(dim=-2)
 
 
 def expand_tile_mask(tile_mask: torch.Tensor, tile_m: int, tile_n: int,
                      M: int, N: int) -> torch.Tensor:
-    """Inverse of tile_mask_from_neuron_mask: broadcast back to (M, N)."""
-    big = tile_mask.repeat_interleave(tile_m, 0).repeat_interleave(tile_n, 1)
-    return big[:M, :N]
+    """Inverse of tile_mask_from_neuron_mask: broadcast back to (..., M,
+    N)."""
+    big = tile_mask.repeat_interleave(tile_m, -2).repeat_interleave(tile_n,
+                                                                    -1)
+    return big[..., :M, :N]

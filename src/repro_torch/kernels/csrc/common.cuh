@@ -38,4 +38,17 @@ from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
+// 16 bytes of T -> float (the source 16-byte aligned)
+__device__ __forceinline__ void load16(const float* src, float* dst) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
+  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* src,
+                                       float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(h[i]);
+}
+
 }  // namespace mor

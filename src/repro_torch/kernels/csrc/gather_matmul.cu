@@ -19,6 +19,13 @@
 // reads nothing for dead slots.  It does the multiply-adds on the CUDA
 // cores: at 256 rows that costs more than a tensor-core product would,
 // which is a later change (wgmma over the compacted slot list).
+//
+// The expert grid (MoE layers; the JAX package vmaps the Pallas call):
+// blockIdx.z is the expert, each expert has its own slot list, built
+// on the device by the wrapper, and its own n_live (its calibrated
+// per-expert budget already applied), and every operand is offset by
+// its expert stride; one FFN is E = 1.  An expert that holds no routed
+// token has no live tile, so all its blocks return at once.
 #include "common.cuh"
 
 namespace mor {
@@ -28,9 +35,14 @@ __global__ void __launch_bounds__(TN * KS)
 gather_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const int* __restrict__ slots,
                      const int* __restrict__ n_live, T* __restrict__ out,
-                     int K, int N) {
+                     int M, int K, int N, int capacity) {
   const int s = blockIdx.x;
-  if (s >= *n_live) return;
+  const size_t ex = blockIdx.z;                 // expert
+  if (s >= n_live[ex]) return;
+  x += ex * M * K;
+  w += ex * K * N;
+  out += ex * M * N;
+  slots += ex * capacity;
   __shared__ float xs[TM][KC];
   __shared__ float part[KS][TM][TN];
   const int nn = N / TN;
@@ -72,25 +84,25 @@ gather_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace mor
 
-// x (M, K), w (K, N), out (M, N) zero-filled, all in `dtype`; slots
-// (capacity,) int32 flattened tile ids (i * N/128 + j); n_live: one
-// int32 on the device.  M % 8 == 0, N % 128 == 0.
+// E experts, each x (M, K), w (K, N), out (M, N) zero-filled, all in
+// `dtype`; slots (E, capacity) int32 flattened tile ids (i * N/128 +
+// j); n_live (E,) int32 on the device.  M % 8 == 0, N % 128 == 0.
 extern "C" int gather_matmul(const void* x, const void* w, const int* slots,
-                             const int* n_live, void* out, int M, int K,
-                             int N, int capacity, int dtype, void* stream) {
+                             const int* n_live, void* out, int E, int M,
+                             int K, int N, int capacity, int dtype,
+                             void* stream) {
   using namespace mor;
-  (void)M;
-  const dim3 grid(capacity), block(TN, KS);
+  const dim3 grid(capacity, 1, E), block(TN, KS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == BF16) {
     gather_matmul_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w), slots, n_live,
-        static_cast<__nv_bfloat16*>(out), K, N);
+        static_cast<__nv_bfloat16*>(out), M, K, N, capacity);
   } else if (dtype == F32) {
     gather_matmul_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), slots,
-        n_live, static_cast<float*>(out), K, N);
+        n_live, static_cast<float*>(out), M, K, N, capacity);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -15,6 +15,12 @@
 // Row blocks of one output tile sit on neighbouring block ids, so the
 // re-reads of a weight strip across row blocks hit L2.  The multiply-
 // adds run on the CUDA cores; tensor cores are a later change.
+//
+// The expert grid (MoE layers; the JAX package vmaps the Pallas call):
+// blockIdx.z is the expert and every operand is offset by its expert
+// stride; one FFN is E = 1.  A row block whose k blocks are all dead
+// (an expert's capacity rows past its routed count) writes zeros and
+// reads nothing.
 #include "common.cuh"
 
 namespace mor {
@@ -23,10 +29,15 @@ template <typename T>
 __global__ void __launch_bounds__(TN * KS)
 masked_matmul_kdim_kernel(const T* __restrict__ x, const T* __restrict__ w,
                           const int* __restrict__ mask, T* __restrict__ out,
-                          int K, int N) {
+                          int M, int K, int N) {
   __shared__ float xs[TM][KC];
   __shared__ float part[KS][TM][TN];
   const int rb = blockIdx.x;
+  const size_t ex = blockIdx.z;                 // expert
+  x += ex * M * K;
+  w += ex * K * N;
+  out += ex * M * N;
+  mask += ex * (M / TM) * (K / KC);
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TN + tx;
   const int col = blockIdx.y * TN + tx;
@@ -69,23 +80,24 @@ masked_matmul_kdim_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace mor
 
-// x (M, K), w (K, N), out (M, N) in `dtype`; mask (M/8, K/128) int32.
-// M % 8 == 0 and K % 128 == 0 (the wrapper pads); any N.
+// E experts, each x (M, K), w (K, N), out (M, N) in `dtype` and mask
+// (M/8, K/128) int32.  M % 8 == 0 and K % 128 == 0 (the wrapper pads);
+// any N.
 extern "C" int masked_matmul_kdim(const void* x, const void* w,
-                                  const int* mask, void* out, int M, int K,
-                                  int N, int dtype, void* stream) {
+                                  const int* mask, void* out, int E, int M,
+                                  int K, int N, int dtype, void* stream) {
   using namespace mor;
-  const dim3 grid(M / TM, (N + TN - 1) / TN), block(TN, KS);
+  const dim3 grid(M / TM, (N + TN - 1) / TN, E), block(TN, KS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == BF16) {
     masked_matmul_kdim_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
         static_cast<const __nv_bfloat16*>(w), mask,
-        static_cast<__nv_bfloat16*>(out), K, N);
+        static_cast<__nv_bfloat16*>(out), M, K, N);
   } else if (dtype == F32) {
     masked_matmul_kdim_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), mask,
-        static_cast<float*>(out), K, N);
+        static_cast<float*>(out), M, K, N);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -18,6 +18,17 @@
 // only one int32 per tile leaves the block.  (Reading a bf16 weight
 // for its sign is the cost a packed 1-bit copy would cut 16x.)
 //
+// The expert grid (MoE layers; the JAX package vmaps the Pallas call):
+// blockIdx.z is the expert, and every operand is offset by its expert
+// stride, so one FFN is the E = 1 case of the same body.  A tile whose
+// proxy states are all 2 (forced skip: shape padding, or an expert's
+// capacity rows past its routed count) is written dead before anything
+// of x or w is loaded; that is exact, the plain version gives the same
+// dead tile.  At a decode dispatch of 8 tokens, top-6 of 160 experts,
+// at most 48 experts hold a token, so the early exit is what keeps the
+// predictor's read near those experts' gate weights (0.75 GB of 2.5 GB
+// for deepseek-v2-236b's 160 x 5120 x 1536 bf16 gates).
+//
 // The epilogue uses __fmul_rn / __fadd_rn: nvcc would otherwise
 // contract a*b+c into one FMA, and near p_hat = 0 a single rounding
 // difference can flip a mask bit against the plain PyTorch version,
@@ -26,20 +37,38 @@
 
 namespace mor {
 
+constexpr int N_COEF = 6;  // coef rows: m, b, bn_scale, bn_bias, enable, res
+
 template <typename T>
 __global__ void __launch_bounds__(TN * KS)
 mor_tile_mask_kernel(const T* __restrict__ x, const T* __restrict__ w,
                      const float* __restrict__ coef,
                      const int8_t* __restrict__ pn,
                      const float* __restrict__ res, int* __restrict__ out,
-                     int K, int N) {
+                     int M, int K, int N) {
   __shared__ int8_t xs[TM][KC];
   __shared__ int part[KS][TM][TN];
   const int rb = blockIdx.x, ct = blockIdx.y;
+  const size_t ex = blockIdx.z;                 // expert
+  x += ex * M * K;
+  w += ex * K * N;
+  coef += ex * N_COEF * N;
+  pn += ex * M * N;
+  if (res != nullptr) res += ex * M * N;
+  out += ex * gridDim.x * gridDim.y;
   const int tx = threadIdx.x, ty = threadIdx.y;
   const int tid = ty * TN + tx;
   const int col = ct * TN + tx;
   const size_t row0 = (size_t)rb * TM;
+
+  // all rows forced dead: the tile is dead, nothing else is read
+  int maybe_live = 0;
+  for (int e = tid; e < TM * TN; e += TN * KS)
+    maybe_live |= pn[(row0 + e / TN) * N + ct * TN + e % TN] <= 1;
+  if (!__syncthreads_or(maybe_live)) {
+    if (tid == 0) out[(size_t)rb * gridDim.y + ct] = 0;
+    return;
+  }
 
   int acc[TM];
 #pragma unroll
@@ -89,23 +118,25 @@ mor_tile_mask_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 }  // namespace mor
 
-// x (M, K), w (K, N) in `dtype`; coef (6, N) f32; pn (M, N) int8;
-// res (M, N) f32 or null; out (M/8, N/128) int32.  M % 8 == 0 and
-// N % 128 == 0 (the wrapper pads).  Returns cudaGetLastError().
+// E experts, each x (M, K), w (K, N) in `dtype`; coef (6, N) f32; pn
+// (M, N) int8; res (M, N) f32 or null; out (M/8, N/128) int32; all
+// contiguous with the expert dim leading.  M % 8 == 0 and N % 128 == 0
+// (the wrapper pads).  Returns cudaGetLastError().
 extern "C" int mor_tile_mask(const void* x, const void* w, const float* coef,
                              const int8_t* pn, const float* res, int* out,
-                             int M, int K, int N, int dtype, void* stream) {
+                             int E, int M, int K, int N, int dtype,
+                             void* stream) {
   using namespace mor;
-  const dim3 grid(M / TM, N / TN), block(TN, KS);
+  const dim3 grid(M / TM, N / TN, E), block(TN, KS);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == BF16) {
     mor_tile_mask_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
         static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), coef, pn, res, out, K, N);
+        static_cast<const __nv_bfloat16*>(w), coef, pn, res, out, M, K, N);
   } else if (dtype == F32) {
     mor_tile_mask_kernel<float><<<grid, block, 0, st>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), coef,
-        pn, res, out, K, N);
+        pn, res, out, M, K, N);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -48,26 +48,14 @@
 
 namespace paged {
 
-using mor::to_f;
 using mor::from_f;
+using mor::load16;
+using mor::to_f;
 
 constexpr int NW = 8;             // warps per block
 constexpr int ELEMS = 2048;       // rows x head dim one block holds
 constexpr int NE = ELEMS / 32;    // acc registers per lane
 constexpr float NEG_INF = -1e30f;
-
-// 16 bytes of T -> float
-__device__ __forceinline__ void load16(const float* src, float* dst) {
-  const float4 v = *reinterpret_cast<const float4*>(src);
-  dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src,
-                                       float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(src);
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(h[i]);
-}
 
 // per-warp shared floats: K page (rows padded to D + 1 so that lanes
 // scoring different keys hit different banks), V page, tags, scores /

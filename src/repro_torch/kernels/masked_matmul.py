@@ -25,9 +25,10 @@ def masked_matmul_kdim_plain(x: torch.Tensor, w: torch.Tensor,
                              tile_k: int = TILE_K) -> torch.Tensor:
     """Plain version (the port of ``ref.masked_matmul_kdim_ref``): zero
     the dead (row block, k block) pairs of x, then a float32 matmul,
-    returned in x.dtype."""
-    keep = tile_mask.bool().repeat_interleave(tile_m, 0).repeat_interleave(
-        tile_k, 1)[:x.shape[0], :x.shape[1]]
+    returned in x.dtype.  A leading E dim on every operand is the
+    expert grid."""
+    keep = tile_mask.bool().repeat_interleave(tile_m, -2).repeat_interleave(
+        tile_k, -1)[..., :x.shape[-2], :x.shape[-1]]
     xz = torch.where(keep, x, torch.zeros((), dtype=x.dtype,
                                           device=x.device))
     return (xz.float() @ w.float()).to(x.dtype)
@@ -37,7 +38,8 @@ def masked_matmul_kdim(x: torch.Tensor, w: torch.Tensor,
                        tile_mask: torch.Tensor, *, tile_m: int = TILE_M,
                        tile_k: int = TILE_K) -> torch.Tensor:
     """The CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor, an error for anything else."""
+    tensor, an error for anything else.  x (M, K), w (K, N), mask (M/8,
+    K/128), or each with a leading E dim (the expert grid)."""
     if x.device.type == "cpu":
         return masked_matmul_kdim_plain(x, w, tile_mask, tile_m=tile_m,
                                         tile_k=tile_k)
@@ -50,18 +52,22 @@ def _launch(x, w, tile_mask, tile_m, tile_k):
     if (tile_m, tile_k) != (TILE_M, TILE_K):
         raise ValueError(f"the CUDA kernel takes tile ({TILE_M}, {TILE_K}),"
                          f" got ({tile_m}, {tile_k})")
-    M, K = x.shape
-    N = w.shape[1]
-    if M % TILE_M or K % TILE_K or w.shape[0] != K or \
-            tuple(tile_mask.shape) != (M // TILE_M, K // TILE_K):
+    lead = tuple(x.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"at most one leading (expert) dim, got {lead}")
+    E = lead[0] if lead else 1
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    if M % TILE_M or K % TILE_K or tuple(w.shape) != lead + (K, N) or \
+            tuple(tile_mask.shape) != lead + (M // TILE_M, K // TILE_K):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} mask {tuple(tile_mask.shape)}")
     code = dtype_code(x, w)
     mask = tile_mask.to(torch.int32).contiguous()
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    out = torch.empty(lead + (M, N), dtype=x.dtype, device=x.device)
     err = lib().masked_matmul_kdim(ptr(x, x.device), ptr(w, x.device),
                                    ptr(mask, x.device), ptr(out, x.device),
-                                   M, K, N, code, stream)
+                                   E, M, K, N, code, stream)
     launches += 1
     check(err, "masked_matmul_kdim")
     return out

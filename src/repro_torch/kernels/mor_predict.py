@@ -33,18 +33,22 @@ def mor_tile_mask_plain(x: torch.Tensor, w: torch.Tensor,
                         tile_n: int = TILE_N) -> torch.Tensor:
     """Plain version (the port of ``repro.kernels.ref.mor_tile_mask_ref``
     on the kernel's padded interface).  x: (M, K), w: (K, N) with
-    M % tile_m == 0 and N % tile_n == 0 -> (M/tile_m, N/tile_n) int32."""
-    M, N = x.shape[0], w.shape[1]
+    M % tile_m == 0 and N % tile_n == 0 -> (M/tile_m, N/tile_n) int32.
+    The expert grid adds a leading E dim to every operand (coef (E, 6,
+    N)) and to the result."""
+    M, N = x.shape[-2], w.shape[-1]
     xs = torch.where(x > 0, 1.0, -1.0).float()
     ws = torch.where(w >= 0, 1.0, -1.0).float()
     p_bin = xs @ ws                       # exact: integers below 2^24
-    m, b, sc, bi, en = coef[0], coef[1], coef[2], coef[3], coef[4]
+    m, b, sc, bi, en, rs = (coef[..., i, :].unsqueeze(-2)
+                            for i in range(N_COEF_ROWS))
     p_hat = (m * p_bin + b) * sc + bi
     if residual is not None:
-        p_hat = p_hat + coef[5] * residual
+        p_hat = p_hat + rs * residual
     skip = ((p_hat < 0.0) & (en > 0.5) & (proxy_neg == 1)) | (proxy_neg > 1)
-    t = (~skip).reshape(M // tile_m, tile_m, N // tile_n, tile_n)
-    return t.any(dim=3).any(dim=1).int()
+    t = (~skip).reshape(*x.shape[:-2], M // tile_m, tile_m, N // tile_n,
+                        tile_n)
+    return t.any(dim=-1).any(dim=-2).int()
 
 
 def mor_tile_mask(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
@@ -53,7 +57,8 @@ def mor_tile_mask(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
                   tile_m: int = TILE_M, tile_n: int = TILE_N
                   ) -> torch.Tensor:
     """Padded-interface entry: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor, an error for anything else."""
+    plain version for a CPU tensor, an error for anything else.  2-D
+    operands are one FFN; 3-D operands (leading E) the expert grid."""
     if x.device.type == "cpu":
         return mor_tile_mask_plain(x, w, coef, proxy_neg, residual,
                                    tile_m=tile_m, tile_n=tile_n)
@@ -66,23 +71,29 @@ def _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n):
     if (tile_m, tile_n) != (TILE_M, TILE_N):
         raise ValueError(f"the CUDA kernel takes tile ({TILE_M}, {TILE_N}),"
                          f" got ({tile_m}, {tile_n})")
-    M, K = x.shape
-    N = w.shape[1]
-    if M % TILE_M or N % TILE_N or w.shape[0] != K:
+    lead = tuple(x.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"at most one leading (expert) dim, got {lead}")
+    E = lead[0] if lead else 1
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    if M % TILE_M or N % TILE_N or tuple(w.shape) != lead + (K, N):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w {tuple(w.shape)}")
-    if coef.shape != (N_COEF_ROWS, N) or coef.dtype != torch.float32:
-        raise ValueError("coef must be (6, N) float32")
-    if proxy_neg.shape != (M, N) or proxy_neg.dtype != torch.int8:
-        raise ValueError("proxy_neg must be (M, N) int8")
-    if residual is not None and (residual.shape != (M, N)
+    if tuple(coef.shape) != lead + (N_COEF_ROWS, N) or \
+            coef.dtype != torch.float32:
+        raise ValueError("coef must be (..., 6, N) float32")
+    if tuple(proxy_neg.shape) != lead + (M, N) or \
+            proxy_neg.dtype != torch.int8:
+        raise ValueError("proxy_neg must be (..., M, N) int8")
+    if residual is not None and (tuple(residual.shape) != lead + (M, N)
                                  or residual.dtype != torch.float32):
-        raise ValueError("residual must be (M, N) float32")
+        raise ValueError("residual must be (..., M, N) float32")
     code = dtype_code(x, w)
-    out = torch.empty((M // TILE_M, N // TILE_N), dtype=torch.int32,
+    out = torch.empty(lead + (M // TILE_M, N // TILE_N), dtype=torch.int32,
                       device=x.device)
     args = [x, w, coef, proxy_neg, residual, out]
-    err = lib().mor_tile_mask(*(ptr(a, x.device) for a in args), M, K, N,
-                              code, stream)
+    err = lib().mor_tile_mask(*(ptr(a, x.device) for a in args), E, M, K,
+                              N, code, stream)
     launches += 1
     check(err, "mor_tile_mask")
     return out

@@ -1,13 +1,15 @@
-"""GQA paged flash attention: the CUDA kernel
-(``csrc/paged_attention.cu``), its plain PyTorch version, and the launch
-counter.
+"""Paged flash attention: the GQA and absorbed-MLA CUDA kernels
+(``csrc/paged_attention.cu``, ``csrc/mla_attention.cu``), their plain
+PyTorch versions, and their launch counters.
 
-Replaces ``repro/kernels/paged_attention.py`` ``gqa_paged_flash``
-(Pallas) in its single-device form: the normalised output
-(``partial=False``) over the whole page pool (no ``lo`` / ``n_local``
-shard window).  The partial-statistics and shard-window forms wait for
-the multi-device slice (ROADMAP queue A 14).  Bound on the H100: bytes,
-the live pages' K, V and tags; see the source for the design.
+Replace ``repro/kernels/paged_attention.py`` ``gqa_paged_flash`` and
+``mla_paged_flash`` (Pallas) in their single-device form: the
+normalised output (``partial=False``) over the whole page pool (no
+``lo`` / ``n_local`` shard window).  The partial-statistics and
+shard-window forms wait for the multi-device slice (ROADMAP queue A
+14).  Bounds on the H100: bytes for GQA (the live pages' K, V and
+tags); MLA sits near the bf16 ridge at decode and is bound by
+operations at a mixed dispatch.  See the sources for the designs.
 """
 from __future__ import annotations
 
@@ -18,8 +20,20 @@ from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)          # the CUDA kernel's instantiations
+MLA_MAX_RANK = 512                 # the MLA kernel's latent width limit
 
-launches = 0
+launches = 0          # gqa_paged_flash launches since the last reset
+mla_launches = 0      # mla_paged_flash launches since the last reset
+
+
+def _paged_view(pool: torch.Tensor, block_table: torch.Tensor, fill):
+    """The ring view ``pool[block_table]`` with null entries (page id 0)
+    read as ``fill`` (``ref._paged_view``)."""
+    live = block_table > 0
+    out = pool[torch.where(live, block_table, 0).long()]
+    m = live.reshape(live.shape + (1,) * (out.ndim - 2))
+    return torch.where(m, out, torch.full((), fill, dtype=out.dtype,
+                                          device=out.device))
 
 
 def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
@@ -35,18 +49,10 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
     Dv = vpool.shape[-1]
     G = H // hkv
     ring = block_table.shape[1] * page
-    live = block_table > 0
-    idx = torch.where(live, block_table, 0).long()
-
-    def view(pool, fill):
-        out = pool[idx]
-        m = live.reshape(live.shape + (1,) * (out.ndim - 2))
-        return torch.where(m, out, torch.full((), fill, dtype=out.dtype,
-                                              device=out.device))
-
-    gk = view(kpool, 0).reshape(B, ring, hkv, D).float()
-    gv = view(vpool, 0).reshape(B, ring, hkv, Dv).float()
-    gp = view(ppool, -1).reshape(B, ring)
+    gk = _paged_view(kpool, block_table, 0).reshape(B, ring, hkv, D).float()
+    gv = _paged_view(vpool, block_table, 0).reshape(B, ring, hkv,
+                                                    Dv).float()
+    gp = _paged_view(ppool, block_table, -1).reshape(B, ring)
     qf = q.reshape(B, C, hkv, G, D).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, gk) * (D ** -0.5)
     rel = qpos[:, :, None] - gp[:, None, :]
@@ -112,4 +118,104 @@ def _launch(q, kpool, vpool, ppool, block_table, qpos, window):
         code, stream)
     launches += 1
     check(err, "gqa_paged_flash")
+    return out
+
+
+# ==========================================================================
+# absorbed-MLA over paged latent pools
+# ==========================================================================
+
+def mla_paged_flash_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                          ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
+                          cp_pool: torch.Tensor, block_table: torch.Tensor,
+                          qpos: torch.Tensor, *,
+                          scale: float) -> torch.Tensor:
+    """Plain version (the port of ``ref.mla_paged_ref``, non-partial):
+    gather the latent ring view through the table, null pages as rows
+    tagged -1, then a masked softmax in the latent space with float32
+    scores, statistics and accumulator, cast to q_lat's dtype."""
+    B, C, h, kr = q_lat.shape
+    rd = q_pe.shape[-1]
+    ring = block_table.shape[1] * ck_pool.shape[1]
+    ck = _paged_view(ck_pool, block_table, 0).reshape(B, ring, kr).float()
+    cpe = _paged_view(cpe_pool, block_table, 0).reshape(B, ring,
+                                                        rd).float()
+    cp = _paged_view(cp_pool, block_table, -1).reshape(B, ring)
+    s = (torch.einsum("bchk,btk->bhct", q_lat.float(), ck)
+         + torch.einsum("bchr,btr->bhct", q_pe.float(), cpe)) * scale
+    ok = (cp[:, None, None, :] >= 0) & \
+        (cp[:, None, None, :] <= qpos[:, None, :, None])
+    s = torch.where(ok, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhct,btk->bhck", p, ck)
+    o = acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+    return o.permute(0, 2, 1, 3).to(q_lat.dtype)
+
+
+def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
+                    ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
+                    cp_pool: torch.Tensor, block_table: torch.Tensor,
+                    qpos: torch.Tensor, *, scale: float) -> torch.Tensor:
+    """q_lat: (B, C, h, kr) with W_uk absorbed, q_pe: (B, C, h, rd);
+    pools (n_pages, page, kr) / (n_pages, page, rd) with position tags
+    ``cp_pool`` (n_pages, page) int32; block_table (B, W) int32 (a
+    column slice of a wider table is fine); qpos (B, C) int32.  ->
+    o_lat (B, C, h, kr) in q_lat's dtype (the caller absorbs W_uv).
+    The CUDA kernel for a CUDA tensor, the plain version for a CPU
+    tensor, an error for anything else."""
+    if q_lat.device.type == "cpu":
+        return mla_paged_flash_plain(q_lat, q_pe, ck_pool, cpe_pool,
+                                     cp_pool, block_table, qpos,
+                                     scale=scale)
+    return _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table,
+                       qpos, scale)
+
+
+def _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table, qpos,
+                scale):
+    global mla_launches
+    stream = cuda_stream(q_lat.device)
+    B, C, h, kr = q_lat.shape
+    rd = q_pe.shape[-1]
+    n_pages, page = ck_pool.shape[:2]
+    if kr > MLA_MAX_RANK or tuple(q_pe.shape) != (B, C, h, rd) or \
+            tuple(ck_pool.shape) != (n_pages, page, kr) or \
+            tuple(cpe_pool.shape) != (n_pages, page, rd):
+        raise ValueError(f"bad shapes q_lat {tuple(q_lat.shape)} q_pe "
+                         f"{tuple(q_pe.shape)} pools "
+                         f"{tuple(ck_pool.shape)} {tuple(cpe_pool.shape)}")
+    if tuple(cp_pool.shape) != (n_pages, page) or \
+            block_table.ndim != 2 or block_table.shape[0] != B or \
+            tuple(qpos.shape) != (B, C):
+        raise ValueError(f"bad shapes tags {tuple(cp_pool.shape)} table "
+                         f"{tuple(block_table.shape)} qpos "
+                         f"{tuple(qpos.shape)}")
+    if {cp_pool.dtype, block_table.dtype, qpos.dtype} != {torch.int32}:
+        raise TypeError("cp_pool, block_table and qpos must be int32")
+    code = dtype_code(q_lat, ck_pool)
+    if q_pe.dtype != q_lat.dtype or cpe_pool.dtype != q_lat.dtype:
+        raise TypeError("q_lat, q_pe and both pools must share a dtype")
+    # the engine passes block_table[:, :W], a strided view: the kernel
+    # takes the row stride, and needs unit column stride
+    if block_table.device != q_lat.device or block_table.stride(1) != 1:
+        raise ValueError("block_table must lie on q's device with unit "
+                         "column stride")
+    vec = 16 // q_lat.element_size()
+    if kr % vec or rd % vec:
+        raise ValueError(f"kr {kr} and rd {rd} must be multiples of {vec}"
+                         f" (16-byte loads)")
+    q_lat, q_pe = q_lat.contiguous(), q_pe.contiguous()
+    dev = q_lat.device
+    if any(ptr(t, dev) % 16 for t in (q_lat, q_pe, ck_pool, cpe_pool)):
+        raise ValueError("q and the pools must be 16-byte aligned")
+    out = torch.empty((B, C, h, kr), dtype=q_lat.dtype, device=dev)
+    err = lib().mla_paged_flash(
+        ptr(q_lat, dev), ptr(q_pe, dev), ptr(ck_pool, dev),
+        ptr(cpe_pool, dev), ptr(cp_pool, dev), block_table.data_ptr(),
+        ptr(qpos, dev), ptr(out, dev), B, C, h, kr, rd, page,
+        block_table.shape[1], block_table.stride(0), float(scale), code,
+        stream)
+    mla_launches += 1
+    check(err, "mla_paged_flash")
     return out

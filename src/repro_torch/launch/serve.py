@@ -4,9 +4,15 @@ prompt-length trace (``repro.launch.serve``).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --requests 8 --prompt-min 8 --prompt-max 64 --gen-len 16 \
       --shared-prefix 128 --mor kernel --compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch deepseek-v2-236b --layers 3 --mor kernel --compare
 
-Initialises the model from a seed (random weights), calibrates the MoR
-predictor on synthetic batches when ``--mor`` is not dense, serves the
+Initialises the model from a seed (random weights; ``--layers N`` cuts
+the depth to N layers, keeping every width), calibrates the MoR
+predictor on synthetic batches when ``--mor`` is not dense
+(``calibrate_lm`` for a dense model, ``calibrate_moe`` for a moe model,
+whose dense leading layers and (layer, expert) FFNs get their own
+predictors), serves the
 trace through the engine (``--layout paged`` by default, with prefix
 caching; ``slotted`` for the contiguous baseline) and reports tokens/s,
 the per-layer skip fractions from the serving telemetry, the prefix
@@ -92,10 +98,15 @@ def run_engine(cfg, params, reqs, *, mor, mor_mode, n_slots, max_len,
     rep["decode_tokens_per_s"] = rep["decode_tokens"] / wall
     rep["wall_s"] = wall
     tel = rep.pop("telemetry", None) or {}
-    for name, vals in tel.get("mor_stats", {}).items():
-        if name in ("frac_computed", "frac_tiles_live",
-                    "frac_tiles_computed"):
-            rep["per_layer_" + name] = np.round(np.asarray(vals), 4).tolist()
+    for group in ("mor_stats", "dense_mor_stats", "moe_mor_stats"):
+        # "mor_stats" of a dense model -> per_layer_*; a moe model's
+        # groups -> per_layer_dense_* and the (L, E) per_layer_moe_*
+        tag = group[:-len("mor_stats")]
+        for name, vals in tel.get(group, {}).items():
+            if name in ("frac_computed", "frac_tiles_live",
+                        "frac_tiles_computed"):
+                rep["per_layer_" + tag + name] = np.round(
+                    np.asarray(vals), 4).tolist()
     return eng, results, rep
 
 
@@ -106,8 +117,11 @@ def token_agreement(a, b) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b")
+    ap.add_argument("--arch", default="granite-3-2b",
+                    choices=("granite-3-2b", "deepseek-v2-236b"))
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="depth cut: serve the first N layers (0 = all)")
     ap.add_argument("--batch", type=int, default=8,
                     help="slot-pool size (n_slots)")
     ap.add_argument("--requests", type=int, default=0,
@@ -148,6 +162,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
     api = get_model(cfg)
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = api.init(gen, cfg)
@@ -155,8 +171,10 @@ def main(argv=None):
     mor = None
     report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}
     if args.mor != "dense":
-        from repro_torch.core.deploy import calibrate_lm
-        params, mor, cal = calibrate_lm(
+        from repro_torch.core import deploy
+        calibrate = (deploy.calibrate_moe if cfg.family == "moe"
+                     else deploy.calibrate_lm)
+        params, mor, cal = calibrate(
             params, cfg, api.forward, calib_batches(cfg, args.batch, device),
             CALIB_STEPS)
         report["calibration"] = cal

@@ -1,4 +1,5 @@
-"""Model API dispatch (``repro.models.get_model``), dense family only:
+"""Model API dispatch (``repro.models.get_model``), dense and moe
+families (GQA or MLA attention):
   init(gen, cfg) -> params
   forward(params, cfg, batch, **kw) -> (logits, aux)
   cache_init(cfg, batch, max_len, dtype, device) -> cache
@@ -22,9 +23,9 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family != "dense" or cfg.mla:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense GQA family is "
-            f"ported so far")
+            f"{cfg.name} ({cfg.family}): only the dense and moe families "
+            f"are ported so far")
     from repro_torch.models import transformer as t
     return ModelAPI(t.init_params, t.forward, t.cache_init, t.prefill_chunk)

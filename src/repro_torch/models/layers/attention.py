@@ -1,5 +1,5 @@
-"""GQA attention: the teacher-forced forward and the serving chunk step
-over the slotted ring cache or the paged pool.
+"""GQA and MLA attention: the teacher-forced forward and the serving
+chunk step over the slotted cache or the paged pool.
 
 Scores and softmax statistics are float32; activations stay in the
 model's compute dtype (``repro.models.layers.attention``).
@@ -11,8 +11,10 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.paged_attention import gqa_paged_flash
+from repro_torch.kernels.paged_attention import (gqa_paged_flash,
+                                                 mla_paged_flash)
 from repro_torch.models.layers.common import dense_init
+from repro_torch.models.layers.norms import apply_norm, stacked_norm_init
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -191,3 +193,143 @@ def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
     o = attend_batched(q, ck, cv, qpos, cp, causal=True,
                        window=cfg.sliding_window)
     return o.reshape(B, C, -1) @ params["wo"].to(x.dtype)
+
+
+# ===========================================================================
+# MLA (DeepSeek-V2): low-rank joint kv compression + decoupled RoPE head
+# ===========================================================================
+
+def mla_init(gen: torch.Generator, cfg: ModelConfig,
+             n_layers: int) -> Dict[str, torch.Tensor]:
+    """Layer-stacked MLA projections and norms."""
+    d, h = cfg.d_model, cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    pd, L, dev = cfg.tparam_dtype, n_layers, gen.device
+    return {
+        "wq_a": dense_init(gen, (L, d, qr), pd),
+        "q_norm": stacked_norm_init(cfg.norm, qr, L, dev),
+        "wq_b": dense_init(gen, (L, qr, h * (nd + rd)), pd),
+        "wkv_a": dense_init(gen, (L, d, kr + rd), pd),
+        "kv_norm": stacked_norm_init(cfg.norm, kr, L, dev),
+        "wk_b": dense_init(gen, (L, kr, h * nd), pd),
+        "wv_b": dense_init(gen, (L, kr, h * vd), pd),
+        "wo": dense_init(gen, (L, h * vd, d), pd),
+    }
+
+
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    dt = x.dtype
+    cq = apply_norm(cfg.norm, params["q_norm"], x @ params["wq_a"].to(dt))
+    q = (cq @ params["wq_b"].to(dt)).reshape(B, S, h, nd + rd)
+    q_nope, q_pe = q[..., :nd], q[..., nd:]
+    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
+
+
+def _mla_kv_compress(params, cfg: ModelConfig, x, positions):
+    kr = cfg.kv_lora_rank
+    kv = x @ params["wkv_a"].to(x.dtype)
+    c_kv = apply_norm(cfg.norm, params["kv_norm"], kv[..., :kr])
+    k_pe = apply_rope(kv[..., kr:][:, :, None, :], positions,
+                      cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_pe
+
+
+def mla_forward(params, cfg: ModelConfig, x, positions):
+    """Teacher-forced path: expand the latent kv to per-head k / v."""
+    B, S, _ = x.shape
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = x.dtype
+    q_nope, q_pe = _mla_q(params, cfg, x, positions)
+    c_kv, k_pe = _mla_kv_compress(params, cfg, x, positions)
+    k_nope = (c_kv @ params["wk_b"].to(dt)).reshape(B, S, h, nd)
+    v = (c_kv @ params["wv_b"].to(dt)).reshape(B, S, h, vd)
+    # the rope dims ride in k / q so that the shared attend serves
+    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rd)],
+                       -1)
+    q_full = torch.cat([q_nope, q_pe], -1)
+    pos1 = positions[0] if positions.ndim == 2 else positions
+    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0)
+    return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   n_layers: int, device) -> Dict[str, torch.Tensor]:
+    """The latent cache holds the full ``max_len`` (no ring)."""
+    return {
+        "c_kv": torch.zeros((n_layers, batch, max_len, cfg.kv_lora_rank),
+                            dtype=dtype, device=device),
+        "k_pe": torch.zeros((n_layers, batch, max_len,
+                             cfg.qk_rope_head_dim), dtype=dtype,
+                            device=device),
+        "pos": torch.full((n_layers, batch, max_len), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
+              block_table=None):
+    """Serving chunk step for MLA (absorbed latent attention): x (B, C, d)
+    at per-slot positions ``pos`` (B,), ``valid`` (B, C) marking real
+    tokens.  UPDATES ``cache`` IN PLACE and returns the attention output.
+
+    Slotted layout: ``cache`` is {c_kv (B, max_len, kr), k_pe (B,
+    max_len, rd), pos (B, max_len)}; an invalid token writes back the
+    row's current value (no ``mode="drop"`` scatter in torch).  Paged
+    layout: one layer's pools {c_kv (n_pages + 1, page, kr), k_pe,
+    pos (n_pages + 1, page)}; absolute position p lives at page
+    ``block_table[b, p // page]``, offset ``p % page`` (no ring: MLA
+    caches the full max_len), and an invalid token writes the trailing
+    scratch page.  The paged attend is ``mla_paged_flash`` in the
+    latent space; W_uv is absorbed after it.  The JAX package's
+    page-sharded branch (a distributed flash decode over a mesh) waits
+    for the multi-device slice (ROADMAP queue A 14)."""
+    B, C, _ = x.shape
+    h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    kr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dt = x.dtype
+    scale = (nd + rd) ** -0.5
+    qpos = pos[:, None].long() + torch.arange(C, device=x.device)[None, :]
+    q_nope, q_pe = _mla_q(params, cfg, x, qpos)           # (B,C,h,nd/rd)
+    c_kv_t, k_pe_t = _mla_kv_compress(params, cfg, x, qpos)
+    wk_b = params["wk_b"].to(dt).reshape(kr, h, nd)
+    wv_b = params["wv_b"].to(dt).reshape(kr, h, vd)
+    q_lat = torch.einsum("bchd,khd->bchk", q_nope, wk_b)  # absorb W_uk
+    ck, cpe, cp = cache["c_kv"], cache["k_pe"], cache["pos"]
+    if block_table is not None:
+        page = ck.shape[1]
+        # an invalid token may sit past the active table width: clamp
+        # its block, then send it to the scratch page no table holds
+        blk = torch.clamp(qpos // page, max=block_table.shape[1] - 1)
+        pidx = torch.gather(block_table, 1, blk).long()
+        pidx = torch.where(valid, pidx, ck.shape[0] - 1)
+        off = qpos % page
+        qpos = qpos.int()
+        ck[pidx, off] = c_kv_t
+        cpe[pidx, off] = k_pe_t
+        cp[pidx, off] = qpos
+        o_lat = mla_paged_flash(q_lat, q_pe, ck, cpe, cp, block_table,
+                                qpos, scale=scale)
+    else:
+        if C > ck.shape[1]:
+            raise ValueError(f"chunk {C} exceeds the cache length "
+                             f"{ck.shape[1]}")
+        bidx = torch.arange(B, device=x.device)[:, None].expand(B, C)
+        rows = torch.clamp(qpos, max=ck.shape[1] - 1)
+        vk = valid[..., None]
+        ck[bidx, rows] = torch.where(vk, c_kv_t, ck[bidx, rows])
+        cpe[bidx, rows] = torch.where(vk, k_pe_t, cpe[bidx, rows])
+        cp[bidx, rows] = torch.where(valid, qpos.int(), cp[bidx, rows])
+        s = (torch.einsum("bchk,btk->bhct", q_lat.float(), ck.float())
+             + torch.einsum("bchr,btr->bhct", q_pe.float(), cpe.float()))
+        s = s * scale
+        ok = position_ok(qpos[:, None, :, None], cp[:, None, None, :], True,
+                         0)
+        p = torch.softmax(torch.where(ok, s, NEG_INF), dim=-1).to(dt)
+        o_lat = torch.einsum("bhct,btk->bchk", p, ck)
+    o = torch.einsum("bchk,khv->bchv", o_lat, wv_b)       # absorb W_uv
+    return o.reshape(B, C, h * vd) @ params["wo"].to(dt)

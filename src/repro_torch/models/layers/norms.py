@@ -11,6 +11,12 @@ def norm_init(kind: str, d: int, device) -> dict:
     return out
 
 
+def stacked_norm_init(kind: str, d: int, n_layers: int, device) -> dict:
+    """``norm_init`` with a leading layer dim of ``n_layers``."""
+    return {k: v[None].repeat(n_layers, *([1] * v.ndim))
+            for k, v in norm_init(kind, d, device).items()}
+
+
 def apply_norm(kind: str, params, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()

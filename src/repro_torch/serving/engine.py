@@ -6,8 +6,8 @@ the paged kv pool allocates / copy-on-writes the pages the dispatch will
 touch (host-side, count-based: no device sync), the model's
 ``prefill_chunk`` updates the cache in place, the telemetry accumulates
 per-layer tile liveness from every dispatch's MoR stats, and
-``calibrate_capacities`` turns that into per-layer gather_matmul
-capacity fractions.
+``calibrate_capacities`` turns that into per-layer (for a moe model's
+experts, per-(layer, expert)) gather_matmul capacity fractions.
 
 Cache layouts: ``layout="paged"`` (default) runs on ``kv_pool.PagedPool``
 (block-table indirection, refcounted pages, prefix caching: requests
@@ -60,9 +60,11 @@ class Engine:
     """Continuous-batching serving engine over a fixed slot pool.
 
     ``params`` decide the device.  ``mor`` is the RAW calibrated MoR tree
-    ({layer group -> stacked MoRLayer}) from ``deploy.calibrate_lm``; the
-    engine attaches the execution plans itself so that capacity
-    calibration can re-attach them with per-layer budgets."""
+    ({layer group -> stacked MoRLayer}, a moe model's expert group
+    {"experts": (L, E)-stacked MoRLayer}) from ``deploy.calibrate_lm``
+    or ``deploy.calibrate_moe``; the engine attaches the execution plans
+    itself so that capacity calibration can re-attach them with
+    per-layer (and per-expert) budgets."""
 
     def __init__(self, cfg: ModelConfig, params, *, mor: Optional[Dict] = None,
                  mor_mode: str = "dense", n_slots: int = 8,

@@ -6,7 +6,10 @@ copy-on-write + prefix caching).
 ring row.  Layout: {"pos": (n_slots,) int32 next position per slot,
 "layers": {"k", "v": (L, n_slots, Lr, hkv, hd), "pos": (L, n_slots, Lr)
 int32 position tags, -1 = empty}}: the JAX layout, with the page/slot
-dim at axis 1 of every stacked leaf.
+dim at axis 1 of every stacked leaf.  An MLA model holds its latent
+rows instead, over the full ``max_len`` (no ring): {"c_kv" (L, n_slots,
+max_len, kv_lora_rank), "k_pe" (..., qk_rope_head_dim), "pos"}.  All L
+layers of a moe model form one stack (JAX keeps one per layer group).
 
 **Paged pool** (``PagedPool``): the engine's default layout.  Physical
 storage is a pool of fixed-size pages; a slot's logical ring row ``r``
@@ -68,9 +71,10 @@ def init(cfg: ModelConfig, n_slots: int, max_len: int, chunk: int = 0,
     cache = api.cache_init(ring_cfg(cfg, chunk), n_slots, max_len,
                            dtype or cfg.tdtype, device)
     layers = dict(cache["layers"])
-    L, Lr = layers["pos"].shape
-    layers["pos"] = torch.full((L, n_slots, Lr), -1, dtype=torch.int32,
-                               device=device)
+    if "k" in layers:                 # GQA rings: per-slot position tags
+        L, Lr = layers["pos"].shape
+        layers["pos"] = torch.full((L, n_slots, Lr), -1, dtype=torch.int32,
+                                   device=device)
     return {"pos": torch.zeros((n_slots,), dtype=torch.int32,
                                device=device),
             "layers": layers}
@@ -95,7 +99,8 @@ def apply_cache_ops(cache: Dict, ops: torch.Tensor, n_reset: int,
     """Apply one packed vector of host-planned pool edits to the device
     cache IN PLACE: the ``pos`` and ``block_table`` uploads, page-tag
     resets (-1) for freshly allocated pages, then page copies
-    (copy-on-write) on every layer's K, V and tag pools.
+    (copy-on-write) on every layer's pools (K, V or the MLA latent rows,
+    and the tags).
 
     ``ops`` (int32, on the cache's device) is laid out by
     ``PagedPool.drain``: pos (n_slots) | block_table (n_slots * n_blocks)
@@ -249,12 +254,15 @@ class PagedPool:
     Device layout (``build``): one tensor per leaf, {"pos": (n_slots,),
     "block_table": (n_slots, n_blocks) int32, "layers": {"k", "v": (L,
     n_pages + 1, page, hkv, hd), "pos": (L, n_pages + 1, page) int32
-    position tags}}, updated in place.  JAX keeps per-layer tuples of
-    pool leaves only so that XLA can alias each scatter to its donated
-    buffer; eager torch writes in place anyway.  The trailing page
-    ``n_pages`` is a scratch page that no table ever holds: the
-    attention write sends the tokens it drops there (torch has no
-    ``mode="drop"`` scatter), so every real page stays bit-identical."""
+    position tags}}, updated in place; an MLA model's layers hold the
+    latent pools {"c_kv" (L, n_pages + 1, page, kv_lora_rank), "k_pe"
+    (..., qk_rope_head_dim), "pos"} instead of "k" and "v".  JAX keeps
+    per-layer tuples of pool leaves only so that XLA can alias each
+    scatter to its donated buffer; eager torch writes in place anyway.
+    The trailing page ``n_pages`` is a scratch page that no table ever
+    holds: the attention write sends the tokens it drops there (torch
+    has no ``mode="drop"`` scatter), so every real page stays
+    bit-identical."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
                  chunk: int = 0, page: int = 0, dtype=None,
@@ -303,18 +311,20 @@ class PagedPool:
         -1, block tables null."""
         cfg, dev = self.cfg, self.device
         shape = (cfg.n_layers, self.n_pages + 1, self.page)
-        kv = shape + (cfg.n_kv_heads, cfg.head_dim)
+        if cfg.mla:
+            feats = {"c_kv": (cfg.kv_lora_rank,),
+                     "k_pe": (cfg.qk_rope_head_dim,)}
+        else:
+            feats = {k: (cfg.n_kv_heads, cfg.head_dim) for k in ("k", "v")}
+        layers = {k: torch.zeros(shape + f, dtype=self.dtype, device=dev)
+                  for k, f in feats.items()}
+        layers["pos"] = torch.full(shape, -1, dtype=torch.int32, device=dev)
         return {
             "pos": torch.zeros((self.n_slots,), dtype=torch.int32,
                                device=dev),
             "block_table": torch.zeros((self.n_slots, self.n_blocks),
                                        dtype=torch.int32, device=dev),
-            "layers": {
-                "k": torch.zeros(kv, dtype=self.dtype, device=dev),
-                "v": torch.zeros(kv, dtype=self.dtype, device=dev),
-                "pos": torch.full(shape, -1, dtype=torch.int32,
-                                  device=dev),
-            },
+            "layers": layers,
         }
 
     def drain(self) -> Optional[Tuple[np.ndarray, int, int]]:

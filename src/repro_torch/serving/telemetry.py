@@ -1,11 +1,13 @@
 """Serving telemetry: per-layer tile-liveness histograms and the
 liveness-quantile capacity calibration (``repro.serving.telemetry``).
 
-Every engine dispatch returns ``aux`` whose ``mor_stats`` entry holds
-per-layer (L-stacked) realised skip statistics.  The telemetry bins each
-layer's live-tile fraction into a fixed histogram; ``calibrate_capacity``
-reads a quantile of that distribution per layer and provisions each
-layer's ``gather_matmul`` capacity from it.
+Every engine dispatch returns ``aux`` whose ``*mor_stats`` entries hold
+per-layer (L-stacked) realised skip statistics: ``mor_stats`` for a
+dense model, ``dense_mor_stats`` and the (L, E)-shaped per-(layer,
+expert) ``moe_mor_stats`` for a moe model.  The telemetry bins each
+row's live-tile fraction into a fixed histogram (an (L, E) group as L*E
+rows); ``calibrate_capacity`` reads a quantile of that distribution per
+row and hands the budgets back in the group's shape.
 """
 from __future__ import annotations
 

@@ -49,11 +49,14 @@ def _t(a):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(reduced):
-    jc, tc = jget_config(ARCH), get_config(ARCH)
-    if reduced:
-        jc, tc = jreduce_config(jc), reduce_config(tc)
-    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
-    assert tc.tdtype == getattr(torch, jc.dtype)
+    """Every ported arch, field by field: granite-3-2b and the MLA + MoE
+    deepseek-v2-236b."""
+    for arch in (ARCH, "deepseek-v2-236b"):
+        jc, tc = jget_config(arch), get_config(arch)
+        if reduced:
+            jc, tc = jreduce_config(jc), reduce_config(tc)
+        assert dataclasses.asdict(tc) == dataclasses.asdict(jc), arch
+        assert tc.tdtype == getattr(torch, jc.dtype)
 
 
 @pytest.mark.parametrize("shape", [(64, 300), (128, 256)])
