@@ -3,7 +3,7 @@
   python3 chip_smoke.py
 
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. the build: the five kernel sources compiled for sm_90a from
+2. the build: the seven kernel sources compiled for sm_90a from
    ``src/repro_torch/kernels/csrc`` (seconds, one ``-Xptxas -v`` line per
    entry function);
 3. each kernel against its plain PyTorch version at the slices' shapes,
@@ -21,13 +21,20 @@
    dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
    case, and ``mla_paged_flash`` at the same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, on the
-   rows that see a key;
+   rows that see a key; the kernel API's ``binary_dot``,
+   ``binary_dot_packed`` (bit-equal) and ``masked_matmul`` at the
+   granite gate widths, M = 8 and 256, with ``torch._int_mm`` on int8
+   signs and ``torch.matmul`` as yardsticks;
 4. the references: reduced float32 models served on the card must give
    the CPU plain versions' tokens, telemetry and prefix counters:
    granite on the slotted layout and on the paged layout (sliding
    window 16, so that prompts wrap the ring over shared pages: prefix
    hits, skipped chunks and copy-on-write), and deepseek-v2 (MLA + MoE)
-   on the paged layout with per-expert budgets, all in kernel mode;
+   on the paged layout with per-expert budgets, all in kernel mode; the
+   four paper DNNs (TDS, CNN10, ResNet18, Darknet19) in exact, tiled and
+   kernel mode with every binary rookie enabled: logits within
+   LOGIT_RTOL, predictor masks equal except where the CPU's proxy
+   pre-activation or p_hat lies within MARGIN_EPS of 0;
 5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
    random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
@@ -44,7 +51,18 @@
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
    gather_matmul (an MoE layer launches each once for all its experts);
-7. the card line again, the JSON kernels line, then the last line
+7. this slice's main path: the four paper DNNs at full width (random
+   init, BN stats from train-mode forwards, calibrated), 128 images
+   (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
+   Pearson, enabled fraction, the Fig. 12 breakdown, frac_computed,
+   argmax agreement with dense and forward ms; counted: TDS's
+   kernel-mode forward (one mor_tile_mask and gather_matmul a layer)
+   and the kernel API on every conv layer with K % 8 == 0, fed the
+   live im2col patches, permuted weights and predicted tiles
+   (``binary_dot`` bit-equal to ``binary_preact``, the packed form to
+   ``binary_dot``, ``masked_matmul`` within tolerance and its count the
+   mask's sum), Darknet19's layer 13 (K = 9 x 512, N = 1024) timed;
+8. the card line again, the JSON kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It exits non-zero without a CUDA device, and no phase catches its own
@@ -61,7 +79,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
+# dense tensor-core rates, and float32 on the CUDA cores (the paper
+# DNNs' float32 products)
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 # bf16 product tolerance: kernel and plain version both sum bf16
 # products (exact in float32) in float32, in different orders, then round
 # to bf16.  Reassociation moves the float32 sum by far less than one bf16
@@ -70,6 +90,10 @@ PEAK_OPS = {"bf16": 989e12, "int8": 1979e12}
 # 1e-3 x max|out| for outputs near zero where the relative bound is
 # vacuous.
 RTOL, ATOL_REL = 2.0 ** -7, 1e-3
+# float32 product tolerance (the paper DNNs' operands): kernel and plain
+# version both sum float32 products in float32, in different orders (no
+# TF32 anywhere): a few float32 steps apart, far inside 1e-5 relative
+RTOL_F32, ATOL_REL_F32 = 1e-5, 1e-5
 # greedy-token agreement bar between the full-width kernel run and the
 # tiled / dense / slotted runs.  Kernel and tiled differ only in
 # summation order (bf16 rounding noise), dense also in skipping nothing,
@@ -148,11 +172,15 @@ def _bound(nbytes, ops, kind):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _close(got, want):
+def _close(got, want, f32=False):
+    """Max abs err of ``got`` against ``want``, asserted within the
+    tolerance of the operands' type: bfloat16 (RTOL, ATOL_REL), or
+    float32 (RTOL_F32, ATOL_REL_F32) when ``f32``."""
     import torch
     g, w = got.float(), want.float()
+    rtol, atol_rel = (RTOL_F32, ATOL_REL_F32) if f32 else (RTOL, ATOL_REL)
     err = float((g - w).abs().max())
-    lim = RTOL * w.abs() + ATOL_REL * float(w.abs().max())
+    lim = rtol * w.abs() + atol_rel * float(w.abs().max())
     assert bool(torch.all((g - w).abs() <= lim)), \
         f"kernel disagrees with its plain version: max abs err {err}"
     return err
@@ -606,6 +634,132 @@ def kernel_mla(gen, flush):
             **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"])}
 
 
+# -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
+
+INT_MM_RULE = ("torch._int_mm needs M > 16 (and cuBLASLt refused M = N = "
+               "40, K = 96): timed where M, K, N are multiples of 32")
+
+
+def _int_mm_ms(xs, ws, flush):
+    """One ``torch._int_mm`` over int8 signs binarised beforehand, where
+    its shape rules allow (INT_MM_RULE), else None."""
+    import torch
+    M, K = xs.shape
+    if M <= 16 or M % 32 or K % 32 or ws.shape[1] % 32:
+        return None
+    return _timer(lambda: torch._int_mm(xs, ws), flush)
+
+
+def binary_cases(x, w, flush, tiles=None):
+    """The three kernel-API kernels on one (x, w), each held against its
+    plain version and timed beside it, its library yardstick and its
+    bound: ``binary_dot`` (bit-equal to ``binary_preact``),
+    ``binary_dot_packed`` on ``pack_signs(w)`` (bit-equal to
+    ``binary_dot``) and ``masked_matmul`` under ``tiles`` (8 x 128; a
+    70%-live random mask when None), within tolerance, its count the
+    mask's sum.  -> {kernel: result}."""
+    import torch
+    from repro_torch.core.predictor import binary_preact
+    from repro_torch.kernels import binary_dot as bd
+    from repro_torch.kernels import binary_dot_packed as bdp
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ops
+    M, K = x.shape
+    N = w.shape[1]
+    elt = x.element_size()
+    kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    want = binary_preact(x, w)
+    got = ops.binary_dot(x, w)
+    packed = bdp.pack_signs(w)
+    got_p = bdp.binary_dot_packed(x, packed)
+    if tiles is None:
+        g = torch.Generator(device=x.device).manual_seed(SEED + M)
+        tiles = torch.rand((-(-M // 8), -(-N // 128)), generator=g,
+                           device=x.device) < 0.7
+    got_m, n_live = ops.masked_matmul(x, w, tiles, with_counts=True)
+    want_m = mm.masked_matmul_plain(x, w, tiles)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum())
+    assert n_diff == 0, f"binary_dot: {n_diff} entries differ"
+    n_diff_p = int((got_p != got).sum())
+    assert n_diff_p == 0, f"binary_dot_packed: {n_diff_p} entries differ"
+    assert int(n_live) == int(tiles.sum()), (int(n_live), int(tiles.sum()))
+    keep = tiles.repeat_interleave(8, 0).repeat_interleave(128, 1)[:M, :N]
+    assert bool(torch.all(got_m[~keep] == 0)), "dead tiles are not zero"
+    err_m = _close(got_m, want_m, f32=x.dtype == torch.float32)
+    xs = torch.where(x > 0, 1, -1).to(torch.int8)
+    ws = torch.where(w >= 0, 1, -1).to(torch.int8)
+    sign_ops = 2 * M * K * N
+    out = {}
+    b_ms, b_by = _bound(M * K * elt + K * N * elt + M * N * 4, sign_ops,
+                        "int8")
+    out["binary_dot"] = {
+        "max_abs_err": float(n_diff),
+        "ms": _timer(lambda: bd.binary_dot(x, w), flush),
+        "plain_ms": _timer(lambda: bd.binary_dot_plain(x, w), flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _int_mm_ms(xs, ws, flush), "M": M, "K": K, "N": N}
+    if out["binary_dot"]["library_ms"] is None:
+        out["binary_dot"]["library_null"] = INT_MM_RULE
+    b_ms, b_by = _bound(M * K * elt + K * N // 8 + M * N * 4, sign_ops,
+                        "int8")
+    out["binary_dot_packed"] = {
+        "max_abs_err": float(n_diff_p),
+        "ms": _timer(lambda: bdp.binary_dot_packed(x, packed), flush),
+        "plain_ms": _timer(lambda: bdp.binary_dot_packed_plain(x, packed),
+                           flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _int_mm_ms(xs, ws, flush), "M": M, "K": K, "N": N,
+        "weight_bytes": K * N // 8, "unpacked_weight_bytes": K * N * elt,
+        **({"library_null": INT_MM_RULE}
+           if out["binary_dot"]["library_ms"] is None else {})}
+    # what the live tiles need: their column strips of w and row blocks
+    # of x once, and the whole output (dead tiles are written as zeros)
+    cols = int(tiles.any(0).sum())
+    rows = int(tiles.any(1).sum())
+    n_t = int(tiles.sum())
+    b_ms, b_by = _bound(cols * K * 128 * elt + rows * 8 * K * elt
+                        + M * N * elt, n_t * 2 * 8 * 128 * K, kind)
+    out["masked_matmul"] = {
+        "max_abs_err": err_m,
+        "ms": _timer(lambda: ops.masked_matmul(x, w, tiles), flush),
+        "plain_ms": _timer(lambda: mm.masked_matmul_plain(x, w, tiles),
+                           flush),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": _timer(lambda: torch.matmul(x, w), flush),
+        "M": M, "K": K, "N": N, "frac_live": n_t / tiles.numel()}
+    return out
+
+
+def kernel_api(gen, flush):
+    """-> {kernel: {case: result}}: the three kernel-API kernels at
+    granite-3-2b's gate widths (K = 2048, N = 8192) in bf16, M = 8 and
+    256 rows."""
+    import torch
+    K, N = 2048, 8192
+    per = {}
+    for M in (8, 256):
+        x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+        w = (torch.randn((K, N), generator=gen, device="cuda")
+             * K ** -0.5).bfloat16()
+        for name, r in binary_cases(x, w, flush).items():
+            per.setdefault(name, {})[f"m{M}"] = r
+            log("kernel", name=name,
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+    return per
+
+
+API_KERNELS = {
+    "binary_dot": ("src/repro_torch/kernels/csrc/binary_dot.cu",
+                   "src/repro/kernels/binary_dot.py:40"),
+    "binary_dot_packed": ("src/repro_torch/kernels/csrc/binary_dot_packed.cu",
+                          "src/repro/kernels/binary_dot_packed.py:71"),
+    "masked_matmul": ("src/repro_torch/kernels/csrc/masked_matmul.cu",
+                      "src/repro/kernels/masked_matmul.py:44"),
+}
+
+
 KERNELS = [
     ("mor_tile_mask", "src/repro_torch/kernels/csrc/mor_predict.cu",
      "src/repro/kernels/mor_predict.py:76", kernel_case_mor,
@@ -646,6 +800,13 @@ def phase_kernels():
                          if k != "m8"}}
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
+    for name, per in kernel_api(gen, flush).items():
+        source, replaces = API_KERNELS[name]
+        rows[name] = {"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, **_fields(per["m8"]),
+                      "at_m256": _fields(per["m256"])}
+        if "library_null" in per["m8"]:
+            rows[name]["library_null_at_m8"] = per["m8"]["library_null"]
     if torch.cuda.get_device_name(0).find("H100") < 0:
         log("kernel", note="bounds use the H100 SXM's published rates")
     return rows
@@ -661,6 +822,10 @@ def _fields(r):
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    if tree is None:
+        return None
     return tree.to(device)
 
 
@@ -801,13 +966,22 @@ def _profile(eng, reqs):
     (recording host ops would slow the host loop it measures): device
     time by kernel, and the device's idle share of the pass's wall
     time."""
+    eng.reset_counters()
+    _profile_fn(f"{eng.cfg.name}-{eng.layout}-{eng.mor_mode}",
+                lambda: eng.run(list(reqs)),
+                lambda: {"dispatches": eng.counters["dispatches"]})
+
+
+def _profile_fn(tag, fn, extra=lambda: {}, top=8):
+    """``fn`` once under ``torch.profiler`` (device only): device busy ms,
+    the idle share of the wall time, the paged attentions' share, and the
+    ``top`` kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    eng.reset_counters()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.run(list(reqs))
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = [(e.key, e.self_device_time_total, e.count)
@@ -815,12 +989,11 @@ def _profile(eng, reqs):
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     paged = sum(us for key, us, _ in rows if "paged_kernel" in key)
-    tag = f"{eng.cfg.name}-{eng.layout}-{eng.mor_mode}"
-    log("profile", path=tag, dispatches=eng.counters["dispatches"],
+    log("profile", path=tag, **extra(),
         wall_ms=round(wall_us / 1e3, 2), device_busy_ms=round(busy / 1e3, 2),
         idle_share=round(1 - busy / wall_us, 4) if busy else "not measured",
         paged_attention_share=round(paged / busy, 4) if busy else 0.0)
-    for key, us, n in rows[:8]:
+    for key, us, n in rows[:top]:
         log("profile", path=tag, kernel=repr(key[:60]),
             ms=round(us / 1e3, 3), calls=n, share=round(us / busy, 4))
 
@@ -834,6 +1007,8 @@ def _agree(a, b):
 def _counted(fn):
     """Run ``fn`` with every launch counter zeroed just before and read
     just after -> (fn's result, {kernel: launches})."""
+    from repro_torch.kernels import binary_dot as bd
+    from repro_torch.kernels import binary_dot_packed as bdp
     from repro_torch.kernels import gather_matmul as gm
     from repro_torch.kernels import masked_matmul as mm
     from repro_torch.kernels import mor_predict as mp
@@ -842,7 +1017,10 @@ def _counted(fn):
                 "gather_matmul": (gm, "launches"),
                 "masked_matmul_kdim": (mm, "launches"),
                 "gqa_paged_flash": (pa, "launches"),
-                "mla_paged_flash": (pa, "mla_launches")}
+                "mla_paged_flash": (pa, "mla_launches"),
+                "binary_dot": (bd, "launches"),
+                "binary_dot_packed": (bdp, "launches"),
+                "masked_matmul": (mm, "masked_launches")}
     for m, attr in counters.values():
         setattr(m, attr, 0)
     out = fn()
@@ -859,7 +1037,8 @@ def _want_launches(L, dispatches, paged, mla=False):
             "gather_matmul": 2 * L * dispatches,
             "masked_matmul_kdim": L * dispatches,
             "gqa_paged_flash": 0 if mla else attn,
-            "mla_paged_flash": attn if mla else 0}
+            "mla_paged_flash": attn if mla else 0,
+            "binary_dot": 0, "binary_dot_packed": 0, "masked_matmul": 0}
 
 
 def _check_tokens(cfg, reqs, toks):
@@ -1088,6 +1267,470 @@ def slice_deepseek():
     return launches
 
 
+# -- the paper's DNNs (TDS, CNN10, ResNet18, Darknet19) ----------------------
+
+PAPER_ARCHS = ("paper-tds", "paper-cnn10", "paper-resnet18",
+               "paper-darknet19")
+MOR_MODES = ("exact", "tiled", "kernel")
+# an entry whose proxy pre-activation or p_hat lies within MARGIN_EPS of
+# 0 may take the other side on the card: cuDNN's conv and cuBLAS sum in
+# another order than the CPU (float32 differences ~1e-6 at values ~1),
+# and the predictor compares those values with 0
+MARGIN_EPS = 1e-4
+# float32 logits, card vs CPU: the same arithmetic summed in another
+# order through up to 19 layers (relative differences ~1e-6 a layer)
+LOGIT_RTOL, LOGIT_ATOL_REL = 1e-4, 1e-4
+
+
+def _logits_close(got, want, what):
+    import torch
+    g, w = got.float().cpu(), want.float().cpu()
+    err = float((g - w).abs().max())
+    lim = LOGIT_RTOL * w.abs() + LOGIT_ATOL_REL * float(w.abs().max())
+    assert bool(torch.all((g - w).abs() <= lim)), f"{what}: logits err {err}"
+    return err
+
+
+def _paper_setup(cfg, device, batch, n_bn=2, n_cal=2, seq=32):
+    """Random init from SEED on ``device``; for a CNN, BN running stats
+    from ``n_bn`` train-mode forwards; calibration on ``n_cal`` batches.
+    -> (api, params, state (None for TDS), mor list, report)."""
+    import torch
+    from repro_torch.core.deploy import calibrate_cnn, calibrate_tds
+    from repro_torch.data.pipeline import (synthetic_frames_batch,
+                                           synthetic_image_batch)
+    from repro_torch.models import cnn, get_model
+    api = get_model(cfg)
+    gen = (torch.Generator(device="cuda") if device == "cuda"
+           else torch.Generator()).manual_seed(SEED)
+    params = api.init(gen, cfg)
+    if cfg.family == "tds":
+        mor, rep = calibrate_tds(
+            params, cfg, api.forward,
+            (synthetic_frames_batch(cfg, batch, seq, seed=SEED, step=k)
+             for k in range(n_cal)), n_cal)
+        return api, params, None, mor, rep
+    state = cnn.init_state(cfg, device)
+    with torch.no_grad():
+        for k in range(n_bn):
+            im = synthetic_image_batch(cfg, batch, seed=SEED, step=100 + k)
+            _, state, _ = api.forward(params, state, cfg, torch.as_tensor(
+                im["images"], device=device), train=True)
+    mor, rep = calibrate_cnn(
+        params, state, cfg, api.forward,
+        (synthetic_image_batch(cfg, batch, seed=SEED, step=k)
+         for k in range(n_cal)), n_cal)
+    return api, params, state, mor, rep
+
+
+def _cnn_walk(params, state, cfg, images, mor, mode):
+    """``cnn.forward``'s layer loop through ``cnn.conv_layer``, keeping
+    each layer's input and stride -> (logits, [layer records])."""
+    from repro_torch.models import cnn
+    strides = cnn._strides(cfg)
+    x, shortcut, out = images, None, []
+    for i, lp in enumerate(params["layers"]):
+        r = cnn.conv_layer(lp, state["bn"][i], cfg, x, strides[i],
+                           shortcut if cfg.residual and i % 2 == 1 else None,
+                           mor=None if mor is None else mor[i],
+                           mor_mode=mode)
+        r["x"], r["stride"] = x, strides[i]
+        out.append(r)
+        x = r["y"]
+        if cfg.residual and i % 2 == 0:
+            shortcut = x
+    return x.mean((1, 2)) @ params["head"], out
+
+
+def _cnn_margin(r, lp, mor_i):
+    """min(|proxy ReLU input|, |p_hat|) of every (row, permuted column)
+    of one conv layer: how far its predictor inputs lie from 0."""
+    import torch
+    from repro_torch.core.predictor import (binary_preact, estimate_preact,
+                                            proxy_relu_in)
+    from repro_torch.models import cnn
+    perm = mor_i["perm"].long()
+    C = r["pre"].shape[-1]
+    xc = cnn._im2col(r["x"], lp["w"].shape[0], r["stride"])
+    w = cnn._wmat(lp["w"])[:, perm]
+    res = (None if r["res_in"] is None
+           else r["res_in"].reshape(-1, C)[:, perm])
+    prox = proxy_relu_in(xc, w, mor_i,
+                         preact_full=r["pre"].reshape(-1, C)[:, perm],
+                         residual=res)
+    p_hat = estimate_preact(binary_preact(xc, w), mor_i, res)
+    return torch.minimum(prox.abs(), p_hat.abs())
+
+
+def _tds_walk(params, cfg, frames, mor, mode):
+    """``tds.forward``'s block loop through ``tds.block``; under an active
+    plan each record also carries the FC1 prediction on the block's own
+    FC1 input (one more predictor pass: kernel mode launches
+    ``mor_tile_mask`` again).  -> (logits, [block records])."""
+    from repro_torch.core.executor import as_plan
+    from repro_torch.models import tds
+    x, out = frames, []
+    for i, lp in enumerate(params["layers"]):
+        r = tds.block(lp, cfg, x, mor=None if mor is None else mor[i],
+                      mor_mode=mode)
+        if mor is not None and mode != "dense":
+            plan = as_plan(mor[i], mode=mode, tile_m=cfg.mor.tile_m,
+                           tile_n=cfg.mor.tile_n,
+                           capacity_frac=cfg.mor.capacity)
+            w = lp["fc1"][:, plan.mor["perm"].long()]
+            r["w_perm"] = w
+            pre = (r["fc_in"] @ w).float() if mode == "exact" else None
+            r["pred"] = plan.predict(r["fc_in"], w, preact_full=pre)
+            if mode == "kernel":
+                # FC1's product through the path's own call
+                # (gather_matmul on the card), kept to hold against the
+                # plain version
+                r["fc1_pre"] = plan.masked_matmul(r["fc_in"], w, r["pred"])
+        out.append(r)
+        x = r["y"]
+    return x @ params["head"], out
+
+
+def _tds_walk_pred(r, mor_i, cfg):
+    """The kernel-mode FC1 tile mask of one block record, recomputed on
+    the CPU (the plain versions) from the same operands."""
+    from repro_torch.core.executor import as_plan
+    plan = as_plan(_to(mor_i, "cpu"), mode="kernel", tile_m=cfg.mor.tile_m,
+                   tile_n=cfg.mor.tile_n, capacity_frac=cfg.mor.capacity)
+    return plan.predict(r["fc_in"].cpu(), r["w_perm"].cpu()).tiles
+
+
+def _tds_fc1_err(r, mor_i, cfg):
+    """The kernel-mode FC1 product of one block record (``gather_matmul``
+    on the card) against the plain version on the CPU, on the same
+    operands and the card's tiles: max abs err within the float32
+    tolerance, and the same live and computed tile counts."""
+    import torch
+    from repro_torch.core.executor import as_plan
+    from repro_torch.kernels import ops
+    plan = as_plan(_to(mor_i, "cpu"), mode="kernel", tile_m=cfg.mor.tile_m,
+                   tile_n=cfg.mor.tile_n, capacity_frac=cfg.mor.capacity)
+    pred = r["pred"]
+    want, n_live, n_comp = ops.gather_matmul(
+        r["fc_in"].cpu(), r["w_perm"].cpu(), pred.tiles.cpu(),
+        capacity_frac=plan.capacity_frac, capacity_frac_live=plan.cap_live,
+        tile_m=plan.tile_m, tile_n=plan.tile_n, with_counts=True)
+    got_live, got_comp = pred.kernel_counts
+    assert (int(got_live), int(got_comp)) == (int(n_live), int(n_comp)), \
+        ((int(got_live), int(got_comp)), (int(n_live), int(n_comp)))
+    err = _close(r["fc1_pre"].cpu(), want, f32=True)
+    # the same operands under a 70%-live mask: dead tiles, the padded
+    # last column tile among them, at the path's shape
+    g = torch.Generator().manual_seed(SEED)
+    tiles = torch.rand(tuple(pred.tiles.shape), generator=g) < 0.7
+    got = ops.gather_matmul(r["fc_in"], r["w_perm"], tiles.cuda(),
+                            tile_m=plan.tile_m, tile_n=plan.tile_n)
+    want = ops.gather_matmul(r["fc_in"].cpu(), r["w_perm"].cpu(), tiles,
+                             tile_m=plan.tile_m, tile_n=plan.tile_n)
+    return max(err, _close(got.cpu(), want, f32=True))
+
+
+def _tds_margin(r, mor_i):
+    import torch
+    from repro_torch.core.predictor import (binary_preact, estimate_preact,
+                                            proxy_relu_in)
+    prox = proxy_relu_in(r["fc_in"], r["w_perm"], mor_i)
+    p_hat = estimate_preact(binary_preact(r["fc_in"], r["w_perm"]), mor_i)
+    return torch.minimum(prox.abs(), p_hat.abs())
+
+
+def reference_paper():
+    """The four paper DNNs, reduced and float32, on the card (CUDA
+    kernels, cuDNN convs) against the CPU (plain versions), from one
+    seed's weights, BN stats and calibration (made on the CPU), every
+    binary rookie enabled (on random weights the calibrated Pearson
+    stays below T, so nothing else would be skipped), in exact, tiled
+    and kernel mode: logits allclose (LOGIT_RTOL, LOGIT_ATOL_REL);
+    predictor masks (CNN neuron masks, TDS tile masks) equal except at
+    entries whose CPU margin is below MARGIN_EPS; the CNN launches no
+    kernel in any mode and gives the same outputs in all three."""
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.policy import tile_mask_from_neuron_mask
+    from repro_torch.data.pipeline import (synthetic_frames_batch,
+                                           synthetic_image_batch)
+    for arch in PAPER_ARCHS:
+        cfg = reduce_config(get_config(arch))
+        api, params, state, mor, rep = _paper_setup(cfg, "cpu", 4)
+        for m in mor:
+            m["enable"] = torch.ones_like(m["enable"])
+        tds_ = cfg.family == "tds"
+        if tds_:
+            inp = torch.as_tensor(synthetic_frames_batch(
+                cfg, 2, 32, seed=SEED + 1, step=0)["frames"])
+        else:
+            inp = torch.as_tensor(synthetic_image_batch(
+                cfg, 4, seed=SEED + 1, step=0)["images"])
+        dev = {"cpu": (params, state, mor, inp),
+               "cuda": (_to(params, "cuda"), _to(state, "cuda"),
+                        _to(mor, "cuda"), inp.cuda())}
+        first = None
+        for mode in MOR_MODES:
+            runs = {}
+            for d, (p, s, ml, x) in dev.items():
+                (lg, recs), launches = _counted(
+                    lambda: _tds_walk(p, cfg, x, ml, mode) if tds_
+                    else _cnn_walk(p, s, cfg, x, ml, mode))
+                fwd = (api.forward(p, cfg, {"frames": x}, mor=ml,
+                                   mor_mode=mode)[0] if tds_ else
+                       api.forward(p, s, cfg, x, mor=ml, mor_mode=mode)[0])
+                _logits_close(fwd, lg, f"{arch} {mode} {d} walk")
+                runs[d] = (lg, recs, launches)
+            err = _logits_close(runs["cuda"][0], runs["cpu"][0],
+                                f"{arch} {mode}")
+            n_diff = n_near = 0
+            for i, (rc, rg) in enumerate(zip(runs["cpu"][1],
+                                             runs["cuda"][1])):
+                if tds_:
+                    near = tile_mask_from_neuron_mask(
+                        _tds_margin(rc, mor[i]) < MARGIN_EPS, 8, 128)
+                    a, b = rc["pred"].tiles, rg["pred"].tiles.cpu()
+                else:
+                    near = _cnn_margin(rc, params["layers"][i],
+                                       mor[i]) < MARGIN_EPS
+                    a, b = rc["computed"], rg["computed"].cpu()
+                diff = a != b
+                assert not bool((diff & ~near).any()), \
+                    f"{arch} {mode} layer {i}: masks differ away from 0"
+                n_diff += int(diff.sum())
+                n_near += int(near.sum())
+            if not tds_:
+                assert runs["cuda"][2]["mor_tile_mask"] == 0 and \
+                    runs["cuda"][2]["gather_matmul"] == 0, runs["cuda"][2]
+                masks = [r["computed"].cpu() for r in runs["cuda"][1]]
+                if first is None:
+                    first = (runs["cuda"][0].cpu(), masks)
+                else:
+                    assert torch.equal(first[0], runs["cuda"][0].cpu())
+                    assert all(torch.equal(u, v)
+                               for u, v in zip(first[1], masks))
+            log("reference", model=f"{arch} reduced f32", mode=mode,
+                logits_max_abs_err=err, mask_entries_differing=n_diff,
+                entries_within_eps=n_near, eps=MARGIN_EPS,
+                launches=json.dumps({k: v for k, v in
+                                     runs["cuda"][2].items() if v}))
+        log("reference", model=f"{arch} reduced f32",
+            pearson_mean=round(rep["pearson_mean"], 4),
+            modes_equal=("n/a (TDS)" if tds_ else True))
+
+
+def _breakdown_add(acc, true_preact, computed):
+    from repro_torch.core.predictor import prediction_breakdown
+    n = true_preact.numel()
+    for k, v in prediction_breakdown(true_preact, computed).items():
+        acc[k] = acc.get(k, 0.0) + float(v) * n
+    acc["n"] = acc.get("n", 0) + n
+
+
+def _fwd_ms(fn, reps=3):
+    """Mean device ms of ``fn`` over ``reps`` calls after one warm-up
+    (CUDA events around each call, no flush: a whole forward)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / reps
+
+
+def slice_paper(flush):
+    """This slice's main path: the four registered paper DNNs at full
+    width on the card (random init from SEED; CNN BN stats from 3
+    train-mode forwards of 128 images; calibrated on 4 batches), a batch
+    of 128 images (TDS: 32 x 256 frames) in dense, exact, tiled and
+    kernel mode: Pearson, enabled fraction, the Fig. 12 breakdown,
+    frac_computed, argmax agreement with dense and forward ms per model
+    and mode.  In TDS kernel mode each block's tile mask and FC1 product
+    (``gather_matmul`` at K = 144, N = 288) are held against the plain
+    versions on the CPU.  Counted: the TDS kernel-mode forward (one
+    mor_tile_mask and one gather_matmul per layer), then the kernel API
+    on every conv
+    layer with K % 8 == 0, on the live im2col patches and permuted
+    weights of the calibrated kernel-mode forward.  -> (launches,
+    {kernel: Darknet19 layer-13 result})."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import tile_mask_from_neuron_mask
+    from repro_torch.core.predictor import binary_preact
+    from repro_torch.data.pipeline import (synthetic_frames_batch,
+                                           synthetic_image_batch)
+    from repro_torch.kernels import binary_dot_packed as bdp
+    from repro_torch.kernels import masked_matmul as mm
+    from repro_torch.kernels import ops
+    from repro_torch.models import cnn
+    total = {}
+    darknet = None
+    for arch in PAPER_ARCHS:
+        cfg = get_config(arch)
+        tds_ = cfg.family == "tds"
+        t0 = time.perf_counter()
+        api, params, state, mor, rep = _paper_setup(
+            cfg, "cuda", 32 if tds_ else 128, n_bn=3, n_cal=4, seq=256)
+        torch.cuda.synchronize()
+        if tds_:
+            inp = {"frames": torch.as_tensor(synthetic_frames_batch(
+                cfg, 32, 256, seed=SEED + 1, step=0)["frames"],
+                device="cuda")}
+            fwd = lambda mode, m=None: api.forward(params, cfg, inp, mor=m,
+                                                   mor_mode=mode)[0]
+        else:
+            inp = torch.as_tensor(synthetic_image_batch(
+                cfg, 128, seed=SEED + 1, step=0)["images"], device="cuda")
+            fwd = lambda mode, m=None: api.forward(params, state, cfg, inp,
+                                                   mor=m, mor_mode=mode)[0]
+        log("paper", model=arch, layers=len(params["layers"]),
+            widths=(f"d {cfg.d_model} d_ff {cfg.d_ff}" if tds_ else
+                    f"channels {cfg.cnn_channels[1]}-"
+                    f"{max(cfg.cnn_channels)}"),
+            batch="32 x 256 frames" if tds_ else "128 x 32 x 32 images",
+            setup_s=round(time.perf_counter() - t0, 2),
+            pearson_mean=round(rep["pearson_mean"], 4),
+            enabled_frac=round(rep["enabled_frac"], 4))
+        with torch.no_grad():
+            dense = fwd("dense")
+            log("paper", model=arch, mode="dense",
+                ms=round(_fwd_ms(lambda: fwd("dense")), 3),
+                finite=bool(torch.isfinite(dense).all()))
+            _profile_fn(f"{arch}-dense", lambda: fwd("dense"), top=5)
+            assert bool(torch.isfinite(dense).all())
+            for mode in MOR_MODES:
+                if tds_ and mode == "kernel":
+                    logits, n = _counted(lambda: fwd(mode, mor))
+                    want = dict.fromkeys(n, 0)
+                    want.update(mor_tile_mask=cfg.n_layers,
+                                gather_matmul=cfg.n_layers)
+                    assert n == want, (n, want)
+                    for k, v in n.items():
+                        total[k] = total.get(k, 0) + v
+                else:
+                    logits = fwd(mode, mor)
+                assert bool(torch.isfinite(logits).all())
+                agree = float((logits.argmax(-1) == dense.argmax(-1)
+                               ).float().mean())
+                ms = _fwd_ms(lambda: fwd(mode, mor))
+                bd_acc, fracs = {}, []
+                gm_err = 0.0 if tds_ and mode == "kernel" else None
+                if tds_:
+                    _, recs = _tds_walk(params, cfg, inp["frames"], mor,
+                                        mode)
+                    for i, r in enumerate(recs):
+                        lp = params["layers"][i]
+                        perm = mor[i]["perm"].long()
+                        true = (r["fc_in"] @ r["w_perm"] + lp["fc1_b"][perm])
+                        pred = r["pred"]
+                        if mode == "kernel":
+                            # K = 144, N = 288 (padded to 384): the
+                            # kernel's tiles against the plain version's
+                            cpu = _tds_walk_pred(r, mor[i], cfg)
+                            near = tile_mask_from_neuron_mask(_tds_margin(
+                                {k: r[k].cpu() for k in ("fc_in", "w_perm")},
+                                _to(mor[i], "cpu")) < MARGIN_EPS, 8, 128)
+                            diff = pred.tiles.cpu() != cpu
+                            assert not bool((diff & ~near).any()), \
+                                f"{arch} layer {i}: tiles differ"
+                            # gather_matmul at M = 8192, K = 144, N = 288
+                            # (its last column tile padded): the card's
+                            # FC1 product against the plain version
+                            gm_err = max(gm_err, _tds_fc1_err(r, mor[i],
+                                                              cfg))
+                        comp = (pred.computed if mode == "exact" else
+                                pred.keep_mask(*true.shape, 8, 128))
+                        _breakdown_add(bd_acc, true, comp)
+                        fracs.append(float(r["stats"]["frac_computed"]))
+                else:
+                    _, recs = _cnn_walk(params, state, cfg, inp, mor, mode)
+                    for i, r in enumerate(recs):
+                        C = r["pre"].shape[-1]
+                        perm = mor[i]["perm"].long()
+                        _breakdown_add(bd_acc, r["relu_in"].reshape(-1, C)[
+                            :, perm], r["computed"])
+                        fracs.append(float(r["computed"].float().mean()))
+                if mode == "kernel":
+                    _profile_fn(f"{arch}-kernel", lambda: fwd(mode, mor),
+                                top=5)
+                n_all = bd_acc.pop("n")
+                log("paper", model=arch, mode=mode, ms=round(ms, 3),
+                    argmax_agreement_with_dense=round(agree, 4),
+                    **({} if gm_err is None else
+                       {"gather_matmul_max_abs_err": gm_err}),
+                    frac_computed=np.round(fracs, 4).tolist(),
+                    fig12=json.dumps({k: round(v / n_all, 4)
+                                      for k, v in bd_acc.items()}))
+            if tds_:
+                continue
+            # the kernel API on every conv layer's live operands (the
+            # calibrated kernel-mode forward's im2col and permuted
+            # weights, its predicted tiles), counted
+            _, recs = _cnn_walk(params, state, cfg, inp, mor, "kernel")
+            checked = []
+
+            def api_calls():
+                for i, r in enumerate(recs):
+                    lp = params["layers"][i]
+                    K = lp["w"].shape[0] * lp["w"].shape[1] * lp["w"].shape[2]
+                    if K % 8:
+                        continue
+                    perm = mor[i]["perm"].long()
+                    xc = cnn._im2col(r["x"], lp["w"].shape[0], r["stride"])
+                    w = cnn._wmat(lp["w"])[:, perm].contiguous()
+                    tiles = tile_mask_from_neuron_mask(r["computed"], 8, 128)
+                    got = ops.binary_dot(xc, w)
+                    got_p = bdp.binary_dot_packed(xc, bdp.pack_signs(w))
+                    got_m, n_live = ops.masked_matmul(xc, w, tiles,
+                                                      with_counts=True)
+                    checked.append((i, xc, w, tiles, got, got_p, got_m,
+                                    n_live))
+            _, n = _counted(api_calls)
+            want = dict.fromkeys(n, 0)
+            want.update(binary_dot=len(checked),
+                        binary_dot_packed=len(checked),
+                        masked_matmul=len(checked))
+            assert n == want, (n, want)
+            for k, v in n.items():
+                total[k] = total.get(k, 0) + v
+            err = 0.0
+            for i, xc, w, tiles, got, got_p, got_m, n_live in checked:
+                assert torch.equal(got, binary_preact(xc, w)), \
+                    f"{arch} layer {i}: binary_dot != binary_preact"
+                assert torch.equal(got_p, got), \
+                    f"{arch} layer {i}: binary_dot_packed != binary_dot"
+                assert int(n_live) == int(tiles.sum())
+                err = max(err, _close(got_m, mm.masked_matmul_plain(
+                    xc, w, tiles), f32=True))
+            log("paper", model=arch, kernel_api_layers=len(checked),
+                binary_dot_bit_equal=True, packed_bit_equal=True,
+                masked_matmul_max_abs_err=err,
+                rows=[int(c[1].shape[0]) for c in checked][:4])
+            if arch == "paper-darknet19":
+                # one live layer, K = 9 x 512, N = 1024 (layer 13)
+                i, xc, w, tiles = checked[[c[0] for c in checked]
+                                          .index(13)][:4]
+                assert (xc.shape[1], w.shape[1]) == (9 * 512, 1024)
+                darknet = binary_cases(xc.contiguous(), w, flush, tiles)
+                for name, r in darknet.items():
+                    log("kernel", name=name, case="darknet19 layer 13",
+                        **{k: (round(v, 5) if isinstance(v, float) else v)
+                           for k, v in r.items()})
+            del recs, checked
+        torch.cuda.empty_cache()
+    log("paper", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
+                                   2))
+    return total, darknet
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1111,17 +1754,29 @@ def main() -> int:
     rows = phase_kernels()
     phase_reference()
     reference_deepseek()
+    reference_paper()
     granite = phase_slice()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     deepseek = slice_deepseek()
-    # "launches": this slice's main path (deepseek paged); the paged
-    # GQA kernel runs on the granite paged path only
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    paper, darknet = slice_paper(flush)
+    # "launches": each kernel's count on the main path of the slice that
+    # ported it: the paper DNNs for the kernel API (and TDS's MoR
+    # kernels), deepseek paged for the MoR kernels and mla_paged_flash,
+    # granite paged for gqa_paged_flash
     for name, row in rows.items():
-        row["launches"] = (granite if name == "gqa_paged_flash"
-                           else deepseek)[name]
+        if name in API_KERNELS:
+            row["launches"] = paper[name]
+            row["at_darknet19_l13"] = _fields(darknet[name])
+        else:
+            row["launches"] = (granite if name == "gqa_paged_flash"
+                               else deepseek)[name]
         row["launches_by_path"] = {"deepseek_paged": deepseek[name],
-                                   "granite_paged": granite[name]}
+                                   "granite_paged": granite[name],
+                                   "paper_dnns": paper[name]}
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)                # every number above is this card's
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

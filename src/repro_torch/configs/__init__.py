@@ -5,7 +5,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, MoRConfig, get_config, reduce_config, register,
 )
 
-_MODULES = ["granite_3_2b", "deepseek_v2_236b"]
+_MODULES = ["granite_3_2b", "deepseek_v2_236b", "paper_dnns"]
 
 _loaded = False
 

@@ -170,12 +170,12 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """The dense, MoE and MLA branches of ``repro.configs.base.
+    """The dense, MoE, MLA, CNN and TDS branches of ``repro.configs.base.
     reduce_config``: the same family at tiny widths."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "cnn", "tds"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense and moe families "
-            f"are ported so far")
+            f"{cfg.name} ({cfg.family}): only the dense, moe, cnn and tds "
+            f"families are ported so far")
     kw: Dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
@@ -197,5 +197,12 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
                   qk_rope_head_dim=8, v_head_dim=16, d_head=24)
     if cfg.sliding_window:
         kw.update(sliding_window=16)
+    if cfg.family == "cnn":
+        kw = dict(n_layers=cfg.n_layers, d_model=16, img_size=32,
+                  cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),
+                  dtype="float32", remat="none")
+    if cfg.family == "tds":
+        kw = dict(n_layers=2, d_model=64, d_ff=128, vocab_size=64,
+                  dtype="float32", remat="none")
     kw.setdefault("serve_chunk", 8)
     return cfg.replace(**kw)

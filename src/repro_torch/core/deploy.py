@@ -1,6 +1,8 @@
 """Offline MoR deployment (``repro.core.deploy``): calibrate a model,
 cluster its ReLU layers, fold the tile permutation into the weights, and
-emit the layer-stacked MoRLayer dict the runtime consumes.
+emit the layer-stacked MoRLayer dict the runtime consumes (for the
+paper's CNNs and TDS, a per-layer MoRLayer list, the permutation kept in
+the MoRLayer and applied by the model's forward).
 
   taps -> per-neuron (m, b, c) regression   [calibration.py]
   weights -> angle clusters -> proxies       [clustering.py]
@@ -8,7 +10,7 @@ emit the layer-stacked MoRLayer dict the runtime consumes.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -277,3 +279,76 @@ def calibrate_moe(params: Dict, cfg: ModelConfig, forward: Callable,
         mor["dense_layers"] = dense_stack
         report["dense_pearson_mean"] = float(cd.mean())
     return new_params, mor, report
+
+
+def _fit_layers(accs: List, batches: Iterator[Dict], n_batches: int,
+                taps_of: Callable) -> List[Tuple]:
+    """Stream ``n_batches`` of ``batches`` through ``taps_of`` (batch ->
+    one tap per layer) into the per-layer accumulators -> per layer the
+    host (m, b, c)."""
+    seen = 0
+    with torch.no_grad():
+        for batch in batches:
+            for i, tap in enumerate(taps_of(batch)):
+                accs[i] = update_accumulator(accs[i], tap["p_bin"],
+                                             tap["p_base"])
+            seen += 1
+            if seen >= n_batches:
+                break
+    return [tuple(t.cpu().numpy() for t in finalize_regression(a))
+            for a in accs]
+
+
+def _list_report(mors: List, cs: List) -> Dict:
+    return {"pearson_mean": float(np.mean([c.mean() for c in cs])),
+            "pearson_per_layer": [float(c.mean()) for c in cs],
+            "enabled_frac": float(np.mean(
+                [float(ml["enable"].float().mean()) for ml in mors]))}
+
+
+def calibrate_cnn(params: Dict, state: Dict, cfg: ModelConfig,
+                  forward: Callable, batches: Iterator[Dict],
+                  n_batches: int) -> Tuple[List, Dict]:
+    """Calibrate the paper's CNNs: one MoRLayer per conv layer, its BN
+    folded into ``bn_scale`` / ``bn_bias``.  ``batches`` yield
+    {"images": NHWC (numpy or tensor)}.  -> (MoRLayer list aligned with
+    the conv layers, report)."""
+    from repro_torch.models.cnn import bn_fold, layer_weight_matrices
+    device = params["head"].device
+    fits = _fit_layers(
+        [init_accumulator(lp["w"].shape[-1], device)
+         for lp in params["layers"]], batches, n_batches,
+        lambda b: forward(params, state, cfg, torch.as_tensor(
+            b["images"], device=device), with_taps=True)[2]["taps"])
+    mors = []
+    for i, (w, (m, b, c)) in enumerate(zip(layer_weight_matrices(params),
+                                           fits)):
+        bn_s = bn_b = None
+        if cfg.batchnorm:
+            bn_s, bn_b = (t.cpu().numpy() for t in bn_fold(
+                params["layers"][i]["bn"], state["bn"][i]))
+        mors.append(build_mor_layer(
+            m, b, c, cluster_layer(w, cfg.mor.max_cluster_angle), cfg.mor,
+            device, bn_scale=bn_s, bn_bias=bn_b))
+    return mors, _list_report(mors, [f[2] for f in fits])
+
+
+def calibrate_tds(params: Dict, cfg: ModelConfig, forward: Callable,
+                  batches: Iterator[Dict], n_batches: int
+                  ) -> Tuple[List, Dict]:
+    """Calibrate the TDS FC1 layers (the taps alternate conv and FC, so
+    the FC taps are the odd ones); the FC1 bias folds into the
+    predictor's affine term as ``bn_bias``.  ``batches`` yield
+    {"frames": (B, T, d) (numpy or tensor)}.  -> (MoRLayer list, one per
+    block, report)."""
+    device = params["head"].device
+    fits = _fit_layers(
+        [init_accumulator(cfg.d_ff, device) for _ in params["layers"]],
+        batches, n_batches,
+        lambda b: forward(params, cfg, {"frames": torch.as_tensor(
+            b["frames"], device=device)}, with_taps=True)[1]["taps"][1::2])
+    mors = [build_mor_layer(m, b, c, cluster_layer(
+        lp["fc1"], cfg.mor.max_cluster_angle), cfg.mor, device,
+        bn_bias=lp["fc1_b"].cpu().numpy())
+        for lp, (m, b, c) in zip(params["layers"], fits)]
+    return mors, _list_report(mors, [f[2] for f in fits])

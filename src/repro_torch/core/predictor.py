@@ -116,3 +116,24 @@ def hybrid_predict(x: torch.Tensor, w_perm: torch.Tensor, mor: MoRLayer,
     skip = proxy_says_zero & binary_says_zero & cols(mor["enable"]) \
         & ~cols(mor["is_proxy"])
     return ~skip
+
+
+def prediction_breakdown(true_preact: torch.Tensor,
+                         computed_mask: torch.Tensor
+                         ) -> Dict[str, torch.Tensor]:
+    """Paper Fig. 12 categories, as fractions of all outputs.
+
+    true_preact: the real ReLU inputs (after BN / residual);
+    computed_mask: the hybrid predictor's decision (True = evaluated at
+    base precision)."""
+    truly_zero = true_preact <= 0.0
+    pred_zero = ~computed_mask
+    n = true_preact.numel()
+
+    def frac(m):
+        return m.sum(dtype=torch.float32) / n
+
+    return {"correct_zero": frac(pred_zero & truly_zero),
+            "incorrect_zero": frac(pred_zero & ~truly_zero),
+            "correct_nonzero": frac(computed_mask & ~truly_zero),
+            "incorrect_nonzero": frac(computed_mask & truly_zero)}

@@ -1,6 +1,6 @@
-"""Public wrappers around the MoR kernels: shape padding, the K-pad
-compensation, the tri-state pad sentinel, and the MoRLayer-facing coef
-table — the counterpart of ``repro/kernels/ops.py``.
+"""Public wrappers around the MoR kernels (the kernel API): shape
+padding, the K-pad compensation, the tri-state pad sentinel, and the
+MoRLayer-facing coef table — the counterpart of ``repro/kernels/ops.py``.
 
 Each wrapper pads exactly as the JAX wrapper does, then calls the kernel
 module, which launches the CUDA kernel for a CUDA tensor and runs its
@@ -17,9 +17,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import binary_dot as _bd
 from repro_torch.kernels import gather_matmul as _gm
 from repro_torch.kernels import masked_matmul as _mm
 from repro_torch.kernels import mor_predict as _mp
+
+# the JAX wrappers' blocks, which decide how far they pad: binary_dot's
+# (bm, bk, bn) and masked_matmul's contraction block (the CUDA kernels
+# themselves take any M, K, N)
+BD_BM, BD_BK, BD_BN = 128, 512, 128
+MM_BK = 512
 
 
 def _pad_to(x: torch.Tensor, mult0: int, mult1: int,
@@ -45,6 +52,42 @@ def _bk(K: int, bk: int) -> int:
     else K itself (so the contraction is never padded)."""
     bk_ = min(bk, K)
     return bk_ if K % bk_ == 0 else K
+
+
+def binary_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sign_act(x) @ sign(w) -> (M, N) float32, padded as the JAX wrapper
+    pads for its (BD_BM, BD_BK, BD_BN) blocks.  A padded k adds
+    sign_act(0) * sign(0) = (-1) * (+1) = -1 to every cell, exactly, so
+    ``k_pad`` is added back."""
+    M, K = x.shape
+    N = w.shape[1]
+    bm_, bk_, bn_ = min(BD_BM, max(M, 8)), min(BD_BK, K), min(BD_BN, N)
+    xp = _pad_to(x, bm_, bk_)
+    wp = _pad_to(w, bk_, bn_)
+    out = _bd.binary_dot(xp.contiguous(), wp.contiguous())
+    k_pad = xp.shape[1] - K
+    if k_pad:
+        out = out + float(k_pad)
+    return out[:M, :N]
+
+
+def masked_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
+                  *, with_counts: bool = False):
+    """x @ w with each (8 x 128) output tile whose mask is 0 written as
+    zeros, padded as the JAX wrapper pads (contraction block MM_BK).
+    ``with_counts`` also returns the live-tile count of the padded mask,
+    an int32 device tensor (no host sync)."""
+    M, K = x.shape
+    N = w.shape[1]
+    bk_ = _bk(K, MM_BK)
+    xp = _pad_to(x, _mm.TILE_M, bk_)
+    wp = _pad_to(w, bk_, _mm.TILE_N)
+    mask = _pad_mask(tile_mask, xp.shape[0] // _mm.TILE_M,
+                     wp.shape[1] // _mm.TILE_N)
+    out = _mm.masked_matmul(xp.contiguous(), wp.contiguous(), mask)[:M, :N]
+    if with_counts:
+        return out, mask.sum(dtype=torch.int32)
+    return out
 
 
 def gather_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,

@@ -49,9 +49,10 @@ def _t(a):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(reduced):
-    """Every ported arch, field by field: granite-3-2b and the MLA + MoE
-    deepseek-v2-236b."""
-    for arch in (ARCH, "deepseek-v2-236b"):
+    """Every ported arch, field by field: granite-3-2b, the MLA + MoE
+    deepseek-v2-236b and the paper's four DNNs."""
+    for arch in (ARCH, "deepseek-v2-236b", "paper-tds", "paper-cnn10",
+                 "paper-resnet18", "paper-darknet19"):
         jc, tc = jget_config(arch), get_config(arch)
         if reduced:
             jc, tc = jreduce_config(jc), reduce_config(tc)

@@ -12,8 +12,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import binary_dot_packed as jbdp
 from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro_torch.core import predictor as tpred
+from repro_torch.kernels import binary_dot as tbd
+from repro_torch.kernels import binary_dot_packed as tbdp
 from repro_torch.kernels import gather_matmul as tgm
 from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import mor_predict as tmp
@@ -129,15 +133,25 @@ def test_masked_matmul_kdim_matches_jax(shape):
                                rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize("call", ["mor", "gather", "kdim", "paged"])
+@pytest.mark.parametrize("call", ["mor", "gather", "kdim", "paged",
+                                  "binary", "packed", "masked"])
 def test_kernel_entry_raises_off_cpu_without_fallback(call):
     """A tensor that is not on the CPU never reaches a plain version:
     off the CPU the entry launches the CUDA kernel or raises."""
     x = torch.empty((8, 128), device="meta")
     w = torch.empty((128, 128), device="meta")
-    before = (tmp.launches, tgm.launches, tmm.launches, tpa.launches)
+    before = (tmp.launches, tgm.launches, tmm.launches, tpa.launches,
+              tbd.launches, tbdp.launches, tmm.masked_launches)
     with pytest.raises(ValueError, match="no CUDA kernel"):
-        if call == "mor":
+        if call == "binary":
+            tbd.binary_dot(x, w)
+        elif call == "packed":
+            tbdp.binary_dot_packed(x, torch.empty((16, 128),
+                                                  dtype=torch.uint8,
+                                                  device="meta"))
+        elif call == "masked":
+            tmm.masked_matmul(x, w, torch.ones((1, 1), dtype=torch.bool))
+        elif call == "mor":
             tmp.mor_tile_mask(x, w, torch.empty((6, 128), device="meta"),
                               torch.empty((8, 128), dtype=torch.int8,
                                           device="meta"))
@@ -154,17 +168,146 @@ def test_kernel_entry_raises_off_cpu_without_fallback(call):
         else:
             tmm.masked_matmul_kdim(x, w, torch.ones((1, 1),
                                                     dtype=torch.int32))
-    assert (tmp.launches, tgm.launches, tmm.launches,
-            tpa.launches) == before
+    assert (tmp.launches, tgm.launches, tmm.launches, tpa.launches,
+            tbd.launches, tbdp.launches, tmm.masked_launches) == before
 
 
 def test_kernel_sources_are_in_the_package():
     """The CUDA sources the build compiles ship with the package."""
     from repro_torch.kernels import build
-    assert "paged_attention.cu" in build.SOURCES
+    assert {"paged_attention.cu", "binary_dot.cu",
+            "binary_dot_packed.cu"} <= set(build.SOURCES)
     assert set(build.SIGNATURES) >= {"mor_tile_mask", "gather_matmul",
-                                     "masked_matmul_kdim", "gqa_paged_flash"}
+                                     "masked_matmul_kdim", "gqa_paged_flash",
+                                     "masked_matmul", "binary_dot",
+                                     "binary_dot_packed"}
     for name in build.SOURCES + build.HEADERS:
         src = (build._CSRC / name).read_text()
         assert "repro/kernels" in src or name.endswith(".cuh")
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
+
+
+# -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
+
+# tests/test_kernels.py's sweep
+API_SHAPES = [(8, 128, 128), (16, 256, 384), (48, 200, 300),
+              (128, 512, 256), (5, 64, 130)]
+API_DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
+
+
+def _both(a, dtypes):
+    """The same numpy array as a JAX and a torch array of one dtype (the
+    float32 -> bfloat16 cast rounds to nearest even in both)."""
+    jd, td = dtypes
+    return jnp.asarray(a, jd), torch.from_numpy(a).to(td)
+
+
+@pytest.mark.parametrize("shape", API_SHAPES)
+@pytest.mark.parametrize("dtypes", API_DTYPES, ids=["f32", "bf16"])
+def test_binary_dot_matches_jax(shape, dtypes):
+    """``ops.binary_dot`` (padded, k_pad added back) bit-equal to the JAX
+    wrapper over Pallas in interpret mode, incl. ragged M, K and N."""
+    M, K, N = shape
+    rng = np.random.default_rng(M * 3 + K + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    x[:, ::5] = 0.0                          # post-ReLU zeros sign to -1
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    w[::7] = 0.0                             # zero weights sign to +1
+    xj, xt = _both(x, dtypes)
+    wj, wt = _both(w, dtypes)
+    want = np.asarray(jops.binary_dot(xj, wj))
+    got = tops.binary_dot(xt, wt)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(jref.binary_dot_ref(xj, wj)))
+
+
+@pytest.mark.parametrize("shape", API_SHAPES)
+@pytest.mark.parametrize("with_counts", [False, True])
+def test_masked_matmul_matches_jax(shape, with_counts):
+    """``ops.masked_matmul`` against the JAX wrapper: output allclose
+    (float32, rtol = atol = 1e-5), dead tiles exact zeros, and the live
+    count equal, an int32 tensor."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K * 3 + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32) / np.sqrt(K)
+    mask = rng.random((-(-M // 8), -(-N // 128))) > 0.5
+    mask.flat[0] = True
+    want = jops.masked_matmul(jnp.asarray(x), jnp.asarray(w),
+                              jnp.asarray(mask), with_counts=with_counts)
+    got = tops.masked_matmul(torch.from_numpy(x), torch.from_numpy(w),
+                             torch.from_numpy(mask), with_counts=with_counts)
+    if with_counts:
+        (want, n_want), (got, n_got) = want, got
+        assert n_got.dtype == torch.int32 and n_got.ndim == 0
+        assert int(n_got) == int(n_want) == int(mask.sum())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    keep = np.repeat(np.repeat(mask, 8, 0), 128, 1)[:M, :N]
+    assert np.all(got.numpy()[~keep] == 0.0)
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 384), (5, 64, 130)])
+def test_masked_matmul_bf16_matches_jax(shape):
+    """bfloat16 operands: both sum float32 products in float32 and round
+    once to bfloat16, so the two agree to one bfloat16 step (rtol
+    2^-7), plus 1e-2 absolute for sums near zero."""
+    M, K, N = shape
+    rng = np.random.default_rng(K)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32) / np.sqrt(K)
+    mask = rng.random((-(-M // 8), -(-N // 128))) > 0.3
+    xj, xt = _both(x, API_DTYPES[1])
+    wj, wt = _both(w, API_DTYPES[1])
+    want = jops.masked_matmul(xj, wj, jnp.asarray(mask))
+    got = tops.masked_matmul(xt, wt, torch.from_numpy(mask))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), rtol=2 ** -7,
+                               atol=1e-2)
+
+
+@pytest.mark.parametrize("K", [8, 64, 100, 512])
+def test_pack_signs_matches_jax(K):
+    """The JAX package's bit layout, bit for bit: bit b of packed[k8, n]
+    is w[8 k8 + b, n] < 0; padded rows (K % 8) are positive."""
+    rng = np.random.default_rng(K)
+    w = rng.normal(size=(K, 130)).astype(np.float32)
+    w[::3, ::4] = 0.0
+    want = np.asarray(jbdp.pack_signs(jnp.asarray(w)))
+    got = tbdp.pack_signs(torch.from_numpy(w))
+    assert got.dtype == torch.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tbdp.unpack_signs(got, K).numpy(),
+        np.asarray(jbdp.unpack_signs(jnp.asarray(want), K)))
+
+
+@pytest.mark.parametrize("shape", [(16, 128, 256), (32, 512, 384),
+                                   (128, 1024, 128)])
+def test_binary_dot_packed_matches_jax(shape):
+    """``binary_dot_packed`` on ``pack_signs(w)``: bit-equal to the JAX
+    kernel (interpret mode) and to the port's ``binary_dot``."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    x[::2, ::3] = 0.0
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    packed = np.array(jbdp.pack_signs(jnp.asarray(w)))
+    want = np.asarray(jbdp.binary_dot_packed(jnp.asarray(x),
+                                             jnp.asarray(packed),
+                                             interpret=True))
+    got = tbdp.binary_dot_packed(torch.from_numpy(x),
+                                 torch.from_numpy(packed))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tops.binary_dot(torch.from_numpy(x),
+                                     torch.from_numpy(w)).numpy())
+
+
+def test_binary_dot_packed_needs_k_multiple_of_8():
+    with pytest.raises(ValueError, match="must be 8 x"):
+        tbdp.binary_dot_packed(torch.zeros(4, 12),
+                               torch.zeros(2, 8, dtype=torch.uint8))
