@@ -5,9 +5,10 @@
 1. the card: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. the build: the seven kernel sources compiled for sm_90a from
    ``src/repro_torch/kernels/csrc`` (seconds, one ``-Xptxas -v`` line per
-   entry function);
+   entry function: registers, shared memory, spills, and any warning);
 3. each kernel against its plain PyTorch version at the slices' shapes,
-   in bf16, each timed (CUDA events, L2 flushed between launches) beside
+   in bf16, each timed on the device (CUDA events, L2 flushed before
+   each launch, the host's enqueue hidden behind a device spin) beside
    its plain version, a one-call library yardstick and its bound: the
    MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
    (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots
@@ -15,7 +16,14 @@
    deepseek-v2-236b's widths (E=160 experts, d=5120, f=1536, capacity
    C=8 and C=256, rows past each expert's count of a top-6 routing
    forced dead) (masks and counters bit-equal, products within the
-   tolerance below); ``gqa_paged_flash`` at a decode dispatch (8 slots x
+   tolerance below); the two tensor-core matmuls (``gather_matmul``,
+   ``masked_matmul_kdim``) also with garbage, not zeros, in every dead
+   (row block, k block) pair of the down product's input, at ragged
+   shapes (M = 24 and 72; a float32 gather at K = 144, N = 384; a down
+   product with N = 300), twice on the same inputs (bit-equal: the
+   split-K partials meet in a fixed order), and timed alone with the
+   split plan built beforehand (``bare_ms``) and for the host's enqueue
+   (``host_ms``); ``gqa_paged_flash`` at a decode dispatch (8 slots x
    1 row over ragged contexts up to 4,096 tokens, 512 pages of 8, null
    entries, a page shared by two slots, a column-sliced table), a mixed
    dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
@@ -70,6 +78,7 @@ failure.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -94,6 +103,9 @@ RTOL, ATOL_REL = 2.0 ** -7, 1e-3
 # version both sum float32 products in float32, in different orders (no
 # TF32 anywhere): a few float32 steps apart, far inside 1e-5 relative
 RTOL_F32, ATOL_REL_F32 = 1e-5, 1e-5
+# the device spin in _timer, about 0.5 ms at the H100's clocks: longer
+# than the host takes to enqueue one call of any wrapper timed here
+SPIN_CYCLES = 1_000_000
 # greedy-token agreement bar between the full-width kernel run and the
 # tiled / dense / slotted runs.  Kernel and tiled differ only in
 # summation order (bf16 rounding noise), dense also in skipping nothing,
@@ -138,6 +150,8 @@ def phase_build():
         elif entry and "registers" in ln:
             print(f"[smoke] ptxas: {entry[:48]}: "
                   f"{ln.split(':', 1)[-1].strip()}; {spill}", flush=True)
+        elif "warning" in ln.lower():
+            print(f"[smoke] ptxas: {ln.strip()[:200]}", flush=True)
     log("build", seconds=round(build.LAST_BUILD["seconds"], 2),
         library=Path(lib).name)
     build.load()
@@ -147,7 +161,11 @@ def phase_build():
 
 def _timer(fn, flush, iters=10):
     """Mean device ms of ``fn`` over ``iters`` launches, each timed by
-    its own CUDA event pair with the L2 cache flushed before it."""
+    its own CUDA event pair with the L2 cache flushed before it.  A spin
+    of SPIN_CYCLES on the stream between the flush and the start event
+    lets the host enqueue all of ``fn``'s launches before the device
+    reaches them, so the pair times the device's work and not the host's
+    enqueue (``_host_ms`` times that)."""
     import torch
     for _ in range(3):
         fn()
@@ -155,6 +173,7 @@ def _timer(fn, flush, iters=10):
     total = 0.0
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -163,6 +182,21 @@ def _timer(fn, flush, iters=10):
         e.synchronize()
         total += s.elapsed_time(e)
     return total / iters
+
+
+def _host_ms(fn, iters=50):
+    """Mean host ms to enqueue one call of ``fn`` (the wrapper's Python
+    and the launches, without waiting for the device)."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / iters * 1e3
 
 
 def _bound(nbytes, ops, kind):
@@ -224,6 +258,43 @@ def kernel_case_mor(M, gen, flush):
             "frac_live": live}
 
 
+def _repeat_equal(fn, what):
+    """Two launches on the same inputs give the same bits (the split-K
+    partials meet in a fixed order)."""
+    import torch
+    a, b = fn(), fn()
+    assert torch.equal(a, b), f"{what}: two launches differ"
+
+
+def _gather_checks(x, w, mask, cap, cap_live=None):
+    """gather_matmul against its plain version (counters equal, products
+    within the operands' tolerance) and against itself -> max abs err."""
+    import torch
+    from repro_torch.kernels import gather_matmul as gm
+    got, gl, gc = gm.gather_matmul(x, w, mask, capacity=cap,
+                                   cap_live=cap_live)
+    want, wl, wc = gm.gather_matmul_plain(x, w, mask, capacity=cap,
+                                          cap_live=cap_live)
+    torch.cuda.synchronize()
+    assert torch.equal(gl, wl) and torch.equal(gc, wc), "counters differ"
+    assert gl.dtype == gc.dtype == torch.int32
+    err = _close(got, want, f32=x.dtype == torch.float32)
+    _repeat_equal(lambda: gm.gather_matmul(x, w, mask, capacity=cap,
+                                           cap_live=cap_live)[0],
+                  "gather_matmul")
+    return err
+
+
+def _gather_bare_ms(x, w, mask, cap, flush, cap_live=None):
+    """The kernel alone: the split plan built beforehand (the kernel
+    ranks the live tiles itself)."""
+    from repro_torch.kernels import gather_matmul as gm
+    plan = gm.plan(x, w, cap)
+    return _timer(lambda: gm.launch(x, w, mask, capacity=cap,
+                                    cap_live=cap_live, split_plan=plan),
+                  flush)
+
+
 def kernel_case_gather(M, gen, flush):
     import torch
     from repro_torch.kernels import gather_matmul as gm
@@ -235,15 +306,14 @@ def kernel_case_gather(M, gen, flush):
     nm, nn = M // 8, N // 128
     mask = torch.rand((nm, nn), generator=gen, device=dev) < 0.7
     cap = max(1, int(0.5 * nm * nn))
-    got, gl, gc = gm.gather_matmul(x, w, mask, capacity=cap)
-    want, wl, wc = gm.gather_matmul_plain(x, w, mask, capacity=cap)
-    torch.cuda.synchronize()
-    assert int(gl) == int(wl) and int(gc) == int(wc), "counters differ"
-    err = _close(got, want)
-    ms = _timer(lambda: gm.gather_matmul(x, w, mask, capacity=cap), flush)
+    err = _gather_checks(x, w, mask, cap)
+    call = functools.partial(gm.gather_matmul, x, w, mask, capacity=cap)
+    ms, host_ms = _timer(call, flush), _host_ms(call)
+    bare_ms = _gather_bare_ms(x, w, mask, cap, flush)
     plain_ms = _timer(lambda: gm.gather_matmul_plain(x, w, mask,
                                                      capacity=cap), flush)
     lib_ms = _timer(lambda: torch.matmul(x, w), flush)
+    lib_host_ms = _host_ms(lambda: torch.matmul(x, w))
     flat = mask.reshape(-1)
     kept = (flat & (torch.cumsum(flat, 0) - 1 < cap)).reshape(nm, nn)
     n_comp = int(kept.sum())
@@ -251,9 +321,37 @@ def kernel_case_gather(M, gen, flush):
     rows = int(kept.any(1).sum())
     nbytes = cols * K * 128 * 2 + rows * 8 * K * 2 + M * N * 2
     bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * K, "bf16")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
-            "tiles_computed": n_comp, "tiles_live": int(wl)}
+    return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "host_ms": host_ms,
+            "library_host_ms": lib_host_ms, "tiles_computed": n_comp,
+            "plan": list(gm.plan(x, w, cap))}
+
+
+def _kdim_checks(x, w, mask):
+    """masked_matmul_kdim against its plain version, then again with
+    garbage (not zeros) in every dead (row block, k block) pair of x:
+    the kernel must give the zeroed input's bits, as the Pallas kernel
+    skips those pairs; two launches bit-equal -> max abs err."""
+    import torch
+    from repro_torch.kernels import masked_matmul as mm
+    f32 = x.dtype == torch.float32
+    got = mm.masked_matmul_kdim(x, w, mask)
+    err = _close(got, mm.masked_matmul_kdim_plain(x, w, mask), f32=f32)
+    keep = mask.repeat_interleave(8, -2).repeat_interleave(128, -1)
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    noise = (torch.randn(x.shape, generator=gen, device=x.device)
+             + 3.0).to(x.dtype)
+    xg = torch.where(keep, x, noise)
+    assert bool(torch.all(xg[~keep] != 0)), "garbage must not be zero"
+    got_g = mm.masked_matmul_kdim(xg, w, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got_g, got), "garbage in a dead pair leaked"
+    err = max(err, _close(got_g, mm.masked_matmul_kdim_plain(xg, w, mask),
+                          f32=f32))
+    _repeat_equal(lambda: mm.masked_matmul_kdim(xg, w, mask),
+                  "masked_matmul_kdim")
+    return err
 
 
 def kernel_case_kdim(M, gen, flush):
@@ -263,25 +361,63 @@ def kernel_case_kdim(M, gen, flush):
     dev = "cuda"
     mask = torch.rand((M // 8, K // 128), generator=gen, device=dev) < 0.6
     keep = mask.repeat_interleave(8, 0).repeat_interleave(128, 1)
-    # the MoR contract: dead hidden blocks are exact zeros
+    # the MoR contract: dead hidden blocks are exact zeros (the garbage
+    # check in _kdim_checks fills them)
     x = torch.where(keep, torch.randn((M, K), generator=gen, device=dev),
                     0.0).bfloat16()
     w = (torch.randn((K, N), generator=gen, device=dev)
          * K ** -0.5).bfloat16()
-    got = mm.masked_matmul_kdim(x, w, mask)
-    want = mm.masked_matmul_kdim_plain(x, w, mask)
-    torch.cuda.synchronize()
-    err = _close(got, want)
-    ms = _timer(lambda: mm.masked_matmul_kdim(x, w, mask), flush)
+    err = _kdim_checks(x, w, mask)
+    call = functools.partial(mm.masked_matmul_kdim, x, w, mask)
+    ms, host_ms = _timer(call, flush), _host_ms(call)
+    plan = mm.plan(x, w)
+    bare_ms = _timer(lambda: mm.launch_kdim(x, w, mask, plan), flush)
     plain_ms = _timer(lambda: mm.masked_matmul_kdim_plain(x, w, mask),
                       flush)
     lib_ms = _timer(lambda: torch.matmul(x, w), flush)
+    lib_host_ms = _host_ms(lambda: torch.matmul(x, w))
     n_pairs = int(mask.sum())
     k_live = int(mask.any(0).sum())
     nbytes = n_pairs * 8 * 128 * 2 + k_live * 128 * N * 2 + M * N * 2
     bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * N, "bf16")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms}
+    return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "host_ms": host_ms,
+            "library_host_ms": lib_host_ms, "plan": list(plan)}
+
+
+def kernel_ragged(gen):
+    """The two redesigned kernels where the last 64-row group is partial
+    (M = 24 and 72): gather_matmul in bf16 at granite's gate width and in
+    float32 at TDS's FC1 contraction (K = 144, N = 384), and
+    masked_matmul_kdim with a column tail (N = 300) and garbage in its
+    dead pairs; each within tolerance of its plain version, two launches
+    bit-equal.  -> {case: max abs err}."""
+    import torch
+    dev = "cuda"
+    errs = {}
+    for M in (24, 72):
+        for dt, K, N in ((torch.bfloat16, 2048, 8192),
+                         (torch.float32, 144, 384)):
+            x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+            w = (torch.randn((K, N), generator=gen, device=dev)
+                 * K ** -0.5).to(dt)
+            nm, nn = M // 8, N // 128
+            mask = torch.rand((nm, nn), generator=gen, device=dev) < 0.7
+            cap = max(1, (3 * nm * nn) // 4)
+            tag = f"gather_m{M}_k{K}_n{N}_{str(dt)[6:]}"
+            errs[tag] = _gather_checks(x, w, mask, cap)
+        K, N = 1024, 300
+        mask = torch.rand((M // 8, K // 128), generator=gen, device=dev) < 0.6
+        keep = mask.repeat_interleave(8, 0).repeat_interleave(128, 1)
+        x = torch.where(keep, torch.randn((M, K), generator=gen, device=dev),
+                        0.0).bfloat16()
+        w = (torch.randn((K, N), generator=gen, device=dev)
+             * K ** -0.5).bfloat16()
+        errs[f"kdim_m{M}_k{K}_n{N}_bfloat16"] = _kdim_checks(x, w, mask)
+    for tag, err in errs.items():
+        log("kernel", ragged=tag, max_abs_err=err)
+    return errs
 
 
 def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
@@ -468,15 +604,10 @@ def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
     # per-expert calibrated budgets: half of the experts at 0.5
     cap_live = torch.where(torch.arange(E, device=dev) % 2 == 1,
                            max(1, nm * nn // 2), cap).int()
-    got, gl, gc = gm.gather_matmul(x, w, mask, capacity=cap,
-                                   cap_live=cap_live)
-    want, wl, wc = gm.gather_matmul_plain(x, w, mask, capacity=cap,
-                                          cap_live=cap_live)
-    torch.cuda.synchronize()
-    assert torch.equal(gl, wl) and torch.equal(gc, wc), "counters differ"
-    err = _close(got, want)
+    err = _gather_checks(x, w, mask, cap, cap_live)
     ms = _timer(lambda: gm.gather_matmul(x, w, mask, capacity=cap,
                                          cap_live=cap_live), flush)
+    bare_ms = _gather_bare_ms(x, w, mask, cap, flush, cap_live)
     plain_ms = _timer(lambda: gm.gather_matmul_plain(
         x, w, mask, capacity=cap, cap_live=cap_live), flush)
     lib_ms = _timer(lambda: torch.bmm(x, w), flush)
@@ -488,10 +619,10 @@ def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
     rblocks = int(kept.any(2).sum())
     nbytes = cols * d * 128 * 2 + rblocks * 8 * d * 2 + E * C * f * 2
     bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * d, "bf16")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
-            "E": E, "C": C, "tiles_computed": n_comp,
-            "tiles_live": int(wl.sum())}
+    return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "E": E, "C": C, "tiles_computed": n_comp,
+            "plan": list(gm.plan(x, w, cap))}
 
 
 def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
@@ -509,11 +640,10 @@ def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
                     0.0).bfloat16()
     w = (torch.randn((E, f, d), generator=gen, device=dev)
          * f ** -0.5).bfloat16()
-    got = mm.masked_matmul_kdim(h, w, mask)
-    want = mm.masked_matmul_kdim_plain(h, w, mask)
-    torch.cuda.synchronize()
-    err = _close(got, want)
+    err = _kdim_checks(h, w, mask)
     ms = _timer(lambda: mm.masked_matmul_kdim(h, w, mask), flush)
+    plan = mm.plan(h, w)
+    bare_ms = _timer(lambda: mm.launch_kdim(h, w, mask, plan), flush)
     plain_ms = _timer(lambda: mm.masked_matmul_kdim_plain(h, w, mask),
                       flush)
     lib_ms = _timer(lambda: torch.bmm(h, w), flush)
@@ -521,9 +651,9 @@ def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
     k_live = int(mask.any(1).sum())
     nbytes = n_pairs * 8 * 128 * 2 + k_live * 128 * d * 2 + E * C * d * 2
     bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * d, "bf16")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
-            "E": E, "C": C}
+    return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "library_ms": lib_ms, "E": E, "C": C, "plan": list(plan)}
 
 
 def _mla_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, h=128,
@@ -798,6 +928,10 @@ def phase_kernels():
                       "replaces": replaces, **_fields(per["m8"]),
                       **{f"at_{k}": _fields(v) for k, v in per.items()
                          if k != "m8"}}
+    for tag, err in kernel_ragged(gen).items():
+        name = "gather_matmul" if tag.startswith("gather") else \
+            "masked_matmul_kdim"
+        rows[name].setdefault("ragged_max_abs_err", {})[tag] = err
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
     for name, per in kernel_api(gen, flush).items():
@@ -813,8 +947,12 @@ def phase_kernels():
 
 
 def _fields(r):
-    return {k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")}
+    """The JSON line's keys of one case (and ``bare_ms``, the kernel
+    alone, and the host's enqueue times, where the case measured them)."""
+    return {k: r[k] for k in ("max_abs_err", "ms", "bare_ms", "plain_ms",
+                              "bound_ms", "bound_by", "library_ms",
+                              "host_ms", "library_host_ms")
+            if k in r}
 
 
 # -- phase 4: the slice ------------------------------------------------------
@@ -972,7 +1110,7 @@ def _profile(eng, reqs):
                 lambda: {"dispatches": eng.counters["dispatches"]})
 
 
-def _profile_fn(tag, fn, extra=lambda: {}, top=8):
+def _profile_fn(tag, fn, extra=lambda: {}, top=12):
     """``fn`` once under ``torch.profiler`` (device only): device busy ms,
     the idle share of the wall time, the paged attentions' share, and the
     ``top`` kernels by device time."""

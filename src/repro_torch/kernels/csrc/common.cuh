@@ -2,12 +2,16 @@
 //
 // Every kernel keeps the reference's mask geometry: a mask decision
 // covers TM = 8 rows x TN = 128 columns (repro/configs/base.py
-// MoRConfig.tile_m / tile_n).  A block is TN x KS threads: thread
-// (tx, ty) owns output column tx of the block's tile and sums the
-// contraction indices k = ty, ty + KS, ... of each KC-wide chunk, so a
-// warp reads 32 neighbouring columns of one weight row (coalesced).
-// The KS partial sums meet in shared memory in a fixed order, so every
-// result is deterministic run to run.
+// MoRConfig.tile_m / tile_n), and a contraction mask block is KC = 128
+// wide.  The CUDA-core kernels (mor_tile_mask, masked_matmul) run a
+// block of TN x KS threads: thread (tx, ty) owns output column tx of the
+// block's 8-row tile and sums the contraction indices k = ty, ty + KS,
+// ... of each KC-wide chunk, so a warp reads 32 neighbouring columns of
+// one weight row (coalesced), and the KS partial sums meet in shared
+// memory in a fixed order.  The two MoR matmuls (gather_matmul,
+// masked_matmul_kdim) left that geometry for the 64 x 128 tiles of
+// mma_tile.cuh (tensor cores in bf16), which sum split-K partials in a
+// fixed order too: every result is deterministic run to run.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -34,8 +34,35 @@ def ptr(t: Optional[torch.Tensor], device: torch.device) -> Optional[int]:
     return t.data_ptr()
 
 
-def cuda_stream(device: torch.device) -> int:
-    """Handle of PyTorch's current stream on ``device``."""
+def dense16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, for kernels that copy
+    16-byte chunks (a copy only where it is neither)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def check16(*ts: torch.Tensor) -> None:
+    """Raise unless every tensor starts on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("kernels that copy 16-byte chunks take 16-byte "
+                         "aligned tensors")
+
+
+def require_cuda(device: torch.device) -> None:
+    """Raise unless ``device`` is a CUDA device."""
     if device.type != "cuda":
         raise ValueError(f"no CUDA kernel for tensors on {device}")
+
+
+def cuda_stream(device: torch.device) -> int:
+    """Handle of PyTorch's current stream on ``device``."""
+    require_cuda(device)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def mask_bytes(m: torch.Tensor) -> torch.Tensor:
+    """A tile mask as one contiguous byte a tile, non-zero where live
+    (a bool or uint8 mask as it is)."""
+    if m.dtype in (torch.bool, torch.uint8) and m.is_contiguous():
+        return m
+    return (m != 0).contiguous()

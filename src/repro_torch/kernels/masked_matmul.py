@@ -3,10 +3,11 @@ plain PyTorch version and launch counter.
 
 - ``masked_matmul_kdim`` (counter ``launches``) replaces
   ``repro/kernels/masked_matmul.py`` ``masked_matmul_kdim`` (Pallas): the
-  contraction-masked MoR down projection, x (M, K) @ w (K, N) skipping
-  each (row block i, k block) whose mask is 0 — dead FFN hidden tiles,
-  known to be zero.  Bound on the H100: bytes — the weight rows of live
-  k blocks.
+  contraction-masked MoR down projection, x (M, K) @ w (K, N) where each
+  (row block i, k block) pair whose mask is 0 contributes nothing,
+  whatever x holds there (dead FFN hidden tiles).  The wrapper plans the
+  split-K (``split_k.plan``); ``launch_kdim`` is the kernel alone.
+  Bound on the H100: bytes — the weight rows of live k blocks.
 - ``masked_matmul`` (counter ``masked_launches``) replaces
   ``masked_matmul`` of the same file: x @ w with each (8-row,
   128-column) output tile whose mask is 0 written as zeros, without
@@ -15,10 +16,16 @@ plain PyTorch version and launch counter.
 """
 from __future__ import annotations
 
-import torch
+from typing import Tuple
 
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
+from repro_torch.kernels.launch import (check16, cuda_stream, dense16,
+                                        dtype_code, lib, mask_bytes, ptr,
+                                        require_cuda)
 
 TILE_M, TILE_K, TILE_N = 8, 128, 128
 
@@ -54,27 +61,58 @@ def masked_matmul_kdim(x: torch.Tensor, w: torch.Tensor,
 
 
 def _launch(x, w, tile_mask, tile_m, tile_k):
-    global launches
-    stream = cuda_stream(x.device)
+    require_cuda(x.device)
     if (tile_m, tile_k) != (TILE_M, TILE_K):
         raise ValueError(f"the CUDA kernel takes tile ({TILE_M}, {TILE_K}),"
                          f" got ({tile_m}, {tile_k})")
     lead = tuple(x.shape[:-2])
     if len(lead) > 1:
         raise ValueError(f"at most one leading (expert) dim, got {lead}")
-    E = lead[0] if lead else 1
     M, K = x.shape[-2:]
     N = w.shape[-1]
     if M % TILE_M or K % TILE_K or tuple(w.shape) != lead + (K, N) or \
             tuple(tile_mask.shape) != lead + (M // TILE_M, K // TILE_K):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} mask {tuple(tile_mask.shape)}")
+    # the kernel copies 16-byte chunks: zero-pad ragged output columns
+    pad = (-N) % (16 // x.element_size())
+    if pad:
+        w = F.pad(w, (0, pad))
+    out = launch_kdim(dense16(x), dense16(w), tile_mask, plan(x, w))
+    return out[..., :N] if pad else out
+
+
+def plan(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int]:
+    """The split-K plan (split, kb_per) for these operands (every block
+    may be live)."""
+    E = x.shape[0] if x.ndim == 3 else 1
+    M, K = x.shape[-2:]
+    return split_k.plan(E, M, K, w.shape[-1],
+                        sms=split_k.sm_count(x.device))
+
+
+def launch_kdim(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
+                split_plan: Tuple[int, int]) -> torch.Tensor:
+    """The kernel alone, split as ``split_plan`` = (split, kb_per) says.
+    x (E?, M, K), w (E?, K, N) contiguous, 16-byte aligned CUDA tensors
+    of one dtype, M % 8 == K % 128 == 0, N a multiple of a 16-byte
+    chunk; tile_mask (E?, M/8, K/128).  Counts one launch."""
+    global launches
+    stream = cuda_stream(x.device)
     code = dtype_code(x, w)
-    mask = tile_mask.to(torch.int32).contiguous()
-    out = torch.empty(lead + (M, N), dtype=x.dtype, device=x.device)
-    err = lib().masked_matmul_kdim(ptr(x, x.device), ptr(w, x.device),
-                                   ptr(mask, x.device), ptr(out, x.device),
-                                   E, M, K, N, code, stream)
+    E = x.shape[0] if x.ndim == 3 else 1
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    if N % (16 // x.element_size()):
+        raise ValueError(f"N = {N} is not a multiple of a 16-byte chunk")
+    check16(x, w)
+    split, kb_per = split_plan
+    dev = x.device
+    out = torch.empty(x.shape[:-1] + (N,), dtype=x.dtype, device=dev)
+    err = lib().masked_matmul_kdim(ptr(x, dev), ptr(w, dev),
+                                   ptr(mask_bytes(tile_mask), dev),
+                                   ptr(out, dev), E, M, K, N, split, kb_per,
+                                   code, stream)
     launches += 1
     check(err, "masked_matmul_kdim")
     return out

@@ -7,12 +7,15 @@ Masks and counters must be equal; float outputs agree to float32
 rounding (rtol = atol = 1e-5: both sum float32 products, in different
 orders, over at most 384 terms of magnitude ~1).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import binary_dot_packed as jbdp
+from repro.kernels import gather_matmul as jgm
+from repro.kernels import masked_matmul as jmm
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import predictor as tpred
@@ -23,6 +26,7 @@ from repro_torch.kernels import masked_matmul as tmm
 from repro_torch.kernels import mor_predict as tmp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
+from repro_torch.kernels import split_k
 
 RTOL = ATOL = 1e-5
 
@@ -133,6 +137,182 @@ def test_masked_matmul_kdim_matches_jax(shape):
                                rtol=RTOL, atol=ATOL)
 
 
+# -- what the Hopper redesign moved into Python ------------------------------
+
+def _jax_kept(mask, capacity, cap_live):
+    """The JAX wrapper's ``kept`` tiles and counters for one FFN: Pallas
+    (interpret mode) on strictly positive operands, whose product is
+    non-zero exactly on the tiles it computed."""
+    nm, nn = mask.shape
+    x = jnp.ones((nm * 8, 16), jnp.float32)
+    w = jnp.ones((16, nn * 128), jnp.float32)
+    out, n_live, n_comp = jgm.gather_matmul(
+        x, w, jnp.asarray(mask), capacity=capacity, tile_m=8, tile_n=128,
+        bk=16, cap_live=None if cap_live is None else jnp.int32(cap_live),
+        interpret=True, return_counts=True)
+    kept = np.asarray(out).reshape(nm, 8, nn, 128).any(axis=(1, 3))
+    return kept, int(n_live), int(n_comp)
+
+
+KEPT_CASES = {                   # (nm, nn, live prob, capacity, cap_live)
+    "random": (3, 3, 0.6, 9, None),
+    "capacity_1": (3, 3, 0.6, 1, None),
+    "capacity_half_cap_live": (4, 2, 0.7, 4, 2),
+    "cap_live_above_capacity": (4, 2, 0.7, 3, 7),
+    "all_live": (2, 3, 1.0, 6, None),
+    "all_live_capacity": (2, 3, 1.0, 4, None),
+    "all_dead": (3, 2, 0.0, 6, None),
+}
+
+
+@pytest.mark.parametrize("case", list(KEPT_CASES))
+def test_kept_tiles_match_jax(case):
+    """The kept mask and counters that replace the stable argsort equal
+    the JAX wrapper's ``kept``, ``n_live_total`` and ``n_live``."""
+    nm, nn, p, capacity, cap_live = KEPT_CASES[case]
+    rng = np.random.default_rng(nm * 31 + nn + capacity)
+    mask = rng.random((nm, nn)) < p
+    want = _jax_kept(mask, capacity, cap_live)
+    kept, n_live, n_comp = tgm.kept_tiles(torch.from_numpy(mask),
+                                          capacity=capacity,
+                                          cap_live=cap_live)
+    assert kept.dtype == torch.bool and kept.shape == (nm, nn)
+    np.testing.assert_array_equal(kept.numpy(), want[0])
+    assert (int(n_live), int(n_comp)) == want[1:]
+    assert n_live.dtype == n_comp.dtype == torch.int32
+
+
+@pytest.mark.parametrize("E,p,capacity", [(4, 0.6, 6), (3, 1.0, 4),
+                                          (5, 0.3, 1)])
+def test_kept_tiles_expert_stack_matches_jax(E, p, capacity):
+    """An expert stack with an (E,) int32 ``cap_live`` tensor (one budget
+    an expert, one below 1 so that the floor of one tile holds, an
+    expert with no live tile): per expert equal to the JAX wrapper."""
+    rng = np.random.default_rng(E * 7 + capacity)
+    nm, nn = 3, 2
+    mask = rng.random((E, nm, nn)) < p
+    mask[-1] = False
+    cap_live = rng.integers(0, nm * nn + 2, E).astype(np.int32)
+    kept, n_live, n_comp = tgm.kept_tiles(
+        torch.from_numpy(mask), capacity=capacity,
+        cap_live=torch.from_numpy(cap_live))
+    assert n_live.shape == n_comp.shape == (E,)
+    for e in range(E):
+        want = _jax_kept(mask[e], capacity, int(cap_live[e]))
+        np.testing.assert_array_equal(kept[e].numpy(), want[0])
+        assert (int(n_live[e]), int(n_comp[e])) == want[1:]
+
+
+def _plan_cases():
+    """The kernel phase's shapes, then a seeded sweep of others:
+    (E, M, K, N, sms, capacity)."""
+    cases = [(1, 8, 2048, 8192, 132, 32), (1, 256, 2048, 8192, 132, 1024),
+             (1, 8, 8192, 2048, 132, None), (1, 256, 8192, 2048, 132, None),
+             (160, 8, 5120, 1536, 132, 12), (160, 256, 1536, 5120, 132, None),
+             (1, 8192, 144, 384, 132, 3072), (1, 24, 144, 384, 132, 3),
+             (1, 72, 1024, 300, 132, None), (1, 8, 100, 128, 132, 1)]
+    rng = np.random.default_rng(0)
+    for _ in range(16):
+        E = int(rng.choice([1, 1, 4, 160]))
+        M = int(rng.integers(1, 64)) * 8
+        K = int(rng.integers(1, 9000))
+        N = int(rng.integers(1, 80)) * 128
+        cap = None if rng.random() < 0.5 else int(rng.integers(1, 400))
+        cases.append((E, M, K, N, int(rng.choice([78, 114, 132])), cap))
+    return cases
+
+
+@pytest.mark.parametrize("E,M,K,N,sms,cap", _plan_cases())
+def test_split_k_plan_tiles_k_in_whole_k_blocks(E, M, K, N, sms, cap):
+    """The split-K plan: segments in rank order tile [0, K) exactly, each
+    starts on a 128-wide k block, none is empty; split <= 8, 1 when the
+    live blocks fill the card (in particular at 2 x sms), and otherwise
+    as many as still fit one wave, fewer only where that leaves no rank
+    empty."""
+    split, kb_per = split_k.plan(E, M, K, N, sms=sms, capacity=cap)
+    # rank r sums k blocks [r kb_per, (r + 1) kb_per), as the kernels do
+    segs = [(r * kb_per * split_k.KB, min(K, (r + 1) * kb_per * split_k.KB))
+            for r in range(split)]
+    assert 1 <= split <= split_k.MAX_SPLIT and len(segs) == split
+    assert segs[0][0] == 0 and segs[-1][1] == K
+    for (a0, a1), (b0, _) in zip(segs, segs[1:]):
+        assert a1 == b0
+    assert all(k0 < k1 and k0 % split_k.KB == 0 for k0, k1 in segs)
+    per = -(-M // 64) * -(-N // 128)
+    live = E * (per if cap is None else min(per, cap))
+    nkb = -(-K // split_k.KB)
+    most = max(1, min(split_k.MAX_SPLIT, nkb, sms // live))
+    assert kb_per == -(-nkb // most) and split <= most
+    assert live * split <= sms or split == 1
+    if live >= sms:
+        assert split == 1
+
+
+def test_split_k_plan_at_the_main_path_shapes():
+    """Granite's decode shapes have a few dozen live blocks: the gate
+    (32 kept column tiles at capacity 0.5) splits 4 ways, the down
+    product (16 column tiles) takes the portable cluster of 8; at 256
+    rows the down product (64 blocks) splits in 2 and the gate (256)
+    does not; the expert grid does not split."""
+    assert split_k.plan(1, 8, 2048, 8192, sms=132, capacity=32) == (4, 4)
+    assert split_k.plan(1, 8, 8192, 2048, sms=132) == (8, 8)
+    assert split_k.plan(1, 256, 8192, 2048, sms=132) == (2, 32)
+    assert split_k.plan(1, 256, 2048, 8192, sms=132,
+                        capacity=1024) == (1, 16)
+    assert split_k.plan(160, 8, 5120, 1536, sms=132, capacity=12) == (1, 40)
+    assert split_k.plan(1, 8192, 144, 384, sms=132) == (1, 2)
+
+
+KDIM_GARBAGE_SHAPES = [(16, 256, 128), (24, 384, 300), (72, 256, 200),
+                       (13, 200, 96)]
+
+
+@pytest.mark.parametrize("shape", KDIM_GARBAGE_SHAPES)
+def test_masked_matmul_kdim_ignores_garbage_in_dead_pairs(shape):
+    """x holds non-zero values in its dead (row block, k block) pairs:
+    the port equals JAX's Pallas kernel (interpret mode), which skips
+    those pairs, and equals its own result on the zeroed x bit for bit
+    — the semantics a kernel grouping 8 row blocks must keep."""
+    M, K, N = shape
+    rng = np.random.default_rng(M * 5 + K + N)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    mask = _tile_mask(rng, -(-M // 8), -(-K // 128), p=0.5)
+    mask[0, 0], mask[-1, -1] = True, False
+    keep = np.repeat(np.repeat(mask, 8, 0), 128, 1)[:M, :K]
+    assert np.abs(x[~keep]).min() > 0          # garbage everywhere dead
+    want = jops.masked_matmul_kdim(jnp.asarray(x), jnp.asarray(w),
+                                   jnp.asarray(mask))
+    got = tops.masked_matmul_kdim(torch.from_numpy(x), torch.from_numpy(w),
+                                  torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    zeroed = tops.masked_matmul_kdim(torch.from_numpy(np.where(keep, x, 0)),
+                                     torch.from_numpy(w),
+                                     torch.from_numpy(mask))
+    assert torch.equal(got, zeroed)
+
+
+def test_masked_matmul_kdim_expert_grid_ignores_garbage():
+    """The expert grid with garbage in every dead pair, and an expert
+    whose pairs are all dead (capacity padding): per expert equal to the
+    JAX Pallas kernel, vmapped as the JAX package runs it."""
+    E, M, K, N = 3, 16, 256, 128
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(E, M, K)).astype(np.float32)
+    w = rng.normal(size=(E, K, N)).astype(np.float32)
+    mask = rng.random((E, M // 8, K // 128)) < 0.5
+    mask[1] = False
+    want = jax.vmap(lambda a, b, m: jmm.masked_matmul_kdim(
+        a, b, m, tile_m=8, tile_k=128, bn=128, interpret=True))(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(mask))
+    got = tmm.masked_matmul_kdim(torch.from_numpy(x), torch.from_numpy(w),
+                                 torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+    assert torch.all(got[1] == 0)
+
+
 @pytest.mark.parametrize("call", ["mor", "gather", "kdim", "paged",
                                   "binary", "packed", "masked"])
 def test_kernel_entry_raises_off_cpu_without_fallback(call):
@@ -185,6 +365,24 @@ def test_kernel_sources_are_in_the_package():
         src = (build._CSRC / name).read_text()
         assert "repro/kernels" in src or name.endswith(".cuh")
     assert build.build_dir().parts[-2:] == ("build", "repro_torch_kernels")
+
+
+def test_kernel_signatures_match_the_c_entries():
+    """Each ctypes signature the build binds has the C entry's arity and
+    kinds (pointer, int, float): ctypes cannot check a call against the
+    library, and a wrong count passes a 64-bit pointer as an int."""
+    import ctypes
+    import re
+    from repro_torch.kernels import build
+    src = "".join((build._CSRC / n).read_text() for n in build.SOURCES)
+    kinds = {ctypes.c_void_p: "p", ctypes.c_int: "i", ctypes.c_float: "f"}
+    for name, argtypes in build.SIGNATURES.items():
+        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        params = [p.strip() for p in m.group(1).split(",")]
+        want = "".join("p" if "*" in p else "f" if p.startswith("float")
+                       else "i" for p in params)
+        assert "".join(kinds[a] for a in argtypes) == want, name
 
 
 # -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
