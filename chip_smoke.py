@@ -30,9 +30,13 @@
    case, and ``mla_paged_flash`` at the same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, on the
    rows that see a key; the kernel API's ``binary_dot``,
-   ``binary_dot_packed`` (bit-equal) and ``masked_matmul`` at the
-   granite gate widths, M = 8 and 256, with ``torch._int_mm`` on int8
-   signs and ``torch.matmul`` as yardsticks;
+   ``binary_dot_packed`` (bit-equal) and ``masked_matmul`` (twice,
+   bit-equal) at the granite gate widths, M = 8 and 256, with
+   ``torch._int_mm`` on int8 signs (at M = 8 padded to 32 rows) and
+   ``torch.matmul`` as yardsticks, each kernel timed alone (``ms``) and
+   through its ``ops`` wrapper (``wrapper_ms``); ``binary_dot`` also
+   bit-equal at its sign edges (-0.0 weights, NaN in x and w, a ragged
+   K of 100);
 4. the references: reduced float32 models served on the card must give
    the CPU plain versions' tokens, telemetry and prefix counters:
    granite on the slotted layout and on the paged layout (sliding
@@ -69,7 +73,8 @@
    live im2col patches, permuted weights and predicted tiles
    (``binary_dot`` bit-equal to ``binary_preact``, the packed form to
    ``binary_dot``, ``masked_matmul`` within tolerance and its count the
-   mask's sum), Darknet19's layer 13 (K = 9 x 512, N = 1024) timed;
+   mask's sum), timed at Darknet19's layer 13 (M = 128, K = 9 x 512, N
+   = 1024) and ResNet18's layer 1 (M = 131072, K = 9 x 64, N = 64);
 8. the card line again, the JSON kernels line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -767,17 +772,43 @@ def kernel_mla(gen, flush):
 # -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
 
 INT_MM_RULE = ("torch._int_mm needs M > 16 (and cuBLASLt refused M = N = "
-               "40, K = 96): timed where M, K, N are multiples of 32")
+               "40, K = 96): timed where M, K, N are multiples of 32, M "
+               "<= 16 on the signs padded to 32 rows")
+# the rows ``torch._int_mm`` is given at a decode dispatch (M <= 16): the
+# signs padded with zero rows, which it then also multiplies
+INT_MM_ROWS = 32
 
 
 def _int_mm_ms(xs, ws, flush):
     """One ``torch._int_mm`` over int8 signs binarised beforehand, where
-    its shape rules allow (INT_MM_RULE), else None."""
+    its shape rules allow (INT_MM_RULE), else None; at M <= 16 over the
+    signs padded to INT_MM_ROWS rows."""
     import torch
     M, K = xs.shape
-    if M <= 16 or M % 32 or K % 32 or ws.shape[1] % 32:
+    if M <= 16:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, INT_MM_ROWS - M))
+        M = INT_MM_ROWS
+    if M % 32 or K % 32 or ws.shape[1] % 32:
         return None
     return _timer(lambda: torch._int_mm(xs, ws), flush)
+
+
+def _masked_bound(tiles, M, K, N, elt, kind):
+    """masked_matmul's bound on these tiles: the live tiles' column
+    strips of w and row blocks of x once, the whole output (dead tiles
+    are written as zeros), and 2 K multiply-adds per live output; a tile
+    of the ragged edge counts its real rows and columns."""
+    import torch
+    dev = tiles.device
+    rows = torch.clamp(M - 8 * torch.arange(tiles.shape[0], device=dev),
+                       max=8)
+    cols = torch.clamp(N - 128 * torch.arange(tiles.shape[1], device=dev),
+                       max=128)
+    live = tiles.bool()
+    nbytes = (int((live.any(0) * cols).sum()) * K * elt
+              + int((live.any(1) * rows).sum()) * K * elt + M * N * elt)
+    outs = int((live * rows[:, None] * cols[None, :]).sum())
+    return _bound(nbytes, 2 * K * outs, kind)
 
 
 def binary_cases(x, w, flush, tiles=None):
@@ -786,8 +817,11 @@ def binary_cases(x, w, flush, tiles=None):
     bound: ``binary_dot`` (bit-equal to ``binary_preact``),
     ``binary_dot_packed`` on ``pack_signs(w)`` (bit-equal to
     ``binary_dot``) and ``masked_matmul`` under ``tiles`` (8 x 128; a
-    70%-live random mask when None), within tolerance, its count the
-    mask's sum.  -> {kernel: result}."""
+    70%-live random mask when None), within tolerance, dead tiles exact
+    zeros, its count the mask's sum and two launches bit-equal.  ``ms``
+    is the kernel module's call on the operands as they are,
+    ``wrapper_ms`` the ``ops`` wrapper's (its padding included).  ->
+    {kernel: result}."""
     import torch
     from repro_torch.core.predictor import binary_preact
     from repro_torch.kernels import binary_dot as bd
@@ -817,8 +851,12 @@ def binary_cases(x, w, flush, tiles=None):
     keep = tiles.repeat_interleave(8, 0).repeat_interleave(128, 1)[:M, :N]
     assert bool(torch.all(got_m[~keep] == 0)), "dead tiles are not zero"
     err_m = _close(got_m, want_m, f32=x.dtype == torch.float32)
+    _repeat_equal(lambda: ops.masked_matmul(x, w, tiles), "masked_matmul")
     xs = torch.where(x > 0, 1, -1).to(torch.int8)
     ws = torch.where(w >= 0, 1, -1).to(torch.int8)
+    lib_ms = _int_mm_ms(xs, ws, flush)
+    lib_note = ({"library_null": INT_MM_RULE} if lib_ms is None else
+                {"library_padded_rows": INT_MM_ROWS} if M <= 16 else {})
     sign_ops = 2 * M * K * N
     out = {}
     b_ms, b_by = _bound(M * K * elt + K * N * elt + M * N * 4, sign_ops,
@@ -826,11 +864,10 @@ def binary_cases(x, w, flush, tiles=None):
     out["binary_dot"] = {
         "max_abs_err": float(n_diff),
         "ms": _timer(lambda: bd.binary_dot(x, w), flush),
+        "wrapper_ms": _timer(lambda: ops.binary_dot(x, w), flush),
         "plain_ms": _timer(lambda: bd.binary_dot_plain(x, w), flush),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": _int_mm_ms(xs, ws, flush), "M": M, "K": K, "N": N}
-    if out["binary_dot"]["library_ms"] is None:
-        out["binary_dot"]["library_null"] = INT_MM_RULE
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        **lib_note, "M": M, "K": K, "N": N}
     b_ms, b_by = _bound(M * K * elt + K * N // 8 + M * N * 4, sign_ops,
                         "int8")
     out["binary_dot_packed"] = {
@@ -838,33 +875,52 @@ def binary_cases(x, w, flush, tiles=None):
         "ms": _timer(lambda: bdp.binary_dot_packed(x, packed), flush),
         "plain_ms": _timer(lambda: bdp.binary_dot_packed_plain(x, packed),
                            flush),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": _int_mm_ms(xs, ws, flush), "M": M, "K": K, "N": N,
-        "weight_bytes": K * N // 8, "unpacked_weight_bytes": K * N * elt,
-        **({"library_null": INT_MM_RULE}
-           if out["binary_dot"]["library_ms"] is None else {})}
-    # what the live tiles need: their column strips of w and row blocks
-    # of x once, and the whole output (dead tiles are written as zeros)
-    cols = int(tiles.any(0).sum())
-    rows = int(tiles.any(1).sum())
-    n_t = int(tiles.sum())
-    b_ms, b_by = _bound(cols * K * 128 * elt + rows * 8 * K * elt
-                        + M * N * elt, n_t * 2 * 8 * 128 * K, kind)
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+        **lib_note, "M": M, "K": K, "N": N,
+        "weight_bytes": K * N // 8, "unpacked_weight_bytes": K * N * elt}
+    b_ms, b_by = _masked_bound(tiles, M, K, N, elt, kind)
     out["masked_matmul"] = {
         "max_abs_err": err_m,
-        "ms": _timer(lambda: ops.masked_matmul(x, w, tiles), flush),
+        "ms": _timer(lambda: mm.masked_matmul(x, w, tiles), flush),
+        "wrapper_ms": _timer(lambda: ops.masked_matmul(x, w, tiles), flush),
         "plain_ms": _timer(lambda: mm.masked_matmul_plain(x, w, tiles),
                            flush),
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": _timer(lambda: torch.matmul(x, w), flush),
-        "M": M, "K": K, "N": N, "frac_live": n_t / tiles.numel()}
+        "M": M, "K": K, "N": N, "frac_live": float(tiles.float().mean())}
     return out
+
+
+def binary_edges(gen):
+    """``binary_dot`` bit-equal to ``binary_preact`` at the sign
+    conventions' edges, in both dtypes, at a decode dispatch and at 64
+    rows: zero activations (-1), -0.0 weights (+1), NaN in x and in w
+    (-1), and a ragged K of 100 (no padding: an index past K adds
+    nothing) with N = 130 (16-byte chunks straddle the edge, so the
+    kernel loads element by element).  -> number of differing entries
+    (0, asserted)."""
+    import torch
+    from repro_torch.core.predictor import binary_preact
+    from repro_torch.kernels import ops
+    n = 0
+    for dt in (torch.bfloat16, torch.float32):
+        for M, K, N in ((8, 100, 256), (64, 100, 128), (64, 100, 130)):
+            x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+            w = torch.randn((K, N), generator=gen, device="cuda").to(dt)
+            x[:, ::5] = 0.0
+            w[::3] = -0.0
+            x[0, 1] = w[2, 3] = float("nan")
+            got = ops.binary_dot(x, w)
+            d = int((got != binary_preact(x, w)).sum())
+            assert d == 0, f"binary_dot {M}x{K}x{N} {dt}: {d} entries differ"
+            n += d
+    return n
 
 
 def kernel_api(gen, flush):
     """-> {kernel: {case: result}}: the three kernel-API kernels at
     granite-3-2b's gate widths (K = 2048, N = 8192) in bf16, M = 8 and
-    256 rows."""
+    256 rows; ``binary_dot``'s sign edges (``binary_edges``)."""
     import torch
     K, N = 2048, 8192
     per = {}
@@ -877,6 +933,9 @@ def kernel_api(gen, flush):
             log("kernel", name=name,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
+    per["binary_dot"]["edges_entries_differing"] = binary_edges(gen)
+    log("kernel", name="binary_dot", edges="-0.0 w, NaN x and w, K = 100",
+        entries_differing=per["binary_dot"]["edges_entries_differing"])
     return per
 
 
@@ -939,8 +998,12 @@ def phase_kernels():
         rows[name] = {"name": name, "route": "cuda", "source": source,
                       "replaces": replaces, **_fields(per["m8"]),
                       "at_m256": _fields(per["m256"])}
-        if "library_null" in per["m8"]:
-            rows[name]["library_null_at_m8"] = per["m8"]["library_null"]
+        for k in ("library_null", "library_padded_rows"):
+            if k in per["m8"]:
+                rows[name][f"{k}_at_m8"] = per["m8"][k]
+        if "edges_entries_differing" in per:
+            rows[name]["edges_entries_differing"] = \
+                per["edges_entries_differing"]
     if torch.cuda.get_device_name(0).find("H100") < 0:
         log("kernel", note="bounds use the H100 SXM's published rates")
     return rows
@@ -948,10 +1011,11 @@ def phase_kernels():
 
 def _fields(r):
     """The JSON line's keys of one case (and ``bare_ms``, the kernel
-    alone, and the host's enqueue times, where the case measured them)."""
-    return {k: r[k] for k in ("max_abs_err", "ms", "bare_ms", "plain_ms",
-                              "bound_ms", "bound_by", "library_ms",
-                              "host_ms", "library_host_ms")
+    alone, ``wrapper_ms``, the ``ops`` wrapper, and the host's enqueue
+    times, where the case measured them)."""
+    return {k: r[k] for k in ("max_abs_err", "ms", "bare_ms", "wrapper_ms",
+                              "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "host_ms", "library_host_ms")
             if k in r}
 
 
@@ -1407,6 +1471,9 @@ def slice_deepseek():
 
 # -- the paper's DNNs (TDS, CNN10, ResNet18, Darknet19) ----------------------
 
+# (case, model, conv layer, (M, K, N)) where the kernel API is timed
+TIMED_LAYERS = (("darknet19_l13", "paper-darknet19", 13, (128, 4608, 1024)),
+                ("resnet18_l1", "paper-resnet18", 1, (131072, 576, 64)))
 PAPER_ARCHS = ("paper-tds", "paper-cnn10", "paper-resnet18",
                "paper-darknet19")
 MOR_MODES = ("exact", "tiled", "kernel")
@@ -1694,10 +1761,10 @@ def slice_paper(flush):
     (``gather_matmul`` at K = 144, N = 288) are held against the plain
     versions on the CPU.  Counted: the TDS kernel-mode forward (one
     mor_tile_mask and one gather_matmul per layer), then the kernel API
-    on every conv
-    layer with K % 8 == 0, on the live im2col patches and permuted
-    weights of the calibrated kernel-mode forward.  -> (launches,
-    {kernel: Darknet19 layer-13 result})."""
+    on every conv layer with K % 8 == 0, on the live im2col patches and
+    permuted weights of the calibrated kernel-mode forward; the kernel
+    API timed at TIMED_LAYERS.  -> (launches, {case: {kernel:
+    result}})."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config
@@ -1710,7 +1777,7 @@ def slice_paper(flush):
     from repro_torch.kernels import ops
     from repro_torch.models import cnn
     total = {}
-    darknet = None
+    timed = {}
     for arch in PAPER_ARCHS:
         cfg = get_config(arch)
         tds_ = cfg.family == "tds"
@@ -1852,21 +1919,25 @@ def slice_paper(flush):
                 binary_dot_bit_equal=True, packed_bit_equal=True,
                 masked_matmul_max_abs_err=err,
                 rows=[int(c[1].shape[0]) for c in checked][:4])
-            if arch == "paper-darknet19":
-                # one live layer, K = 9 x 512, N = 1024 (layer 13)
+            # timed on the live operands: Darknet19's layer 13 (K = 9 x
+            # 512, N = 1024) and ResNet18's layer 1, the largest conv
+            # layer of the four (131,072 im2col rows, K = 9 x 64, N = 64)
+            for case, model, layer, shape in TIMED_LAYERS:
+                if arch != model:
+                    continue
                 i, xc, w, tiles = checked[[c[0] for c in checked]
-                                          .index(13)][:4]
-                assert (xc.shape[1], w.shape[1]) == (9 * 512, 1024)
-                darknet = binary_cases(xc.contiguous(), w, flush, tiles)
-                for name, r in darknet.items():
-                    log("kernel", name=name, case="darknet19 layer 13",
+                                          .index(layer)][:4]
+                assert (*xc.shape, w.shape[1]) == shape, xc.shape
+                timed[case] = binary_cases(xc.contiguous(), w, flush, tiles)
+                for name, r in timed[case].items():
+                    log("kernel", name=name, case=case,
                         **{k: (round(v, 5) if isinstance(v, float) else v)
                            for k, v in r.items()})
             del recs, checked
         torch.cuda.empty_cache()
     log("paper", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
-    return total, darknet
+    return total, timed
 
 
 def _leaves(tree):
@@ -1900,7 +1971,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    paper, darknet = slice_paper(flush)
+    paper, timed = slice_paper(flush)
     # "launches": each kernel's count on the main path of the slice that
     # ported it: the paper DNNs for the kernel API (and TDS's MoR
     # kernels), deepseek paged for the MoR kernels and mla_paged_flash,
@@ -1908,7 +1979,8 @@ def main() -> int:
     for name, row in rows.items():
         if name in API_KERNELS:
             row["launches"] = paper[name]
-            row["at_darknet19_l13"] = _fields(darknet[name])
+            for case, r in timed.items():
+                row[f"at_{case}"] = _fields(r[name])
         else:
             row["launches"] = (granite if name == "gqa_paged_flash"
                                else deepseek)[name]

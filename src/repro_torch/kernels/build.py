@@ -22,7 +22,7 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("mor_predict.cu", "gather_matmul.cu", "masked_matmul.cu",
            "paged_attention.cu", "mla_attention.cu", "binary_dot.cu",
            "binary_dot_packed.cu")
-HEADERS = ("common.cuh", "binary.cuh", "mma_tile.cuh")
+HEADERS = ("common.cuh", "binary.cuh", "mma_tile.cuh", "sign_mma.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 CFLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v")
@@ -35,8 +35,8 @@ SIGNATURES = {
     "masked_matmul_kdim": [_P] * 4 + [_I] * 7 + [_P],
     "gqa_paged_flash": [_P] * 7 + [_I] * 9 + [_F, _I, _P],
     "mla_paged_flash": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
-    "masked_matmul": [_P] * 4 + [_I] * 4 + [_P],
-    "binary_dot": [_P] * 3 + [_I] * 4 + [_P],
+    "masked_matmul": [_P] * 4 + [_I] * 6 + [_P],
+    "binary_dot": [_P] * 3 + [_I] * 8 + [_P],
     "binary_dot_packed": [_P] * 3 + [_I] * 4 + [_P],
 }
 

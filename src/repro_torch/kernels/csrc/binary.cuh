@@ -1,6 +1,6 @@
-// The binary rookie's sign product as XNOR-popcount (sm_90a), shared by
-// binary_dot.cu (float weights, signs taken in the kernel) and
-// binary_dot_packed.cu (1-bit signs packed 8 per byte).
+// The binary rookie's sign product as XNOR-popcount (sm_90a), for
+// binary_dot_packed.cu (1-bit signs packed 8 per byte; binary_dot.cu
+// runs on the int8 tensor cores, sign_mma.cuh).
 //
 // Signs are bits, 1 = negative: an activation x is +1 when x > 0, else
 // -1 (a post-ReLU zero is informative); a weight w is +1 when w >= 0.

@@ -1,6 +1,7 @@
-// Two masked matmuls for sm_90a: the contraction-masked MoR down
-// projection (`masked_matmul_kdim`) and the output-tile-masked product
-// of the kernel API (`masked_matmul`, at the end of the file).
+// Two masked matmuls for sm_90a on one tile core (mma_tile.cuh): the
+// contraction-masked MoR down projection (`masked_matmul_kdim`) and the
+// output-tile-masked product of the kernel API (`masked_matmul`, at the
+// end of the file).
 //
 // masked_matmul_kdim:
 //
@@ -130,93 +131,96 @@ extern "C" int masked_matmul_kdim(const void* x, const void* w,
 // Replaces the Pallas TPU kernel repro/kernels/masked_matmul.py
 // `masked_matmul` (pallas_call at l.63; wrapper repro/kernels/ops.py
 // `masked_matmul`, tile 8 x 128).  out = x @ w where each (8-row,
-// 128-column) output tile whose mask is 0 is written as zeros without a
-// multiply-add: one block per output tile, and a dead block writes its
-// zeros and returns before it reads x or w.  A live block loops over
-// the whole contraction in chunks of 128 (the last one ragged), sums in
-// float32 and stores in the input dtype.  The live-tile count is the
+// 128-column) output tile whose mask is 0 is written as exact zeros:
+// its x rows are never read and no product of its is stored.  Sums are
+// float32, stored in the input dtype; the live-tile count is the
 // wrapper's device-side sum of the mask.
 //
-// Bound on the H100: bytes.  At the rows of a decode dispatch or a
-// conv layer's im2col (M up to a few thousand) against 2 * 8 flops per
-// weight element a live tile reads, the floor is the live column
-// strips of w, the live row blocks of x and the output over 3.35 TB/s.
-// Row blocks of one column tile sit on neighbouring block ids, so a
-// weight strip's re-reads across row blocks hit L2.  CUDA cores, as in
-// the other first kernels; tensor cores are a later change.
+// Bound on the H100: bytes at a decode dispatch (granite's gate, M = 8:
+// the live column strips of w, 0.006 ms) and at 256 rows; operations in
+// float32 at a conv layer's im2col (ResNet18 layer 1, M = 131072, K =
+// 576, N = 64: 9.7 GFLOP on the CUDA cores, 0.14 ms at 67 TFLOP/s).
+//
+// Design: the tile core of masked_matmul_kdim, with the output mask in
+// place of the contraction mask.  The grid is (128-column tile x split,
+// 64-row group); a block folds the mask of its column tile and its 8
+// row blocks into `need`.  need = 0 writes the tile's zeros and returns
+// before it reads x or w.  Otherwise every contraction step of the
+// block's segment is live for exactly the row blocks in `need`: only
+// their x rows are copied, the epilogue stores the others as zeros, and
+// the float32 path skips their FMAs (in bf16 a warpgroup's wgmma covers
+// all 64 rows, and the dead rows' sums are discarded).  bf16 runs on
+// wgmma, float32 in full float32 on the CUDA cores (no TF32).  K is any
+// length (steps past K zero-fill); the core reads columns up to N only.
+// At a decode dispatch the grid holds a block per column tile (64 at
+// granite's gate), so the wrapper's planner splits K over a cluster
+// (split_k.plan), summed in rank order: the bits repeat run to run.
 
 namespace mor {
 
 template <typename T>
-__global__ void __launch_bounds__(TN * KS)
+__global__ void __launch_bounds__(tile::THREADS, 2)
 masked_matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const int* __restrict__ mask, T* __restrict__ out,
-                     int M, int K, int N) {
-  const int rb = blockIdx.x, ct = blockIdx.y;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TN + tx;
-  const int col = ct * TN + tx;
-  const size_t row0 = (size_t)rb * TM;
-  if (mask[(size_t)rb * gridDim.y + ct] == 0) {      // uniform per block
-    for (int e = tid; e < TM * TN; e += TN * KS)
-      out[(row0 + e / TN) * N + ct * TN + e % TN] = from_f<T>(0.f);
+                     const unsigned char* __restrict__ mask,
+                     T* __restrict__ out, int M, int K, int N, int split,
+                     int kb_per) {
+  using namespace tile;
+  extern __shared__ __align__(128) char smem[];
+  __shared__ unsigned need;
+  const int rank = blockIdx.x % split, j = blockIdx.x / split;
+  const int nm = (M + TM - 1) / TM, nn = (N + TN - 1) / TN;
+  const int row0 = blockIdx.y * BM, col0 = j * BN;
+  const int rb0 = row0 / TM;
+  if (threadIdx.x < 32) {
+    const int i = threadIdx.x;
+    const bool live = i < BM / TM && rb0 + i < nm &&
+                      mask[(size_t)(rb0 + i) * nn + j] != 0;
+    const unsigned bits = __ballot_sync(0xffffffffu, live);
+    if (i == 0) need = bits;
+  }
+  __syncthreads();
+  const unsigned rows = need;           // uniform per cluster
+  if (rows == 0) {
+    zero_tile(out, M, N, row0, col0, rank, split);
     return;
   }
-  __shared__ float xs[TM][KC];
-  __shared__ float part[KS][TM][TN];
-
-  float acc[TM];
-#pragma unroll
-  for (int r = 0; r < TM; ++r) acc[r] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    for (int e = tid; e < TM * KC; e += TN * KS) {
-      const int r = e / KC, kk = e % KC;
-      xs[r][kk] = kk < kc ? to_f(x[(row0 + r) * K + k0 + kk]) : 0.f;
-    }
-    __syncthreads();
-    for (int kk = ty; kk < kc; kk += KS) {
-      const float wv = to_f(w[(size_t)(k0 + kk) * N + col]);
-#pragma unroll
-      for (int r = 0; r < TM; ++r) acc[r] = fmaf(xs[r][kk], wv, acc[r]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int r = 0; r < TM; ++r) part[ty][r][tx] = acc[r];
-  __syncthreads();
-  if (ty == 0) {
-    for (int r = 0; r < TM; ++r) {
-      float v = 0.f;
-      for (int q = 0; q < KS; ++q) v += part[q][r][tx];
-      out[(row0 + r) * N + col] = from_f<T>(v);
-    }
-  }
+  using G = Geo<T>;
+  const int steps = (K + G::BK - 1) / G::BK;
+  const int s0 = rank * kb_per * G::STEPS;
+  const int s1 = min(steps, (rank + 1) * kb_per * G::STEPS);
+  const Operands<T> o{x, w, M, K, N, row0, col0};
+  run_tile(smem, o, s0, s1, [rows](int) { return rows; }, out, rows,
+           split);
 }
 
 }  // namespace mor
 
-// x (M, K), w (K, N), out (M, N) in `dtype`; mask (M/8, N/128) int32;
-// all contiguous.  M % 8 == 0 and N % 128 == 0 (the wrapper pads); any
-// K.
-extern "C" int masked_matmul(const void* x, const void* w, const int* mask,
-                             void* out, int M, int K, int N, int dtype,
-                             void* stream) {
+// x (M, K), w (K, N), out (M, N) in `dtype`; mask (ceil(M/8),
+// ceil(N/128)) bytes, non-zero where live.  Any M; K and N multiples of
+// a 16-byte chunk (8 bf16, 4 float32: the wrapper pads with zeros).
+// split blocks a cluster share a tile, each kb_per 128-wide k blocks.
+extern "C" int masked_matmul(const void* x, const void* w, const void* mask,
+                             void* out, int M, int K, int N, int split,
+                             int kb_per, int dtype, void* stream) {
   using namespace mor;
-  const dim3 grid(M / TM, N / TN), block(TN, KS);
+  static unsigned long long ready[2] = {0, 0};
+  if (M == 0 || N == 0) return 0;
+  const dim3 grid(((N + TN - 1) / TN) * split,
+                  (M + tile::BM - 1) / tile::BM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* m8 = static_cast<const unsigned char*>(mask);
   if (dtype == BF16) {
-    masked_matmul_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w), mask,
-        static_cast<__nv_bfloat16*>(out), M, K, N);
-  } else if (dtype == F32) {
-    masked_matmul_kernel<float><<<grid, block, 0, st>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), mask,
-        static_cast<float*>(out), M, K, N);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    return tile::launch(masked_matmul_kernel<T>, ready[BF16], grid, split,
+                        st, static_cast<const T*>(x),
+                        static_cast<const T*>(w), m8, static_cast<T*>(out),
+                        M, K, N, split, kb_per);
   }
-  return (int)cudaGetLastError();
+  if (dtype == F32) {
+    return tile::launch(masked_matmul_kernel<float>, ready[F32], grid,
+                        split, st, static_cast<const float*>(x),
+                        static_cast<const float*>(w), m8,
+                        static_cast<float*>(out), M, K, N, split, kb_per);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -13,9 +13,9 @@
 // shared memory a block, two blocks an SM).  Only the A rows of the
 // 8-row blocks whose outputs are kept (`need`) are copied: the others'
 // products are discarded, so whatever their rows hold never reaches an
-// output.  A needed row block dead in the step, a contraction index past
-// K and a column past N zero-fill: the copy reads nothing and writes
-// zeros.
+// output.  A needed row block dead in the step, a row past M, a
+// contraction index past K and a column past N zero-fill: the copy
+// reads nothing and writes zeros.
 //
 // The product.  bf16 runs on the tensor cores with wgmma: warpgroup wc
 // issues m64n64k16 over columns 64 wc.., reading both operands from
@@ -86,10 +86,6 @@ __device__ __forceinline__ int b_off(const float*, int k, int ch) {
   return k * BN + (ch << 2);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // 16 bytes global -> shared; `ok` false writes zeros and reads nothing
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
@@ -122,7 +118,8 @@ template <typename T> struct Operands {
 
 // Fill one stage with the contraction step at k0: the A rows of the
 // 8-row blocks in `need` (zeros for those whose bit in `rows`, the
-// blocks live in the step, is 0) and the B rows.
+// blocks live in the step, is 0, and for rows at or past M) and the B
+// rows.
 template <typename T>
 __device__ __forceinline__ void load_stage(T* sA, T* sB, const Operands<T>& o,
                                            int k0, unsigned rows,
@@ -135,7 +132,8 @@ __device__ __forceinline__ void load_stage(T* sA, T* sB, const Operands<T>& o,
     const int r = idx / G::ACH, ch = idx % G::ACH;
     if (!((need >> (r / TM)) & 1u)) continue;
     const int gk = k0 + ch * G::EPC;
-    const bool ok = ((rows >> (r / TM)) & 1u) && gk < o.K;
+    const bool ok = ((rows >> (r / TM)) & 1u) && gk < o.K &&
+                    o.row0 + r < o.M;
     cp_async16(sA + a_off(sA, r, ch),
                ok ? o.x + (size_t)(o.row0 + r) * o.K + gk : o.x, ok);
   }
@@ -403,30 +401,9 @@ __device__ __forceinline__ void run_tile(char* smem, const Operands<T>& o,
 template <typename... P, typename... A>
 int launch(void (*kernel)(P...), unsigned long long& ready, dim3 grid,
            int split, cudaStream_t stream, A... args) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (!((ready >> dev) & 1ull)) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    ready |= 1ull << dev;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = split;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, args...);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  static_assert(THREADS == 256, "launch_cluster's block");
+  return launch_cluster(kernel, ready, SMEM_BYTES, grid, split, SMEM_BYTES,
+                        stream, args...);
 }
 
 }  // namespace tile

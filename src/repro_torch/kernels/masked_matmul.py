@@ -10,9 +10,13 @@ plain PyTorch version and launch counter.
   Bound on the H100: bytes — the weight rows of live k blocks.
 - ``masked_matmul`` (counter ``masked_launches``) replaces
   ``masked_matmul`` of the same file: x @ w with each (8-row,
-  128-column) output tile whose mask is 0 written as zeros, without
-  multiply-adds.  Bound on the H100: bytes — the live column strips of
-  w.  See the source for both designs.
+  128-column) output tile whose mask is 0 written as exact zeros, its x
+  rows never read.  The same tile core, split-K planned by
+  ``split_k.plan`` (the plan never reads the mask); any M, K and N, K
+  and N rounded up to a 16-byte chunk with zeros (``chunk_pads``).
+  Bound on the H100: bytes in bf16 (the live column strips of w),
+  operations in float32 at a conv layer's im2col.  See the source for
+  both designs.
 """
 from __future__ import annotations
 
@@ -75,7 +79,7 @@ def _launch(x, w, tile_mask, tile_m, tile_k):
         raise ValueError(f"bad shapes x {tuple(x.shape)} w "
                          f"{tuple(w.shape)} mask {tuple(tile_mask.shape)}")
     # the kernel copies 16-byte chunks: zero-pad ragged output columns
-    pad = (-N) % (16 // x.element_size())
+    _, pad = chunk_pads(K, N, x.element_size())
     if pad:
         w = F.pad(w, (0, pad))
     out = launch_kdim(dense16(x), dense16(w), tile_mask, plan(x, w))
@@ -130,31 +134,49 @@ def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor
                   ) -> torch.Tensor:
-    """x (M, K), w (K, N), mask (M/8, N/128): the CUDA kernel for a CUDA
-    tensor, the plain version for a CPU tensor, an error for anything
-    else."""
+    """x (M, K), w (K, N), mask (ceil(M/8), ceil(N/128)): the CUDA kernel
+    for a CUDA tensor, the plain version for a CPU tensor, an error for
+    anything else."""
     if x.device.type == "cpu":
         return masked_matmul_plain(x, w, tile_mask)
     return _launch_masked(x, w, tile_mask)
 
 
+def chunk_pads(K: int, N: int, element_size: int) -> Tuple[int, int]:
+    """Zero padding (contraction, columns) that rounds K and N up to a
+    16-byte chunk (8 bf16, 4 float32), as the tile core's copies need:
+    zeros add nothing to a sum, so the padded product's first N columns
+    are the product.  Pure Python on host ints."""
+    epc = 16 // element_size
+    return (-K) % epc, (-N) % epc
+
+
 def _launch_masked(x, w, tile_mask):
     global masked_launches
     stream = cuda_stream(x.device)
-    if x.ndim != 2:
-        raise ValueError(f"x must be (M, K), got {tuple(x.shape)}")
-    M, K = x.shape
-    N = w.shape[-1]
-    if M % TILE_M or N % TILE_N or tuple(w.shape) != (K, N) \
-            or tuple(tile_mask.shape) != (M // TILE_M, N // TILE_N):
+    if x.ndim != 2 or w.ndim != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"bad shapes x {tuple(x.shape)} w "
-                         f"{tuple(w.shape)} mask {tuple(tile_mask.shape)}")
+                         f"{tuple(w.shape)}")
+    M, K = x.shape
+    N = w.shape[1]
+    if tuple(tile_mask.shape) != (-(-M // TILE_M), -(-N // TILE_N)):
+        raise ValueError(f"mask {tuple(tile_mask.shape)} does not tile "
+                         f"({M}, {N}) by ({TILE_M}, {TILE_N})")
     code = dtype_code(x, w)
-    mask = tile_mask.to(torch.int32).contiguous()
-    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    pk, pn = chunk_pads(K, N, x.element_size())
+    if pk:
+        x = F.pad(x, (0, pk))
+    if pk or pn:
+        w = F.pad(w, (0, pn, 0, pk))
+    x, w = dense16(x), dense16(w)
+    Kp, Np = w.shape
+    split, kb_per = split_k.plan(1, M, Kp, Np,
+                                 sms=split_k.sm_count(x.device))
+    out = torch.empty((M, Np), dtype=x.dtype, device=x.device)
     err = lib().masked_matmul(ptr(x, x.device), ptr(w, x.device),
-                              ptr(mask, x.device), ptr(out, x.device), M, K,
-                              N, code, stream)
+                              ptr(mask_bytes(tile_mask), x.device),
+                              ptr(out, x.device), M, Kp, Np, split, kb_per,
+                              code, stream)
     masked_launches += 1
     check(err, "masked_matmul")
-    return out
+    return out[:, :N] if pn else out

@@ -4,14 +4,16 @@ MoRLayer-facing coef table — the counterpart of ``repro/kernels/ops.py``.
 
 Each wrapper pads exactly as the JAX wrapper does, then calls the kernel
 module, which launches the CUDA kernel for a CUDA tensor and runs its
-plain PyTorch version for a CPU tensor.  Every operand may carry a
+plain PyTorch version for a CPU tensor.  ``binary_dot`` and
+``masked_matmul`` pad only off CUDA: their CUDA kernels take the
+operands as they are (``launch_pads``).  Every operand may carry a
 leading expert dim E: that is the expert grid (``executor.expert_ffn``,
 where the JAX package vmaps the Pallas calls), one launch for all
 experts.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,9 +24,9 @@ from repro_torch.kernels import gather_matmul as _gm
 from repro_torch.kernels import masked_matmul as _mm
 from repro_torch.kernels import mor_predict as _mp
 
-# the JAX wrappers' blocks, which decide how far they pad: binary_dot's
-# (bm, bk, bn) and masked_matmul's contraction block (the CUDA kernels
-# themselves take any M, K, N)
+# the JAX wrappers' blocks, which decide how far they pad off CUDA:
+# binary_dot's (bm, bk, bn) and masked_matmul's contraction block (the
+# CUDA kernels themselves take any M, K, N: ``launch_pads``)
 BD_BM, BD_BK, BD_BN = 128, 512, 128
 MM_BK = 512
 
@@ -54,37 +56,67 @@ def _bk(K: int, bk: int) -> int:
     return bk_ if K % bk_ == 0 else K
 
 
+def launch_pads(kernel: str, M: int, K: int, N: int, *,
+                cuda: bool) -> Tuple[int, int, int]:
+    """Zero padding (rows, contraction, columns) that ``binary_dot`` /
+    ``masked_matmul`` add before the kernel module.  Off CUDA they pad as
+    the JAX wrapper pads for its Pallas blocks: binary_dot's (BD_BM,
+    BD_BK, BD_BN), masked_matmul's 8 x 128 output tiles (its K block
+    divides K, so K is never padded).  The CUDA kernels take any M, K, N
+    (masked_matmul's module rounds K and N to a 16-byte chunk itself,
+    ``masked_matmul.chunk_pads``), so the CUDA path pads nothing.  Pure
+    Python on host ints."""
+    if kernel not in ("binary_dot", "masked_matmul"):
+        raise ValueError(f"no padding rule for {kernel!r}")
+    if cuda:
+        return 0, 0, 0
+    if kernel == "binary_dot":
+        bm_, bk_, bn_ = min(BD_BM, max(M, 8)), min(BD_BK, K), min(BD_BN, N)
+        return (-M) % bm_, (-K) % bk_, (-N) % bn_
+    return (-M) % _mm.TILE_M, (-K) % _bk(K, MM_BK), (-N) % _mm.TILE_N
+
+
+def _padded(kernel, x, w):
+    """(x, w) padded as ``launch_pads`` says for x's device, and the
+    padding (rows, contraction, columns)."""
+    M, K = x.shape
+    pm, pk, pn = launch_pads(kernel, M, K, w.shape[1],
+                             cuda=x.device.type != "cpu")
+    if pm or pk:
+        x = F.pad(x, (0, pk, 0, pm))
+    if pk or pn:
+        w = F.pad(w, (0, pn, 0, pk))
+    return x, w, (pm, pk, pn)
+
+
 def binary_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sign_act(x) @ sign(w) -> (M, N) float32, padded as the JAX wrapper
-    pads for its (BD_BM, BD_BK, BD_BN) blocks.  A padded k adds
-    sign_act(0) * sign(0) = (-1) * (+1) = -1 to every cell, exactly, so
-    ``k_pad`` is added back."""
+    """sign_act(x) @ sign(w) -> (M, N) float32, padded as
+    ``launch_pads`` says for x's device.  A padded k adds sign_act(0) *
+    sign(0) = (-1) * (+1) = -1 to every cell, exactly, so it is added
+    back."""
     M, K = x.shape
     N = w.shape[1]
-    bm_, bk_, bn_ = min(BD_BM, max(M, 8)), min(BD_BK, K), min(BD_BN, N)
-    xp = _pad_to(x, bm_, bk_)
-    wp = _pad_to(w, bk_, bn_)
+    xp, wp, (pm, pk, pn) = _padded("binary_dot", x, w)
     out = _bd.binary_dot(xp.contiguous(), wp.contiguous())
-    k_pad = xp.shape[1] - K
-    if k_pad:
-        out = out + float(k_pad)
-    return out[:M, :N]
+    if pk:
+        out = out + float(pk)
+    return out[:M, :N] if pm or pn else out
 
 
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
                   *, with_counts: bool = False):
     """x @ w with each (8 x 128) output tile whose mask is 0 written as
-    zeros, padded as the JAX wrapper pads (contraction block MM_BK).
-    ``with_counts`` also returns the live-tile count of the padded mask,
-    an int32 device tensor (no host sync)."""
+    zeros, padded as ``launch_pads`` says for x's device.
+    ``with_counts`` also returns the live-tile count of the mask, an
+    int32 device tensor (no host sync)."""
     M, K = x.shape
     N = w.shape[1]
-    bk_ = _bk(K, MM_BK)
-    xp = _pad_to(x, _mm.TILE_M, bk_)
-    wp = _pad_to(w, bk_, _mm.TILE_N)
-    mask = _pad_mask(tile_mask, xp.shape[0] // _mm.TILE_M,
-                     wp.shape[1] // _mm.TILE_N)
-    out = _mm.masked_matmul(xp.contiguous(), wp.contiguous(), mask)[:M, :N]
+    xp, wp, (pm, pk, pn) = _padded("masked_matmul", x, w)
+    mask = _pad_mask(tile_mask, -(-(M + pm) // _mm.TILE_M),
+                     -(-(N + pn) // _mm.TILE_N))
+    out = _mm.masked_matmul(xp.contiguous(), wp.contiguous(), mask)
+    if pm or pn:
+        out = out[:M, :N]
     if with_counts:
         return out, mask.sum(dtype=torch.int32)
     return out

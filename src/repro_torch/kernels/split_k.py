@@ -1,4 +1,4 @@
-"""The split-K planner of the two MoR matmuls (``csrc/mma_tile.cuh``).
+"""The split-K planner of the MoR matmuls (``csrc/mma_tile.cuh``).
 
 A block of those kernels owns a 64-row x 128-column output tile.  Where
 the grid has fewer live blocks than the card has SMs (a decode dispatch:
@@ -32,6 +32,16 @@ def plan(E: int, M: int, K: int, N: int, *, sms: int,
     per_expert = -(-M // BM) * -(-N // BN)
     live = E * (per_expert if capacity is None
                 else min(per_expert, capacity))
+    return split_over(live, K, sms=sms)
+
+
+def split_over(live: int, K: int, *, sms: int) -> Tuple[int, int]:
+    """-> (split, kb_per) for ``live`` output tiles over a contraction
+    of K: as many blocks a cluster as still fit one wave of ``sms`` (at
+    least 1, at most 8 and the 128-wide k blocks), ``kb_per`` k blocks a
+    rank, and the split recounted so that no rank is empty.  Shared by
+    every kernel that splits K over a cluster (``plan`` here,
+    ``binary_dot.plan``)."""
     nkb = max(1, -(-K // KB))
     split = max(1, min(MAX_SPLIT, nkb, sms // max(1, live)))
     kb_per = -(-nkb // split)

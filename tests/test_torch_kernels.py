@@ -509,3 +509,169 @@ def test_binary_dot_packed_needs_k_multiple_of_8():
     with pytest.raises(ValueError, match="must be 8 x"):
         tbdp.binary_dot_packed(torch.zeros(4, 12),
                                torch.zeros(2, 8, dtype=torch.uint8))
+
+
+# -- the kernel API on the CUDA path: no padding, the planners ---------------
+
+# paper-conv-like im2col shapes at a small M: CNN10's first 3 x 3 layer
+# (K = 9 x 32), ResNet18's 64-channel layers, a 128-channel layer
+PAPER_CONV_SHAPES = [(40, 288, 32), (64, 576, 64), (24, 1152, 128)]
+
+
+@pytest.mark.parametrize("shape", PAPER_CONV_SHAPES)
+@pytest.mark.parametrize("dtypes", API_DTYPES, ids=["f32", "bf16"])
+def test_kernel_api_at_paper_conv_shapes(shape, dtypes):
+    """Both kernels at paper-conv shapes against the JAX wrappers over
+    Pallas in interpret mode, through ``ops`` (the JAX-mirroring padding
+    on the CPU) and through the kernel module on the operands as they
+    are (what the CUDA path hands it): ``binary_dot`` bit-equal,
+    ``masked_matmul`` within float32 rounding (float32) or one bfloat16
+    step (bfloat16), dead tiles exact zeros either way."""
+    M, K, N = shape
+    rng = np.random.default_rng(M + K + N)
+    x = np.maximum(rng.normal(size=(M, K)), 0.0).astype(np.float32)
+    w = (rng.normal(size=(K, N)) / np.sqrt(K)).astype(np.float32)
+    mask = rng.random((-(-M // 8), -(-N // 128))) > 0.4
+    mask.flat[0] = True
+    xj, xt = _both(x, dtypes)
+    wj, wt = _both(w, dtypes)
+    want_b = np.asarray(jops.binary_dot(xj, wj))
+    want_m = np.asarray(jops.masked_matmul(xj, wj, jnp.asarray(mask)),
+                        np.float32)
+    f32 = dtypes[1] == torch.float32
+    rtol, atol = (RTOL, ATOL) if f32 else (2 ** -7, 1e-2)
+    keep = np.repeat(np.repeat(mask, 8, 0), 128, 1)[:M, :N]
+    for bd, mm in ((tops.binary_dot, tops.masked_matmul),
+                   (tbd.binary_dot, tmm.masked_matmul)):
+        np.testing.assert_array_equal(bd(xt, wt).numpy(), want_b)
+        got_m = mm(xt, wt, torch.from_numpy(mask))
+        assert got_m.dtype == dtypes[1] and got_m.shape == (M, N)
+        np.testing.assert_allclose(got_m.float().numpy(), want_m,
+                                   rtol=rtol, atol=atol)
+        assert np.all(got_m.float().numpy()[~keep] == 0.0)
+
+
+@pytest.mark.parametrize("dtypes", API_DTYPES, ids=["f32", "bf16"])
+def test_binary_dot_sign_conventions_match_jax(dtypes):
+    """The signs the CUDA kernel must reproduce, pinned against
+    ``ref.binary_dot_ref``: a zero activation is -1, a -0.0 weight +1
+    (the comparison w >= 0, not the sign bit), NaN is -1 in x and in w;
+    and the JAX wrapper over Pallas agrees, with and without padding."""
+    M, K, N = 16, 100, 130
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    x[:, ::5] = 0.0
+    w[::3] = -0.0
+    x[0, 1] = x[5, 7] = np.nan
+    w[2, 3] = w[9, 0] = np.nan
+    assert np.signbit(w[0]).all() and (w[0] == 0).all()
+    xj, xt = _both(x, dtypes)
+    wj, wt = _both(w, dtypes)
+    want = np.asarray(jref.binary_dot_ref(xj, wj))
+    np.testing.assert_array_equal(np.asarray(jops.binary_dot(xj, wj)), want)
+    for bd in (tops.binary_dot, tbd.binary_dot):   # padded, as they are
+        np.testing.assert_array_equal(bd(xt, wt).numpy(), want)
+    # one row of +-1 by hand: x row 0 against w column 0
+    xs = np.where(x[0] > 0, 1.0, -1.0)
+    ws = np.where(w[:, 0] >= 0, 1.0, -1.0)
+    assert ws[0] == 1.0 and ws[9] == -1.0 and xs[1] == -1.0
+    assert float(tbd.binary_dot_plain(xt, wt)[0, 0]) == float(xs @ ws)
+
+
+def test_kernel_api_plans_at_the_main_path_shapes():
+    """The split plans of the two kernel-API kernels at ``chip_smoke.py``'s
+    shapes (132 SMs).  masked_matmul (``split_k.plan``, no capacity, the
+    mask never read): granite's gate at 8 rows has 64 column tiles and
+    splits K in 2, at 256 rows 256 blocks do not split; Darknet19's
+    layer 13 (2 x 8 tiles) takes the portable cluster of 8; ResNet18's
+    layer 1 (2,048 row groups) does not split.  binary_dot
+    (``binary_dot.plan``): 16 x 128 tiles split 4 ways at decode, 128 x
+    64 tiles at 256 rows and at ResNet18's layer 1, 64 x 64 tiles split 8
+    ways at Darknet19's layer 13."""
+    assert split_k.plan(1, 8, 2048, 8192, sms=132) == (2, 8)
+    assert split_k.plan(1, 256, 2048, 8192, sms=132) == (1, 16)
+    assert split_k.plan(1, 128, 4608, 1024, sms=132) == (8, 5)
+    assert split_k.plan(1, 131072, 576, 64, sms=132) == (1, 5)
+    assert tbd.plan(8, 2048, 8192, sms=132) == (16, 128, 4, 4)
+    assert tbd.plan(256, 2048, 8192, sms=132) == (128, 64, 1, 16)
+    assert tbd.plan(128, 4608, 1024, sms=132) == (64, 64, 8, 5)
+    assert tbd.plan(131072, 576, 64, sms=132) == (128, 64, 1, 5)
+
+
+def _bd_plan_cases():
+    """The paper conv layers' shapes at a batch of 128, then a seeded
+    sweep: (M, K, N, sms)."""
+    cases = [(131072, 576, 64, 132), (32768, 1152, 128, 132),
+             (8192, 2304, 256, 132), (2048, 4608, 512, 132),
+             (128, 9216, 1024, 132), (5, 100, 130, 132), (1, 1, 1, 132)]
+    rng = np.random.default_rng(1)
+    for _ in range(9):
+        cases.append((int(rng.integers(1, 5000)), int(rng.integers(1, 9000)),
+                      int(rng.integers(1, 3000)),
+                      int(rng.choice([78, 114, 132]))))
+    return cases
+
+
+@pytest.mark.parametrize("M,K,N,sms", _bd_plan_cases())
+def test_binary_dot_plan_picks_a_built_tile_and_tiles_k(M, K, N, sms):
+    """binary_dot's plan: a tile the C entry instantiates (16 x 128 at a
+    decode dispatch, else 64 or 128 x 64), 128 rows only where 64-row
+    tiles outnumber the SMs; split-K segments that tile [0, K) in whole
+    128-wide k blocks, at most 8, none empty, and no more than two
+    blocks an SM still hold."""
+    bm, bn, split, kb_per = tbd.plan(M, K, N, sms=sms)
+    assert (bm, bn) in {(16, 128), (64, 64), (128, 64)}
+    assert (bm == 16) == (M <= 16)
+    if bm > 16:
+        assert (bm == 128) == (-(-M // 64) * -(-N // 64) > sms)
+    segs = [(r * kb_per * 128, min(K, (r + 1) * kb_per * 128))
+            for r in range(split)]
+    assert 1 <= split <= 8 and segs[0][0] == 0 and segs[-1][1] == K
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(segs, segs[1:]))
+    assert all(k0 < k1 for k0, k1 in segs)
+    tiles = -(-M // bm) * -(-N // bn)
+    assert tiles * split <= tbd.RESIDENT * sms or split == 1
+
+
+@pytest.mark.parametrize("shape", [(5, 100, 130), (40, 288, 32),
+                                   (13, 37, 129), (64, 576, 64)])
+@pytest.mark.parametrize("element_size", [4, 2])
+def test_cuda_operand_preparation_meets_the_c_entries(shape, element_size):
+    """The CUDA path's operand preparation (pure functions on shapes):
+    ``ops.launch_pads`` pads nothing for either kernel; masked_matmul's
+    module rounds K and N up to a 16-byte chunk (``chunk_pads``), less
+    than a chunk, as its C entry takes; binary_dot's C entry takes any
+    M, K, N.  On the CPU the chunk-padded operands give the unpadded
+    product's columns (zeros add nothing), the kernel modules on the
+    unpadded operands equal the JAX-mirroring path, and the off-CUDA
+    pads are the JAX wrapper's."""
+    M, K, N = shape
+    for kernel in ("binary_dot", "masked_matmul"):
+        assert tops.launch_pads(kernel, M, K, N, cuda=True) == (0, 0, 0)
+    epc = 16 // element_size
+    pk, pn = tmm.chunk_pads(K, N, element_size)
+    assert 0 <= pk < epc and 0 <= pn < epc
+    assert (K + pk) % epc == 0 and (N + pn) % epc == 0
+    bm_, bk_, bn_ = min(128, max(M, 8)), min(512, K), min(128, N)
+    assert tops.launch_pads("binary_dot", M, K, N, cuda=False) == (
+        (-M) % bm_, (-K) % bk_, (-N) % bn_)
+    assert tops.launch_pads("masked_matmul", M, K, N, cuda=False) == (
+        (-M) % 8, 0, (-N) % 128)
+    rng = np.random.default_rng(M + K + N + element_size)
+    dt = torch.float32 if element_size == 4 else torch.bfloat16
+    x = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dt)
+    w = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).to(dt)
+    mask = torch.from_numpy(rng.random((-(-M // 8), -(-N // 128))) > 0.3)
+    xp = torch.nn.functional.pad(x, (0, pk))
+    wp = torch.nn.functional.pad(w, (0, pn, 0, pk))
+    want = tmm.masked_matmul_plain(x, w, mask).float()
+    got = tmm.masked_matmul_plain(xp, wp, mask)[:, :N].float()
+    rtol, atol = (RTOL, ATOL) if element_size == 4 else (2 ** -7, 1e-2)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=rtol,
+                               atol=atol)
+    assert torch.equal(tbd.binary_dot(x, w), tops.binary_dot(x, w))
+    np.testing.assert_allclose(
+        tmm.masked_matmul(x, w, mask).float().numpy(),
+        tops.masked_matmul(x, w, mask).float().numpy(), rtol=rtol,
+        atol=atol)
