@@ -29,8 +29,12 @@
    dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
    case, and ``mla_paged_flash`` at the same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, on the
-   rows that see a key; the kernel API's ``binary_dot``,
-   ``binary_dot_packed`` (bit-equal) and ``masked_matmul`` (twice,
+   rows that see a key, twice (bit-equal: the context split merges in
+   rank order), with its split plan, and at the split's edges (a rank
+   whose range is wholly null, one whose keys are all masked, a
+   one-page slot, an idle slot: exact zeros); the kernel API's
+   ``binary_dot``, ``binary_dot_packed`` (bit-equal, also at a ragged
+   M = 24, K = 104, N = 130) and ``masked_matmul`` (twice,
    bit-equal) at the granite gate widths, M = 8 and 256, with
    ``torch._int_mm`` on int8 signs (at M = 8 padded to 32 rows) and
    ``torch.matmul`` as yardsticks, each kernel timed alone (``ms``) and
@@ -59,6 +63,9 @@
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
    tiled and dense mode, then a profiled pass of each;
+   every paged pass is timed a second time on its warm prefix cache
+   and run a third time with the cache cleared (``repeat_agreement`` /
+   ``cold_repeat_agreement`` against the first pass's greedy tokens);
    each counted path has its launch counters zeroed just before and
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
@@ -700,6 +707,7 @@ def mla_case(gen, flush, ctx, C, W, n_null=0, time_it=True):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import split_k
     q_lat, q_pe, ck, cpe, pp, tbl, qpos = _mla_inputs(gen, ctx, C, W,
                                                       n_null=n_null)
     assert not tbl.is_contiguous()
@@ -716,7 +724,12 @@ def mla_case(gen, flush, ctx, C, W, n_null=0, time_it=True):
     seen = ok.any(-1)
     assert bool(seen.all()), "every query row sees a key here"
     err = _close(got[seen], want[seen])
-    r = {"max_abs_err": err, "B": B, "C": C, "W": W}
+    # the split's ranks merge in a fixed order: a repeat is bit-equal
+    _repeat_equal(lambda: pa.mla_paged_flash(*args, scale=scale),
+                  "mla_paged_flash")
+    split = pa.mla_plan(B, C, h, W, page, sms=split_k.sm_count(q_lat.device))
+    r = {"max_abs_err": err, "B": B, "C": C, "W": W, "split": split,
+         "repeat_bit_equal": True}
     if not time_it:
         return r
     # library yardstick: one SDPA call over the pre-gathered latents,
@@ -750,15 +763,57 @@ def mla_case(gen, flush, ctx, C, W, n_null=0, time_it=True):
     return r
 
 
+def mla_split_edges(gen):
+    """``mla_paged_flash`` at a decode dispatch (8 slots x 1 row, 128
+    heads) over a table of 64 entries, which the plan splits 8 ways into
+    ranges of 8 entries: slot 0 fills its table; slot 1 holds one page;
+    slot 2's second range is wholly null; slot 3's third range holds
+    live pages whose rows are all unwritten (tag -1: every key masked);
+    slot 4 is idle (its whole table null, as the engine leaves a free
+    slot); slots 5-7 are ragged.  Within tolerance of the plain version
+    on the rows that see a key, the idle slot exact zeros, a repeat
+    bit-equal.  -> result."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import split_k
+    ctx = [512, 5, 512, 512, 8, 300, 77, 441]
+    q_lat, q_pe, ck, cpe, pp, tbl, qpos = _mla_inputs(gen, ctx, 1, 64)
+    B, _, h, kr = q_lat.shape
+    page, W = ck.shape[1], tbl.shape[1]
+    split = pa.mla_plan(B, 1, h, W, page, sms=split_k.sm_count(q_lat.device))
+    ranges = pa.mla_ranges(W, split)
+    assert split == 8 and ranges[1] == (8, 16), (split, ranges)
+    tbl[2, 8:16] = 0                       # slot 2: range 1 wholly null
+    pp[tbl[3, 16:24].long()] = -1          # slot 3: range 2 all masked
+    tbl[4] = 0                             # slot 4: idle
+    scale = (128 + q_pe.shape[-1]) ** -0.5
+    args = (q_lat, q_pe, ck, cpe, pp, tbl, qpos)
+    got = pa.mla_paged_flash(*args, scale=scale)
+    want = pa.mla_paged_flash_plain(*args, scale=scale)
+    torch.cuda.synchronize()
+    live = tbl > 0
+    gp = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    seen = ((gp[:, None, :] >= 0)
+            & (gp[:, None, :] <= qpos[:, :, None])).any(-1)
+    assert bool(seen[[0, 1, 2, 3, 5, 6, 7]].all()) and not bool(seen[4].any())
+    err = _close(got[seen], want[seen])
+    assert bool(torch.all(got[4] == 0)), "the idle slot is not exact zeros"
+    _repeat_equal(lambda: pa.mla_paged_flash(*args, scale=scale),
+                  "mla_paged_flash (split edges)")
+    return {"max_abs_err": err, "split": split, "ranges": ranges,
+            "idle_slot_exact_zeros": True, "repeat_bit_equal": True}
+
+
 def kernel_mla(gen, flush):
     """-> the mla_paged_flash row: decode and mixed dispatches at
-    deepseek-v2-236b's widths, timed."""
+    deepseek-v2-236b's widths, timed, and the split's edge cases."""
     import torch
     g = torch.Generator().manual_seed(SEED + 1)
     decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
     mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
     cases = {"decode": mla_case(gen, flush, decode_ctx, 1, 512, n_null=5),
-             "mixed": mla_case(gen, flush, mixed_ctx, 32, 12, n_null=1)}
+             "mixed": mla_case(gen, flush, mixed_ctx, 32, 12, n_null=1),
+             "split_edges": mla_split_edges(gen)}
     for name, r in cases.items():
         log("kernel", name="mla_paged_flash", case=name,
             **{k: (round(v, 5) if isinstance(v, float) else v)
@@ -766,7 +821,9 @@ def kernel_mla(gen, flush):
     return {"name": "mla_paged_flash", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/mla_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:302",
-            **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"])}
+            **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"]),
+            "split": {k: cases[k]["split"] for k in cases},
+            "split_edges_max_abs_err": cases["split_edges"]["max_abs_err"]}
 
 
 # -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
@@ -936,7 +993,34 @@ def kernel_api(gen, flush):
     per["binary_dot"]["edges_entries_differing"] = binary_edges(gen)
     log("kernel", name="binary_dot", edges="-0.0 w, NaN x and w, K = 100",
         entries_differing=per["binary_dot"]["edges_entries_differing"])
+    per["binary_dot_packed"]["ragged_entries_differing"] = packed_ragged(gen)
+    log("kernel", name="binary_dot_packed", ragged="M 24, K 104, N 130",
+        entries_differing=per["binary_dot_packed"][
+            "ragged_entries_differing"])
     return per
+
+
+def packed_ragged(gen):
+    """``binary_dot_packed`` bit-equal to ``binary_dot`` and to its plain
+    version at a ragged shape, in both dtypes: M = 24, K = 104 (13
+    packed rows: the second k step is part-filled), N = 130 (the byte
+    path of the weight stage: a last chunk of 2 columns).  -> number of
+    differing entries (0, asserted)."""
+    import torch
+    from repro_torch.kernels import binary_dot_packed as bdp
+    from repro_torch.kernels import ops
+    n = 0
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.randn((24, 104), generator=gen, device="cuda").to(dt)
+        w = torch.randn((104, 130), generator=gen, device="cuda").to(dt)
+        x[:, ::5] = 0.0
+        packed = bdp.pack_signs(w)
+        got = bdp.binary_dot_packed(x, packed)
+        d = int((got != ops.binary_dot(x, w)).sum()) + int(
+            (got != bdp.binary_dot_packed_plain(x, packed)).sum())
+        assert d == 0, f"binary_dot_packed 24x104x130 {dt}: {d} differ"
+        n += d
+    return n
 
 
 API_KERNELS = {
@@ -1001,9 +1085,9 @@ def phase_kernels():
         for k in ("library_null", "library_padded_rows"):
             if k in per["m8"]:
                 rows[name][f"{k}_at_m8"] = per["m8"][k]
-        if "edges_entries_differing" in per:
-            rows[name]["edges_entries_differing"] = \
-                per["edges_entries_differing"]
+        for k in ("edges_entries_differing", "ragged_entries_differing"):
+            if k in per:
+                rows[name][k] = per[k]
     if torch.cuda.get_device_name(0).find("H100") < 0:
         log("kernel", note="bounds use the H100 SXM's published rates")
     return rows
@@ -1135,8 +1219,31 @@ def reference_deepseek():
         **{k: pc[k] for k in ("prefix_hits", "chunks_skipped")})
 
 
+def _clear_prefix(pool):
+    """Drop every prefix-cache entry of an idle paged pool (no slot holds
+    a page, so each drop frees its page)."""
+    while True:
+        pg = pool.prefix.evict_lru_page()
+        if pg is None:
+            return
+        pool.kv.drop(pg)
+
+
+def _first_diff(a, b):
+    """(request, index, token in a, token in b) of the first greedy
+    token where a and b differ, in request order; None if none does."""
+    for r in sorted(b):
+        for i, (x, y) in enumerate(zip(a[r], b[r])):
+            if x != y:
+                return (r, i, int(x), int(y))
+    return None
+
+
 def _serve(cfg, params, mor, mode, reqs, capacities=None, **engine_kw):
-    """One counted pass, then one timed pass; -> (tokens, report, engine)."""
+    """One counted pass, then one timed pass; on a paged layout with a
+    prefix cache, the timed pass again with the cache cleared first
+    (``cold_repeat_agreement``: the first pass's prompts chunked the same
+    way); -> (tokens, report, engine)."""
     import torch
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, mor=mor, mor_mode=mode, n_slots=8,
@@ -1160,7 +1267,32 @@ def _serve(cfg, params, mor, mode, reqs, capacities=None, **engine_kw):
         / wall
     rep["first_pass_dispatches"] = dispatches
     rep["pass_s"] = wall
+    rep["cold_pass_dispatches"] = 0
+    if eng.pool is not None and eng.pool.prefix is not None:
+        _clear_prefix(eng.pool)
+        before = eng.counters["dispatches"]
+        cold = eng.run(list(reqs))
+        base = min(cold)
+        cold = {rid - base: t for rid, t in cold.items()}
+        rep["cold_pass_dispatches"] = eng.counters["dispatches"] - before
+        rep["cold_repeat_agreement"] = _agree(cold, first)
+        rep["cold_first_diff"] = _first_diff(cold, first)
     return first, rep, eng
+
+
+def _repeats(rep):
+    """The log fields of a pass's repeat rates against the first pass."""
+    out = {"repeat_agreement": round(rep["repeat_agreement"], 4)}
+    if "cold_repeat_agreement" in rep:
+        out["cold_repeat_agreement"] = round(rep["cold_repeat_agreement"], 4)
+        out["cold_first_diff"] = json.dumps(rep["cold_first_diff"])
+    return out
+
+
+def _dispatches(rep):
+    """Dispatches of every counted pass of ``_serve``."""
+    return (rep["first_pass_dispatches"] + rep["dispatches"]
+            + rep["cold_pass_dispatches"])
 
 
 def _profile(eng, reqs):
@@ -1258,7 +1390,7 @@ def slice_slotted(cfg, params, mor):
     kw = dict(layout="slotted")
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs, **kw))
-    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    counted = _dispatches(rep_k)
     want = _want_launches(cfg.n_layers, counted, paged=False)
     assert launches == want, (launches, want)
     _check_tokens(cfg, reqs, tok_k)
@@ -1307,7 +1439,7 @@ def slice_paged(cfg, params, mor):
     reqs[11] = (aligned.copy(), 16)
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs))
-    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    counted = _dispatches(rep_k)
     want = _want_launches(cfg.n_layers, counted, paged=True)
     assert launches == want, (launches, want)
     _check_tokens(cfg, reqs, tok_k)
@@ -1319,8 +1451,7 @@ def slice_paged(cfg, params, mor):
     page_bytes = (cfg.n_layers * pool.page * cfg.n_kv_heads * cfg.head_dim
                   * 2 * 2)
     log("slice", path="paged", mode="kernel",
-        tok_s=round(rep_k["tokens_per_s"], 2),
-        repeat_agreement=round(rep_k["repeat_agreement"], 4),
+        tok_s=round(rep_k["tokens_per_s"], 2), **_repeats(rep_k),
         dispatches=rep_k["dispatches"],
         first_pass_dispatches=rep_k["first_pass_dispatches"],
         launches=json.dumps(launches), n_pages=pool.n_pages,
@@ -1340,7 +1471,7 @@ def slice_paged(cfg, params, mor):
             tok_s=round(rep["tokens_per_s"], 2),
             decode_tok_s=round(rep["decode_tokens"] / rep["pass_s"], 2),
             pass_s=round(rep["pass_s"], 3), dispatches=rep["dispatches"],
-            prefill_tokens=rep["prefill_tokens"])
+            prefill_tokens=rep["prefill_tokens"], **_repeats(rep))
     log("slice", trace="shared-prefix",
         agreement_paged_kernel_vs_paged_dense=round(agree_d, 4),
         agreement_paged_kernel_vs_slotted_kernel=round(agree_s, 4))
@@ -1423,7 +1554,7 @@ def slice_deepseek():
     reqs[11] = (aligned.copy(), 16)
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs))
-    counted = rep_k["first_pass_dispatches"] + rep_k["dispatches"]
+    counted = _dispatches(rep_k)
     want = _want_launches(cfg.n_layers, counted, paged=True, mla=True)
     assert launches == want, (launches, want)
     _check_tokens(cfg, reqs, tok_k)
@@ -1456,8 +1587,7 @@ def slice_deepseek():
             decode_tok_s=round(rep["decode_tokens"] / rep["pass_s"], 2),
             pass_s=round(rep["pass_s"], 3), dispatches=rep["dispatches"],
             prefill_tokens=rep["prefill_tokens"],
-            decode_tokens=rep["decode_tokens"],
-            repeat_agreement=round(rep["repeat_agreement"], 4))
+            decode_tokens=rep["decode_tokens"], **_repeats(rep))
     log("slice", path="deepseek paged", agreement_kernel_vs_tiled=round(
         agree_t, 4), agreement_kernel_vs_dense=round(agree_d, 4))
     assert agree_t >= AGREE_MIN and agree_d >= AGREE_MIN, (agree_t, agree_d)

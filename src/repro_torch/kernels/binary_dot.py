@@ -43,16 +43,23 @@ def binary_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch(x, w)
 
 
-def plan(M: int, K: int, N: int, *, sms: int) -> Tuple[int, int, int, int]:
+def plan(M: int, K: int, N: int, *, sms: int,
+         packed: bool = False) -> Tuple[int, int, int, int]:
     """-> (bm, bn, split, kb_per): the kernel's output tile and its
     split-K over a cluster.  A decode dispatch (M <= 16) takes 16 x 128
     tiles; other shapes 64 columns, and 128 rows where 64-row tiles
     would outnumber the SMs (x's re-reads are once per column tile, w's
-    once per row tile, both from L2), else 64.
+    once per row tile, both from L2), else 64.  ``packed``
+    (``binary_dot_packed``, whose weight stage is 16x smaller) takes
+    64 x 128 tiles wherever N > 64 and they fit one wave of RESIDENT
+    blocks an SM: x's signs are then made once per 128 columns.
     ``split_k.split_over`` then splits K until the tiles fill that wave.
     Pure Python on host ints."""
     if M <= 16:
         bm, bn = 16, 128
+    elif packed and N > 64 and \
+            -(-M // 64) * -(-N // 128) <= RESIDENT * sms:
+        bm, bn = 64, 128
     else:
         bn = 64
         bm = 128 if -(-M // 64) * -(-N // bn) > sms else 64

@@ -1,20 +1,23 @@
 """The binary rookie's sign matmul from bit-packed weight signs: the
-CUDA kernel (``csrc/binary_dot_packed.cu``), its plain PyTorch version,
-the plain ``pack_signs`` / ``unpack_signs``, and the launch counter.
+CUDA kernel (``csrc/binary_dot_packed.cu`` on ``csrc/sign_mma.cuh``),
+its plain PyTorch version, the plain ``pack_signs`` / ``unpack_signs``,
+and the launch counter.
 
 Replaces ``repro/kernels/binary_dot_packed.py`` ``binary_dot_packed``
 (Pallas).  Layout, as the JAX package packs it: bit b of
 ``packed[k8, n]`` is the sign bit (1 = negative) of ``w[8 * k8 + b, n]``.
 The result equals ``binary_dot``'s on the same operands, bit for bit.
-Bound on the H100: bytes (K * N / 8 of weight); see the source.
+Bound on the H100: bytes (x, and K * N / 8 of weight); see the source.
+The tile and split are ``binary_dot.plan(..., packed=True)``.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import binary_dot, split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, lib, ptr
+from repro_torch.kernels.launch import cuda_stream, dense16, lib, ptr
 
 launches = 0
 
@@ -72,10 +75,13 @@ def _launch(x, w_packed):
                         f"uint8 signs, got {x.dtype} and {w_packed.dtype}")
     M, K = x.shape
     N = w_packed.shape[1]
+    x = dense16(x)                       # the kernel loads 16-byte chunks
+    bm, bn, split, kb_per = binary_dot.plan(
+        M, K, N, sms=split_k.sm_count(x.device), packed=True)
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     err = lib().binary_dot_packed(ptr(x, x.device), ptr(w_packed, x.device),
-                                  ptr(out, x.device), M, K, N,
-                                  _CODES[x.dtype], stream)
+                                  ptr(out, x.device), M, K, N, bm, bn, split,
+                                  kb_per, _CODES[x.dtype], stream)
     launches += 1
     check(err, "binary_dot_packed")
     return out

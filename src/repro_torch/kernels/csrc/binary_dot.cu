@@ -32,13 +32,17 @@ template <typename T, bool VEC>
 int binary_dot_launch(const T* x, const T* w, float* out, int M, int K,
                       int N, int bm, int bn, int split, int kb_per,
                       cudaStream_t st) {
+  using sgn::FloatSigns;
   using sgn::launch;
   if (bm == 16 && bn == 128)
-    return launch<T, 16, 128, 1, VEC>(x, w, out, M, K, N, split, kb_per, st);
+    return launch<T, 16, 128, 1, VEC, FloatSigns<T, 128, VEC>>(
+        x, w, out, M, K, N, split, kb_per, st);
   if (bm == 64 && bn == 64)
-    return launch<T, 64, 64, 4, VEC>(x, w, out, M, K, N, split, kb_per, st);
+    return launch<T, 64, 64, 4, VEC, FloatSigns<T, 64, VEC>>(
+        x, w, out, M, K, N, split, kb_per, st);
   if (bm == 128 && bn == 64)
-    return launch<T, 128, 64, 4, VEC>(x, w, out, M, K, N, split, kb_per, st);
+    return launch<T, 128, 64, 4, VEC, FloatSigns<T, 64, VEC>>(
+        x, w, out, M, K, N, split, kb_per, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -156,9 +156,10 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
          (1ull << 62);
 }
 
-// d += A (64 x 16, K-major) B (16 x 64, N-major: transposed), bf16 in,
-// float32 accumulators: d[nt] is n8 tile nt of warp w's rows 16 w.. in
-// the m16n8 layout
+// d += A (64 x 16, K-major) B (16 x 64), bf16 in, float32 accumulators:
+// d[nt] is n8 tile nt of warp w's rows 16 w.. in the m16n8 layout.  B is
+// N-major (transposed on read) for TRANS_B = 1, K-major for 0.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
                                                 uint64_t da, uint64_t db) {
   asm volatile(
@@ -166,7 +167,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
         "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
         "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
@@ -175,7 +176,7 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
         "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
         "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
         "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
 }
 
 // acc += A B for one stage on the tensor cores: warpgroup wc takes

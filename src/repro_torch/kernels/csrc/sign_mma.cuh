@@ -15,14 +15,16 @@
 // + 16 bytes apart (an odd count of 16-byte chunks, so the 8 rows an
 // ldmatrix phase reads fall in 8 distinct bank groups).  Each step:
 //   - every thread has 16-byte loads of the step in registers (x: one
-//     chunk of EPC elements of a row; w: a group of 4 k rows x one chunk
-//     of EPC columns; neighbouring lanes on neighbouring chunks of a
-//     row, so that a warp reads whole 128-byte lines), turns them into
-//     signs and stores them: an x chunk as EPC bytes of its row, a w
-//     group as one 32-bit word (4 k) per column.  Whole
-//     chunks (VEC) convert with packed compares (set.u32.bf16x2 or
-//     .f32: 0xFFFF.. where true) and byte permutes, about 1.5
-//     instructions an element;
+//     chunk of EPC elements of a row, neighbouring lanes on neighbouring
+//     chunks of a row, so that a warp reads whole 128-byte lines), turns
+//     them into signs and stores them: an x chunk as EPC bytes of its
+//     row.  Whole chunks (VEC) convert with packed compares
+//     (set.u32.bf16x2 or .f32: 0xFFFF.. where true) and byte permutes,
+//     about 1.5 instructions an element.  The weight stage is a policy
+//     (WL): FloatSigns makes w's signs the same way (a group of 4 k rows
+//     x one chunk of EPC columns becomes one 32-bit word of 4 signs per
+//     column), PackedSigns expands bit-packed signs (one byte holds 8
+//     consecutive k of a column: one 8-byte word per column);
 //   - the block synchronises, issues the next step's loads (they fly
 //     while it multiplies), and each warp runs ldmatrix.x4 and
 //     mma.sync.m16n8k32.s8.s8.s32 over its (BM / WM) x (BN / WN) part.
@@ -222,6 +224,125 @@ __device__ __forceinline__ void store_wgt(unsigned char* dst,
     *reinterpret_cast<uint32_t*>(dst + e * LDS) = col[e];
 }
 
+// The weight stage of float w (K, N): a step's BK rows x BN columns,
+// loaded as groups of 4 k rows x one chunk of EPC columns (neighbouring
+// lanes on neighbouring chunks of a row), stored as one 32-bit word of 4
+// signs per column at sB + column LDS + 4 kq.
+template <typename T, int BN, bool VEC> struct FloatSigns {
+  using Src = T;
+  static constexpr int EPC = Geo<T>::EPC;
+  static constexpr int GROUPS = Geo<T>::KQ * (BN / EPC);
+  static constexpr int PER = (GROUPS + THREADS - 1) / THREADS;
+  struct Regs { uint4 q[PER][4]; };
+
+  // group i of this thread: 4 rows from k 4 kq, columns cc EPC.., kv
+  // rows and nc columns valid
+  __device__ static void group(int i, int K, int N, int k0, int col0,
+                               int& kq, int& cc, int& kv, int& nc) {
+    const int idx = threadIdx.x + i * THREADS;
+    cc = idx % (BN / EPC);
+    kq = idx / (BN / EPC);
+    const int gc = col0 + cc * EPC;
+    const bool in = idx < GROUPS;
+    kv = in ? max(0, min(4, K - (k0 + 4 * kq))) : 0;
+    nc = in ? max(0, min(EPC, N - gc)) : 0;
+  }
+  __device__ static void load(Regs& r, const T* w, int K, int N, int k0,
+                              int col0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int kq, cc, kv, nc;
+      group(i, K, N, k0, col0, kq, cc, kv, nc);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        r.q[i][q] = load_chunk<T, VEC>(
+            w + (size_t)(k0 + 4 * kq + q) * N + col0 + cc * EPC,
+            q < kv ? nc : 0);
+    }
+  }
+  __device__ static void store(const Regs& r, unsigned char* sB, int K,
+                               int N, int k0, int col0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      int kq, cc, kv, nc;
+      group(i, K, N, k0, col0, kq, cc, kv, nc);
+      if (threadIdx.x + i * THREADS < GROUPS)
+        store_wgt<T, VEC>(sB + cc * EPC * Geo<T>::LDS + 4 * kq, r.q[i], kv,
+                          nc);
+    }
+  }
+};
+
+// Bits b of a packed byte (1 = negative) -> bytes b of 8 signs, +1
+// (0x01) or -1 (0xFF): each nibble spread to the low bits of 4 bytes by
+// one multiply and mask, then 0 -> 0x01 and 1 -> 0xFF.
+__device__ __forceinline__ uint2 spread_signs(uint32_t byte) {
+  const uint32_t lo = ((byte & 0xFu) * 0x00204081u) & 0x01010101u;
+  const uint32_t hi = ((byte >> 4) * 0x00204081u) & 0x01010101u;
+  return make_uint2(lo * 0xFEu | 0x01010101u, hi * 0xFEu | 0x01010101u);
+}
+
+// The weight stage of bit-packed signs wp (K / 8, N) uint8, the JAX
+// package's layout (bit b of byte [k8, n] the sign of row 8 k8 + b): a
+// step's BK / 8 packed rows x BN columns, loaded as 16 neighbouring
+// columns of one packed row (16 bytes where N % 16 == 0 and wp is
+// aligned, byte by byte otherwise; lanes down the rows, so that a
+// warp's stores spread over the banks and its loads still fill whole
+// sectors), each byte stored as the 8-byte word of its column's 8 k at
+// sB + column LDS + 8 r.  Rows past K / 8 and columns past N are 0
+// signs.
+template <typename T, int BN> struct PackedSigns {
+  using Src = uint8_t;
+  static constexpr int ROWS = Geo<T>::BK / 8;    // packed rows a step
+  static constexpr int GROUPS = ROWS * (BN / 16);
+  static constexpr int PER = (GROUPS + THREADS - 1) / THREADS;
+  struct Regs { uint4 q[PER]; };
+
+  __device__ static void load(Regs& r, const uint8_t* wp, int K, int N,
+                              int k0, int col0) {
+    const bool vec = N % 16 == 0 &&
+                     reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      const int k8 = k0 / 8 + idx % ROWS, gc = col0 + (idx / ROWS) * 16;
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (idx < GROUPS && k8 < K / 8 && gc < N) {
+        const uint8_t* p = wp + (size_t)k8 * N + gc;
+        if (vec) {
+          u = __ldg(reinterpret_cast<const uint4*>(p));
+        } else {
+          uint32_t h[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+          for (int e = 0; e < 16; ++e)
+            if (gc + e < N)
+              h[e / 4] |= (uint32_t)__ldg(p + e) << (8 * (e % 4));
+          u = make_uint4(h[0], h[1], h[2], h[3]);
+        }
+      }
+      r.q[i] = u;
+    }
+  }
+  __device__ static void store(const Regs& r, unsigned char* sB, int K,
+                               int N, int k0, int col0) {
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int idx = threadIdx.x + i * THREADS;
+      if (idx >= GROUPS) continue;
+      const int row = idx % ROWS, c0 = (idx / ROWS) * 16;
+      const bool in = k0 / 8 + row < K / 8;
+#pragma unroll
+      for (int e = 0; e < 16; ++e) {
+        const uint32_t byte = (word_of(r.q[i], e / 4) >> (8 * (e % 4))) &
+                              0xFFu;
+        const uint2 v = in && col0 + c0 + e < N ? spread_signs(byte)
+                                                : make_uint2(0u, 0u);
+        *reinterpret_cast<uint2*>(sB + (c0 + e) * Geo<T>::LDS + 8 * row) = v;
+      }
+    }
+  }
+};
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -267,9 +388,10 @@ template <typename T, int BM, int BN> struct Smem {
   static constexpr int MAX = RING > TILE ? RING : TILE;
 };
 
-template <typename T, int BM, int BN, int WM, bool VEC>
+template <typename T, int BM, int BN, int WM, bool VEC, typename WL>
 __global__ void __launch_bounds__(THREADS)
-sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
+sign_mma_kernel(const T* __restrict__ x,
+                const typename WL::Src* __restrict__ w,
                 float* __restrict__ out, int M, int K, int N, int split,
                 int kb_per) {
   using G = Geo<T>;
@@ -279,8 +401,6 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
   static_assert(WM * WN == 8 && MI >= 1 && NI % 2 == 0, "warp tile");
   constexpr int XCH = BM * G::CPR;                  // x chunks a step
   constexpr int XPT = (XCH + THREADS - 1) / THREADS;
-  constexpr int WGR = G::KQ * (BN / G::EPC);        // w groups a step
-  constexpr int WPT = (WGR + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int wm = warp % WM, wn = warp / WM;
@@ -291,7 +411,7 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int steps = kend > kbeg ? (kend - kbeg + G::BK - 1) / G::BK : 0;
 
   uint4 xr[XPT];
-  uint4 wr[WPT][4];
+  typename WL::Regs wr;
   // x chunk i of this thread at step k0: row r, chunk ch, nv valid
   auto xchunk = [&](int i, int k0, int& r, int& ch, int& nv) {
     const int idx = t + i * THREADS;
@@ -300,18 +420,7 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const int gk = k0 + ch * G::EPC;
     nv = (idx < XCH && row0 + r < M) ? max(0, min(G::EPC, K - gk)) : 0;
   };
-  // w group i: 4 rows from k 4 kq, columns cc EPC.., kv rows and nc
-  // columns valid
-  auto wgroup = [&](int i, int k0, int& kq, int& cc, int& kv, int& nc) {
-    const int idx = t + i * THREADS;
-    cc = idx % (BN / G::EPC);
-    kq = idx / (BN / G::EPC);
-    const int gc = col0 + cc * G::EPC;
-    const bool in = idx < WGR;
-    kv = in ? max(0, min(4, K - (k0 + 4 * kq))) : 0;
-    nc = in ? max(0, min(G::EPC, N - gc)) : 0;
-  };
-  auto load = [&](uint4 (&xq)[XPT], uint4 (&wq)[WPT][4], int k0) {
+  auto load = [&](uint4 (&xq)[XPT], typename WL::Regs& wq, int k0) {
 #pragma unroll
     for (int i = 0; i < XPT; ++i) {
       int r, ch, nv;
@@ -319,18 +428,9 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
       xq[i] = load_chunk<T, VEC>(
           x + (size_t)(row0 + r) * K + k0 + ch * G::EPC, nv);
     }
-#pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      int kq, cc, kv, nc;
-      wgroup(i, k0, kq, cc, kv, nc);
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-        wq[i][q] = load_chunk<T, VEC>(
-            w + (size_t)(k0 + 4 * kq + q) * N + col0 + cc * G::EPC,
-            q < kv ? nc : 0);
-    }
+    WL::load(wq, w, K, N, k0, col0);
   };
-  auto store = [&](const uint4 (&xq)[XPT], const uint4 (&wq)[WPT][4],
+  auto store = [&](const uint4 (&xq)[XPT], const typename WL::Regs& wq,
                    unsigned char* sA, unsigned char* sB, int k0) {
 #pragma unroll
     for (int i = 0; i < XPT; ++i) {
@@ -339,14 +439,7 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (t + i * THREADS < XCH)
         store_act<T, VEC>(sA + r * G::LDS + ch * G::EPC, xq[i], nv);
     }
-#pragma unroll
-    for (int i = 0; i < WPT; ++i) {
-      int kq, cc, kv, nc;
-      wgroup(i, k0, kq, cc, kv, nc);
-      if (t + i * THREADS < WGR)
-        store_wgt<T, VEC>(sB + cc * G::EPC * G::LDS + 4 * kq, wq[i], kv,
-                          nc);
-    }
+    WL::store(wq, sB, K, N, k0, col0);
   };
 
   int acc[MI][NI][4] = {};
@@ -434,9 +527,9 @@ sign_mma_kernel(const T* __restrict__ x, const T* __restrict__ w,
 // Launch one instantiation on a (ceil(N / BN) split) x ceil(M / BM)
 // grid of clusters of `split`; the partial tile's shared memory only
 // where split > 1.
-template <typename T, int BM, int BN, int WM, bool VEC>
-int launch(const T* x, const T* w, float* out, int M, int K, int N,
-           int split, int kb_per, cudaStream_t st) {
+template <typename T, int BM, int BN, int WM, bool VEC, typename WL>
+int launch(const T* x, const typename WL::Src* w, float* out, int M, int K,
+           int N, int split, int kb_per, cudaStream_t st) {
   using S = Smem<T, BM, BN>;
   static_assert(THREADS == 256, "launch_cluster's block");
   static unsigned long long ready = 0;   // one an instantiation
@@ -444,9 +537,9 @@ int launch(const T* x, const T* w, float* out, int M, int K, int N,
   if (rows > 65535 || split < 1 || split > 8)
     return (int)cudaErrorInvalidValue;
   const dim3 grid(((N + BN - 1) / BN) * split, rows);
-  return launch_cluster(sign_mma_kernel<T, BM, BN, WM, VEC>, ready, S::MAX,
-                        grid, split, split > 1 ? S::MAX : S::RING, st, x, w,
-                        out, M, K, N, split, kb_per);
+  return launch_cluster(sign_mma_kernel<T, BM, BN, WM, VEC, WL>, ready,
+                        S::MAX, grid, split, split > 1 ? S::MAX : S::RING, st,
+                        x, w, out, M, K, N, split, kb_per);
 }
 
 }  // namespace sgn

@@ -8,19 +8,29 @@ normalised output (``partial=False``) over the whole page pool (no
 ``lo`` / ``n_local`` shard window).  The partial-statistics and
 shard-window forms wait for the multi-device slice (ROADMAP queue A
 14).  Bounds on the H100: bytes for GQA (the live pages' K, V and
-tags); MLA sits near the bf16 ridge at decode and is bound by
-operations at a mixed dispatch.  See the sources for the designs.
+tags); MLA sits near the bf16 ridge, bound by the latent rows' bytes at
+decode and by q's and the output's at a mixed dispatch.  The bf16 MLA
+kernel runs on the tensor cores with TMA copies of whole 8-row page
+boxes (pages of a multiple of 8 rows, a rope of at most 64 columns),
+and splits each slot's table over a thread block cluster where its
+64-pair tiles alone leave the card idle (``mla_plan``).  See the
+sources for the designs.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
 from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)          # the CUDA kernel's instantiations
 MLA_MAX_RANK = 512                 # the MLA kernel's latent width limit
+MLA_MAX_ROPE = 64                  # bf16: the rope's one staged region
+MLA_PAGE_ROWS = 8                  # bf16: pages are whole 8-row boxes
+MLA_TILE_PAIRS = 64                # bf16: (row, head) pairs a block
+MLA_TILE_KEYS = 64                 # bf16: keys a K tile
 
 launches = 0          # gqa_paged_flash launches since the last reset
 mla_launches = 0      # mla_paged_flash launches since the last reset
@@ -153,6 +163,27 @@ def mla_paged_flash_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
     return o.permute(0, 2, 1, 3).to(q_lat.dtype)
 
 
+def mla_plan(B: int, C: int, h: int, W: int, page: int, *,
+             sms: int) -> int:
+    """-> split: the blocks (one thread block cluster, at most 8) over
+    which the bf16 kernel splits each slot's table columns [0, W).  As
+    many as still fit the B x ceil(C h / 64) pair tiles into one wave of
+    ``sms``, but no more than the slot's 64-key tiles (W page / 64) nor
+    its W entries, and at least 1: a decode dispatch splits, a mixed one
+    (hundreds of tiles) does not.  Pure Python on host ints: the plan
+    never reads the table or qpos."""
+    tiles = B * -(-(C * h) // MLA_TILE_PAIRS)
+    k_tiles = -(-(W * page) // MLA_TILE_KEYS)
+    return max(1, min(split_k.MAX_SPLIT, W, k_tiles, sms // max(1, tiles)))
+
+
+def mla_ranges(W: int, split: int):
+    """The table columns [lo, hi) of each rank of a ``split``, in rank
+    order, as the kernel computes them: whole entries, W r / split
+    rounded down."""
+    return [(W * r // split, W * (r + 1) // split) for r in range(split)]
+
+
 def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
                     ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
                     cp_pool: torch.Tensor, block_table: torch.Tensor,
@@ -162,8 +193,9 @@ def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
     ``cp_pool`` (n_pages, page) int32; block_table (B, W) int32 (a
     column slice of a wider table is fine); qpos (B, C) int32.  ->
     o_lat (B, C, h, kr) in q_lat's dtype (the caller absorbs W_uv).
-    The CUDA kernel for a CUDA tensor, the plain version for a CPU
-    tensor, an error for anything else."""
+    The CUDA kernel for a CUDA tensor (bf16: pages of a multiple of 8
+    rows, rd <= 64), the plain version for a CPU tensor, an error for
+    anything else."""
     if q_lat.device.type == "cpu":
         return mla_paged_flash_plain(q_lat, q_pe, ck_pool, cpe_pool,
                                      cp_pool, block_table, qpos,
@@ -205,17 +237,28 @@ def _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table, qpos,
     if kr % vec or rd % vec:
         raise ValueError(f"kr {kr} and rd {rd} must be multiples of {vec}"
                          f" (16-byte loads)")
+    bf16 = q_lat.dtype == torch.bfloat16
+    if bf16 and (not 0 < rd <= MLA_MAX_ROPE or page % MLA_PAGE_ROWS):
+        raise ValueError(f"the bf16 kernel takes 0 < rd <= {MLA_MAX_ROPE} "
+                         f"and pages of a multiple of {MLA_PAGE_ROWS} rows, "
+                         f"got rd {rd}, page {page}")
+    W = block_table.shape[1]
+    if W < 1:
+        raise ValueError("the block table has no column")
     q_lat, q_pe = q_lat.contiguous(), q_pe.contiguous()
     dev = q_lat.device
-    if any(ptr(t, dev) % 16 for t in (q_lat, q_pe, ck_pool, cpe_pool)):
+    if any(ptr(t, dev) % 16 for t in (q_lat, q_pe, ck_pool, cpe_pool,
+                                       cp_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
+    # float32 walks each slot whole on the CUDA cores
+    split = mla_plan(B, C, h, W, page, sms=split_k.sm_count(dev)) \
+        if bf16 else 1
     out = torch.empty((B, C, h, kr), dtype=q_lat.dtype, device=dev)
     err = lib().mla_paged_flash(
         ptr(q_lat, dev), ptr(q_pe, dev), ptr(ck_pool, dev),
         ptr(cpe_pool, dev), ptr(cp_pool, dev), block_table.data_ptr(),
-        ptr(qpos, dev), ptr(out, dev), B, C, h, kr, rd, page,
-        block_table.shape[1], block_table.stride(0), float(scale), code,
-        stream)
+        ptr(qpos, dev), ptr(out, dev), B, C, h, kr, rd, page, n_pages, W,
+        block_table.stride(0), split, float(scale), code, stream)
     mla_launches += 1
     check(err, "mla_paged_flash")
     return out

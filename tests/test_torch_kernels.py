@@ -634,6 +634,86 @@ def test_binary_dot_plan_picks_a_built_tile_and_tiles_k(M, K, N, sms):
     assert tiles * split <= tbd.RESIDENT * sms or split == 1
 
 
+# (M, K, N): granite's gate at 8 and 256 rows, Darknet19's layer 13,
+# ResNet18's layer 1, and chip_smoke.py's ragged packed shape
+PACKED_MAIN_SHAPES = [(8, 2048, 8192), (256, 2048, 8192),
+                      (128, 4608, 1024), (131072, 576, 64), (24, 104, 130)]
+PACKED_TILES = {(16, 128), (64, 64), (128, 64), (64, 128)}
+
+
+@pytest.mark.parametrize("M,K,N", PACKED_MAIN_SHAPES)
+def test_binary_dot_packed_plan_picks_a_built_tile_and_tiles_k(M, K, N):
+    """The packed plan (``binary_dot.plan(..., packed=True)``) at the
+    main path's shapes on 132 SMs: a tile ``binary_dot_packed``'s C entry
+    instantiates, 64 x 128 wherever N > 64, M > 16 and those tiles fit
+    two blocks an SM, else ``binary_dot``'s; split-K segments that tile
+    [0, K) in whole 128-wide k blocks, at most 8, none empty."""
+    bm, bn, split, kb_per = tbd.plan(M, K, N, sms=132, packed=True)
+    assert (bm, bn) in PACKED_TILES
+    assert (bm == 16) == (M <= 16)
+    wide = N > 64 and -(-M // 64) * -(-N // 128) <= tbd.RESIDENT * 132
+    if M > 16:
+        assert ((bm, bn) == (64, 128)) == wide
+        if not wide:
+            assert (bm, bn) == tbd.plan(M, K, N, sms=132)[:2]
+    segs = [(r * kb_per * 128, min(K, (r + 1) * kb_per * 128))
+            for r in range(split)]
+    assert 1 <= split <= 8 and segs[0][0] == 0 and segs[-1][1] == K
+    assert all(k0 < k1 for k0, k1 in segs)
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(segs, segs[1:]))
+
+
+def test_binary_dot_packed_plans_at_the_main_path_shapes():
+    """The packed tiles at those shapes: decode as ``binary_dot``'s (16 x
+    128, K split 4 ways); 64 x 128 at 256 rows (x's signs made once per
+    128 columns, not 64; 256 tiles fill two blocks an SM unsplit) and at
+    Darknet19's layer 13, split 8; ResNet18's layer 1 (N = 64) keeps
+    ``binary_dot``'s 128 x 64."""
+    assert tbd.plan(8, 2048, 8192, sms=132, packed=True) == (16, 128, 4, 4)
+    assert tbd.plan(256, 2048, 8192, sms=132, packed=True) == \
+        (64, 128, 1, 16)
+    assert tbd.plan(128, 4608, 1024, sms=132, packed=True) == \
+        (64, 128, 8, 5)
+    assert tbd.plan(131072, 576, 64, sms=132, packed=True) == \
+        (128, 64, 1, 5)
+    assert tbd.plan(24, 104, 130, sms=132, packed=True) == (64, 128, 1, 1)
+
+
+def test_packed_sign_spread_matches_unpack_signs():
+    """The weight stage's bit spread (``sign_mma.cuh`` ``spread_signs``:
+    a nibble times 0x00204081, masked with 0x01010101, then 0 -> 0x01
+    and 1 -> 0xFF) turns every byte into the 8 int8 signs
+    ``unpack_signs`` gives for its 8 rows, row 8 k8 + b at byte b."""
+    b = np.arange(256, dtype=np.uint32)
+    words = []
+    for nib in (b & 0xF, b >> 4):
+        bits = (nib * np.uint32(0x00204081)) & np.uint32(0x01010101)
+        words.append(bits * np.uint32(0xFE) | np.uint32(0x01010101))
+    spread = np.stack(words, 1).astype("<u4").view(np.int8).reshape(256, 8)
+    want = tbdp.unpack_signs(torch.arange(256, dtype=torch.uint8)[None, :],
+                             8).numpy().T
+    np.testing.assert_array_equal(spread, want)
+
+
+def test_binary_dot_packed_at_the_ragged_shape():
+    """chip_smoke.py's ragged packed case (M 24, K 104, N 130: 13 packed
+    rows, a last column chunk of 2, shapes the JAX kernel's blocks do
+    not take unpadded): bit-equal to ``ref.binary_dot_ref`` on the
+    unpacked weight and to ``binary_dot`` on the same operands."""
+    rng = np.random.default_rng(104)
+    x = rng.normal(size=(24, 104)).astype(np.float32)
+    x[::3, ::2] = 0.0
+    w = rng.normal(size=(104, 130)).astype(np.float32)
+    packed = np.array(jbdp.pack_signs(jnp.asarray(w)))
+    want = np.asarray(jref.binary_dot_ref(jnp.asarray(x), jnp.asarray(w)))
+    got = tbdp.binary_dot_packed(torch.from_numpy(x),
+                                 torch.from_numpy(packed))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(), tbd.binary_dot(torch.from_numpy(x),
+                                    torch.from_numpy(w)).numpy())
+
+
 @pytest.mark.parametrize("shape", [(5, 100, 130), (40, 288, 32),
                                    (13, 37, 129), (64, 576, 64)])
 @pytest.mark.parametrize("element_size", [4, 2])

@@ -102,6 +102,146 @@ def test_mla_paged_flash_matches_jax(case):
     assert np.all(got[-1] == 0.0) and np.all(want_k[-1] == 0.0)
 
 
+# -- the bf16 kernel's context split: its plan and its merge ----------------
+
+def _plan_cases():
+    """(B, C, h, W, page, sms): ``chip_smoke.py``'s decode and mixed
+    dispatches, deepseek's serving chunk, tables narrower than a split
+    of 8, pages wider than a K tile, then a seeded sweep."""
+    cases = [(8, 1, 128, 512, 8, 132), (8, 32, 128, 12, 8, 132),
+             (8, 32, 128, 40, 8, 132), (1, 1, 128, 3, 64, 132),
+             (2, 1, 128, 2, 128, 132), (1, 1, 128, 1, 8, 132),
+             (4, 1, 4, 6, 4, 78)]
+    rng = np.random.default_rng(17)
+    for _ in range(9):
+        cases.append((int(rng.integers(1, 17)), int(rng.integers(1, 65)),
+                      int(rng.choice([4, 16, 128])),
+                      int(rng.integers(1, 700)), int(rng.choice([4, 8, 16])),
+                      int(rng.choice([78, 114, 132]))))
+    return cases
+
+
+@pytest.mark.parametrize("B,C,h,W,page,sms", _plan_cases())
+def test_mla_plan_splits_the_table_in_whole_entries(B, C, h, W, page, sms):
+    """The split plan: 1 <= split <= 8 and <= W; the ranks' ranges, as
+    the kernel computes them, tile [0, W) in rank order in whole table
+    entries, none empty; the split fills no more than one wave of the
+    SMs beside the 64-pair tiles (or is 1), and gives no rank less than
+    one 64-key tile of the table on average."""
+    split = tpk.mla_plan(B, C, h, W, page, sms=sms)
+    assert 1 <= split <= 8 and split <= W
+    ranges = tpk.mla_ranges(W, split)
+    assert len(ranges) == split and ranges[0][0] == 0 and ranges[-1][1] == W
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges)
+    tiles = B * -(-(C * h) // 64)
+    assert split == 1 or tiles * split <= sms
+    assert split == 1 or split <= -(-(W * page) // 64)
+
+
+def test_mla_plan_at_the_main_path_shapes():
+    """Decode (8 slots x 1 row, 16 tiles of 64 pairs) splits 8 ways, so
+    its 128 blocks fill one wave of 132 SMs; a mixed dispatch (8 x 32
+    rows, 512 tiles) does not split; a table of 3 entries splits at most
+    3 ways, one entry a rank."""
+    assert tpk.mla_plan(8, 1, 128, 512, 8, sms=132) == 8
+    assert tpk.mla_plan(8, 32, 128, 12, 8, sms=132) == 1
+    assert tpk.mla_plan(1, 1, 128, 3, 64, sms=132) == 3
+    assert tpk.mla_ranges(3, 3) == [(0, 1), (1, 2), (2, 3)]
+    assert tpk.mla_ranges(512, 8)[1] == (64, 128)
+
+
+def _merge(parts):
+    """The kernel's merge of the ranks' (m, l, acc) in float32, in rank
+    order: M = max m, w_q = exp(m_q - M), L = sum l_q w_q, o = sum acc_q
+    w_q / max(L, 1e-30); -> (B, C, h, kr)."""
+    m = np.stack([np.asarray(p[0], np.float32) for p in parts])
+    M = m.max(0)
+    num = np.zeros(np.asarray(parts[0][2]).shape, np.float32)
+    den = np.zeros(M.shape, np.float32)
+    for q, (mq, lq, aq) in enumerate(parts):
+        w = np.exp(m[q] - M).astype(np.float32)
+        den = (np.asarray(lq, np.float32) * w + den).astype(np.float32)
+        num = (np.asarray(aq, np.float32) * w[..., None] + num).astype(
+            np.float32)
+    o = num / np.maximum(den, np.float32(1e-30))[..., None]
+    return o.transpose(0, 2, 1, 3)
+
+
+def _split_case():
+    """Three slots over a table of 6 entries split 3 ways ((0, 2), (2,
+    4), (4, 6)): slot 0's middle range is wholly null; slot 1's middle
+    range holds live pages whose keys are all masked (tags past every
+    query position, or -1), and its query row 0 sees no key at all;
+    slot 2 is idle (its whole table null)."""
+    rng = np.random.default_rng(23)
+    B, C, h, kr, rd, page, W = 3, 2, 4, 32, 8, 4, 6
+    n_pages = 10
+    q_lat = rng.normal(size=(B, C, h, kr)).astype(np.float32)
+    q_pe = rng.normal(size=(B, C, h, rd)).astype(np.float32)
+    ck = rng.normal(size=(n_pages, page, kr)).astype(np.float32)
+    cpe = rng.normal(size=(n_pages, page, rd)).astype(np.float32)
+    cp = np.full((n_pages, page), -1, np.int32)
+    tbl = np.zeros((B, W), np.int32)
+    tbl[0] = [1, 2, 0, 0, 3, 4]
+    tbl[1] = [5, 6, 7, 8, 0, 9]
+    for pg, tags in ((1, [0, 1, 2, 3]), (2, [4, 5, -1, 6]),
+                     (3, [7, 8, 9, 10]), (4, [11, -1, 12, 13]),
+                     (5, [4, 5, 6, 7]), (6, [8, -1, 9, 10]),
+                     (7, [50, 51, -1, 52]), (8, [-1, 60, 61, 62]),
+                     (9, [11, 12, 13, 14])):
+        cp[pg] = tags
+    qpos = np.array([[12, 13], [3, 12]], np.int32)
+    qpos = np.concatenate([qpos, [[5, 6]]]).astype(np.int32)
+    return q_lat, q_pe, ck, cpe, cp, tbl, qpos
+
+
+def test_mla_split_merge_matches_jax_single_pass():
+    """What the bf16 kernel does at decode, in float32: the JAX kernel's
+    partial statistics (``partial=True``, Pallas in interpret mode) on
+    each rank's table columns, merged in rank order as the kernel merges
+    them, equal the single pass (the JAX kernel on the whole table, and
+    on the rows that see a key the port's plain version and
+    ``ref.mla_paged_ref``).  A wholly null range merges as (m, l, acc) =
+    (-1e30, 0, 0); an all-masked one has m = -1e30 and loses to any real
+    score; a row that sees no key keeps the single pass's exp(0) weights
+    over the live pages; the idle slot gives exact zeros."""
+    q_lat, q_pe, ck, cpe, cp, tbl, qpos = _split_case()
+    B, C, h, kr = q_lat.shape
+    rd = q_pe.shape[-1]
+    scale = (kr + rd) ** -0.5
+    ranges = tpk.mla_ranges(tbl.shape[1], 3)
+    assert ranges == [(0, 2), (2, 4), (4, 6)]
+    jq = [jnp.asarray(a) for a in (q_lat, q_pe, ck, cpe, cp)]
+    parts = [jpk.mla_paged_flash(*jq, jnp.asarray(tbl[:, lo:hi]),
+                                 jnp.asarray(qpos), scale=scale,
+                                 partial=True, interpret=True)
+             for lo, hi in ranges]
+    # slot 0's null range and the idle slot: the finite sentinel, no key
+    m1, l1, a1 = (np.asarray(t) for t in parts[1])
+    assert np.all(m1[0] == -1e30) and np.all(l1[0] == 0)
+    assert np.all(a1[0] == 0)
+    assert np.all(m1[1] == -1e30) and np.all(l1[1] == 2 * 4)   # 2 pages
+    got = _merge(parts)
+    targs = [jnp.asarray(tbl), jnp.asarray(qpos)]
+    want_k = np.asarray(jpk.mla_paged_flash(*jq, *targs, scale=scale,
+                                            interpret=True))
+    np.testing.assert_allclose(got, want_k, rtol=RTOL, atol=ATOL)
+    assert np.all(got[2] == 0.0) and np.all(want_k[2] == 0.0)
+    tags = np.where((tbl > 0)[..., None], cp[tbl], -1).reshape(B, -1)
+    seen = ((tags[:, None, :] >= 0)
+            & (tags[:, None, :] <= qpos[:, :, None])).any(-1)
+    assert seen[0].all() and not seen[1, 0] and seen[1, 1]
+    assert not seen[2].any()
+    want_r = np.asarray(jref.mla_paged_ref(*jq, *targs, scale=scale))
+    plain = tpk.mla_paged_flash(*(torch.from_numpy(a) for a in (
+        q_lat, q_pe, ck, cpe, cp, tbl, qpos)), scale=scale).numpy()
+    for want in (want_r, plain):
+        np.testing.assert_allclose(got[seen], want[seen], rtol=RTOL,
+                                   atol=ATOL)
+    assert np.all(plain[2] == 0.0)
+
+
 # -- the attention layer on carried-across weights --------------------------
 
 @pytest.fixture(scope="module")
