@@ -23,16 +23,21 @@
    product with N = 300), twice on the same inputs (bit-equal: the
    split-K partials meet in a fixed order), and timed alone with the
    split plan built beforehand (``bare_ms``) and for the host's enqueue
-   (``host_ms``); ``gqa_paged_flash`` at a decode dispatch (8 slots x
-   1 row over ragged contexts up to 4,096 tokens, 512 pages of 8, null
-   entries, a page shared by two slots, a column-sliced table), a mixed
+   (``host_ms``); ``mor_tile_mask`` also bit-equal through
+   ``ops.mor_tile_mask`` at a ragged M 24, K 104 / 100, N 130 in both
+   dtypes and at TDS's float32 shape with a residual, beside
+   ``binary_dot``'s time on its gate operands; ``gqa_paged_flash`` at a
+   decode dispatch (8 slots x 1 row over ragged contexts up to 4,096
+   tokens, 512 pages of 8, null entries, a page shared by two slots, a
+   column-sliced table; also timed at every split of 1-8), a mixed
    dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
    case, and ``mla_paged_flash`` at the same decode and mixed table
-   layouts with 128 heads, latent rank 512 and rope width 64, on the
-   rows that see a key, twice (bit-equal: the context split merges in
-   rank order), with its split plan, and at the split's edges (a rank
-   whose range is wholly null, one whose keys are all masked, a
-   one-page slot, an idle slot: exact zeros); the kernel API's
+   layouts with 128 heads, latent rank 512 and rope width 64, both on
+   the rows that see a key, twice (bit-equal: the context split merges
+   in rank order), with their split plans (and GQA's body), and at the
+   split's edges (a rank whose range is wholly null, one whose keys are
+   all masked, a one-page slot, an idle slot: exact zeros; GQA also
+   under a window that masks whole ranks); the kernel API's
    ``binary_dot``, ``binary_dot_packed`` (bit-equal, also at a ragged
    M = 24, K = 104, N = 130) and ``masked_matmul`` (twice,
    bit-equal) at the granite gate widths, M = 8 and 256, with
@@ -234,7 +239,9 @@ def _close(got, want, f32=False):
 
 def kernel_case_mor(M, gen, flush):
     import torch
+    from repro_torch.kernels import binary_dot as bd
     from repro_torch.kernels import mor_predict as mp
+    from repro_torch.kernels import split_k
     K, N = 2048, 8192
     dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
@@ -260,14 +267,110 @@ def kernel_case_mor(M, gen, flush):
     assert diff == 0, f"mor_tile_mask: {diff} mask bits differ"
     live = float(want.float().mean())
     assert 0.0 < live < 1.0, live
+    _repeat_equal(lambda: mp.mor_tile_mask(x, w, coef, pn), "mor_tile_mask")
     ms = _timer(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
     plain_ms = _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
+    # the yardstick of the product part: binary_dot's sign product of the
+    # same x and w (no one PyTorch call computes the mask: library null)
+    bd_ms = _timer(lambda: bd.binary_dot(x, w), flush)
     nbytes = (M * K * 2 + K * N * 2 + 6 * N * 4 + M * N
               + (M // 8) * (N // 128) * 4)
     bound_ms, by = _bound(nbytes, 2 * M * K * N, "int8")
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "frac_live": live}
+            "binary_dot_ms": bd_ms, "frac_live": live,
+            "plan": list(mp.plan(1, M, K, N, sms=split_k.sm_count(x.device)))}
+
+
+def _mor_coefs(gen, N, dev="cuda"):
+    """A MoRLayer's coef fields over N columns: every odd 128-column tile
+    gets an intercept far below zero (dead where the proxy agrees), the
+    rest sit around zero."""
+    import torch
+    dead = (torch.arange(N, device=dev) // 128) % 2 == 1
+    return {"m": torch.rand(N, generator=gen, device=dev) * 0.04 + 0.01,
+            "b": torch.where(dead, -1e3, torch.randn(N, generator=gen,
+                                                     device=dev)),
+            "bn_scale": torch.rand(N, generator=gen, device=dev) + 0.5,
+            "bn_bias": torch.randn(N, generator=gen, device=dev) * 0.1,
+            "enable": dead | (torch.rand(N, generator=gen, device=dev)
+                              < 0.8)}
+
+
+def mor_edges(gen, flush):
+    """``mor_tile_mask`` bit-equal to its plain version off granite's
+    shapes: through ``ops.mor_tile_mask`` (its padding: forced-skip rows
+    and columns, the compensated intercept) at a ragged M 24, N 130 with
+    K 104 (16-byte chunks) and K 100 (element loads), in both dtypes,
+    with and without a residual, against the same call on the CPU; and
+    at TDS's float32 shape (8192 rows, K 144, N 288 padded to 384) with
+    a residual, against the plain version on the card, timed.  -> {case:
+    result} (mask bits differing: 0, asserted)."""
+    import torch
+    from repro_torch.kernels import mor_predict as mp
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import split_k
+    dev = "cuda"
+    out = {}
+    for dt in (torch.bfloat16, torch.float32):
+        for K in (104, 100):
+            M, N = 24, 130
+            x = torch.randn((M, K), generator=gen, device=dev).to(dt)
+            w = (torch.randn((K, N), generator=gen, device=dev)
+                 * K ** -0.5).to(dt)
+            mor = _mor_coefs(gen, N)
+            pn = (mor["b"] < -10)[None, :] | (torch.rand(
+                (M, N), generator=gen, device=dev) < 0.7)
+            res = torch.randn((M, N), generator=gen, device=dev) * 2.0
+            d = 0
+            for r in (None, res):
+                got = ops.mor_tile_mask(x, w, mor, pn, residual=r)
+                want = ops.mor_tile_mask(
+                    x.cpu(), w.cpu(), {k: v.cpu() for k, v in mor.items()},
+                    pn.cpu(), residual=None if r is None else r.cpu())
+                d += int((got.cpu() != want).sum())
+            tag = f"m{M}_k{K}_n{N}_{str(dt)[6:]}"
+            assert d == 0, f"mor_tile_mask {tag}: {d} mask bits differ"
+            out[tag] = {"mask_bits_differing": d}
+    # TDS's FC1 predictor: float32, K 144, N 288 padded to 384 (coef 0,
+    # proxy 2 past 288), 32 x 256 frames, the residual row on
+    M, K, N, Nr = 8192, 144, 384, 288
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((K, N), generator=gen, device=dev) * K ** -0.5
+    mor = _mor_coefs(gen, N)
+    coef = torch.stack([mor["m"], mor["b"], mor["bn_scale"],
+                        mor["bn_bias"], mor["enable"].float(),
+                        torch.ones(N, device=dev)])
+    coef[:, Nr:] = 0.0
+    # the proxy agrees on the dead tiles (so they stay dead), and is
+    # random elsewhere
+    dead = mor["b"] < -10
+    pn = torch.where(dead[None, :], 1, (torch.rand(
+        (M, N), generator=gen, device=dev) < 0.7).int()).to(torch.int8)
+    pn[:, Nr:] = 2
+    res = torch.randn((M, N), generator=gen, device=dev) * 2.0
+    got = mp.mor_tile_mask(x, w, coef, pn, res)
+    want = mp.mor_tile_mask_plain(x, w, coef, pn, res)
+    torch.cuda.synchronize()
+    d = int((got != want).sum())
+    assert d == 0, f"mor_tile_mask (TDS): {d} mask bits differ"
+    live = float(want.float().mean())
+    assert 0.0 < live < 1.0, live
+    nbytes = (M * K * 4 + K * N * 4 + 6 * N * 4 + M * N + M * N * 4
+              + (M // 8) * (N // 128) * 4)
+    bound_ms, by = _bound(nbytes, 2 * M * K * N, "int8")
+    out["tds_f32_residual"] = {
+        "mask_bits_differing": d, "frac_live": live,
+        "ms": _timer(lambda: mp.mor_tile_mask(x, w, coef, pn, res), flush),
+        "plain_ms": _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn,
+                                                          res), flush),
+        "bound_ms": bound_ms, "bound_by": by,
+        "plan": list(mp.plan(1, M, K, N, sms=split_k.sm_count(x.device)))}
+    for tag, r in out.items():
+        log("kernel", name="mor_tile_mask", case=tag,
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+    return out
 
 
 def _repeat_equal(fn, what):
@@ -437,8 +540,9 @@ def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
     """A paged pool holding slot b's first ``ctx[b]`` positions (its last
     page partly written), the C query rows ending at position ctx[b] - 1,
     a table that is a column slice of a wider one, ``n_null`` null
-    entries inside the written range of every slot but the first, and
-    slot 1's block 0 pointing at slot 0's (a shared page)."""
+    entries inside the written range of every slot but the first (never
+    its block 0, so that every query row sees position 0), and slot 1's
+    block 0 pointing at slot 0's (a shared page)."""
     import torch
     B, dev = len(ctx), "cuda"
     n_live = [-(-c // page) for c in ctx]
@@ -458,7 +562,8 @@ def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
         nxt += n
     wide[1, 0] = wide[0, 0]
     for b in range(1, B):
-        cols = torch.randperm(n_live[b], generator=gen, device=dev)[:n_null]
+        cols = 1 + torch.randperm(n_live[b] - 1, generator=gen,
+                                  device=dev)[:n_null]
         wide[b, cols] = 0
     qpos = (torch.tensor(ctx, device=dev)[:, None] - C
             + torch.arange(C, device=dev)[None, :]).int()
@@ -467,7 +572,34 @@ def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
     return q, kp, vp, pp, wide[:, :W], qpos
 
 
-def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True):
+def _gqa_seen(pp, tbl, qpos, window):
+    """(B, C, keys) bool: which of the ring view's keys each query row
+    sees (live page, written tag, causal, inside the window)."""
+    import torch
+    B = tbl.shape[0]
+    live = tbl > 0
+    gp = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    rel = qpos[:, :, None] - gp[:, None, :]
+    ok = (gp[:, None, :] >= 0) & (rel >= 0)
+    if window > 0:
+        ok = ok & (rel < window)
+    return ok
+
+
+def _gqa_plan(q, kp, tbl):
+    """(split, body) of a gqa_paged_flash call, as its wrapper plans."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import split_k
+    B, C, H, D = q.shape
+    body = pa.gqa_body(q.dtype, D)
+    split = pa.gqa_plan(B, C, H, kp.shape[2], tbl.shape[1], kp.shape[1],
+                        sms=split_k.sm_count(q.device)) \
+        if body == "tensor_cores" else 1
+    return split, body
+
+
+def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
+               sweep=False):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
@@ -480,15 +612,16 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True):
     B, _, H, D = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
     live = tbl > 0
-    gp = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
-    rel = qpos[:, :, None] - gp[:, None, :]
-    ok = (gp[:, None, :] >= 0) & (rel >= 0)
-    if window > 0:
-        ok = ok & (rel < window)
+    ok = _gqa_seen(pp, tbl, qpos, window)
     seen = ok.any(-1)
     assert bool(seen.all()), "every query row sees a key here"
     err = _close(got[seen], want[seen])
-    r = {"max_abs_err": err, "B": B, "C": C, "W": W, "window": window}
+    # the split's ranks merge in a fixed order: a repeat is bit-equal
+    _repeat_equal(lambda: pa.gqa_paged_flash(*args, window=window),
+                  "gqa_paged_flash")
+    split, body = _gqa_plan(q, kp, tbl)
+    r = {"max_abs_err": err, "B": B, "C": C, "W": W, "window": window,
+         "split": split, "body": body, "repeat_bit_equal": True}
     if not time_it:
         return r
     # library yardstick: one SDPA call over the pre-gathered K/V (heads
@@ -514,21 +647,69 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True):
     pairs = int(ok.sum()) * H
     r["bound_ms"], r["bound_by"] = _bound(nbytes, pairs * 4 * D, "bf16")
     r["live_pages"] = n_pages
+    if sweep:
+        # the kernel at every split a cluster can take (the plan's rule,
+        # PERF.md): device ms by split
+        r["split_sweep_ms"] = {s: round(_timer(lambda s=s: pa.launch(
+            *args, window, split=s), flush), 5) for s in range(1, 9)}
     return r
 
 
+def gqa_split_edges(gen):
+    """``gqa_paged_flash`` at a decode dispatch (8 slots x 1 row, granite's
+    32 / 8 heads) over a table of 96 entries, which the plan splits
+    (6 ranks of 16 entries on 132 SMs): slot 0 fills its table; slot 1
+    holds one page; slot 2's second range is wholly null; slot 3's third
+    range holds live pages whose rows are all unwritten (tag -1: every
+    key masked); slot 4 is idle (its whole table null, as the engine
+    leaves a free slot); slots 5-7 are ragged.  Then the same inputs
+    under a window of 200 positions, which masks every rank of the full
+    slots but their last one or two.  Within tolerance of the plain
+    version on the rows that see a key, the idle slot exact zeros, a
+    repeat bit-equal.  -> result."""
+    import torch
+    from repro_torch.kernels import paged_attention as pa
+    ctx = [768, 5, 768, 768, 8, 300, 77, 441]
+    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, 1, 96)
+    split, body = _gqa_plan(q, kp, tbl)
+    ranges = pa.split_ranges(tbl.shape[1], split)
+    assert body == "tensor_cores" and split >= 3, (split, body)
+    tbl[2, ranges[1][0]:ranges[1][1]] = 0  # slot 2: range 1 wholly null
+    pp[tbl[3, ranges[2][0]:ranges[2][1]].long()] = -1  # slot 3: range 2
+    tbl[4] = 0                             # slot 4: idle
+    args = (q, kp, vp, pp, tbl, qpos)
+    err = 0.0
+    for window in (0, 200):
+        got = pa.gqa_paged_flash(*args, window=window)
+        want = pa.gqa_paged_flash_plain(*args, window=window)
+        torch.cuda.synchronize()
+        seen = _gqa_seen(pp, tbl, qpos, window).any(-1)
+        assert bool(seen[[0, 1, 2, 3, 5, 6, 7]].all()) and \
+            not bool(seen[4].any())
+        err = max(err, _close(got[seen], want[seen]))
+        assert bool(torch.all(got[4] == 0)), "the idle slot is not zeros"
+        _repeat_equal(lambda: pa.gqa_paged_flash(*args, window=window),
+                      "gqa_paged_flash (split edges)")
+    return {"max_abs_err": err, "split": split, "body": body,
+            "ranges": ranges, "windows": [0, 200],
+            "idle_slot_exact_zeros": True, "repeat_bit_equal": True}
+
+
 def kernel_paged(gen, flush):
-    """-> (row, per-case results): decode and mixed dispatches timed, a
-    sliding-window case held for correctness only."""
+    """-> the gqa_paged_flash row: decode and mixed dispatches timed, a
+    sliding-window case and the split's edge cases held for correctness
+    only."""
     import torch
     g = torch.Generator().manual_seed(SEED)
     decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
     mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
     cases = {
-        "decode": paged_case(gen, flush, decode_ctx, 1, 512, n_null=5),
+        "decode": paged_case(gen, flush, decode_ctx, 1, 512, n_null=5,
+                             sweep=True),
         "mixed": paged_case(gen, flush, mixed_ctx, 32, 12, n_null=1),
         "window": paged_case(gen, flush, [40, 70, 100, 128], 4, 16,
                              window=40, n_null=1, time_it=False),
+        "split_edges": gqa_split_edges(gen),
     }
     for name, r in cases.items():
         log("kernel", name="gqa_paged_flash", case=name,
@@ -538,7 +719,11 @@ def kernel_paged(gen, flush):
            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "replaces": "src/repro/kernels/paged_attention.py:178",
            **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"]),
-           "window_max_abs_err": cases["window"]["max_abs_err"]}
+           "window_max_abs_err": cases["window"]["max_abs_err"],
+           "split_edges_max_abs_err": cases["split_edges"]["max_abs_err"],
+           "split": {k: cases[k]["split"] for k in cases},
+           "body": {k: cases[k]["body"] for k in cases},
+           "decode_split_sweep_ms": cases["decode"]["split_sweep_ms"]}
     return row
 
 
@@ -557,6 +742,7 @@ def _routing_rows(gen, T, E=160, k=6):
 def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
     import torch
     from repro_torch.kernels import mor_predict as mp
+    from repro_torch.kernels import split_k
     dev = "cuda"
     counts, rows = _routing_rows(gen, C, E)
     x = torch.where(rows[..., None], torch.randn(
@@ -582,6 +768,8 @@ def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
     torch.cuda.synchronize()
     diff = int((got != want).sum())
     assert diff == 0, f"mor_tile_mask (experts): {diff} mask bits differ"
+    _repeat_equal(lambda: mp.mor_tile_mask(x, w, coef, pn),
+                  "mor_tile_mask (experts)")
     live = float(want.float().mean())
     assert 0.0 < live < 1.0, live
     ms = _timer(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
@@ -596,7 +784,8 @@ def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
     bound_ms, by = _bound(nbytes, row_blocks * 8 * 2 * d * f, "int8")
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "E": E, "C": C, "experts_with_tokens": busy, "frac_live": live}
+            "E": E, "C": C, "experts_with_tokens": busy, "frac_live": live,
+            "plan": list(mp.plan(E, C, d, f, sms=split_k.sm_count(x.device)))}
 
 
 def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
@@ -781,7 +970,7 @@ def mla_split_edges(gen):
     B, _, h, kr = q_lat.shape
     page, W = ck.shape[1], tbl.shape[1]
     split = pa.mla_plan(B, 1, h, W, page, sms=split_k.sm_count(q_lat.device))
-    ranges = pa.mla_ranges(W, split)
+    ranges = pa.split_ranges(W, split)
     assert split == 8 and ranges[1] == (8, 16), (split, ranges)
     tbl[2, 8:16] = 0                       # slot 2: range 1 wholly null
     pp[tbl[3, 16:24].long()] = -1          # slot 3: range 2 all masked
@@ -1053,9 +1242,9 @@ def phase_kernels():
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    rows = {}
+    rows, cases = {}, {}
     for name, source, replaces, case, expert_case in KERNELS:
-        per = {}
+        per = cases[name] = {}
         for M in (8, 256):
             per[f"m{M}"] = r = case(M, gen, flush)
             log("kernel", name=name, M=M,
@@ -1071,6 +1260,13 @@ def phase_kernels():
                       "replaces": replaces, **_fields(per["m8"]),
                       **{f"at_{k}": _fields(v) for k, v in per.items()
                          if k != "m8"}}
+    mor = rows["mor_tile_mask"]
+    mor["binary_dot_ms"] = {k: cases["mor_tile_mask"][k]["binary_dot_ms"]
+                            for k in ("m8", "m256")}
+    edges = mor_edges(gen, flush)
+    mor["at_tds_f32_residual"] = _fields(edges.pop("tds_f32_residual"))
+    mor["ragged_mask_bits_differing"] = {
+        k: v["mask_bits_differing"] for k, v in edges.items()}
     for tag, err in kernel_ragged(gen).items():
         name = "gather_matmul" if tag.startswith("gather") else \
             "masked_matmul_kdim"

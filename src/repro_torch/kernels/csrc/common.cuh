@@ -61,12 +61,12 @@ __device__ __forceinline__ void load16(const __nv_bfloat16* src,
   for (int i = 0; i < 8; ++i) dst[i] = __bfloat162float(h[i]);
 }
 
-// Launch `kernel` with 256-thread blocks on `grid`, in clusters of
+// Launch `kernel` with NT-thread blocks on `grid`, in clusters of
 // `split` blocks along x (split = 1 is a cluster of one), with `smem`
 // bytes of dynamic shared memory.  The attribute that lets a block take
 // more than 48 KB is set up to `smem_max` once a device (bit `dev` of
 // `ready`, one word an instantiation).  Returns the launch's error code.
-template <typename... P, typename... A>
+template <int NT = 256, typename... P, typename... A>
 int launch_cluster(void (*kernel)(P...), unsigned long long& ready,
                    int smem_max, dim3 grid, int split, int smem,
                    cudaStream_t stream, A... args) {
@@ -81,7 +81,7 @@ int launch_cluster(void (*kernel)(P...), unsigned long long& ready,
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(256);
+  cfg.blockDim = dim3(NT);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];

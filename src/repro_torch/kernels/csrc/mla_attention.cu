@@ -312,6 +312,7 @@ namespace tc {
 
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
+using mor::tile::pack_bf16;
 using mor::tile::sw128_desc;
 
 constexpr int THREADS = 256;                  // two warpgroups
@@ -400,11 +401,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // d += A B: A (64 x 16 bf16) from registers in the m16n8k16 layout of

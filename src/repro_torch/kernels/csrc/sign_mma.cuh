@@ -388,123 +388,155 @@ template <typename T, int BM, int BN> struct Smem {
   static constexpr int MAX = RING > TILE ? RING : TILE;
 };
 
+// One block's part of a BM x BN tile (8 warps, WM x WN, each a WTM x
+// WTN warp tile): the sign product over the contraction [kbeg, kend)
+// into int32 accumulators, and their int32 tile in shared memory.
+// sign_mma_kernel below stores it as float32; mor_predict.cu folds it
+// into a tile mask.
+template <typename T, int BM, int BN, int WM, bool VEC, typename WL>
+struct SignTile {
+  using G = Geo<T>;
+  using S = Smem<T, BM, BN>;
+  static constexpr int WN = 8 / WM, WTM = BM / WM, WTN = BN / WN;
+  static constexpr int MI = WTM / 16, NI = WTN / 8;
+  static_assert(WM * WN == 8 && MI >= 1 && NI % 2 == 0, "warp tile");
+  static constexpr int XCH = BM * G::CPR;             // x chunks a step
+  static constexpr int XPT = (XCH + THREADS - 1) / THREADS;
+
+  // acc += sign_act(x) sign(w) over rows row0.., columns col0.. and k in
+  // [kbeg, kend), through the two stages at `smem` (S::RING bytes)
+  __device__ static void product(const T* __restrict__ x,
+                                 const typename WL::Src* __restrict__ w,
+                                 int M, int K, int N, int row0, int col0,
+                                 int kbeg, int kend, unsigned char* smem,
+                                 int (&acc)[MI][NI][4]) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int wm = warp % WM, wn = warp / WM;
+    const int steps = kend > kbeg ? (kend - kbeg + G::BK - 1) / G::BK : 0;
+    uint4 xr[XPT];
+    typename WL::Regs wr;
+    // x chunk i of this thread at step k0: row r, chunk ch, nv valid
+    auto xchunk = [&](int i, int k0, int& r, int& ch, int& nv) {
+      const int idx = t + i * THREADS;
+      r = idx / G::CPR;
+      ch = idx % G::CPR;
+      const int gk = k0 + ch * G::EPC;
+      nv = (idx < XCH && row0 + r < M) ? max(0, min(G::EPC, K - gk)) : 0;
+    };
+    auto load = [&](uint4 (&xq)[XPT], typename WL::Regs& wq, int k0) {
+#pragma unroll
+      for (int i = 0; i < XPT; ++i) {
+        int r, ch, nv;
+        xchunk(i, k0, r, ch, nv);
+        xq[i] = load_chunk<T, VEC>(
+            x + (size_t)(row0 + r) * K + k0 + ch * G::EPC, nv);
+      }
+      WL::load(wq, w, K, N, k0, col0);
+    };
+    auto store = [&](const uint4 (&xq)[XPT], const typename WL::Regs& wq,
+                     unsigned char* sA, unsigned char* sB, int k0) {
+#pragma unroll
+      for (int i = 0; i < XPT; ++i) {
+        int r, ch, nv;
+        xchunk(i, k0, r, ch, nv);
+        if (t + i * THREADS < XCH)
+          store_act<T, VEC>(sA + r * G::LDS + ch * G::EPC, xq[i], nv);
+      }
+      WL::store(wq, sB, K, N, k0, col0);
+    };
+    auto compute = [&](const unsigned char* sA, const unsigned char* sB) {
+#pragma unroll
+      for (int ks = 0; ks < G::BK; ks += 32) {
+        uint32_t a[MI][4], b[NI][2];
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+          ldsm_x4(a[mi], sA + (wm * WTM + mi * 16 + (lane & 15)) * G::LDS +
+                             ks + (lane >> 4) * 16);
+#pragma unroll
+        for (int np = 0; np < NI / 2; ++np) {
+          uint32_t r[4];
+          ldsm_x4(r, sB + (wn * WTN + np * 16 + (lane >> 4) * 8 +
+                           (lane & 7)) * G::LDS +
+                         ks + ((lane >> 3) & 1) * 16);
+          b[2 * np][0] = r[0];
+          b[2 * np][1] = r[1];
+          b[2 * np + 1][0] = r[2];
+          b[2 * np + 1][1] = r[3];
+        }
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+      }
+    };
+
+    if (steps > 0) load(xr, wr, kbeg);
+    for (int s = 0; s < steps; ++s) {
+      unsigned char* sA = smem + (s & 1) * S::STAGE;
+      unsigned char* sB = sA + S::A_BYTES;
+      store(xr, wr, sA, sB, kbeg + s * G::BK);
+      __syncthreads();
+      if (s + 1 < steps) load(xr, wr, kbeg + (s + 1) * G::BK);
+      compute(sA, sB);
+    }
+  }
+
+  // accumulator (mi, ni, e) of this thread: tile row r, column c
+  __device__ static void coords(int mi, int ni, int& r, int& c) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    r = (warp % WM) * WTM + mi * 16 + (lane >> 2);
+    c = (warp / WM) * WTN + ni * 8 + (lane & 3) * 2;
+  }
+
+  // the accumulators as the int32 tile at `tile` (BM rows S::LDT apart);
+  // the caller has freed the stages it overlays
+  __device__ static void to_tile(const int (&acc)[MI][NI][4], int* tile) {
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni) {
+        int r, c;
+        coords(mi, ni, r, c);
+        *reinterpret_cast<int2*>(tile + r * S::LDT + c) =
+            make_int2(acc[mi][ni][0], acc[mi][ni][1]);
+        *reinterpret_cast<int2*>(tile + (r + 8) * S::LDT + c) =
+            make_int2(acc[mi][ni][2], acc[mi][ni][3]);
+      }
+  }
+};
+
 template <typename T, int BM, int BN, int WM, bool VEC, typename WL>
 __global__ void __launch_bounds__(THREADS)
 sign_mma_kernel(const T* __restrict__ x,
                 const typename WL::Src* __restrict__ w,
                 float* __restrict__ out, int M, int K, int N, int split,
                 int kb_per) {
-  using G = Geo<T>;
+  using Tile = SignTile<T, BM, BN, WM, VEC, WL>;
   using S = Smem<T, BM, BN>;
-  constexpr int WN = 8 / WM, WTM = BM / WM, WTN = BN / WN;
-  constexpr int MI = WTM / 16, NI = WTN / 8;
-  static_assert(WM * WN == 8 && MI >= 1 && NI % 2 == 0, "warp tile");
-  constexpr int XCH = BM * G::CPR;                  // x chunks a step
-  constexpr int XPT = (XCH + THREADS - 1) / THREADS;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int wm = warp % WM, wn = warp / WM;
+  const int t = threadIdx.x;
   const int rank = blockIdx.x % split, j = blockIdx.x / split;
   const int row0 = blockIdx.y * BM, col0 = j * BN;
   const int kbeg = rank * kb_per * KB;
   const int kend = min(K, (rank + 1) * kb_per * KB);
-  const int steps = kend > kbeg ? (kend - kbeg + G::BK - 1) / G::BK : 0;
+  int acc[Tile::MI][Tile::NI][4] = {};
+  Tile::product(x, w, M, K, N, row0, col0, kbeg, kend, smem, acc);
 
-  uint4 xr[XPT];
-  typename WL::Regs wr;
-  // x chunk i of this thread at step k0: row r, chunk ch, nv valid
-  auto xchunk = [&](int i, int k0, int& r, int& ch, int& nv) {
-    const int idx = t + i * THREADS;
-    r = idx / G::CPR;
-    ch = idx % G::CPR;
-    const int gk = k0 + ch * G::EPC;
-    nv = (idx < XCH && row0 + r < M) ? max(0, min(G::EPC, K - gk)) : 0;
-  };
-  auto load = [&](uint4 (&xq)[XPT], typename WL::Regs& wq, int k0) {
-#pragma unroll
-    for (int i = 0; i < XPT; ++i) {
-      int r, ch, nv;
-      xchunk(i, k0, r, ch, nv);
-      xq[i] = load_chunk<T, VEC>(
-          x + (size_t)(row0 + r) * K + k0 + ch * G::EPC, nv);
-    }
-    WL::load(wq, w, K, N, k0, col0);
-  };
-  auto store = [&](const uint4 (&xq)[XPT], const typename WL::Regs& wq,
-                   unsigned char* sA, unsigned char* sB, int k0) {
-#pragma unroll
-    for (int i = 0; i < XPT; ++i) {
-      int r, ch, nv;
-      xchunk(i, k0, r, ch, nv);
-      if (t + i * THREADS < XCH)
-        store_act<T, VEC>(sA + r * G::LDS + ch * G::EPC, xq[i], nv);
-    }
-    WL::store(wq, sB, K, N, k0, col0);
-  };
-
-  int acc[MI][NI][4] = {};
-  auto compute = [&](const unsigned char* sA, const unsigned char* sB) {
-#pragma unroll
-    for (int ks = 0; ks < G::BK; ks += 32) {
-      uint32_t a[MI][4], b[NI][2];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-        ldsm_x4(a[mi], sA + (wm * WTM + mi * 16 + (lane & 15)) * G::LDS +
-                           ks + (lane >> 4) * 16);
-#pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        uint32_t r[4];
-        ldsm_x4(r, sB + (wn * WTN + np * 16 + (lane >> 4) * 8 + (lane & 7)) *
-                            G::LDS +
-                       ks + ((lane >> 3) & 1) * 16);
-        b[2 * np][0] = r[0];
-        b[2 * np][1] = r[1];
-        b[2 * np + 1][0] = r[2];
-        b[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
-    }
-  };
-
-  if (steps > 0) load(xr, wr, kbeg);
-  for (int s = 0; s < steps; ++s) {
-    unsigned char* sA = smem + (s & 1) * S::STAGE;
-    unsigned char* sB = sA + S::A_BYTES;
-    store(xr, wr, sA, sB, kbeg + s * G::BK);
-    __syncthreads();
-    if (s + 1 < steps) load(xr, wr, kbeg + (s + 1) * G::BK);
-    compute(sA, sB);
-  }
-
-  const int g = lane >> 2, tig = lane & 3;
   if (split == 1) {
 #pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
+    for (int mi = 0; mi < Tile::MI; ++mi)
 #pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        const int r = row0 + wm * WTM + mi * 16 + g;
-        const int c = col0 + wn * WTN + ni * 8 + tig * 2;
-        put<2>(out, M, N, r, c, acc[mi][ni]);
-        put<2>(out, M, N, r + 8, c, acc[mi][ni] + 2);
+      for (int ni = 0; ni < Tile::NI; ++ni) {
+        int r, c;
+        Tile::coords(mi, ni, r, c);
+        put<2>(out, M, N, row0 + r, col0 + c, acc[mi][ni]);
+        put<2>(out, M, N, row0 + r + 8, col0 + c, acc[mi][ni] + 2);
       }
     return;
   }
   __syncthreads();                         // the ring is free
   int* tile = reinterpret_cast<int*>(smem);
-#pragma unroll
-  for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      const int r = wm * WTM + mi * 16 + g;
-      const int c = wn * WTN + ni * 8 + tig * 2;
-      *reinterpret_cast<int2*>(tile + r * S::LDT + c) =
-          make_int2(acc[mi][ni][0], acc[mi][ni][1]);
-      *reinterpret_cast<int2*>(tile + (r + 8) * S::LDT + c) =
-          make_int2(acc[mi][ni][2], acc[mi][ni][3]);
-    }
+  Tile::to_tile(acc, tile);
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                          // every partial is in place
   constexpr int n4 = BM * BN / 4;

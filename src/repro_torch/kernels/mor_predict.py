@@ -1,6 +1,7 @@
 """Fused MoR tile-mask predictor: the CUDA kernel
-(``csrc/mor_predict.cu``), its plain PyTorch version, and the launch
-counter.
+(``csrc/mor_predict.cu`` on ``csrc/sign_mma.cuh``, binary_dot's int8
+tensor-core core), its plain PyTorch version, the tile and split-K plan,
+and the launch counter.
 
 Replaces ``repro/kernels/mor_predict.py`` ``mor_tile_mask`` (Pallas).
 Bound on the H100: bytes — the whole weight is read for its signs; see
@@ -12,12 +13,15 @@ verdict, 2 = forced skip: padding).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import split_k
+from repro_torch.kernels.binary_dot import RESIDENT
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
+from repro_torch.kernels.launch import (cuda_stream, dense16, dtype_code,
+                                        lib, ptr)
 
 N_COEF_ROWS = 6
 TILE_M, TILE_N = 8, 128     # the CUDA kernel's fixed mask geometry
@@ -65,6 +69,20 @@ def mor_tile_mask(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
     return _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n)
 
 
+def plan(E: int, M: int, K: int, N: int, *,
+         sms: int) -> Tuple[int, int, int, int]:
+    """-> (bm, bn, split, kb_per): the kernel's tile and its split-K over
+    a cluster.  The column tile is the mask's 128 columns, so no mask
+    block spans two blocks; 16 rows at a decode dispatch (M <= 16: the
+    expert grid's capacity of 8 too), else 64.  ``split_k.split_over``
+    splits K until the E x row x column tiles fill one wave of
+    ``binary_dot.RESIDENT`` blocks an SM.  Pure Python on host ints."""
+    bm = 16 if M <= 16 else 64
+    tiles = E * -(-M // bm) * -(-N // TILE_N)
+    split, kb_per = split_k.split_over(tiles, K, sms=RESIDENT * sms)
+    return bm, TILE_N, split, kb_per
+
+
 def _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n):
     global launches
     stream = cuda_stream(x.device)
@@ -89,11 +107,15 @@ def _launch(x, w, coef, proxy_neg, residual, tile_m, tile_n):
                                  or residual.dtype != torch.float32):
         raise ValueError("residual must be (..., M, N) float32")
     code = dtype_code(x, w)
+    bm, _, split, kb_per = plan(E, M, K, N, sms=split_k.sm_count(x.device))
     out = torch.empty(lead + (M // TILE_M, N // TILE_N), dtype=torch.int32,
                       device=x.device)
-    args = [x, w, coef, proxy_neg, residual, out]
+    # the epilogue reads coef, the proxy states and the residual 16 bytes
+    # at a time
+    args = [x, w, dense16(coef), dense16(proxy_neg),
+            None if residual is None else dense16(residual), out]
     err = lib().mor_tile_mask(*(ptr(a, x.device) for a in args), E, M, K,
-                              N, code, stream)
+                              N, bm, split, kb_per, code, stream)
     launches += 1
     check(err, "mor_tile_mask")
     return out

@@ -9,14 +9,18 @@ normalised output (``partial=False``) over the whole page pool (no
 shard-window forms wait for the multi-device slice (ROADMAP queue A
 14).  Bounds on the H100: bytes for GQA (the live pages' K, V and
 tags); MLA sits near the bf16 ridge, bound by the latent rows' bytes at
-decode and by q's and the output's at a mixed dispatch.  The bf16 MLA
-kernel runs on the tensor cores with TMA copies of whole 8-row page
-boxes (pages of a multiple of 8 rows, a rope of at most 64 columns),
-and splits each slot's table over a thread block cluster where its
-64-pair tiles alone leave the card idle (``mla_plan``).  See the
-sources for the designs.
+decode and by q's and the output's at a mixed dispatch.  Both bf16
+kernels run on the tensor cores (GQA at head dim 64; other head dims
+and float32 keep the CUDA cores, ``gqa_body``), copy whole pages (of a
+multiple of 8 rows, or the wrapper raises; MLA by TMA boxes, GQA by
+cp.async), and split each slot's table over a thread block cluster where
+their 64-pair tiles alone leave the card idle (``gqa_plan``,
+``mla_plan``; ranks' ranges ``split_ranges``).  See the sources for the
+designs.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -26,9 +30,13 @@ from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)          # the CUDA kernel's instantiations
+GQA_TC_HEAD_DIM = 64               # bf16 GQA: the tensor-core body's
+GQA_TILE_PAIRS = 64                # bf16 GQA: (row, head) pairs a block
+GQA_TILE_KEYS = 64                 # bf16 GQA: keys a K tile
+GQA_RESIDENT = 4                   # bf16 GQA: blocks an SM holds
+PAGE_ROWS = 8                      # bf16 tensor-core bodies: 8-row boxes
 MLA_MAX_RANK = 512                 # the MLA kernel's latent width limit
 MLA_MAX_ROPE = 64                  # bf16: the rope's one staged region
-MLA_PAGE_ROWS = 8                  # bf16: pages are whole 8-row boxes
 MLA_TILE_PAIRS = 64                # bf16: (row, head) pairs a block
 MLA_TILE_KEYS = 64                 # bf16: keys a K tile
 
@@ -77,6 +85,45 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, Dv).to(q.dtype)
 
 
+def gqa_body(dtype: torch.dtype, D: int) -> str:
+    """The CUDA body a GQA call takes: ``"tensor_cores"`` for bf16 at
+    head dim 64 (TMA page boxes, wgmma, the context split), else
+    ``"cuda_cores"`` (float32, and bf16 at head dims 32 and 128)."""
+    return "tensor_cores" if dtype == torch.bfloat16 and \
+        D == GQA_TC_HEAD_DIM else "cuda_cores"
+
+
+def gqa_plan(B: int, C: int, H: int, hkv: int, W: int, page: int, *,
+             sms: int) -> int:
+    """-> split: the blocks (one thread block cluster, at most 8) over
+    which the bf16 tensor-core kernel splits each slot's table columns
+    [0, W).  Its B x hkv x ceil(C G / 64) pair tiles (G = H / hkv) split
+    only where they leave SMs idle, into as many ranks as still fit one
+    wave of GQA_RESIDENT blocks an SM (a block takes ~42 KB of shared
+    memory and 128 registers a thread: an SM holds four), less an eighth
+    of the wave (clusters are placed GPC by GPC: a wave filled to the
+    last slot ran some clusters late in ``chip_smoke.py``'s split sweep),
+    but no more than leaves each rank two 64-key tiles of
+    the table (W page / 64 / 2: the merge and a rank's first copies cost
+    about a tile), nor W entries, and at least 1.  At
+    decode (granite: 64 tiles) the slot splits; a mixed dispatch (128
+    tiles over a table of a few dozen entries) does not.  Pure Python on
+    host ints: the plan never reads the table or qpos."""
+    tiles = B * hkv * -(-(C * (H // hkv)) // GQA_TILE_PAIRS)
+    if tiles >= sms:
+        return 1
+    k_tiles = -(-(W * page) // GQA_TILE_KEYS)
+    return max(1, min(split_k.MAX_SPLIT, W, k_tiles // 2,
+                      GQA_RESIDENT * sms * 7 // 8 // tiles))
+
+
+def split_ranges(W: int, split: int):
+    """The table columns [lo, hi) of each rank of a ``split``, in rank
+    order, as both kernels compute them: whole entries, W r / split
+    rounded down."""
+    return [(W * r // split, W * (r + 1) // split) for r in range(split)]
+
+
 def gqa_paged_flash(q: torch.Tensor, kpool: torch.Tensor,
                     vpool: torch.Tensor, ppool: torch.Tensor,
                     block_table: torch.Tensor, qpos: torch.Tensor, *,
@@ -84,15 +131,20 @@ def gqa_paged_flash(q: torch.Tensor, kpool: torch.Tensor,
     """q: (B, C, H, D); pools (n_pages, page, hkv, D) with position tags
     ``ppool`` (n_pages, page) int32; block_table (B, W) int32 page ids
     (a column slice of a wider table is fine); qpos (B, C) int32.
-    -> (B, C, H, D) in q's dtype.  The CUDA kernel for a CUDA tensor,
-    the plain version for a CPU tensor, an error for anything else."""
+    -> (B, C, H, D) in q's dtype.  The CUDA kernel for a CUDA tensor
+    (bf16 at head dim 64: pages of a multiple of 8 rows), the plain
+    version for a CPU tensor, an error for anything else."""
     if q.device.type == "cpu":
         return gqa_paged_flash_plain(q, kpool, vpool, ppool, block_table,
                                      qpos, window=window)
-    return _launch(q, kpool, vpool, ppool, block_table, qpos, window)
+    return launch(q, kpool, vpool, ppool, block_table, qpos, window)
 
 
-def _launch(q, kpool, vpool, ppool, block_table, qpos, window):
+def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
+           split: Optional[int] = None):
+    """The CUDA kernel on CUDA tensors (``gqa_paged_flash``'s card path):
+    the bf16 tensor-core body splits each slot's table over ``split``
+    ranks, ``gqa_plan``'s unless given (``chip_smoke.py`` sweeps it)."""
     global launches
     stream = cuda_stream(q.device)
     B, C, H, D = q.shape
@@ -117,14 +169,27 @@ def _launch(q, kpool, vpool, ppool, block_table, qpos, window):
     if block_table.device != q.device or block_table.stride(1) != 1:
         raise ValueError("block_table must lie on q's device with unit "
                          "column stride")
-    args = [ptr(t, q.device) for t in (q, kpool, vpool)]
-    if any(a % 16 for a in args):
-        raise ValueError("q and the pools must be 16-byte aligned")
-    out = torch.empty((B, C, H, D), dtype=q.dtype, device=q.device)
+    W = block_table.shape[1]
+    tc = gqa_body(q.dtype, D) == "tensor_cores"
+    if tc and page % PAGE_ROWS:
+        raise ValueError(f"the bf16 kernel at head dim {D} takes pages of "
+                         f"a multiple of {PAGE_ROWS} rows, got {page}")
+    q = q.contiguous()
+    dev = q.device
+    # the tensor-core body also copies the tags 16 bytes at a time
+    copied = (q, kpool, vpool, ppool) if tc else (q, kpool, vpool)
+    if any(ptr(t, dev) % 16 for t in copied):
+        raise ValueError("q and the pools (and, in bf16, the tags) must "
+                         "be 16-byte aligned")
+    if not tc:
+        split = 1
+    elif split is None:
+        split = gqa_plan(B, C, H, hkv, W, page, sms=split_k.sm_count(dev))
+    out = torch.empty((B, C, H, D), dtype=q.dtype, device=dev)
     err = lib().gqa_paged_flash(
-        *args, ptr(ppool, q.device), block_table.data_ptr(),
-        ptr(qpos, q.device), ptr(out, q.device), B, C, H, hkv, D, page,
-        block_table.shape[1], block_table.stride(0), window, D ** -0.5,
+        ptr(q, dev), ptr(kpool, dev), ptr(vpool, dev), ptr(ppool, dev),
+        block_table.data_ptr(), ptr(qpos, dev), ptr(out, dev), B, C, H,
+        hkv, D, page, W, block_table.stride(0), window, split, D ** -0.5,
         code, stream)
     launches += 1
     check(err, "gqa_paged_flash")
@@ -175,13 +240,6 @@ def mla_plan(B: int, C: int, h: int, W: int, page: int, *,
     tiles = B * -(-(C * h) // MLA_TILE_PAIRS)
     k_tiles = -(-(W * page) // MLA_TILE_KEYS)
     return max(1, min(split_k.MAX_SPLIT, W, k_tiles, sms // max(1, tiles)))
-
-
-def mla_ranges(W: int, split: int):
-    """The table columns [lo, hi) of each rank of a ``split``, in rank
-    order, as the kernel computes them: whole entries, W r / split
-    rounded down."""
-    return [(W * r // split, W * (r + 1) // split) for r in range(split)]
 
 
 def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
@@ -238,9 +296,9 @@ def _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table, qpos,
         raise ValueError(f"kr {kr} and rd {rd} must be multiples of {vec}"
                          f" (16-byte loads)")
     bf16 = q_lat.dtype == torch.bfloat16
-    if bf16 and (not 0 < rd <= MLA_MAX_ROPE or page % MLA_PAGE_ROWS):
+    if bf16 and (not 0 < rd <= MLA_MAX_ROPE or page % PAGE_ROWS):
         raise ValueError(f"the bf16 kernel takes 0 < rd <= {MLA_MAX_ROPE} "
-                         f"and pages of a multiple of {MLA_PAGE_ROWS} rows, "
+                         f"and pages of a multiple of {PAGE_ROWS} rows, "
                          f"got rd {rd}, page {page}")
     W = block_table.shape[1]
     if W < 1:

@@ -16,6 +16,7 @@ import torch
 from repro.kernels import binary_dot_packed as jbdp
 from repro.kernels import gather_matmul as jgm
 from repro.kernels import masked_matmul as jmm
+from repro.kernels import mor_predict as jmp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import predictor as tpred
@@ -79,6 +80,89 @@ def test_mor_tile_mask_counts_one_predictor_eval():
     tops.mor_tile_mask(torch.randn(8, 64), torch.randn(64, 128), mor,
                        torch.zeros(8, 128, dtype=torch.bool))
     assert tpred.predictor_eval_count() == 1
+
+
+def _mor_plan_cases():
+    """(E, M, K, N, sms): ``chip_smoke.py``'s shapes (granite's gate at
+    decode and at 256 rows, deepseek's expert grid at capacity 8 and
+    256, TDS's FC1, the ragged wrapper case), then a seeded sweep."""
+    cases = [(1, 8, 2048, 8192, 132), (1, 256, 2048, 8192, 132),
+             (160, 8, 5120, 1536, 132), (160, 256, 5120, 1536, 132),
+             (1, 8192, 144, 384, 132), (1, 24, 104, 256, 132),
+             (1, 16, 100, 128, 114), (4, 72, 96, 256, 78)]
+    rng = np.random.default_rng(5)
+    for _ in range(8):
+        cases.append((int(rng.choice([1, 1, 4, 160])),
+                      int(rng.integers(1, 40)) * 8, int(rng.integers(1, 6000)),
+                      int(rng.integers(1, 64)) * 128,
+                      int(rng.choice([78, 114, 132]))))
+    return cases
+
+
+@pytest.mark.parametrize("E,M,K,N,sms", _mor_plan_cases())
+def test_mor_plan_picks_a_built_tile_and_tiles_k(E, M, K, N, sms):
+    """mor_tile_mask's plan: the column tile is always the mask's 128
+    columns; 16 rows at M <= 16, else 64 (the two tiles the C entry
+    instantiates); the split is ``split_k.split_over``'s for the E x row
+    x column tiles against two blocks an SM, and its ranks tile [0, K) in
+    whole 128-wide k blocks, none empty."""
+    bm, bn, split, kb_per = tmp.plan(E, M, K, N, sms=sms)
+    assert bn == 128 and bm == (16 if M <= 16 else 64)
+    tiles = E * -(-M // bm) * -(-N // bn)
+    assert (split, kb_per) == split_k.split_over(
+        tiles, K, sms=tbd.RESIDENT * sms)
+    assert 1 <= split <= split_k.MAX_SPLIT
+    assert (split - 1) * kb_per * split_k.KB < K <= \
+        split * kb_per * split_k.KB
+    assert split == 1 or tiles * split <= tbd.RESIDENT * sms
+
+
+def test_mor_plan_at_the_main_path_shapes():
+    """Granite's gate at decode takes binary_dot's decode tiling (16 x
+    128, split 4: 256 blocks); at 256 rows, the expert grid and TDS the
+    tiles fill the card unsplit."""
+    assert tmp.plan(1, 8, 2048, 8192, sms=132) == (16, 128, 4, 4)
+    assert tbd.plan(8, 2048, 8192, sms=132) == (16, 128, 4, 4)
+    assert tmp.plan(1, 256, 2048, 8192, sms=132) == (64, 128, 1, 16)
+    assert tmp.plan(160, 8, 5120, 1536, sms=132) == (16, 128, 1, 40)
+    assert tmp.plan(160, 256, 5120, 1536, sms=132) == (64, 128, 1, 40)
+    assert tmp.plan(1, 8192, 144, 384, sms=132) == (64, 128, 1, 2)
+
+
+@pytest.mark.parametrize("with_res", [False, True])
+def test_mor_tile_mask_expert_stack_matches_jax(with_res):
+    """The expert grid (a leading E on every operand) against the JAX
+    kernel vmapped over experts (Pallas in interpret mode), on the
+    padded interface: 72 rows an expert, so the kernel's second 64-row
+    group is mostly past M; expert 1 routed no token (all proxy states
+    2: the early exit), expert 2 and 3 hold 40 and 67 tokens (their
+    capacity rows past that forced 2, expert 3's inside the second
+    64-row group)."""
+    E, M, K, N = 4, 72, 96, 256
+    rng = np.random.default_rng(31 + with_res)
+    x = rng.normal(size=(E, M, K)).astype(np.float32)
+    w = rng.normal(size=(E, K, N)).astype(np.float32)
+    mors = [_mor_layer(rng, N) for _ in range(E)]
+    coef = np.stack([np.stack([m["m"], m["b"], m["bn_scale"],
+                               m["bn_bias"], m["enable"].astype(np.float32),
+                               np.full(N, float(with_res), np.float32)])
+                     for m in mors]).astype(np.float32)
+    pn = np.stack([((m["b"] < -10)[None, :] | (rng.random((M, N)) < 0.7))
+                   for m in mors]).astype(np.int8)
+    for e, count in enumerate((M, 0, 40, 67)):
+        pn[e, count:] = 2
+    res = rng.normal(0, 2.0, (E, M, N)).astype(np.float32)
+    r = res if with_res else None
+    want = np.asarray(jax.vmap(
+        lambda a, b, c, p, q: jmp.mor_tile_mask(
+            a, b, c, p, q if with_res else None, interpret=True))(
+        *(jnp.asarray(t) for t in (x, w, coef, pn, res))))
+    got = tmp.mor_tile_mask(*(torch.from_numpy(t) for t in (x, w, coef, pn)),
+                            None if r is None else torch.from_numpy(r))
+    assert got.shape == (E, M // 8, N // 128) and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not want[1].any() and not want[2, 5:].any() and want[3, 8].any()
+    assert 0 < want[0].sum() < want[0].size
 
 
 def _tile_mask(rng, nm, nn, p=0.6):

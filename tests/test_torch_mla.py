@@ -130,7 +130,7 @@ def test_mla_plan_splits_the_table_in_whole_entries(B, C, h, W, page, sms):
     one 64-key tile of the table on average."""
     split = tpk.mla_plan(B, C, h, W, page, sms=sms)
     assert 1 <= split <= 8 and split <= W
-    ranges = tpk.mla_ranges(W, split)
+    ranges = tpk.split_ranges(W, split)
     assert len(ranges) == split and ranges[0][0] == 0 and ranges[-1][1] == W
     assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
     assert all(lo < hi for lo, hi in ranges)
@@ -147,8 +147,8 @@ def test_mla_plan_at_the_main_path_shapes():
     assert tpk.mla_plan(8, 1, 128, 512, 8, sms=132) == 8
     assert tpk.mla_plan(8, 32, 128, 12, 8, sms=132) == 1
     assert tpk.mla_plan(1, 1, 128, 3, 64, sms=132) == 3
-    assert tpk.mla_ranges(3, 3) == [(0, 1), (1, 2), (2, 3)]
-    assert tpk.mla_ranges(512, 8)[1] == (64, 128)
+    assert tpk.split_ranges(3, 3) == [(0, 1), (1, 2), (2, 3)]
+    assert tpk.split_ranges(512, 8)[1] == (64, 128)
 
 
 def _merge(parts):
@@ -210,7 +210,7 @@ def test_mla_split_merge_matches_jax_single_pass():
     B, C, h, kr = q_lat.shape
     rd = q_pe.shape[-1]
     scale = (kr + rd) ** -0.5
-    ranges = tpk.mla_ranges(tbl.shape[1], 3)
+    ranges = tpk.split_ranges(tbl.shape[1], 3)
     assert ranges == [(0, 2), (2, 4), (4, 6)]
     jq = [jnp.asarray(a) for a in (q_lat, q_pe, ck, cpe, cp)]
     parts = [jpk.mla_paged_flash(*jq, jnp.asarray(tbl[:, lo:hi]),

@@ -116,6 +116,168 @@ def test_gqa_paged_flash_matches_jax(case):
     assert np.all(got[-1] == 0.0) and np.all(want_k[-1] == 0.0)
 
 
+# -- the bf16 kernel's context split: its plan and its merge ----------------
+
+def _gqa_plan_cases():
+    """(B, C, H, hkv, W, page, sms): ``chip_smoke.py``'s decode, mixed,
+    window and split-edge dispatches, granite's served decode and chunk,
+    tables narrower than a split, pages wider than a K tile, then a
+    seeded sweep."""
+    cases = [(8, 1, 32, 8, 512, 8, 132), (8, 32, 32, 8, 12, 8, 132),
+             (4, 4, 32, 8, 16, 8, 132), (8, 1, 32, 8, 96, 8, 132),
+             (8, 1, 32, 8, 24, 8, 132), (8, 32, 32, 8, 24, 8, 132),
+             (1, 1, 32, 8, 3, 64, 132), (2, 1, 16, 2, 2, 128, 132),
+             (1, 1, 8, 8, 1, 8, 132), (4, 1, 4, 2, 40, 16, 78)]
+    rng = np.random.default_rng(19)
+    for _ in range(10):
+        hkv = int(rng.choice([1, 2, 8]))
+        cases.append((int(rng.integers(1, 17)), int(rng.integers(1, 65)),
+                      hkv * int(rng.choice([1, 4, 8])), hkv,
+                      int(rng.integers(1, 700)), int(rng.choice([8, 16, 64])),
+                      int(rng.choice([78, 114, 132]))))
+    return cases
+
+
+@pytest.mark.parametrize("B,C,H,hkv,W,page,sms", _gqa_plan_cases())
+def test_gqa_plan_splits_the_table_in_whole_entries(B, C, H, hkv, W, page,
+                                                    sms):
+    """The split plan: 1 <= split <= 8 and <= W; the ranks' ranges, as
+    the kernel computes them, tile [0, W) in rank order in whole table
+    entries, none empty; a split only where the 64-pair tiles leave SMs
+    idle, into no more blocks than one wave of GQA_RESIDENT an SM, and
+    leaving every rank at least two 64-key tiles of the table."""
+    split = tpk.gqa_plan(B, C, H, hkv, W, page, sms=sms)
+    assert 1 <= split <= 8 and split <= W
+    ranges = tpk.split_ranges(W, split)
+    assert len(ranges) == split and ranges[0][0] == 0 and ranges[-1][1] == W
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(ranges, ranges[1:]))
+    assert all(lo < hi for lo, hi in ranges)
+    tiles = B * hkv * -(-(C * (H // hkv)) // 64)
+    if split > 1:
+        assert tiles < sms
+        assert tiles * split <= tpk.GQA_RESIDENT * sms * 7 // 8
+        assert 2 * split <= -(-(W * page) // 64)
+
+
+def test_gqa_plan_at_the_main_path_shapes():
+    """Granite (32 / 8 heads, head dim 64, pages of 8) on 132 SMs: the
+    smoke's decode dispatch (8 slots x 1 row over 512 entries, 64 tiles)
+    splits 7 ways (448 blocks: seven eighths of a wave of four an SM),
+    its split-edge
+    table of 96 entries (12 key tiles) 6 ways; the mixed dispatch (8 x 32
+    rows, 128 tiles, 12 entries) and a served chunk over 24 entries do
+    not split, nor does a served decode over 24 entries (3 key tiles:
+    fewer than two a rank).  bf16 at head dim 64 takes the tensor cores,
+    anything else the CUDA cores."""
+    assert tpk.gqa_plan(8, 1, 32, 8, 512, 8, sms=132) == 7
+    assert tpk.gqa_plan(8, 1, 32, 8, 96, 8, sms=132) == 6
+    assert tpk.split_ranges(96, 6)[1] == (16, 32)
+    assert tpk.gqa_plan(8, 32, 32, 8, 12, 8, sms=132) == 1
+    assert tpk.gqa_plan(8, 32, 32, 8, 24, 8, sms=132) == 1
+    assert tpk.gqa_plan(8, 1, 32, 8, 24, 8, sms=132) == 1
+    assert tpk.gqa_body(torch.bfloat16, 64) == "tensor_cores"
+    assert tpk.gqa_body(torch.float32, 64) == "cuda_cores"
+    assert {tpk.gqa_body(torch.bfloat16, d) for d in (32, 128)} == \
+        {"cuda_cores"}
+
+
+def _gqa_merge(parts):
+    """The kernel's merge of the ranks' (m, l, acc) in float32, in rank
+    order: M = max m, w_q = exp(m_q - M), L = sum l_q w_q, o = sum acc_q
+    w_q / max(L, 1e-30); JAX's (B, hkv, G, C, D) -> (B, C, H, D)."""
+    m = np.stack([np.asarray(p[0], np.float32) for p in parts])
+    M = m.max(0)
+    num = np.zeros(np.asarray(parts[0][2]).shape, np.float32)
+    den = np.zeros(M.shape, np.float32)
+    for q, (_, lq, aq) in enumerate(parts):
+        w = np.exp(m[q] - M).astype(np.float32)
+        den = (np.asarray(lq, np.float32) * w + den).astype(np.float32)
+        num = (np.asarray(aq, np.float32) * w[..., None] + num).astype(
+            np.float32)
+    o = num / np.maximum(den, np.float32(1e-30))[..., None]
+    B, hkv, G, C, D = o.shape
+    return o.transpose(0, 3, 1, 2, 4).reshape(B, C, hkv * G, D)
+
+
+def _gqa_split_case():
+    """Four slots over a table of 6 entries split 3 ways ((0, 2), (2, 4),
+    (4, 6)), pages of 4 rows: slot 0's middle range is wholly null, and
+    under a window of 6 its first range holds no key in the window;
+    slot 1's middle range holds live pages whose keys are all masked
+    (tags past every query position, or -1), and its query row 0 sees no
+    key at all; slot 2 holds positions 0..23 in order, so a window of 6
+    excludes its first two ranks; slot 3 is idle (its whole table
+    null)."""
+    rng = np.random.default_rng(29)
+    B, C, hkv, G, D, page, W = 4, 2, 2, 2, 8, 4, 6
+    n_pages = 16
+    q = rng.normal(size=(B, C, hkv * G, D)).astype(np.float32)
+    kp = rng.normal(size=(n_pages, page, hkv, D)).astype(np.float32)
+    vp = rng.normal(size=(n_pages, page, hkv, D)).astype(np.float32)
+    pp = np.full((n_pages, page), -1, np.int32)
+    tbl = np.zeros((B, W), np.int32)
+    tbl[0] = [1, 2, 0, 0, 3, 4]
+    tbl[1] = [5, 6, 7, 8, 0, 9]
+    tbl[2] = [10, 11, 12, 13, 14, 15]
+    for pg, tags in ((1, [0, 1, 2, 3]), (2, [4, 5, -1, 6]),
+                     (3, [7, 8, 9, 10]), (4, [11, -1, 12, 13]),
+                     (5, [4, 5, 6, 7]), (6, [8, -1, 9, 10]),
+                     (7, [50, 51, -1, 52]), (8, [-1, 60, 61, 62]),
+                     (9, [11, 12, 13, 14])):
+        pp[pg] = tags
+    pp[10:16] = np.arange(24).reshape(6, 4)
+    qpos = np.array([[12, 13], [3, 12], [22, 23], [5, 6]], np.int32)
+    return q, kp, vp, pp, tbl, qpos
+
+
+@pytest.mark.parametrize("window", [0, 6])
+def test_gqa_split_merge_matches_jax_single_pass(window):
+    """What the bf16 kernel does at decode, in float32: the JAX kernel's
+    partial statistics (``partial=True``, Pallas in interpret mode) on
+    each rank's table columns, merged in rank order as the kernel merges
+    them, equal the single pass (the JAX kernel on the whole table, and
+    on the rows that see a key the port's plain version and
+    ``ref.gqa_paged_ref``).  A wholly null range merges as (m, l, acc) =
+    (-1e30, 0, 0); an all-masked range, and under the window a range
+    wholly outside it, has m = -1e30 and loses to any real score; a row
+    that sees no key keeps the single pass's exp(0) weights over the
+    live pages; the idle slot gives exact zeros."""
+    q, kp, vp, pp, tbl, qpos = _gqa_split_case()
+    page = kp.shape[1]
+    ranges = tpk.split_ranges(tbl.shape[1], 3)
+    assert ranges == [(0, 2), (2, 4), (4, 6)]
+    jq = [jnp.asarray(a) for a in (q, kp, vp, pp)]
+    parts = [jpk.gqa_paged_flash(*jq, jnp.asarray(tbl[:, lo:hi]),
+                                 jnp.asarray(qpos), window=window,
+                                 partial=True, interpret=True)
+             for lo, hi in ranges]
+    m0 = np.asarray(parts[0][0])
+    m1, l1, a1 = (np.asarray(t) for t in parts[1])
+    # slot 0's null range, slot 1's all-masked one (2 live pages)
+    assert np.all(m1[0] == -1e30) and np.all(l1[0] == 0)
+    assert np.all(a1[0] == 0)
+    assert np.all(m1[1] == -1e30) and np.all(l1[1] == 2 * page)
+    if window:      # slot 0's and slot 2's first range: outside the window
+        assert np.all(m0[0] == -1e30) and np.all(m0[2] == -1e30)
+        assert np.all(np.asarray(parts[1][0])[2] == -1e30)
+    got = _gqa_merge(parts)
+    targs = [jnp.asarray(tbl), jnp.asarray(qpos)]
+    want_k = np.asarray(jpk.gqa_paged_flash(*jq, *targs, window=window,
+                                            interpret=True))
+    np.testing.assert_allclose(got, want_k, rtol=RTOL, atol=ATOL)
+    assert np.all(got[3] == 0.0) and np.all(want_k[3] == 0.0)
+    seen = _seen(pp, tbl, qpos, window)
+    assert seen[0].all() and not seen[1, 0] and seen[1, 1]
+    assert seen[2].all() and not seen[3].any()
+    want_r = np.asarray(jref.gqa_paged_ref(*jq, *targs, window=window))
+    plain = tpk.gqa_paged_flash(*(torch.from_numpy(a) for a in (
+        q, kp, vp, pp, tbl, qpos)), window=window).numpy()
+    for want in (want_r, plain):
+        np.testing.assert_allclose(got[seen], want[seen], rtol=RTOL,
+                                   atol=ATOL)
+    assert np.all(plain[3] == 0.0)
+
+
 # -- the pool's host state against JAX's ------------------------------------
 
 def _windowed(get, reduce):
