@@ -15,8 +15,8 @@
    and M=256 for 8 slots x chunk 32, and on the expert grid at
    deepseek-v2-236b's widths (E=160 experts, d=5120, f=1536, capacity
    C=8 and C=256, rows past each expert's count of a top-6 routing
-   forced dead) (masks and counters bit-equal, products within the
-   tolerance below); the two tensor-core matmuls (``gather_matmul``,
+   forced dead) and mixtral-8x7b's (E=8, d=4096, f=14336, top-2) (masks
+   and counters bit-equal, products within the tolerance below); the two tensor-core matmuls (``gather_matmul``,
    ``masked_matmul_kdim``) also with garbage, not zeros, in every dead
    (row block, k block) pair of the down product's input, at ragged
    shapes (M = 24 and 72; a float32 gather at K = 144, N = 384; a down
@@ -31,7 +31,11 @@
    tokens, 512 pages of 8, null entries, a page shared by two slots, a
    column-sliced table; also timed at every split of 1-8), a mixed
    dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
-   case, and ``mla_paged_flash`` at the same decode and mixed table
+   case, then on its CUDA-core body at the zoo's head geometries
+   (qwen2-7b 28 / 4 heads at head dim 128, granite-20b's MQA 48 / 1,
+   mixtral 32 / 8 under its 4,096 window over contexts up to 6,000,
+   phi-3-vision 32 / 32 at head dim 96), and ``mla_paged_flash`` at the
+   same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, both on
    the rows that see a key, twice (bit-equal: the context split merges
    in rank order), with their split plans (and GQA's body), and at the
@@ -51,7 +55,10 @@
    granite on the slotted layout and on the paged layout (sliding
    window 16, so that prompts wrap the ring over shared pages: prefix
    hits, skipped chunks and copy-on-write), and deepseek-v2 (MLA + MoE)
-   on the paged layout with per-expert budgets, all in kernel mode; the
+   on the paged layout with per-expert budgets, qwen2-7b, granite-20b,
+   mixtral (window 16) and phi-3-vision with their published head
+   geometry on the paged layout, all in kernel mode; hubert-xlarge's
+   forward logits on frames, dense and kernel, within LOGIT_RTOL; the
    four paper DNNs (TDS, CNN10, ResNet18, Darknet19) in exact, tiled and
    kernel mode with every binary rookie enabled: logits within
    LOGIT_RTOL, predictor masks equal except where the CPU's proxy
@@ -64,7 +71,7 @@
      (two identical, of page-aligned length) through
      ``Engine(layout="paged", mor_mode="kernel")``, then paged dense and
      slotted kernel on the same trace;
-6. this slice's main path: deepseek-v2-236b at its published widths,
+6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
    tiled and dense mode, then a profiled pass of each;
@@ -75,8 +82,17 @@
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
    gather_matmul (an MoE layer launches each once for all its experts);
-7. this slice's main path: the four paper DNNs at full width (random
-   init, BN stats from train-mode forwards, calibrated), 128 images
+7. this slice's main path: mixtral-8x7b at its published widths, cut
+   to 8 layers, calibrated with ``calibrate_moe``, serves the
+   shared-prefix trace plus one 4,160-token prompt (past its 4,096
+   window) through the paged engine in kernel (counted), tiled and
+   dense mode, then a profiled pass of each; qwen2-7b whole (28
+   layers) the same trace in kernel (counted) and dense mode; and
+   hubert-xlarge whole (48 layers) calibrated on frames, one 8 x 512
+   frame forward in dense and kernel mode (counted): ms and argmax
+   agreement;
+8. the paper's slice: the four DNNs at full width (random init, BN
+   stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
    Pearson, enabled fraction, the Fig. 12 breakdown, frac_computed,
    argmax agreement with dense and forward ms; counted: TDS's
@@ -87,8 +103,8 @@
    ``binary_dot``, ``masked_matmul`` within tolerance and its count the
    mask's sum), timed at Darknet19's layer 13 (M = 128, K = 9 x 512, N
    = 1024) and ResNet18's layer 1 (M = 131072, K = 9 x 64, N = 64);
-8. the card line again, the JSON kernels line, then the last line
-   ``{"ok": true, "device": {...}}``.
+9. the card line again, the JSON kernels line, then the last line
+   ``{"ok": true, "device": {...}}``.  Each phase logs its seconds.
 
 It exits non-zero without a CUDA device, and no phase catches its own
 failure.  It imports nothing of JAX.
@@ -599,11 +615,12 @@ def _gqa_plan(q, kp, tbl):
 
 
 def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
-               sweep=False):
+               sweep=False, hkv=8, G=4, D=64):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
-    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null)
+    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null,
+                                             hkv=hkv, G=G, D=D)
     assert not tbl.is_contiguous()
     args = (q, kp, vp, pp, tbl, qpos)
     got = pa.gqa_paged_flash(*args, window=window)
@@ -622,6 +639,8 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
     split, body = _gqa_plan(q, kp, tbl)
     r = {"max_abs_err": err, "B": B, "C": C, "W": W, "window": window,
          "split": split, "body": body, "repeat_bit_equal": True}
+    if body == "cuda_cores":
+        r["rows_heads"] = list(pa.gqa_heads_plan(H // hkv, D))
     if not time_it:
         return r
     # library yardstick: one SDPA call over the pre-gathered K/V (heads
@@ -727,6 +746,46 @@ def kernel_paged(gen, flush):
     return row
 
 
+# (H, hkv, D, window) of gqa_paged_flash at the zoo's shapes, and the
+# decode contexts a windowed model walks past its window
+ZOO_GQA = ("qwen2-7b", "granite-20b", "mixtral-8x7b", "phi-3-vision-4.2b")
+WINDOW_DECODE_CTX = [6000, 4500, 4097, 3001, 1500, 777, 300, 64]
+
+
+def kernel_zoo_paged(gen, flush):
+    """``gqa_paged_flash`` in bf16 at the zoo's head geometries (the
+    CUDA-core body, ``gqa_heads_plan``'s rows and heads): qwen2-7b (28 /
+    4 heads, D 128: G 7), granite-20b (48 / 1, D 128: MQA, three head
+    groups), mixtral-8x7b (32 / 8, D 128, window 4096 over contexts up
+    to 6,000) and phi-3-vision (32 / 32, D 96), each at decode (8 x 1)
+    and mixed (8 x 32), within the bar of the plain version on the rows
+    that see a key, a repeat bit-equal, timed beside its bound and SDPA.
+    -> {arch: {"decode": r, "mixed": r}}."""
+    import torch
+    from repro_torch.configs import get_config
+    g = torch.Generator().manual_seed(SEED + 1)
+    mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
+    out = {}
+    for arch in ZOO_GQA:
+        cfg = get_config(arch)
+        hkv, D, window = cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+        geom = dict(hkv=hkv, G=cfg.n_heads // hkv, D=D)
+        ctx = WINDOW_DECODE_CTX if window else \
+            [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
+        out[arch] = {
+            "decode": paged_case(gen, flush, ctx, 1, -(-max(ctx) // 8),
+                                 window=window, n_null=5, **geom),
+            "mixed": paged_case(gen, flush, mixed_ctx, 32, 12,
+                                window=window, n_null=1, **geom)}
+        for case, r in out[arch].items():
+            log("kernel", name="gqa_paged_flash", arch=arch, case=case,
+                H=cfg.n_heads, hkv=hkv, D=D,
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+        torch.cuda.empty_cache()
+    return out
+
+
 def _routing_rows(gen, T, E=160, k=6):
     """(E,) routed-token counts and the (E, C=T) real-row mask of a top-k
     routing of T tokens (the serving capacity C = T)."""
@@ -739,12 +798,12 @@ def _routing_rows(gen, T, E=160, k=6):
     return counts, rows
 
 
-def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
+def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536, k=6):
     import torch
     from repro_torch.kernels import mor_predict as mp
     from repro_torch.kernels import split_k
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E)
+    counts, rows = _routing_rows(gen, C, E, k)
     x = torch.where(rows[..., None], torch.randn(
         (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
     w = (torch.randn((E, d, f), generator=gen, device=dev)
@@ -784,15 +843,16 @@ def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536):
     bound_ms, by = _bound(nbytes, row_blocks * 8 * 2 * d * f, "int8")
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
-            "E": E, "C": C, "experts_with_tokens": busy, "frac_live": live,
+            "E": E, "C": C, "d": d, "f": f, "top_k": k,
+            "experts_with_tokens": busy, "frac_live": live,
             "plan": list(mp.plan(E, C, d, f, sms=split_k.sm_count(x.device)))}
 
 
-def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
+def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536, k=6):
     import torch
     from repro_torch.kernels import gather_matmul as gm
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E)
+    counts, rows = _routing_rows(gen, C, E, k)
     x = torch.where(rows[..., None], torch.randn(
         (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
     w = (torch.randn((E, d, f), generator=gen, device=dev)
@@ -822,15 +882,16 @@ def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536):
     bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * d, "bf16")
     return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "E": E, "C": C, "tiles_computed": n_comp,
+            "library_ms": lib_ms, "E": E, "C": C, "d": d, "f": f,
+            "top_k": k, "tiles_computed": n_comp,
             "plan": list(gm.plan(x, w, cap))}
 
 
-def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
+def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536, k=6):
     import torch
     from repro_torch.kernels import masked_matmul as mm
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E)
+    counts, rows = _routing_rows(gen, C, E, k)
     nm, nk = C // 8, f // 128
     rb_live = rows.reshape(E, nm, 8).any(-1)
     mask = rb_live[..., None] & (torch.rand((E, nm, nk), generator=gen,
@@ -854,7 +915,8 @@ def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536):
     bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * d, "bf16")
     return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "E": E, "C": C, "plan": list(plan)}
+            "library_ms": lib_ms, "E": E, "C": C, "d": d, "f": f,
+            "top_k": k, "plan": list(plan)}
 
 
 def _mla_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, h=128,
@@ -1235,10 +1297,15 @@ KERNELS = [
 ]
 
 
+# the expert grid at mixtral-8x7b's widths: 8 experts, top-2
+MIXTRAL_GRID = dict(E=8, d=4096, f=14336, k=2)
+
+
 def phase_kernels():
     """-> {kernel: row}: each MoR kernel at granite's widths (M = 8 and
     256) and on the expert grid at deepseek-v2-236b's (E = 160, C = 8
-    and 256), then the two paged attentions."""
+    and 256) and mixtral-8x7b's (E = 8, C = 8 and 256), then the two
+    paged attentions, GQA also at the zoo's head geometries."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1253,6 +1320,13 @@ def phase_kernels():
         for C in (8, 256):
             per[f"experts_c{C}"] = r = expert_case(C, gen, flush)
             log("kernel", name=name, grid="experts",
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+            torch.cuda.empty_cache()
+        for C in (8, 256):
+            per[f"mixtral_experts_c{C}"] = r = expert_case(
+                C, gen, flush, **MIXTRAL_GRID)
+            log("kernel", name=name, grid="mixtral experts",
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
             torch.cuda.empty_cache()
@@ -1272,6 +1346,9 @@ def phase_kernels():
             "masked_matmul_kdim"
         rows[name].setdefault("ragged_max_abs_err", {})[tag] = err
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
+    for arch, per in kernel_zoo_paged(gen, flush).items():
+        for case, r in per.items():
+            rows["gqa_paged_flash"][f"at_{arch}_{case}"] = _fields(r)
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
     for name, per in kernel_api(gen, flush).items():
         source, replaces = API_KERNELS[name]
@@ -1795,6 +1872,284 @@ def slice_deepseek():
     return launches
 
 
+# -- the rest of the transformer zoo ----------------------------------------
+
+def _zoo_reduced(arch):
+    """The reduced float32 config with the published attention geometry
+    restored (heads, KV heads, head dim), so that the card runs the
+    CUDA-core GQA body at the zoo's G and D; mixtral's experts widened to
+    moe_d_ff 256 (two column tiles, the trailing one killed by
+    ``calibrate_moe``'s injection)."""
+    from repro_torch.configs import get_config, reduce_config
+    full = get_config(arch)
+    cfg = reduce_config(full).replace(n_heads=full.n_heads,
+                                      n_kv_heads=full.n_kv_heads,
+                                      d_head=full.head_dim)
+    return cfg.replace(moe_d_ff=256) if cfg.family == "moe" else cfg
+
+
+def reference_zoo():
+    """qwen2-7b (QKV bias, G 7, D 128), granite-20b (MQA: G 48, D 128),
+    mixtral-8x7b (MoE top-2, its reduced window of 16: prompts of 20-32
+    tokens wrap the ring over pages shared with the prefix cache) and
+    phi-3-vision (the text path, D 96), reduced and float32, calibrated
+    on the CPU and served in kernel mode through the paged engine with
+    prefix caching and half budgets, on the card (CUDA kernels) and on
+    the CPU (plain versions): the same tokens, telemetry and prefix
+    counters; then hubert-xlarge's forward logits on frames, dense and
+    kernel mode, within LOGIT_RTOL."""
+    import numpy as np
+    import torch
+    from repro_torch.core.deploy import calibrate_lm, calibrate_moe
+    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine
+    for arch in ZOO_GQA:
+        cfg = _zoo_reduced(arch)
+        api = get_model(cfg)
+        params = api.init(torch.Generator().manual_seed(SEED), cfg)
+        moe = cfg.family == "moe"
+        if cfg.qkv_bias:
+            g = torch.Generator().manual_seed(SEED + 3)
+            attn = params["layers"]["attn"]
+            for k in ("bq", "bk", "bv"):
+                attn[k] = torch.randn(attn[k].shape, generator=g) * 0.5
+        cal = calibrate_moe if moe else calibrate_lm
+        params, mor, _ = cal(params, cfg, api.forward,
+                             calib_batches(cfg, 4, "cpu"), 2,
+                             **({"inject_dead_frac": 0.5} if moe else {}))
+        reqs = make_trace(cfg, 6, 4, 16, 6, 6, SEED, shared_prefix=16)
+        longest = max((p for p, _ in reqs), key=len)
+        reqs += [(longest[:24].copy(), 6), (longest[:24].copy(), 6)]
+        caps = {"moe_mor_stats" if moe else "mor_stats": 0.5}
+        out = {}
+        for dev in ("cpu", "cuda"):
+            eng = Engine(cfg, _to(params, dev), mor=_to(mor, dev),
+                         mor_mode="kernel", n_slots=4, max_len=40,
+                         capacities=caps)
+            out[dev] = (eng.run(list(reqs)), eng.telemetry.summary())
+        assert out["cuda"][0] == out["cpu"][0], \
+            f"{arch}: card and CPU tokens differ"
+        assert out["cuda"][1] == out["cpu"][1], \
+            f"{arch}: card and CPU telemetry differ"
+        tel = out["cuda"][1]
+        pc = tel["prefix_cache"]
+        assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0, pc
+        if cfg.sliding_window:
+            assert pc["pages_cowed"] > 0, pc
+        fr = np.asarray(tel["moe_mor_stats" if moe else "mor_stats"][
+            "frac_tiles_computed"])
+        log("reference", model=f"{arch} reduced f32 paged",
+            heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim,
+            window=cfg.sliding_window, requests=len(reqs),
+            tokens_equal=True, telemetry_equal=True,
+            frac_tiles_computed=np.round(fr, 4).tolist(),
+            **{k: pc[k] for k in ("prefix_hits", "chunks_skipped",
+                                  "pages_cowed")})
+    cfg = _zoo_reduced("hubert-xlarge")
+    api = get_model(cfg)
+    params = api.init(torch.Generator().manual_seed(SEED), cfg)
+    params, mor, _ = calibrate_lm(params, cfg, api.forward,
+                                  calib_batches(cfg, 4, "cpu"), 2)
+    fr = next(calib_batches(cfg, 2, "cpu", seed=SEED + 1, seq=32))
+    for mode in ("dense", "kernel"):
+        runs = {dev: api.forward(_to(params, dev), cfg, _to(fr, dev),
+                                 mor=_to(mor, dev), mor_mode=mode)[0]
+                for dev in ("cpu", "cuda")}
+        err = _logits_close(runs["cuda"], runs["cpu"],
+                            f"hubert-xlarge {mode}")
+        log("reference", model="hubert-xlarge reduced f32 forward",
+            mode=mode, frames=list(fr["frames"].shape),
+            logits_max_abs_err=err)
+
+
+def _shared_prefix_trace(cfg):
+    """The serving cells' trace: 12 requests of a 128-token shared prefix
+    plus 8-64 unique tokens, 16 new each, two of them identical with a
+    page-aligned prompt."""
+    from repro_torch.launch.serve import make_trace
+    reqs = make_trace(cfg, 12, 8, 64, 16, 16, SEED, shared_prefix=128)
+    aligned = reqs[0][0][:len(reqs[0][0]) // 8 * 8]
+    reqs[0] = (aligned, 16)
+    reqs[11] = (aligned.copy(), 16)
+    return reqs
+
+
+def _init_logged(cfg, **kw):
+    """Random weights from SEED on the card, logged with their size."""
+    import torch
+    from repro_torch.models import get_model
+    api = get_model(cfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    torch.cuda.synchronize()
+    log("slice", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=f"{cfg.n_heads}/{cfg.n_kv_heads}", head_dim=cfg.head_dim,
+        d_ff=cfg.moe_d_ff or cfg.d_ff, dtype=cfg.dtype,
+        params=sum(v.numel() for v in _leaves(params)),
+        param_gb=round(sum(v.numel() * v.element_size()
+                           for v in _leaves(params)) / 1e9, 2),
+        init_s=round(time.perf_counter() - t0, 2), **kw)
+    return api, params
+
+
+def _paged_cell(cfg, params, mor, reqs, modes, path):
+    """The paged engine on ``reqs``, kernel mode counted (one launch of
+    each MoR kernel and of gqa_paged_flash per layer and dispatch, two of
+    gather_matmul), then the other ``modes`` held to greedy agreement
+    with it, each pass logged; then one profiled pass of each.  ->
+    (kernel-mode launches, kernel-mode report)."""
+    import numpy as np
+    (tok_k, rep_k, eng_k), launches = _counted(
+        lambda: _serve(cfg, params, mor, "kernel", reqs))
+    counted = _dispatches(rep_k)
+    want = _want_launches(cfg.n_layers, counted, paged=True)
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    pc = rep_k["prefix_cache"]
+    assert pc["prefix_hits"] > 0 and pc["chunks_skipped"] > 0, pc
+    tel = rep_k["telemetry"]
+    grp = "moe_mor_stats" if cfg.family == "moe" else "mor_stats"
+    fr = np.asarray(tel[grp]["frac_tiles_computed"])
+    assert np.all(np.isfinite(fr))
+    log("slice", path=path, mode="kernel", dispatches=rep_k["dispatches"],
+        first_pass_dispatches=rep_k["first_pass_dispatches"],
+        launches=json.dumps(launches),
+        launches_per_dispatch=json.dumps(
+            {k: v / counted for k, v in launches.items() if v}),
+        frac_tiles_computed_mean=round(float(fr.mean()), 4),
+        prefix=json.dumps({k: pc[k] for k in (
+            "hit_rate", "prefix_hits", "prefix_queries", "pages_shared",
+            "chunks_skipped", "tokens_skipped", "pages_cowed",
+            "pages_evicted")}))
+    engines, reps = {"kernel": eng_k}, {"kernel": rep_k}
+    for mode in modes:
+        tok, reps[mode], engines[mode] = _serve(
+            cfg, params, None if mode == "dense" else mor, mode, reqs)
+        agree = _agree(tok_k, tok)
+        log("slice", path=path, **{f"agreement_kernel_vs_{mode}":
+                                   round(agree, 4)})
+        assert agree >= AGREE_MIN, (mode, agree)
+    for mode, rep in reps.items():
+        log("slice", path=path, trace="shared-prefix", mode=mode,
+            tok_s=round(rep["tokens_per_s"], 2),
+            decode_tok_s=round(rep["decode_tokens"] / rep["pass_s"], 2),
+            pass_s=round(rep["pass_s"], 3), dispatches=rep["dispatches"],
+            prefill_tokens=rep["prefill_tokens"],
+            decode_tokens=rep["decode_tokens"], **_repeats(rep))
+    # profiled last, so that the profiler cannot touch the timings above
+    for eng in engines.values():
+        _profile(eng, reqs)
+    return launches, rep_k
+
+
+def slice_mixtral():
+    """This slice's main path: mixtral-8x7b at its published widths, cut
+    to 8 of its 32 layers (all 32 would take 93 GB of bf16 weights),
+    calibrated with ``calibrate_moe``, serves the shared-prefix trace and
+    one request of 4,160 prompt tokens (keys slide out of the 4,096
+    window) through ``Engine(layout="paged")`` with prefix caching, in
+    kernel (counted: per dispatch 8 launches of gqa_paged_flash,
+    mor_tile_mask and masked_matmul_kdim, 16 of gather_matmul), tiled
+    and dense mode, then one profiled pass of each.  -> launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import calibrate_moe
+    from repro_torch.launch.serve import calib_batches, make_trace
+    cfg = get_config("mixtral-8x7b").replace(n_layers=8)
+    api, params = _init_logged(cfg, depth_cut="32 -> 8",
+                               experts=cfg.n_experts, top_k=cfg.top_k,
+                               window=cfg.sliding_window)
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate_moe(params, cfg, api.forward,
+                                     calib_batches(cfg, 8, "cuda"), 4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
+                                                   2),
+        calibrate_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        **{k: round(v, 4) for k, v in cal.items()})
+    reqs = _shared_prefix_trace(cfg)
+    long_prompt = make_trace(cfg, 1, 4160, 4160, 16, 16, SEED + 1)[0]
+    assert len(long_prompt[0]) == 4160 > cfg.sliding_window
+    reqs.append(long_prompt)
+    launches, _ = _paged_cell(cfg, params, mor, reqs, ("tiled", "dense"),
+                              "mixtral paged")
+    log("slice", model=cfg.name, peak_mem_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 2))
+    return launches
+
+
+def slice_qwen2():
+    """qwen2-7b whole (28 layers, QKV bias, G 7 at head dim 128),
+    calibrated with ``calibrate_lm``, serves the shared-prefix trace
+    through the paged engine in kernel (counted) and dense mode, then a
+    profiled pass of each.  -> launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import calibrate_lm
+    from repro_torch.launch.serve import calib_batches
+    cfg = get_config("qwen2-7b")
+    api, params = _init_logged(cfg)
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate_lm(params, cfg, api.forward,
+                                    calib_batches(cfg, 8, "cuda"), 4)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
+                                                   2),
+        **{k: round(v, 4) for k, v in cal.items()})
+    launches, _ = _paged_cell(cfg, params, mor, _shared_prefix_trace(cfg),
+                              ("dense",), "qwen2 paged")
+    log("slice", model=cfg.name, peak_mem_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 2))
+    return launches
+
+
+def slice_hubert():
+    """hubert-xlarge whole (48 layers, an encoder over frame embeddings,
+    layernorm, a native ReLU FFN: MoR predicts the up projection),
+    calibrated with ``calibrate_lm`` on synthetic frames, then a forward
+    over 8 x 512 frames in dense and kernel mode (counted: one launch of
+    mor_tile_mask, gather_matmul and masked_matmul_kdim per layer):
+    forward ms and argmax agreement with dense over the 504 classes.
+    -> launches."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.deploy import calibrate_lm
+    from repro_torch.launch.serve import calib_batches
+    cfg = get_config("hubert-xlarge")
+    api, params = _init_logged(cfg)
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate_lm(params, cfg, api.forward,
+                                    calib_batches(cfg, 8, "cuda"), 4)
+    torch.cuda.synchronize()
+    log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
+                                                   2),
+        **{k: round(v, 4) for k, v in cal.items()})
+    batch = next(calib_batches(cfg, 8, "cuda", seed=SEED + 1, seq=512))
+    dense = api.forward(params, cfg, batch)[0]
+    kernel, launches = _counted(lambda: api.forward(
+        params, cfg, batch, mor=mor, mor_mode="kernel")[0])
+    want = {k: 0 for k in launches}
+    want.update({k: cfg.n_layers for k in (
+        "mor_tile_mask", "gather_matmul", "masked_matmul_kdim")})
+    assert launches == want, (launches, want)
+    assert kernel.shape == (8, 512, cfg.vocab_size)
+    assert bool(torch.isfinite(kernel).all())
+    agree = float((kernel.argmax(-1) == dense.argmax(-1)).float().mean())
+    ms = {mode: _fwd_ms(lambda mode=mode: api.forward(
+        params, cfg, batch, mor=None if mode == "dense" else mor,
+        mor_mode=mode)) for mode in ("dense", "kernel")}
+    log("slice", path="hubert forward", frames=list(batch["frames"].shape),
+        dense_ms=round(ms["dense"], 3), kernel_ms=round(ms["kernel"], 3),
+        argmax_agreement_with_dense=round(agree, 4),
+        launches=json.dumps({k: v for k, v in launches.items() if v}),
+        peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
+    assert agree >= AGREE_MIN, agree
+    return launches
+
+
 # -- the paper's DNNs (TDS, CNN10, ResNet18, Darknet19) ----------------------
 
 # (case, model, conv layer, (M, K, N)) where the kernel API is timed
@@ -2285,34 +2640,47 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smi = phase_card()
-    phase_build()
-    rows = phase_kernels()
-    phase_reference()
-    reference_deepseek()
-    reference_paper()
-    granite = phase_slice()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    deepseek = slice_deepseek()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+
+    def timed(name, fn, *a):
+        """Run a phase and log its seconds; each path's peak memory is
+        its own."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        log("phase", name=name, seconds=round(time.perf_counter() - t, 1))
+        return out
+
+    timed("build", phase_build)
+    rows = timed("kernels", phase_kernels)
+    timed("reference granite", phase_reference)
+    timed("reference deepseek", reference_deepseek)
+    timed("reference zoo", reference_zoo)
+    timed("reference paper", reference_paper)
+    granite = timed("granite", phase_slice)
+    deepseek = timed("deepseek", slice_deepseek)
+    mixtral = timed("mixtral", slice_mixtral)
+    qwen2 = timed("qwen2", slice_qwen2)
+    hubert = timed("hubert", slice_hubert)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    paper, timed = slice_paper(flush)
-    # "launches": each kernel's count on the main path of the slice that
-    # ported it: the paper DNNs for the kernel API (and TDS's MoR
-    # kernels), deepseek paged for the MoR kernels and mla_paged_flash,
-    # granite paged for gqa_paged_flash
+    paper, timed_layers = timed("paper", slice_paper, flush)
+    # "launches": each kernel's count on the main path that runs it:
+    # mixtral's paged path (this slice's) for the MoR kernels and
+    # gqa_paged_flash, deepseek's for mla_paged_flash, the paper DNNs'
+    # for the kernel API
+    by_path = {"mixtral_paged": mixtral, "qwen2_paged": qwen2,
+               "hubert": hubert, "deepseek_paged": deepseek,
+               "granite_paged": granite, "paper_dnns": paper}
     for name, row in rows.items():
         if name in API_KERNELS:
             row["launches"] = paper[name]
-            for case, r in timed.items():
+            for case, r in timed_layers.items():
                 row[f"at_{case}"] = _fields(r[name])
         else:
-            row["launches"] = (granite if name == "gqa_paged_flash"
-                               else deepseek)[name]
-        row["launches_by_path"] = {"deepseek_paged": deepseek[name],
-                                   "granite_paged": granite[name],
-                                   "paper_dnns": paper[name]}
+            row["launches"] = (deepseek if name == "mla_paged_flash"
+                               else mixtral)[name]
+        row["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)                # every number above is this card's
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -5,7 +5,11 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig, MoRConfig, get_config, reduce_config, register,
 )
 
-_MODULES = ["granite_3_2b", "deepseek_v2_236b", "paper_dnns"]
+_MODULES = [
+    "qwen1_5_110b", "granite_20b", "granite_3_2b", "qwen2_7b",
+    "deepseek_v2_236b", "mixtral_8x7b", "phi_3_vision_4_2b",
+    "hubert_xlarge", "paper_dnns",
+]
 
 _loaded = False
 

@@ -170,12 +170,13 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """The dense, MoE, MLA, CNN and TDS branches of ``repro.configs.base.
-    reduce_config``: the same family at tiny widths."""
-    if cfg.family not in ("dense", "moe", "cnn", "tds"):
+    """``repro.configs.base.reduce_config`` for every ported family
+    (dense, moe, vlm, audio, cnn, tds): the same family at tiny widths.
+    The recurrent families wait for ROADMAP queue A 2."""
+    if cfg.family in ("ssm", "hybrid"):
         raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense, moe, cnn and tds "
-            f"families are ported so far")
+            f"{cfg.name} ({cfg.family}): the recurrent families are not "
+            f"ported yet (ROADMAP queue A 2)")
     kw: Dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
@@ -197,6 +198,8 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
                   qk_rope_head_dim=8, v_head_dim=16, d_head=24)
     if cfg.sliding_window:
         kw.update(sliding_window=16)
+    if cfg.frontend_tokens:
+        kw.update(frontend_tokens=16)
     if cfg.family == "cnn":
         kw = dict(n_layers=cfg.n_layers, d_model=16, img_size=32,
                   cnn_channels=tuple(min(c, 16) for c in cfg.cnn_channels),

@@ -3,10 +3,13 @@
 The JAX transformer params are a nested dict of arrays with layers
 stacked on axis 0 (``repro.models.transformer.init_params``: one
 ``layers`` stack, or the ``dense_layers`` and ``moe_layers`` stacks of a
-moe model); the paper's DNNs keep a Python *list* of per-layer dicts
-(``repro.models.cnn`` / ``tds`` ``init_params``), with the CNN's BN
-running stats in a separate state list and one calibrated MoRLayer per
-layer (``calibrate_cnn`` / ``calibrate_tds``).  The port keeps exactly
+moe model, the first absent where ``first_k_dense`` is 0; QKV biases in
+each stack's ``attn``; an ``embed`` where the model has a vocabulary and
+an ``in_norm`` before an audio stub's layers); the paper's DNNs keep a
+Python *list* of per-layer dicts (``repro.models.cnn`` / ``tds``
+``init_params``), with the CNN's BN running stats in a separate state
+list and one calibrated MoRLayer per layer (``calibrate_cnn`` /
+``calibrate_tds``).  The port keeps exactly
 those layouts, so the conversion is leaf by leaf.  Imports
 neither ``jax`` nor ``repro``: the caller hands over numpy arrays
 (``np.asarray`` of each JAX leaf; bfloat16 leaves arrive as ml_dtypes
@@ -53,9 +56,9 @@ def _n_layers(stack: Dict) -> int:
 def params_from_numpy(cfg: ModelConfig, tree: Dict,
                       device="cuda") -> Dict:
     """JAX params (numpy leaves) -> the port's params: the ``layers``
-    stack of a dense model, the ``dense_layers`` / ``moe_layers`` stacks
-    of a moe model, the ``layers`` list and ``head`` of a cnn or tds
-    model."""
+    stack of a dense, vlm or audio model, the ``dense_layers`` (where
+    ``first_k_dense`` > 0) and ``moe_layers`` stacks of a moe model, the
+    ``layers`` list and ``head`` of a cnn or tds model."""
     if cfg.family in ("cnn", "tds"):
         layers = tree.get("layers")
         n = _n_paper_layers(cfg)
@@ -68,11 +71,20 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict,
             ["moe_layers"]
     else:
         keys = ["layers"]
+    if cfg.vocab_size:
+        keys.append("embed")
+    if cfg.frontend == "audio_stub":
+        keys.append("in_norm")
     missing = [k for k in keys if k not in tree]
+    if cfg.qkv_bias:
+        missing += [f"{k}.attn.{b}" for k in keys if k.endswith("layers")
+                    and k in tree for b in ("bq", "bk", "bv")
+                    if b not in tree[k]["attn"]]
     if missing:
         raise ValueError(f"params of {cfg.name} lack {missing}")
-    L = sum(_n_layers(tree[k]) for k in keys)
-    embed = np.asarray(tree["embed"]).shape
+    L = sum(_n_layers(tree[k]) for k in keys if k.endswith("layers"))
+    embed = (np.asarray(tree["embed"]).shape if cfg.vocab_size
+             else (0, cfg.d_model))
     if L != cfg.n_layers or embed != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"params do not match {cfg.name}: {L} layers, "
                          f"embed {embed}")

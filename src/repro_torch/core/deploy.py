@@ -77,7 +77,10 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
 def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
                  batches: Iterator[Dict], n_batches: int,
                  layer_key: str = "layers") -> Tuple[Dict, Dict, Dict]:
-    """Calibrate a layer-stacked dense LM.
+    """Calibrate a layer-stacked LM (the dense, vlm and audio
+    families): ``batches`` yield what ``forward`` takes, {"tokens"} or,
+    for the audio stub, {"frames"}; a non-GLU FFN (hubert's native ReLU)
+    is predicted on its up projection.
 
     -> (params with permuted FFN weights, mor {layer_key: stacked
         MoRLayer}, report dict with Pearson stats).  ``params`` itself

@@ -2,7 +2,8 @@
 generators, so that both packages draw the same data from the same
 seed: Markov-chain tokens (``synthetic_lm_batch``), class-conditional
 images (``synthetic_image_batch``) and formant-like audio frames
-(``synthetic_frames_batch``)."""
+(``synthetic_frames_batch``), and the batch maker's choice among them
+(``make_batch``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -72,3 +73,16 @@ def synthetic_frames_batch(cfg: ModelConfig, batch: int, seq: int, *,
     frames = np.sin(0.1 * (labels[..., None] + 1) * t / (1 + k % 7)) \
         + 0.3 * rng.standard_normal((batch, seq, d))
     return {"frames": frames.astype(np.float32), "labels": labels}
+
+
+def make_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int,
+               step: int) -> Dict[str, np.ndarray]:
+    """``repro.data.pipeline.make_batch`` on one host, with the batch and
+    sequence length given directly: images for the cnn family, frames
+    for tds and the audio stub (hubert), tokens for every other family."""
+    kw = dict(seed=seed, step=step)
+    if cfg.family == "cnn":
+        return synthetic_image_batch(cfg, batch, **kw)
+    if cfg.family == "tds" or cfg.frontend == "audio_stub":
+        return synthetic_frames_batch(cfg, batch, seq, **kw)
+    return synthetic_lm_batch(cfg, batch, seq, **kw)

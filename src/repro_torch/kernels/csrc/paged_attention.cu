@@ -59,15 +59,24 @@
 //     of shared memory and 128 registers a thread, so four fit an SM: a
 //     decode dispatch's 448 blocks (split 7) run in one wave.
 // float32 (the reduced models' card-vs-CPU check) and other head dims
-// keep the CUDA cores (`cc` below): one block per (query-row tile, KV
-// head, slot) serves the G query heads of that KV head for up to CT
-// query rows (RMAX = CT * G rows in all, so that a row's acc[D] stays in
-// registers); its NW warps split the walk, warp w taking entries w, w +
-// NW, ..., staging its page's K, V (float32) and tags in its own shared
-// memory, scoring, rescaling and accumulating for all the block's rows,
-// with (m, l) in shared memory and acc in registers; at the end the
-// warps' statistics merge in warp order.  The page-to-warp map and the
-// merge order are fixed, so results are deterministic run to run.
+// (32, 96, 128) keep the CUDA cores (`cc` below): one block per (query-
+// row tile, head group, KV head, slot) serves `heads` of that KV head's
+// G query heads for up to `rows` query rows, rows x heads <= RMAX =
+// 2048 / D (rounded down: 21 at D 96), so that a row's acc[D] stays in
+// registers.  The host's plan (`gqa_heads_plan`) takes all G heads and
+// RMAX / G rows where G <= RMAX (qwen2-7b's G 7 at D 128: 2 rows, 14 of
+// 16 pairs used), else one row and the G heads in ceil(G / RMAX) groups
+// of equal size (granite-20b's MQA, G 48 at D 128: 3 groups of 16);
+// grid.x runs over (row tile, head group), head group fastest.  The
+// block's NW warps split the walk, warp w taking entries w, w + NW, ...,
+// staging its page's K, V (float32) and tags in its own shared memory,
+// scoring, rescaling and accumulating for all the block's rows, with
+// (m, l) in shared memory and acc in registers; at the end the warps'
+// statistics merge in warp order.  The page-to-warp map and the merge
+// order are fixed, so results are deterministic run to run.  A row's K
+// and V are loaded 16 bytes a lane: D 96 is 12 such loads in bf16, 24 in
+// float32, and a KV head's offset (kvh D elements) stays 16-byte
+// aligned for every D that is a multiple of 8.
 //
 // The strided block table: the engine passes `block_table[:, :W]`, a
 // view whose rows are `tbl_stride` apart, not W.  Reading it as a dense
@@ -121,14 +130,16 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ pp,
                  const int* __restrict__ tbl, const int* __restrict__ qpos,
                  T* __restrict__ out, int C, int H, int hkv, int P, int W,
-                 int tbl_stride, int window, float scale) {
+                 int tbl_stride, int window, float scale, int CT, int GT) {
   constexpr int RMAX = ELEMS / D;
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int G = H / hkv;
-  const int CT = RMAX / G;
-  const int c0 = blockIdx.x * CT, kvh = blockIdx.y, b = blockIdx.z;
-  const int R = min(CT, C - c0) * G;          // rows r = c_local * G + g
+  const int NG = (G + GT - 1) / GT;           // head groups
+  const int c0 = (blockIdx.x / NG) * CT, g0 = (blockIdx.x % NG) * GT;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int Gb = min(GT, G - g0);             // this group's heads
+  const int R = min(CT, C - c0) * Gb;         // rows r = c_local * Gb + g
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   float* qs = smem;                           // RMAX x (D + 1); merge acc
@@ -146,12 +157,12 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   for (int e = threadIdx.x; e < R * D; e += NW * 32) {
     const int r = e / D, d = e % D;
-    const int cl = r / G, g = r % G;
+    const int cl = r / Gb, g = g0 + r % Gb;
     qs[r * (D + 1) + d] =
         to_f(q[(((size_t)b * C + c0 + cl) * H + kvh * G + g) * D + d]);
   }
   for (int r = threadIdx.x; r < R; r += NW * 32)
-    qp[r] = qpos[(size_t)b * C + c0 + r / G];
+    qp[r] = qpos[(size_t)b * C + c0 + r / Gb];
   for (int r = lane; r < R; r += 32) {
     wm[r] = NEG_INF;
     wl[r] = 0.f;
@@ -258,7 +269,7 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
   for (int e = threadIdx.x; e < R * D; e += NW * 32) {
     const int r = e / D, d = e % D;
-    const int cl = r / G, g = r % G;
+    const int cl = r / Gb, g = g0 + r % Gb;
     out[(((size_t)b * C + c0 + cl) * H + kvh * G + g) * D + d] =
         from_f<T>(qs[r * (D + 1) + d] / fmaxf(Ml[r], 1e-30f));
   }
@@ -268,11 +279,14 @@ template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* pp,
            const int* tbl, const int* qpos, void* out, int B, int C, int H,
            int hkv, int P, int W, int tbl_stride, int window, float scale,
-           cudaStream_t st) {
+           int rows, int heads, cudaStream_t st) {
   constexpr int RMAX = ELEMS / D;
-  const int G = H / hkv;
-  if (G < 1 || G > RMAX || H % hkv) return (int)cudaErrorInvalidValue;
-  const int CT = RMAX / G;
+  if (hkv < 1 || H % hkv || C < 1 || rows < 1 || heads < 1 ||
+      heads > H / hkv || rows * heads > RMAX || hkv > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long groups = (H / hkv + heads - 1) / heads;
+  const long long tiles = ((long long)C + rows - 1) / rows * groups;
+  if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (RMAX * (D + 1) + 3 * RMAX + NW * warp_floats<D>(P));
   auto kern = gqa_paged_kernel<T, D>;
@@ -281,11 +295,11 @@ int launch(const void* q, const void* kp, const void* vp, const int* pp,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((C + CT - 1) / CT, hkv, B);
+  const dim3 grid((unsigned)tiles, hkv, B);
   kern<<<grid, NW * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
       static_cast<const T*>(vp), pp, tbl, qpos, static_cast<T*>(out), C, H,
-      hkv, P, W, tbl_stride, window, scale);
+      hkv, P, W, tbl_stride, window, scale, rows, heads);
   return (int)cudaGetLastError();
 }
 
@@ -293,17 +307,20 @@ template <typename T>
 int by_dim(int D, const void* q, const void* kp, const void* vp,
            const int* pp, const int* tbl, const int* qpos, void* out, int B,
            int C, int H, int hkv, int P, int W, int tbl_stride, int window,
-           float scale, cudaStream_t st) {
+           float scale, int rows, int heads, cudaStream_t st) {
   switch (D) {
     case 32:
       return launch<T, 32>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                           W, tbl_stride, window, scale, st);
+                           W, tbl_stride, window, scale, rows, heads, st);
     case 64:
       return launch<T, 64>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                           W, tbl_stride, window, scale, st);
+                           W, tbl_stride, window, scale, rows, heads, st);
+    case 96:
+      return launch<T, 96>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
+                           W, tbl_stride, window, scale, rows, heads, st);
     case 128:
       return launch<T, 128>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                            W, tbl_stride, window, scale, st);
+                            W, tbl_stride, window, scale, rows, heads, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -735,15 +752,18 @@ int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
 // tbl_stride apart; qpos (B, C) int32; out (B, C, H, D).  bf16 at D 64
 // runs on the tensor cores (P a multiple of 8, pp 16-byte aligned) and
 // splits each slot's table columns over `split` blocks of a cluster (1
-// <= split <= min(8, W), the wrapper's plan); float32 and bf16 at D 32
-// or 128 run on the CUDA cores with split = 1.  Returns the launch's
-// error code.
+// <= split <= min(8, W), the wrapper's plan); float32, and bf16 at D 32,
+// 96 or 128, run on the CUDA cores with split = 1, a block serving
+// `rows` query rows x `heads` query heads of one KV head (the wrapper's
+// plan; rows and heads are not read on the tensor cores).  Returns the
+// launch's error code.
 extern "C" int gqa_paged_flash(const void* q, const void* kp, const void* vp,
                                const int* pp, const int* tbl,
                                const int* qpos, void* out, int B, int C,
                                int H, int hkv, int D, int P, int W,
                                int tbl_stride, int window, int split,
-                               float scale, int dtype, void* stream) {
+                               int rows, int heads, float scale, int dtype,
+                               void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == mor::BF16 && D == paged::tc::D)
@@ -755,10 +775,10 @@ extern "C" int gqa_paged_flash(const void* q, const void* kp, const void* vp,
   if (dtype == mor::BF16)
     return paged::cc::by_dim<bf16>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
                                    H, hkv, P, W, tbl_stride, window, scale,
-                                   st);
+                                   rows, heads, st);
   if (dtype == mor::F32)
     return paged::cc::by_dim<float>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
                                     H, hkv, P, W, tbl_stride, window, scale,
-                                    st);
+                                    rows, heads, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,12 +15,14 @@ and float32 keep the CUDA cores, ``gqa_body``), copy whole pages (of a
 multiple of 8 rows, or the wrapper raises; MLA by TMA boxes, GQA by
 cp.async), and split each slot's table over a thread block cluster where
 their 64-pair tiles alone leave the card idle (``gqa_plan``,
-``mla_plan``; ranks' ranges ``split_ranges``).  See the sources for the
-designs.
+``mla_plan``; ranks' ranges ``split_ranges``).  GQA's CUDA-core body
+takes any G = H / hkv: a block serves as many query rows and heads of
+one KV head as its registers hold (``gqa_heads_plan``).  See the sources
+for the designs.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -29,8 +31,9 @@ from repro_torch.kernels.build import check
 from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128)          # the CUDA kernel's instantiations
+HEAD_DIMS = (32, 64, 96, 128)      # the CUDA kernel's instantiations
 GQA_TC_HEAD_DIM = 64               # bf16 GQA: the tensor-core body's
+GQA_CC_ELEMS = 2048                # CUDA-core GQA: rows x head dim a block
 GQA_TILE_PAIRS = 64                # bf16 GQA: (row, head) pairs a block
 GQA_TILE_KEYS = 64                 # bf16 GQA: keys a K tile
 GQA_RESIDENT = 4                   # bf16 GQA: blocks an SM holds
@@ -87,10 +90,39 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
 
 def gqa_body(dtype: torch.dtype, D: int) -> str:
     """The CUDA body a GQA call takes: ``"tensor_cores"`` for bf16 at
-    head dim 64 (TMA page boxes, wgmma, the context split), else
-    ``"cuda_cores"`` (float32, and bf16 at head dims 32 and 128)."""
+    head dim 64 (cp.async page copies, wgmma, the context split), else
+    ``"cuda_cores"`` (float32, and bf16 at head dims 32, 96 and 128)."""
     return "tensor_cores" if dtype == torch.bfloat16 and \
         D == GQA_TC_HEAD_DIM else "cuda_cores"
+
+
+def gqa_heads_plan(G: int, D: int) -> Tuple[int, int]:
+    """-> (rows, heads): the query rows and the query heads of one KV
+    head that a block of the CUDA-core body serves, at most
+    ``GQA_CC_ELEMS // D`` (row, head) pairs in all (RMAX; a pair's
+    accumulator of D floats lives in registers).  All G heads and RMAX //
+    G rows where G <= RMAX; else one row and the G heads in ceil(G /
+    RMAX) groups of ceil(G / groups) heads (the last group may hold
+    fewer).  Pure Python on host ints."""
+    rmax = GQA_CC_ELEMS // D
+    if G < 1 or rmax < 1:
+        raise ValueError(f"no CUDA-core plan for G {G} at head dim {D}")
+    heads = G if G <= rmax else -(-G // -(-G // rmax))
+    return rmax // heads, heads
+
+
+def gqa_cc_blocks(C: int, G: int, D: int) -> List[Tuple[int, int, int, int]]:
+    """(c0, rows, g0, heads) of the query rows [c0, c0 + rows) and
+    heads [g0, g0 + heads) (within one KV head's G) that each grid.x
+    index of the CUDA-core body serves, in grid order, as the kernel
+    computes them from ``gqa_heads_plan``."""
+    rows, heads = gqa_heads_plan(G, D)
+    groups = -(-G // heads)
+    out = []
+    for x in range(-(-C // rows) * groups):
+        c0, g0 = x // groups * rows, x % groups * heads
+        out.append((c0, min(rows, C - c0), g0, min(heads, G - g0)))
+    return out
 
 
 def gqa_plan(B: int, C: int, H: int, hkv: int, W: int, page: int, *,
@@ -181,6 +213,7 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
     if any(ptr(t, dev) % 16 for t in copied):
         raise ValueError("q and the pools (and, in bf16, the tags) must "
                          "be 16-byte aligned")
+    rows, heads = gqa_heads_plan(H // hkv, D)
     if not tc:
         split = 1
     elif split is None:
@@ -189,8 +222,8 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
     err = lib().gqa_paged_flash(
         ptr(q, dev), ptr(kpool, dev), ptr(vpool, dev), ptr(ppool, dev),
         block_table.data_ptr(), ptr(qpos, dev), ptr(out, dev), B, C, H,
-        hkv, D, page, W, block_table.stride(0), window, split, D ** -0.5,
-        code, stream)
+        hkv, D, page, W, block_table.stride(0), window, split, rows, heads,
+        D ** -0.5, code, stream)
     launches += 1
     check(err, "gqa_paged_flash")
     return out

@@ -6,6 +6,8 @@ prompt-length trace (``repro.launch.serve``).
       --shared-prefix 128 --mor kernel --compare
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch deepseek-v2-236b --layers 3 --mor kernel --compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
+      --arch mixtral-8x7b --layers 8 --mor kernel --compare
 
 Initialises the model from a seed (random weights; ``--layers N`` cuts
 the depth to N layers, keeping every width), calibrates the MoR
@@ -29,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, reduce_config
-from repro_torch.data.pipeline import synthetic_lm_batch
+from repro_torch.data.pipeline import make_batch, synthetic_lm_batch
 from repro_torch.models import get_model
 from repro_torch.serving import Engine
 from repro_torch.serving.telemetry import mor_group_map
@@ -37,6 +39,10 @@ from repro_torch.serving.telemetry import mor_group_map
 SEED = 0
 CALIB_STEPS = 4
 CALIB_SEQ = 128
+# the transformer zoo; hubert-xlarge is refused as encoder-only
+ARCHS = ("granite-3-2b", "granite-20b", "qwen2-7b", "qwen1.5-110b",
+         "deepseek-v2-236b", "mixtral-8x7b", "phi-3-vision-4.2b",
+         "hubert-xlarge")
 
 
 def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed,
@@ -66,11 +72,15 @@ def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed,
     return reqs
 
 
-def calib_batches(cfg, batch: int, device, seed: int = SEED):
+def calib_batches(cfg, batch: int, device, seed: int = SEED,
+                  seq: int = CALIB_SEQ):
+    """Calibration batches on ``device``: {"tokens"} for a decoder,
+    {"frames"} for the audio encoder (``make_batch``'s choice)."""
+    key = "frames" if cfg.frontend == "audio_stub" else "tokens"
     s = 0
     while True:
-        b = synthetic_lm_batch(cfg, batch, CALIB_SEQ, seed=seed, step=s)
-        yield {"tokens": torch.as_tensor(b["tokens"], device=device)}
+        b = make_batch(cfg, batch, seq, seed=seed, step=s)
+        yield {key: torch.as_tensor(b[key], device=device)}
         s += 1
 
 
@@ -117,8 +127,7 @@ def token_agreement(a, b) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="granite-3-2b",
-                    choices=("granite-3-2b", "deepseek-v2-236b"))
+    ap.add_argument("--arch", default="granite-3-2b", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth cut: serve the first N layers (0 = all)")
@@ -165,6 +174,8 @@ def main(argv=None):
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
     api = get_model(cfg)
+    if not api.has_decode:
+        raise SystemExit(f"{cfg.name} is encoder-only: nothing to serve")
     gen = torch.Generator(device=device).manual_seed(SEED)
     params = api.init(gen, cfg)
 

@@ -6,8 +6,9 @@
   cache_init(cfg, batch, max_len, dtype, device) -> cache
   prefill_chunk(params, cfg, tokens (B, C), cache, *, n_valid, mor,
                 mor_mode) -> (logits (B, C, V), aux), cache updated in place
-The decoder families (dense, moe) serve through ``cache_init`` and
-``prefill_chunk``; the paper's DNNs (cnn, tds) have no decode.
+The decoder families (dense, moe, vlm) serve through ``cache_init`` and
+``prefill_chunk``; the audio encoder and the paper's DNNs (cnn, tds)
+have no decode.
 """
 from __future__ import annotations
 
@@ -27,16 +28,21 @@ class ModelAPI:
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as t
         return ModelAPI(t.init_params, t.forward, t.cache_init,
                         t.prefill_chunk)
+    if cfg.family == "audio":
+        from repro_torch.models import transformer as t
+        return ModelAPI(t.init_params, t.forward, has_decode=False)
     if cfg.family == "cnn":
         from repro_torch.models import cnn
         return ModelAPI(cnn.init_params, cnn.forward, has_decode=False)
     if cfg.family == "tds":
         from repro_torch.models import tds
         return ModelAPI(tds.init_params, tds.forward, has_decode=False)
-    raise NotImplementedError(
-        f"{cfg.name} ({cfg.family}): only the dense, moe, cnn and tds "
-        f"families are ported so far")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.name} ({cfg.family}): the recurrent families are not "
+            f"ported yet (ROADMAP queue A 2)")
+    raise ValueError(f"unknown family {cfg.family!r}")

@@ -1,5 +1,5 @@
-"""Decoder LM assembly for the dense and moe families
-(``repro.models.transformer``).
+"""Decoder LM / encoder assembly for the dense, moe, vlm and audio
+families (``repro.models.transformer``).
 
 Parameters keep the JAX package's layer-stacked layout (every per-layer
 leaf has a leading L dim, ``x @ w`` weights are (d_in, d_out)): the
@@ -8,7 +8,12 @@ stack (the first ``first_k_dense`` layers, a dense FFN) and a
 ``moe_layers`` stack.  Attention is GQA or, with ``cfg.mla``, MLA.  The
 layer loop is a Python loop over views of those stacks; the serving
 cache keeps ONE stack of all ``n_layers`` layers, indexed by the global
-layer number.
+layer number.  The modality frontends are stubs, as in the JAX package:
+the vlm family prepends pre-computed patch embeddings
+(``batch["patch_embeds"]``) to the token embeddings in ``forward`` and
+serves text only; the audio family (an encoder: ``cfg.causal`` False,
+no decode) takes frame embeddings (``batch["frames"]``) through an input
+norm (``in_norm``) and has no token embedding in its inputs.
 """
 from __future__ import annotations
 
@@ -25,11 +30,12 @@ from repro_torch.models.layers.norms import (apply_norm, norm_init,
                                              stacked_norm_init)
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): only the dense and moe families "
-            f"are ported so far")
+def _check_family(cfg: ModelConfig, decode: bool = False) -> None:
+    if cfg.family not in ("dense", "moe", "vlm", "audio"):
+        raise ValueError(f"{cfg.name} ({cfg.family}) is not a transformer "
+                         f"family")
+    if decode and cfg.family == "audio":
+        raise ValueError(f"{cfg.name} is encoder-only: it does not decode")
 
 
 def _stack_init(gen: torch.Generator, cfg: ModelConfig, L: int,
@@ -51,9 +57,12 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     """Random weights from ``gen`` on ``gen.device``."""
     _check_family(cfg)
     dev = gen.device
-    params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
-                            cfg.tparam_dtype)}
+    params: Dict[str, Any] = {}
+    if cfg.vocab_size:
+        params["embed"] = embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                     cfg.tparam_dtype)
+    if cfg.frontend == "audio_stub":
+        params["in_norm"] = norm_init(cfg.norm, cfg.d_model, dev)
     if cfg.family == "moe":
         kd = cfg.first_k_dense
         if kd:
@@ -63,7 +72,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     else:
         params["layers"] = _stack_init(gen, cfg, cfg.n_layers, "dense")
     params["final_norm"] = norm_init(cfg.norm, cfg.d_model, dev)
-    if not cfg.tie_embeddings:
+    if cfg.vocab_size and not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
                                        cfg.tparam_dtype)
     return params
@@ -144,16 +153,34 @@ def _stack_aux(ys: List[Dict], prefix: str) -> Dict:
 # forward (teacher-forced; calibration reads its taps)
 # --------------------------------------------------------------------------
 
+def _embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
+                  ) -> torch.Tensor:
+    """The residual stream's input (``repro.models.transformer.
+    _embed_inputs``): normed frames for the audio stub, else the token
+    embeddings, after the patch embeddings where a vision batch has
+    them."""
+    dt = cfg.tdtype
+    if cfg.frontend == "audio_stub":
+        return apply_norm(cfg.norm, params["in_norm"],
+                          batch["frames"].to(dt))
+    x = params["embed"][batch["tokens"].long()].to(dt)
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        x = torch.cat([batch["patch_embeds"].to(dt), x], 1)
+    return x
+
+
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             mor: Optional[Dict] = None, mor_mode: str = "dense",
             with_taps: bool = False) -> Tuple[torch.Tensor, Dict]:
-    """batch["tokens"] (B, S) -> (logits (B, S, V), aux).  With
-    ``with_taps`` aux["taps"] holds the layer-stacked calibration taps
-    ((L, B*S, N) for a dense stack, (L, E, B*S, f) for the MoE stack;
-    a moe model's dense layers put theirs under "dense_taps")."""
+    """batch["tokens"] (B, S) (a vision batch may add "patch_embeds" (B,
+    P, d), prepended; an audio batch holds "frames" (B, S, d) instead)
+    -> (logits (B, S, V), aux); a model without a vocabulary returns the
+    final hidden states.  With ``with_taps`` aux["taps"] holds the
+    layer-stacked calibration taps ((L, B*S, N) for a dense stack, (L,
+    E, B*S, f) for the MoE stack; a moe model's dense layers put theirs
+    under "dense_taps")."""
     _check_family(cfg)
-    tokens = batch["tokens"]
-    x = params["embed"][tokens.long()].to(cfg.tdtype)
+    x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     attn_fn = attn.mla_forward if cfg.mla else attn.gqa_forward
@@ -174,6 +201,8 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             x = x + f
         aux.update(_stack_aux(ys, prefix))
     x = apply_norm(cfg.norm, params["final_norm"], x)
+    if not cfg.vocab_size:
+        return x, aux
     return x @ _head(params, cfg).to(x.dtype), aux
 
 
@@ -200,7 +229,7 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     A cache carrying a top-level ``block_table`` is the PAGED layout
     (``serving.kv_pool.PagedPool``): every layer reads and writes its kv
     pages through that shared (B, W) table instead of slot rows."""
-    _check_family(cfg)
+    _check_family(cfg, decode=True)
     B, C = tokens.shape
     pos = cache["pos"]
     block_table = cache.get("block_table")
@@ -243,7 +272,7 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> Dict:
     """The slotted decode cache: one stack of all ``n_layers`` layers
     (GQA ring rows, or MLA latent rows over the full ``max_len``)."""
-    _check_family(cfg)
+    _check_family(cfg, decode=True)
     init = attn.mla_cache_init if cfg.mla else attn.gqa_cache_init
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),
             "layers": init(cfg, batch, max_len, dtype, cfg.n_layers,

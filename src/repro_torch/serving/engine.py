@@ -84,6 +84,9 @@ class Engine:
                 "slice of the port; this engine samples greedily")
         self.cfg = cfg
         self.api = get_model(cfg)
+        if not self.api.has_decode:
+            raise ValueError(f"{cfg.name} is encoder-only: it does not "
+                             f"decode")
         self.params = params
         self.device = params["embed"].device
         self.mor_mode = mor_mode

@@ -50,8 +50,11 @@ def _t(a):
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(reduced):
     """Every ported arch, field by field: granite-3-2b, the MLA + MoE
-    deepseek-v2-236b and the paper's four DNNs."""
-    for arch in (ARCH, "deepseek-v2-236b", "paper-tds", "paper-cnn10",
+    deepseek-v2-236b, the rest of the transformer zoo and the paper's
+    four DNNs."""
+    for arch in (ARCH, "deepseek-v2-236b", "qwen2-7b", "qwen1.5-110b",
+                 "granite-20b", "mixtral-8x7b", "phi-3-vision-4.2b",
+                 "hubert-xlarge", "paper-tds", "paper-cnn10",
                  "paper-resnet18", "paper-darknet19"):
         jc, tc = jget_config(arch), get_config(arch)
         if reduced:

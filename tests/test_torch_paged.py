@@ -85,6 +85,8 @@ CASES = {   # B, C, n_blocks, page, hkv, G, D, window, extra_cols
     "window": (3, 3, 5, 4, 2, 3, 16, 7, 0),
     "sliced": (4, 2, 3, 8, 1, 4, 8, 0, 3),
     "gqa8": (2, 4, 6, 8, 4, 1, 32, 11, 2),
+    "mqa": (3, 2, 4, 8, 1, 12, 32, 0, 2),        # granite-20b's hkv 1
+    "d96": (3, 3, 4, 4, 2, 2, 96, 9, 0),         # phi-3's head dim
 }
 
 
