@@ -34,7 +34,9 @@
    case, then on its CUDA-core body at the zoo's head geometries
    (qwen2-7b 28 / 4 heads at head dim 128, granite-20b's MQA 48 / 1,
    mixtral 32 / 8 under its 4,096 window over contexts up to 6,000,
-   phi-3-vision 32 / 32 at head dim 96), and ``mla_paged_flash`` at the
+   phi-3-vision 32 / 32 at head dim 96, zamba2-7b's shared attention 32
+   / 32 at head dim 112 under its 4,096 window, with its ptxas line),
+   and ``mla_paged_flash`` at the
    same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, both on
    the rows that see a key, twice (bit-equal: the context split merges
@@ -57,8 +59,12 @@
    hits, skipped chunks and copy-on-write), and deepseek-v2 (MLA + MoE)
    on the paged layout with per-expert budgets, qwen2-7b, granite-20b,
    mixtral (window 16) and phi-3-vision with their published head
-   geometry on the paged layout, all in kernel mode; hubert-xlarge's
-   forward logits on frames, dense and kernel, within LOGIT_RTOL; the
+   geometry on the paged layout, all in kernel mode; rwkv6-3b (state
+   pages only) and zamba2-7b (state pages and its shared attention's
+   kv pages, 32 / 32 heads at D 112 under a shared window of 16) paged
+   and slotted in kernel mode, state snapshots taken and restored;
+   hubert-xlarge's forward logits on frames, dense and kernel, within
+   LOGIT_RTOL; the
    four paper DNNs (TDS, CNN10, ResNet18, Darknet19) in exact, tiled and
    kernel mode with every binary rookie enabled: logits within
    LOGIT_RTOL, predictor masks equal except where the CPU's proxy
@@ -82,15 +88,26 @@
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
    gather_matmul (an MoE layer launches each once for all its experts);
-7. this slice's main path: mixtral-8x7b at its published widths, cut
-   to 8 layers, calibrated with ``calibrate_moe``, serves the
-   shared-prefix trace plus one 4,160-token prompt (past its 4,096
-   window) through the paged engine in kernel (counted), tiled and
-   dense mode, then a profiled pass of each; qwen2-7b whole (28
-   layers) the same trace in kernel (counted) and dense mode; and
-   hubert-xlarge whole (48 layers) calibrated on frames, one 8 x 512
-   frame forward in dense and kernel mode (counted): ms and argmax
-   agreement;
+7. the zoo: mixtral-8x7b at its published widths, cut to 8 layers,
+   calibrated with ``calibrate_moe``, serves the shared-prefix trace
+   plus one 4,160-token prompt (past its 4,096 window) through the
+   paged engine in kernel (counted), tiled and dense mode, then a
+   profiled pass of each; qwen2-7b whole (28 layers) the same trace in
+   kernel (counted) and dense mode; and hubert-xlarge whole (48 layers)
+   calibrated on frames, one 8 x 512 frame forward in dense and kernel
+   mode (counted): ms and argmax agreement;
+7b. this slice's main path, the recurrent families whole: rwkv6-3b (32
+   layers, d 2560, bf16), calibrated with ``calibrate_lm`` on its
+   channel mix, serves the shared-prefix trace paged in kernel
+   (counted: 32 mor_tile_mask and 32 gather_matmul a dispatch), tiled
+   and dense mode and slotted in kernel mode; zamba2-7b (81 layers, d
+   3584, 32 / 32 heads at D 112, bf16), calibrated with
+   ``calibrate_hybrid``, serves the shared-prefix trace plus one
+   4,160-token prompt (its shared attention's ring wraps past the 4,096
+   window) paged in kernel (counted: 13 gqa_paged_flash, 13
+   mor_tile_mask, 26 gather_matmul, 13 masked_matmul_kdim a dispatch)
+   and dense mode; the warm and cold repeats run on state snapshots;
+   one profiled pass each;
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
@@ -173,7 +190,7 @@ def phase_build():
     import re
     from repro_torch.kernels import build
     lib = build.build()
-    entry, spill = None, ""
+    entry, spill, lines = None, "", {}
     for ln in build.LAST_BUILD["log"].splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
@@ -181,13 +198,15 @@ def phase_build():
         elif entry and "spill" in ln:
             spill = ln.split(",", 1)[-1].strip()
         elif entry and "registers" in ln:
-            print(f"[smoke] ptxas: {entry[:48]}: "
-                  f"{ln.split(':', 1)[-1].strip()}; {spill}", flush=True)
+            lines[entry] = f"{ln.split(':', 1)[-1].strip()}; {spill}"
+            print(f"[smoke] ptxas: {entry[:72]}: {lines[entry]}",
+                  flush=True)
         elif "warning" in ln.lower():
             print(f"[smoke] ptxas: {ln.strip()[:200]}", flush=True)
     log("build", seconds=round(build.LAST_BUILD["seconds"], 2),
         library=Path(lib).name)
     build.load()
+    return lines
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -657,15 +676,19 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
         *args, window=window), flush)
     r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
         qt, gk, gv, attn_mask=mask), flush)
-    # bytes: every distinct live page's K, V and tags once, q and the
-    # output once, the table and qpos; operations: q.k and p.v (4 D) for
-    # every (query row, head, key) pair the masks let through
+    # bytes: the tags of every distinct live page once, K and V of every
+    # distinct page holding a key some query row admits (a page wholly
+    # outside every row's window is never needed) once, q and the output
+    # once, the table and qpos; operations: q.k and p.v (4 D) for every
+    # (query row, head, key) pair the masks let through
+    admitted = ok.any(1).reshape(B, -1, page).any(-1)
     n_pages = int(torch.unique(tbl[live]).numel())
-    nbytes = (n_pages * page * (2 * hkv * D * 2 + 4) + 2 * q.numel() * 2
-              + tbl.numel() * 4 + qpos.numel() * 4)
+    n_kv = int(torch.unique(tbl[live & admitted]).numel())
+    nbytes = (n_kv * page * 2 * hkv * D * 2 + n_pages * page * 4
+              + 2 * q.numel() * 2 + tbl.numel() * 4 + qpos.numel() * 4)
     pairs = int(ok.sum()) * H
     r["bound_ms"], r["bound_by"] = _bound(nbytes, pairs * 4 * D, "bf16")
-    r["live_pages"] = n_pages
+    r["live_pages"], r["kv_pages"] = n_pages, n_kv
     if sweep:
         # the kernel at every split a cluster can take (the plan's rule,
         # PERF.md): device ms by split
@@ -749,26 +772,33 @@ def kernel_paged(gen, flush):
 # (H, hkv, D, window) of gqa_paged_flash at the zoo's shapes, and the
 # decode contexts a windowed model walks past its window
 ZOO_GQA = ("qwen2-7b", "granite-20b", "mixtral-8x7b", "phi-3-vision-4.2b")
+# ... and zamba2-7b's shared attention (32 / 32 heads, D 112, its shared
+# window of 4,096)
+GQA_GEOMETRIES = ZOO_GQA + ("zamba2-7b",)
 WINDOW_DECODE_CTX = [6000, 4500, 4097, 3001, 1500, 777, 300, 64]
 
 
-def kernel_zoo_paged(gen, flush):
+def kernel_zoo_paged(gen, flush, ptxas=None):
     """``gqa_paged_flash`` in bf16 at the zoo's head geometries (the
     CUDA-core body, ``gqa_heads_plan``'s rows and heads): qwen2-7b (28 /
     4 heads, D 128: G 7), granite-20b (48 / 1, D 128: MQA, three head
     groups), mixtral-8x7b (32 / 8, D 128, window 4096 over contexts up
-    to 6,000) and phi-3-vision (32 / 32, D 96), each at decode (8 x 1)
-    and mixed (8 x 32), within the bar of the plain version on the rows
-    that see a key, a repeat bit-equal, timed beside its bound and SDPA.
-    -> {arch: {"decode": r, "mixed": r}}."""
+    to 6,000), phi-3-vision (32 / 32, D 96) and zamba2-7b's shared
+    attention (32 / 32, D 112: 16 rows a block, its shared window of
+    4,096 over contexts up to 6,000, with the D 112 entries' ptxas line
+    from ``ptxas``), each at decode (8 x 1) and mixed (8 x 32), within
+    the bar of the plain version on the rows that see a key, a repeat
+    bit-equal, timed beside its bound and SDPA.  -> {arch: {"decode": r,
+    "mixed": r}}."""
     import torch
     from repro_torch.configs import get_config
     g = torch.Generator().manual_seed(SEED + 1)
     mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
     out = {}
-    for arch in ZOO_GQA:
+    for arch in GQA_GEOMETRIES:
         cfg = get_config(arch)
-        hkv, D, window = cfg.n_kv_heads, cfg.head_dim, cfg.sliding_window
+        hkv, D = cfg.n_kv_heads, cfg.head_dim
+        window = cfg.sliding_window or cfg.shared_attn_window
         geom = dict(hkv=hkv, G=cfg.n_heads // hkv, D=D)
         ctx = WINDOW_DECODE_CTX if window else \
             [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
@@ -782,6 +812,11 @@ def kernel_zoo_paged(gen, flush):
                 H=cfg.n_heads, hkv=hkv, D=D,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
+        if arch == "zamba2-7b":
+            for entry, line in (ptxas or {}).items():
+                if "gqa_paged_kernel" in entry and f"Li{D}E" in entry:
+                    log("kernel", name="gqa_paged_flash", arch=arch,
+                        ptxas_entry=entry, ptxas=repr(line))
         torch.cuda.empty_cache()
     return out
 
@@ -1301,11 +1336,12 @@ KERNELS = [
 MIXTRAL_GRID = dict(E=8, d=4096, f=14336, k=2)
 
 
-def phase_kernels():
+def phase_kernels(ptxas=None):
     """-> {kernel: row}: each MoR kernel at granite's widths (M = 8 and
     256) and on the expert grid at deepseek-v2-236b's (E = 160, C = 8
     and 256) and mixtral-8x7b's (E = 8, C = 8 and 256), then the two
-    paged attentions, GQA also at the zoo's head geometries."""
+    paged attentions, GQA also at the zoo's head geometries and
+    zamba2-7b's (``ptxas``: the build's lines by entry)."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1346,7 +1382,7 @@ def phase_kernels():
             "masked_matmul_kdim"
         rows[name].setdefault("ragged_max_abs_err", {})[tag] = err
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
-    for arch, per in kernel_zoo_paged(gen, flush).items():
+    for arch, per in kernel_zoo_paged(gen, flush, ptxas).items():
         for case, r in per.items():
             rows["gqa_paged_flash"][f"at_{arch}_{case}"] = _fields(r)
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
@@ -1494,12 +1530,12 @@ def reference_deepseek():
 
 def _clear_prefix(pool):
     """Drop every prefix-cache entry of an idle paged pool (no slot holds
-    a page, so each drop frees its page)."""
-    while True:
-        pg = pool.prefix.evict_lru_page()
-        if pg is None:
-            return
+    a page, so each drop frees its page): published kv pages, then state
+    snapshots (their state page and the kv pages they retain)."""
+    while (pg := pool.prefix.evict_lru_page()) is not None:
         pool.kv.drop(pg)
+    while (e := pool.prefix.evict_lru_snap()) is not None:
+        pool._drop_snap(e)
 
 
 def _first_diff(a, b):
@@ -1591,8 +1627,16 @@ def _profile_fn(tag, fn, extra=lambda: {}, top=12):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
+    # device time by kernel name, summed straight off the raw trace
+    # events: the same sums as key_averages(), without the event tree
+    # it builds (tens of host seconds for a pass of ~10^5 launches)
+    cuda = torch._C._autograd.DeviceType.CUDA
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda and e.duration_ns() > 0:
+            us, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    rows = [(key, us, n) for key, (us, n) in by_name.items()]
     busy = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     paged = sum(us for key, us, _ in rows if "paged_kernel" in key)
@@ -1993,17 +2037,22 @@ def _init_logged(cfg, **kw):
     return api, params
 
 
-def _paged_cell(cfg, params, mor, reqs, modes, path):
-    """The paged engine on ``reqs``, kernel mode counted (one launch of
-    each MoR kernel and of gqa_paged_flash per layer and dispatch, two of
-    gather_matmul), then the other ``modes`` held to greedy agreement
-    with it, each pass logged; then one profiled pass of each.  ->
-    (kernel-mode launches, kernel-mode report)."""
+def _paged_cell(cfg, params, mor, reqs, modes, path, per_dispatch=None):
+    """The paged engine on ``reqs``, kernel mode counted (``per_dispatch``
+    {kernel: launches a dispatch}, by default a transformer's: one launch
+    of each MoR kernel and of gqa_paged_flash per layer and dispatch, two
+    of gather_matmul), then the other ``modes`` held to greedy agreement
+    with it, each pass logged; then one profiled pass of each mode.
+    -> (kernel-mode launches,
+    kernel-mode report, kernel-mode tokens)."""
     import numpy as np
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs))
     counted = _dispatches(rep_k)
-    want = _want_launches(cfg.n_layers, counted, paged=True)
+    if per_dispatch is None:
+        want = _want_launches(cfg.n_layers, counted, paged=True)
+    else:
+        want = {k: per_dispatch.get(k, 0) * counted for k in launches}
     assert launches == want, (launches, want)
     _check_tokens(cfg, reqs, tok_k)
     pc = rep_k["prefix_cache"]
@@ -2012,6 +2061,9 @@ def _paged_cell(cfg, params, mor, reqs, modes, path):
     grp = "moe_mor_stats" if cfg.family == "moe" else "mor_stats"
     fr = np.asarray(tel[grp]["frac_tiles_computed"])
     assert np.all(np.isfinite(fr))
+    pool = eng_k.pool
+    log("slice", path=path, mode="kernel", n_pages=pool.n_pages,
+        n_state_pages=pool.n_spages, n_blocks=pool.n_blocks)
     log("slice", path=path, mode="kernel", dispatches=rep_k["dispatches"],
         first_pass_dispatches=rep_k["first_pass_dispatches"],
         launches=json.dumps(launches),
@@ -2021,7 +2073,7 @@ def _paged_cell(cfg, params, mor, reqs, modes, path):
         prefix=json.dumps({k: pc[k] for k in (
             "hit_rate", "prefix_hits", "prefix_queries", "pages_shared",
             "chunks_skipped", "tokens_skipped", "pages_cowed",
-            "pages_evicted")}))
+            "pages_evicted", "snapshots", "snap_restores")}))
     engines, reps = {"kernel": eng_k}, {"kernel": rep_k}
     for mode in modes:
         tok, reps[mode], engines[mode] = _serve(
@@ -2040,7 +2092,7 @@ def _paged_cell(cfg, params, mor, reqs, modes, path):
     # profiled last, so that the profiler cannot touch the timings above
     for eng in engines.values():
         _profile(eng, reqs)
-    return launches, rep_k
+    return launches, rep_k, tok_k
 
 
 def slice_mixtral():
@@ -2073,8 +2125,8 @@ def slice_mixtral():
     long_prompt = make_trace(cfg, 1, 4160, 4160, 16, 16, SEED + 1)[0]
     assert len(long_prompt[0]) == 4160 > cfg.sliding_window
     reqs.append(long_prompt)
-    launches, _ = _paged_cell(cfg, params, mor, reqs, ("tiled", "dense"),
-                              "mixtral paged")
+    launches, _, _ = _paged_cell(cfg, params, mor, reqs,
+                                 ("tiled", "dense"), "mixtral paged")
     log("slice", model=cfg.name, peak_mem_gb=round(
         torch.cuda.max_memory_allocated() / 1e9, 2))
     return launches
@@ -2099,8 +2151,9 @@ def slice_qwen2():
     log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
                                                    2),
         **{k: round(v, 4) for k, v in cal.items()})
-    launches, _ = _paged_cell(cfg, params, mor, _shared_prefix_trace(cfg),
-                              ("dense",), "qwen2 paged")
+    launches, _, _ = _paged_cell(cfg, params, mor,
+                                 _shared_prefix_trace(cfg), ("dense",),
+                                 "qwen2 paged")
     log("slice", model=cfg.name, peak_mem_gb=round(
         torch.cuda.max_memory_allocated() / 1e9, 2))
     return launches
@@ -2147,6 +2200,159 @@ def slice_hubert():
         launches=json.dumps({k: v for k, v in launches.items() if v}),
         peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2))
     assert agree >= AGREE_MIN, agree
+    return launches
+
+
+# -- the recurrent families (rwkv6-3b, zamba2-7b) ----------------------------
+
+def reference_recurrent():
+    """rwkv6-3b (state pages only) and zamba2-7b (mamba state pages and
+    its shared attention's kv pages, with its published head geometry
+    restored: 32 / 32 heads at D 112, the float32 CUDA-core body under
+    the reduced shared window of 16), reduced and float32, calibrated on
+    the CPU (``calibrate_lm`` on rwkv's channel mix, ``calibrate_hybrid``
+    on zamba2's shared MLP) and served in kernel mode with half budgets,
+    paged with prefix caching and slotted, on the card (CUDA kernels)
+    and on the CPU (plain versions): the same tokens, telemetry and
+    prefix counters, state snapshots taken and restored included."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.deploy import calibrate_hybrid, calibrate_lm
+    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine
+    for arch in ("rwkv6-3b", "zamba2-7b"):
+        cfg = _zoo_reduced(arch) if arch == "zamba2-7b" else \
+            reduce_config(get_config(arch))
+        api = get_model(cfg)
+        params = api.init(torch.Generator().manual_seed(SEED), cfg)
+        cal = calibrate_hybrid if cfg.family == "hybrid" else calibrate_lm
+        params, mor, _ = cal(params, cfg, api.forward,
+                             calib_batches(cfg, 4, "cpu"), 2)
+        reqs = make_trace(cfg, 6, 4, 16, 6, 6, SEED, shared_prefix=16)
+        longest = max((p for p, _ in reqs), key=len)
+        reqs += [(longest[:24].copy(), 6), (longest[:24].copy(), 6)]
+        for layout in ("paged", "slotted"):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                eng = Engine(cfg, _to(params, dev), mor=_to(mor, dev),
+                             mor_mode="kernel", n_slots=4, max_len=40,
+                             capacities={"mor_stats": 0.5}, layout=layout)
+                out[dev] = (eng.run(list(reqs)), eng.telemetry.summary())
+            assert out["cuda"][0] == out["cpu"][0], \
+                f"{arch} {layout}: card and CPU tokens differ"
+            assert out["cuda"][1] == out["cpu"][1], \
+                f"{arch} {layout}: card and CPU telemetry differ"
+            tel = out["cuda"][1]
+            pc = tel.get("prefix_cache", {})
+            if layout == "paged":
+                assert pc["snapshots"] > 0 and pc["snap_restores"] > 0 \
+                    and pc["chunks_skipped"] > 0, pc
+            fr = np.asarray(tel["mor_stats"]["frac_tiles_computed"])
+            assert float(fr.max()) <= 0.5, fr
+            log("reference", model=f"{arch} reduced f32 {layout}",
+                heads=f"{cfg.n_heads}/{cfg.n_kv_heads}",
+                head_dim=cfg.head_dim if cfg.n_heads else 0,
+                requests=len(reqs), tokens_equal=True, telemetry_equal=True,
+                frac_tiles_computed=np.round(fr, 4).tolist(),
+                **{k: pc[k] for k in ("prefix_hits", "chunks_skipped",
+                                      "pages_shared", "pages_cowed",
+                                      "snapshots", "snap_restores")
+                   if k in pc})
+
+
+def _calibrated_logged(cfg, api, params, calibrate):
+    """``calibrate`` on 4 batches of 8 x 128 tokens on the card, logged
+    with its seconds and peak memory."""
+    import torch
+    from repro_torch.launch.serve import calib_batches
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate(params, cfg, api.forward,
+                                 calib_batches(cfg, 8, "cuda"), 4)
+    torch.cuda.synchronize()
+    log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
+                                                   2),
+        calibrate_peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 2),
+        **{k: round(v, 4) for k, v in cal.items()})
+    torch.cuda.empty_cache()
+    return params, mor
+
+
+def slice_rwkv():
+    """rwkv6-3b whole (32 layers, d 2560, d_ff 8960, vocab 65,536, bf16;
+    attention-free: the serving cache is state pages only), calibrated
+    with ``calibrate_lm`` on its ReLU^2 channel mix, serves the
+    shared-prefix trace through the paged engine in kernel (counted: per
+    dispatch 32 launches of mor_tile_mask and of gather_matmul, none of
+    masked_matmul_kdim: the channel mix's down product stays plain, as
+    in the JAX package), tiled and dense mode, then the slotted engine in
+    kernel mode, each held to greedy agreement with paged kernel mode;
+    one profiled pass of each paged mode.  -> launches."""
+    import torch
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.core.deploy import calibrate_lm
+    cfg = get_config("rwkv6-3b")
+    api, params = _init_logged(cfg, param_count=param_count(cfg)[0],
+                               rwkv_heads=cfg.d_model // cfg.rwkv_head_size)
+    params, mor = _calibrated_logged(cfg, api, params, calibrate_lm)
+    reqs = _shared_prefix_trace(cfg)
+    L = cfg.n_layers
+    launches, _, tok_k = _paged_cell(
+        cfg, params, mor, reqs, ("tiled", "dense"), "rwkv paged",
+        per_dispatch={"mor_tile_mask": L, "gather_matmul": L})
+    tok_s, rep_s, _ = _serve(cfg, params, mor, "kernel", reqs,
+                             layout="slotted")
+    agree = _agree(tok_k, tok_s)
+    log("slice", path="rwkv slotted", mode="kernel",
+        tok_s=round(rep_s["tokens_per_s"], 2),
+        pass_s=round(rep_s["pass_s"], 3), dispatches=rep_s["dispatches"],
+        agreement_paged_kernel_vs_slotted_kernel=round(agree, 4),
+        **_repeats(rep_s))
+    assert agree >= AGREE_MIN, agree
+    log("slice", model=cfg.name, peak_mem_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 2))
+    return launches
+
+
+def slice_zamba2():
+    """zamba2-7b whole (81 layers: 13 segments of 6 Mamba2 layers, each
+    followed by the ONE shared attention + SwiGLU block, and a tail of
+    3; d 3584, 32 / 32 heads of 112 under a shared window of 4,096, d_ff
+    14,336, state 64; bf16), calibrated with ``calibrate_hybrid``,
+    serves the shared-prefix trace and one request of 4,160 prompt
+    tokens (the shared attention's ring wraps past its window) through
+    the paged engine, state pages and snapshots beside the kv pages, in
+    kernel (counted: per dispatch 13 launches of gqa_paged_flash,
+    mor_tile_mask and masked_matmul_kdim, 26 of gather_matmul) and dense
+    mode; one profiled pass of each.  -> launches."""
+    import torch
+    from repro_torch.configs import get_config, param_count
+    from repro_torch.core.deploy import calibrate_hybrid
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.models.layers.ssm import _dims
+    cfg = get_config("zamba2-7b")
+    d_in, H, P, N = _dims(cfg)
+    n_seg = cfg.n_layers // cfg.shared_attn_every
+    # a state page: every mamba layer's SSD state (float32) and conv
+    # history (bf16)
+    page_bytes = cfg.n_layers * (H * N * P * 4 + 3 * (d_in + 2 * N) * 2)
+    api, params = _init_logged(cfg, param_count=param_count(cfg)[0],
+                               segments=n_seg, ssm_heads=H,
+                               state_page_mb=round(page_bytes / 1e6, 1),
+                               window=cfg.shared_attn_window)
+    params, mor = _calibrated_logged(cfg, api, params, calibrate_hybrid)
+    reqs = _shared_prefix_trace(cfg)
+    long_prompt = make_trace(cfg, 1, 4160, 4160, 16, 16, SEED + 1)[0]
+    assert len(long_prompt[0]) == 4160 > cfg.shared_attn_window
+    reqs.append(long_prompt)
+    launches, _, _ = _paged_cell(
+        cfg, params, mor, reqs, ("dense",), "zamba2 paged",
+        per_dispatch={"gqa_paged_flash": n_seg, "mor_tile_mask": n_seg,
+                      "gather_matmul": 2 * n_seg,
+                      "masked_matmul_kdim": n_seg})
+    log("slice", model=cfg.name, peak_mem_gb=round(
+        torch.cuda.max_memory_allocated() / 1e9, 2))
     return launches
 
 
@@ -2652,24 +2858,28 @@ def main() -> int:
         log("phase", name=name, seconds=round(time.perf_counter() - t, 1))
         return out
 
-    timed("build", phase_build)
-    rows = timed("kernels", phase_kernels)
+    ptxas = timed("build", phase_build)
+    rows = timed("kernels", phase_kernels, ptxas)
     timed("reference granite", phase_reference)
     timed("reference deepseek", reference_deepseek)
     timed("reference zoo", reference_zoo)
+    timed("reference recurrent", reference_recurrent)
     timed("reference paper", reference_paper)
     granite = timed("granite", phase_slice)
     deepseek = timed("deepseek", slice_deepseek)
     mixtral = timed("mixtral", slice_mixtral)
     qwen2 = timed("qwen2", slice_qwen2)
     hubert = timed("hubert", slice_hubert)
+    rwkv = timed("rwkv", slice_rwkv)
+    zamba2 = timed("zamba2", slice_zamba2)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     paper, timed_layers = timed("paper", slice_paper, flush)
     # "launches": each kernel's count on the main path that runs it:
-    # mixtral's paged path (this slice's) for the MoR kernels and
-    # gqa_paged_flash, deepseek's for mla_paged_flash, the paper DNNs'
-    # for the kernel API
-    by_path = {"mixtral_paged": mixtral, "qwen2_paged": qwen2,
+    # zamba2's paged path (this slice's: it runs the three MoR kernels
+    # and gqa_paged_flash) for those four, deepseek's for
+    # mla_paged_flash, the paper DNNs' for the kernel API
+    by_path = {"zamba2_paged": zamba2, "rwkv_paged": rwkv,
+               "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "paper_dnns": paper}
     for name, row in rows.items():
@@ -2679,7 +2889,7 @@ def main() -> int:
                 row[f"at_{case}"] = _fields(r[name])
         else:
             row["launches"] = (deepseek if name == "mla_paged_flash"
-                               else mixtral)[name]
+                               else zamba2)[name]
         row["launches_by_path"] = {k: v[name] for k, v in by_path.items()}
     log("done", seconds=round(time.perf_counter() - t0, 1))
     print(smi, flush=True)                # every number above is this card's

@@ -1,8 +1,8 @@
 """Model and MoR configs, the registry, and the smoke-size reduction.
 
 Field-for-field mirror of ``repro.configs.base`` (``MoRConfig``,
-``ModelConfig``, ``reduce_config``), so a config built here and one
-built by the JAX package describe the same model.
+``ModelConfig``, ``reduce_config``, ``param_count``), so a config built
+here and one built by the JAX package describe the same model.
 """
 from __future__ import annotations
 
@@ -142,6 +142,73 @@ class ModelConfig:
 
 
 # --------------------------------------------------------------------------
+# Parameter counts
+# --------------------------------------------------------------------------
+
+
+def param_count(cfg: ModelConfig) -> Tuple[int, int]:
+    """(total, active) parameter counts, analytic
+    (``repro.configs.base.param_count``)."""
+    d, L = cfg.d_model, cfg.n_layers
+    if cfg.family == "cnn":
+        total = sum(cfg.cnn_channels[i] * cfg.cnn_channels[i + 1] * 9
+                    for i in range(len(cfg.cnn_channels) - 1))
+        return total, total
+    emb = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    per_layer_attn = 0
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        if cfg.mla:
+            q = (d * cfg.q_lora_rank
+                 + cfg.q_lora_rank * cfg.n_heads
+                 * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim))
+            kv = (d * (cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+                  + cfg.kv_lora_rank * cfg.n_heads
+                  * (cfg.qk_nope_head_dim + cfg.v_head_dim))
+            o = cfg.n_heads * cfg.v_head_dim * d
+            per_layer_attn = q + kv + o
+        else:
+            hd = cfg.head_dim
+            per_layer_attn = (d * cfg.n_heads * hd
+                              + 2 * d * cfg.n_kv_heads * hd
+                              + cfg.n_heads * hd * d)
+    n_ffn_mults = 3 if cfg.activation in ("swiglu", "relu_glu") else 2
+    dense_ffn = n_ffn_mults * d * cfg.d_ff
+    if cfg.family == "moe":
+        e_ff = cfg.moe_d_ff or cfg.d_ff
+        moe_ffn = cfg.n_experts * n_ffn_mults * d * e_ff
+        shared = cfg.n_shared_experts * n_ffn_mults * d * e_ff
+        act_ffn = (cfg.top_k + cfg.n_shared_experts) * n_ffn_mults * d * e_ff
+        n_moe = L - cfg.first_k_dense
+        total = emb + L * per_layer_attn + cfg.first_k_dense * dense_ffn \
+            + n_moe * (moe_ffn + shared + cfg.n_experts * d)
+        active = emb + L * per_layer_attn + cfg.first_k_dense * dense_ffn \
+            + n_moe * (act_ffn + cfg.n_experts * d)
+        return int(total), int(active)
+    if cfg.family == "ssm" and cfg.ssm_state and not cfg.n_heads:
+        d_in = cfg.ssm_expand * d
+        per_layer = (d * (2 * d_in + 2 * cfg.ssm_state) + d_in * d) \
+            + 2 * d * cfg.d_ff
+        total = emb + L * per_layer
+        return int(total), int(total)
+    if cfg.family == "ssm":  # rwkv6
+        per_layer = 6 * d * d + 2 * d * cfg.d_ff  # r,k,v,g,o,w + channel mix
+        total = emb + L * per_layer
+        return int(total), int(total)
+    if cfg.family == "hybrid":
+        d_in = cfg.ssm_expand * d
+        mamba = (d * (2 * d_in + 2 * cfg.ssm_state) + d_in * d)
+        n_shared = L // max(cfg.shared_attn_every, 1)
+        hd = cfg.head_dim
+        shared_blk = (d * cfg.n_heads * hd + 2 * d * cfg.n_kv_heads * hd
+                      + cfg.n_heads * hd * d + 3 * d * cfg.d_ff)
+        total = emb + L * mamba + shared_blk  # shared params counted once
+        active = emb + L * mamba + n_shared * shared_blk
+        return int(total), int(active)
+    total = emb + L * (per_layer_attn + dense_ffn)
+    return int(total), int(total)
+
+
+# --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 
@@ -170,13 +237,8 @@ def get_config(name: str) -> ModelConfig:
 
 
 def reduce_config(cfg: ModelConfig) -> ModelConfig:
-    """``repro.configs.base.reduce_config`` for every ported family
-    (dense, moe, vlm, audio, cnn, tds): the same family at tiny widths.
-    The recurrent families wait for ROADMAP queue A 2."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}): the recurrent families are not "
-            f"ported yet (ROADMAP queue A 2)")
+    """``repro.configs.base.reduce_config``: the same family at tiny
+    widths."""
     kw: Dict[str, Any] = dict(
         n_layers=min(cfg.n_layers, 2),
         d_model=128,
@@ -198,6 +260,14 @@ def reduce_config(cfg: ModelConfig) -> ModelConfig:
                   qk_rope_head_dim=8, v_head_dim=16, d_head=24)
     if cfg.sliding_window:
         kw.update(sliding_window=16)
+    if cfg.ssm_state:
+        kw.update(ssm_state=8, ssm_chunk=16)
+    if cfg.family == "hybrid":
+        kw.update(n_layers=5, shared_attn_every=2,
+                  shared_attn_window=min(cfg.shared_attn_window, 16)
+                  if cfg.shared_attn_window else 0)
+    if cfg.family == "ssm" and cfg.rwkv_head_size:
+        kw.update(rwkv_head_size=16)
     if cfg.frontend_tokens:
         kw.update(frontend_tokens=16)
     if cfg.family == "cnn":

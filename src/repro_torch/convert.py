@@ -5,7 +5,11 @@ stacked on axis 0 (``repro.models.transformer.init_params``: one
 ``layers`` stack, or the ``dense_layers`` and ``moe_layers`` stacks of a
 moe model, the first absent where ``first_k_dense`` is 0; QKV biases in
 each stack's ``attn``; an ``embed`` where the model has a vocabulary and
-an ``in_norm`` before an audio stub's layers); the paper's DNNs keep a
+an ``in_norm`` before an audio stub's layers); the recurrent models
+stack the same way (``rwkv_model``: ``layers`` and an ``in_norm``;
+``hybrid``: ``mamba_layers``, ``tail_layers`` and one unstacked
+``shared`` attention + MLP block, whose calibrated MoRLayer is the MoR
+tree's unstacked ``"shared"`` group); the paper's DNNs keep a
 Python *list* of per-layer dicts (``repro.models.cnn`` / ``tds``
 ``init_params``), with the CNN's BN running stats in a separate state
 list and one calibrated MoRLayer per layer (``calibrate_cnn`` /
@@ -50,15 +54,19 @@ def _n_paper_layers(cfg: ModelConfig) -> int:
 
 
 def _n_layers(stack: Dict) -> int:
-    return np.asarray(stack["ln1"]["scale"]).shape[0]
+    norm = stack["ln1"] if "ln1" in stack else stack["ln"]
+    return np.asarray(norm["scale"]).shape[0]
 
 
 def params_from_numpy(cfg: ModelConfig, tree: Dict,
                       device="cuda") -> Dict:
     """JAX params (numpy leaves) -> the port's params: the ``layers``
-    stack of a dense, vlm or audio model, the ``dense_layers`` (where
+    stack of a dense, vlm, audio or ssm (RWKV: {ln1, tm, ln2, cm} a
+    layer, and an ``in_norm``) model, the ``dense_layers`` (where
     ``first_k_dense`` > 0) and ``moe_layers`` stacks of a moe model, the
-    ``layers`` list and ``head`` of a cnn or tds model."""
+    ``mamba_layers`` / ``tail_layers`` stacks and the unstacked
+    ``shared`` block of a hybrid model, the ``layers`` list and ``head``
+    of a cnn or tds model."""
     if cfg.family in ("cnn", "tds"):
         layers = tree.get("layers")
         n = _n_paper_layers(cfg)
@@ -69,11 +77,15 @@ def params_from_numpy(cfg: ModelConfig, tree: Dict,
     if cfg.family == "moe":
         keys = (["dense_layers"] if cfg.first_k_dense else []) + \
             ["moe_layers"]
+    elif cfg.family == "hybrid":
+        keys = ["mamba_layers", "shared"]
+        if cfg.n_layers % cfg.shared_attn_every:
+            keys.append("tail_layers")
     else:
         keys = ["layers"]
     if cfg.vocab_size:
         keys.append("embed")
-    if cfg.frontend == "audio_stub":
+    if cfg.frontend == "audio_stub" or cfg.family == "ssm":
         keys.append("in_norm")
     missing = [k for k in keys if k not in tree]
     if cfg.qkv_bias:
@@ -101,7 +113,8 @@ def _mor_layer(group: str, layer: Dict, device) -> Dict:
 def mor_from_numpy(tree: Dict, device="cuda") -> Dict:
     """A calibrated MoR tree (numpy leaves) -> the port's MoR tree:
     {group: stacked MoRLayer}, where a moe model's expert group is
-    {"moe_layers": {"experts": (L, E)-stacked MoRLayer}}."""
+    {"moe_layers": {"experts": (L, E)-stacked MoRLayer}} and a hybrid
+    model's is {"shared": MoRLayer} (one layer, unstacked)."""
     out = {}
     for group, layer in tree.items():
         if "experts" in layer:

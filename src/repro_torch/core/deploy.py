@@ -67,8 +67,13 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
             return {"experts": plan(inner, cap_live)}
         cap_live = None
         if cap is not None:
-            cap_live = np.broadcast_to(np.asarray(cap, np.float32),
-                                       tuple(layer["m"].shape[:1]))
+            c = np.asarray(cap, np.float32)
+            if layer["m"].ndim == 1:
+                # one shared layer (hybrid) observed at several call
+                # sites: provision for the worst of them
+                cap_live = float(c.max())
+            else:
+                cap_live = np.broadcast_to(c, tuple(layer["m"].shape[:1]))
         return plan(layer, cap_live)
 
     return {k: wrap(v, caps.get(k)) for k, v in mor.items()}
@@ -77,17 +82,19 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
 def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
                  batches: Iterator[Dict], n_batches: int,
                  layer_key: str = "layers") -> Tuple[Dict, Dict, Dict]:
-    """Calibrate a layer-stacked LM (the dense, vlm and audio
+    """Calibrate a layer-stacked LM (the dense, vlm, audio and ssm
     families): ``batches`` yield what ``forward`` takes, {"tokens"} or,
     for the audio stub, {"frames"}; a non-GLU FFN (hubert's native ReLU)
-    is predicted on its up projection.
+    is predicted on its up projection, and RWKV's ReLU^2 channel mix on
+    ``cm.w_up`` (its ``cm.w_down`` rows permuted to match).
 
     -> (params with permuted FFN weights, mor {layer_key: stacked
         MoRLayer}, report dict with Pearson stats).  ``params`` itself
     is left as it was."""
     L = cfg.n_layers
     lp = params[layer_key]
-    w_stack = lp["mlp"].get("w_gate", lp["mlp"]["w_up"])
+    ffn = "mlp" if "mlp" in lp else "cm"
+    w_stack = lp[ffn].get("w_gate", lp[ffn]["w_up"])
     N = w_stack.shape[-1]
     device = w_stack.device
 
@@ -118,13 +125,13 @@ def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
         return torch.stack([w[l].index_select(axis, perm[l])
                             for l in range(L)])
 
-    mlp = dict(lp["mlp"])
+    mlp = dict(lp[ffn])
     if "w_gate" in mlp:
         mlp["w_gate"] = permute_stack(mlp["w_gate"], 1)
     mlp["w_up"] = permute_stack(mlp["w_up"], 1)
     mlp["w_down"] = permute_stack(mlp["w_down"], 0)
     new_params = dict(params)
-    new_params[layer_key] = dict(lp, mlp=mlp)
+    new_params[layer_key] = dict(lp, **{ffn: mlp})
 
     report = {
         "pearson_mean": float(c.mean()),
@@ -135,6 +142,57 @@ def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
         "enabled_frac": float(mor_stack["enable"].float().mean()),
     }
     return new_params, {layer_key: mor_stack}, report
+
+
+def calibrate_hybrid(params: Dict, cfg: ModelConfig, forward: Callable,
+                     batches: Iterator[Dict], n_batches: int
+                     ) -> Tuple[Dict, Dict, Dict]:
+    """Calibrate a hybrid (mamba + shared attention) model
+    (``repro.core.deploy.calibrate_hybrid``).  The ONE shared block's MLP
+    is the only ReLU-family FFN; it is observed at every segment
+    boundary, so its taps come back (n_seg, ...)-stacked and the segment
+    axis folds into the batch: one regression, one clustering pass, one
+    MoRLayer under the ``"shared"`` key (where the hybrid model and the
+    telemetry's ``mor_group_map`` look for it).
+
+    -> (params with the shared MLP's weights permuted, {"shared":
+        MoRLayer}, report).  ``params`` itself is left as it was."""
+    mlp = params["shared"]["mlp"]
+    w = mlp["w_gate"] if "w_gate" in mlp else mlp["w_up"]
+    N = w.shape[-1]
+    acc = init_accumulator((N,), w.device)
+    seen = 0
+    with torch.no_grad():
+        for batch in batches:
+            taps = forward(params, cfg, batch, with_taps=True)[1]["taps"]
+            acc = update_accumulator(acc, taps["p_bin"].reshape(-1, N),
+                                     taps["p_base"].reshape(-1, N))
+            del taps
+            seen += 1
+            if seen >= n_batches:
+                break
+    m, b, c = (t.cpu().numpy() for t in finalize_regression(acc))
+    cl = cluster_layer(w, cfg.mor.max_cluster_angle)
+    ml = build_mor_layer(m, b, c, cl, cfg.mor, w.device)
+
+    # fold the permutation into the shared MLP's weights (offline)
+    perm = ml["perm"].long()
+    mlp2 = dict(mlp)
+    if "w_gate" in mlp2:
+        mlp2["w_gate"] = mlp2["w_gate"].index_select(1, perm)
+    mlp2["w_up"] = mlp2["w_up"].index_select(1, perm)
+    mlp2["w_down"] = mlp2["w_down"].index_select(0, perm)
+    new_params = dict(params)
+    new_params["shared"] = dict(params["shared"], mlp=mlp2)
+
+    report = {
+        "pearson_mean": float(c.mean()),
+        "pearson_frac_above_T": float((c > cfg.mor.corr_threshold).mean()),
+        "n_proxies_mean": float(len(np.unique(
+            ml["proxy_slot"].cpu().numpy()))),
+        "enabled_frac": float(ml["enable"].float().mean()),
+    }
+    return new_params, {"shared": ml}, report
 
 
 def calibrate_moe(params: Dict, cfg: ModelConfig, forward: Callable,

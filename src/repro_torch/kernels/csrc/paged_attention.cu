@@ -59,24 +59,26 @@
 //     of shared memory and 128 registers a thread, so four fit an SM: a
 //     decode dispatch's 448 blocks (split 7) run in one wave.
 // float32 (the reduced models' card-vs-CPU check) and other head dims
-// (32, 96, 128) keep the CUDA cores (`cc` below): one block per (query-
-// row tile, head group, KV head, slot) serves `heads` of that KV head's
-// G query heads for up to `rows` query rows, rows x heads <= RMAX =
-// 2048 / D (rounded down: 21 at D 96), so that a row's acc[D] stays in
-// registers.  The host's plan (`gqa_heads_plan`) takes all G heads and
-// RMAX / G rows where G <= RMAX (qwen2-7b's G 7 at D 128: 2 rows, 14 of
-// 16 pairs used), else one row and the G heads in ceil(G / RMAX) groups
-// of equal size (granite-20b's MQA, G 48 at D 128: 3 groups of 16);
-// grid.x runs over (row tile, head group), head group fastest.  The
-// block's NW warps split the walk, warp w taking entries w, w + NW, ...,
-// staging its page's K, V (float32) and tags in its own shared memory,
-// scoring, rescaling and accumulating for all the block's rows, with
-// (m, l) in shared memory and acc in registers; at the end the warps'
-// statistics merge in warp order.  The page-to-warp map and the merge
-// order are fixed, so results are deterministic run to run.  A row's K
-// and V are loaded 16 bytes a lane: D 96 is 12 such loads in bf16, 24 in
-// float32, and a KV head's offset (kvh D elements) stays 16-byte
-// aligned for every D that is a multiple of 8.
+// (32, 96, 112, 128) keep the CUDA cores (`cc` below): one block per
+// (query-row tile, head group, KV head, slot) serves `heads` of that KV
+// head's G query heads for up to `rows` query rows, rows x heads <= RMAX
+// = 2048 / DP, DP being D rounded up to a multiple of 32 (21 at D 96; 16
+// at D 112, see `padded` below), so that a row's acc[D] stays in
+// registers.  The host's plan (`gqa_heads_plan`) takes
+// all G heads and RMAX / G rows where G <= RMAX (qwen2-7b's G 7 at D 128:
+// 2 rows, 14 of 16 pairs used), else one row and the G heads in
+// ceil(G / RMAX) groups of equal size (granite-20b's MQA, G 48 at D 128:
+// 3 groups of 16); grid.x runs over (row tile, head group), head group
+// fastest.  The block's NW warps split the walk, warp w taking entries
+// w, w + NW, ..., staging its page's K, V (float32) and tags in its own
+// shared memory, scoring, rescaling and accumulating for all the block's
+// rows, with (m, l) in shared memory and acc in registers; at the end the
+// warps' statistics merge in warp order.  The page-to-warp map and the
+// merge order are fixed, so results are deterministic run to run.  A
+// row's K and V are loaded 16 bytes a lane: D 96 is 12 such loads in
+// bf16, 24 in float32, D 112 (zamba2-7b's) 14 and 28, and a KV head's
+// offset (kvh D elements) stays 16-byte aligned for every D that is a
+// multiple of 8.
 //
 // The strided block table: the engine passes `block_table[:, :W]`, a
 // view whose rows are `tbl_stride` apart, not W.  Reading it as a dense
@@ -113,15 +115,28 @@ using mor::load16;
 using mor::to_f;
 
 constexpr int NW = 8;             // warps per block
-constexpr int ELEMS = 2048;       // rows x head dim one block holds
+constexpr int ELEMS = 2048;       // acc slots a block holds: rows x DP
 constexpr int NE = ELEMS / 32;    // acc registers per lane
+
+// A row's acc slots are its D columns rounded up to whole warps, DP: a
+// lane's k-th slot is then row k / (DP / 32), column lane + 32 (k % (DP
+// / 32)), the row known at compile time.  Where D is not a multiple of
+// 32 and the row is not padded, the row of each slot depends on the lane
+// and the unrolled accumulate no longer fits the registers (D 112
+// unpadded: 18 rows, 255 registers and 312 bytes of spill); padded, D 112
+// holds 16 rows of 128 slots (the last 16 of each row idle).
+template <int D>
+__host__ __device__ constexpr int padded() { return (D + 31) / 32 * 32; }
+
+template <int D>
+__host__ __device__ constexpr int rmax() { return ELEMS / padded<D>(); }
 
 // per-warp shared floats: K page (rows padded to D + 1 so that lanes
 // scoring different keys hit different banks), V page, tags, scores /
 // weights (RMAX x P), and m, l, rescale factor per row
 template <int D>
 __host__ __device__ constexpr int warp_floats(int P) {
-  return P * (D + 1) + P * D + P + (ELEMS / D) * P + 3 * (ELEMS / D);
+  return P * (D + 1) + P * D + P + rmax<D>() * P + 3 * rmax<D>();
 }
 
 template <typename T, int D>
@@ -131,7 +146,7 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                  const int* __restrict__ tbl, const int* __restrict__ qpos,
                  T* __restrict__ out, int C, int H, int hkv, int P, int W,
                  int tbl_stride, int window, float scale, int CT, int GT) {
-  constexpr int RMAX = ELEMS / D;
+  constexpr int RMAX = rmax<D>(), DP = padded<D>();
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
   const int G = H / hkv;
@@ -222,11 +237,11 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       wc[r] = corr;
     }
     __syncwarp();
-    // acc = acc * corr + p . V; lane owns elements lane + 32 k of (R, D)
+    // acc = acc * corr + p . V; lane owns slots lane + 32 k of (R, DP)
 #pragma unroll
     for (int k = 0; k < NE; ++k) {
-      const int e = lane + 32 * k, r = e / D, d = e % D;
-      if (r < R) {
+      const int e = lane + 32 * k, r = e / DP, d = e % DP;
+      if (r < R && d < D) {
         float a = acc[k] * wc[r];
         for (int t = 0; t < P; ++t) a = fmaf(S[r * P + t], vs[t * D + d], a);
         acc[k] = a;
@@ -242,8 +257,8 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (warp == w2) {
 #pragma unroll
       for (int k = 0; k < NE; ++k) {
-        const int e = lane + 32 * k, r = e / D, d = e % D;
-        if (r < R) {
+        const int e = lane + 32 * k, r = e / DP, d = e % DP;
+        if (r < R && d < D) {
           float* m = qs + r * (D + 1) + d;
           if (w2 == 0) {
             *m = acc[k];
@@ -280,7 +295,7 @@ int launch(const void* q, const void* kp, const void* vp, const int* pp,
            const int* tbl, const int* qpos, void* out, int B, int C, int H,
            int hkv, int P, int W, int tbl_stride, int window, float scale,
            int rows, int heads, cudaStream_t st) {
-  constexpr int RMAX = ELEMS / D;
+  constexpr int RMAX = rmax<D>();
   if (hkv < 1 || H % hkv || C < 1 || rows < 1 || heads < 1 ||
       heads > H / hkv || rows * heads > RMAX || hkv > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
@@ -318,6 +333,9 @@ int by_dim(int D, const void* q, const void* kp, const void* vp,
     case 96:
       return launch<T, 96>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
                            W, tbl_stride, window, scale, rows, heads, st);
+    case 112:
+      return launch<T, 112>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
+                            W, tbl_stride, window, scale, rows, heads, st);
     case 128:
       return launch<T, 128>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
                             W, tbl_stride, window, scale, rows, heads, st);

@@ -7,7 +7,7 @@ Replace ``repro/kernels/paged_attention.py`` ``gqa_paged_flash`` and
 normalised output (``partial=False``) over the whole page pool (no
 ``lo`` / ``n_local`` shard window).  The partial-statistics and
 shard-window forms wait for the multi-device slice (ROADMAP queue A
-14).  Bounds on the H100: bytes for GQA (the live pages' K, V and
+7).  Bounds on the H100: bytes for GQA (the live pages' K, V and
 tags); MLA sits near the bf16 ridge, bound by the latent rows' bytes at
 decode and by q's and the output's at a mixed dispatch.  Both bf16
 kernels run on the tensor cores (GQA at head dim 64; other head dims
@@ -31,9 +31,9 @@ from repro_torch.kernels.build import check
 from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 96, 128)      # the CUDA kernel's instantiations
+HEAD_DIMS = (32, 64, 96, 112, 128)  # the CUDA kernel's instantiations
 GQA_TC_HEAD_DIM = 64               # bf16 GQA: the tensor-core body's
-GQA_CC_ELEMS = 2048                # CUDA-core GQA: rows x head dim a block
+GQA_CC_ELEMS = 2048                # CUDA-core GQA: acc slots a block
 GQA_TILE_PAIRS = 64                # bf16 GQA: (row, head) pairs a block
 GQA_TILE_KEYS = 64                 # bf16 GQA: keys a K tile
 GQA_RESIDENT = 4                   # bf16 GQA: blocks an SM holds
@@ -91,20 +91,29 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
 def gqa_body(dtype: torch.dtype, D: int) -> str:
     """The CUDA body a GQA call takes: ``"tensor_cores"`` for bf16 at
     head dim 64 (cp.async page copies, wgmma, the context split), else
-    ``"cuda_cores"`` (float32, and bf16 at head dims 32, 96 and 128)."""
+    ``"cuda_cores"`` (float32, and bf16 at head dims 32, 96, 112 and
+    128)."""
     return "tensor_cores" if dtype == torch.bfloat16 and \
         D == GQA_TC_HEAD_DIM else "cuda_cores"
+
+
+def gqa_cc_rmax(D: int) -> int:
+    """(row, head) pairs a block of the CUDA-core body holds at head dim
+    D: ``GQA_CC_ELEMS`` accumulator slots over rows of D rounded up to a
+    multiple of 32 (a warp's width, so that each register's row is known
+    at compile time): 64, 32, 21, 16, 16 at D 32, 64, 96, 112, 128."""
+    return GQA_CC_ELEMS // (-(-D // 32) * 32)
 
 
 def gqa_heads_plan(G: int, D: int) -> Tuple[int, int]:
     """-> (rows, heads): the query rows and the query heads of one KV
     head that a block of the CUDA-core body serves, at most
-    ``GQA_CC_ELEMS // D`` (row, head) pairs in all (RMAX; a pair's
+    ``gqa_cc_rmax(D)`` (row, head) pairs in all (RMAX; a pair's
     accumulator of D floats lives in registers).  All G heads and RMAX //
     G rows where G <= RMAX; else one row and the G heads in ceil(G /
     RMAX) groups of ceil(G / groups) heads (the last group may hold
     fewer).  Pure Python on host ints."""
-    rmax = GQA_CC_ELEMS // D
+    rmax = gqa_cc_rmax(D)
     if G < 1 or rmax < 1:
         raise ValueError(f"no CUDA-core plan for G {G} at head dim {D}")
     heads = G if G <= rmax else -(-G // -(-G // rmax))

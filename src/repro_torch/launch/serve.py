@@ -8,13 +8,16 @@ prompt-length trace (``repro.launch.serve``).
       --arch deepseek-v2-236b --layers 3 --mor kernel --compare
   PYTHONPATH=src python -m repro_torch.launch.serve --device cuda \
       --arch mixtral-8x7b --layers 8 --mor kernel --compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --reduced --arch zamba2-7b --shared-prefix 8 --mor kernel --compare
 
 Initialises the model from a seed (random weights; ``--layers N`` cuts
 the depth to N layers, keeping every width), calibrates the MoR
 predictor on synthetic batches when ``--mor`` is not dense
-(``calibrate_lm`` for a dense model, ``calibrate_moe`` for a moe model,
-whose dense leading layers and (layer, expert) FFNs get their own
-predictors), serves the
+(``calibrate_lm`` for a dense model and for rwkv6-3b's channel mix,
+``calibrate_moe`` for a moe model, whose dense leading layers and
+(layer, expert) FFNs get their own predictors, ``calibrate_hybrid`` for
+zamba2-7b's one shared MLP), serves the
 trace through the engine (``--layout paged`` by default, with prefix
 caching; ``slotted`` for the contiguous baseline) and reports tokens/s,
 the per-layer skip fractions from the serving telemetry, the prefix
@@ -39,10 +42,11 @@ from repro_torch.serving.telemetry import mor_group_map
 SEED = 0
 CALIB_STEPS = 4
 CALIB_SEQ = 128
-# the transformer zoo; hubert-xlarge is refused as encoder-only
+# the transformer zoo and the recurrent families; hubert-xlarge is
+# refused as encoder-only
 ARCHS = ("granite-3-2b", "granite-20b", "qwen2-7b", "qwen1.5-110b",
          "deepseek-v2-236b", "mixtral-8x7b", "phi-3-vision-4.2b",
-         "hubert-xlarge")
+         "hubert-xlarge", "rwkv6-3b", "zamba2-7b")
 
 
 def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed,
@@ -183,8 +187,9 @@ def main(argv=None):
     report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}
     if args.mor != "dense":
         from repro_torch.core import deploy
-        calibrate = (deploy.calibrate_moe if cfg.family == "moe"
-                     else deploy.calibrate_lm)
+        calibrate = {"moe": deploy.calibrate_moe,
+                     "hybrid": deploy.calibrate_hybrid}.get(
+                         cfg.family, deploy.calibrate_lm)
         params, mor, cal = calibrate(
             params, cfg, api.forward, calib_batches(cfg, args.batch, device),
             CALIB_STEPS)

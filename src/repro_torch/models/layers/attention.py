@@ -135,6 +135,27 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
+def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
+    """One token per sequence at the shared position ``pos`` (a 0-dim
+    int tensor) over ``gqa_cache_init``'s layout for one layer ({k, v
+    (B, Lr, hkv, hd), pos (Lr,)}): writes ring row ``pos % Lr`` IN PLACE
+    and returns the attention output (B, 1, d)
+    (``repro.models.layers.attention.gqa_decode``)."""
+    B = x.shape[0]
+    q, k, v = _qkv(params, cfg, x)
+    p1 = pos.reshape(1).long()
+    pvec = p1[None, :].expand(B, 1)
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k = apply_rope(k, pvec, cfg.rope_theta)
+    row = p1 % cache["k"].shape[1]
+    cache["k"].index_copy_(1, row, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
+    cache["pos"].index_copy_(0, row, p1.int())
+    o = attend(q, cache["k"], cache["v"], p1, cache["pos"], causal=True,
+               window=cfg.sliding_window)
+    return o.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+
+
 def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
               block_table=None):
     """Serving chunk step: consume x (B, C, d) at per-slot positions
@@ -287,7 +308,7 @@ def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
     scratch page.  The paged attend is ``mla_paged_flash`` in the
     latent space; W_uv is absorbed after it.  The JAX package's
     page-sharded branch (a distributed flash decode over a mesh) waits
-    for the multi-device slice (ROADMAP queue A 14)."""
+    for the multi-device slice (ROADMAP queue A 7)."""
     B, C, _ = x.shape
     h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     kr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim

@@ -11,7 +11,7 @@ Serving dispatches (the ``token_mask`` path) provision each expert for
 the dispatch shape (``cfg.serve_expert_capacity``), so chunked prefill
 never drops a valid token.  The expert-parallel ``moe_apply_a2a`` of
 the JAX package runs only under a device mesh; the port's has no mesh
-yet (ROADMAP queue A 14).
+yet (ROADMAP queue A 7).
 """
 from __future__ import annotations
 

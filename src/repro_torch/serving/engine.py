@@ -12,9 +12,11 @@ experts, per-(layer, expert)) gather_matmul capacity fractions.
 Cache layouts: ``layout="paged"`` (default) runs on ``kv_pool.PagedPool``
 (block-table indirection, refcounted pages, prefix caching: requests
 sharing a prompt prefix map their leading table entries to the same
-physical pages, and fully-hit prefill chunks are never dispatched).
-``layout="slotted"`` is the contiguous slot layout, kept as the
-differential baseline.
+physical pages, and fully-hit prefill chunks are never dispatched; a
+recurrent model's hits are state snapshots, taken just before the
+dispatch that finishes a prompt and restored by a page copy at
+admission).  ``layout="slotted"`` is the contiguous slot layout, kept as
+the differential baseline.
 
 The hot loop is device-resident: each slot's last sampled token stays on
 the device (``_pending``), each dispatch's sampled tokens and the
@@ -47,8 +49,8 @@ __all__ = ["Engine", "Request", "RequestRejected"]
 
 
 _NO_PREEMPTION = ("the paged pool is exhausted; the JAX engine would "
-                  "spill a victim slot here, and preemption is queue A 11 "
-                  "of the port (raise spare_pages)")
+                  "spill a victim slot here, and preemption is ROADMAP "
+                  "queue A 5 of the port (raise spare_pages)")
 
 
 def _zero_counters() -> Dict:
@@ -76,12 +78,13 @@ class Engine:
                  policy: Optional[Policy] = None):
         if layout not in ("paged", "slotted"):
             raise NotImplementedError(
-                f"layout {layout!r}: the mesh-sharded paged pool is queue "
-                f"A 14 of the port; use 'paged' or 'slotted'")
+                f"layout {layout!r}: the mesh-sharded paged pool is ROADMAP "
+                f"queue A 7 of the port; use 'paged' or 'slotted'")
         if temperature > 0.0:
             raise NotImplementedError(
                 "temperature sampling comes with the speculation / SLO "
-                "slice of the port; this engine samples greedily")
+                "slice of the port (ROADMAP queue A 5); this engine "
+                "samples greedily")
         self.cfg = cfg
         self.api = get_model(cfg)
         if not self.api.has_decode:
@@ -200,14 +203,18 @@ class Engine:
         kind = sched.peek_kind()
         if kind is None:
             return []
-        tokens, n_valid, use_pending, emits, _, prefilling = \
+        tokens, n_valid, use_pending, emits, finishing, prefilling = \
             sched.build_batch(kind)
         cache = self.cache
         if pool is not None:
-            # pre-dispatch: publish the prefix of windowed prompts about
-            # to wrap their ring, then allocate / copy-on-write every
-            # page this dispatch will touch and apply the edits (one
-            # upload when dirty, none when clean)
+            # pre-dispatch: snapshot the recurrent state of slots whose
+            # prompt finishes here (the state at ``off`` is what the
+            # earlier dispatches left in the pool), publish the prefix of
+            # windowed prompts about to wrap their ring, then allocate /
+            # copy-on-write every page this dispatch will touch and
+            # apply the edits (one upload when dirty, none when clean)
+            for s, off in finishing:
+                pool.maybe_snapshot(s, sched.slots[s].req.prompt, off)
             for s, off, take in prefilling:
                 pool.maybe_publish_prewrap(s, sched.slots[s].req.prompt,
                                            off, take)
@@ -219,7 +226,8 @@ class Engine:
             # the attends never touch the provably-null tail columns;
             # the table itself is only edited host-side, through flush
             W = pool.active_blocks(n_valid)
-            cache = dict(cache, block_table=cache["block_table"][:, :W])
+            if W is not None:
+                cache = dict(cache, block_table=cache["block_table"][:, :W])
         sched.dispatch_kinds[kind] += 1
         ndec = int(use_pending.sum()) if kind == "mixed" else 0
         tok = kv_pool.upload(tokens, self.device)

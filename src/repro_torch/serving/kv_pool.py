@@ -1,26 +1,32 @@
 """Serving cache layouts (``repro.serving.kv_pool``): the contiguous slot
 pool and the paged pool (fixed-size pages + block tables + refcounts +
-copy-on-write + prefix caching).
+copy-on-write + prefix caching), for attention kv and recurrent state.
 
 **Slot pool** (``init`` / ``reset_slots``): every slot owns a contiguous
-ring row.  Layout: {"pos": (n_slots,) int32 next position per slot,
-"layers": {"k", "v": (L, n_slots, Lr, hkv, hd), "pos": (L, n_slots, Lr)
-int32 position tags, -1 = empty}}: the JAX layout, with the page/slot
-dim at axis 1 of every stacked leaf.  An MLA model holds its latent
-rows instead, over the full ``max_len`` (no ring): {"c_kv" (L, n_slots,
-max_len, kv_lora_rank), "k_pe" (..., qk_rope_head_dim), "pos"}.  All L
-layers of a moe model form one stack (JAX keeps one per layer group).
+row of every cache leaf: the model's ``cache_init`` tree at batch
+``n_slots``, with the page/slot dim at axis 1 of every stacked leaf and
+a top-level ``pos`` (n_slots,) next position per slot.  A transformer's
+is {"pos", "layers": {"k", "v": (L, n_slots, Lr, hkv, hd), "pos": (L,
+n_slots, Lr) int32 position tags, -1 = empty}} (an MLA model holds its
+latent rows {"c_kv", "k_pe", "pos"} over the full ``max_len`` instead;
+all L layers of a moe model form one stack, where JAX keeps one per
+layer group); an RWKV model's holds state leaves only ({"tm_shift",
+"wkv", "cm_shift"}), a hybrid's both ({"mamba", "tail"} state and the
+shared attention's ring "shared_attn").  The tree walkers
+(``map_kv_nodes``, ``map_state_leaves``) tell the two kinds apart.
 
-**Paged pool** (``PagedPool``): the engine's default layout.  Physical
-storage is a pool of fixed-size pages; a slot's logical ring row ``r``
-lives at ``(block_table[slot, r // page], r % page)``.  Page 0 is the
-reserved null page (position tags -1, never written), so unallocated
-table entries read as empty.  The host half (``BlockAllocator``,
-``PrefixCache``) is numpy; ``PagedPool`` turns its decisions into ONE
-packed int32 vector per dirty dispatch that ``apply_cache_ops`` applies
-to the device cache in place.  KV pages only, on one device: recurrent
-state pages are queue A 9 of the port, the mesh-sharded pool queue A 14,
-preemption (``spill`` / ``restore``) and speculation forks queue A 11.
+**Paged pool** (``PagedPool``): the engine's default layout.  A kv
+node's leaves become page pools: a slot's logical ring row ``r`` lives
+at ``(block_table[slot, r // page], r % page)``, page 0 is the reserved
+null page (position tags -1, never written).  A state leaf becomes an
+(L, n_state_pages, ...) pool indexed by a one-entry-per-slot
+``state_table``: the same indirection with one block, which is what
+lets prefix-cache state snapshots live in the same pool as the live
+slots.  The host half (``BlockAllocator``, ``PrefixCache``) is numpy;
+``PagedPool`` turns its decisions into ONE packed int32 vector per
+dirty dispatch that ``apply_cache_ops`` applies to the device cache in
+place.  On one device: the mesh-sharded pool is ROADMAP queue A 7,
+preemption (``spill`` / ``restore``) and speculation forks queue A 5.
 """
 from __future__ import annotations
 
@@ -31,21 +37,19 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
-from repro_torch.models.layers.attention import ring_rows
 from repro_torch.serving.prefix_cache import PrefixCache
-
-# families whose cache carries recurrent state pages (queue A 9)
-_STATE_FAMILIES = ("ssm", "hybrid")
-
 
 class PoolExhausted(RuntimeError):
     """A paged pool ran out of pages (after prefix-cache eviction)."""
 
 
 def ring_cfg(cfg: ModelConfig, chunk: int) -> ModelConfig:
-    """Config used ONLY for cache allocation: window + chunk ring slack."""
+    """Config used ONLY for cache allocation: window + chunk ring slack
+    (a hybrid's shared attention window too)."""
     if cfg.sliding_window:
         cfg = cfg.replace(sliding_window=cfg.sliding_window + chunk)
+    if cfg.family == "hybrid" and cfg.shared_attn_window:
+        cfg = cfg.replace(shared_attn_window=cfg.shared_attn_window + chunk)
     return cfg
 
 
@@ -59,8 +63,61 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 # ==========================================================================
+# tree walkers
+# ==========================================================================
+
+_TABLE_KEYS = ("pos", "block_table", "state_table")
+
+
+def _is_kv_node(node) -> bool:
+    return isinstance(node, dict) and (
+        ("k" in node and "pos" in node) or "c_kv" in node)
+
+
+def map_kv_nodes(tree, fn):
+    """Apply ``fn`` to every token-indexed cache node (attention ring /
+    MLA latent dicts), leaving everything else untouched."""
+    if _is_kv_node(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_kv_nodes(v, fn) for k, v in tree.items()}
+    return tree
+
+
+def map_state_leaves(tree, fn):
+    """Apply ``fn`` to every recurrent-state leaf (any tensor leaf NOT
+    inside a token-indexed node)."""
+    if _is_kv_node(tree):
+        return tree
+    if isinstance(tree, dict):
+        return {k: map_state_leaves(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _cache_nodes(cache: Dict):
+    """The cache's subtrees, without the top-level tables."""
+    return [v for k, v in cache.items() if k not in _TABLE_KEYS]
+
+
+# ==========================================================================
 # slot-pool layout (contiguous per-slot rows)
 # ==========================================================================
+
+def _upgrade(node, n_slots: int, device):
+    """Give every attention ring per-slot position tags (``cache_init``
+    shares one (L, Lr) tag row across the batch)."""
+    if not isinstance(node, dict):
+        return node
+    if "k" in node and "pos" in node:
+        out = dict(node)
+        lead, Lr = node["pos"].shape[:-1], node["pos"].shape[-1]
+        out["pos"] = torch.full(tuple(lead) + (n_slots, Lr), -1,
+                                dtype=torch.int32, device=device)
+        return out
+    if "c_kv" in node:                 # MLA: per-slot tags already
+        return node
+    return {k: _upgrade(v, n_slots, device) for k, v in node.items()}
+
 
 def init(cfg: ModelConfig, n_slots: int, max_len: int, chunk: int = 0,
          dtype=None, device="cuda") -> Dict:
@@ -70,22 +127,24 @@ def init(cfg: ModelConfig, n_slots: int, max_len: int, chunk: int = 0,
     api = get_model(cfg)
     cache = api.cache_init(ring_cfg(cfg, chunk), n_slots, max_len,
                            dtype or cfg.tdtype, device)
-    layers = dict(cache["layers"])
-    if "k" in layers:                 # GQA rings: per-slot position tags
-        L, Lr = layers["pos"].shape
-        layers["pos"] = torch.full((L, n_slots, Lr), -1, dtype=torch.int32,
-                                   device=device)
-    return {"pos": torch.zeros((n_slots,), dtype=torch.int32,
-                               device=device),
-            "layers": layers}
+    out = {k: _upgrade(v, n_slots, device) for k, v in cache.items()
+           if k != "pos"}
+    out["pos"] = torch.zeros((n_slots,), dtype=torch.int32, device=device)
+    return out
 
 
 def reset_slots(cache: Dict, slots: torch.Tensor) -> Dict:
     """Recycle cache slots IN PLACE: zero state / -1 kv tags / 0 position
     for every slot where ``slots`` (n_slots,) bool is True."""
-    for key, a in cache["layers"].items():
-        m = slots.reshape((1, -1) + (1,) * (a.ndim - 2))
-        a.masked_fill_(m, -1 if key == "pos" else 0)
+    def walk(node):
+        for key, a in node.items():
+            if isinstance(a, dict):
+                walk(a)
+            else:
+                m = slots.reshape((1, -1) + (1,) * (a.ndim - 2))
+                a.masked_fill_(m, -1 if key == "pos" else 0)
+
+    walk({k: v for k, v in cache.items() if k != "pos"})
     cache["pos"].masked_fill_(slots, 0)
     return cache
 
@@ -95,31 +154,88 @@ def reset_slots(cache: Dict, slots: torch.Tensor) -> Dict:
 # ==========================================================================
 
 def apply_cache_ops(cache: Dict, ops: torch.Tensor, n_reset: int,
-                    n_copy: int) -> None:
+                    n_copy: int, n_st_reset: int = 0,
+                    n_st_copy: int = 0) -> None:
     """Apply one packed vector of host-planned pool edits to the device
-    cache IN PLACE: the ``pos`` and ``block_table`` uploads, page-tag
-    resets (-1) for freshly allocated pages, then page copies
-    (copy-on-write) on every layer's pools (K, V or the MLA latent rows,
-    and the tags).
+    cache IN PLACE: the ``pos``, ``block_table`` and ``state_table``
+    uploads, page-tag resets (-1) for freshly allocated kv pages and
+    page copies (copy-on-write) on every kv node's pools (K, V or the
+    MLA latent rows, and the tags), then zeroing of freshly allocated
+    state pages and state page copies (prefix-cache snapshots and their
+    restores) on every state leaf.
 
     ``ops`` (int32, on the cache's device) is laid out by
-    ``PagedPool.drain``: pos (n_slots) | block_table (n_slots * n_blocks)
-    | reset page ids (n_reset) | copy sources (n_copy) | copy
-    destinations (n_copy).  JAX pads the copies out of bounds to static
-    widths for ``jit``; eager torch passes exactly the real ones, so
-    nothing is dropped here."""
-    S, NB = cache["block_table"].shape
-    cache["pos"].copy_(ops[:S])
-    cache["block_table"].copy_(ops[S:S + S * NB].view(S, NB))
-    i = S + S * NB
-    layers = cache["layers"]
-    if n_reset:
-        layers["pos"][:, ops[i:i + n_reset]] = -1
-    i += n_reset
-    if n_copy:
-        src, dst = ops[i:i + n_copy], ops[i + n_copy:i + 2 * n_copy]
-        for a in layers.values():
-            a[:, dst] = a[:, src]
+    ``PagedPool.drain``: pos (n_slots) | block_table (n_slots *
+    n_blocks, where the model has kv) | state_table (n_slots, where it
+    has state) | kv reset page ids (n_reset) | kv copy sources (n_copy)
+    | destinations (n_copy) | state reset page ids (n_st_reset) | state
+    copy sources (n_st_copy) | destinations (n_st_copy).  JAX pads the
+    copies out of bounds to static widths for ``jit``; eager torch
+    passes exactly the real ones, so nothing is dropped here.  State
+    copies run one after another, in queue order: a restore may read a
+    snapshot taken earlier in the same batch."""
+    S = cache["pos"].shape[0]
+    i = 0
+
+    def take(n):
+        nonlocal i
+        out = ops[i:i + n]
+        i += n
+        return out
+
+    cache["pos"].copy_(take(S))
+    if "block_table" in cache:
+        bt = cache["block_table"]
+        bt.copy_(take(bt.numel()).view(bt.shape))
+    if "state_table" in cache:
+        cache["state_table"].copy_(take(S))
+    reset, src, dst = take(n_reset), take(n_copy), take(n_copy)
+    st_reset, st_src, st_dst = take(n_st_reset), take(n_st_copy), \
+        take(n_st_copy)
+
+    def kv(node):
+        if n_reset:
+            node["pos"][:, reset] = -1
+        if n_copy:
+            for a in node.values():
+                a[:, dst] = a[:, src]
+        return node
+
+    def st(a):
+        if n_st_reset:
+            a[:, st_reset] = 0
+        for j in range(n_st_copy):
+            # one-element index slices: no host read of the page ids
+            a[:, st_dst[j:j + 1]] = a[:, st_src[j:j + 1]]
+        return a
+
+    for node in _cache_nodes(cache):
+        map_kv_nodes(node, kv)
+        map_state_leaves(node, st)
+
+
+def _scan_structure(cache: Dict) -> Tuple[bool, bool, int]:
+    """-> (has_kv, has_state, kv ring length in rows) of a
+    ``cache_init`` tree."""
+    has_kv, has_state, ring = False, False, 0
+
+    def kv(node):
+        nonlocal has_kv, ring
+        has_kv = True
+        rows = (node["k"].shape[-3] if "k" in node
+                else node["c_kv"].shape[-2])
+        ring = max(ring, rows)
+        return node
+
+    def st(leaf):
+        nonlocal has_state
+        has_state = True
+        return leaf
+
+    for node in _cache_nodes(cache):
+        map_kv_nodes(node, kv)
+        map_state_leaves(node, st)
+    return has_kv, has_state, ring
 
 
 # ==========================================================================
@@ -129,7 +245,7 @@ def apply_cache_ops(cache: Dict, ops: torch.Tensor, n_reset: int,
 class BlockAllocator:
     """Free list + refcounts + per-slot block tables for one page pool
     (``repro.serving.kv_pool.BlockAllocator`` on one device; its
-    ownership-aware mesh-sharded form is queue A 14).
+    ownership-aware mesh-sharded form is ROADMAP queue A 7).
 
     Page ids are ints in ``[1, n_pages)``; id 0 is the reserved null
     page and is never allocated.  A page's refcount equals the number of
@@ -247,36 +363,37 @@ class BlockAllocator:
 
 class PagedPool:
     """The paged serving cache: builds the device cache, owns the host
-    allocator and the prefix cache, and turns host-side decisions into
-    ONE packed int32 vector per dirty dispatch (``drain``), uploaded and
-    applied in place by ``flush``; a clean dispatch uploads nothing.
+    allocators (kv pages, state pages) and the prefix cache, and turns
+    host-side decisions into ONE packed int32 vector per dirty dispatch
+    (``drain``), uploaded and applied in place by ``flush``; a clean
+    dispatch uploads nothing.
 
-    Device layout (``build``): one tensor per leaf, {"pos": (n_slots,),
-    "block_table": (n_slots, n_blocks) int32, "layers": {"k", "v": (L,
-    n_pages + 1, page, hkv, hd), "pos": (L, n_pages + 1, page) int32
-    position tags}}, updated in place; an MLA model's layers hold the
-    latent pools {"c_kv" (L, n_pages + 1, page, kv_lora_rank), "k_pe"
-    (..., qk_rope_head_dim), "pos"} instead of "k" and "v".  JAX keeps
-    per-layer tuples of pool leaves only so that XLA can alias each
-    scatter to its donated buffer; eager torch writes in place anyway.
-    The trailing page ``n_pages`` is a scratch page that no table ever
-    holds: the attention write sends the tokens it drops there (torch
-    has no ``mode="drop"`` scatter), so every real page stays
-    bit-identical."""
+    Device layout (``build``): the model's ``cache_init`` tree with every
+    kv node's leaves as page pools, (L, n_pages + 1, page, ...) ("k",
+    "v" (..., hkv, hd) or an MLA model's latent "c_kv" / "k_pe", and the
+    int32 position tags "pos" (L, n_pages + 1, page)), every state leaf
+    as an (L, n_state_pages, ...) pool, and the top-level "pos"
+    (n_slots,), "block_table" (n_slots, n_blocks) where the model has kv
+    and "state_table" (n_slots,) where it has state; updated in place.
+    JAX keeps per-layer tuples of pool leaves only so that XLA can alias
+    each scatter to its donated buffer; eager torch writes in place
+    anyway.  The trailing kv page ``n_pages`` is a scratch page that no
+    table ever holds: the attention write sends the tokens it drops
+    there (torch has no ``mode="drop"`` scatter), so every real page
+    stays bit-identical.  State pages need none: every slot owns its
+    state page, and an idle slot's chunk step writes its state back
+    unchanged."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
                  chunk: int = 0, page: int = 0, dtype=None,
                  spare_pages: Optional[int] = None,
+                 snap_slots: Optional[int] = None,
                  prefix_cache: bool = True, n_shards: int = 1,
                  device="cuda"):
         if n_shards != 1:
             raise NotImplementedError(
-                "a mesh-sharded paged pool (n_shards > 1) is queue A 14 "
-                "of the port")
-        if cfg.family in _STATE_FAMILIES:
-            raise NotImplementedError(
-                f"{cfg.name}: recurrent state pages are queue A 9 of the "
-                f"port")
+                "a mesh-sharded paged pool (n_shards > 1) is ROADMAP queue "
+                "A 7 of the port (the multi-device layers)")
         chunk = chunk or cfg.serve_chunk
         page = page or cfg.serve_page
         assert page >= 1
@@ -284,15 +401,33 @@ class PagedPool:
         self.chunk, self.page = chunk, page
         self.dtype = dtype or cfg.tdtype
         self.device = torch.device(device)
+        # the cache's structure, on the meta device: nothing allocated
+        self._proto = get_model(cfg).cache_init(
+            ring_cfg(cfg, chunk), 1, max_len, self.dtype, "meta")
+        self.has_kv, self.has_state, rows = _scan_structure(self._proto)
         # ring length rounded up to a page multiple: position p maps to
         # ring row p % ring, block r // page, offset r % page
-        rows = ring_rows(ring_cfg(cfg, chunk), max_len)
-        self.n_blocks = max(1, -(-rows // page))
+        self.n_blocks = max(1, -(-rows // page)) if self.has_kv else 0
         self.ring = self.n_blocks * page
-        spare = (n_slots * self.n_blocks if spare_pages is None
-                 else spare_pages)
-        self.n_pages = 1 + n_slots * self.n_blocks + spare
-        self.kv = BlockAllocator(self.n_pages, n_slots, self.n_blocks)
+        if self.has_kv:
+            spare = (n_slots * self.n_blocks if spare_pages is None
+                     else spare_pages)
+            self.n_pages = 1 + n_slots * self.n_blocks + spare
+            self.kv = BlockAllocator(self.n_pages, n_slots, self.n_blocks)
+        else:
+            self.n_pages, self.kv = 0, None
+        if self.has_state:
+            n_snap = (n_slots if (snap_slots is None and prefix_cache)
+                      else (snap_slots or 0))
+            # one live page per slot + one spare per slot (admission
+            # cycles to a fresh page before the old one is dropped) +
+            # the snapshot budget; page 0 reserved as null for symmetry
+            self.n_spages = 1 + 2 * n_slots + n_snap
+            self.st = BlockAllocator(self.n_spages, n_slots, 1)
+            for s in range(n_slots):
+                self.st.table[s, 0] = self.st.alloc()
+        else:
+            self.n_spages, self.st = 0, None
         self.prefix = PrefixCache(page) if prefix_cache else None
         self.pos = np.zeros((n_slots,), np.int64)
         self.counters = {
@@ -303,48 +438,79 @@ class PagedPool:
         # pending device edits, applied by the next flush
         self._kv_reset: set = set()
         self._kv_copies: List[Tuple[int, int]] = []
+        self._st_reset: set = set()
+        self._st_copies: List[Tuple[int, int]] = []
         self._dirty = False
 
     # -- device cache ------------------------------------------------------
     def build(self) -> Dict:
         """Allocate the paged device cache: pools zeroed, position tags
-        -1, block tables null."""
-        cfg, dev = self.cfg, self.device
-        shape = (cfg.n_layers, self.n_pages + 1, self.page)
-        if cfg.mla:
-            feats = {"c_kv": (cfg.kv_lora_rank,),
-                     "k_pe": (cfg.qk_rope_head_dim,)}
-        else:
-            feats = {k: (cfg.n_kv_heads, cfg.head_dim) for k in ("k", "v")}
-        layers = {k: torch.zeros(shape + f, dtype=self.dtype, device=dev)
-                  for k, f in feats.items()}
-        layers["pos"] = torch.full(shape, -1, dtype=torch.int32, device=dev)
-        return {
-            "pos": torch.zeros((self.n_slots,), dtype=torch.int32,
-                               device=dev),
-            "block_table": torch.zeros((self.n_slots, self.n_blocks),
-                                       dtype=torch.int32, device=dev),
-            "layers": layers,
-        }
+        -1, block tables null, state table at each slot's page."""
+        dev, page = self.device, self.page
+        n_kv = self.n_pages + 1                 # + the scratch page
 
-    def drain(self) -> Optional[Tuple[np.ndarray, int, int]]:
-        """-> (ops, n_reset, n_copy): the pending edits as ONE packed
-        int32 vector in the layout ``apply_cache_ops`` reads, or None
-        when clean.  Emitting a copy releases its source's pin."""
+        def kv(node):
+            out = {}
+            for key, a in node.items():
+                lead = a.shape[:1]               # the layer stack
+                if key == "pos":
+                    out[key] = torch.full(tuple(lead) + (n_kv, page), -1,
+                                          dtype=torch.int32, device=dev)
+                else:                            # (L, 1, rows, *feat)
+                    out[key] = torch.zeros(
+                        tuple(lead) + (n_kv, page) + tuple(a.shape[3:]),
+                        dtype=a.dtype, device=dev)
+            return out
+
+        def st(a):
+            return torch.zeros(a.shape[:1] + (self.n_spages,) + a.shape[2:],
+                               dtype=a.dtype, device=dev)
+
+        cache: Dict = {}
+        for k, v in self._proto.items():
+            if k in _TABLE_KEYS:
+                continue
+            cache[k] = map_state_leaves(map_kv_nodes(v, kv), st)
+        cache["pos"] = torch.zeros((self.n_slots,), dtype=torch.int32,
+                                   device=dev)
+        if self.has_kv:
+            cache["block_table"] = torch.zeros(
+                (self.n_slots, self.n_blocks), dtype=torch.int32,
+                device=dev)
+        if self.has_state:
+            cache["state_table"] = upload(
+                self.st.table[:, 0].astype(np.int32), dev)
+        return cache
+
+    def drain(self) -> Optional[Tuple[np.ndarray, int, int, int, int]]:
+        """-> (ops, n_reset, n_copy, n_st_reset, n_st_copy): the pending
+        edits as ONE packed int32 vector in the layout
+        ``apply_cache_ops`` reads, or None when clean.  Emitting a copy
+        releases its source's pin."""
         if not self._dirty:
             return None
-        resets = sorted(self._kv_reset)
-        self._kv_reset.clear()
-        src = [s for s, _ in self._kv_copies]
-        dst = [d for _, d in self._kv_copies]
-        self._kv_copies.clear()
-        for s in src:
-            self.kv.drop(s)              # release the pending-src pin
+        parts = [self.pos.astype(np.int32)]
+        if self.has_kv:
+            parts.append(self.kv.table.reshape(-1))
+        if self.has_state:
+            parts.append(self.st.table[:, 0])
+        counts = []
+        for alloc, reset, copies in ((self.kv, self._kv_reset,
+                                      self._kv_copies),
+                                     (self.st, self._st_reset,
+                                      self._st_copies)):
+            ids = sorted(reset)
+            src = [s for s, _ in copies]
+            dst = [d for _, d in copies]
+            reset.clear()
+            copies.clear()
+            for s in src:
+                alloc.drop(s)            # release the pending-src pin
+            parts.append(np.asarray(ids + src + dst, np.int32))
+            counts += [len(ids), len(src)]
         self._dirty = False
-        ops = np.concatenate([self.pos.astype(np.int32),
-                              self.kv.table.reshape(-1),
-                              np.asarray(resets + src + dst, np.int32)])
-        return ops, len(resets), len(src)
+        return (np.concatenate([p.astype(np.int32) for p in parts]),
+                *counts)
 
     def flush(self, cache: Dict) -> None:
         """Apply all pending edits to ``cache`` now: one pinned,
@@ -352,9 +518,8 @@ class PagedPool:
         ``apply_cache_ops`` on the same stream.  No-op when clean."""
         drained = self.drain()
         if drained is not None:
-            ops, n_reset, n_copy = drained
-            apply_cache_ops(cache, upload(ops, self.device), n_reset,
-                            n_copy)
+            ops, *counts = drained
+            apply_cache_ops(cache, upload(ops, self.device), *counts)
 
     # pending page copies: the src is PINNED (one extra ref) from queueing
     # until ``drain`` emits the pair, so no interleaved eviction/free can
@@ -365,49 +530,122 @@ class PagedPool:
         self._kv_reset.add(dst)
         self._dirty = True
 
+    def _push_st_copy(self, src: int, dst: int) -> None:
+        self.st.retain(src)
+        self._st_copies.append((src, dst))
+        self._dirty = True
+
     def _kv_alloc(self) -> Optional[int]:
-        """Allocate a page, evicting LRU prefix-cache pages whose page
-        actually frees (an entry still shared into a live slot reclaims
-        nothing: keep it for future hits)."""
+        """Allocate a kv page, evicting LRU prefix-cache entries whose
+        page actually frees (an entry still shared into a live slot
+        reclaims nothing: keep it for future hits), then state snapshots
+        holding such pages."""
         p = self.kv.alloc()
         while p is None and self.prefix is not None:
             pg = self.prefix.evict_lru_page(lambda q: self.kv.ref[q] == 1)
-            if pg is None:
-                break
-            self.kv.drop(pg)
-            self.counters["pages_evicted"] += 1
+            if pg is not None:
+                self.kv.drop(pg)
+                self.counters["pages_evicted"] += 1
+            else:
+                e = self.prefix.evict_lru_snap(
+                    lambda s: any(self.kv.ref[q] == 1 for q in s.kv_pages))
+                if e is None:
+                    break
+                self._drop_snap(e)
             p = self.kv.alloc()
         if p is not None:
             self._kv_reset.add(p)
             self._dirty = True
         return p
 
+    def _st_alloc(self) -> Optional[int]:
+        """Allocate a state page (zeroed by the next flush), evicting LRU
+        snapshots; a snapshot pinned mid-restore (its page's ref > 1) is
+        kept."""
+        p = self.st.alloc()
+        while p is None and self.prefix is not None:
+            e = self.prefix.evict_lru_snap(
+                lambda s: self.st.ref[s.spage] == 1)
+            if e is None:
+                break
+            self._drop_snap(e)
+            p = self.st.alloc()
+        if p is not None:
+            self._st_reset.add(p)
+            self._dirty = True
+        return p
+
+    def _drop_snap(self, e) -> None:
+        if self.st.drop(e.spage):
+            self.counters["pages_evicted"] += 1
+        for pg in e.kv_pages:
+            if self.kv.drop(pg):
+                self.counters["pages_evicted"] += 1
+
     # -- engine lifecycle ---------------------------------------------------
     def admit(self, slot: int, prompt: np.ndarray) -> int:
         """Attach a fresh request to ``slot``: match the prompt against
-        the prefix cache, share the hit pages into its table and set its
-        position.  Returns the number of leading tokens whose prefill is
-        skipped (always < len(prompt): the last token is recomputed to
-        produce the first sampled logit)."""
+        the prefix cache, share the hit pages into its table / restore
+        the hit state snapshot, cycle the slot onto a fresh state page,
+        and set its position.  Returns the number of leading tokens
+        whose prefill is skipped (always < len(prompt): the last token
+        is recomputed to produce the first sampled logit).  On state
+        pool exhaustion everything attached so far is rolled back before
+        ``PoolExhausted`` is raised."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
+        n_cached = 0
         shared: List[int] = []
+        snap = None
         if self.prefix is not None:
             self.counters["prefix_queries"] += 1
-            shared = self.prefix.match_pages(prompt, len(prompt) - 1)
-            if shared:
+            limit = len(prompt) - 1
+            if self.has_state:
+                snap = self.prefix.match_state(prompt, limit)
+                if snap is not None:
+                    n_cached = snap.n_tokens
+                    shared = snap.kv_pages
+            elif self.has_kv:
+                shared = self.prefix.match_pages(prompt, limit)
+                n_cached = len(shared) * self.page
+            if n_cached:
                 self.counters["prefix_hits"] += 1
-                self.counters["tokens_reused"] += len(shared) * self.page
+                self.counters["tokens_reused"] += n_cached
                 self.counters["pages_shared"] += len(shared)
         for i, pg in enumerate(shared):
             self.kv.share(slot, i, pg)
-        self.pos[slot] = len(shared) * self.page
+        if self.has_state:
+            if snap is not None:
+                # pin the matched snapshot across the alloc below: its
+                # eviction would free (and possibly recycle) the very
+                # page the restore copy is about to read
+                self.st.retain(snap.spage)
+            new = self._st_alloc()
+            if new is None:
+                if snap is not None:
+                    self.st.drop(snap.spage)     # release the admit pin
+                for i in range(len(shared)):
+                    pg = int(self.kv.table[slot, i])
+                    self.kv.table[slot, i] = 0
+                    self.kv.drop(pg)
+                raise PoolExhausted("paged state pool exhausted")
+            old = int(self.st.table[slot, 0])
+            if old:
+                self.st.drop(old)
+            self.st.table[slot, 0] = new
+            if snap is not None:
+                self._push_st_copy(snap.spage, new)
+                self.st.drop(snap.spage)         # release the admit pin
+                self.counters["snap_restores"] += 1
+        self.pos[slot] = n_cached
         self._dirty = True
-        return int(self.pos[slot])
+        return n_cached
 
     def plan_writes(self, n_valid: np.ndarray) -> None:
-        """Pre-dispatch (host only): make every page this dispatch will
+        """Pre-dispatch (host only): make every kv page this dispatch will
         write exclusively owned: fresh alloc for null blocks,
         copy-on-write for shared ones."""
+        if not self.has_kv:
+            return
         for s, nv in enumerate(np.asarray(n_valid)):
             if nv <= 0:
                 continue
@@ -429,26 +667,59 @@ class PagedPool:
     def advance(self, n_valid: np.ndarray) -> None:
         self.pos += np.asarray(n_valid, np.int64)
 
-    def active_blocks(self, n_valid: np.ndarray) -> int:
+    def active_blocks(self, n_valid: np.ndarray) -> Optional[int]:
         """Block-table width this dispatch needs (host-side, count-based:
-        no device sync).  Every position a slot has written or will
-        write this step lies below ``max(pos + n_valid)``, so the columns
-        past ``ceil(need / page)`` hold only null pages.  A width below
-        ``n_blocks`` changes the ring modulus, which is sound only while
-        no slot has wrapped: ``pos + n_valid`` is clamped to ``ring``, so
-        a wrap forces the full width.  (JAX buckets the width to
-        multiples of 4 to bound its compiled variants; eager torch needs
-        no bucket.)"""
+        no device sync), None for a model without kv.  Every position a
+        slot has written or will write this step lies below ``max(pos +
+        n_valid)``, so the columns past ``ceil(need / page)`` hold only
+        null pages.  A width below ``n_blocks`` changes the ring modulus,
+        which is sound only while no slot has wrapped: ``pos + n_valid``
+        is clamped to ``ring``, so a wrap forces the full width.  (JAX
+        buckets the width to multiples of 4 to bound its compiled
+        variants; eager torch needs no bucket.)"""
+        if not self.has_kv:
+            return None
         need = int(np.minimum(self.pos + np.asarray(n_valid, np.int64),
                               self.ring).max(initial=0))
         return min(max(1, -(-need // self.page)), self.n_blocks)
 
+    def maybe_snapshot(self, slot: int, prompt: np.ndarray,
+                       offset: int) -> None:
+        """Called just before the dispatch that finishes ``slot``'s
+        prompt: snapshot the recurrent state at ``offset`` (a page-aligned
+        chunk boundary) keyed by ``prompt[:offset]``, retaining the
+        shared-attention pages below it for a hybrid model."""
+        if self.prefix is None or not self.has_state:
+            return
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if offset <= 0 or offset % self.page or offset > len(prompt) - 1:
+            return
+        if self.has_kv and offset > self.ring:
+            return                       # ring wrapped: pages incomplete
+        if self.prefix.has_state(prompt, offset):
+            return
+        spage = self._st_alloc()
+        if spage is None:
+            return                       # snapshot budget exhausted
+        self._push_st_copy(int(self.st.table[slot, 0]), spage)
+        kv_pages: List[int] = []
+        if self.has_kv:
+            kv_pages = [int(self.kv.table[slot, i])
+                        for i in range(offset // self.page)]
+            for pg in kv_pages:
+                self.kv.retain(pg)
+        self.prefix.insert_state(prompt, offset, spage, kv_pages)
+        self.counters["snapshots"] += 1
+        self._dirty = True
+
     def publish(self, slot: int, prompt: np.ndarray) -> None:
-        """Called when ``slot`` finishes prefill: publish the full pages
-        of its prompt into the prefix trie.  Prompts longer than the
-        sliding-window ring have wrapped by now; those were published at
-        the last pre-wrap page boundary by ``maybe_publish_prewrap``."""
-        if self.prefix is None:
+        """Called when ``slot`` finishes prefill (attention families):
+        publish the full pages of its prompt into the prefix trie.
+        Prompts longer than the sliding-window ring have wrapped by now;
+        those were published at the last pre-wrap page boundary by
+        ``maybe_publish_prewrap``.  A model with state publishes
+        snapshots instead (``maybe_snapshot``)."""
+        if self.prefix is None or not self.has_kv or self.has_state:
             return
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) > self.ring:
@@ -460,15 +731,19 @@ class PagedPool:
                               offset: int, take: int) -> None:
         """Called pre-dispatch for every prefilling slot about to consume
         ``take`` tokens at ``offset``: on the dispatch that first writes
-        past the ring, publish the full pages [0, offset) while the
-        prefix is still intact."""
-        if self.prefix is None:
+        past the ring, publish the prefix while it is still intact: the
+        full pages [0, offset) of an attention family, the state snapshot
+        at ``offset`` of a hybrid."""
+        if self.prefix is None or not self.has_kv:
             return
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) <= self.ring:
             return                       # no wrap: publish() covers it
         if not (offset <= self.ring < offset + take):
             return                       # not the wrap-crossing dispatch
+        if self.has_state:
+            self.maybe_snapshot(slot, prompt, offset)
+            return
         n_full = (min(offset, len(prompt) - 1) // self.page) * self.page
         if n_full > 0:
             self._insert(slot, prompt, n_full)
@@ -481,53 +756,72 @@ class PagedPool:
         self.counters["pages_published"] += len(new)
 
     def release(self, slot: int) -> None:
-        """Evict a finished request: drop its page refs (pages still
-        pinned by the prefix cache survive for future hits)."""
-        self.kv.release_slot(slot)
+        """Evict a finished request: drop its kv page refs (pages still
+        pinned by the prefix cache survive for future hits).  Its state
+        page stays its own until the next admission cycles it."""
+        if self.has_kv:
+            self.kv.release_slot(slot)
         self.pos[slot] = 0
         self._dirty = True
 
     def spill(self, *args, **kwargs):
         raise NotImplementedError(
-            "preemption (PagedPool.spill / restore) is queue A 11 of the "
-            "port")
+            "preemption (PagedPool.spill / restore) is ROADMAP queue A 5 "
+            "of the port")
 
     restore = spill
 
     def spec_fork(self, *args, **kwargs):
         raise NotImplementedError(
-            "speculative decoding (PagedPool.spec_*) is queue A 11 of the "
-            "port")
+            "speculative decoding (PagedPool.spec_*) is ROADMAP queue A 5 "
+            "of the port")
 
-    def external_refs(self) -> Dict[int, int]:
-        """Refcount holders OUTSIDE the block tables (prefix-trie
-        retains and pending-copy source pins), in the shape
-        ``BlockAllocator.check`` expects."""
+    def external_refs(self, table: str = "kv") -> Dict[int, int]:
+        """Refcount holders OUTSIDE the block tables (prefix-trie retains
+        and pending-copy source pins) of the ``"kv"`` or the ``"state"``
+        pages, in the shape ``BlockAllocator.check`` expects."""
         refs: Dict[int, int] = {}
-        if self.prefix is not None:
-            refs.update(self.prefix.page_refs())
-        for s, _ in self._kv_copies:
+        if table == "kv":
+            held = self.prefix.page_refs() if self.prefix else {}
+            pending = self._kv_copies
+        else:
+            held = self.prefix.state_refs() if self.prefix else {}
+            pending = self._st_copies
+        for p, n in held.items():
+            if p:
+                refs[p] = refs.get(p, 0) + n
+        for s, _ in pending:
             refs[s] = refs.get(s, 0) + 1
         return refs
 
     # -- reporting ----------------------------------------------------------
     def alloc_events(self) -> Dict:
-        """Cumulative allocator alloc/free event counts."""
-        return {"kv_alloc": self.kv.events["alloc"],
-                "kv_free": self.kv.events["free"]}
+        """Cumulative allocator alloc/free event counts per table."""
+        out: Dict = {}
+        if self.has_kv:
+            out["kv_alloc"] = self.kv.events["alloc"]
+            out["kv_free"] = self.kv.events["free"]
+        if self.has_state:
+            out["state_alloc"] = self.st.events["alloc"]
+            out["state_free"] = self.st.events["free"]
+        return out
 
     def reset_event_counters(self) -> None:
         """Zero the cumulative event counters (prefix counters + alloc
         events); occupancy is left intact."""
         for k in self.counters:
             self.counters[k] = 0
-        self.kv.events = {"alloc": 0, "free": 0}
+        for al in (self.kv, self.st):
+            if al is not None:
+                al.events = {"alloc": 0, "free": 0}
 
     def report(self) -> Dict:
         rep = {"page": self.page, "n_blocks": self.n_blocks,
                "ring": self.ring, "n_pages": self.n_pages,
-               "prefix_caching": self.prefix is not None,
-               "pages_in_use": int(np.sum(self.kv.ref > 0) - 1)}
+               "n_state_pages": self.n_spages,
+               "prefix_caching": self.prefix is not None}
+        if self.has_kv:
+            rep["pages_in_use"] = int(np.sum(self.kv.ref > 0) - 1)
         if self.prefix is not None:
             q = max(self.counters["prefix_queries"], 1)
             n_pages, n_snaps = self.prefix.n_entries

@@ -50,12 +50,12 @@ def _t(a):
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_fields_match_reference(reduced):
     """Every ported arch, field by field: granite-3-2b, the MLA + MoE
-    deepseek-v2-236b, the rest of the transformer zoo and the paper's
-    four DNNs."""
+    deepseek-v2-236b, the rest of the transformer zoo, the recurrent
+    rwkv6-3b and zamba2-7b, and the paper's four DNNs."""
     for arch in (ARCH, "deepseek-v2-236b", "qwen2-7b", "qwen1.5-110b",
                  "granite-20b", "mixtral-8x7b", "phi-3-vision-4.2b",
-                 "hubert-xlarge", "paper-tds", "paper-cnn10",
-                 "paper-resnet18", "paper-darknet19"):
+                 "hubert-xlarge", "rwkv6-3b", "zamba2-7b", "paper-tds",
+                 "paper-cnn10", "paper-resnet18", "paper-darknet19"):
         jc, tc = jget_config(arch), get_config(arch)
         if reduced:
             jc, tc = jreduce_config(jc), reduce_config(tc)

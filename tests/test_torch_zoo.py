@@ -163,18 +163,24 @@ def test_convert_checks_the_zoo_layouts():
 
 
 def test_recurrent_families_still_raise():
-    """ssm and hybrid configs are not registered, and the reduction and
-    the model dispatch name the queue item that ports them."""
+    """The recurrent families are ported (``tests/test_torch_recurrent.
+    py``): their configs register, reduce and dispatch; what still raises
+    for them is what the whole port refuses, each naming its ROADMAP
+    item (the mesh-sharded pool, A7; speculation and temperature
+    sampling, A5), and an unknown family."""
     from repro_torch.configs.base import ModelConfig
     for arch in ("rwkv6-3b", "zamba2-7b"):
-        with pytest.raises(KeyError):
-            get_config(arch)
-    for fam in ("ssm", "hybrid"):
-        c = ModelConfig(name="x", family=fam, n_layers=2, d_model=64)
-        with pytest.raises(NotImplementedError, match="queue A 2"):
-            reduce_config(c)
-        with pytest.raises(NotImplementedError, match="queue A 2"):
-            get_model(c)
+        cfg = reduce_config(get_config(arch))
+        api = get_model(cfg)
+        assert api.prefill_chunk is not None and api.decode_step is not None
+        params = api.init(torch.Generator().manual_seed(0), cfg)
+        with pytest.raises(NotImplementedError, match="queue A 7"):
+            Engine(cfg, params, layout="paged-sharded")
+        with pytest.raises(NotImplementedError, match="queue A 5"):
+            Engine(cfg, params, temperature=0.5)
+    with pytest.raises(ValueError, match="unknown family"):
+        get_model(ModelConfig(name="x", family="rnn", n_layers=2,
+                              d_model=64))
 
 
 # -- the CUDA-core GQA body's head-group plan --------------------------------
