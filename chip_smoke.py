@@ -69,6 +69,16 @@
    kernel mode with every binary rookie enabled: logits within
    LOGIT_RTOL, predictor masks equal except where the CPU's proxy
    pre-activation or p_hat lies within MARGIN_EPS of 0;
+3b. the shard-window, partial forms of both paged kernels in bf16: each
+   pool split into 4 windows (``lo = i n_local``), every window's
+   partial launch against its plain version (m bit-equal at the -1e30
+   sentinel, l exact there, m / l / acc within the bf16 bar elsewhere),
+   the 4 windows merged (``collectives.merge_stacked``) against the
+   single-pass kernel and plain version: granite's decode (timed, one
+   window: device ms, plain, bound, SDPA on the window's pre-gathered
+   K/V as a yardstick that computes no statistics) and mixed dispatch,
+   qwen2-7b's G 7 at D 128 and zamba2-7b's D 112 under its 4,096 window
+   (the CUDA-core body), and deepseek's MLA (timed at decode);
 5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
    random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
@@ -96,7 +106,7 @@
    kernel (counted) and dense mode; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
    mode (counted): ms and argmax agreement;
-7b. this slice's main path, the recurrent families whole: rwkv6-3b (32
+7b. the recurrent families whole: rwkv6-3b (32
    layers, d 2560, bf16), calibrated with ``calibrate_lm`` on its
    channel mix, serves the shared-prefix trace paged in kernel
    (counted: 32 mor_tile_mask and 32 gather_matmul a dispatch), tiled
@@ -108,6 +118,15 @@
    mor_tile_mask, 26 gather_matmul, 13 masked_matmul_kdim a dispatch)
    and dense mode; the warm and cold repeats run on state snapshots;
    one profiled pass each;
+7c. this slice's main path, the paged-sharded layout on 2 rank
+   processes sharing the card (gloo): reduced float32 granite,
+   deepseek, rwkv6 and zamba2, card against CPU in the same page group
+   (tokens, telemetry, prefix counters equal; partial launches and
+   merges counted), then granite-3-2b whole in kernel mode on the
+   shared-prefix trace (ranks' tokens equal, agreement with the
+   single-rank paged tokens >= AGREE_MIN, 40 partial gqa_paged_flash
+   launches and 40 merges a dispatch, no other collective, pages on
+   both shards, each rank's pool half the single-rank one's);
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
@@ -1112,6 +1131,253 @@ def kernel_mla(gen, flush):
             "split_edges_max_abs_err": cases["split_edges"]["max_abs_err"]}
 
 
+# -- the shard-window, partial forms (the paged-sharded layout's) -----------
+
+N_WINDOWS = 4                     # the page windows each pool is split into
+
+
+def _windows(n_pages):
+    """-> (n_local, lo of each window): a pool of ``n_pages`` split into
+    N_WINDOWS windows of whole pages (the last padded)."""
+    n_local = -(-n_pages // N_WINDOWS)
+    return n_local, [i * n_local for i in range(N_WINDOWS)]
+
+
+def _window_pool(pool, lo, n_local, fill):
+    """Window [lo, lo + n_local) of a global pool as a rank holds it: its
+    pages (past the pool: ``fill``) and a trailing scratch page."""
+    import torch
+    out = torch.full((n_local + 1,) + tuple(pool.shape[1:]), fill,
+                     dtype=pool.dtype, device=pool.device)
+    part = pool[lo:lo + n_local]
+    out[:len(part)] = part
+    return out
+
+
+def _same_partial(got, want):
+    """A bf16 partial launch against its plain version: m bit-equal
+    wherever either is the sentinel (and l there, a count, exact), m, l
+    and acc within the bf16 bar elsewhere (``_close``).  -> (max abs
+    err, sentinel rows, rows of windows with no live page)."""
+    import torch
+    from repro_torch.kernels.paged_attention import NEG_INF
+    (m, l, acc), (wm, wl, wacc) = got, want
+    sent = (m == NEG_INF) | (wm == NEG_INF)
+    assert bool(torch.equal(m[sent], wm[sent])), "sentinel m differs"
+    assert bool(torch.equal(l[sent], wl[sent])), "sentinel l differs"
+    real = ~sent
+    err = 0.0
+    for g, w in ((m[real], wm[real]), (l[real], wl[real]), (acc, wacc)):
+        if g.numel():
+            err = max(err, _close(g, w))
+    return err, int(sent.sum()), int((sent & (l == 0)).sum())
+
+
+def window_case_gqa(gen, flush, ctx, C, W, hkv=8, G=4, D=64, window=0,
+                    n_null=0, time_it=False):
+    """``gqa_paged_flash``'s shard-window, partial form: the pool of
+    ``_paged_inputs`` split into N_WINDOWS windows (``lo = i n_local``);
+    each window's table holds null pages, pages of other windows and
+    slots with no page in it.  Every window's partial launch against its
+    plain version (``_same_partial``); the windows merged
+    (``collectives.merge_stacked``) against the single-pass kernel and
+    plain version on the rows that see a key; with ``time_it`` the
+    window with the most live pages timed (device ms, L2 flushed) beside
+    its plain version, its bound (that window's live pages, q, the
+    statistics) and SDPA over its pre-gathered K/V (a yardstick that
+    computes the normalised output, not the statistics)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.distributed.collectives import merge_stacked
+    from repro_torch.kernels import paged_attention as pa
+    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null,
+                                             hkv=hkv, G=G, D=D)
+    B, _, H, _ = q.shape
+    page = kp.shape[1]
+    n_local, los = _windows(kp.shape[0])
+    parts, err, n_sent, n_empty, wholly_foreign = [], 0.0, 0, 0, 0
+    for lo in los:
+        args = (q, _window_pool(kp, lo, n_local, 0),
+                _window_pool(vp, lo, n_local, 0),
+                _window_pool(pp, lo, n_local, -1), tbl, qpos)
+        kw = dict(window=window, lo=lo, n_local=n_local, partial=True)
+        got = pa.gqa_paged_flash(*args, **kw)
+        want = pa.gqa_paged_flash_plain(*args, **kw)
+        torch.cuda.synchronize()
+        e, s, z = _same_partial(got, want)
+        err, n_sent, n_empty = max(err, e), n_sent + s, n_empty + z
+        live = (tbl > 0) & (tbl >= lo) & (tbl < lo + n_local)
+        wholly_foreign += int((~live.any(1)).sum())
+        parts.append(got)
+    assert n_empty > 0 and wholly_foreign > 0, "no wholly-foreign slot"
+    merged = merge_stacked(*(torch.stack(t) for t in zip(*parts)))
+    merged = merged.permute(0, 3, 1, 2, 4).reshape(B, C, H, D)
+    seen = _gqa_seen(pp, tbl, qpos, window).any(-1)
+    single = pa.gqa_paged_flash(q, kp, vp, pp, tbl, qpos, window=window)
+    plain = pa.gqa_paged_flash_plain(q, kp, vp, pp, tbl, qpos,
+                                     window=window)
+    merge_err = max(_close(merged[seen], single[seen]),
+                    _close(merged[seen], plain[seen]))
+    split, body = _gqa_plan(q, kp, tbl)
+    r = {"max_abs_err": err, "merge_max_abs_err": merge_err, "B": B,
+         "C": C, "W": W, "window": window, "n_local": n_local,
+         "windows": N_WINDOWS, "sentinel_rows": n_sent,
+         "empty_window_rows": n_empty, "wholly_foreign_slots":
+         wholly_foreign, "body": body}
+    if not time_it:
+        return r
+    # the window with the most live pages, timed alone
+    counts = [int(((tbl >= lo) & (tbl < lo + n_local) & (tbl > 0)).sum())
+              for lo in los]
+    lo = los[max(range(N_WINDOWS), key=counts.__getitem__)]
+    args = (q, _window_pool(kp, lo, n_local, 0),
+            _window_pool(vp, lo, n_local, 0),
+            _window_pool(pp, lo, n_local, -1), tbl, qpos)
+    kw = dict(window=window, lo=lo, n_local=n_local, partial=True)
+    r["ms"] = _timer(lambda: pa.gqa_paged_flash(*args, **kw), flush)
+    r["plain_ms"] = _timer(lambda: pa.gqa_paged_flash_plain(*args, **kw),
+                           flush)
+    live = (tbl > 0) & (tbl >= lo) & (tbl < lo + n_local)
+    ok = _gqa_seen(pp, torch.where(live, tbl, 0), qpos, window)
+    gk = torch.where(live[..., None, None, None], kp[tbl.long()], 0)
+    gv = torch.where(live[..., None, None, None], vp[tbl.long()], 0)
+    gk, gv = (t.reshape(B, -1, hkv, D).repeat_interleave(G, 2)
+              .transpose(1, 2).contiguous() for t in (gk, gv))
+    qt, mask = q.transpose(1, 2).contiguous(), ok[:, None]
+    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+        qt, gk, gv, attn_mask=mask), flush)
+    r["library_computes"] = "the normalised output, not the statistics"
+    n_pages = int(torch.unique(tbl[live]).numel())
+    nbytes = (n_pages * page * (2 * hkv * D * 2 + 4) + q.numel() * 2
+              + B * H * C * (D + 2) * 4 + tbl.numel() * 4 + qpos.numel() * 4)
+    r["bound_ms"], r["bound_by"] = _bound(nbytes, int(ok.sum()) * H * 4 * D,
+                                          "bf16")
+    r["timed_window"], r["timed_live_pages"] = lo // n_local, n_pages
+    return r
+
+
+def window_case_mla(gen, flush, ctx, C, W, n_null=0, time_it=False):
+    """``mla_paged_flash``'s shard-window, partial form at deepseek's
+    widths (128 heads, kr 512, rd 64), as ``window_case_gqa``: every
+    window against its plain version, the windows merged against the
+    single pass; with ``time_it`` the fullest window timed beside its
+    plain version, bound and SDPA on its pre-gathered latents."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.distributed.collectives import merge_stacked
+    from repro_torch.kernels import paged_attention as pa
+    q_lat, q_pe, ck, cpe, pp, tbl, qpos = _mla_inputs(gen, ctx, C, W,
+                                                      n_null=n_null)
+    B, _, h, kr = q_lat.shape
+    rd, page = q_pe.shape[-1], ck.shape[1]
+    scale = (128 + rd) ** -0.5
+    n_local, los = _windows(ck.shape[0])
+    parts, err, n_sent, n_empty = [], 0.0, 0, 0
+
+    def window_args(lo):
+        return (q_lat, q_pe, _window_pool(ck, lo, n_local, 0),
+                _window_pool(cpe, lo, n_local, 0),
+                _window_pool(pp, lo, n_local, -1), tbl, qpos)
+
+    for lo in los:
+        kw = dict(scale=scale, lo=lo, n_local=n_local, partial=True)
+        got = pa.mla_paged_flash(*window_args(lo), **kw)
+        want = pa.mla_paged_flash_plain(*window_args(lo), **kw)
+        torch.cuda.synchronize()
+        e, s, z = _same_partial(got, want)
+        err, n_sent, n_empty = max(err, e), n_sent + s, n_empty + z
+        parts.append(got)
+    assert n_empty > 0, "no window without a live page"
+    merged = merge_stacked(*(torch.stack(t) for t in zip(*parts)))
+    merged = merged.permute(0, 2, 1, 3)
+    live_all = tbl > 0
+    gp = torch.where(live_all[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    seen = ((gp[:, None, :] >= 0)
+            & (gp[:, None, :] <= qpos[:, :, None])).any(-1)
+    args = (q_lat, q_pe, ck, cpe, pp, tbl, qpos)
+    single = pa.mla_paged_flash(*args, scale=scale)
+    plain = pa.mla_paged_flash_plain(*args, scale=scale)
+    merge_err = max(_close(merged[seen], single[seen]),
+                    _close(merged[seen], plain[seen]))
+    r = {"max_abs_err": err, "merge_max_abs_err": merge_err, "B": B,
+         "C": C, "W": W, "n_local": n_local, "windows": N_WINDOWS,
+         "sentinel_rows": n_sent, "empty_window_rows": n_empty}
+    if not time_it:
+        return r
+    counts = [int(((tbl >= lo) & (tbl < lo + n_local) & (tbl > 0)).sum())
+              for lo in los]
+    lo = los[max(range(N_WINDOWS), key=counts.__getitem__)]
+    kw = dict(scale=scale, lo=lo, n_local=n_local, partial=True)
+    wa = window_args(lo)
+    r["ms"] = _timer(lambda: pa.mla_paged_flash(*wa, **kw), flush)
+    r["plain_ms"] = _timer(lambda: pa.mla_paged_flash_plain(*wa, **kw),
+                           flush)
+    live = (tbl > 0) & (tbl >= lo) & (tbl < lo + n_local)
+    gpw = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
+    ok = (gpw[:, None, :] >= 0) & (gpw[:, None, :] <= qpos[:, :, None])
+    gk = torch.where(live[..., None, None], ck[tbl.long()], 0).reshape(
+        B, 1, -1, kr)
+    ge = torch.where(live[..., None, None], cpe[tbl.long()], 0).reshape(
+        B, 1, -1, rd)
+    kk = torch.cat([gk, ge], -1).expand(B, h, -1, kr + rd)
+    vv = gk.expand(B, h, -1, kr)
+    qq = torch.cat([q_lat, q_pe], -1).transpose(1, 2).contiguous()
+    mask = ok[:, None]
+    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+        qq, kk, vv, attn_mask=mask, scale=scale), flush)
+    r["library_computes"] = "the normalised output, not the statistics"
+    n_pages = int(torch.unique(tbl[live]).numel())
+    nbytes = (n_pages * page * ((kr + rd) * 2 + 4)
+              + (q_lat.numel() + q_pe.numel()) * 2 + B * h * C * (kr + 2) * 4
+              + tbl.numel() * 4 + qpos.numel() * 4)
+    r["bound_ms"], r["bound_by"] = _bound(
+        nbytes, int(ok.sum()) * h * 2 * (2 * kr + rd), "bf16")
+    r["timed_window"], r["timed_live_pages"] = lo // n_local, n_pages
+    return r
+
+
+def kernel_windows(gen, flush, ptxas=None):
+    """The shard-window, partial forms at the sharded layout's shapes, in
+    bf16: granite's decode (8 x 1 over contexts to 4,096; 32 / 8 heads
+    at D 64, the tensor-core body) and mixed dispatch (8 x 32), qwen2's
+    G 7 at D 128 and zamba2's D 112 under its window of 4,096 (the
+    CUDA-core body), and deepseek's MLA (128 heads, kr 512, rd 64).  ->
+    {"gqa": {case: r}, "mla": {case: r}}."""
+    import torch
+    from repro_torch.configs import get_config
+    g = torch.Generator().manual_seed(SEED + 2)
+    decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
+    mixed_ctx = [int(c) for c in torch.randint(32, 97, (8,), generator=g)]
+    gqa = {"granite_decode": window_case_gqa(gen, flush, decode_ctx, 1, 512,
+                                             n_null=5, time_it=True),
+           "granite_mixed": window_case_gqa(gen, flush, mixed_ctx, 32, 12,
+                                            n_null=1, time_it=True)}
+    for arch in ("qwen2-7b", "zamba2-7b"):
+        cfg = get_config(arch)
+        window = cfg.sliding_window or cfg.shared_attn_window
+        ctx = WINDOW_DECODE_CTX if window else decode_ctx
+        gqa[arch] = window_case_gqa(
+            gen, flush, ctx, 1, -(-max(ctx) // 8), hkv=cfg.n_kv_heads,
+            G=cfg.n_heads // cfg.n_kv_heads, D=cfg.head_dim, window=window,
+            n_null=5)
+    mla = {"deepseek_decode": window_case_mla(gen, flush, decode_ctx, 1, 512,
+                                              n_null=5, time_it=True),
+           "deepseek_mixed": window_case_mla(gen, flush, mixed_ctx, 32, 12,
+                                             n_null=1)}
+    for name, per in (("gqa_paged_flash[partial]", gqa),
+                      ("mla_paged_flash[partial]", mla)):
+        for case, r in per.items():
+            log("kernel", name=name, case=case,
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+    for entry, line in (ptxas or {}).items():
+        if "paged_kernel" in entry:
+            log("kernel", name="paged (window / partial forms)",
+                ptxas_entry=entry, ptxas=repr(line))
+    torch.cuda.empty_cache()
+    return {"gqa": gqa, "mla": mla}
+
+
 # -- the kernel API: binary_dot, binary_dot_packed, masked_matmul ------------
 
 INT_MM_RULE = ("torch._int_mm needs M > 16 (and cuBLASLt refused M = N = "
@@ -1386,6 +1652,22 @@ def phase_kernels(ptxas=None):
         for case, r in per.items():
             rows["gqa_paged_flash"][f"at_{arch}_{case}"] = _fields(r)
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
+    windows = kernel_windows(gen, flush, ptxas)
+    for (name, kind, source, replaces, timed) in (
+            ("gqa_paged_flash[partial]", "gqa",
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:178", "granite_decode"),
+            ("mla_paged_flash[partial]", "mla",
+             "src/repro_torch/kernels/csrc/mla_attention.cu",
+             "src/repro/kernels/paged_attention.py:302", "deepseek_decode")):
+        per = windows[kind]
+        rows[name] = {"name": name, "route": "cuda", "source": source,
+                      "replaces": replaces, **_fields(per[timed]),
+                      **{f"at_{k}": _fields(v) for k, v in per.items()
+                         if k != timed},
+                      "merge_max_abs_err": {k: v["merge_max_abs_err"]
+                                            for k, v in per.items()},
+                      "library_computes": per[timed]["library_computes"]}
     for name, per in kernel_api(gen, flush).items():
         source, replaces = API_KERNELS[name]
         rows[name] = {"name": name, "route": "cuda", "source": source,
@@ -1793,7 +2075,7 @@ def slice_paged(cfg, params, mor):
         agreement_paged_kernel_vs_paged_dense=round(agree_d, 4),
         agreement_paged_kernel_vs_slotted_kernel=round(agree_s, 4))
     assert agree_d >= AGREE_MIN and agree_s >= AGREE_MIN, (agree_d, agree_s)
-    return eng_k, reqs, launches
+    return eng_k, reqs, launches, tok_k
 
 
 def phase_slice():
@@ -1818,14 +2100,14 @@ def phase_slice():
     log("slice", calibrate_s=round(time.perf_counter() - t0, 2),
         **{k: round(v, 4) for k, v in cal.items()})
     eng_sk, eng_sd, reqs_s = slice_slotted(cfg, params, mor)
-    eng_pk, reqs_p, launches = slice_paged(cfg, params, mor)
+    eng_pk, reqs_p, launches, tokens = slice_paged(cfg, params, mor)
     # profiled last, so that the profiler cannot touch the timings above
     _profile(eng_pk, reqs_p)
     _profile(eng_sk, reqs_s)
     _profile(eng_sd, reqs_s)
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
-    return launches
+    return launches, tokens
 
 
 def slice_deepseek():
@@ -2359,6 +2641,204 @@ def slice_zamba2():
 # -- the paper's DNNs (TDS, CNN10, ResNet18, Darknet19) ----------------------
 
 # (case, model, conv layer, (M, K, N)) where the kernel API is timed
+# -- the paged-sharded layout: 2 ranks sharing the card ---------------------
+
+SHARDS = 2
+SHARDED_REFERENCES = ("granite-3-2b", "deepseek-v2-236b", "rwkv6-3b",
+                      "zamba2-7b")
+
+
+def _layout_counts(eng):
+    """(attention layers, state leaves) of an engine's cache: the merges
+    and the state gathers a sharded dispatch issues."""
+    from repro_torch.serving import kv_pool
+    attn, leaves = [0], [0]
+
+    def kv(node):
+        attn[0] += (node["pos"] if "pos" in node else
+                    node["c_kv"]).shape[0]
+        return node
+
+    def st(a):
+        leaves[0] += 1
+        return a
+
+    for k, v in eng.cache.items():
+        if k not in ("pos", "block_table", "state_table"):
+            kv_pool.map_state_leaves(kv_pool.map_kv_nodes(v, kv), st)
+    return attn[0], leaves[0]
+
+
+def _sharded_pass(cfg, params, mor, reqs, group, **kw):
+    """One pass of the kernel-mode sharded engine on ``reqs``, its
+    launches (partial ones apart) and collectives counted from just after
+    the engine is built to the end of its flush.  -> dict."""
+    import torch
+    from repro_torch.distributed import collectives
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=kw.pop(
+        "n_slots", 8), max_len=max(len(p) for p, _ in reqs) + 18,
+        layout="paged-sharded", group=group, **kw)
+    collectives.reset_counts()
+    pa.partial_launches = pa.mla_partial_launches = 0
+    t0 = time.perf_counter()
+    toks, launches = _counted(lambda: eng.run(list(reqs)))
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rep = eng.report()
+    attn, leaves = _layout_counts(eng)
+    d = rep["dispatches"]
+    want = {k: n * d for k, n in (("flash_merge", attn),
+                                  ("state_take", leaves)) if n}
+    counts = dict(collectives.counts)
+    assert counts == dict(want, check_tokens=1), (counts, want)
+    pool_bytes = sum(t.nbytes for k, v in eng.cache.items()
+                     if k not in ("pos", "block_table", "state_table")
+                     for t in _leaves(v))
+    return {"tokens": toks, "telemetry": eng.telemetry.summary(),
+            "prefix": eng._prefix_counters(), "dispatches": d,
+            "launches": launches, "attention_layers": attn,
+            "state_leaves": leaves,
+            "partial": {"gqa_paged_flash": pa.partial_launches,
+                        "mla_paged_flash": pa.mla_partial_launches},
+            "collectives": counts, "sharding": rep["sharding"],
+            "pool_bytes": pool_bytes, "host_ms_per_dispatch":
+            wall / max(d, 1) * 1e3, "pool": eng.pool}
+
+
+def _sharded_rank(group):
+    """One rank of the sharded phase: the reduced float32 references on
+    the card and on the CPU (the same page group: gloo takes both), then
+    granite-3-2b whole on the card.  Rank 0 calibrates each model and
+    hands its tree to the other rank.  -> the rank's results."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.launch.serve import calibrate, make_trace
+    from repro_torch.models import get_model
+    from repro_torch.serving import kv_pool
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"rank": group.rank, "backend": group.backend,
+           "device": str(group.device), "references": {}}
+    for arch in SHARDED_REFERENCES:
+        cfg = _zoo_reduced(arch) if arch == "zamba2-7b" else \
+            reduce_config(get_config(arch))
+        api = get_model(cfg)
+        params = api.init(torch.Generator().manual_seed(SEED), cfg)
+        params, mor, _ = calibrate(params, cfg, api, "cpu", 4, group)
+        reqs = make_trace(cfg, 6, 4, 16, 6, 6, SEED, shared_prefix=16)
+        runs = {dev: _sharded_pass(cfg, _to(params, dev), _to(mor, dev),
+                                   reqs, group, n_slots=4)
+                for dev in ("cpu", "cuda")}
+        cpu, card = runs["cpu"], runs["cuda"]
+        for key in ("tokens", "telemetry", "prefix", "dispatches"):
+            assert card[key] == cpu[key], f"{arch}: card and CPU {key} differ"
+        d, attn = card["dispatches"], card["attention_layers"]
+        kind = "mla_paged_flash" if cfg.mla else "gqa_paged_flash"
+        assert card["launches"][kind] == card["partial"][kind] == attn * d
+        out["references"][arch] = {
+            k: card[k] for k in ("dispatches", "attention_layers",
+                                 "state_leaves", "collectives", "partial",
+                                 "sharding", "host_ms_per_dispatch")}
+        out["references"][arch]["prefix"] = {
+            k: card["prefix"][k] for k in ("prefix_hits", "chunks_skipped",
+                                           "snapshots", "snap_restores")}
+        torch.cuda.empty_cache()
+    cfg = get_config("granite-3-2b")
+    api = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device=group.device).manual_seed(SEED),
+                      cfg)
+    params, mor, _ = calibrate(params, cfg, api, group.device, 8, group)
+    torch.cuda.synchronize()
+    out["granite_setup_s"] = time.perf_counter() - t0
+    reqs = _shared_prefix_trace(cfg)
+    g = _sharded_pass(cfg, params, mor, reqs, group)
+    # the single-rank pool of the same configuration, from its host half
+    single = kv_pool.PagedPool(cfg, 8, max(len(p) for p, _ in reqs) + 18,
+                               device="meta")
+    pool = g.pop("pool")
+    per_page = g["pool_bytes"] / pool.local_pages()[0]
+    g["single_pool_bytes"] = (single.n_pages + 1) * per_page
+    g["page_bytes"] = per_page
+    g["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    g["launches_per_dispatch"] = {k: v / g["dispatches"]
+                                  for k, v in g["launches"].items() if v}
+    del g["telemetry"]
+    out["granite"] = g
+    return out
+
+
+def slice_sharded(single_tokens):
+    """The paged-sharded layout (``--layout paged-sharded --shards 2``'s
+    ``run_ranks``): 2 rank processes on the one card, gloo (NCCL refuses
+    two ranks on one device; gloo stages every merge through the host).
+    Reduced float32 granite, deepseek (MLA), rwkv6 (state only) and
+    zamba2 (state and its shared attention at D 112): the card's tokens,
+    telemetry, prefix counters and dispatches equal the CPU's; then
+    granite-3-2b whole (40 layers, bf16) on the shared-prefix trace in
+    kernel mode: the ranks' tokens equal (the engine's flush raises
+    otherwise), agreement with the single-rank paged engine's tokens
+    (``single_tokens``) >= AGREE_MIN, exactly 40 partial
+    ``gqa_paged_flash`` launches and 40 merges a dispatch and no other
+    collective, pages on both shards, each rank's pool half the
+    single-rank one's (within a page and the scratch page).  -> {kernel:
+    launches on the sharded path, rank 0}."""
+    from repro_torch.launch.mesh import page_backend, run_ranks
+    backend = page_backend("cuda", SHARDS)
+    log("sharded", ranks=SHARDS, backend=backend,
+        note="two ranks share cuda:0: gloo stages every merge through "
+             "the host, so no time here is the layout's speed")
+    ranks = run_ranks(_sharded_rank, SHARDS, "cuda")
+    for r in ranks:
+        assert r["backend"] == backend
+        for arch, ref in r["references"].items():
+            log("sharded", rank=r["rank"], model=f"{arch} reduced f32",
+                tokens_equal_cpu=True, dispatches=ref["dispatches"],
+                collectives=json.dumps(ref["collectives"]),
+                partial=json.dumps(ref["partial"]),
+                hiwater=json.dumps({k: v for k, v in ref["sharding"].items()
+                                    if "hiwater" in k}),
+                prefix=json.dumps(ref["prefix"]),
+                host_ms_per_dispatch=round(ref["host_ms_per_dispatch"], 2))
+    g0, g1 = (r["granite"] for r in ranks)
+    assert g0["tokens"] == g1["tokens"], "the ranks' tokens differ"
+    agree = _agree(g0["tokens"], single_tokens)
+    for r in ranks:
+        g = r["granite"]
+        d = g["dispatches"]
+        assert g["launches"]["gqa_paged_flash"] == \
+            g["partial"]["gqa_paged_flash"] == 40 * d, g["launches"]
+        assert g["collectives"] == {"flash_merge": 40 * d,
+                                    "check_tokens": 1}, g["collectives"]
+        hw = g["sharding"]["kv_pages_hiwater_per_shard"]
+        assert all(n > 0 for n in hw), hw
+        assert abs(g["pool_bytes"] - g["single_pool_bytes"] / 2) <= \
+            2 * g["page_bytes"], (g["pool_bytes"], g["single_pool_bytes"])
+        log("sharded", rank=r["rank"], model="granite-3-2b", layers=40,
+            mode="kernel", dispatches=d, setup_s=round(r["granite_setup_s"],
+                                                       1),
+            launches_per_dispatch=json.dumps(g["launches_per_dispatch"]),
+            partial=json.dumps(g["partial"]),
+            collectives=json.dumps(g["collectives"]),
+            kv_hiwater_per_shard=hw,
+            pool_gb=round(g["pool_bytes"] / 1e9, 4),
+            single_rank_pool_gb=round(g["single_pool_bytes"] / 1e9, 4),
+            peak_gb=round(g["peak_gb"], 2),
+            host_ms_per_dispatch=round(g["host_ms_per_dispatch"], 2),
+            prefix=json.dumps(g["prefix"]))
+    log("sharded", model="granite-3-2b", ranks_tokens_equal=True,
+        agreement_vs_single_rank_paged=round(agree, 4), agree_min=AGREE_MIN)
+    assert agree >= AGREE_MIN, agree
+    deepseek = ranks[0]["references"]["deepseek-v2-236b"]
+    return {"gqa_paged_flash[partial]": g0["partial"]["gqa_paged_flash"],
+            "mla_paged_flash[partial]": deepseek["partial"][
+                "mla_paged_flash"]}, g0["launches"]
+
+
 TIMED_LAYERS = (("darknet19_l13", "paper-darknet19", 13, (128, 4608, 1024)),
                 ("resnet18_l1", "paper-resnet18", 1, (131072, 576, 64)))
 PAPER_ARCHS = ("paper-tds", "paper-cnn10", "paper-resnet18",
@@ -2865,7 +3345,9 @@ def main() -> int:
     timed("reference zoo", reference_zoo)
     timed("reference recurrent", reference_recurrent)
     timed("reference paper", reference_paper)
-    granite = timed("granite", phase_slice)
+    granite, granite_tokens = timed("granite", phase_slice)
+    sharded, granite_sharded = timed("sharded", slice_sharded,
+                                     granite_tokens)
     deepseek = timed("deepseek", slice_deepseek)
     mixtral = timed("mixtral", slice_mixtral)
     qwen2 = timed("qwen2", slice_qwen2)
@@ -2875,14 +3357,20 @@ def main() -> int:
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     paper, timed_layers = timed("paper", slice_paper, flush)
     # "launches": each kernel's count on the main path that runs it:
-    # zamba2's paged path (this slice's: it runs the three MoR kernels
-    # and gqa_paged_flash) for those four, deepseek's for
-    # mla_paged_flash, the paper DNNs' for the kernel API
+    # the sharded path (this slice's) for the partial forms (granite
+    # whole on rank 0; mla's from the reduced deepseek there), zamba2's
+    # paged path for the three MoR kernels and gqa_paged_flash,
+    # deepseek's for mla_paged_flash, the paper DNNs' for the kernel API
     by_path = {"zamba2_paged": zamba2, "rwkv_paged": rwkv,
                "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
-               "granite_paged": granite, "paper_dnns": paper}
+               "granite_paged": granite, "granite_sharded": granite_sharded,
+               "paper_dnns": paper}
     for name, row in rows.items():
+        if name in sharded:
+            # the partial forms: the sharded path's counts, rank 0
+            row["launches"] = sharded[name]
+            continue
         if name in API_KERNELS:
             row["launches"] = paper[name]
             for case, r in timed_layers.items():

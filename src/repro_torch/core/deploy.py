@@ -119,19 +119,7 @@ def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,
                  for k in layers[0]}
 
     # fold the permutations into the weights (offline, zero runtime cost)
-    perm = mor_stack["perm"].long()                       # (L, N)
-
-    def permute_stack(w, axis):
-        return torch.stack([w[l].index_select(axis, perm[l])
-                            for l in range(L)])
-
-    mlp = dict(lp[ffn])
-    if "w_gate" in mlp:
-        mlp["w_gate"] = permute_stack(mlp["w_gate"], 1)
-    mlp["w_up"] = permute_stack(mlp["w_up"], 1)
-    mlp["w_down"] = permute_stack(mlp["w_down"], 0)
-    new_params = dict(params)
-    new_params[layer_key] = dict(lp, **{ffn: mlp})
+    new_params = fold_permutations(params, {layer_key: mor_stack})
 
     report = {
         "pearson_mean": float(c.mean()),
@@ -176,14 +164,7 @@ def calibrate_hybrid(params: Dict, cfg: ModelConfig, forward: Callable,
     ml = build_mor_layer(m, b, c, cl, cfg.mor, w.device)
 
     # fold the permutation into the shared MLP's weights (offline)
-    perm = ml["perm"].long()
-    mlp2 = dict(mlp)
-    if "w_gate" in mlp2:
-        mlp2["w_gate"] = mlp2["w_gate"].index_select(1, perm)
-    mlp2["w_up"] = mlp2["w_up"].index_select(1, perm)
-    mlp2["w_down"] = mlp2["w_down"].index_select(0, perm)
-    new_params = dict(params)
-    new_params["shared"] = dict(params["shared"], mlp=mlp2)
+    new_params = fold_permutations(params, {"shared": ml})
 
     report = {
         "pearson_mean": float(c.mean()),
@@ -325,21 +306,55 @@ def calibrate_moe(params: Dict, cfg: ModelConfig, forward: Callable,
             device) for l in range(L_d)]
         dense_stack = {k: torch.stack([ml[k] for ml in dense_layers])
                        for k in dense_layers[0]}
-        perm = dense_stack["perm"].long()
-
-        def permute_stack(w, axis):
-            return torch.stack([w[l].index_select(axis, perm[l])
-                                for l in range(L_d)])
-
-        mlp = dict(lp["mlp"])
-        if "w_gate" in mlp:
-            mlp["w_gate"] = permute_stack(mlp["w_gate"], 1)
-        mlp["w_up"] = permute_stack(mlp["w_up"], 1)
-        mlp["w_down"] = permute_stack(mlp["w_down"], 0)
-        new_params["dense_layers"] = dict(lp, mlp=mlp)
+        new_params = fold_permutations(new_params,
+                                       {"dense_layers": dense_stack})
         mor["dense_layers"] = dense_stack
         report["dense_pearson_mean"] = float(cd.mean())
     return new_params, mor, report
+
+
+def _permute_ffn(mlp: Dict, perm: torch.Tensor) -> Dict:
+    """An FFN's weights with its gate / up columns and its down rows
+    permuted: ``perm`` (N,) for one layer, or (..., N) for a stack whose
+    leading dims the weights share (layers, or layers x experts)."""
+    lead = tuple(perm.shape[:-1])
+    flat = perm.reshape(-1, perm.shape[-1]).long()
+
+    def take(w, axis):
+        if not lead:
+            return w.index_select(axis, flat[0])
+        ws = w.reshape((-1,) + tuple(w.shape[len(lead):]))
+        return torch.stack([ws[i].index_select(axis, flat[i])
+                            for i in range(len(flat))]).reshape(w.shape)
+
+    out = dict(mlp)
+    for key, axis in (("w_gate", 1), ("w_up", 1), ("w_down", 0)):
+        if key in out:
+            out[key] = take(out[key], axis)
+    return out
+
+
+def fold_permutations(params: Dict, mor: Dict) -> Dict:
+    """``params`` with the calibrated MoR tree's column permutations
+    folded into the FFN weights of each group: what ``calibrate_lm``,
+    ``calibrate_moe`` and ``calibrate_hybrid`` do once they have fitted
+    the tree.  A rank of the page-sharded layout that did not calibrate
+    applies rank 0's tree to its own copy of the same weights with it.
+    ``params`` itself is left as it was."""
+    new = dict(params)
+    for key, group in mor.items():
+        if key == "shared":
+            new[key] = dict(params[key], mlp=_permute_ffn(
+                params[key]["mlp"], group["perm"]))
+        elif "experts" in group:
+            new[key] = dict(params[key], moe=_permute_ffn(
+                params[key]["moe"], group["experts"]["perm"]))
+        else:
+            lp = params[key]
+            ffn = "mlp" if "mlp" in lp else "cm"
+            new[key] = dict(lp, **{ffn: _permute_ffn(lp[ffn],
+                                                     group["perm"])})
+    return new
 
 
 def _fit_layers(accs: List, batches: Iterator[Dict], n_batches: int,

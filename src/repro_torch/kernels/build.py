@@ -33,8 +33,8 @@ SIGNATURES = {
     "mor_tile_mask": [_P] * 6 + [_I] * 8 + [_P],
     "gather_matmul": [_P] * 7 + [_I] * 8 + [_P],
     "masked_matmul_kdim": [_P] * 4 + [_I] * 7 + [_P],
-    "gqa_paged_flash": [_P] * 7 + [_I] * 12 + [_F, _I, _P],
-    "mla_paged_flash": [_P] * 8 + [_I] * 10 + [_F, _I, _P],
+    "gqa_paged_flash": [_P] * 9 + [_I] * 14 + [_F, _I, _P],
+    "mla_paged_flash": [_P] * 10 + [_I] * 12 + [_F, _I, _P],
     "masked_matmul": [_P] * 4 + [_I] * 6 + [_P],
     "binary_dot": [_P] * 3 + [_I] * 8 + [_P],
     "binary_dot_packed": [_P] * 3 + [_I] * 8 + [_P],

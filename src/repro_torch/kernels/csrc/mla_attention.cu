@@ -1,16 +1,22 @@
 // Absorbed-MLA paged flash attention for sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py:302
-// `mla_paged_flash` (pallas_call at l.348) in its single-device form:
-// normalised output (partial=False), no shard window (lo=None).  The
-// query arrives in the rank-kr latent space (W_uk absorbed by the
-// caller): for each slot b the kernel walks the block-table entries in
-// order; a null entry (page id 0) is skipped before anything is loaded;
-// each live page's rows are scored (q_lat . c_kv + q_pe . k_pe) * scale
-// in float32, a row is masked unless its tag is >= 0 and <= qpos; the
-// pages fold into online-softmax statistics (m, l, acc) over the kr
-// latent columns, all float32; the output o_lat = acc / max(l, 1e-30)
-// in q's dtype, laid out (B, C, h, kr).  The caller absorbs W_uv.
+// `mla_paged_flash` (pallas_call at l.348), with its shard window and
+// its partial form.  The query arrives in the rank-kr latent space (W_uk
+// absorbed by the caller): for each slot b the kernel walks the
+// block-table entries of global page ids in order; an entry is live
+// where its id is > 0 and lies in the window [base, base + n_local) of
+// the pool this call holds (a page shard's resident range; the whole
+// pool on one device, base 0), read at local index id - base; a null or
+// foreign entry is skipped before anything is loaded.  Each live page's
+// rows are scored (q_lat . c_kv + q_pe . k_pe) * scale in float32, a row
+// is masked unless its tag is >= 0 and <= qpos; the pages fold into
+// online-softmax statistics (m, l, acc) over the kr latent columns, all
+// float32.  The output is o_lat = acc / max(l, 1e-30) in q's dtype, laid
+// out (B, C, h, kr), the caller absorbing W_uv; or, in the partial form
+// (`pm` given), the statistics unnormalised in the Pallas kernel's
+// layout, m and l (B, h, C), acc (B, h, C, kr), for the page shards'
+// flash merge.
 //
 // Bound on the H100: near the ridge.  A cached token costs 2 h (kr +
 // rd + kr) flops (278.5 kFLOP at full width) for its 1,152 bytes of
@@ -78,7 +84,9 @@
 // rank with a real score (exp(-1e30 - m) = 0), as in a single pass.
 // Rows past a tile's live pages are zeros (boxes past the pool) and
 // score -INFINITY: they weigh nothing, and stale shared memory never
-// meets a zero weight.  The
+// meets a zero weight.  The partial form keeps both conventions bit for
+// bit (no live page: m = -1e30, l = 0, acc = 0; live keys all masked: m
+// = -1e30, l = their count).  The
 // strided block table and 64-bit pool offsets are as in
 // paged_attention.cu.
 #include <cooperative_groups.h>
@@ -130,7 +138,8 @@ mla_paged_kernel(const float* __restrict__ ql, const float* __restrict__ qe,
                  const int* __restrict__ cp, const int* __restrict__ tbl,
                  const int* __restrict__ qpos, float* __restrict__ out, int C,
                  int h, int kr, int rd, int P, int W, int tbl_stride,
-                 float scale) {
+                 float scale, int base, int n_local, float* __restrict__ pm,
+                 float* __restrict__ pl) {
   extern __shared__ float smem[];
   const int D = kr + rd, S = row_stride(D);
   const int b = blockIdx.y, p0 = blockIdx.x * R;
@@ -176,8 +185,9 @@ mla_paged_kernel(const float* __restrict__ ql, const float* __restrict__ qe,
   __syncthreads();
 
   for (int j = 0; j < W; ++j) {
-    const int pg = tbl[(size_t)b * tbl_stride + j];
-    if (pg == 0) continue;                       // null page: nothing loaded
+    const int id = tbl[(size_t)b * tbl_stride + j], pg = id - base;
+    // null or foreign page: nothing loaded
+    if (id <= 0 || pg < 0 || pg >= n_local) continue;
     const size_t pbase = (size_t)pg * P;         // the page's first row
     for (int k0 = 0; k0 < P; k0 += KT) {
       // 1. stage the step's keys
@@ -272,20 +282,36 @@ mla_paged_kernel(const float* __restrict__ ql, const float* __restrict__ qe,
     }
   }
 
+  // the partial form's row of pair p0 + r: (b, head, c) of (B, h, C);
+  // `out` is then the float32 acc
+  auto prow = [&](int r) {
+    const int p = p0 + r;
+    return ((size_t)b * h + p % h) * C + p / h;
+  };
+  if (pm != nullptr && tid < Rb) {
+    pm[prow(tid)] = Mr[tid];
+    pl[prow(tid)] = Lr[tid];
+  }
 #pragma unroll
   for (int jc = 0; jc < NCOL; ++jc) {
     const int c = tid + jc * NT;
     if (c >= kr) continue;
 #pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < Rb) out[(row0 + r) * kr + c] = acc[jc][r] / fmaxf(Lr[r], 1e-30f);
+    for (int r = 0; r < R; ++r) {
+      if (r >= Rb) continue;
+      if (pm != nullptr)
+        out[prow(r) * kr + c] = acc[jc][r];
+      else
+        out[(row0 + r) * kr + c] = acc[jc][r] / fmaxf(Lr[r], 1e-30f);
+    }
   }
 }
 
 int launch(const float* ql, const float* qe, const float* ck,
            const float* cpe, const int* cp, const int* tbl, const int* qpos,
            float* out, int B, int C, int h, int kr, int rd, int P, int W,
-           int tbl_stride, float scale, cudaStream_t st) {
+           int tbl_stride, float scale, int base, int n_local, float* pm,
+           float* pl, cudaStream_t st) {
   if (kr < 1 || kr > MAX_KR || rd < 0 || P < 1 || C * h < 1 || kr % 4 ||
       rd % 4)
     return (int)cudaErrorInvalidValue;
@@ -299,7 +325,8 @@ int launch(const float* ql, const float* qe, const float* ck,
   const dim3 grid((C * h + R - 1) / R, B);
   mla_paged_kernel<<<grid, NT, smem, st>>>(ql, qe, ck, cpe, cp, tbl, qpos,
                                            out, C, h, kr, rd, P, W,
-                                           tbl_stride, scale);
+                                           tbl_stride, scale, base, n_local,
+                                           pm, pl);
   return (int)cudaGetLastError();
 }
 
@@ -472,7 +499,9 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
                  const int* __restrict__ cp, const int* __restrict__ tbl,
                  const int* __restrict__ qpos, bf16* __restrict__ out, int C,
                  int h, int kr, int rd, int P, int rows, int W,
-                 int tbl_stride, float scale, int split) {
+                 int tbl_stride, float scale, int split, int base,
+                 int n_local, float* __restrict__ pm, float* __restrict__ pl,
+                 float* __restrict__ pacc) {
   extern __shared__ __align__(16) char smem_raw[];
   char* sm = mor::tile::ring_base(smem_raw);
   int* tags = reinterpret_cast<int*>(sm + OFF_TAG);
@@ -487,6 +516,9 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
   const size_t row0 = (size_t)b * npairs + p0;
   const int lo = (int)((long long)W * rank / split);
   const int hi = (int)((long long)W * (rank + 1) / split);
+  // the partial form's row of pair p: (b, head p % h, c = p / h) of (B,
+  // h, C)
+  auto prow = [&](int p) { return ((size_t)b * h + p % h) * C + p / h; };
 
   // Regions: the latent columns' nlat (64 columns each, the last
   // zero-filled past kr), then the rope's (rd <= 64).
@@ -692,17 +724,19 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
 
   for (int c0 = lo; c0 < hi; c0 += LIST) {
     // compact the live entries of [c0, c0 + LIST) into `list`, in order
-    const int pg = pg_next;
-    const unsigned live = __ballot_sync(0xffffffffu, pg != 0);
+    // as local page ids: a null or foreign entry is not live
+    const int pg = pg_next - base;
+    const bool is_live = pg_next > 0 && pg >= 0 && pg < n_local;
+    const unsigned live = __ballot_sync(0xffffffffu, is_live);
     if (lane == 0) cnt[warp] = __popc(live);
     __syncthreads();
-    int base = 0, nlive = 0;
+    int at = 0, nlive = 0;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) {
-      base += w < warp ? cnt[w] : 0;
+      at += w < warp ? cnt[w] : 0;
       nlive += cnt[w];
     }
-    if (pg != 0) list[base + __popc(live & ((1u << lane) - 1u))] = pg;
+    if (is_live) list[at + __popc(live & ((1u << lane) - 1u))] = pg;
     __syncthreads();
     const int jn = c0 + LIST + tid;       // the next scan's entry, early
     pg_next = jn < hi ? trow[jn] : 0;
@@ -739,6 +773,27 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
     lrow[ra] = la;
     mrow[rb] = mb;
     lrow[rb] = lb;
+  }
+  if (split == 1 && pm != nullptr) {
+    // the partial form: the real pairs' statistics from the registers
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int r = u ? rb : ra;
+      if (p0 + r >= npairs) continue;
+      const size_t row = prow(p0 + r);
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+        if (256 * wg + 8 * j < kr)        // kr % 8 == 0: whole n8 tiles
+          *reinterpret_cast<float2*>(pacc + row * kr + 256 * wg + 8 * j +
+                                     2 * tq) =
+              make_float2(o[j][2 * u], o[j][2 * u + 1]);
+      if (wg == 0 && tq == 0) {
+        pm[row] = mrow[r];
+        pl[row] = lrow[r];
+      }
+    }
+    return;
   }
   if (split == 1) {
     // the normalised rows through shared memory (rows LDB apart: a
@@ -799,7 +854,13 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
       wts[r * (MAX_SPLIT + 1) + q] = w;
       L = fmaf(lq[q], w, L);
     }
-    wts[r * (MAX_SPLIT + 1) + MAX_SPLIT] = 1.f / fmaxf(L, 1e-30f);
+    // the partial form keeps the merged statistics unnormalised
+    wts[r * (MAX_SPLIT + 1) + MAX_SPLIT] =
+        pm != nullptr ? 1.f : 1.f / fmaxf(L, 1e-30f);
+    if (pm != nullptr && p0 + r < npairs) {
+      pm[prow(p0 + r)] = M;
+      pl[prow(p0 + r)] = L;
+    }
   }
   __syncthreads();
   const int n4 = kr / 4;
@@ -823,8 +884,11 @@ mla_paged_kernel(const __grid_constant__ CUtensorMap tm_ql,
       v.w = fmaf(u[q].w, w[q], v.w);
     }
     const float d = w[MAX_SPLIT];               // 1 / max(L, 1e-30)
-    mor::tile::store4(out + (row0 + r) * kr + c,
-                      make_float4(v.x * d, v.y * d, v.z * d, v.w * d));
+    if (pm != nullptr)
+      *reinterpret_cast<float4*>(pacc + prow(p0 + r) * kr + c) = v;
+    else
+      mor::tile::store4(out + (row0 + r) * kr + c,
+                        make_float4(v.x * d, v.y * d, v.z * d, v.w * d));
   }
   cluster.sync();                         // no block leaves while read
 }
@@ -860,9 +924,10 @@ int tensor_map(CUtensorMap* map, const void* base, int cols, long long rows,
 }
 
 int launch(const bf16* ql, const bf16* qe, const bf16* ck, const bf16* cpe,
-           const int* cp, const int* tbl, const int* qpos, bf16* out, int B,
+           const int* cp, const int* tbl, const int* qpos, void* out, int B,
            int C, int h, int kr, int rd, int P, int n_pages, int W,
-           int tbl_stride, int split, float scale, cudaStream_t st) {
+           int tbl_stride, int split, float scale, int base, int n_local,
+           float* pm, float* pl, cudaStream_t st) {
   static unsigned long long ready = 0;
   const long long tiles = ((long long)C * h + BM - 1) / BM;
   const long long rows = (long long)n_pages * P, qrows = (long long)B * C * h;
@@ -881,8 +946,12 @@ int launch(const bf16* ql, const bf16* qe, const bf16* ck, const bf16* cpe,
   const dim3 grid((unsigned)(tiles * split), B);
   return mor::launch_cluster(mla_paged_kernel, ready, SMEM_BYTES, grid,
                              split, SMEM_BYTES, st, tm[0], tm[1], tm[2],
-                             tm[3], cp, tbl, qpos, out, C, h, kr, rd, P,
-                             (int)rows, W, tbl_stride, scale, split);
+                             tm[3], cp, tbl, qpos,
+                             pm != nullptr ? nullptr : static_cast<bf16*>(out),
+                             C, h, kr, rd, P, (int)rows, W, tbl_stride, scale,
+                             split, base, n_local, pm, pl,
+                             pm != nullptr ? static_cast<float*>(out)
+                                           : nullptr);
 }
 
 }  // namespace tc
@@ -890,31 +959,38 @@ int launch(const bf16* ql, const bf16* qe, const bf16* ck, const bf16* cpe,
 
 // q_lat (B, C, h, kr), q_pe (B, C, h, rd); ck (n_pages, P, kr), cpe
 // (n_pages, P, rd) in `dtype`, 16-byte aligned; cp (n_pages, P) int32;
-// tbl (B, >= W) int32 with rows tbl_stride apart; qpos (B, C) int32; out
-// (B, C, h, kr).  kr <= 512, kr and rd multiples of 16 bytes; bf16 also
-// rd <= 64, P a multiple of 8 and cp 16-byte aligned, and splits each
-// slot's table columns over `split` blocks of a cluster (1 <= split <=
-// min(8, W), the wrapper's plan); float32 takes split = 1.  Returns the
-// launch's error code.
+// tbl (B, >= W) int32 global page ids with rows tbl_stride apart, live
+// where in [base, base + n_local) (base 0, n_local n_pages on one
+// device); qpos (B, C) int32; out (B, C, h, kr) in `dtype`, or with pm
+// and pl given (the partial form) the float32 acc (B, h, C, kr) beside m
+// and l (B, h, C).  kr <= 512, kr and rd multiples of 16 bytes; bf16
+// also rd <= 64, P a multiple of 8 and cp 16-byte aligned, and splits
+// each slot's table columns over `split` blocks of a cluster (1 <= split
+// <= min(8, W), the wrapper's plan); float32 takes split = 1.  Returns
+// the launch's error code.
 extern "C" int mla_paged_flash(const void* ql, const void* qe, const void* ck,
                                const void* cpe, const int* cp,
                                const int* tbl, const int* qpos, void* out,
-                               int B, int C, int h, int kr, int rd, int P,
-                               int n_pages, int W, int tbl_stride, int split,
-                               float scale, int dtype, void* stream) {
+                               float* pm, float* pl, int B, int C, int h,
+                               int kr, int rd, int P, int n_pages, int W,
+                               int tbl_stride, int split, int base,
+                               int n_local, float scale, int dtype,
+                               void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((pm == nullptr) != (pl == nullptr) || base < 0 || n_local < 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == mor::BF16)
     return mla::tc::launch(
         static_cast<const bf16*>(ql), static_cast<const bf16*>(qe),
         static_cast<const bf16*>(ck), static_cast<const bf16*>(cpe), cp,
-        tbl, qpos, static_cast<bf16*>(out), B, C, h, kr, rd, P, n_pages, W,
-        tbl_stride, split, scale, st);
+        tbl, qpos, out, B, C, h, kr, rd, P, n_pages, W, tbl_stride, split,
+        scale, base, n_local, pm, pl, st);
   if (dtype == mor::F32 && split == 1)
     return mla::cc::launch(
         static_cast<const float*>(ql), static_cast<const float*>(qe),
         static_cast<const float*>(ck), static_cast<const float*>(cpe), cp,
         tbl, qpos, static_cast<float*>(out), B, C, h, kr, rd, P, W,
-        tbl_stride, scale, st);
+        tbl_stride, scale, base, n_local, pm, pl, st);
   return (int)cudaErrorInvalidValue;
 }

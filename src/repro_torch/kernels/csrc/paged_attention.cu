@@ -1,15 +1,22 @@
 // GQA paged flash attention for sm_90a.
 //
 // Replaces the Pallas TPU kernel repro/kernels/paged_attention.py:178
-// `gqa_paged_flash` (pallas_call at l.227) in its single-device form:
-// normalised output (partial=False), no shard window (lo=None).  For
-// each slot b the kernel walks the block-table entries j = 0..W-1; a
-// null entry (page id 0) is skipped before anything is loaded; a live
-// page's `page` rows are scored q.k * D^-0.5 in float32, a row is
+// `gqa_paged_flash` (pallas_call at l.227), with its shard window and
+// its partial form.  For each slot b the kernel walks the block-table
+// entries j = 0..W-1 of global page ids.  An entry is live where its id
+// is > 0 and lies in the window [base, base + n_local) of the pool this
+// call holds (a page shard's resident range, `_live_tables`; the whole
+// pool on one device, base 0), and is read at local index id - base; a
+// null entry and a foreign one are skipped before anything is loaded.  A
+// live page's `page` rows are scored q.k * D^-0.5 in float32, a row is
 // masked unless its tag is >= 0, qpos - tag >= 0 and, with window > 0,
 // qpos - tag < window; the pages fold into online-softmax statistics
-// (m, l, acc), all float32; the output is acc / max(l, 1e-30) in q's
-// dtype, laid out (B, C, H, D).
+// (m, l, acc), all float32.  The output is acc / max(l, 1e-30) in q's
+// dtype, laid out (B, C, H, D); or, in the partial form (`pm` given),
+// the statistics themselves, unnormalised, in the Pallas kernel's
+// layout: m and l (B, hkv, G, C), acc (B, hkv, G, C, D), m in natural
+// log units (the largest scaled score), l and acc relative to it: the
+// operands of the page shards' flash merge.
 //
 // Bound on the H100: bytes.  The work is 4 flops per K/V element read
 // (q.k and p.v), far below the ridge, so the floor is the live pages'
@@ -93,7 +100,10 @@
 // as m = -1e30, l = 0, acc = 0; one whose live keys are all masked has
 // m = -1e30 and loses to any rank with a real score, as in a single
 // pass.  Rows of a K tile past its live pages are zeros (boxes past the
-// pool) and score -INFINITY: they weigh nothing.
+// pool) and score -INFINITY: they weigh nothing.  The partial form keeps
+// both conventions bit for bit: a window with no live page gives m =
+// -1e30, l = 0, acc = 0, one whose live keys are all masked m = -1e30
+// and l = the count of its live keys.
 //
 // Pool offsets are 64-bit: a full-width pool holds more than 2^31
 // elements over all layers, and one layer's pool can come close.
@@ -145,7 +155,9 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                  const T* __restrict__ vp, const int* __restrict__ pp,
                  const int* __restrict__ tbl, const int* __restrict__ qpos,
                  T* __restrict__ out, int C, int H, int hkv, int P, int W,
-                 int tbl_stride, int window, float scale, int CT, int GT) {
+                 int tbl_stride, int window, float scale, int CT, int GT,
+                 int base, int n_local, float* __restrict__ pm,
+                 float* __restrict__ pl, float* __restrict__ pacc) {
   constexpr int RMAX = rmax<D>(), DP = padded<D>();
   constexpr int VEC = 16 / sizeof(T);
   extern __shared__ float smem[];
@@ -189,16 +201,17 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   const size_t row_stride = (size_t)hkv * D;  // elements between page rows
   for (int j = warp; j < W; j += NW) {
-    const int pg = tbl[(size_t)b * tbl_stride + j];
-    if (pg == 0) continue;                    // null page: nothing loaded
-    const size_t base = (size_t)pg * P * row_stride + (size_t)kvh * D;
+    const int id = tbl[(size_t)b * tbl_stride + j], pg = id - base;
+    // null or foreign page: nothing loaded
+    if (id <= 0 || pg < 0 || pg >= n_local) continue;
+    const size_t off = (size_t)pg * P * row_stride + (size_t)kvh * D;
     for (int c = lane; c < P * (D / VEC); c += 32) {
       const int t = c / (D / VEC), dv = (c % (D / VEC)) * VEC;
       float tmp[VEC];
-      load16(kp + base + t * row_stride + dv, tmp);
+      load16(kp + off + t * row_stride + dv, tmp);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) ks[t * (D + 1) + dv + i] = tmp[i];
-      load16(vp + base + t * row_stride + dv, tmp);
+      load16(vp + off + t * row_stride + dv, tmp);
 #pragma unroll
       for (int i = 0; i < VEC; ++i) vs[t * D + dv + i] = tmp[i];
     }
@@ -282,6 +295,19 @@ gqa_paged_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     __syncthreads();
   }
+  // the partial form's row of pair r: (b, kvh, g, c) of (B, hkv, G, C)
+  auto prow = [&](int r) {
+    return (((size_t)b * hkv + kvh) * G + g0 + r % Gb) * C + c0 + r / Gb;
+  };
+  if (pm != nullptr) {
+    for (int e = threadIdx.x; e < R * D; e += NW * 32)
+      pacc[prow(e / D) * D + e % D] = qs[(e / D) * (D + 1) + e % D];
+    for (int r = threadIdx.x; r < R; r += NW * 32) {
+      pm[prow(r)] = Mm[r];
+      pl[prow(r)] = Ml[r];
+    }
+    return;
+  }
   for (int e = threadIdx.x; e < R * D; e += NW * 32) {
     const int r = e / D, d = e % D;
     const int cl = r / Gb, g = g0 + r % Gb;
@@ -294,7 +320,8 @@ template <typename T, int D>
 int launch(const void* q, const void* kp, const void* vp, const int* pp,
            const int* tbl, const int* qpos, void* out, int B, int C, int H,
            int hkv, int P, int W, int tbl_stride, int window, float scale,
-           int rows, int heads, cudaStream_t st) {
+           int rows, int heads, int base, int n_local, float* pm, float* pl,
+           cudaStream_t st) {
   constexpr int RMAX = rmax<D>();
   if (hkv < 1 || H % hkv || C < 1 || rows < 1 || heads < 1 ||
       heads > H / hkv || rows * heads > RMAX || hkv > 65535 || B > 65535)
@@ -313,8 +340,10 @@ int launch(const void* q, const void* kp, const void* vp, const int* pp,
   const dim3 grid((unsigned)tiles, hkv, B);
   kern<<<grid, NW * 32, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), pp, tbl, qpos, static_cast<T*>(out), C, H,
-      hkv, P, W, tbl_stride, window, scale, rows, heads);
+      static_cast<const T*>(vp), pp, tbl, qpos,
+      pm != nullptr ? nullptr : static_cast<T*>(out), C, H, hkv, P, W,
+      tbl_stride, window, scale, rows, heads, base, n_local, pm, pl,
+      pm != nullptr ? static_cast<float*>(out) : nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -322,26 +351,23 @@ template <typename T>
 int by_dim(int D, const void* q, const void* kp, const void* vp,
            const int* pp, const int* tbl, const int* qpos, void* out, int B,
            int C, int H, int hkv, int P, int W, int tbl_stride, int window,
-           float scale, int rows, int heads, cudaStream_t st) {
+           float scale, int rows, int heads, int base, int n_local, float* pm,
+           float* pl, cudaStream_t st) {
+#define PAGED_CC_CASE(DIM)                                                  \
+  case DIM:                                                                 \
+    return launch<T, DIM>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P, W, \
+                          tbl_stride, window, scale, rows, heads, base,     \
+                          n_local, pm, pl, st);
   switch (D) {
-    case 32:
-      return launch<T, 32>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                           W, tbl_stride, window, scale, rows, heads, st);
-    case 64:
-      return launch<T, 64>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                           W, tbl_stride, window, scale, rows, heads, st);
-    case 96:
-      return launch<T, 96>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                           W, tbl_stride, window, scale, rows, heads, st);
-    case 112:
-      return launch<T, 112>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                            W, tbl_stride, window, scale, rows, heads, st);
-    case 128:
-      return launch<T, 128>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P,
-                            W, tbl_stride, window, scale, rows, heads, st);
+    PAGED_CC_CASE(32)
+    PAGED_CC_CASE(64)
+    PAGED_CC_CASE(96)
+    PAGED_CC_CASE(112)
+    PAGED_CC_CASE(128)
     default:
       return (int)cudaErrorInvalidValue;
   }
+#undef PAGED_CC_CASE
 }
 
 }  // namespace cc
@@ -409,7 +435,8 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                  const int* __restrict__ tbl, const int* __restrict__ qpos,
                  bf16* __restrict__ out, int C, int H, int hkv, int P, int W,
                  int tbl_stride, int window, float scale_log2,
-                 int split) {
+                 int split, int base, int n_local, float* __restrict__ pm,
+                 float* __restrict__ pl, float* __restrict__ pacc) {
   extern __shared__ __align__(16) char smem_raw[];
   char* sm = mor::tile::ring_base(smem_raw);
   int* tags = reinterpret_cast<int*>(sm + OFF_TAG);
@@ -426,6 +453,14 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   // pair p's q and output row: (b, c = p / G, head kvh G + p % G)
   auto row_of = [&](int p) {
     return (((size_t)b * C + p / G) * H + kvh * G + p % G) * D;
+  };
+  // the partial form's row of pair p: (b, kvh, g = p % G, c = p / G) of
+  // (B, hkv, G, C); its m in natural log units, the sentinel kept
+  auto prow = [&](int p) {
+    return (((size_t)b * hkv + kvh) * G + p % G) * C + p / G;
+  };
+  auto nat = [](float m) {
+    return m == NEG_INF ? NEG_INF : m * 0.6931471805599453f;
   };
 
   // this thread's entry of the first scan
@@ -616,18 +651,20 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   };
 
   for (int c0 = lo; c0 < hi; c0 += LIST) {
-    // compact the live entries of [c0, c0 + LIST) into `list`, in order
-    const int pg = pg_next;
-    const unsigned live = __ballot_sync(0xffffffffu, pg != 0);
+    // compact the live entries of [c0, c0 + LIST) into `list`, in order,
+    // as local page ids: a null or foreign entry is not live
+    const int pg = pg_next - base;
+    const bool is_live = pg_next > 0 && pg >= 0 && pg < n_local;
+    const unsigned live = __ballot_sync(0xffffffffu, is_live);
     if (lane == 0) cnt[warp] = __popc(live);
     __syncthreads();
-    int base = 0, nlive = 0;
+    int at = 0, nlive = 0;
 #pragma unroll
     for (int w = 0; w < THREADS / 32; ++w) {
-      base += w < warp ? cnt[w] : 0;
+      at += w < warp ? cnt[w] : 0;
       nlive += cnt[w];
     }
-    if (pg != 0) list[base + __popc(live & ((1u << lane) - 1u))] = pg;
+    if (is_live) list[at + __popc(live & ((1u << lane) - 1u))] = pg;
     __syncthreads();
     const int jn = c0 + LIST + tid;       // the next scan's entry, early
     pg_next = jn < hi ? trow[jn] : 0;
@@ -653,6 +690,24 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   float* mrow = acc + BM * LDO;
   float* lrow = mrow + BM;
   float* wts = lrow + BM;                 // BM x (MAX_SPLIT + 1)
+  if (split == 1 && pm != nullptr) {
+    // the partial form: the real pairs' statistics from the registers
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = h ? rb : ra;
+      if (r >= nreal) continue;
+      const size_t row = prow(p0 + r);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<float2*>(pacc + row * D + 8 * j + 2 * tq) =
+            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      if (tq == 0) {
+        pm[row] = nat(h ? mb : ma);
+        pl[row] = h ? lb : la;
+      }
+    }
+    return;
+  }
   if (split == 1) {
     // the normalised rows through shared memory (rows LDB apart), then
     // 16-byte stores of the real pairs' rows
@@ -714,7 +769,13 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       wts[r * (MAX_SPLIT + 1) + u] = wu;
       L = fmaf(lq[u], wu, L);
     }
-    wts[r * (MAX_SPLIT + 1) + MAX_SPLIT] = 1.f / fmaxf(L, 1e-30f);
+    // the partial form keeps the merged statistics unnormalised
+    wts[r * (MAX_SPLIT + 1) + MAX_SPLIT] =
+        pm != nullptr ? 1.f : 1.f / fmaxf(L, 1e-30f);
+    if (pm != nullptr) {
+      pm[prow(p0 + r)] = nat(M);
+      pl[prow(p0 + r)] = L;
+    }
   }
   __syncthreads();
   for (int e = tid; e < (r_hi - r_lo) * (D / 4); e += THREADS) {
@@ -736,16 +797,20 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
       v.w = fmaf(u4[u].w, wr[u], v.w);
     }
     const float dn = wr[MAX_SPLIT];             // 1 / max(L, 1e-30)
-    mor::tile::store4(out + row_of(p0 + r) + c,
-                      make_float4(v.x * dn, v.y * dn, v.z * dn, v.w * dn));
+    if (pm != nullptr)
+      *reinterpret_cast<float4*>(pacc + prow(p0 + r) * D + c) = v;
+    else
+      mor::tile::store4(out + row_of(p0 + r) + c,
+                        make_float4(v.x * dn, v.y * dn, v.z * dn, v.w * dn));
   }
   cluster.sync();                         // no block leaves while read
 }
 
 int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
-           const int* tbl, const int* qpos, bf16* out, int B, int C, int H,
+           const int* tbl, const int* qpos, void* out, int B, int C, int H,
            int hkv, int P, int W, int tbl_stride, int window, int split,
-           float scale, cudaStream_t st) {
+           float scale, int base, int n_local, float* pm, float* pl,
+           cudaStream_t st) {
   static unsigned long long ready = 0;
   const long long tiles = ((long long)C * (H / max(hkv, 1)) + BM - 1) / BM;
   if (hkv < 1 || H % hkv || C < 1 || P < 8 || P % 8 || B > 65535 ||
@@ -758,45 +823,53 @@ int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
   const dim3 grid((unsigned)(tiles * split), hkv, B);
   return mor::launch_cluster<THREADS>(
       gqa_paged_kernel, ready, SMEM_BYTES, grid, split, SMEM_BYTES, st, q, kp,
-      vp, pp, tbl, qpos, out, C, H, hkv, P, W, tbl_stride, window,
-      scale * 1.4426950408889634f, split);
+      vp, pp, tbl, qpos, pm != nullptr ? nullptr : static_cast<bf16*>(out),
+      C, H, hkv, P, W, tbl_stride, window, scale * 1.4426950408889634f,
+      split, base, n_local, pm, pl,
+      pm != nullptr ? static_cast<float*>(out) : nullptr);
 }
 
 }  // namespace tc
 }  // namespace paged
 
 // q (B, C, H, D); kp, vp (n_pages, P, hkv, D) in `dtype`, 16-byte
-// aligned; pp (n_pages, P) int32; tbl (B, >= W) int32 with rows
-// tbl_stride apart; qpos (B, C) int32; out (B, C, H, D).  bf16 at D 64
-// runs on the tensor cores (P a multiple of 8, pp 16-byte aligned) and
-// splits each slot's table columns over `split` blocks of a cluster (1
-// <= split <= min(8, W), the wrapper's plan); float32, and bf16 at D 32,
-// 96 or 128, run on the CUDA cores with split = 1, a block serving
-// `rows` query rows x `heads` query heads of one KV head (the wrapper's
-// plan; rows and heads are not read on the tensor cores).  Returns the
-// launch's error code.
+// aligned; pp (n_pages, P) int32; tbl (B, >= W) int32 global page ids
+// with rows tbl_stride apart, live where in [base, base + n_local)
+// (base 0, n_local n_pages on one device); qpos (B, C) int32; out (B,
+// C, H, D) in `dtype`, or with pm and pl given (the partial form) the
+// float32 acc (B, hkv, G, C, D) beside m and l (B, hkv, G, C).  bf16 at
+// D 64 runs on the tensor cores (P a multiple of 8, pp 16-byte aligned)
+// and splits each slot's table columns over `split` blocks of a cluster
+// (1 <= split <= min(8, W), the wrapper's plan); float32, and bf16 at D
+// 32, 96, 112 or 128, run on the CUDA cores with split = 1, a block
+// serving `rows` query rows x `heads` query heads of one KV head (the
+// wrapper's plan; rows and heads are not read on the tensor cores).
+// Returns the launch's error code.
 extern "C" int gqa_paged_flash(const void* q, const void* kp, const void* vp,
                                const int* pp, const int* tbl,
-                               const int* qpos, void* out, int B, int C,
-                               int H, int hkv, int D, int P, int W,
-                               int tbl_stride, int window, int split,
-                               int rows, int heads, float scale, int dtype,
+                               const int* qpos, void* out, float* pm,
+                               float* pl, int B, int C, int H, int hkv,
+                               int D, int P, int W, int tbl_stride,
+                               int window, int split, int rows, int heads,
+                               int base, int n_local, float scale, int dtype,
                                void* stream) {
   using bf16 = __nv_bfloat16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((pm == nullptr) != (pl == nullptr) || base < 0 || n_local < 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == mor::BF16 && D == paged::tc::D)
     return paged::tc::launch(
         static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
-        static_cast<const bf16*>(vp), pp, tbl, qpos, static_cast<bf16*>(out),
-        B, C, H, hkv, P, W, tbl_stride, window, split, scale, st);
+        static_cast<const bf16*>(vp), pp, tbl, qpos, out, B, C, H, hkv, P, W,
+        tbl_stride, window, split, scale, base, n_local, pm, pl, st);
   if (split != 1) return (int)cudaErrorInvalidValue;
   if (dtype == mor::BF16)
     return paged::cc::by_dim<bf16>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
                                    H, hkv, P, W, tbl_stride, window, scale,
-                                   rows, heads, st);
+                                   rows, heads, base, n_local, pm, pl, st);
   if (dtype == mor::F32)
     return paged::cc::by_dim<float>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
                                     H, hkv, P, W, tbl_stride, window, scale,
-                                    rows, heads, st);
+                                    rows, heads, base, n_local, pm, pl, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,11 +3,13 @@
 PyTorch versions, and their launch counters.
 
 Replace ``repro/kernels/paged_attention.py`` ``gqa_paged_flash`` and
-``mla_paged_flash`` (Pallas) in their single-device form: the
-normalised output (``partial=False``) over the whole page pool (no
-``lo`` / ``n_local`` shard window).  The partial-statistics and
-shard-window forms wait for the multi-device slice (ROADMAP queue A
-7).  Bounds on the H100: bytes for GQA (the live pages' K, V and
+``mla_paged_flash`` (Pallas) whole: the normalised output over the
+whole page pool, and a page shard's forms, ``lo`` / ``n_local`` (the
+window of global page ids the local pool holds: a page outside it is
+skipped like the null page, ``_live_tables``) and ``partial=True``
+(the unnormalised float32 statistics (m, l, acc) in the Pallas
+kernel's layout, the operands of ``distributed.collectives.
+flash_merge``).  Bounds on the H100: bytes for GQA (the live pages' K, V and
 tags); MLA sits near the bf16 ridge, bound by the latent rows' bytes at
 decode and by q's and the output's at a mixed dispatch.  Both bf16
 kernels run on the tensor cores (GQA at head dim 64; other head dims
@@ -45,35 +47,77 @@ MLA_TILE_KEYS = 64                 # bf16: keys a K tile
 
 launches = 0          # gqa_paged_flash launches since the last reset
 mla_launches = 0      # mla_paged_flash launches since the last reset
+partial_launches = 0  # ... of them in the partial form (gqa)
+mla_partial_launches = 0  # ... (mla)
 
 
-def _paged_view(pool: torch.Tensor, block_table: torch.Tensor, fill):
-    """The ring view ``pool[block_table]`` with null entries (page id 0)
-    read as ``fill`` (``ref._paged_view``)."""
-    live = block_table > 0
-    out = pool[torch.where(live, block_table, 0).long()]
+def _live(block_table: torch.Tensor, lo: Optional[int],
+          n_local: Optional[int]):
+    """-> (local page id, live) of every table entry (the Pallas
+    wrapper's ``_live_tables``): a null entry (id 0) is never live, and
+    under a shard window [lo, lo + n_local) a foreign one is not
+    either."""
+    if lo is None:
+        return block_table, block_table > 0
+    loc = block_table - lo
+    return loc, (block_table > 0) & (loc >= 0) & (loc < n_local)
+
+
+def _paged_view(pool: torch.Tensor, block_table: torch.Tensor, fill,
+                lo: Optional[int] = None, n_local: Optional[int] = None):
+    """The ring view through the table, entries that are not live read
+    as ``fill`` (``ref._paged_view``)."""
+    loc, live = _live(block_table, lo, n_local)
+    out = pool[torch.where(live, loc, 0).long()]
     m = live.reshape(live.shape + (1,) * (out.ndim - 2))
     return torch.where(m, out, torch.full((), fill, dtype=out.dtype,
                                           device=out.device))
 
 
+def _stats(s: torch.Tensor, keys: torch.Tensor, v: torch.Tensor,
+           eq: str):
+    """(m, l, acc) of masked float32 scores ``s`` (-1e30 where masked)
+    over the live pages' keys only (``keys``, broadcast against s), as
+    the Pallas kernel keeps them: with no live key m = -1e30, l = 0, acc
+    = 0; with live keys all masked m = -1e30 and exp(0) weights."""
+    s = torch.where(keys, s, float("-inf"))
+    m = torch.clamp(s.amax(-1), min=NEG_INF)
+    p = torch.exp(s - m[..., None])
+    return m, p.sum(-1), torch.einsum(eq, p, v)
+
+
+def _check_window(lo, n_local, n_pages):
+    if (lo is None) != (n_local is None) or \
+            (lo is not None and not (lo >= 0 and 0 <= n_local <= n_pages)):
+        raise ValueError(f"a shard window takes lo >= 0 and 0 <= n_local "
+                         f"<= {n_pages} together, got {lo}, {n_local}")
+
+
 def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
                           vpool: torch.Tensor, ppool: torch.Tensor,
                           block_table: torch.Tensor, qpos: torch.Tensor, *,
-                          window: int = 0) -> torch.Tensor:
-    """Plain version (the port of ``ref.gqa_paged_ref``, non-partial):
-    gather the ring view through the table, null pages as rows tagged
-    -1, then a masked softmax with float32 scores, statistics and
-    accumulator, cast to q's dtype at the end."""
+                          window: int = 0, lo: Optional[int] = None,
+                          n_local: Optional[int] = None,
+                          partial: bool = False):
+    """Plain version (the port of ``ref.gqa_paged_ref``): gather the
+    ring view through the table, entries that are not live as rows
+    tagged -1, then a masked softmax over the live pages' keys with
+    float32 scores, statistics and accumulator; the output cast to q's
+    dtype, or with ``partial`` the statistics, m / l (B, hkv, G, C) and
+    acc (B, hkv, G, C, Dv)."""
     B, C, H, D = q.shape
-    page, hkv = kpool.shape[1], kpool.shape[2]
+    W, page, hkv = block_table.shape[1], kpool.shape[1], kpool.shape[2]
     Dv = vpool.shape[-1]
     G = H // hkv
-    ring = block_table.shape[1] * page
-    gk = _paged_view(kpool, block_table, 0).reshape(B, ring, hkv, D).float()
-    gv = _paged_view(vpool, block_table, 0).reshape(B, ring, hkv,
-                                                    Dv).float()
-    gp = _paged_view(ppool, block_table, -1).reshape(B, ring)
+    ring = W * page
+    _check_window(lo, n_local, kpool.shape[0])
+    view = lambda pool, fill: _paged_view(pool, block_table, fill, lo,
+                                          n_local)
+    gk = view(kpool, 0).reshape(B, ring, hkv, D).float()
+    gv = view(vpool, 0).reshape(B, ring, hkv, Dv).float()
+    gp = view(ppool, -1).reshape(B, ring)
+    keys = _live(block_table, lo, n_local)[1][..., None].expand(
+        B, W, page).reshape(B, 1, 1, 1, ring)
     qf = q.reshape(B, C, hkv, G, D).float()
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, gk) * (D ** -0.5)
     rel = qpos[:, :, None] - gp[:, None, :]
@@ -81,10 +125,10 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
     if window > 0:
         ok = ok & (rel < window)
     s = torch.where(ok[:, None, None], s, NEG_INF)
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    acc = torch.einsum("bkgqt,btkd->bkgqd", p, gv)
-    o = acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+    m, l, acc = _stats(s, keys, gv, "bkgqt,btkd->bkgqd")
+    if partial:
+        return m, l, acc
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, Dv).to(q.dtype)
 
 
@@ -168,25 +212,34 @@ def split_ranges(W: int, split: int):
 def gqa_paged_flash(q: torch.Tensor, kpool: torch.Tensor,
                     vpool: torch.Tensor, ppool: torch.Tensor,
                     block_table: torch.Tensor, qpos: torch.Tensor, *,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, lo: Optional[int] = None,
+                    n_local: Optional[int] = None, partial: bool = False):
     """q: (B, C, H, D); pools (n_pages, page, hkv, D) with position tags
     ``ppool`` (n_pages, page) int32; block_table (B, W) int32 page ids
-    (a column slice of a wider table is fine); qpos (B, C) int32.
-    -> (B, C, H, D) in q's dtype.  The CUDA kernel for a CUDA tensor
-    (bf16 at head dim 64: pages of a multiple of 8 rows), the plain
-    version for a CPU tensor, an error for anything else."""
+    (a column slice of a wider table is fine; global ids, with ``lo`` /
+    ``n_local`` the window of them that the pools hold at local index id
+    - lo); qpos (B, C) int32.  -> (B, C, H, D) in q's dtype, or with
+    ``partial`` the float32 statistics (m, l, acc) of shapes (B, hkv, G,
+    C) and (B, hkv, G, C, D).  The CUDA kernel for a CUDA tensor (bf16
+    at head dim 64: pages of a multiple of 8 rows), the plain version
+    for a CPU tensor, an error for anything else."""
     if q.device.type == "cpu":
         return gqa_paged_flash_plain(q, kpool, vpool, ppool, block_table,
-                                     qpos, window=window)
-    return launch(q, kpool, vpool, ppool, block_table, qpos, window)
+                                     qpos, window=window, lo=lo,
+                                     n_local=n_local, partial=partial)
+    return launch(q, kpool, vpool, ppool, block_table, qpos, window, lo=lo,
+                  n_local=n_local, partial=partial)
 
 
 def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
-           split: Optional[int] = None):
+           split: Optional[int] = None, lo: Optional[int] = None,
+           n_local: Optional[int] = None, partial: bool = False):
     """The CUDA kernel on CUDA tensors (``gqa_paged_flash``'s card path):
     the bf16 tensor-core body splits each slot's table over ``split``
-    ranks, ``gqa_plan``'s unless given (``chip_smoke.py`` sweeps it)."""
-    global launches
+    ranks, ``gqa_plan``'s unless given (``chip_smoke.py`` sweeps it); it
+    plans over at most ``n_local`` entries, the live pages a window can
+    hold."""
+    global launches, partial_launches
     stream = cuda_stream(q.device)
     B, C, H, D = q.shape
     n_pages, page, hkv = kpool.shape[:3]
@@ -211,6 +264,8 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
         raise ValueError("block_table must lie on q's device with unit "
                          "column stride")
     W = block_table.shape[1]
+    _check_window(lo, n_local, n_pages)
+    base, n_loc = (0, n_pages) if lo is None else (int(lo), int(n_local))
     tc = gqa_body(q.dtype, D) == "tensor_cores"
     if tc and page % PAGE_ROWS:
         raise ValueError(f"the bf16 kernel at head dim {D} takes pages of "
@@ -226,16 +281,26 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
     if not tc:
         split = 1
     elif split is None:
-        split = gqa_plan(B, C, H, hkv, W, page, sms=split_k.sm_count(dev))
-    out = torch.empty((B, C, H, D), dtype=q.dtype, device=dev)
+        split = gqa_plan(B, C, H, hkv, max(1, min(W, n_loc)), page,
+                         sms=split_k.sm_count(dev))
+    G = H // hkv
+    if partial:
+        m = torch.empty((B, hkv, G, C), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        out = torch.empty((B, hkv, G, C, D), dtype=torch.float32,
+                          device=dev)
+    else:
+        m = l = None
+        out = torch.empty((B, C, H, D), dtype=q.dtype, device=dev)
     err = lib().gqa_paged_flash(
         ptr(q, dev), ptr(kpool, dev), ptr(vpool, dev), ptr(ppool, dev),
-        block_table.data_ptr(), ptr(qpos, dev), ptr(out, dev), B, C, H,
-        hkv, D, page, W, block_table.stride(0), window, split, rows, heads,
-        D ** -0.5, code, stream)
+        block_table.data_ptr(), ptr(qpos, dev), ptr(out, dev), ptr(m, dev),
+        ptr(l, dev), B, C, H, hkv, D, page, W, block_table.stride(0), window,
+        split, rows, heads, base, n_loc, D ** -0.5, code, stream)
     launches += 1
+    partial_launches += partial
     check(err, "gqa_paged_flash")
-    return out
+    return (m, l, out) if partial else out
 
 
 # ==========================================================================
@@ -245,28 +310,37 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
 def mla_paged_flash_plain(q_lat: torch.Tensor, q_pe: torch.Tensor,
                           ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
                           cp_pool: torch.Tensor, block_table: torch.Tensor,
-                          qpos: torch.Tensor, *,
-                          scale: float) -> torch.Tensor:
-    """Plain version (the port of ``ref.mla_paged_ref``, non-partial):
-    gather the latent ring view through the table, null pages as rows
-    tagged -1, then a masked softmax in the latent space with float32
-    scores, statistics and accumulator, cast to q_lat's dtype."""
+                          qpos: torch.Tensor, *, scale: float,
+                          lo: Optional[int] = None,
+                          n_local: Optional[int] = None,
+                          partial: bool = False):
+    """Plain version (the port of ``ref.mla_paged_ref``): gather the
+    latent ring view through the table, entries that are not live as
+    rows tagged -1, then a masked softmax over the live pages' keys in
+    the latent space with float32 scores, statistics and accumulator;
+    o_lat cast to q_lat's dtype, or with ``partial`` m / l (B, h, C) and
+    acc (B, h, C, kr)."""
     B, C, h, kr = q_lat.shape
     rd = q_pe.shape[-1]
-    ring = block_table.shape[1] * ck_pool.shape[1]
-    ck = _paged_view(ck_pool, block_table, 0).reshape(B, ring, kr).float()
-    cpe = _paged_view(cpe_pool, block_table, 0).reshape(B, ring,
-                                                        rd).float()
-    cp = _paged_view(cp_pool, block_table, -1).reshape(B, ring)
+    W, page = block_table.shape[1], ck_pool.shape[1]
+    ring = W * page
+    _check_window(lo, n_local, ck_pool.shape[0])
+    view = lambda pool, fill: _paged_view(pool, block_table, fill, lo,
+                                          n_local)
+    ck = view(ck_pool, 0).reshape(B, ring, kr).float()
+    cpe = view(cpe_pool, 0).reshape(B, ring, rd).float()
+    cp = view(cp_pool, -1).reshape(B, ring)
+    keys = _live(block_table, lo, n_local)[1][..., None].expand(
+        B, W, page).reshape(B, 1, 1, ring)
     s = (torch.einsum("bchk,btk->bhct", q_lat.float(), ck)
          + torch.einsum("bchr,btr->bhct", q_pe.float(), cpe)) * scale
     ok = (cp[:, None, None, :] >= 0) & \
         (cp[:, None, None, :] <= qpos[:, None, :, None])
     s = torch.where(ok, s, NEG_INF)
-    m = s.amax(-1)
-    p = torch.exp(s - m[..., None])
-    acc = torch.einsum("bhct,btk->bhck", p, ck)
-    o = acc / torch.clamp(p.sum(-1), min=1e-30)[..., None]
+    m, l, acc = _stats(s, keys, ck, "bhct,btk->bhck")
+    if partial:
+        return m, l, acc
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 2, 1, 3).to(q_lat.dtype)
 
 
@@ -287,26 +361,31 @@ def mla_plan(B: int, C: int, h: int, W: int, page: int, *,
 def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
                     ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
                     cp_pool: torch.Tensor, block_table: torch.Tensor,
-                    qpos: torch.Tensor, *, scale: float) -> torch.Tensor:
+                    qpos: torch.Tensor, *, scale: float,
+                    lo: Optional[int] = None, n_local: Optional[int] = None,
+                    partial: bool = False):
     """q_lat: (B, C, h, kr) with W_uk absorbed, q_pe: (B, C, h, rd);
     pools (n_pages, page, kr) / (n_pages, page, rd) with position tags
     ``cp_pool`` (n_pages, page) int32; block_table (B, W) int32 (a
-    column slice of a wider table is fine); qpos (B, C) int32.  ->
-    o_lat (B, C, h, kr) in q_lat's dtype (the caller absorbs W_uv).
-    The CUDA kernel for a CUDA tensor (bf16: pages of a multiple of 8
-    rows, rd <= 64), the plain version for a CPU tensor, an error for
-    anything else."""
+    column slice of a wider table is fine; global ids, ``lo`` /
+    ``n_local`` as in ``gqa_paged_flash``); qpos (B, C) int32.  ->
+    o_lat (B, C, h, kr) in q_lat's dtype (the caller absorbs W_uv), or
+    with ``partial`` the float32 (m, l, acc) of shapes (B, h, C) and (B,
+    h, C, kr).  The CUDA kernel for a CUDA tensor (bf16: pages of a
+    multiple of 8 rows, rd <= 64), the plain version for a CPU tensor,
+    an error for anything else."""
     if q_lat.device.type == "cpu":
         return mla_paged_flash_plain(q_lat, q_pe, ck_pool, cpe_pool,
                                      cp_pool, block_table, qpos,
-                                     scale=scale)
+                                     scale=scale, lo=lo, n_local=n_local,
+                                     partial=partial)
     return _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table,
-                       qpos, scale)
+                       qpos, scale, lo, n_local, partial)
 
 
 def _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table, qpos,
-                scale):
-    global mla_launches
+                scale, lo=None, n_local=None, partial=False):
+    global mla_launches, mla_partial_launches
     stream = cuda_stream(q_lat.device)
     B, C, h, kr = q_lat.shape
     rd = q_pe.shape[-1]
@@ -345,20 +424,31 @@ def _launch_mla(q_lat, q_pe, ck_pool, cpe_pool, cp_pool, block_table, qpos,
     W = block_table.shape[1]
     if W < 1:
         raise ValueError("the block table has no column")
+    _check_window(lo, n_local, n_pages)
+    base, n_loc = (0, n_pages) if lo is None else (int(lo), int(n_local))
     q_lat, q_pe = q_lat.contiguous(), q_pe.contiguous()
     dev = q_lat.device
     if any(ptr(t, dev) % 16 for t in (q_lat, q_pe, ck_pool, cpe_pool,
                                        cp_pool)):
         raise ValueError("q and the pools must be 16-byte aligned")
-    # float32 walks each slot whole on the CUDA cores
-    split = mla_plan(B, C, h, W, page, sms=split_k.sm_count(dev)) \
-        if bf16 else 1
-    out = torch.empty((B, C, h, kr), dtype=q_lat.dtype, device=dev)
+    # float32 walks each slot whole on the CUDA cores; the plan counts
+    # at most n_local entries, the live pages a window can hold
+    split = mla_plan(B, C, h, max(1, min(W, n_loc)), page,
+                     sms=split_k.sm_count(dev)) if bf16 else 1
+    if partial:
+        m = torch.empty((B, h, C), dtype=torch.float32, device=dev)
+        l = torch.empty_like(m)
+        out = torch.empty((B, h, C, kr), dtype=torch.float32, device=dev)
+    else:
+        m = l = None
+        out = torch.empty((B, C, h, kr), dtype=q_lat.dtype, device=dev)
     err = lib().mla_paged_flash(
         ptr(q_lat, dev), ptr(q_pe, dev), ptr(ck_pool, dev),
         ptr(cpe_pool, dev), ptr(cp_pool, dev), block_table.data_ptr(),
-        ptr(qpos, dev), ptr(out, dev), B, C, h, kr, rd, page, n_pages, W,
-        block_table.stride(0), split, float(scale), code, stream)
+        ptr(qpos, dev), ptr(out, dev), ptr(m, dev), ptr(l, dev), B, C, h,
+        kr, rd, page, n_pages, W, block_table.stride(0), split, base, n_loc,
+        float(scale), code, stream)
     mla_launches += 1
+    mla_partial_launches += partial
     check(err, "mla_paged_flash")
-    return out
+    return (m, l, out) if partial else out

@@ -10,6 +10,8 @@ prompt-length trace (``repro.launch.serve``).
       --arch mixtral-8x7b --layers 8 --mor kernel --compare
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --reduced --arch zamba2-7b --shared-prefix 8 --mor kernel --compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --reduced --layout paged-sharded --shards 2 --mor kernel --compare
 
 Initialises the model from a seed (random weights; ``--layers N`` cuts
 the depth to N layers, keeping every width), calibrates the MoR
@@ -19,7 +21,9 @@ predictor on synthetic batches when ``--mor`` is not dense
 (layer, expert) FFNs get their own predictors, ``calibrate_hybrid`` for
 zamba2-7b's one shared MLP), serves the
 trace through the engine (``--layout paged`` by default, with prefix
-caching; ``slotted`` for the contiguous baseline) and reports tokens/s,
+caching; ``slotted`` for the contiguous baseline; ``paged-sharded
+--shards N`` spawns N rank processes, one page shard each, on which rank
+0 calibrates and hands its MoR tree to the others) and reports tokens/s,
 the per-layer skip fractions from the serving telemetry, the prefix
 counters and, with ``--compare``, the token agreement against the dense
 engine on the same layout.
@@ -36,7 +40,7 @@ import torch
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data.pipeline import make_batch, synthetic_lm_batch
 from repro_torch.models import get_model
-from repro_torch.serving import Engine
+from repro_torch.serving import Engine, mesh
 from repro_torch.serving.telemetry import mor_group_map
 
 SEED = 0
@@ -129,6 +133,28 @@ def token_agreement(a, b) -> float:
                           for r in b]))
 
 
+def calibrate(params, cfg, api, device, batch: int, group=None):
+    """-> (params, mor, report) of the family's calibration
+    (``calibrate_lm`` / ``_moe`` / ``_hybrid``).  In a page group rank 0
+    calibrates and broadcasts its MoR tree; every other rank folds the
+    tree's permutations into its own copy of the same weights, so that
+    all serve the same plan bit for bit."""
+    from repro_torch.core import deploy
+    fn = {"moe": deploy.calibrate_moe,
+          "hybrid": deploy.calibrate_hybrid}.get(cfg.family,
+                                                 deploy.calibrate_lm)
+    cal = mor = None
+    if group is None or group.rank == 0:
+        new, mor, cal = fn(params, cfg, api.forward,
+                           calib_batches(cfg, batch, device), CALIB_STEPS)
+    if group is None:
+        return new, mor, cal
+    mor, cal = mesh.broadcast((mor, cal), group, device=device)
+    if group.rank:
+        new = deploy.fold_permutations(params, mor)
+    return new, mor, cal
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b", choices=ARCHS)
@@ -144,8 +170,13 @@ def main(argv=None):
                     help="default: --prompt-min (uniform prompts)")
     ap.add_argument("--gen-len", type=int, default=32)
     ap.add_argument("--layout", default="paged",
-                    choices=("paged", "slotted"),
-                    help="KV cache layout (slotted = contiguous baseline)")
+                    choices=("paged", "paged-sharded", "slotted"),
+                    help="KV cache layout (paged-sharded = the page pool "
+                         "split over --shards rank processes; slotted = "
+                         "contiguous baseline)")
+    ap.add_argument("--shards", type=int, default=2,
+                    help="paged-sharded: rank processes, one page shard "
+                         "each")
     ap.add_argument("--page", type=int, default=0,
                     help="tokens per KV page (default cfg.serve_page)")
     ap.add_argument("--prefix-cache", dest="prefix_cache",
@@ -172,6 +203,28 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to run the plain versions)")
+    if args.layout != "paged-sharded":
+        return serve(args, device)
+    from repro_torch.launch.mesh import page_backend, run_ranks
+    if args.shards < 1:
+        raise SystemExit("--shards takes at least one rank")
+    if device.type == "cuda":
+        from repro_torch.kernels import build
+        build.load()                     # built once, before the ranks
+    print(f"[serve] page mesh: spawning {args.shards} ranks on {device} "
+          f"({page_backend(device, args.shards)})", flush=True)
+    return run_ranks(_serve_rank, args.shards, device, args)[0]
+
+
+def _serve_rank(group, args):
+    return serve(args, group.device, group)
+
+
+def serve(args, device, group=None):
+    """Serve the trace ``args`` describe on ``device`` (as rank ``group``
+    of the paged-sharded layout, where rank 0 prints)."""
+    say = print if group is None or group.rank == 0 else \
+        (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -186,14 +239,8 @@ def main(argv=None):
     mor = None
     report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}
     if args.mor != "dense":
-        from repro_torch.core import deploy
-        calibrate = {"moe": deploy.calibrate_moe,
-                     "hybrid": deploy.calibrate_hybrid}.get(
-                         cfg.family, deploy.calibrate_lm)
-        params, mor, cal = calibrate(
-            params, cfg, api.forward, calib_batches(cfg, args.batch, device),
-            CALIB_STEPS)
-        report["calibration"] = cal
+        params, mor, report["calibration"] = calibrate(
+            params, cfg, api, device, args.batch, group)
 
     pmin = args.prompt_min
     pmax = args.prompt_max or pmin
@@ -202,8 +249,10 @@ def main(argv=None):
                       shared_prefix=args.shared_prefix)
     max_len = args.shared_prefix + pmax + args.gen_len + 2
     engine_kw = {"layout": args.layout}
-    if args.layout == "paged":
+    if args.layout != "slotted":
         engine_kw.update(page=args.page, prefix_cache=args.prefix_cache)
+    if group is not None:
+        engine_kw["group"] = group
     capacities = None
     if args.capacity > 0 and args.mor != "dense":
         capacities = {k: args.capacity for k in mor_group_map(cfg)}
@@ -214,17 +263,22 @@ def main(argv=None):
                                  max_len=max_len, capacities=capacities,
                                  **engine_kw)
     report.update(rep)
-    print(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
+    say(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
           f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
           f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
           f"{pmin}-{pmax})")
     if "prefix_cache" in rep:
         pc = rep["prefix_cache"]
-        print(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "
+        say(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "
               f"({pc['prefix_hits']}/{pc['prefix_queries']} requests), "
               f"{pc['pages_shared']} pages shared, "
               f"{pc['chunks_skipped']} prefill chunks skipped, "
               f"{pc['pages_cowed']} pages copy-on-written")
+    if "sharding" in rep:
+        sh = rep["sharding"]
+        say(f"[serve] page mesh: {sh['n_shards']} shards "
+            f"({sh['backend']}), kv pages hiwater/shard "
+            f"{sh.get('kv_pages_hiwater_per_shard', sh.get('state_pages_hiwater_per_shard'))}")
     if args.compare and args.mor != "dense":
         _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
                                          mor_mode="dense",
@@ -233,9 +287,9 @@ def main(argv=None):
         agree = token_agreement(results, results_d)
         report["dense_tokens_per_s"] = rep_d["tokens_per_s"]
         report["token_agreement_vs_dense"] = agree
-        print(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
+        say(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
               f"token agreement {agree:.3f}")
-    if args.out_json:
+    if args.out_json and (group is None or group.rank == 0):
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=1)
     return report

@@ -22,6 +22,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.decode_attention import state_put, state_take
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init, mlp_taps
@@ -30,7 +31,6 @@ from repro_torch.models.layers.norms import (apply_norm, norm_init,
 from repro_torch.models.layers.ssm import (mamba2_cache_init, mamba2_chunk,
                                            mamba2_decode, mamba2_forward,
                                            mamba2_init)
-from repro_torch.models.rwkv_model import state_put, state_take
 from repro_torch.models.transformer import _stack_aux, layer_slice
 
 
@@ -156,8 +156,9 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     window ring (``gqa_chunk``) at per-slot positions.  The cache is
     UPDATED IN PLACE.  A cache carrying top-level ``state_table`` /
     ``block_table`` is the paged layout: each slot's mamba state rows are
-    read and written through its state page, and the shared attention's
-    ring through its kv pages (``gqa_paged_flash``).  aux["mor_stats"]
+    read (every layer of a leaf at once: one collective per leaf when the
+    pool is page-sharded) and written through its state page, and the
+    shared attention's ring through its kv pages (``gqa_paged_flash``).  aux["mor_stats"]
     is n_seg-stacked, one entry per application of the shared MLP."""
     dt = cfg.tdtype
     B, C = tokens.shape
@@ -175,11 +176,14 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     sp = params["shared"]
     shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
+    taken = {key: {k: state_take(a, table)
+                   for k, a in cache[name].items()}
+             for key, name in _CACHE_OF.items() if name in cache}
 
     def mamba_block(key, i, x):
         lp = layer_slice(params[key], i)
         leaves = cache[_CACHE_OF[key]]
-        st = {k: state_take(a[i], table) for k, a in leaves.items()}
+        st = {k: a[i] for k, a in taken[key].items()}
         h = apply_norm(cfg.norm, lp["ln"], x)
         y, new = mamba2_chunk(lp["mamba"], cfg, h, st, valid)
         for k, a in leaves.items():

@@ -11,6 +11,7 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import decode_attention as da
 from repro_torch.kernels.paged_attention import (gqa_paged_flash,
                                                  mla_paged_flash)
 from repro_torch.models.layers.common import dense_init
@@ -175,7 +176,11 @@ def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
     the (possibly column-sliced) table: ring row ``r = qpos % (W *
     page)`` lives at page ``block_table[b, r // page]``, offset ``r %
     page``.  The pool made every page this dispatch writes exclusively
-    owned beforehand (copy-on-write is host-side)."""
+    owned beforehand (copy-on-write is host-side).  Under a page-shard
+    context (``Engine(layout="paged-sharded")``) the pools are this
+    rank's page range: the writes keep the pages it holds
+    (``decode_attention.pool_set``) and the attend is the distributed
+    flash decode, one merge collective per layer."""
     B, C, _ = x.shape
     q, k, v = _qkv(params, cfg, x)
     qpos = pos[:, None].long() + torch.arange(C, device=x.device)[None, :]
@@ -186,20 +191,16 @@ def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
         page = ck.shape[1]
         r = qpos % (block_table.shape[1] * page)
         pidx = torch.gather(block_table, 1, r // page).long()
-        # no mode="drop" scatter in torch, and a dropped token's (page,
-        # offset) may be the null page 0, whose tags must stay -1: an
-        # invalid token writes the pool's trailing scratch page instead,
-        # which no table holds, so every real page stays bit-identical
-        pidx = torch.where(valid, pidx, ck.shape[0] - 1)
         off = r % page
         qpos = qpos.int()
         # write before attend: the kernel reads this dispatch's own rows,
         # queued after these writes on the same stream
-        ck[pidx, off] = k
-        cv[pidx, off] = v
-        cp[pidx, off] = qpos
-        o = gqa_paged_flash(q, ck, cv, cp, block_table, qpos,
-                            window=cfg.sliding_window)
+        for pool, val in ((ck, k), (cv, v), (cp, qpos)):
+            da.pool_set(pool, pidx, off, val, valid)
+        attend = gqa_paged_flash if da.shard_info() is None else \
+            da.gqa_paged_attend
+        o = attend(q, ck, cv, cp, block_table, qpos,
+                   window=cfg.sliding_window)
         return o.reshape(B, C, -1) @ params["wo"].to(x.dtype)
     Lr = cache["k"].shape[1]
     if C > Lr:
@@ -306,9 +307,9 @@ def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
     ``block_table[b, p // page]``, offset ``p % page`` (no ring: MLA
     caches the full max_len), and an invalid token writes the trailing
     scratch page.  The paged attend is ``mla_paged_flash`` in the
-    latent space; W_uv is absorbed after it.  The JAX package's
-    page-sharded branch (a distributed flash decode over a mesh) waits
-    for the multi-device slice (ROADMAP queue A 7)."""
+    latent space, or under a page-shard context its distributed flash
+    decode (``decode_attention.mla_paged_attend``); W_uv is absorbed
+    after it."""
     B, C, _ = x.shape
     h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
     kr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
@@ -327,14 +328,14 @@ def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
         # its block, then send it to the scratch page no table holds
         blk = torch.clamp(qpos // page, max=block_table.shape[1] - 1)
         pidx = torch.gather(block_table, 1, blk).long()
-        pidx = torch.where(valid, pidx, ck.shape[0] - 1)
         off = qpos % page
         qpos = qpos.int()
-        ck[pidx, off] = c_kv_t
-        cpe[pidx, off] = k_pe_t
-        cp[pidx, off] = qpos
-        o_lat = mla_paged_flash(q_lat, q_pe, ck, cpe, cp, block_table,
-                                qpos, scale=scale)
+        for pool, val in ((ck, c_kv_t), (cpe, k_pe_t), (cp, qpos)):
+            da.pool_set(pool, pidx, off, val, valid)
+        attend = mla_paged_flash if da.shard_info() is None else \
+            da.mla_paged_attend
+        o_lat = attend(q_lat, q_pe, ck, cpe, cp, block_table, qpos,
+                       scale=scale)
     else:
         if C > ck.shape[1]:
             raise ValueError(f"chunk {C} exceeds the cache length "

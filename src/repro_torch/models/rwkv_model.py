@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.decode_attention import state_put, state_take
 from repro_torch.models.layers import rwkv
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import (apply_norm, norm_init,
@@ -91,22 +92,6 @@ def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
-def state_take(leaf: torch.Tensor, table) -> torch.Tensor:
-    """One layer's state rows of the dispatch's slots: the slot rows
-    themselves (slotted), or the pages ``table`` (B,) points at
-    (paged)."""
-    return leaf if table is None else leaf[table]
-
-
-def state_put(leaf: torch.Tensor, table, new: torch.Tensor) -> None:
-    """Write one layer's new state rows back IN PLACE, through the same
-    indirection as ``state_take``."""
-    if table is None:
-        leaf.copy_(new)
-    else:
-        leaf[table] = new.to(leaf.dtype)
-
-
 def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                   cache: Dict, *, n_valid: torch.Tensor,
                   mor: Optional[Dict] = None, mor_mode: str = "dense"
@@ -118,7 +103,9 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     token shifts across chunk boundaries; invalid positions leave the
     state as it was.  The cache is UPDATED IN PLACE.  A cache carrying a
     top-level ``state_table`` is the paged layout: each slot's state rows
-    are read and written through its entry."""
+    are read (every layer at once, one collective per leaf when the pool
+    is page-sharded: ``decode_attention.state_take``) and written back
+    layer by layer through its entry."""
     dt = cfg.tdtype
     B, C = tokens.shape
     table = cache.get("state_table")
@@ -132,10 +119,11 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     zero = torch.zeros((), dtype=dt, device=tokens.device)
     x = torch.where(vm, _embed(params, cfg, tokens), zero)
     mor_stack = (mor or {}).get("layers")
+    taken = {k: state_take(cache[k], table) for k in STATE_KEYS}
     ys = []
     for l in range(cfg.n_layers):
         lp = layer_slice(params["layers"], l)
-        st = {k: state_take(cache[k][l], table) for k in STATE_KEYS}
+        st = {k: taken[k][l] for k in STATE_KEYS}
         h = apply_norm(cfg.norm, lp["ln1"], x)
         y, tm_new, wkv_new = rwkv.timemix_chunk(
             lp["tm"], cfg, h, st["tm_shift"].to(dt), st["wkv"], valid)

@@ -15,8 +15,13 @@ sharing a prompt prefix map their leading table entries to the same
 physical pages, and fully-hit prefill chunks are never dispatched; a
 recurrent model's hits are state snapshots, taken just before the
 dispatch that finishes a prompt and restored by a page copy at
-admission).  ``layout="slotted"`` is the contiguous slot layout, kept as
-the differential baseline.
+admission).  ``layout="paged-sharded"`` is the same pool split over
+the ranks of a page group (``launch.mesh.make_page_group``; every rank
+runs this engine on the same requests): each rank holds one page range
+of every pool, the host half is replicated, and the step runs inside the
+page-shard context (``serving.mesh``), where attention is a distributed
+flash decode with one merge collective per layer.  ``layout="slotted"``
+is the contiguous slot layout, kept as the differential baseline.
 
 The hot loop is device-resident: each slot's last sampled token stays on
 the device (``_pending``), each dispatch's sampled tokens and the
@@ -24,13 +29,13 @@ kernels' tile counters are logged as device tensors, and host inputs go
 up through pinned buffers without blocking.  Nothing is read back until
 the flush at the end of ``run``, so no dispatch waits for the device.
 
-Sampling is greedy.  Speculation, shadow scoring, observability, the
-mesh-sharded layout and preemption are later slices: where the JAX
-engine would spill a victim to free pages, this one raises
-``PoolExhausted``.
+Sampling is greedy.  Speculation, shadow scoring, observability and
+preemption are later slices: where the JAX engine would spill a victim
+to free pages, this one raises ``PoolExhausted``.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional
 
@@ -38,8 +43,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.decode_attention import page_shard_context
 from repro_torch.models import get_model
 from repro_torch.serving import kv_pool
+from repro_torch.serving import mesh
 from repro_torch.serving.policy import Policy
 from repro_torch.serving.scheduler import Request, RequestRejected, Scheduler
 from repro_torch.serving.telemetry import (ServingTelemetry,
@@ -66,7 +73,12 @@ class Engine:
     {"experts": (L, E)-stacked MoRLayer}) from ``deploy.calibrate_lm``
     or ``deploy.calibrate_moe``; the engine attaches the execution plans
     itself so that capacity calibration can re-attach them with
-    per-layer (and per-expert) budgets."""
+    per-layer (and per-expert) budgets.
+
+    ``layout="paged-sharded"`` takes the rank's ``group``
+    (``launch.mesh.PageGroup``): ``params`` and ``mor`` must be the same
+    on every rank (checked at start-up, one collective each), and so
+    must the requests each rank submits."""
 
     def __init__(self, cfg: ModelConfig, params, *, mor: Optional[Dict] = None,
                  mor_mode: str = "dense", n_slots: int = 8,
@@ -75,11 +87,14 @@ class Engine:
                  layout: str = "paged", page: int = 0,
                  prefix_cache: bool = True,
                  spare_pages: Optional[int] = None, temperature: float = 0.0,
-                 policy: Optional[Policy] = None):
-        if layout not in ("paged", "slotted"):
-            raise NotImplementedError(
-                f"layout {layout!r}: the mesh-sharded paged pool is ROADMAP "
-                f"queue A 7 of the port; use 'paged' or 'slotted'")
+                 policy: Optional[Policy] = None, group=None):
+        if layout not in ("paged", "paged-sharded", "slotted"):
+            raise ValueError(f"unknown layout {layout!r}")
+        if (layout == "paged-sharded") != (group is not None):
+            raise ValueError(
+                "layout='paged-sharded' runs on every rank of a page group "
+                "and takes that rank's group= (launch.mesh.make_page_group, "
+                "or launch.mesh.run_ranks); the other layouts take none")
         if temperature > 0.0:
             raise NotImplementedError(
                 "temperature sampling comes with the speculation / SLO "
@@ -99,12 +114,17 @@ class Engine:
         self.max_len = max_len
         self.layout = layout
         self.capacities = capacities
+        self.group = group
+        if group is not None:
+            mesh.check_replicated(params, group, "the parameters")
+            mesh.check_replicated(self.raw_mor, group, "the MoR trees")
         self.mor = self._attach(capacities)
-        if layout == "paged":
+        if layout != "slotted":
             self.pool: Optional[kv_pool.PagedPool] = kv_pool.PagedPool(
                 cfg, n_slots, max_len, chunk=self.chunk, page=page,
                 spare_pages=spare_pages, prefix_cache=prefix_cache,
-                device=self.device)
+                n_shards=group.size if group else 1,
+                shard=group.rank if group else 0, device=self.device)
             self.cache = self.pool.build()
         else:
             self.pool = None
@@ -118,6 +138,7 @@ class Engine:
         self._pending = torch.zeros((n_slots,), dtype=torch.int32,
                                     device=self.device)
         self._tok_log: List = []
+        self._tok_checked = 0        # dispatches whose tokens ranks agreed
         self.results: Dict[int, List[int]] = {}
         self.counters = _zero_counters()
         self.rejections: Dict[str, int] = {}
@@ -137,8 +158,14 @@ class Engine:
     # -- flushes -----------------------------------------------------------
     def _flush_tokens(self) -> None:
         if self._tok_log:
+            toks = torch.stack([e[1] for e in self._tok_log])
+            if self.group is not None:
+                # the ranks' schedulers stay in step only while their
+                # tokens agree: raise at the first dispatch that differs
+                mesh.check_tokens(toks, self.group, self._tok_checked)
+                self._tok_checked += len(toks)
             # ONE device -> host transfer for the whole log
-            fetched = torch.stack([e[1] for e in self._tok_log]).cpu()
+            fetched = toks.cpu()
             for (emits, _), toks in zip(self._tok_log, fetched.numpy()):
                 for s, rid in emits:
                     self.results.setdefault(rid, []).append(int(toks[s]))
@@ -235,9 +262,11 @@ class Engine:
         up = kv_pool.upload(use_pending, self.device)
         # splice each decoding slot's device-resident last token in
         tok[:, 0] = torch.where(up, self._pending, tok[:, 0])
-        logits, aux = self.api.prefill_chunk(
-            self.params, self.cfg, tok, cache, n_valid=nv,
-            mor=self.mor, mor_mode=self.mor_mode)
+        with (contextlib.nullcontext() if self.group is None else
+              page_shard_context(self.group)):
+            logits, aux = self.api.prefill_chunk(
+                self.params, self.cfg, tok, cache, n_valid=nv,
+                mor=self.mor, mor_mode=self.mor_mode)
         last = torch.clamp(nv - 1, min=0).long()
         lg = logits[torch.arange(self.n_slots, device=self.device), last]
         nxt = torch.argmax(lg, dim=-1).to(torch.int32)   # greedy, first max
@@ -358,6 +387,9 @@ class Engine:
             rep["page"] = self.pool.page
             if self.pool.prefix is not None:
                 rep["prefix_cache"] = self._prefix_counters()
+            if self.pool.n_shards > 1:
+                rep["sharding"] = dict(self.pool.shard_report(),
+                                       backend=self.group.backend)
         if self.telemetry is not None:
             self._flush_telemetry()
             rep["telemetry"] = self.telemetry.summary()

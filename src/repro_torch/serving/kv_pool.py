@@ -25,8 +25,11 @@ lets prefix-cache state snapshots live in the same pool as the live
 slots.  The host half (``BlockAllocator``, ``PrefixCache``) is numpy;
 ``PagedPool`` turns its decisions into ONE packed int32 vector per
 dirty dispatch that ``apply_cache_ops`` applies to the device cache in
-place.  On one device: the mesh-sharded pool is ROADMAP queue A 7,
-preemption (``spill`` / ``restore``) and speculation forks queue A 5.
+place.  With ``n_shards > 1`` the pool is page-sharded over ranks (the
+``paged-sharded`` layout): the host half is replicated and
+ownership-aware, and each rank builds and edits only its own page range.
+Preemption (``spill`` / ``restore``) and speculation forks are ROADMAP
+queue A 5 of the port.
 """
 from __future__ import annotations
 
@@ -165,7 +168,8 @@ def apply_cache_ops(cache: Dict, ops: torch.Tensor, n_reset: int,
     restores) on every state leaf.
 
     ``ops`` (int32, on the cache's device) is laid out by
-    ``PagedPool.drain``: pos (n_slots) | block_table (n_slots *
+    ``PagedPool.drain`` (a page-sharded pool's rank gets its own row,
+    page ids local to its range): pos (n_slots) | block_table (n_slots *
     n_blocks, where the model has kv) | state_table (n_slots, where it
     has state) | kv reset page ids (n_reset) | kv copy sources (n_copy)
     | destinations (n_copy) | state reset page ids (n_st_reset) | state
@@ -243,9 +247,8 @@ def _scan_structure(cache: Dict) -> Tuple[bool, bool, int]:
 # ==========================================================================
 
 class BlockAllocator:
-    """Free list + refcounts + per-slot block tables for one page pool
-    (``repro.serving.kv_pool.BlockAllocator`` on one device; its
-    ownership-aware mesh-sharded form is ROADMAP queue A 7).
+    """Free lists + refcounts + per-slot block tables for one page pool
+    (``repro.serving.kv_pool.BlockAllocator``).
 
     Page ids are ints in ``[1, n_pages)``; id 0 is the reserved null
     page and is never allocated.  A page's refcount equals the number of
@@ -253,25 +256,68 @@ class BlockAllocator:
     (prefix-cache entries, pending-copy pins).  ``ref == 1`` with a
     single table entry means the slot owns the page exclusively and may
     write it in place; ``write_plan`` enforces that, allocating fresh
-    pages for null entries and copy-on-writing shared ones."""
+    pages for null entries and copy-on-writing shared ones.
 
-    def __init__(self, n_pages: int, n_slots: int, n_blocks: int):
+    With ``n_shards > 1`` the id space is partitioned into ``n_shards``
+    contiguous ranges of ``pages_per_shard`` (shard s holds ids [s pps,
+    (s + 1) pps)) and the allocator is ownership-aware: a page stays on
+    the shard that holds it for its whole life, fresh pages round-robin
+    the shards most-free-first, and a copy-on-write destination goes on
+    its source's shard (``alloc(prefer=)``), so every page copy is
+    shard-local."""
+
+    def __init__(self, n_pages: int, n_slots: int, n_blocks: int,
+                 n_shards: int = 1):
         assert n_pages >= 2 and n_slots >= 1 and n_blocks >= 1
+        assert n_shards >= 1 and n_pages % n_shards == 0, \
+            "the page count must divide evenly over the shards"
         self.n_pages = n_pages
+        self.n_shards = n_shards
+        self.pages_per_shard = pps = n_pages // n_shards
         self.table = np.zeros((n_slots, n_blocks), np.int32)
         self.ref = np.zeros((n_pages,), np.int64)
         self.ref[0] = 1                          # null page, pinned
-        self.free: List[int] = list(range(n_pages - 1, 0, -1))  # LIFO
+        # per-shard LIFO free lists (shard 0's without the null page)
+        self._free: List[List[int]] = [
+            list(range((s + 1) * pps - 1, max(1, s * pps) - 1, -1))
+            for s in range(n_shards)]
+        self._rr = 0                             # round-robin tiebreak
+        # occupancy per shard, current and high-water
+        self.in_use = np.zeros((n_shards,), np.int64)
+        self.hiwater = np.zeros((n_shards,), np.int64)
         # cumulative alloc/free event counts
         self.events = {"alloc": 0, "free": 0}
 
+    @property
+    def free(self) -> List[int]:
+        """The free page ids: on one shard the free list itself, else
+        every shard's, flattened."""
+        if self.n_shards == 1:
+            return self._free[0]
+        return [p for fl in self._free for p in fl]
+
+    def shard_of(self, page: int) -> int:
+        return page // self.pages_per_shard
+
     # -- primitive ops -----------------------------------------------------
-    def alloc(self) -> Optional[int]:
-        if not self.free:
+    def alloc(self, prefer: Optional[int] = None) -> Optional[int]:
+        """Allocate a page: on shard ``prefer`` (a copy's destination on
+        its source's shard), else on the shard with the most free pages,
+        ties broken round-robin."""
+        if prefer is None:
+            prefer = min(range(self.n_shards),
+                         key=lambda i: (-len(self._free[i]),
+                                        (i - self._rr) % self.n_shards))
+            if self._free[prefer]:
+                self._rr = (prefer + 1) % self.n_shards
+        if not self._free[prefer]:
             return None
-        p = self.free.pop()
+        p = self._free[prefer].pop()
         assert self.ref[p] == 0, "free list held a referenced page"
         self.ref[p] = 1
+        sh = self.shard_of(p)
+        self.in_use[sh] += 1
+        self.hiwater[sh] = max(self.hiwater[sh], self.in_use[sh])
         self.events["alloc"] += 1
         return p
 
@@ -284,7 +330,8 @@ class BlockAllocator:
         assert page != 0 and self.ref[page] > 0, "drop of unowned page"
         self.ref[page] -= 1
         if self.ref[page] == 0:
-            self.free.append(page)
+            self._free[self.shard_of(page)].append(page)
+            self.in_use[self.shard_of(page)] -= 1
             self.events["free"] += 1
             return True
         return False
@@ -305,7 +352,8 @@ class BlockAllocator:
         fresh page; src keeps its remaining holders and is NEVER
         written).  ``on_copy(src, dst)`` fires the moment a pair is
         created, BEFORE any later block's alloc, so the caller can pin
-        src against eviction by that very alloc."""
+        src against eviction by that very alloc.  A sharded pool
+        allocates a copy's destination on its source's shard."""
         alloc = alloc or self.alloc
         fresh: List[int] = []
         copies: List[Tuple[int, int]] = []
@@ -313,7 +361,8 @@ class BlockAllocator:
             cur = int(self.table[slot, b])
             if cur != 0 and self.ref[cur] == 1:
                 continue                          # already exclusive
-            new = alloc()
+            new = alloc(prefer=self.shard_of(cur)
+                        if cur != 0 and self.n_shards > 1 else None)
             if new is None:
                 raise PoolExhausted("paged KV pool exhausted")
             if cur == 0:
@@ -355,6 +404,14 @@ class BlockAllocator:
             else:
                 assert self.ref[p] == counts[p], \
                     f"page {p}: ref {self.ref[p]} != holders {counts[p]}"
+        for s, fl in enumerate(self._free):
+            assert all(self.shard_of(p) == s for p in fl), \
+                f"shard {s} free list holds a foreign page"
+        owned = np.bincount([self.shard_of(p)
+                             for p in np.nonzero(self.ref[1:])[0] + 1],
+                            minlength=self.n_shards)
+        assert np.array_equal(owned, self.in_use), \
+            f"per-shard in_use {self.in_use} != owned {owned}"
 
 
 # ==========================================================================
@@ -380,20 +437,29 @@ class PagedPool:
     anyway.  The trailing kv page ``n_pages`` is a scratch page that no
     table ever holds: the attention write sends the tokens it drops
     there (torch has no ``mode="drop"`` scatter), so every real page
-    stays bit-identical.  State pages need none: every slot owns its
-    state page, and an idle slot's chunk step writes its state back
-    unchanged."""
+    stays bit-identical.  State pages need none on one device: every
+    slot owns its state page, and an idle slot's chunk step writes its
+    state back unchanged.
+
+    Page-sharded (``n_shards > 1``, this rank's ``shard``): the page
+    counts round up to a multiple of ``n_shards``, the host half (both
+    allocators, the prefix cache, the tables) is replicated on every
+    rank and ownership-aware (``BlockAllocator``), and ``build`` gives
+    this rank only its range of every pool leaf, ``pages_per_shard``
+    pages at local index id - shard pps, plus a trailing scratch page
+    (the state pools too: a rank that does not own a slot's state row
+    writes it there).  ``drain`` emits this rank's row of the edits:
+    its resets and copies, in local ids; a copy that crosses shards is
+    an allocator bug and raises."""
 
     def __init__(self, cfg: ModelConfig, n_slots: int, max_len: int, *,
                  chunk: int = 0, page: int = 0, dtype=None,
                  spare_pages: Optional[int] = None,
                  snap_slots: Optional[int] = None,
                  prefix_cache: bool = True, n_shards: int = 1,
-                 device="cuda"):
-        if n_shards != 1:
-            raise NotImplementedError(
-                "a mesh-sharded paged pool (n_shards > 1) is ROADMAP queue "
-                "A 7 of the port (the multi-device layers)")
+                 shard: int = 0, device="cuda"):
+        assert n_shards >= 1 and 0 <= shard < n_shards
+        self.n_shards, self.shard = n_shards, shard
         chunk = chunk or cfg.serve_chunk
         page = page or cfg.serve_page
         assert page >= 1
@@ -412,8 +478,10 @@ class PagedPool:
         if self.has_kv:
             spare = (n_slots * self.n_blocks if spare_pages is None
                      else spare_pages)
-            self.n_pages = 1 + n_slots * self.n_blocks + spare
-            self.kv = BlockAllocator(self.n_pages, n_slots, self.n_blocks)
+            n_pages = 1 + n_slots * self.n_blocks + spare
+            self.n_pages = n_pages + (-n_pages) % n_shards
+            self.kv = BlockAllocator(self.n_pages, n_slots, self.n_blocks,
+                                     n_shards)
         else:
             self.n_pages, self.kv = 0, None
         if self.has_state:
@@ -422,8 +490,9 @@ class PagedPool:
             # one live page per slot + one spare per slot (admission
             # cycles to a fresh page before the old one is dropped) +
             # the snapshot budget; page 0 reserved as null for symmetry
-            self.n_spages = 1 + 2 * n_slots + n_snap
-            self.st = BlockAllocator(self.n_spages, n_slots, 1)
+            n_spages = 1 + 2 * n_slots + n_snap
+            self.n_spages = n_spages + (-n_spages) % n_shards
+            self.st = BlockAllocator(self.n_spages, n_slots, 1, n_shards)
             for s in range(n_slots):
                 self.st.table[s, 0] = self.st.alloc()
         else:
@@ -443,11 +512,21 @@ class PagedPool:
         self._dirty = False
 
     # -- device cache ------------------------------------------------------
+    def local_pages(self) -> Tuple[int, int]:
+        """-> (kv, state) pages of this rank's pool leaves: its range and
+        the scratch page (the kv pool's scratch page also on one
+        device)."""
+        kv = self.n_pages // self.n_shards + 1
+        st = self.n_spages if self.n_shards == 1 else \
+            self.n_spages // self.n_shards + 1
+        return kv, st
+
     def build(self) -> Dict:
-        """Allocate the paged device cache: pools zeroed, position tags
-        -1, block tables null, state table at each slot's page."""
+        """Allocate the paged device cache (this rank's range of it, when
+        sharded): pools zeroed, position tags -1, block tables null,
+        state table at each slot's page."""
         dev, page = self.device, self.page
-        n_kv = self.n_pages + 1                 # + the scratch page
+        n_kv, n_st = self.local_pages()
 
         def kv(node):
             out = {}
@@ -463,7 +542,7 @@ class PagedPool:
             return out
 
         def st(a):
-            return torch.zeros(a.shape[:1] + (self.n_spages,) + a.shape[2:],
+            return torch.zeros(a.shape[:1] + (n_st,) + a.shape[2:],
                                dtype=a.dtype, device=dev)
 
         cache: Dict = {}
@@ -486,7 +565,10 @@ class PagedPool:
         """-> (ops, n_reset, n_copy, n_st_reset, n_st_copy): the pending
         edits as ONE packed int32 vector in the layout
         ``apply_cache_ops`` reads, or None when clean.  Emitting a copy
-        releases its source's pin."""
+        releases its source's pin.  Sharded, the vector is this rank's
+        row: the replicated tables, then the resets and copies of the
+        pages its shard holds, in local ids (every rank drains the same
+        host state, each keeping its own row)."""
         if not self._dirty:
             return None
         parts = [self.pos.astype(np.int32)]
@@ -499,13 +581,24 @@ class PagedPool:
                                       self._kv_copies),
                                      (self.st, self._st_reset,
                                       self._st_copies)):
-            ids = sorted(reset)
-            src = [s for s, _ in copies]
-            dst = [d for _, d in copies]
+            if alloc is None:
+                parts.append(np.zeros((0,), np.int32))
+                counts += [0, 0]
+                continue
+            base = self.shard * alloc.pages_per_shard
+            mine = lambda p: alloc.shard_of(p) == self.shard
+            for s, d in copies:
+                if alloc.shard_of(s) != alloc.shard_of(d):
+                    raise RuntimeError(
+                        f"page copy {s} -> {d} crosses shards (an "
+                        f"allocator ownership bug)")
+            ids = sorted(p - base for p in reset if mine(p))
+            src = [s - base for s, _ in copies if mine(s)]
+            dst = [d - base for s, d in copies if mine(s)]
+            for s, _ in copies:
+                alloc.drop(s)            # release the pending-src pin
             reset.clear()
             copies.clear()
-            for s in src:
-                alloc.drop(s)            # release the pending-src pin
             parts.append(np.asarray(ids + src + dst, np.int32))
             counts += [len(ids), len(src)]
         self._dirty = False
@@ -535,41 +628,51 @@ class PagedPool:
         self._st_copies.append((src, dst))
         self._dirty = True
 
-    def _kv_alloc(self) -> Optional[int]:
-        """Allocate a kv page, evicting LRU prefix-cache entries whose
-        page actually frees (an entry still shared into a live slot
-        reclaims nothing: keep it for future hits), then state snapshots
-        holding such pages."""
-        p = self.kv.alloc()
+    def _on(self, alloc: BlockAllocator, page: int,
+            prefer: Optional[int]) -> bool:
+        return prefer is None or alloc.shard_of(page) == prefer
+
+    def _kv_alloc(self, prefer: Optional[int] = None) -> Optional[int]:
+        """Allocate a kv page (on shard ``prefer`` when given), evicting
+        LRU prefix-cache entries whose page actually frees (an entry
+        still shared into a live slot reclaims nothing: keep it for
+        future hits), then state snapshots holding such pages, on that
+        shard."""
+        p = self.kv.alloc(prefer)
         while p is None and self.prefix is not None:
-            pg = self.prefix.evict_lru_page(lambda q: self.kv.ref[q] == 1)
+            pg = self.prefix.evict_lru_page(
+                lambda q: self.kv.ref[q] == 1 and self._on(self.kv, q,
+                                                           prefer))
             if pg is not None:
                 self.kv.drop(pg)
                 self.counters["pages_evicted"] += 1
             else:
                 e = self.prefix.evict_lru_snap(
-                    lambda s: any(self.kv.ref[q] == 1 for q in s.kv_pages))
+                    lambda s: any(self.kv.ref[q] == 1 and
+                                  self._on(self.kv, q, prefer)
+                                  for q in s.kv_pages))
                 if e is None:
                     break
                 self._drop_snap(e)
-            p = self.kv.alloc()
+            p = self.kv.alloc(prefer)
         if p is not None:
             self._kv_reset.add(p)
             self._dirty = True
         return p
 
-    def _st_alloc(self) -> Optional[int]:
-        """Allocate a state page (zeroed by the next flush), evicting LRU
-        snapshots; a snapshot pinned mid-restore (its page's ref > 1) is
-        kept."""
-        p = self.st.alloc()
+    def _st_alloc(self, prefer: Optional[int] = None) -> Optional[int]:
+        """Allocate a state page (on shard ``prefer`` when given; zeroed
+        by the next flush), evicting LRU snapshots; a snapshot pinned
+        mid-restore (its page's ref > 1) is kept."""
+        p = self.st.alloc(prefer)
         while p is None and self.prefix is not None:
             e = self.prefix.evict_lru_snap(
-                lambda s: self.st.ref[s.spage] == 1)
+                lambda s: self.st.ref[s.spage] == 1 and
+                self._on(self.st, s.spage, prefer))
             if e is None:
                 break
             self._drop_snap(e)
-            p = self.st.alloc()
+            p = self.st.alloc(prefer)
         if p is not None:
             self._st_reset.add(p)
             self._dirty = True
@@ -619,7 +722,11 @@ class PagedPool:
                 # eviction would free (and possibly recycle) the very
                 # page the restore copy is about to read
                 self.st.retain(snap.spage)
-            new = self._st_alloc()
+            # a restore copies the snapshot to the fresh page: it must
+            # lie on the snapshot's shard (a shard-local copy)
+            new = self._st_alloc(self.st.shard_of(snap.spage)
+                                 if snap is not None and self.n_shards > 1
+                                 else None)
             if new is None:
                 if snap is not None:
                     self.st.drop(snap.spage)     # release the admit pin
@@ -698,10 +805,12 @@ class PagedPool:
             return                       # ring wrapped: pages incomplete
         if self.prefix.has_state(prompt, offset):
             return
-        spage = self._st_alloc()
+        cur = int(self.st.table[slot, 0])
+        spage = self._st_alloc(self.st.shard_of(cur)
+                               if self.n_shards > 1 else None)
         if spage is None:
             return                       # snapshot budget exhausted
-        self._push_st_copy(int(self.st.table[slot, 0]), spage)
+        self._push_st_copy(cur, spage)
         kv_pages: List[int] = []
         if self.has_kv:
             kv_pages = [int(self.kv.table[slot, i])
@@ -815,6 +924,18 @@ class PagedPool:
             if al is not None:
                 al.events = {"alloc": 0, "free": 0}
 
+    def shard_report(self) -> Dict:
+        """Per-shard page occupancy, current and high-water (the null
+        page on shard 0 is pinned, never allocated, and not counted)."""
+        rep: Dict = {"n_shards": self.n_shards}
+        for name, alloc in (("kv", self.kv), ("state", self.st)):
+            if alloc is not None:
+                rep[f"{name}_pages_per_shard"] = alloc.pages_per_shard
+                rep[f"{name}_pages_in_use_per_shard"] = alloc.in_use.tolist()
+                rep[f"{name}_pages_hiwater_per_shard"] = \
+                    alloc.hiwater.tolist()
+        return rep
+
     def report(self) -> Dict:
         rep = {"page": self.page, "n_blocks": self.n_blocks,
                "ring": self.ring, "n_pages": self.n_pages,
@@ -822,6 +943,8 @@ class PagedPool:
                "prefix_caching": self.prefix is not None}
         if self.has_kv:
             rep["pages_in_use"] = int(np.sum(self.kv.ref > 0) - 1)
+        if self.n_shards > 1:
+            rep["sharding"] = self.shard_report()
         if self.prefix is not None:
             q = max(self.counters["prefix_queries"], 1)
             n_pages, n_snaps = self.prefix.n_entries

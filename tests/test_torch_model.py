@@ -123,7 +123,7 @@ def test_port_has_no_jax_imports():
 def test_engine_rejects_what_it_does_not_serve(models):
     from repro_torch.serving import Engine, RequestRejected
     _, _, _, cfg, _, params = models
-    with pytest.raises(NotImplementedError, match="queue A 7"):
+    with pytest.raises(ValueError, match="takes that rank's group="):
         Engine(cfg, params, layout="paged-sharded")
     with pytest.raises(NotImplementedError, match="greedily"):
         Engine(cfg, params, temperature=0.7)

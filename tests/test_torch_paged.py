@@ -555,8 +555,11 @@ def test_pool_exhaustion_raises_without_preemption():
         eng.step()
     with pytest.raises(NotImplementedError, match="queue A 5"):
         eng.pool.spill(0, eng.cache)
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        kv_pool.PagedPool(cfg, 2, 32, n_shards=2, device="cpu")
+    # a page-sharded pool (rank 1 of 2) holds its half of the pages
+    shard = kv_pool.PagedPool(cfg, 2, 32, n_shards=2, shard=1,
+                              device="cpu")
+    assert shard.n_pages % 2 == 0
+    assert shard.build()["layers"]["k"].shape[1] == shard.n_pages // 2 + 1
 
 
 def test_serve_cli_paged_shared_prefix_on_cpu(capsys):

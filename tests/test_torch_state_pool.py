@@ -412,13 +412,43 @@ def test_serve_cli_recurrent_on_cpu(arch):
 
 def test_remaining_refusals_name_current_roadmap_items():
     """What the port still refuses for the recurrent families names its
-    ROADMAP item: the mesh-sharded pool (A7), preemption and speculation
-    (A5)."""
+    ROADMAP item: preemption and speculation (A5).  The page-sharded pool
+    is served: rank 1 of 2 holds its half of the state pages and a
+    scratch page."""
     _, cfg = _cfgs("zamba2-7b")
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        kv_pool.PagedPool(cfg, 2, 32, n_shards=2, device="cpu")
+    shard = kv_pool.PagedPool(cfg, 2, 32, n_shards=2, shard=1, device="cpu")
+    assert shard.local_pages()[1] == shard.n_spages // 2 + 1
     pool = kv_pool.PagedPool(cfg, 2, 32, device="cpu")
     with pytest.raises(NotImplementedError, match="queue A 5"):
         pool.spill(0, None)
     with pytest.raises(NotImplementedError, match="queue A 5"):
         pool.spec_fork(0)
+
+
+def test_recurrent_warm_prefix_pass_repeats_the_first_as_jax_does():
+    """A second pass of a shared-prefix trace over the warm prefix cache
+    (state snapshots restored, prefix chunks skipped, the rest chunked
+    from the snapshot's offset: chunk 16 over pages of 4) against the
+    first pass, on reduced float32 rwkv6-3b in both packages on the same
+    weights: each package's first and warm tokens equal the other's, and
+    in float32 the warm pass repeats the first exactly in both."""
+    jcfg, cfg = _cfgs("rwkv6-3b")
+    jparams = jget_model(jcfg).init(jax.random.PRNGKey(0), jcfg)
+    params = convert.params_from_numpy(cfg, _np(jparams), device="cpu")
+    rng = np.random.default_rng(3)
+    prefix = rng.integers(0, cfg.vocab_size, 24)
+    reqs = [(np.concatenate([prefix, rng.integers(0, cfg.vocab_size, n)]
+                            ).astype(np.int32), 8) for n in (3, 9, 14, 5)]
+    kw = dict(n_slots=2, max_len=64, chunk=16, page=4)
+    passes = {}
+    for name, eng in (("jax", JEngine(jcfg, jparams, **kw)),
+                      ("torch", Engine(cfg, params, **kw))):
+        runs = []
+        for _ in range(2):
+            out = eng.run(list(reqs))
+            runs.append([out[k] for k in sorted(out)])
+        assert eng._prefix_counters()["snap_restores"] > 0
+        passes[name] = runs
+    assert passes["torch"] == passes["jax"]
+    first, warm = passes["torch"]
+    assert warm == first

@@ -166,15 +166,15 @@ def test_recurrent_families_still_raise():
     """The recurrent families are ported (``tests/test_torch_recurrent.
     py``): their configs register, reduce and dispatch; what still raises
     for them is what the whole port refuses, each naming its ROADMAP
-    item (the mesh-sharded pool, A7; speculation and temperature
-    sampling, A5), and an unknown family."""
+    item (speculation and temperature sampling, A5), and an unknown
+    family; the page-sharded layout asks for its rank's group."""
     from repro_torch.configs.base import ModelConfig
     for arch in ("rwkv6-3b", "zamba2-7b"):
         cfg = reduce_config(get_config(arch))
         api = get_model(cfg)
         assert api.prefill_chunk is not None and api.decode_step is not None
         params = api.init(torch.Generator().manual_seed(0), cfg)
-        with pytest.raises(NotImplementedError, match="queue A 7"):
+        with pytest.raises(ValueError, match="takes that rank's group="):
             Engine(cfg, params, layout="paged-sharded")
         with pytest.raises(NotImplementedError, match="queue A 5"):
             Engine(cfg, params, temperature=0.5)
