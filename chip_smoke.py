@@ -30,12 +30,17 @@
    decode dispatch (8 slots x 1 row over ragged contexts up to 4,096
    tokens, 512 pages of 8, null entries, a page shared by two slots, a
    column-sliced table; also timed at every split of 1-8), a mixed
-   dispatch (8 x 32 rows, contexts up to 96) and a small sliding-window
-   case, then on its CUDA-core body at the zoo's head geometries
-   (qwen2-7b 28 / 4 heads at head dim 128, granite-20b's MQA 48 / 1,
-   mixtral 32 / 8 under its 4,096 window over contexts up to 6,000,
-   phi-3-vision 32 / 32 at head dim 96, zamba2-7b's shared attention 32
-   / 32 at head dim 112 under its 4,096 window, with its ptxas line),
+   dispatch (8 x 32 rows, contexts up to 96), the same 8 x 32 rows over
+   the decode case's table (timed at every split of 1-8) and a small
+   sliding-window case, then at the zoo's head geometries on the same tensor-core body
+   over columns padded to 128 (qwen2-7b 28 / 4 heads at head dim 128,
+   granite-20b's MQA 48 / 1, mixtral 32 / 8 under its 4,096 window over
+   contexts up to 6,000, phi-3-vision 32 / 32 at head dim 96, zamba2-7b's
+   shared attention 32 / 32 at head dim 112 under its 4,096 window; qwen2,
+   granite-20b and zamba2 decode also at every split of 1-8, and qwen2's
+   and zamba2's 8 x 32 rows over their decode tables; the split's edges
+   at qwen2's and zamba2's geometry; the ptxas line of every
+   tensor-core instantiation),
    and ``mla_paged_flash`` at the
    same decode and mixed table
    layouts with 128 heads, latent rank 512 and rope width 64, both on
@@ -78,7 +83,7 @@
    window: device ms, plain, bound, SDPA on the window's pre-gathered
    K/V as a yardstick that computes no statistics) and mixed dispatch,
    qwen2-7b's G 7 at D 128 and zamba2-7b's D 112 under its 4,096 window
-   (the CUDA-core body), and deepseek's MLA (timed at decode);
+   (timed too), and deepseek's MLA (timed at decode);
 5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
    random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
@@ -647,7 +652,7 @@ def _gqa_plan(q, kp, tbl):
     B, C, H, D = q.shape
     body = pa.gqa_body(q.dtype, D)
     split = pa.gqa_plan(B, C, H, kp.shape[2], tbl.shape[1], kp.shape[1],
-                        sms=split_k.sm_count(q.device)) \
+                        sms=split_k.sm_count(q.device), D=D) \
         if body == "tensor_cores" else 1
     return split, body
 
@@ -716,23 +721,29 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
     return r
 
 
-def gqa_split_edges(gen):
-    """``gqa_paged_flash`` at a decode dispatch (8 slots x 1 row, granite's
-    32 / 8 heads) over a table of 96 entries, which the plan splits
-    (6 ranks of 16 entries on 132 SMs): slot 0 fills its table; slot 1
-    holds one page; slot 2's second range is wholly null; slot 3's third
-    range holds live pages whose rows are all unwritten (tag -1: every
-    key masked); slot 4 is idle (its whole table null, as the engine
-    leaves a free slot); slots 5-7 are ragged.  Then the same inputs
-    under a window of 200 positions, which masks every rank of the full
-    slots but their last one or two.  Within tolerance of the plain
-    version on the rows that see a key, the idle slot exact zeros, a
-    repeat bit-equal.  -> result."""
+def gqa_split_edges(gen, hkv=8, G=4, D=64, window=0, split=None):
+    """``gqa_paged_flash`` at a decode dispatch (8 slots x 1 row, hkv KV
+    heads of G query heads at head dim D; granite's 32 / 8 at D 64 by
+    default) over a table of 96 entries, split by the plan (6 ranks of
+    16 entries at granite's geometry on 132 SMs, 8 at qwen2's) or by
+    ``split`` forced through ``launch`` (zamba2's plan splits its 256
+    pair tiles only 2 ways, which leaves no third range): slot 0 fills
+    its table; slot 1 holds one page; slot 2's
+    second range is wholly null; slot 3's third range holds live pages
+    whose rows are all unwritten (tag -1: every key masked); slot 4 is
+    idle (its whole table null, as the engine leaves a free slot); slots
+    5-7 are ragged.  Then the same inputs under a window of 200
+    positions, which masks every rank of the full slots but their last
+    one or two (and first under ``window``, the model's own).  Within
+    tolerance of the plain version on the rows that see a key, the idle
+    slot exact zeros, a repeat bit-equal.  -> result."""
     import torch
     from repro_torch.kernels import paged_attention as pa
     ctx = [768, 5, 768, 768, 8, 300, 77, 441]
-    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, 1, 96)
-    split, body = _gqa_plan(q, kp, tbl)
+    q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, 1, 96, hkv=hkv, G=G,
+                                             D=D)
+    planned, body = _gqa_plan(q, kp, tbl)
+    split = split or planned
     ranges = pa.split_ranges(tbl.shape[1], split)
     assert body == "tensor_cores" and split >= 3, (split, body)
     tbl[2, ranges[1][0]:ranges[1][1]] = 0  # slot 2: range 1 wholly null
@@ -740,19 +751,20 @@ def gqa_split_edges(gen):
     tbl[4] = 0                             # slot 4: idle
     args = (q, kp, vp, pp, tbl, qpos)
     err = 0.0
-    for window in (0, 200):
-        got = pa.gqa_paged_flash(*args, window=window)
-        want = pa.gqa_paged_flash_plain(*args, window=window)
+    windows = [0, 200] if not window else [window, 200]
+    for w in windows:
+        run = lambda w=w: pa.launch(*args, w, split=split)
+        got = run()
+        want = pa.gqa_paged_flash_plain(*args, window=w)
         torch.cuda.synchronize()
-        seen = _gqa_seen(pp, tbl, qpos, window).any(-1)
+        seen = _gqa_seen(pp, tbl, qpos, w).any(-1)
         assert bool(seen[[0, 1, 2, 3, 5, 6, 7]].all()) and \
             not bool(seen[4].any())
         err = max(err, _close(got[seen], want[seen]))
         assert bool(torch.all(got[4] == 0)), "the idle slot is not zeros"
-        _repeat_equal(lambda: pa.gqa_paged_flash(*args, window=window),
-                      "gqa_paged_flash (split edges)")
-    return {"max_abs_err": err, "split": split, "body": body,
-            "ranges": ranges, "windows": [0, 200],
+        _repeat_equal(run, "gqa_paged_flash (split edges)")
+    return {"max_abs_err": err, "split": split, "planned_split": planned,
+            "body": body, "ranges": ranges, "windows": windows,
             "idle_slot_exact_zeros": True, "repeat_bit_equal": True}
 
 
@@ -768,6 +780,10 @@ def kernel_paged(gen, flush):
         "decode": paged_case(gen, flush, decode_ctx, 1, 512, n_null=5,
                              sweep=True),
         "mixed": paged_case(gen, flush, mixed_ctx, 32, 12, n_null=1),
+        # a chunk of 8 x 32 rows over the decode case's long table (the
+        # plan splits it 3 ways): its split sweep
+        "mixed_long": paged_case(gen, flush, decode_ctx, 32, 512, n_null=5,
+                                 sweep=True),
         "window": paged_case(gen, flush, [40, 70, 100, 128], 4, 16,
                              window=40, n_null=1, time_it=False),
         "split_edges": gqa_split_edges(gen),
@@ -780,11 +796,14 @@ def kernel_paged(gen, flush):
            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
            "replaces": "src/repro/kernels/paged_attention.py:178",
            **_fields(cases["decode"]), "at_mixed": _fields(cases["mixed"]),
+           "at_mixed_long": _fields(cases["mixed_long"]),
            "window_max_abs_err": cases["window"]["max_abs_err"],
            "split_edges_max_abs_err": cases["split_edges"]["max_abs_err"],
            "split": {k: cases[k]["split"] for k in cases},
            "body": {k: cases[k]["body"] for k in cases},
-           "decode_split_sweep_ms": cases["decode"]["split_sweep_ms"]}
+           "decode_split_sweep_ms": cases["decode"]["split_sweep_ms"],
+           "mixed_long_split_sweep_ms":
+               cases["mixed_long"]["split_sweep_ms"]}
     return row
 
 
@@ -797,18 +816,45 @@ GQA_GEOMETRIES = ZOO_GQA + ("zamba2-7b",)
 WINDOW_DECODE_CTX = [6000, 4500, 4097, 3001, 1500, 777, 300, 64]
 
 
+# the zoo geometries whose decode case also sweeps the split (1-8)
+ZOO_SWEEP = ("qwen2-7b", "granite-20b", "zamba2-7b")
+# ... and that sweep a mixed chunk (8 x 32 rows) over the decode case's
+# long table too, the shape of a long prompt's prefill chunks
+ZOO_MIXED_LONG = ("qwen2-7b", "zamba2-7b")
+# ... and whose split edges run (zamba2's with a forced split: its plan
+# does not split)
+ZOO_EDGES = {"qwen2-7b": None, "zamba2-7b": 6}
+
+
+def _tc_ptxas(ptxas):
+    """{head dim: ptxas line} of the tensor-core GQA instantiations
+    (``paged::tc::gqa_paged_kernel<D>``)."""
+    import re
+    out = {}
+    for entry, line in (ptxas or {}).items():
+        m = re.search(r"2tc16gqa_paged_kernelILi(\d+)E", entry)
+        if m:
+            out[int(m.group(1))] = line
+    return out
+
+
 def kernel_zoo_paged(gen, flush, ptxas=None):
-    """``gqa_paged_flash`` in bf16 at the zoo's head geometries (the
-    CUDA-core body, ``gqa_heads_plan``'s rows and heads): qwen2-7b (28 /
-    4 heads, D 128: G 7), granite-20b (48 / 1, D 128: MQA, three head
-    groups), mixtral-8x7b (32 / 8, D 128, window 4096 over contexts up
-    to 6,000), phi-3-vision (32 / 32, D 96) and zamba2-7b's shared
-    attention (32 / 32, D 112: 16 rows a block, its shared window of
-    4,096 over contexts up to 6,000, with the D 112 entries' ptxas line
-    from ``ptxas``), each at decode (8 x 1) and mixed (8 x 32), within
-    the bar of the plain version on the rows that see a key, a repeat
-    bit-equal, timed beside its bound and SDPA.  -> {arch: {"decode": r,
-    "mixed": r}}."""
+    """``gqa_paged_flash`` in bf16 at the zoo's head geometries, on the
+    tensor-core body at each head dim (columns padded to 128 at D 96 /
+    112 / 128): qwen2-7b (28 / 4 heads, D 128: G 7), granite-20b (48 /
+    1, D 128: MQA, all 48 heads in one 64-pair tile), mixtral-8x7b (32 /
+    8, D 128, window 4096 over contexts up to 6,000), phi-3-vision (32 /
+    32, D 96) and zamba2-7b's shared attention (32 / 32, D 112, its
+    shared window of 4,096 over contexts up to 6,000), each at decode (8
+    x 1) and mixed (8 x 32), within the bar of the plain version on the
+    rows that see a key, a repeat bit-equal, timed beside its bound and
+    SDPA, logging its split and body; qwen2's, granite-20b's and
+    zamba2's decode also at every split of 1-8, and qwen2's and zamba2's
+    mixed chunk over the decode case's long table ("mixed_long"); the
+    split's edges at qwen2's geometry and zamba2's (under its window);
+    the ptxas line of every tensor-core instantiation (``ptxas``).  ->
+    {arch: {"decode": r, "mixed": r, ["mixed_long": r],
+    ["split_edges": r]}}."""
     import torch
     from repro_torch.configs import get_config
     g = torch.Generator().manual_seed(SEED + 1)
@@ -823,20 +869,27 @@ def kernel_zoo_paged(gen, flush, ptxas=None):
             [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
         out[arch] = {
             "decode": paged_case(gen, flush, ctx, 1, -(-max(ctx) // 8),
-                                 window=window, n_null=5, **geom),
+                                 window=window, n_null=5,
+                                 sweep=arch in ZOO_SWEEP, **geom),
             "mixed": paged_case(gen, flush, mixed_ctx, 32, 12,
                                 window=window, n_null=1, **geom)}
+        if arch in ZOO_MIXED_LONG:
+            out[arch]["mixed_long"] = paged_case(
+                gen, flush, ctx, 32, -(-max(ctx) // 8), window=window,
+                n_null=5, sweep=True, **geom)
+        if arch in ZOO_EDGES:
+            out[arch]["split_edges"] = gqa_split_edges(
+                gen, window=window, split=ZOO_EDGES[arch], **geom)
         for case, r in out[arch].items():
+            assert r["body"] == "tensor_cores", (arch, case, r["body"])
             log("kernel", name="gqa_paged_flash", arch=arch, case=case,
                 H=cfg.n_heads, hkv=hkv, D=D,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
-        if arch == "zamba2-7b":
-            for entry, line in (ptxas or {}).items():
-                if "gqa_paged_kernel" in entry and f"Li{D}E" in entry:
-                    log("kernel", name="gqa_paged_flash", arch=arch,
-                        ptxas_entry=entry, ptxas=repr(line))
         torch.cuda.empty_cache()
+    for D, line in sorted(_tc_ptxas(ptxas).items()):
+        log("kernel", name="gqa_paged_flash", body="tensor_cores", D=D,
+            ptxas=repr(line))
     return out
 
 
@@ -1339,10 +1392,10 @@ def window_case_mla(gen, flush, ctx, C, W, n_null=0, time_it=False):
 def kernel_windows(gen, flush, ptxas=None):
     """The shard-window, partial forms at the sharded layout's shapes, in
     bf16: granite's decode (8 x 1 over contexts to 4,096; 32 / 8 heads
-    at D 64, the tensor-core body) and mixed dispatch (8 x 32), qwen2's
-    G 7 at D 128 and zamba2's D 112 under its window of 4,096 (the
-    CUDA-core body), and deepseek's MLA (128 heads, kr 512, rd 64).  ->
-    {"gqa": {case: r}, "mla": {case: r}}."""
+    at D 64) and mixed dispatch (8 x 32), qwen2's G 7 at D 128 and
+    zamba2's D 112 under its window of 4,096 (timed: the tensor-core body
+    at every head dim), and deepseek's MLA (128 heads, kr 512, rd 64).
+    -> {"gqa": {case: r}, "mla": {case: r}}."""
     import torch
     from repro_torch.configs import get_config
     g = torch.Generator().manual_seed(SEED + 2)
@@ -1359,7 +1412,7 @@ def kernel_windows(gen, flush, ptxas=None):
         gqa[arch] = window_case_gqa(
             gen, flush, ctx, 1, -(-max(ctx) // 8), hkv=cfg.n_kv_heads,
             G=cfg.n_heads // cfg.n_kv_heads, D=cfg.head_dim, window=window,
-            n_null=5)
+            n_null=5, time_it=True)
     mla = {"deepseek_decode": window_case_mla(gen, flush, decode_ctx, 1, 512,
                                               n_null=5, time_it=True),
            "deepseek_mixed": window_case_mla(gen, flush, mixed_ctx, 32, 12,
@@ -1648,9 +1701,16 @@ def phase_kernels(ptxas=None):
             "masked_matmul_kdim"
         rows[name].setdefault("ragged_max_abs_err", {})[tag] = err
     rows["gqa_paged_flash"] = kernel_paged(gen, flush)
+    gqa = rows["gqa_paged_flash"]
     for arch, per in kernel_zoo_paged(gen, flush, ptxas).items():
         for case, r in per.items():
-            rows["gqa_paged_flash"][f"at_{arch}_{case}"] = _fields(r)
+            gqa[f"at_{arch}_{case}"] = _fields(r)
+            gqa["split"][f"{arch}_{case}"] = r["split"]
+            gqa["body"][f"{arch}_{case}"] = r["body"]
+            if "split_sweep_ms" in r:
+                gqa[f"{arch}_{case}_split_sweep_ms"] = r["split_sweep_ms"]
+    gqa["tc_ptxas"] = {str(D): line for D, line in
+                       _tc_ptxas(ptxas).items()}
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
     windows = kernel_windows(gen, flush, ptxas)
     for (name, kind, source, replaces, timed) in (

@@ -179,6 +179,22 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[8][4],
       : "l"(da), "l"(db), "r"(1), "n"(TRANS_B));
 }
 
+// d += A (64 x 16, K-major) B (16 x 32), both from shared memory, B
+// K-major: the 32-column form of the product above (d[nt]: n8 tile nt)
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[4][4],
+                                                uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 // d += A B with A (64 x 16 bf16) from registers, in the m16n8k16 A
 // layout of warp w's rows 16 w.., and B (16 x 64) N-major from shared
 // memory (transposed on read): float32 accumulators as above

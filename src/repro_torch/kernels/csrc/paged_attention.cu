@@ -24,49 +24,69 @@
 // D 64) plus q and the output, over 3.35 TB/s: ~10 us for a decode
 // dispatch of 8 slots over ~16k cached tokens.
 //
-// Design for bf16 at head dim 64 (serving; `tc` below): PR 17's MLA
-// design (mla_attention.cu) carried over to GQA.
+// Design for bf16 at head dims 64, 96, 112 and 128 (serving; `tc`
+// below): the MLA kernel's design (mla_attention.cu) carried over to
+// GQA.
+//   - Columns padded to whole 128-byte swizzle panels: the body is
+//     templated on D and computes over DC = D rounded up to 64 columns
+//     (64 at D 64, 128 at D 96 / 112 / 128), each 64-column panel one
+//     128-byte row of wgmma's swizzle.  Only a row's D / 8 real 16-byte
+//     chunks are copied (12 at D 96, 14 at D 112); the pad chunks are
+//     zero-filled by a cp.async that reads nothing, q's pad columns are
+//     zeros, so they add nothing to q.k, the scale stays the real
+//     D^-0.5, and only the D real columns reach `out` or `pacc`.
 //   - A block owns an M tile of 64 (query row, head) pairs of one slot
 //     and one KV head, c-major over that head's G query heads (granite,
 //     G 4: 16 query rows x 4 heads at a mixed dispatch, 4 real pairs at
-//     decode).  Their q rows are staged once in shared memory in the
-//     128-byte swizzle wgmma reads (64 rows x 128 bytes).
-//   - Keys stream as K tiles of 64 rows of whole live pages: the block
+//     decode; granite-20b's MQA, G 48: all 48 heads of a decode row in
+//     one tile, so its pages are read once).  Their q rows are staged
+//     once in shared memory, DC / 64 panels of 64 rows x 128 bytes.
+//   - Keys stream as K tiles of BK = 4096 / DC rows (64 at DC 64, 32 at
+//     DC 128: 8 KB a tile either way) of whole live pages: the block
 //     first compacts its range of table entries, 128 at a time, into the
 //     list of live page ids, so a null entry is never loaded.  Every
 //     thread copies its share of a tile's K and V rows of the block's KV
-//     head (one 128-byte row a key; a page's rows are hkv D elements
-//     apart) and of their tags by 16-byte cp.async into a ring of 2
-//     stages, in the swizzle wgmma reads: the next tile flies while this
-//     one is multiplied.  Pages hold a multiple of 8 rows (an 8-row
-//     swizzle group and a 4-tag copy never straddle two pages).  The
-//     copies were TMA boxes first (8 rows x 128 bytes a page, 24 a tile
-//     from 8 threads): a clock64 trace of one block put their issue
-//     about as long as the softmax on the critical warp, and the same
-//     kernel fed by TMA lost to these copies in one call (PERF.md); a
-//     deeper ring and 128-key tiles tied.  The copies' per-key divisions
-//     are hoisted out of the walk.
-//   - One warpgroup computes.  S = Q K^T (64 x 64, float32 sums) on
-//     wgmma m64n64k16 from shared memory (both operands K-major); the
-//     masks and the online softmax run on S's registers, and a warp
-//     whose 16 rows hold no real pair (warps 1-3 at decode) skips them;
-//     P, split into bf16 hi + lo halves (P in bf16 alone misses the
+//     head (a page's rows are hkv D elements apart) and of their tags by
+//     16-byte cp.async into a ring of 2 stages, in the swizzle wgmma
+//     reads: the next tile's copies are issued while this tile's S
+//     product runs, and fly while it is multiplied.  Pages
+//     hold a multiple of 8 rows (a 4-tag copy never straddles two
+//     pages).  The copies were TMA boxes first (8 rows x 128 bytes a
+//     page, 24 a tile from 8 threads): a clock64 trace of one block put
+//     their issue about as long as the softmax on the critical warp, and
+//     the same kernel fed by TMA lost to these copies in one call
+//     (PERF.md); a deeper ring and 128-key tiles tied at D 64, and a ring
+//     of 3 or 4 at DC 128 lost at the plan's splits (see RESIDENT).  The
+//     copies' per-key divisions are hoisted out of the walk.
+//   - One warpgroup computes.  S = Q K^T (64 x BK, float32 sums) on
+//     wgmma m64n64k16 (m64n32k16 at DC 128), DC / 16 k16 steps across
+//     the panels, from shared memory (both operands K-major); the masks
+//     and the online softmax run on S's registers, and a warp whose 16
+//     rows hold no real pair (warps 1-3 at a decode with G <= 16) skips
+//     them; P, split into bf16 hi + lo halves (P in bf16 alone misses the
 //     one-bf16-step bar on a mixed dispatch's diffuse softmaxes, as in
-//     MLA), feeds two P.V products on wgmma m64n64k16 with P from
-//     registers and V N-major (the transposed read of the staged V tile).
+//     MLA), feeds two P.V products per V panel on wgmma m64n64k16 with P
+//     from registers and V N-major (the transposed read of the staged V
+//     tile).  At DC 128 the accumulator holds 64 floats a thread and S
+//     and P's halves 16 each: the 128-register cap of four blocks an SM
+//     holds, with 72 bytes of spill stores at D 128 (60 at D 64; the
+//     smoke logs every instantiation's ptxas line).
 //   - The context split: at decode a slot's B x hkv tiles (64 for
-//     granite) leave most of the card idle, so its table columns [0, W)
-//     are split into `split` ranges of whole entries (at most 8, the
-//     host's plan `gqa_plan`, from shapes alone), one block each, and
-//     the blocks of a split form a cluster.  Each rank leaves its (m, l,
-//     acc) in its own shared memory and rank r merges its share of the
-//     tile's real rows from ranks 0 .. split-1, in that order, through
-//     distributed shared memory: one launch, no float32 partials in
-//     device memory, the same bits on every run.  A block takes ~42 KB
-//     of shared memory and 128 registers a thread, so four fit an SM: a
-//     decode dispatch's 448 blocks (split 7) run in one wave.
-// float32 (the reduced models' card-vs-CPU check) and other head dims
-// (32, 96, 112, 128) keep the CUDA cores (`cc` below): one block per
+//     granite, 32 for qwen2-7b, 8 for granite-20b) leave most of the
+//     card idle, and at G 1 (zamba2-7b, phi-3) one block walks a slot's
+//     whole context, so its table columns [0, W) are split into `split`
+//     ranges of whole entries (at most 8, the host's plan `gqa_plan`,
+//     from shapes alone), one block each, and the blocks of a split form
+//     a cluster.  Each rank leaves its (m, l, acc) in its own shared
+//     memory and rank r merges its share of the tile's real rows from
+//     ranks 0 .. split-1, in that order, through distributed shared
+//     memory: one launch, no float32 partials in device memory, the same
+//     bits on every run.  A block takes ~42 KB of shared memory at DC 64
+//     (~51 KB at DC 128) and 128 registers a thread, so four fit an SM:
+//     a granite decode dispatch's 448 blocks (split 7) run in one wave.
+// float32 (the reduced models' card-vs-CPU check and the sharded
+// layout's reduced references) and bf16 at head dim 32 keep the CUDA
+// cores (`cc` below): one block per
 // (query-row tile, head group, KV head, slot) serves `heads` of that KV
 // head's G query heads for up to `rows` query rows, rows x heads <= RMAX
 // = 2048 / DP, DP being D rounded up to a multiple of 32 (21 at D 96; 16
@@ -82,10 +102,10 @@
 // rows, with (m, l) in shared memory and acc in registers; at the end the
 // warps' statistics merge in warp order.  The page-to-warp map and the
 // merge order are fixed, so results are deterministic run to run.  A
-// row's K and V are loaded 16 bytes a lane: D 96 is 12 such loads in
-// bf16, 24 in float32, D 112 (zamba2-7b's) 14 and 28, and a KV head's
-// offset (kvh D elements) stays 16-byte aligned for every D that is a
-// multiple of 8.
+// row's K and V are loaded 16 bytes a lane: D 96 is 24 such loads in
+// float32, D 112 (zamba2-7b's) 28, and a KV head's offset (kvh D
+// elements) stays 16-byte aligned for every D that is a multiple of 8
+// (in bf16 too, on the tensor cores).
 //
 // The strided block table: the engine passes `block_table[:, :W]`, a
 // view whose rows are `tbl_stride` apart, not W.  Reading it as a dense
@@ -116,7 +136,7 @@ namespace paged {
 constexpr float NEG_INF = -1e30f;    // the finite sentinel
 
 // ==========================================================================
-// float32, and head dims other than 64: the CUDA cores
+// float32, and bf16 at head dim 32: the CUDA cores
 // ==========================================================================
 namespace cc {
 
@@ -373,7 +393,7 @@ int by_dim(int D, const void* q, const void* kp, const void* vp,
 }  // namespace cc
 
 // ==========================================================================
-// bf16 at head dim 64: the tensor cores
+// bf16 at head dims 64, 96, 112 and 128: the tensor cores
 // ==========================================================================
 namespace tc {
 
@@ -387,16 +407,53 @@ using mor::tile::pack_bf16;
 using mor::tile::sw128_desc;
 
 constexpr int THREADS = 128;                  // one warpgroup
-constexpr int D = 64;                         // head dim: one 128-byte row
 constexpr int BM = 64;                        // pairs a block (wgmma's M)
-constexpr int BK = 64;                        // keys a tile
-constexpr int STAGES = 2;                     // the cp.async ring
-constexpr int REGION = BM * 128;              // Q: 64 rows x 128 bytes
-constexpr int KV = BK * 128;                  // a K (or V) tile's bytes
+constexpr int PANEL_Q = BM * 128;             // a Q panel: 64 rows x 128 B
 constexpr int LIST = THREADS;                 // table entries a scan
 constexpr int MAX_SPLIT = 8;                  // the portable cluster
-constexpr int LDO = D + 4;                    // float stride, merge tile
-constexpr int LDB = D + 8;                    // bf16 stride, output tile
+constexpr int STAGES = 2;                     // the cp.async ring
+// Blocks an SM, which the host's plan counts on (paged_attention.py
+// gqa_resident): registers are held to 128 a thread (__launch_bounds__
+// below), and shared memory (the H100's 228 KB, 1 KB reserved a block:
+// ~42 KB a block at DC 64, ~51 KB at DC 128) allows four at every D.
+// A ring of 3 or 4 stages at DC 128 (3 or 2 blocks an SM, no spill)
+// was faster at small splits but slower at the plan's, whose blocks then
+// no longer fit one wave.
+constexpr int RESIDENT = 4;
+
+// The geometry at head dim D: DC columns (D rounded up to whole 64-column
+// panels of one 128-byte swizzle row each), BK keys a tile (a K or V tile
+// is 8 KB at every D: 64 keys at DC 64, 32 at DC 128).
+template <int D>
+struct Geo {
+  static_assert(D % 8 == 0 && D > 32 && D <= 128, "head dim");
+  static constexpr int DC = (D + 63) / 64 * 64;
+  static constexpr int NP = DC / 64;          // column panels
+  static constexpr int BK = 4096 / DC;        // keys a tile
+  static constexpr int CH = DC / 8;           // 16-byte chunks a row
+  static constexpr int REAL = D / 8;          // ... of them real
+  static constexpr int PANEL = BK * 128;      // a K (V) panel's bytes
+  static constexpr int KV = NP * PANEL;       // a K (or V) tile's bytes
+  static constexpr int STAGE = 2 * KV;        // K then V
+  // shared memory, from the 1 KB aligned base: Q, the ring, the stages'
+  // tags, the live-page list, the pairs' qpos, warp counts
+  static constexpr int OFF_K = NP * PANEL_Q;
+  static constexpr int OFF_TAG = OFF_K + STAGES * STAGE;
+  static constexpr int OFF_LIST = OFF_TAG + STAGES * BK * 4;
+  static constexpr int OFF_QPOS = OFF_LIST + LIST * 4;
+  static constexpr int OFF_CNT = OFF_QPOS + BM * 4;
+  static constexpr int SMEM_BYTES = OFF_CNT + 32 + 1024;   // + alignment
+  static constexpr int LDO = DC + 4;          // float stride, merge tile
+  static constexpr int LDB = DC + 8;          // bf16 stride, output tile
+  static constexpr int KPT = BK * CH / THREADS;   // key rows a thread copies
+  static_assert(KV == 8192 && BK * CH % THREADS == 0, "tile");
+  static_assert(233472 / (SMEM_BYTES + 1024) >= RESIDENT, "shared memory");
+  // the merge reuses Q and the ring: the acc tile, m, l, and per row the
+  // ranks' weights and the denominator
+  static_assert((BM * LDO + 2 * BM + BM * (MAX_SPLIT + 1)) * 4 <= OFF_TAG,
+                "the merge tile fits in the ring");
+  static_assert(BM * LDB * 2 <= OFF_TAG, "the output tile fits");
+};
 
 // 2^x on the special function unit: the softmax runs in base 2 (scores
 // scaled by log2(e) D^-0.5, the running maxima in the same units)
@@ -405,30 +462,10 @@ __device__ __forceinline__ float ex2(float x) {
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
 }
-// shared memory, from the 1 KB aligned base: Q, the ring (a stage: K
-// then V), the stages' tags, the live-page list, the pairs' qpos, warp
-// counts
-constexpr int STAGE = 2 * KV;
-constexpr int OFF_K = REGION;
-constexpr int OFF_TAG = OFF_K + STAGES * STAGE;
-constexpr int OFF_LIST = OFF_TAG + STAGES * BK * 4;
-constexpr int OFF_QPOS = OFF_LIST + LIST * 4;
-constexpr int OFF_CNT = OFF_QPOS + BM * 4;
-constexpr int SMEM_BYTES = OFF_CNT + 32 + 1024;         // + alignment slack
-// Blocks an SM, which the host's plan counts on (paged_attention.py
-// GQA_RESIDENT): registers are held to 128 a thread (__launch_bounds__
-// below), and shared memory (the H100's 228 KB, 1 KB reserved a block)
-// allows one more.
-constexpr int RESIDENT = 4;
-static_assert(233472 / (SMEM_BYTES + 1024) >= RESIDENT, "shared memory");
-// the merge reuses Q and the ring: the acc tile, m, l, and per row the
-// ranks' weights and the denominator
-static_assert((BM * LDO + 2 * BM + BM * (MAX_SPLIT + 1)) * 4 <= OFF_TAG,
-              "the merge tile fits in the ring");
-static_assert(BM * LDB * 2 <= OFF_TAG, "the output tile fits");
 
 // One block: pairs [p0, p0 + 64) of KV head kvh of slot b against its
 // table columns [lo, hi) (rank `rank` of the slot's `split`).
+template <int D>
 __global__ void __launch_bounds__(THREADS, RESIDENT)
 gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                  const bf16* __restrict__ vp, const int* __restrict__ pp,
@@ -437,12 +474,16 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                  int tbl_stride, int window, float scale_log2,
                  int split, int base, int n_local, float* __restrict__ pm,
                  float* __restrict__ pl, float* __restrict__ pacc) {
+  using Gm = Geo<D>;
+  constexpr int NP = Gm::NP, BK = Gm::BK, CH = Gm::CH, PANEL = Gm::PANEL;
+  constexpr int KV = Gm::KV, STAGE = Gm::STAGE, LDO = Gm::LDO;
+  constexpr int LDB = Gm::LDB;
   extern __shared__ __align__(16) char smem_raw[];
   char* sm = mor::tile::ring_base(smem_raw);
-  int* tags = reinterpret_cast<int*>(sm + OFF_TAG);
-  int* list = reinterpret_cast<int*>(sm + OFF_LIST);
-  int* qps = reinterpret_cast<int*>(sm + OFF_QPOS);
-  int* cnt = reinterpret_cast<int*>(sm + OFF_CNT);
+  int* tags = reinterpret_cast<int*>(sm + Gm::OFF_TAG);
+  int* list = reinterpret_cast<int*>(sm + Gm::OFF_LIST);
+  int* qps = reinterpret_cast<int*>(sm + Gm::OFF_QPOS);
+  int* cnt = reinterpret_cast<int*>(sm + Gm::OFF_CNT);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ra = 16 * warp + (lane >> 2), rb = ra + 8, tq = lane & 3;
   const int rank = blockIdx.x % split, kvh = blockIdx.y, b = blockIdx.z;
@@ -462,18 +503,24 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   auto nat = [](float m) {
     return m == NEG_INF ? NEG_INF : m * 0.6931471805599453f;
   };
+  // 16-byte chunk c of row r of a region of 128-byte panels (`panel`
+  // bytes each): panel c / 8, at chunk (c % 8) ^ (r & 7) of the row (the
+  // 128-byte swizzle wgmma reads)
+  auto swz = [](int r, int c, int panel) {
+    return (c >> 3) * panel + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+  };
 
   // this thread's entry of the first scan
   const int* trow = tbl + (size_t)b * tbl_stride;
   int pg_next = lo + tid < hi ? trow[lo + tid] : 0;
-  // the pairs' q rows in the 128-byte swizzle (16-byte chunk ch of row r
-  // at chunk ch ^ (r & 7)); rows past the tile's real pairs are zeros
-  for (int e = tid; e < BM * (D / 8); e += THREADS) {
-    const int r = e / (D / 8), ch = e % (D / 8);
+  // the pairs' q rows; rows past the tile's real pairs and the pad
+  // columns past D are zeros (the pad adds nothing to q.k)
+  for (int e = tid; e < BM * CH; e += THREADS) {
+    const int r = e / CH, c = e % CH;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < nreal)
-      v = *reinterpret_cast<const uint4*>(q + row_of(p0 + r) + 8 * ch);
-    *reinterpret_cast<uint4*>(sm + r * 128 + ((ch ^ (r & 7)) << 4)) = v;
+    if (r < nreal && c < Gm::REAL)
+      v = *reinterpret_cast<const uint4*>(q + row_of(p0 + r) + 8 * c);
+    *reinterpret_cast<uint4*>(sm + swz(r, c, PANEL_Q)) = v;
   }
   if (tid < BM)
     qps[tid] = tid < nreal ? qpos[(size_t)b * C + (p0 + tid) / G] : -1;
@@ -482,7 +529,7 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   __syncthreads();
 
   // K tiles: E entries of RE rows each (RE = P when a page fits a tile,
-  // else 64 rows of one page, nsub tiles a page); the first nv rows of
+  // else BK rows of one page, nsub tiles a page); the first nv rows of
   // a tile are real keys, key k from row k % RE of its page.
   const int RE = min(P, BK), E = BK / RE, nsub = (P + BK - 1) / BK;
   auto tile_rows = [&](int i, int nlive) {
@@ -490,21 +537,23 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
                    : min(BK, P - (i % nsub) * BK);
   };
   // Tile i of the scan into stage st, by 16-byte cp.async copies from
-  // every thread: key k's K and V rows of this KV head (chunk ch of row
-  // k at chunk ch ^ (k & 7): the 128-byte swizzle wgmma reads) and its
-  // tags, 4 keys a chunk (P % 8 == 0: a chunk is one page's); rows past
-  // the tile's real keys are zero-filled and read nothing.
-  // This thread copies chunk tid % 8 of keys k_j = tid / 8 + 16 j and,
-  // below BK / 4, the tags of keys 4 tid..; their (entry of the tile,
-  // row of the page) are the same for every tile, so they are divided
-  // out once: a tile's copies then cost no division (they cost about
-  // half of the copies' issue time in the trace).
-  constexpr int KPT = BK * 8 / THREADS;           // keys a thread copies
-  const int ch = tid % 8;
+  // every thread: key k's K and V rows of this KV head (its D / 8 real
+  // chunks; the pad chunks up to DC zero-filled, reading nothing) in the
+  // column panels wgmma reads, and its tags, 4 keys a chunk (P % 8 == 0:
+  // a chunk is one page's); rows past the tile's real keys are
+  // zero-filled and read nothing.
+  // This thread copies chunk tid % CH of keys k_j = tid / CH + (128 /
+  // CH) j and, below BK / 4, the tags of keys 4 tid..; their (entry of
+  // the tile, row of the page) are the same for every tile, so they are
+  // divided out once: a tile's copies then cost no division (they cost
+  // about half of the copies' issue time in the trace).
+  constexpr int KPT = Gm::KPT;
+  const int ch = tid % CH;
+  const bool real_ch = ch < Gm::REAL;
   int kq[KPT + 1], kr[KPT + 1];
 #pragma unroll
   for (int j = 0; j <= KPT; ++j) {
-    const int k = j < KPT ? tid / 8 + (THREADS / 8) * j : 4 * tid;
+    const int k = j < KPT ? tid / CH + (THREADS / CH) * j : 4 * tid;
     kq[j] = k / RE;
     kr[j] = k % RE;
   }
@@ -512,14 +561,14 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     const int nv = tile_rows(i, nlive);
     const int* ent = list + (i / nsub) * E;      // the tile's first entry
     const int sub = (i % nsub) * BK;             // its first row of a page
-    char* kd = sm + OFF_K + st * STAGE;
+    char* kd = sm + Gm::OFF_K + st * STAGE;
 #pragma unroll
     for (int j = 0; j < KPT; ++j) {
-      const int k = tid / 8 + (THREADS / 8) * j;
-      const bool ok = k < nv;
+      const int k = tid / CH + (THREADS / CH) * j;
+      const bool ok = real_ch && k < nv;
       const size_t row = ok ? (size_t)ent[kq[j]] * P + sub + kr[j] : 0;
-      const size_t off = (row * hkv + kvh) * D + 8 * ch;
-      const int d = k * 128 + ((ch ^ (k & 7)) << 4);
+      const size_t off = ok ? (row * hkv + kvh) * D + 8 * ch : 0;
+      const int d = swz(k, ch, PANEL);
       cp_async16(kd + d, kp + off, ok);
       cp_async16(kd + KV + d, vp + off, ok);
     }
@@ -532,35 +581,45 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   };
   int g = 0;                              // tiles computed so far
 
-  float o[8][4];                          // rows ra, rb; columns 8 j + ..
+  float o[NP][8][4];                      // rows ra, rb; panel p's columns
+#pragma unroll                            // 64 p + 8 j + ..
+  for (int p = 0; p < NP; ++p)
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j)
+      o[p][j][0] = o[p][j][1] = o[p][j][2] = o[p][j][3] = 0.f;
   float ma = NEG_INF, mb = NEG_INF, la = 0.f, lb = 0.f;
   const uint32_t qa = smem_u32(sm);
 
   // Tile on stage st (nv real keys): S, the masks, the online softmax,
-  // then acc = acc * corr + P V with P's hi and lo halves.
-  auto compute = [&](int st, int nv) {
-    const uint32_t ka = smem_u32(sm + OFF_K + st * STAGE), va = ka + KV;
+  // then acc = acc * corr + P V with P's hi and lo halves; `prefetch`
+  // (the next tile's copies, by every thread) runs while S's product is
+  // in flight.
+  auto compute = [&](int st, int nv, auto&& prefetch) {
+    const uint32_t ka = smem_u32(sm + Gm::OFF_K + st * STAGE), va = ka + KV;
     const int* tg = tags + st * BK;
     constexpr int NJ = BK / 8, NK = BK / 16;    // n8 tiles, k16 steps
     float s[NJ][4];
 #pragma unroll
     for (int j = 0; j < NJ; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    // 64 keys (8 KB of the K tile) a product; +32 bytes a k16 step
+    // DC / 16 k16 steps over the panels: +32 bytes a step inside a
+    // panel's swizzled rows
 #pragma unroll
-    for (int h = 0; h < BK / 64; ++h)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        mor::tile::wgmma_m64n64k16<0>(
-            *reinterpret_cast<float(*)[8][4]>(s[8 * h]),
-            sw128_desc(qa + 32 * k, 0, 1024),
-            sw128_desc(ka + 8192 * h + 32 * k, 0, 1024));
+    for (int u = 0; u < Gm::DC / 16; ++u) {
+      const uint64_t da = sw128_desc(qa + PANEL_Q * (u / 4) + 32 * (u % 4),
+                                     0, 1024);
+      const uint64_t db = sw128_desc(ka + PANEL * (u / 4) + 32 * (u % 4),
+                                     0, 1024);
+      if constexpr (BK == 64)
+        mor::tile::wgmma_m64n64k16<0>(s, da, db);
+      else
+        mor::tile::wgmma_m64n32k16(s, da, db);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    prefetch();
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     // A warp whose 16 rows are all past the tile's real pairs (warps 1-3
-    // at decode, where G = 4 pairs are real) skips the masks and the
+    // at decode, where G <= 16 pairs are real) skips the masks and the
     // softmax: its P is 0 and its accumulators stay 0.
     uint32_t ph[NK][4], pl[NK][4];
     if (16 * warp >= nreal) {
@@ -629,23 +688,30 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
               pack_bf16(v[0] - __low2float(hv), v[1] - __high2float(hv));
         }
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        o[j][0] *= ca;
-        o[j][1] *= ca;
-        o[j][2] *= cb;
-        o[j][3] *= cb;
-      }
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          o[p][j][0] *= ca;
+          o[p][j][1] *= ca;
+          o[p][j][2] *= cb;
+          o[p][j][3] *= cb;
+        }
     }
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-    // V: +2 KB (16 key rows) a k16 step, 1 KB between 8-row groups
+    // V, panel by panel: +2 KB (16 key rows) a k16 step, 1 KB between
+    // 8-row groups
 #pragma unroll
-    for (int k = 0; k < NK; ++k)
-      mor::tile::wgmma_m64n64k16_rs(o, ph[k], sw128_desc(va + 2048 * k, 1024,
-                                                         1024));
+    for (int p = 0; p < NP; ++p)
 #pragma unroll
-    for (int k = 0; k < NK; ++k)
-      mor::tile::wgmma_m64n64k16_rs(o, pl[k], sw128_desc(va + 2048 * k, 1024,
-                                                         1024));
+      for (int k = 0; k < NK; ++k)
+        mor::tile::wgmma_m64n64k16_rs(
+            o[p], ph[k], sw128_desc(va + PANEL * p + 2048 * k, 1024, 1024));
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int k = 0; k < NK; ++k)
+        mor::tile::wgmma_m64n64k16_rs(
+            o[p], pl[k], sw128_desc(va + PANEL * p + 2048 * k, 1024, 1024));
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   };
@@ -677,11 +743,13 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     for (int i = 0; i < ntiles; ++i, ++g) {
       cp_async_wait<STAGES - 2>();        // this thread's copies of tile i
       __syncthreads();                    // everyone's; tile i - 1 is done
-      // the ring's last stage (tile i - 1's) takes tile i + STAGES - 1
-      if (i + STAGES - 1 < ntiles)
-        load_tile(i + STAGES - 1, (g + STAGES - 1) % STAGES, nlive);
-      cp_async_commit();
-      compute(g % STAGES, tile_rows(i, nlive));
+      // the ring's last stage (tile i - 1's) takes tile i + STAGES - 1,
+      // its copies issued while S's product runs
+      compute(g % STAGES, tile_rows(i, nlive), [&] {
+        if (i + STAGES - 1 < ntiles)
+          load_tile(i + STAGES - 1, (g + STAGES - 1) % STAGES, nlive);
+        cp_async_commit();
+      });
     }
   }
 
@@ -691,16 +759,22 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   float* lrow = mrow + BM;
   float* wts = lrow + BM;                 // BM x (MAX_SPLIT + 1)
   if (split == 1 && pm != nullptr) {
-    // the partial form: the real pairs' statistics from the registers
+    // the partial form: the real pairs' statistics from the registers,
+    // their D real columns
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int r = h ? rb : ra;
       if (r >= nreal) continue;
       const size_t row = prow(p0 + r);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<float2*>(pacc + row * D + 8 * j + 2 * tq) =
-            make_float2(o[j][2 * h], o[j][2 * h + 1]);
+      for (int p = 0; p < NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 64 * p + 8 * j + 2 * tq;
+          if (c < D)
+            *reinterpret_cast<float2*>(pacc + row * D + c) =
+                make_float2(o[p][j][2 * h], o[p][j][2 * h + 1]);
+        }
       if (tq == 0) {
         pm[row] = nat(h ? mb : ma);
         pl[row] = h ? lb : la;
@@ -710,20 +784,22 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   }
   if (split == 1) {
     // the normalised rows through shared memory (rows LDB apart), then
-    // 16-byte stores of the real pairs' rows
+    // 16-byte stores of the real pairs' D columns
     bf16* ot = reinterpret_cast<bf16*>(sm);
     const float ia = 1.f / fmaxf(la, 1e-30f), ib = 1.f / fmaxf(lb, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = 8 * j + 2 * tq;
-      *reinterpret_cast<__nv_bfloat162*>(ot + ra * LDB + c) =
-          __floats2bfloat162_rn(o[j][0] * ia, o[j][1] * ia);
-      *reinterpret_cast<__nv_bfloat162*>(ot + rb * LDB + c) =
-          __floats2bfloat162_rn(o[j][2] * ib, o[j][3] * ib);
-    }
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 64 * p + 8 * j + 2 * tq;
+        *reinterpret_cast<__nv_bfloat162*>(ot + ra * LDB + c) =
+            __floats2bfloat162_rn(o[p][j][0] * ia, o[p][j][1] * ia);
+        *reinterpret_cast<__nv_bfloat162*>(ot + rb * LDB + c) =
+            __floats2bfloat162_rn(o[p][j][2] * ib, o[p][j][3] * ib);
+      }
     __syncthreads();
-    for (int e = tid; e < nreal * (D / 8); e += THREADS) {
-      const int r = e / (D / 8), c = (e % (D / 8)) * 8;
+    for (int e = tid; e < nreal * Gm::REAL; e += THREADS) {
+      const int r = e / Gm::REAL, c = (e % Gm::REAL) * 8;
       *reinterpret_cast<uint4*>(out + row_of(p0 + r) + c) =
           *reinterpret_cast<const uint4*>(ot + r * LDB + c);
     }
@@ -738,13 +814,15 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
     lrow[rb] = lb;
   }
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * tq;
-    *reinterpret_cast<float2*>(acc + ra * LDO + c) =
-        make_float2(o[j][0], o[j][1]);
-    *reinterpret_cast<float2*>(acc + rb * LDO + c) =
-        make_float2(o[j][2], o[j][3]);
-  }
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = 64 * p + 8 * j + 2 * tq;
+      *reinterpret_cast<float2*>(acc + ra * LDO + c) =
+          make_float2(o[p][j][0], o[p][j][1]);
+      *reinterpret_cast<float2*>(acc + rb * LDO + c) =
+          make_float2(o[p][j][2], o[p][j][3]);
+    }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();                         // every rank's stats in place
   // Rank r merges the real rows [r_lo, r_hi); remote reads are issued
@@ -806,6 +884,7 @@ gqa_paged_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
   cluster.sync();                         // no block leaves while read
 }
 
+template <int D>
 int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
            const int* tbl, const int* qpos, void* out, int B, int C, int H,
            int hkv, int P, int W, int tbl_stride, int window, int split,
@@ -821,12 +900,39 @@ int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
           16)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(tiles * split), hkv, B);
+  constexpr int SMEM = Geo<D>::SMEM_BYTES;
   return mor::launch_cluster<THREADS>(
-      gqa_paged_kernel, ready, SMEM_BYTES, grid, split, SMEM_BYTES, st, q, kp,
-      vp, pp, tbl, qpos, pm != nullptr ? nullptr : static_cast<bf16*>(out),
-      C, H, hkv, P, W, tbl_stride, window, scale * 1.4426950408889634f,
-      split, base, n_local, pm, pl,
+      gqa_paged_kernel<D>, ready, SMEM, grid, split, SMEM, st, q, kp, vp, pp,
+      tbl, qpos, pm != nullptr ? nullptr : static_cast<bf16*>(out), C, H,
+      hkv, P, W, tbl_stride, window, scale * 1.4426950408889634f, split,
+      base, n_local, pm, pl,
       pm != nullptr ? static_cast<float*>(out) : nullptr);
+}
+
+// the head dims the tensor-core body serves (bf16)
+constexpr bool serves(int D) {
+  return D == 64 || D == 96 || D == 112 || D == 128;
+}
+
+int by_dim(int D, const bf16* q, const bf16* kp, const bf16* vp,
+           const int* pp, const int* tbl, const int* qpos, void* out, int B,
+           int C, int H, int hkv, int P, int W, int tbl_stride, int window,
+           int split, float scale, int base, int n_local, float* pm,
+           float* pl, cudaStream_t st) {
+#define PAGED_TC_CASE(DIM)                                                   \
+  case DIM:                                                                  \
+    return launch<DIM>(q, kp, vp, pp, tbl, qpos, out, B, C, H, hkv, P, W,    \
+                       tbl_stride, window, split, scale, base, n_local, pm,  \
+                       pl, st);
+  switch (D) {
+    PAGED_TC_CASE(64)
+    PAGED_TC_CASE(96)
+    PAGED_TC_CASE(112)
+    PAGED_TC_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef PAGED_TC_CASE
 }
 
 }  // namespace tc
@@ -838,13 +944,14 @@ int launch(const bf16* q, const bf16* kp, const bf16* vp, const int* pp,
 // (base 0, n_local n_pages on one device); qpos (B, C) int32; out (B,
 // C, H, D) in `dtype`, or with pm and pl given (the partial form) the
 // float32 acc (B, hkv, G, C, D) beside m and l (B, hkv, G, C).  bf16 at
-// D 64 runs on the tensor cores (P a multiple of 8, pp 16-byte aligned)
-// and splits each slot's table columns over `split` blocks of a cluster
-// (1 <= split <= min(8, W), the wrapper's plan); float32, and bf16 at D
-// 32, 96, 112 or 128, run on the CUDA cores with split = 1, a block
-// serving `rows` query rows x `heads` query heads of one KV head (the
-// wrapper's plan; rows and heads are not read on the tensor cores).
-// Returns the launch's error code.
+// D 64, 96, 112 or 128 runs on the tensor cores (P a multiple of 8, pp
+// 16-byte aligned) and splits each slot's table columns over `split`
+// blocks of a cluster (1 <= split <= min(8, W), the wrapper's plan);
+// float32, and bf16 at D 32, run on the CUDA cores with split = 1, a
+// block serving `rows` query rows x `heads` query heads of one KV head
+// (the wrapper's plan; rows and heads are not read on the tensor
+// cores).  Nothing falls back from one body to the other: a refused
+// launch returns its error.  Returns the launch's error code.
 extern "C" int gqa_paged_flash(const void* q, const void* kp, const void* vp,
                                const int* pp, const int* tbl,
                                const int* qpos, void* out, float* pm,
@@ -857,16 +964,17 @@ extern "C" int gqa_paged_flash(const void* q, const void* kp, const void* vp,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((pm == nullptr) != (pl == nullptr) || base < 0 || n_local < 0)
     return (int)cudaErrorInvalidValue;
-  if (dtype == mor::BF16 && D == paged::tc::D)
-    return paged::tc::launch(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+  if (dtype == mor::BF16 && paged::tc::serves(D))
+    return paged::tc::by_dim(
+        D, static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
         static_cast<const bf16*>(vp), pp, tbl, qpos, out, B, C, H, hkv, P, W,
         tbl_stride, window, split, scale, base, n_local, pm, pl, st);
   if (split != 1) return (int)cudaErrorInvalidValue;
-  if (dtype == mor::BF16)
-    return paged::cc::by_dim<bf16>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
-                                   H, hkv, P, W, tbl_stride, window, scale,
-                                   rows, heads, base, n_local, pm, pl, st);
+  if (dtype == mor::BF16 && D == 32)
+    return paged::cc::launch<bf16, 32>(q, kp, vp, pp, tbl, qpos, out, B, C,
+                                       H, hkv, P, W, tbl_stride, window,
+                                       scale, rows, heads, base, n_local, pm,
+                                       pl, st);
   if (dtype == mor::F32)
     return paged::cc::by_dim<float>(D, q, kp, vp, pp, tbl, qpos, out, B, C,
                                     H, hkv, P, W, tbl_stride, window, scale,

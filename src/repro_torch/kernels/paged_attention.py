@@ -12,15 +12,15 @@ kernel's layout, the operands of ``distributed.collectives.
 flash_merge``).  Bounds on the H100: bytes for GQA (the live pages' K, V and
 tags); MLA sits near the bf16 ridge, bound by the latent rows' bytes at
 decode and by q's and the output's at a mixed dispatch.  Both bf16
-kernels run on the tensor cores (GQA at head dim 64; other head dims
-and float32 keep the CUDA cores, ``gqa_body``), copy whole pages (of a
-multiple of 8 rows, or the wrapper raises; MLA by TMA boxes, GQA by
-cp.async), and split each slot's table over a thread block cluster where
-their 64-pair tiles alone leave the card idle (``gqa_plan``,
-``mla_plan``; ranks' ranges ``split_ranges``).  GQA's CUDA-core body
-takes any G = H / hkv: a block serves as many query rows and heads of
-one KV head as its registers hold (``gqa_heads_plan``).  See the sources
-for the designs.
+kernels run on the tensor cores (GQA at head dims 64, 96, 112 and 128,
+the last three over columns padded to 128; head dim 32 and float32 keep
+the CUDA cores, ``gqa_body``), copy whole pages (of a multiple of 8
+rows, or the wrapper raises; MLA by TMA boxes, GQA by cp.async), and
+split each slot's table over a thread block cluster where their 64-pair
+tiles alone leave part of the card idle (``gqa_plan``, ``mla_plan``;
+ranks' ranges ``split_ranges``).  GQA's CUDA-core body takes any G = H / hkv:
+a block serves as many query rows and heads of one KV head as its
+registers hold (``gqa_heads_plan``).  See the sources for the designs.
 """
 from __future__ import annotations
 
@@ -34,11 +34,10 @@ from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 112, 128)  # the CUDA kernel's instantiations
-GQA_TC_HEAD_DIM = 64               # bf16 GQA: the tensor-core body's
+GQA_TC_HEAD_DIMS = (64, 96, 112, 128)  # bf16 GQA: the tensor-core body's
 GQA_CC_ELEMS = 2048                # CUDA-core GQA: acc slots a block
 GQA_TILE_PAIRS = 64                # bf16 GQA: (row, head) pairs a block
-GQA_TILE_KEYS = 64                 # bf16 GQA: keys a K tile
-GQA_RESIDENT = 4                   # bf16 GQA: blocks an SM holds
+GQA_TILE_ELEMS = 4096              # bf16 GQA: keys x columns of a K tile
 PAGE_ROWS = 8                      # bf16 tensor-core bodies: 8-row boxes
 MLA_MAX_RANK = 512                 # the MLA kernel's latent width limit
 MLA_MAX_ROPE = 64                  # bf16: the rope's one staged region
@@ -134,11 +133,37 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
 
 def gqa_body(dtype: torch.dtype, D: int) -> str:
     """The CUDA body a GQA call takes: ``"tensor_cores"`` for bf16 at
-    head dim 64 (cp.async page copies, wgmma, the context split), else
-    ``"cuda_cores"`` (float32, and bf16 at head dims 32, 96, 112 and
-    128)."""
+    head dims 64, 96, 112 and 128 (cp.async page copies, wgmma over
+    ``gqa_cols(D)`` columns, the context split), else ``"cuda_cores"``
+    (float32, and bf16 at head dim 32).  A pure function of (dtype,
+    D)."""
     return "tensor_cores" if dtype == torch.bfloat16 and \
-        D == GQA_TC_HEAD_DIM else "cuda_cores"
+        D in GQA_TC_HEAD_DIMS else "cuda_cores"
+
+
+def gqa_cols(D: int) -> int:
+    """Columns the tensor-core body computes over at head dim D: D
+    rounded up to whole 64-column panels (one 128-byte swizzle row
+    each), 64 at D 64 and 128 at D 96 / 112 / 128; q's pad columns are
+    zeros and the scale stays D^-0.5 (the kernel's ``Geo<D>::DC``)."""
+    return -(-D // 64) * 64
+
+
+def gqa_tile_keys(D: int) -> int:
+    """Keys a K tile of the tensor-core body holds at head dim D: 4,096
+    elements over ``gqa_cols(D)`` columns (8 KB a tile), 64 at D 64 and
+    32 at D 96-128 (the kernel's ``Geo<D>::BK``)."""
+    return GQA_TILE_ELEMS // gqa_cols(D)
+
+
+def gqa_resident(D: int) -> int:
+    """Blocks of the tensor-core body an SM holds at head dim D (the
+    kernel's ``RESIDENT``): 128 registers a thread and at most ~50 KB of
+    shared memory a block (~42 KB at D 64) leave room for four at every
+    head dim it serves."""
+    if D not in GQA_TC_HEAD_DIMS:
+        raise ValueError(f"no tensor-core body at head dim {D}")
+    return 4
 
 
 def gqa_cc_rmax(D: int) -> int:
@@ -179,27 +204,42 @@ def gqa_cc_blocks(C: int, G: int, D: int) -> List[Tuple[int, int, int, int]]:
 
 
 def gqa_plan(B: int, C: int, H: int, hkv: int, W: int, page: int, *,
-             sms: int) -> int:
+             sms: int, D: int = 64) -> int:
     """-> split: the blocks (one thread block cluster, at most 8) over
-    which the bf16 tensor-core kernel splits each slot's table columns
-    [0, W).  Its B x hkv x ceil(C G / 64) pair tiles (G = H / hkv) split
-    only where they leave SMs idle, into as many ranks as still fit one
-    wave of GQA_RESIDENT blocks an SM (a block takes ~42 KB of shared
-    memory and 128 registers a thread: an SM holds four), less an eighth
-    of the wave (clusters are placed GPC by GPC: a wave filled to the
-    last slot ran some clusters late in ``chip_smoke.py``'s split sweep),
-    but no more than leaves each rank two 64-key tiles of
-    the table (W page / 64 / 2: the merge and a rank's first copies cost
-    about a tile), nor W entries, and at least 1.  At
-    decode (granite: 64 tiles) the slot splits; a mixed dispatch (128
-    tiles over a table of a few dozen entries) does not.  Pure Python on
-    host ints: the plan never reads the table or qpos."""
+    which the bf16 tensor-core kernel at head dim D splits each slot's
+    table columns [0, W).  Its B x hkv x ceil(C G / 64) pair tiles (G = H
+    / hkv) split into as many ranks as fill seven eighths of one wave of
+    ``gqa_resident(D)`` blocks an SM (clusters are placed GPC by GPC: a
+    wave filled to the last slot ran some clusters late in
+    ``chip_smoke.py``'s split sweeps), but no more than leaves each rank
+    two K tiles of the table (W page / ``gqa_tile_keys(D)`` / 2: the
+    merge and a rank's first copies cost about a tile), nor W entries,
+    and at least 1.  Two rules for the fill, each the one its sweeps
+    measured:
+
+    - D 64 (granite-3-2b): the tiles split only where they leave SMs
+      idle, into the whole ranks that fit the seven eighths (granite's
+      decode: 64 tiles, 7 ways; a mixed dispatch, 128 tiles, 3 ways over
+      a long table, not over a few dozen entries).
+    - D 96-128 (32-key tiles over 128 columns): the seven eighths
+      rounded to the nearest rank, never past one whole wave, whether or
+      not the tiles fill the SMs: at G 1 (zamba2, phi-3: 256 tiles, one
+      real pair each at decode) a block walks a slot's whole context one
+      short tile at a time, and halving the walk beat a wave of one
+      block an SM.  Decode: qwen2's 32 tiles and granite-20b's 8 (MQA)
+      split 8 ways, mixtral's 64 7 ways, G 1's 256 2 ways; an 8 x 32
+      chunk over a long table: qwen2's 128 tiles 4 ways, G 1's 256 2
+      ways (the smoke sweeps both); over a few dozen entries, none.
+
+    Pure Python on host ints: the plan never reads the table or qpos."""
     tiles = B * hkv * -(-(C * (H // hkv)) // GQA_TILE_PAIRS)
-    if tiles >= sms:
-        return 1
-    k_tiles = -(-(W * page) // GQA_TILE_KEYS)
-    return max(1, min(split_k.MAX_SPLIT, W, k_tiles // 2,
-                      GQA_RESIDENT * sms * 7 // 8 // tiles))
+    wave = gqa_resident(D) * sms
+    k_tiles = -(-(W * page) // gqa_tile_keys(D))
+    if gqa_cols(D) == 64:
+        fill = wave * 7 // 8 // tiles if tiles < sms else 1
+    else:
+        fill = min(wave // tiles, (wave * 7 + 4 * tiles) // (8 * tiles))
+    return max(1, min(split_k.MAX_SPLIT, W, k_tiles // 2, fill))
 
 
 def split_ranges(W: int, split: int):
@@ -221,8 +261,8 @@ def gqa_paged_flash(q: torch.Tensor, kpool: torch.Tensor,
     - lo); qpos (B, C) int32.  -> (B, C, H, D) in q's dtype, or with
     ``partial`` the float32 statistics (m, l, acc) of shapes (B, hkv, G,
     C) and (B, hkv, G, C, D).  The CUDA kernel for a CUDA tensor (bf16
-    at head dim 64: pages of a multiple of 8 rows), the plain version
-    for a CPU tensor, an error for anything else."""
+    at head dims 64-128: pages of a multiple of 8 rows), the plain
+    version for a CPU tensor, an error for anything else."""
     if q.device.type == "cpu":
         return gqa_paged_flash_plain(q, kpool, vpool, ppool, block_table,
                                      qpos, window=window, lo=lo,
@@ -235,10 +275,13 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
            split: Optional[int] = None, lo: Optional[int] = None,
            n_local: Optional[int] = None, partial: bool = False):
     """The CUDA kernel on CUDA tensors (``gqa_paged_flash``'s card path):
-    the bf16 tensor-core body splits each slot's table over ``split``
-    ranks, ``gqa_plan``'s unless given (``chip_smoke.py`` sweeps it); it
-    plans over at most ``n_local`` entries, the live pages a window can
-    hold."""
+    the body ``gqa_body`` names, with no fallback (a failed launch
+    raises).  The bf16 tensor-core body (head dims 64, 96, 112, 128)
+    splits each slot's table over ``split`` ranks, ``gqa_plan``'s at
+    this head dim unless given (``chip_smoke.py`` sweeps it); it plans
+    over at most ``n_local`` entries, the live pages a window can hold.
+    The CUDA-core body takes split 1 and ``gqa_heads_plan``'s rows and
+    heads."""
     global launches, partial_launches
     stream = cuda_stream(q.device)
     B, C, H, D = q.shape
@@ -282,7 +325,7 @@ def launch(q, kpool, vpool, ppool, block_table, qpos, window, *,
         split = 1
     elif split is None:
         split = gqa_plan(B, C, H, hkv, max(1, min(W, n_loc)), page,
-                         sms=split_k.sm_count(dev))
+                         sms=split_k.sm_count(dev), D=D)
     G = H // hkv
     if partial:
         m = torch.empty((B, hkv, G, C), dtype=torch.float32, device=dev)

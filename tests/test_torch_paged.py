@@ -147,8 +147,9 @@ def test_gqa_plan_splits_the_table_in_whole_entries(B, C, H, hkv, W, page,
     """The split plan: 1 <= split <= 8 and <= W; the ranks' ranges, as
     the kernel computes them, tile [0, W) in rank order in whole table
     entries, none empty; a split only where the 64-pair tiles leave SMs
-    idle, into no more blocks than one wave of GQA_RESIDENT an SM, and
-    leaving every rank at least two 64-key tiles of the table."""
+    idle, into no more blocks than seven eighths of one wave of
+    ``gqa_resident(64)`` an SM, and leaving every rank at least two 64-key
+    tiles of the table (the rule at head dim 64, the default)."""
     split = tpk.gqa_plan(B, C, H, hkv, W, page, sms=sms)
     assert 1 <= split <= 8 and split <= W
     ranges = tpk.split_ranges(W, split)
@@ -158,7 +159,7 @@ def test_gqa_plan_splits_the_table_in_whole_entries(B, C, H, hkv, W, page,
     tiles = B * hkv * -(-(C * (H // hkv)) // 64)
     if split > 1:
         assert tiles < sms
-        assert tiles * split <= tpk.GQA_RESIDENT * sms * 7 // 8
+        assert tiles * split <= tpk.gqa_resident(64) * sms * 7 // 8
         assert 2 * split <= -(-(W * page) // 64)
 
 
@@ -168,20 +169,84 @@ def test_gqa_plan_at_the_main_path_shapes():
     splits 7 ways (448 blocks: seven eighths of a wave of four an SM),
     its split-edge
     table of 96 entries (12 key tiles) 6 ways; the mixed dispatch (8 x 32
-    rows, 128 tiles, 12 entries) and a served chunk over 24 entries do
-    not split, nor does a served decode over 24 entries (3 key tiles:
-    fewer than two a rank).  bf16 at head dim 64 takes the tensor cores,
-    anything else the CUDA cores."""
+    rows, 128 tiles) over 512 entries 3 ways, over 12 entries and a
+    served chunk over 24 entries not at all, nor does a served decode over 24 entries (3 key tiles:
+    fewer than two a rank).  bf16 at head dims 64, 96, 112 and 128 takes
+    the tensor cores; float32, and bf16 at head dim 32, the CUDA cores."""
     assert tpk.gqa_plan(8, 1, 32, 8, 512, 8, sms=132) == 7
     assert tpk.gqa_plan(8, 1, 32, 8, 96, 8, sms=132) == 6
     assert tpk.split_ranges(96, 6)[1] == (16, 32)
+    assert tpk.gqa_plan(8, 32, 32, 8, 512, 8, sms=132) == 3
     assert tpk.gqa_plan(8, 32, 32, 8, 12, 8, sms=132) == 1
     assert tpk.gqa_plan(8, 32, 32, 8, 24, 8, sms=132) == 1
     assert tpk.gqa_plan(8, 1, 32, 8, 24, 8, sms=132) == 1
     assert tpk.gqa_body(torch.bfloat16, 64) == "tensor_cores"
     assert tpk.gqa_body(torch.float32, 64) == "cuda_cores"
-    assert {tpk.gqa_body(torch.bfloat16, d) for d in (32, 128)} == \
+    assert {tpk.gqa_body(torch.bfloat16, d) for d in (64, 96, 112, 128)} \
+        == {"tensor_cores"}
+    assert {tpk.gqa_body(torch.bfloat16, 32)} | \
+        {tpk.gqa_body(torch.float32, d) for d in tpk.HEAD_DIMS} == \
         {"cuda_cores"}
+
+
+# (arch, decode split, mixed split, long mixed split) of the bf16 kernel
+# on 132 SMs at the zoo's head geometries: decode 8 slots x 1 row over
+# tables of 512 entries (750 under a 4,096 window: contexts to 6,000),
+# mixed 8 x 32 rows over 12 entries, and over the decode table (a long
+# prompt's chunks), pages of 8
+ZOO_PLANS = [("qwen2-7b", 8, 1, 4), ("granite-20b", 8, 1, 2),
+             ("mixtral-8x7b", 7, 1, 4), ("phi-3-vision-4.2b", 2, 1, 2),
+             ("zamba2-7b", 2, 1, 2)]
+
+
+@pytest.mark.parametrize("arch,decode,mixed,mixed_long", ZOO_PLANS)
+def test_gqa_plan_at_the_zoo_geometries(arch, decode, mixed, mixed_long):
+    """The context split of the tensor-core body at each zoo geometry
+    (``gqa_plan(..., D=)``), as written out in ``ZOO_PLANS``: qwen2-7b's
+    32 pair tiles (G 7, D 128) and granite-20b's 8 (MQA: all 48 query
+    heads in one 64-pair tile) split 8 ways, mixtral's 64 tiles 7 ways,
+    phi-3's and zamba2's 256 (G 1) 2 ways, no mixed dispatch over 12
+    entries (3 K tiles of 32 keys), and over the long table the seven
+    eighths of a wave rounded to the nearest rank (qwen2's and mixtral's
+    128 tiles 4 ways, granite-20b's 192 and G 1's 256 2 ways).  No plan exceeds one wave of
+    ``gqa_resident(D)`` blocks an SM, which is 4 at every tensor-core
+    head dim (as at D 64)."""
+    cfg = get_config(arch)
+    H, hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    assert tpk.gqa_body(torch.bfloat16, D) == "tensor_cores"
+    assert tpk.gqa_resident(D) == tpk.gqa_resident(64) == 4
+    assert tpk.gqa_tile_keys(D) * tpk.gqa_cols(D) == 4096
+    long = 750 if cfg.sliding_window or cfg.shared_attn_window else 512
+    for C, W, want in ((1, long, decode), (32, 12, mixed),
+                       (32, long, mixed_long)):
+        split = tpk.gqa_plan(8, C, H, hkv, W, 8, sms=132, D=D)
+        assert split == want, (arch, C, split)
+        tiles = 8 * hkv * -(-(C * (H // hkv)) // 64)
+        assert tiles * split <= tpk.gqa_resident(D) * 132
+
+
+@pytest.mark.parametrize("D", [96, 112])
+def test_padded_columns_keep_the_real_head_dims_result(D):
+    """The tensor-core body computes over ``gqa_cols(D)`` = 128 columns
+    at D 96 and 112: q, K and V zero-padded from D to 128 columns, scored
+    with the real D's scale D^-0.5 (here q times sqrt(128 / D), which
+    turns the plain version's 128^-0.5 into D^-0.5), give the unpadded
+    result on the D columns and exact zeros in the pad (the plain version
+    in float32, with a window, a null entry and an idle slot)."""
+    q, kp, vp, pp, tbl, qpos = (torch.from_numpy(a) for a in _paged_case(
+        7, 3, 2, 4, 8, 2, 3, D, 6, 0))
+    DC = tpk.gqa_cols(D)
+    assert DC == 128
+    pad = lambda t: torch.nn.functional.pad(t, (0, DC - D))
+    got = tpk.gqa_paged_flash_plain(pad(q) * (DC / D) ** 0.5, pad(kp),
+                                    pad(vp), pp, tbl, qpos, window=6)
+    want = tpk.gqa_paged_flash_plain(q, kp, vp, pp, tbl, qpos, window=6)
+    torch.testing.assert_close(got[..., :D], want, rtol=RTOL, atol=ATOL)
+    assert bool(torch.all(got[..., D:] == 0))
+    # the pad's scale is not the real one: 128^-0.5 gives another result
+    other = tpk.gqa_paged_flash_plain(pad(q), pad(kp), pad(vp), pp, tbl,
+                                      qpos, window=6)
+    assert not torch.allclose(other[..., :D], want, rtol=RTOL, atol=ATOL)
 
 
 def _gqa_merge(parts):
@@ -202,7 +267,7 @@ def _gqa_merge(parts):
     return o.transpose(0, 3, 1, 2, 4).reshape(B, C, hkv * G, D)
 
 
-def _gqa_split_case():
+def _gqa_split_case(D=8):
     """Four slots over a table of 6 entries split 3 ways ((0, 2), (2, 4),
     (4, 6)), pages of 4 rows: slot 0's middle range is wholly null, and
     under a window of 6 its first range holds no key in the window;
@@ -210,9 +275,9 @@ def _gqa_split_case():
     (tags past every query position, or -1), and its query row 0 sees no
     key at all; slot 2 holds positions 0..23 in order, so a window of 6
     excludes its first two ranks; slot 3 is idle (its whole table
-    null)."""
+    null).  ``D`` the head dim."""
     rng = np.random.default_rng(29)
-    B, C, hkv, G, D, page, W = 4, 2, 2, 2, 8, 4, 6
+    B, C, hkv, G, page, W = 4, 2, 2, 2, 4, 6
     n_pages = 16
     q = rng.normal(size=(B, C, hkv * G, D)).astype(np.float32)
     kp = rng.normal(size=(n_pages, page, hkv, D)).astype(np.float32)
@@ -233,8 +298,15 @@ def _gqa_split_case():
     return q, kp, vp, pp, tbl, qpos
 
 
-@pytest.mark.parametrize("window", [0, 6])
-def test_gqa_split_merge_matches_jax_single_pass(window):
+# (window, D): the kernel's split at head dim 8, and at the tensor-core
+# body's head dims 64, 112 (zamba2's) and 128
+SPLIT_MERGE = [pytest.param(w, 8, id=str(w)) for w in (0, 6)] + \
+    [pytest.param(w, d, id=f"{w}-d{d}") for d in (64, 112, 128)
+     for w in (0, 6)]
+
+
+@pytest.mark.parametrize("window,D", SPLIT_MERGE)
+def test_gqa_split_merge_matches_jax_single_pass(window, D):
     """What the bf16 kernel does at decode, in float32: the JAX kernel's
     partial statistics (``partial=True``, Pallas in interpret mode) on
     each rank's table columns, merged in rank order as the kernel merges
@@ -244,8 +316,9 @@ def test_gqa_split_merge_matches_jax_single_pass(window):
     (-1e30, 0, 0); an all-masked range, and under the window a range
     wholly outside it, has m = -1e30 and loses to any real score; a row
     that sees no key keeps the single pass's exp(0) weights over the
-    live pages; the idle slot gives exact zeros."""
-    q, kp, vp, pp, tbl, qpos = _gqa_split_case()
+    live pages; the idle slot gives exact zeros.  At every head dim the
+    tensor-core body serves (64 to 128)."""
+    q, kp, vp, pp, tbl, qpos = _gqa_split_case(D)
     page = kp.shape[1]
     ranges = tpk.split_ranges(tbl.shape[1], 3)
     assert ranges == [(0, 2), (2, 4), (4, 6)]

@@ -122,7 +122,7 @@ def test_recurrent_configs_match_reference():
     assert param_count(get_config("rwkv6-3b")) == (3061841920, 3061841920)
     assert param_count(get_config("zamba2-7b")) == (6714753024, 9181003776)
     assert tpk.gqa_body(torch.bfloat16, get_config("zamba2-7b").head_dim
-                        ) == "cuda_cores"
+                        ) == "tensor_cores"
 
 
 # -- RWKV6 layers -------------------------------------------------------------

@@ -207,8 +207,8 @@ def test_gqa_heads_plan_at_the_zoo_shapes():
     """granite-3-2b (G 4, D 64: 8 rows), qwen2-7b (G 7, D 128: 2 rows,
     14 of 16 pairs), mixtral (G 4, D 128: 4 rows), granite-20b's MQA (G
     48, D 128: 3 groups of 16 heads, one row), qwen1.5-110b (G 8),
-    phi-3 (G 1, D 96: 21 rows).  bf16 keeps the tensor cores only at D
-    64."""
+    phi-3 (G 1, D 96: 21 rows): the float32 body's plan.  bf16 at D 96
+    takes the tensor cores."""
     assert tpk.gqa_heads_plan(4, 64) == (8, 4)
     assert tpk.gqa_heads_plan(7, 128) == (2, 7)
     assert tpk.gqa_heads_plan(4, 128) == (4, 4)
@@ -218,7 +218,7 @@ def test_gqa_heads_plan_at_the_zoo_shapes():
     assert tpk.gqa_heads_plan(17, 128) == (1, 9)
     assert len(tpk.gqa_cc_blocks(1, 48, 128)) == 3
     assert 96 in tpk.HEAD_DIMS
-    assert tpk.gqa_body(torch.bfloat16, 96) == "cuda_cores"
+    assert tpk.gqa_body(torch.bfloat16, 96) == "tensor_cores"
 
 
 # -- calibration --------------------------------------------------------------
