@@ -11,8 +11,16 @@
    each launch, the host's enqueue hidden behind a device spin) beside
    its plain version, a one-call library yardstick and its bound: the
    MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
-   (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots
-   and M=256 for 8 slots x chunk 32, and on the expert grid at
+   (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots,
+   M=256 for 8 slots x chunk 32, M=512 and 2,048 for the static batch's
+   prefill (8 prompts of 64 and of 256 tokens), the static cells' own
+   prefills (``static_prefill_shapes``: granite's M = 8 x 53 = 424, a
+   ragged last 64-row tile; deepseek's layer 0 at M = 8 x 183 = 1,464,
+   d 5120, f 12288; its expert grid at the 68-row capacity of those
+   1,464 tokens, padded to C = 72), and M=16,384 at
+   qwen2-7b's FFN widths (d 3584, f 18944: a 16,384-token prompt's
+   gate, up and down products, 3.1e8 output elements), and on the
+   expert grid at
    deepseek-v2-236b's widths (E=160 experts, d=5120, f=1536, capacity
    C=8 and C=256, rows past each expert's count of a top-6 routing
    forced dead) and mixtral-8x7b's (E=8, d=4096, f=14336, top-2) (masks
@@ -92,10 +100,23 @@
      (two identical, of page-aligned length) through
      ``Engine(layout="paged", mor_mode="kernel")``, then paged dense and
      slotted kernel on the same trace;
+   - the 8 mixed requests through the static batch (``launch.serve.
+     static_batch``, the serve CLI's ``--baseline``: left-padded to the
+     longest prompt, one batched ``prefill``, 1-row decode steps) in
+     kernel (counted: 40 / 80 / 40 launches of mor_tile_mask /
+     gather_matmul / masked_matmul_kdim a dispatch), tiled and dense
+     mode, tokens/s beside the slotted engine's; ``launch.steps.
+     make_serve_step`` (``prefill`` then 16 ``decode_step``s over
+     ``cache_init``'s cache) in kernel (counted) and dense mode against
+     ``generate``'s dense tokens; one profiled kernel-mode static decode
+     pass (idle share, host ms a step);
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
    tiled and dense mode, then a profiled pass of each;
+   then the static batch on that trace in kernel (counted: 3 / 6 / 3 a
+   dispatch, the MoE layers' on the expert grid) and dense mode and
+   ``make_serve_step`` through ``mla_prefill`` / ``mla_decode``;
    every paged pass is timed a second time on its warm prefix cache
    and run a third time with the cache cleared (``repeat_agreement`` /
    ``cold_repeat_agreement`` against the first pass's greedy tokens);
@@ -107,8 +128,16 @@
    calibrated with ``calibrate_moe``, serves the shared-prefix trace
    plus one 4,160-token prompt (past its 4,096 window) through the
    paged engine in kernel (counted), tiled and dense mode, then a
-   profiled pass of each; qwen2-7b whole (28 layers) the same trace in
-   kernel (counted) and dense mode; and hubert-xlarge whole (48 layers)
+   profiled pass of each, after one layer's attention at S 8,192 under
+   the 4,096 window through ``_banded`` against the full (S, S) mask
+   (each row's error over its scale against float32, beside the full
+   bf16 path's; ms, peak memory); qwen2-7b whole (28 layers) the same trace
+   in kernel (counted) and dense mode, then one 16,384-token prompt
+   through ``make_prefill_step``'s batched ``prefill`` (every layer's
+   attention through the chunked softmax ``_flash``; kernel mode
+   counted: 28 / 56 / 28) in kernel and dense mode: seconds and peak
+   memory, after one layer's attention at S 4,608 through ``_flash``
+   against the full mask; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
    mode (counted): ms and argmax agreement;
 7b. the recurrent families whole: rwkv6-3b (32
@@ -296,12 +325,11 @@ def _close(got, want, f32=False):
     return err
 
 
-def kernel_case_mor(M, gen, flush):
+def kernel_case_mor(M, gen, flush, K=2048, N=8192):
     import torch
     from repro_torch.kernels import binary_dot as bd
     from repro_torch.kernels import mor_predict as mp
     from repro_torch.kernels import split_k
-    K, N = 2048, 8192
     dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
     w = (torch.randn((K, N), generator=gen, device=dev)
@@ -469,10 +497,9 @@ def _gather_bare_ms(x, w, mask, cap, flush, cap_live=None):
                   flush)
 
 
-def kernel_case_gather(M, gen, flush):
+def kernel_case_gather(M, gen, flush, K=2048, N=8192):
     import torch
     from repro_torch.kernels import gather_matmul as gm
-    K, N = 2048, 8192
     dev = "cuda"
     x = torch.randn((M, K), generator=gen, device=dev).bfloat16()
     w = (torch.randn((K, N), generator=gen, device=dev)
@@ -528,10 +555,9 @@ def _kdim_checks(x, w, mask):
     return err
 
 
-def kernel_case_kdim(M, gen, flush):
+def kernel_case_kdim(M, gen, flush, K=8192, N=2048):
     import torch
     from repro_torch.kernels import masked_matmul as mm
-    K, N = 8192, 2048
     dev = "cuda"
     mask = torch.rand((M // 8, K // 128), generator=gen, device=dev) < 0.6
     keep = mask.repeat_interleave(8, 0).repeat_interleave(128, 1)
@@ -893,24 +919,31 @@ def kernel_zoo_paged(gen, flush, ptxas=None):
     return out
 
 
-def _routing_rows(gen, T, E=160, k=6):
-    """(E,) routed-token counts and the (E, C=T) real-row mask of a top-k
-    routing of T tokens (the serving capacity C = T)."""
+def _routing_rows(gen, C, E=160, k=6, T=None, cap=None):
+    """(E,) routed-token counts, at most ``cap``, and the (E, C) real-row
+    mask of a top-k routing of T tokens into buffers of C rows.  By
+    default T = cap = C (the serving capacity C = T); the static
+    prefill's routing (``moe_apply`` without a token mask) keeps each
+    expert's first ``cap`` tokens in a buffer the ops wrappers pad to
+    the 8-row tile."""
     import torch
     dev = "cuda"
+    T = T or C
     scores = torch.rand((T, E), generator=gen, device=dev)
     top = torch.topk(scores, k, dim=-1).indices
-    counts = torch.bincount(top.reshape(-1), minlength=E)
-    rows = torch.arange(T, device=dev)[None, :] < counts[:, None]
+    counts = torch.clamp(torch.bincount(top.reshape(-1), minlength=E),
+                         max=cap or C)
+    rows = torch.arange(C, device=dev)[None, :] < counts[:, None]
     return counts, rows
 
 
-def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536, k=6):
+def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536, k=6,
+                    T=None, cap=None):
     import torch
     from repro_torch.kernels import mor_predict as mp
     from repro_torch.kernels import split_k
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E, k)
+    counts, rows = _routing_rows(gen, C, E, k, T, cap)
     x = torch.where(rows[..., None], torch.randn(
         (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
     w = (torch.randn((E, d, f), generator=gen, device=dev)
@@ -955,11 +988,12 @@ def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536, k=6):
             "plan": list(mp.plan(E, C, d, f, sms=split_k.sm_count(x.device)))}
 
 
-def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536, k=6):
+def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536, k=6,
+                    T=None, cap=None):
     import torch
     from repro_torch.kernels import gather_matmul as gm
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E, k)
+    counts, rows = _routing_rows(gen, C, E, k, T, cap)
     x = torch.where(rows[..., None], torch.randn(
         (E, C, d), generator=gen, device=dev), 0.0).bfloat16()
     w = (torch.randn((E, d, f), generator=gen, device=dev)
@@ -994,11 +1028,12 @@ def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536, k=6):
             "plan": list(gm.plan(x, w, cap))}
 
 
-def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536, k=6):
+def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536, k=6,
+                    T=None, cap=None):
     import torch
     from repro_torch.kernels import masked_matmul as mm
     dev = "cuda"
-    counts, rows = _routing_rows(gen, C, E, k)
+    counts, rows = _routing_rows(gen, C, E, k, T, cap)
     nm, nk = C // 8, f // 128
     rb_live = rows.reshape(E, nm, 8).any(-1)
     mask = rb_live[..., None] & (torch.rand((E, nm, nk), generator=gen,
@@ -1651,8 +1686,38 @@ KERNELS = [
 ]
 
 
+# qwen2-7b's FFN (d 3584, f 18944) at a 16,384-token prompt's rows: the
+# gate / up product (K d, N f) and the down product (K f, N d)
+QWEN2_LONG_WIDTHS = {"mor_tile_mask": dict(K=3584, N=18944),
+                     "gather_matmul": dict(K=3584, N=18944),
+                     "masked_matmul_kdim": dict(K=18944, N=3584)}
+
+
 # the expert grid at mixtral-8x7b's widths: 8 experts, top-2
 MIXTRAL_GRID = dict(E=8, d=4096, f=14336, k=2)
+# deepseek-v2-236b's dense FFN (layer 0: d 5120, f 12288)
+DEEPSEEK_DENSE_WIDTHS = {"mor_tile_mask": dict(K=5120, N=12288),
+                         "gather_matmul": dict(K=5120, N=12288),
+                         "masked_matmul_kdim": dict(K=12288, N=5120)}
+
+
+def static_prefill_shapes():
+    """-> (granite M, deepseek M, deepseek expert grid {C, T, cap}): the
+    rows the static cells' batched prefills hand the MoR kernels.  Each
+    group is 8 slots x the trace's longest prompt: granite's mixed
+    trace at granite's widths, deepseek's shared-prefix trace in layer
+    0's dense FFN and, through ``moe_apply`` without a token mask, each
+    expert's capacity int(capacity_factor x T x top_k / E) of those T
+    tokens, padded by the ops wrappers to the 8-row tile."""
+    from repro_torch.configs import get_config
+    granite = get_config("granite-3-2b")
+    deepseek = get_config("deepseek-v2-236b")
+    m_g, m_d = (STATIC_SLOTS * max(len(p) for p, _ in reqs) for reqs in (
+        _mixed_trace(granite), _shared_prefix_trace(deepseek)))
+    cap = max(int(deepseek.capacity_factor * m_d * deepseek.top_k
+                  / deepseek.n_experts), 1)
+    tile = deepseek.mor.tile_m
+    return m_g, m_d, dict(C=-(-cap // tile) * tile, T=m_d, cap=cap)
 
 
 def phase_kernels(ptxas=None):
@@ -1665,19 +1730,42 @@ def phase_kernels(ptxas=None):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     rows, cases = {}, {}
+    m_granite, m_deepseek, grid_deepseek = static_prefill_shapes()
     for name, source, replaces, case, expert_case in KERNELS:
         per = cases[name] = {}
-        for M in (8, 256):
+        # M 424: the granite static cell's prefill, its last 64-row tile
+        # ragged
+        for M in (8, 256, m_granite, 512, 2048):
             per[f"m{M}"] = r = case(M, gen, flush)
             log("kernel", name=name, M=M,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
+        per[f"deepseek_m{m_deepseek}"] = r = case(
+            m_deepseek, gen, flush, **DEEPSEEK_DENSE_WIDTHS[name])
+        log("kernel", name=name, M=m_deepseek, widths="deepseek-v2-236b",
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+        # the long prompt's FFN: M x N = 3.1e8 elements, past 2^28
+        per["qwen2_m16384"] = r = case(16384, gen, flush,
+                                       **QWEN2_LONG_WIDTHS[name])
+        log("kernel", name=name, M=16384, widths="qwen2-7b",
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+        torch.cuda.empty_cache()
         for C in (8, 256):
             per[f"experts_c{C}"] = r = expert_case(C, gen, flush)
             log("kernel", name=name, grid="experts",
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
             torch.cuda.empty_cache()
+        # the deepseek static cell's prefill on the expert grid
+        per[f"experts_static_c{grid_deepseek['C']}"] = r = expert_case(
+            gen=gen, flush=flush, **grid_deepseek)
+        log("kernel", name=name, grid="experts", static_prefill_tokens=
+            grid_deepseek["T"], capacity=grid_deepseek["cap"],
+            **{k: (round(v, 5) if isinstance(v, float) else v)
+               for k, v in r.items()})
+        torch.cuda.empty_cache()
         for C in (8, 256):
             per[f"mixtral_experts_c{C}"] = r = expert_case(
                 C, gen, flush, **MIXTRAL_GRID)
@@ -1954,7 +2042,10 @@ def _profile(eng, reqs):
     eng.reset_counters()
     _profile_fn(f"{eng.cfg.name}-{eng.layout}-{eng.mor_mode}",
                 lambda: eng.run(list(reqs)),
-                lambda: {"dispatches": eng.counters["dispatches"]})
+                lambda: {"dispatches": eng.counters["dispatches"],
+                         "host_ms_per_dispatch": round(
+                             eng.counters["wall_s"] * 1e3
+                             / max(eng.counters["dispatches"], 1), 3)})
 
 
 def _profile_fn(tag, fn, extra=lambda: {}, top=12):
@@ -2044,8 +2135,7 @@ def slice_slotted(cfg, params, mor):
     """The slotted path: 8 mixed requests in kernel mode
     (counted), tiled, dense and kernel at capacity 0.5."""
     import numpy as np
-    from repro_torch.launch.serve import make_trace
-    reqs = make_trace(cfg, 8, 8, 64, 16, 16, SEED)
+    reqs = _mixed_trace(cfg)
     kw = dict(layout="slotted")
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs, **kw))
@@ -2084,18 +2174,16 @@ def slice_slotted(cfg, params, mor):
         agreement_vs_capacity_1=round(_agree(tok_c, tok_k), 4),
         frac_tiles_computed_mean=round(
             float(np.mean(tel_c["frac_tiles_computed"])), 4))
-    return eng_k, eng_d, reqs
+    engine = {m: (r["tokens_per_s"], r["pass_s"]) for m, r in
+              (("kernel", rep_k), ("tiled", rep_t), ("dense", rep_d))}
+    return eng_k, eng_d, reqs, engine
 
 
 def slice_paged(cfg, params, mor):
     """The main path: a shared-prefix trace through the paged kernel-mode
     engine (counted), then paged dense and slotted kernel on the same
     trace, timed, and held to greedy agreement."""
-    from repro_torch.launch.serve import make_trace
-    reqs = make_trace(cfg, 12, 8, 64, 16, 16, SEED, shared_prefix=128)
-    aligned = reqs[0][0][:len(reqs[0][0]) // 8 * 8]
-    reqs[0] = (aligned, 16)
-    reqs[11] = (aligned.copy(), 16)
+    reqs = _shared_prefix_trace(cfg)
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs))
     counted = _dispatches(rep_k)
@@ -2138,6 +2226,166 @@ def slice_paged(cfg, params, mor):
     return eng_k, reqs, launches, tok_k
 
 
+# -- the static batch (launch.serve.static_batch, launch.steps) -------------
+
+# launches a static dispatch of granite-3-2b whole (40 layers): one
+# predictor, two compacted products (gate, up) and one down product a
+# layer
+GRANITE_STATIC = {"mor_tile_mask": 40, "gather_matmul": 80,
+                  "masked_matmul_kdim": 40}
+# deepseek-v2-236b cut to 3 layers: layer 0's dense FFN and each MoE
+# layer's expert grid (one launch for all 160 experts; the shared
+# experts stay dense)
+DEEPSEEK_STATIC = {"mor_tile_mask": 3, "gather_matmul": 6,
+                   "masked_matmul_kdim": 3}
+STATIC_SLOTS, STATIC_NEW = 8, 16
+
+
+def _static_dispatches(reqs, passes):
+    """Dispatches of ``static_batch``: a group's batched prefill and one
+    decode step a token of its longest request, over the warm-up group
+    and ``passes`` passes over every group."""
+    per = [1 + max(g for _, g in reqs[i:i + STATIC_SLOTS])
+           for i in range(0, len(reqs), STATIC_SLOTS)]
+    return per[0] + passes * sum(per)
+
+
+def _static_cell(cfg, params, mor, reqs, path, modes, engine,
+                 per_dispatch, passes=3):
+    """The static-batch path (``launch.serve.static_batch``, the serve
+    CLI's ``--baseline``) on ``reqs``: groups of 8 left-padded to the
+    trace's longest prompt, one batched prefill (M = 8 x that prompt in
+    the FFN kernels), then 1-row decode steps until the group's longest
+    request is done; a warm-up group, then the best of ``passes``.  In
+    kernel mode counted (``per_dispatch`` launches a dispatch), then
+    ``modes`` held to greedy agreement with it.  Each mode's tokens/s
+    and pass seconds beside the engine's on the same trace (``engine``
+    {mode: (tok/s, pass s)}): the engine counts the tokens it computed
+    (prefix hits skip theirs), the static batch every prompt and
+    requested token, as the JAX CLI's ``--baseline`` does, so the pass
+    seconds are the like-for-like ratio.  -> kernel-mode launches."""
+    from repro_torch.launch.serve import static_batch
+
+    def run(mode):
+        return static_batch(cfg, params, reqs, n_slots=STATIC_SLOTS,
+                            mor=None if mode == "dense" else mor,
+                            mor_mode=mode, timed_passes=passes)
+    (tok_s, tok_k, wall), launches = _counted(lambda: run("kernel"))
+    n = _static_dispatches(reqs, passes)
+    want = {k: per_dispatch.get(k, 0) * n for k in launches}
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    Pmax = max(len(p) for p, _ in reqs)
+    log("slice", path=path, mode="kernel", dispatches=n,
+        prefill_rows=STATIC_SLOTS * Pmax, launches=json.dumps(launches),
+        launches_per_dispatch=json.dumps(
+            {k: v / n for k, v in launches.items() if v}))
+    results = {"kernel": (tok_s, wall)}
+    for mode in modes:
+        t_s, tok, w = run(mode)
+        results[mode] = (t_s, w)
+        agree = _agree(tok_k, tok)
+        log("slice", path=path, **{f"agreement_kernel_vs_{mode}":
+                                   round(agree, 4)})
+        assert agree >= AGREE_MIN, (mode, agree)
+    for mode, (t_s, w) in results.items():
+        e_tok, e_s = engine.get(mode, (None, None))
+        log("slice", path=path, mode=mode, static_tok_s=round(t_s, 2),
+            static_pass_s=round(w, 3),
+            engine_tok_s=e_tok and round(e_tok, 2),
+            engine_pass_s=e_s and round(e_s, 3),
+            engine_speedup_vs_static=e_tok and round(e_tok / t_s, 3),
+            static_over_engine_pass_s=e_s and round(w / e_s, 3))
+    return launches
+
+
+def _left_padded(reqs):
+    import torch
+    from repro_torch.launch.serve import left_pad
+    group = reqs[:STATIC_SLOTS]
+    Pmax = max(len(p) for p, _ in group)
+    return torch.as_tensor(left_pad([p for p, _ in group], STATIC_SLOTS,
+                                    Pmax), device="cuda")
+
+
+def _serve_step_cell(cfg, params, mor, reqs, path, per_dispatch):
+    """``make_serve_step`` over ``cache_init``'s shared-position cache:
+    the first 8 requests left-padded, one ``api.prefill``, then 16
+    ``decode_step``s, in kernel (counted) and dense mode, kernel held to
+    greedy agreement with dense.  A model without experts is also held
+    to ``generate``'s dense tokens on the slot pool (the same model, its
+    attention summed in another order).  A MoE model only logs that
+    agreement: its ``decode_step`` routes without a token mask, as the
+    JAX package's does, so each expert takes at most capacity_factor x
+    8 x top_k / E of the 8 rows and drops the others, where
+    ``generate``'s chunk step provisions every row."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import get_model
+    api = get_model(cfg)
+    prompts = _left_padded(reqs)
+    want, _ = generate(cfg, api, params, prompts, STATIC_NEW)
+
+    def run(mode):
+        m = None if mode == "dense" else mor
+        cache = api.cache_init(cfg, STATIC_SLOTS,
+                               prompts.shape[1] + STATIC_NEW + 1,
+                               cfg.tdtype, "cuda")
+        nxt = torch.argmax(api.prefill(params, cfg, prompts, cache, mor=m,
+                                       mor_mode=mode), -1)
+        step = make_serve_step(cfg, mor=m, mor_mode=mode)
+        out = []
+        for _ in range(STATIC_NEW):
+            nxt, cache = step(params, cache, nxt[:, None])
+            out.append(nxt)
+        return torch.stack(out, 1).cpu().numpy()
+    got_k, launches = _counted(lambda: run("kernel"))
+    n = 1 + STATIC_NEW
+    want_l = {k: per_dispatch.get(k, 0) * n for k in launches}
+    assert launches == want_l, (launches, want_l)
+    got_d = run("dense")
+    agree = {"kernel_vs_dense": float(np.mean(got_k == got_d)),
+             "kernel_vs_generate_dense": float(np.mean(got_k == want)),
+             "dense_vs_generate_dense": float(np.mean(got_d == want))}
+    log("slice", path=path, dispatches=n, launches=json.dumps(launches),
+        **{f"agreement_{k}": round(v, 4) for k, v in agree.items()})
+    held = [agree["kernel_vs_dense"]]
+    if cfg.family != "moe":
+        held += [agree["kernel_vs_generate_dense"],
+                 agree["dense_vs_generate_dense"]]
+    assert min(held) >= AGREE_MIN, agree
+    return launches
+
+
+def _static_profile(cfg, params, mor, reqs):
+    """One kernel-mode static decode pass (16 steps of the first 8
+    requests after their prefill) under the profiler: device busy, idle
+    share and the host's ms a step, beside the engine's profiles."""
+    import time as _t
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.serving import kv_pool
+    prompts = _left_padded(reqs)
+    cache = kv_pool.init(cfg, STATIC_SLOTS, prompts.shape[1] + STATIC_NEW
+                         + 1, device="cuda")
+    nxt, cache = make_prefill_step(cfg, mor, "kernel")(params, cache,
+                                                        prompts)
+    step = make_decode_step(cfg, mor, "kernel")
+    host = []
+
+    def loop():
+        nonlocal nxt, cache
+        t0 = _t.perf_counter()
+        for _ in range(STATIC_NEW):
+            nxt, cache, _ = step(params, cache, nxt[:, None])
+        host.append(_t.perf_counter() - t0)
+    _profile_fn(f"{cfg.name}-static-kernel", loop,
+                lambda: {"dispatches": STATIC_NEW,
+                         "host_ms_per_dispatch": round(
+                             host[0] * 1e3 / STATIC_NEW, 3)})
+
+
 def phase_slice():
     import torch
     from repro_torch.configs import get_config
@@ -2159,15 +2407,20 @@ def phase_slice():
     torch.cuda.synchronize()
     log("slice", calibrate_s=round(time.perf_counter() - t0, 2),
         **{k: round(v, 4) for k, v in cal.items()})
-    eng_sk, eng_sd, reqs_s = slice_slotted(cfg, params, mor)
+    eng_sk, eng_sd, reqs_s, engine = slice_slotted(cfg, params, mor)
     eng_pk, reqs_p, launches, tokens = slice_paged(cfg, params, mor)
+    static = _static_cell(cfg, params, mor, reqs_s, "granite static",
+                          ("tiled", "dense"), engine, GRANITE_STATIC)
+    _serve_step_cell(cfg, params, mor, reqs_s, "granite serve_step",
+                     GRANITE_STATIC)
     # profiled last, so that the profiler cannot touch the timings above
     _profile(eng_pk, reqs_p)
     _profile(eng_sk, reqs_s)
     _profile(eng_sd, reqs_s)
+    _static_profile(cfg, params, mor, reqs_s)
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
-    return launches, tokens
+    return launches, tokens, static
 
 
 def slice_deepseek():
@@ -2183,7 +2436,7 @@ def slice_deepseek():
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core.deploy import calibrate_moe
-    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.launch.serve import calib_batches
     from repro_torch.models import get_model
     cfg = get_config("deepseek-v2-236b").replace(n_layers=3)
     api = get_model(cfg)
@@ -2207,10 +2460,7 @@ def slice_deepseek():
     log("slice", model=cfg.name, calibrate_s=round(time.perf_counter() - t0,
                                                    2),
         **{k: round(v, 4) for k, v in cal.items()})
-    reqs = make_trace(cfg, 12, 8, 64, 16, 16, SEED, shared_prefix=128)
-    aligned = reqs[0][0][:len(reqs[0][0]) // 8 * 8]
-    reqs[0] = (aligned, 16)
-    reqs[11] = (aligned.copy(), 16)
+    reqs = _shared_prefix_trace(cfg)
     (tok_k, rep_k, eng_k), launches = _counted(
         lambda: _serve(cfg, params, mor, "kernel", reqs))
     counted = _dispatches(rep_k)
@@ -2250,12 +2500,18 @@ def slice_deepseek():
     log("slice", path="deepseek paged", agreement_kernel_vs_tiled=round(
         agree_t, 4), agreement_kernel_vs_dense=round(agree_d, 4))
     assert agree_t >= AGREE_MIN and agree_d >= AGREE_MIN, (agree_t, agree_d)
+    engine = {m: (r["tokens_per_s"], r["pass_s"]) for m, r in
+              (("kernel", rep_k), ("dense", rep_d))}
+    static = _static_cell(cfg, params, mor, reqs, "deepseek static",
+                          ("dense",), engine, DEEPSEEK_STATIC, passes=1)
+    _serve_step_cell(cfg, params, mor, reqs, "deepseek serve_step",
+                     DEEPSEEK_STATIC)
     # profiled last, so that the profiler cannot touch the timings above
     for eng in (eng_k, eng_t, eng_d):
         _profile(eng, reqs)
     log("slice", model=cfg.name, peak_mem_gb=round(
         torch.cuda.max_memory_allocated() / 1e9, 2))
-    return launches
+    return launches, static
 
 
 # -- the rest of the transformer zoo ----------------------------------------
@@ -2349,6 +2605,13 @@ def reference_zoo():
             logits_max_abs_err=err)
 
 
+def _mixed_trace(cfg):
+    """The slotted and static cells' trace: 8 requests of 8-64 prompt
+    tokens, 16 new each."""
+    from repro_torch.launch.serve import make_trace
+    return make_trace(cfg, 8, 8, 64, 16, 16, SEED)
+
+
 def _shared_prefix_trace(cfg):
     """The serving cells' trace: 12 requests of a 128-token shared prefix
     plus 8-64 unique tokens, 16 new each, two of them identical with a
@@ -2437,6 +2700,138 @@ def _paged_cell(cfg, params, mor, reqs, modes, path, per_dispatch=None):
     return launches, rep_k, tok_k
 
 
+def _attention_case(branch, cfg, S):
+    """One layer's self-attention of ``cfg`` (its heads, head dim and
+    window) at S positions, bf16, through ``attend``'s long-sequence
+    branch (``_flash``: the chunked softmax; ``_banded``: the in-window
+    kv rows only) against the full (S, S) mask of ``_sdpa`` on the same
+    inputs.  Both are held to the float32 full-mask result on the same
+    bf16 inputs, each (position, head) row to its own scale: the
+    largest |error| of a row over the row's largest |value|, so that
+    the early causal rows (about one v row) and the late ones (an
+    average of thousands, ~0.03) count alike.  The bf16 full path is
+    the control; it rounds twice (p and the output).  The branch may
+    round twice as often, as the reference's does (``_flash``: q after
+    its scaling and each chunk's partial sum too), so it is held within
+    twice the control's error and within two bf16 steps (2 x RTOL).
+    Device ms of each (``_timer``) and the peak memory each takes over
+    its inputs."""
+    import torch
+    from repro_torch.models.layers import attention as A
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    H, Hkv, D, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, \
+        cfg.sliding_window
+    q, k, v = (torch.randn((1, S, h, D), generator=gen, device="cuda"
+                           ).bfloat16() for h in (H, Hkv, Hkv))
+    pos = torch.arange(S, device="cuda")
+
+    def fn():
+        if branch == "flash":
+            return A._flash(q, k, v, pos, pos, True, W)
+        return A._banded(q, k, v, pos, pos, W)
+
+    def full():
+        return A._sdpa(q, k, v, A._mask_bias(pos, pos, True, W))
+
+    def peak(f):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = f()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 1e9
+    got, got_gb = peak(fn)
+    want, want_gb = peak(full)
+    exact = A._sdpa(q.float(), k.float(), v.float(),
+                    A._mask_bias(pos, pos, True, W))
+    scale = exact.abs().amax(-1).clamp(min=1e-6)
+
+    def row_err(out):
+        return float(((out.float() - exact).abs().amax(-1) / scale).max())
+    err, control = row_err(got), row_err(want)
+    bound = min(2 * RTOL, 2 * control)
+    assert err <= bound, (branch, err, control)
+    max_abs = float((got.float() - want.float()).abs().max())
+    del exact, scale
+    torch.cuda.empty_cache()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    log("attention", model=cfg.name, branch=branch, S=S, heads=f"{H}/{Hkv}",
+        head_dim=D, window=W, row_rel_err=round(err, 6),
+        full_row_rel_err=round(control, 6), bound=round(bound, 6),
+        max_abs_err_vs_full=round(max_abs, 6),
+        ms=round(_timer(fn, flush, iters=3), 3),
+        full_ms=round(_timer(full, flush, iters=3), 3),
+        peak_gb=round(got_gb, 3), full_peak_gb=round(want_gb, 3))
+    del q, k, v, got, want, flush
+    torch.cuda.empty_cache()
+
+
+LONG_PROMPT = 16384
+
+
+def _long_prefill(cfg, params, mor):
+    """One 16,384-token prompt through ``make_prefill_step``'s batched
+    path (``api.prefill``: one dispatch, M = 16,384 rows in the FFN
+    kernels, every layer's attention through ``_flash``, counted) on the
+    slot pool, in kernel (launches counted) and dense mode: seconds, the
+    peak memory the prefill takes over the weights, and the two modes'
+    next token.  -> kernel-mode launches."""
+    import torch
+    from repro_torch.launch.serve import make_trace
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import attention
+    from repro_torch.serving import kv_pool
+    prompt = make_trace(cfg, 1, LONG_PROMPT, LONG_PROMPT, 1, 1,
+                        SEED + 2)[0][0]
+    toks = torch.as_tensor(prompt[None], device="cuda")
+    flash, orig = [0], attention._flash
+
+    def counted_flash(*a, **k):
+        flash[0] += 1
+        return orig(*a, **k)
+    attention._flash = counted_flash
+    nxt, out = {}, None
+    try:
+        for mode in ("kernel", "dense"):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            cache = kv_pool.init(cfg, 1, LONG_PROMPT + 1, device="cuda")
+            step = make_prefill_step(cfg, mor=None if mode == "dense"
+                                     else mor, mor_mode=mode)
+            flash[0] = 0
+            t0 = time.perf_counter()
+            (tok, _), launches = _counted(lambda: step(params, cache, toks))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            assert flash[0] == cfg.n_layers, flash[0]
+            nxt[mode] = int(tok[0])
+            if mode == "kernel":
+                want = {k: 0 for k in launches}
+                want.update(mor_tile_mask=cfg.n_layers,
+                            gather_matmul=2 * cfg.n_layers,
+                            masked_matmul_kdim=cfg.n_layers)
+                assert launches == want, (launches, want)
+                out = launches
+            log("slice", path="qwen2 long prefill", mode=mode,
+                prompt_tokens=LONG_PROMPT, dispatches=1,
+                flash_layers=flash[0], seconds=round(sec, 3),
+                tok_s=round(LONG_PROMPT / sec, 1),
+                peak_gb_over_weights=round(
+                    (torch.cuda.max_memory_allocated() - base) / 1e9, 3),
+                peak_gb=round(torch.cuda.max_memory_allocated() / 1e9, 3),
+                launches=json.dumps(launches) if mode == "kernel" else None)
+            del cache, step
+    finally:
+        attention._flash = orig
+    assert all(0 <= t < cfg.vocab_size for t in nxt.values())
+    log("slice", path="qwen2 long prefill", next_token=json.dumps(nxt),
+        kernel_equals_dense=nxt["kernel"] == nxt["dense"])
+    return out
+
+
 def slice_mixtral():
     """This slice's main path: mixtral-8x7b at its published widths, cut
     to 8 of its 32 layers (all 32 would take 93 GB of bf16 weights),
@@ -2451,6 +2846,9 @@ def slice_mixtral():
     from repro_torch.core.deploy import calibrate_moe
     from repro_torch.launch.serve import calib_batches, make_trace
     cfg = get_config("mixtral-8x7b").replace(n_layers=8)
+    # one layer's attention at S 8,192 under the 4,096 window, before the
+    # weights take the card's memory
+    _attention_case("banded", cfg, 8192)
     api, params = _init_logged(cfg, depth_cut="32 -> 8",
                                experts=cfg.n_experts, top_k=cfg.top_k,
                                window=cfg.sliding_window)
@@ -2484,6 +2882,9 @@ def slice_qwen2():
     from repro_torch.core.deploy import calibrate_lm
     from repro_torch.launch.serve import calib_batches
     cfg = get_config("qwen2-7b")
+    # one layer's attention at S 4,608 (past the 4,096 threshold), before
+    # the weights take the card's memory
+    _attention_case("flash", cfg, 4608)
     api, params = _init_logged(cfg)
     t0 = time.perf_counter()
     params, mor, cal = calibrate_lm(params, cfg, api.forward,
@@ -2498,7 +2899,8 @@ def slice_qwen2():
                                  "qwen2 paged")
     log("slice", model=cfg.name, peak_mem_gb=round(
         torch.cuda.max_memory_allocated() / 1e9, 2))
-    return launches
+    long = _long_prefill(cfg, params, mor)
+    return launches, long
 
 
 def slice_hubert():
@@ -3405,12 +3807,12 @@ def main() -> int:
     timed("reference zoo", reference_zoo)
     timed("reference recurrent", reference_recurrent)
     timed("reference paper", reference_paper)
-    granite, granite_tokens = timed("granite", phase_slice)
+    granite, granite_tokens, granite_static = timed("granite", phase_slice)
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
-    deepseek = timed("deepseek", slice_deepseek)
+    deepseek, deepseek_static = timed("deepseek", slice_deepseek)
     mixtral = timed("mixtral", slice_mixtral)
-    qwen2 = timed("qwen2", slice_qwen2)
+    qwen2, qwen2_long = timed("qwen2", slice_qwen2)
     hubert = timed("hubert", slice_hubert)
     rwkv = timed("rwkv", slice_rwkv)
     zamba2 = timed("zamba2", slice_zamba2)
@@ -3425,7 +3827,9 @@ def main() -> int:
                "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
-               "paper_dnns": paper}
+               "granite_static": granite_static,
+               "deepseek_static": deepseek_static,
+               "qwen2_long_prefill": qwen2_long, "paper_dnns": paper}
     for name, row in rows.items():
         if name in sharded:
             # the partial forms: the sharded path's counts, rank 0

@@ -37,6 +37,18 @@ def reset_predictor_eval_count() -> None:
     _PREDICTOR_EVALS[0] = 0
 
 
+def make_identity_layer(n: int, device="cpu") -> MoRLayer:
+    """A no-op MoRLayer: nothing enabled, every column its own proxy,
+    the identity permutation."""
+    idx = torch.arange(n, dtype=torch.int32, device=device)
+    ones = torch.ones((n,), dtype=torch.float32, device=device)
+    return {"m": ones, "b": torch.zeros_like(ones),
+            "enable": torch.zeros((n,), dtype=torch.bool, device=device),
+            "proxy_slot": idx, "is_proxy": torch.ones_like(ones).bool(),
+            "perm": idx.clone(), "inv_perm": idx.clone(),
+            "bn_scale": ones.clone(), "bn_bias": torch.zeros_like(ones)}
+
+
 def binarize(x: torch.Tensor) -> torch.Tensor:
     """Weight binarisation from the sign bit: zero maps to +1."""
     return torch.where(x >= 0, 1.0, -1.0)

@@ -12,6 +12,8 @@ prompt-length trace (``repro.launch.serve``).
       --reduced --arch zamba2-7b --shared-prefix 8 --mor kernel --compare
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --reduced --layout paged-sharded --shards 2 --mor kernel --compare
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --reduced --baseline --mor kernel
 
 Initialises the model from a seed (random weights; ``--layers N`` cuts
 the depth to N layers, keeping every width), calibrates the MoR
@@ -26,7 +28,13 @@ caching; ``slotted`` for the contiguous baseline; ``paged-sharded
 0 calibrates and hands its MoR tree to the others) and reports tokens/s,
 the per-layer skip fractions from the serving telemetry, the prefix
 counters and, with ``--compare``, the token agreement against the dense
-engine on the same layout.
+engine on the same layout.  ``--calibrate-capacity Q`` serves the trace
+again under per-layer budgets at the Q quantile of the observed tile
+liveness (``Engine.calibrate_capacities``); ``--baseline`` also times
+the static-batch path on the same trace (``generate`` on groups of
+``--batch`` prompts left-padded to the trace maximum: one batched
+prefill, then every slot decodes until its group's longest request is
+done) and reports the engine's speedup over it.
 """
 from __future__ import annotations
 
@@ -39,9 +47,10 @@ import torch
 
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.data.pipeline import make_batch, synthetic_lm_batch
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import get_model
-from repro_torch.serving import Engine, mesh
-from repro_torch.serving.telemetry import mor_group_map
+from repro_torch.serving import Engine, kv_pool, mesh
+from repro_torch.serving.telemetry import STAT_KEYS, mor_group_map
 
 SEED = 0
 CALIB_STEPS = 4
@@ -51,6 +60,132 @@ CALIB_SEQ = 128
 ARCHS = ("granite-3-2b", "granite-20b", "qwen2-7b", "qwen1.5-110b",
          "deepseek-v2-236b", "mixtral-8x7b", "phi-3-vision-4.2b",
          "hubert-xlarge", "rwkv6-3b", "zamba2-7b")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(cfg, api, params, prompts: torch.Tensor, gen_len: int,
+             mor=None, mor_mode: str = "dense", layer_stats: bool = True):
+    """The static-batch generate (``repro.launch.serve.generate``, the
+    serving path before the engine, kept as the baseline): prompts (B,
+    P) on the weights' device -> (tokens (B, gen_len) numpy, stats).
+
+    The prompt goes through ``make_prefill_step`` (one batched dispatch,
+    or chunks for the recurrent families and prompts past the window),
+    then a width-1 chunk step a token, as in the JAX package: the
+    prefill's token (``stats["first_token"]``, (B,) numpy) is fed back,
+    the ``gen_len`` decode steps' tokens are returned.  The first decode
+    step runs outside the timed window; nothing is read back to the host
+    before the last step.  stats: decode and prefill throughput and,
+    with ``layer_stats``, the per-layer skip fractions averaged over the
+    timed steps."""
+    device = params["embed"].device
+    B, P = prompts.shape
+    cache = kv_pool.init(cfg, B, P + gen_len + 1, device=device)
+    prefill = make_prefill_step(cfg, mor=mor, mor_mode=mor_mode)
+    step = make_decode_step(cfg, mor=mor, mor_mode=mor_mode)
+
+    _sync(device)
+    t0 = time.perf_counter()
+    nxt, cache = prefill(params, cache, prompts)
+    _sync(device)
+    prefill_dt = time.perf_counter() - t0
+
+    out = [nxt]
+    nxt, cache, _ = step(params, cache, nxt[:, None])
+    out.append(nxt)
+    aux_list = []
+    _sync(device)
+    timed = max(gen_len - 1, 1)
+    t0 = time.perf_counter()
+    for _ in range(gen_len - 1):
+        nxt, cache, aux = step(params, cache, nxt[:, None])
+        out.append(nxt)
+        if aux:
+            aux_list.append(aux)
+    _sync(device)
+    dt = max(time.perf_counter() - t0, 1e-9)
+    toks = torch.stack(out, 1).cpu().numpy()
+    stats = {"decode_tokens_per_s": B * timed / dt,
+             "decode_ms_per_step": dt / timed * 1e3,
+             "prefill_tokens_per_s": B * P / max(prefill_dt, 1e-9),
+             "prefill_ms": prefill_dt * 1e3,
+             "first_token": toks[:, 0]}
+    if layer_stats:
+        stats.update(mean_layer_stats(aux_list))
+    return toks[:, 1:], stats
+
+
+# report-key prefix of each stat group: a dense stack's per_layer_*, a
+# moe model's dense layers per_layer_dense_* and its (L, E) expert
+# stats per_layer_moe_* (the JAX package's per_expert_*)
+STAT_PREFIX = {"mor_stats": "per_layer_",
+               "dense_mor_stats": "per_layer_dense_",
+               "moe_mor_stats": "per_layer_moe_"}
+FRAC_NAMES = ("frac_computed", "frac_tiles_live", "frac_tiles_computed")
+
+
+def mean_layer_stats(aux_list):
+    """The per-layer skip fractions of ``aux_list`` (one aux a
+    dispatch, device tensors) averaged over the dispatches, rounded to 4
+    places -> report lists ((L, E) nested for the expert group)."""
+    out = {}
+    for key in STAT_KEYS:
+        rows = [a[key] for a in aux_list if a.get(key)]
+        for name in FRAC_NAMES if rows else ():
+            vals = [r[name] for r in rows if name in r]
+            if vals:
+                mean = torch.stack(vals).double().cpu().numpy().mean(0)
+                out[STAT_PREFIX[key] + name] = mean.round(4).tolist()
+    return out
+
+
+def left_pad(prompts, n_rows: int, width: int) -> np.ndarray:
+    """(n_rows, width) int32: each prompt right-aligned behind token 0
+    (the padding is attended, as in the JAX package's baseline)."""
+    out = np.zeros((n_rows, width), np.int32)
+    for j, p in enumerate(prompts):
+        out[j, width - len(p):] = p
+    return out
+
+
+def static_batch(cfg, params, reqs, *, n_slots: int, mor=None,
+                 mor_mode: str = "dense", timed_passes: int = 3):
+    """The static-batch baseline on ``reqs`` (``repro.launch.serve``'s
+    ``--baseline``): ``generate`` on groups of ``n_slots`` requests,
+    every prompt left-padded to the TRACE maximum, decoding until the
+    group's longest request is done (the convoy).  One warm-up group
+    runs untimed, then the best of ``timed_passes`` passes over all
+    groups.  -> (tokens/s of prompt and requested tokens, {request
+    index: its greedy tokens (the prefill's, then the decode steps'),
+    up to its length}, wall s)."""
+    device = params["embed"].device
+    Pmax = max(len(p) for p, _ in reqs)
+
+    def run_group(group):
+        prompts = left_pad([p for p, _ in group], n_slots, Pmax)
+        toks, stats = generate(cfg, None, params,
+                               torch.as_tensor(prompts, device=device),
+                               max(g for _, g in group), mor=mor,
+                               mor_mode=mor_mode, layer_stats=False)
+        return np.concatenate([stats["first_token"][:, None], toks], 1)
+
+    groups = [reqs[i:i + n_slots] for i in range(0, len(reqs), n_slots)]
+    run_group(groups[0])                        # warm-up, untimed
+    wall = float("inf")
+    for _ in range(timed_passes):
+        t0 = time.perf_counter()
+        outs = [run_group(group) for group in groups]
+        wall = min(wall, max(time.perf_counter() - t0, 1e-9))
+    tokens = {}
+    for gi, (group, toks) in enumerate(zip(groups, outs)):
+        for j, (_, g) in enumerate(group):
+            tokens[gi * n_slots + j] = toks[j, :g].tolist()
+    n_tok = sum(len(p) + g for p, g in reqs)
+    return n_tok / wall, tokens, wall
 
 
 def make_trace(cfg, n_requests, pmin, pmax, gmin, gmax, seed,
@@ -116,14 +251,10 @@ def run_engine(cfg, params, reqs, *, mor, mor_mode, n_slots, max_len,
     rep["decode_tokens_per_s"] = rep["decode_tokens"] / wall
     rep["wall_s"] = wall
     tel = rep.pop("telemetry", None) or {}
-    for group in ("mor_stats", "dense_mor_stats", "moe_mor_stats"):
-        # "mor_stats" of a dense model -> per_layer_*; a moe model's
-        # groups -> per_layer_dense_* and the (L, E) per_layer_moe_*
-        tag = group[:-len("mor_stats")]
+    for group in STAT_KEYS:
         for name, vals in tel.get(group, {}).items():
-            if name in ("frac_computed", "frac_tiles_live",
-                        "frac_tiles_computed"):
-                rep["per_layer_" + tag + name] = np.round(
+            if name in FRAC_NAMES:
+                rep[STAT_PREFIX[group] + name] = np.round(
                     np.asarray(vals), 4).tolist()
     return eng, results, rep
 
@@ -133,7 +264,8 @@ def token_agreement(a, b) -> float:
                           for r in b]))
 
 
-def calibrate(params, cfg, api, device, batch: int, group=None):
+def calibrate(params, cfg, api, device, batch: int, group=None,
+              seed: int = SEED, steps: int = CALIB_STEPS):
     """-> (params, mor, report) of the family's calibration
     (``calibrate_lm`` / ``_moe`` / ``_hybrid``).  In a page group rank 0
     calibrates and broadcasts its MoR tree; every other rank folds the
@@ -146,7 +278,7 @@ def calibrate(params, cfg, api, device, batch: int, group=None):
     cal = mor = None
     if group is None or group.rank == 0:
         new, mor, cal = fn(params, cfg, api.forward,
-                           calib_batches(cfg, batch, device), CALIB_STEPS)
+                           calib_batches(cfg, batch, device, seed), steps)
     if group is None:
         return new, mor, cal
     mor, cal = mesh.broadcast((mor, cal), group, device=device)
@@ -159,16 +291,28 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite-3-2b", choices=ARCHS)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--dims", default=None,
+                    help="override the widths and depth: d_model,d_ff,"
+                         "n_layers")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth cut: serve the first N layers (0 = all)")
     ap.add_argument("--batch", type=int, default=8,
                     help="slot-pool size (n_slots)")
     ap.add_argument("--requests", type=int, default=0,
                     help="trace length (default: one per slot)")
-    ap.add_argument("--prompt-min", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--prompt-min", type=int, default=0,
+                    help="mixed trace: min prompt length (default "
+                         "--prompt-len)")
     ap.add_argument("--prompt-max", type=int, default=0,
-                    help="default: --prompt-min (uniform prompts)")
+                    help="mixed trace: max prompt length (default "
+                         "--prompt-len, at least --prompt-min)")
     ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--gen-min", type=int, default=0,
+                    help="mixed trace: min generation length (default "
+                         "--gen-len: uniform)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="prefill chunk length (default cfg.serve_chunk)")
     ap.add_argument("--layout", default="paged",
                     choices=("paged", "paged-sharded", "slotted"),
                     help="KV cache layout (paged-sharded = the page pool "
@@ -190,11 +334,18 @@ def main(argv=None):
                          "request (shared-prompt trace)")
     ap.add_argument("--mor", default="dense",
                     choices=("dense", "exact", "tiled", "kernel"))
+    ap.add_argument("--calib-steps", type=int, default=CALIB_STEPS)
     ap.add_argument("--capacity", type=float, default=0.0,
                     help="static gather_matmul capacity fraction for every "
                          "MoR layer (0 = cfg.mor.capacity)")
+    ap.add_argument("--calibrate-capacity", type=float, default=0.0,
+                    help="liveness quantile for per-layer gather capacity "
+                         "(0 = static cfg.mor.capacity)")
     ap.add_argument("--compare", action="store_true",
                     help="also run the dense engine; report token agreement")
+    ap.add_argument("--baseline", action="store_true",
+                    help="also run the static-batch path on the same trace")
+    ap.add_argument("--seed", type=int, default=SEED)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-json", default=None)
     args = ap.parse_args(argv)
@@ -228,27 +379,32 @@ def serve(args, device, group=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.dims:
+        d, ff, L = (int(v) for v in args.dims.split(","))
+        cfg = cfg.replace(d_model=d, d_ff=ff, n_layers=L)
     if args.layers:
         cfg = cfg.replace(n_layers=args.layers)
     api = get_model(cfg)
     if not api.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only: nothing to serve")
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen, cfg)
 
     mor = None
     report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}
     if args.mor != "dense":
         params, mor, report["calibration"] = calibrate(
-            params, cfg, api, device, args.batch, group)
+            params, cfg, api, device, args.batch, group, seed=args.seed,
+            steps=args.calib_steps)
 
-    pmin = args.prompt_min
-    pmax = args.prompt_max or pmin
+    pmin = args.prompt_min or args.prompt_len
+    pmax = max(args.prompt_max or args.prompt_len, pmin)
+    gmin = args.gen_min or args.gen_len
     reqs = make_trace(cfg, args.requests or args.batch, pmin, pmax,
-                      args.gen_len, args.gen_len, SEED,
+                      gmin, args.gen_len, args.seed,
                       shared_prefix=args.shared_prefix)
     max_len = args.shared_prefix + pmax + args.gen_len + 2
-    engine_kw = {"layout": args.layout}
+    engine_kw = {"layout": args.layout, "chunk": args.chunk}
     if args.layout != "slotted":
         engine_kw.update(page=args.page, prefix_cache=args.prefix_cache)
     if group is not None:
@@ -258,10 +414,10 @@ def serve(args, device, group=None):
         capacities = {k: args.capacity for k in mor_group_map(cfg)}
         report["static_capacity"] = args.capacity
 
-    _, results, rep = run_engine(cfg, params, reqs, mor=mor,
-                                 mor_mode=args.mor, n_slots=args.batch,
-                                 max_len=max_len, capacities=capacities,
-                                 **engine_kw)
+    eng, results, rep = run_engine(cfg, params, reqs, mor=mor,
+                                   mor_mode=args.mor, n_slots=args.batch,
+                                   max_len=max_len, capacities=capacities,
+                                   **engine_kw)
     report.update(rep)
     say(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
           f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
@@ -279,6 +435,22 @@ def serve(args, device, group=None):
         say(f"[serve] page mesh: {sh['n_shards']} shards "
             f"({sh['backend']}), kv pages hiwater/shard "
             f"{sh.get('kv_pages_hiwater_per_shard', sh.get('state_pages_hiwater_per_shard'))}")
+    if args.calibrate_capacity > 0 and args.mor != "dense":
+        caps = eng.calibrate_capacities(quantile=args.calibrate_capacity)
+        _, results_cal, rep_cal = run_engine(
+            cfg, params, reqs, mor=mor, mor_mode=args.mor,
+            n_slots=args.batch, max_len=max_len, capacities=caps,
+            **engine_kw)
+        report["per_layer_capacity"] = {
+            k: np.asarray(v).round(4).tolist() for k, v in caps.items()}
+        report["calibrated_tokens_per_s"] = rep_cal["tokens_per_s"]
+        # the clamp drops live tiles past the chosen quantile: its
+        # accuracy cost against the unclamped run, reported apart
+        report["calibrated_token_agreement"] = token_agreement(results_cal,
+                                                               results)
+        say(f"[serve] capacity-calibrated (q={args.calibrate_capacity}): "
+            f"{rep_cal['tokens_per_s']:.1f} tok/s; per-layer capacity "
+            f"{report['per_layer_capacity']}")
     if args.compare and args.mor != "dense":
         _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
                                          mor_mode="dense",
@@ -289,6 +461,13 @@ def serve(args, device, group=None):
         report["token_agreement_vs_dense"] = agree
         say(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
               f"token agreement {agree:.3f}")
+    if args.baseline:
+        tok_s, _, _ = static_batch(cfg, params, reqs, n_slots=args.batch,
+                                   mor=mor, mor_mode=args.mor)
+        report["static_batch_tokens_per_s"] = tok_s
+        report["engine_speedup_vs_static"] = report["tokens_per_s"] / tok_s
+        say(f"[serve] static-batch baseline: {tok_s:.1f} tok/s (engine "
+            f"speedup {report['engine_speedup_vs_static']:.2f}x)")
     if args.out_json and (group is None or group.rank == 0):
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=1)

@@ -8,12 +8,16 @@
                 mor_mode) -> (logits (B, C, V), aux), cache updated in place
   decode_step(params, cfg, tokens (B, 1), cache, *, mor, mor_mode)
                 -> logits (B, V), ``cache_init``'s cache updated in place
+  prefill(params, cfg, tokens (B, S), cache, *, mor, mor_mode)
+                -> last-position logits (B, V), a fresh cache filled in
+                place (the transformer families only)
 The decoder families (dense, moe, vlm) and the recurrent ones (ssm:
 RWKV6; hybrid: Mamba2 + a shared attention block) serve through
-``cache_init`` and ``prefill_chunk``; the recurrent families also have
-the static-batch ``decode_step`` (the transformer's waits for ROADMAP
-queue A 1).  The audio encoder and the paper's DNNs (cnn, tds) have no
-decode.
+``cache_init`` and ``prefill_chunk``, and all of them have the
+static-batch ``decode_step``; the decoder families also the batched
+``prefill`` (the others prefill in chunks: ``launch.steps.
+make_prefill_step``).  The audio encoder and the paper's DNNs (cnn,
+tds) have no decode.
 """
 from __future__ import annotations
 
@@ -31,13 +35,15 @@ class ModelAPI:
     prefill_chunk: Optional[Callable] = None
     has_decode: bool = True
     decode_step: Optional[Callable] = None
+    prefill: Optional[Callable] = None
 
 
 def get_model(cfg: ModelConfig) -> ModelAPI:
     if cfg.family in ("dense", "moe", "vlm"):
         from repro_torch.models import transformer as t
         return ModelAPI(t.init_params, t.forward, t.cache_init,
-                        t.prefill_chunk)
+                        t.prefill_chunk, decode_step=t.decode_step,
+                        prefill=t.prefill)
     if cfg.family == "audio":
         from repro_torch.models import transformer as t
         return ModelAPI(t.init_params, t.forward, has_decode=False)
@@ -56,3 +62,11 @@ def get_model(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(h.init_params, h.forward, h.cache_init,
                         h.prefill_chunk, decode_step=h.decode_step)
     raise ValueError(f"unknown family {cfg.family!r}")
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """Sub-quadratic decode: SSM / hybrid state or a bounded (sliding
+    window) kv cache."""
+    if cfg.family in ("ssm", "hybrid"):
+        return True
+    return cfg.sliding_window > 0

@@ -1,5 +1,7 @@
-"""GQA and MLA attention: the teacher-forced forward and the serving
-chunk step over the slotted cache or the paged pool.
+"""GQA and MLA attention: the teacher-forced forward (with the chunked
+softmax for long sequences and the banded sliding window), the
+static-batch prefill and decode over ``cache_init``'s cache, and the
+serving chunk step over the slotted cache or the paged pool.
 
 Scores and softmax statistics are float32; activations stay in the
 model's compute dtype (``repro.models.layers.attention``).
@@ -19,6 +21,8 @@ from repro_torch.models.layers.norms import apply_norm, stacked_norm_init
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -1e30
+_FLASH_THRESHOLD = 4096   # the chunked softmax above this many kv positions
+_CHUNK = 1024
 
 
 def gqa_init(gen: torch.Generator, cfg: ModelConfig,
@@ -87,12 +91,91 @@ def _sdpa(q, k, v, bias):
     return o.reshape(B, Sq, H, Dv)
 
 
+def _mask_bias(q_pos, kv_pos, causal: bool, window: int) -> torch.Tensor:
+    """(Sq, Skv) additive float32 bias from shared position vectors."""
+    return _bias(position_ok(q_pos[:, None], kv_pos[None, :], causal,
+                             window))
+
+
+def _pad_rows(a: torch.Tensor, n: int, front: bool, value=0):
+    """``a`` with ``n`` rows of ``value`` added along dim 1 (dim 0 for a
+    position vector), in front or behind."""
+    dim = 0 if a.ndim == 1 else 1
+    shape = list(a.shape)
+    shape[dim] = n
+    pad = torch.full(shape, value, dtype=a.dtype, device=a.device)
+    return torch.cat([pad, a] if front else [a, pad], dim)
+
+
+def _flash(q, k, v, q_pos, kv_pos, causal: bool, window: int):
+    """Chunked-softmax attention: a loop over kv chunks of ``_CHUNK``
+    rows with running float32 (max, denominator, accumulator), so that
+    the scores held at once are one (Sq, chunk) tile per head.  q is
+    scaled by D^-0.5 in its own dtype before the product; the padding
+    of the last chunk carries the position tag -1 (masked)."""
+    B, Sq, H, D = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // Hkv
+    C = min(_CHUNK, Skv)
+    n_chunks = (Skv + C - 1) // C
+    pad = n_chunks * C - Skv
+    if pad:
+        k, v = _pad_rows(k, pad, False), _pad_rows(v, pad, False)
+        kv_pos = _pad_rows(kv_pos, pad, False, -1)
+    qf = (q.reshape(B, Sq, Hkv, G, D) * (D ** -0.5)).to(q.dtype).float()
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, Dv), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n_chunks):
+        kb, vb = k[:, i * C:(i + 1) * C], v[:, i * C:(i + 1) * C]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qf, kb.float())
+        s += _mask_bias(q_pos, kv_pos[i * C:(i + 1) * C], causal, window)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bkgqt,btkd->bkgqd", p.to(vb.dtype), vb).float()
+        m = m_new
+        del s, p
+    o = acc / torch.clamp(l, min=1e-30)[..., None]
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, Dv).to(q.dtype)
+
+
+def _banded(q, k, v, q_pos, kv_pos, window: int):
+    """Sliding-window self-attention over the in-window kv rows only:
+    q chunk i attends kv rows [i C - W, i C + C) of the sequence with W
+    rows of tag -1 padded in front, O(S (W + C)) work and memory."""
+    B, S, H, D = q.shape
+    C = min(_CHUNK, S)
+    assert S % C == 0, "banded path expects seq % chunk == 0"
+    W = window
+    span = W + C
+    kp, vp = _pad_rows(k, W, True), _pad_rows(v, W, True)
+    pp = _pad_rows(kv_pos, W, True, -1)
+    outs = []
+    for i in range(S // C):
+        lo = i * C
+        bias = _mask_bias(q_pos[lo:lo + C], pp[lo:lo + span], True, W)
+        outs.append(_sdpa(q[:, lo:lo + C], kp[:, lo:lo + span],
+                          vp[:, lo:lo + span], bias))
+    return torch.cat(outs, 1)
+
+
 def attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0):
-    """Shared-position attention (the teacher-forced forward).  The JAX
-    package switches to a chunked softmax above 4096 kv positions; the
-    calibration and serving shapes of this slice stay below that."""
-    ok = position_ok(q_pos[:, None], kv_pos[None, :], causal, window)
-    return _sdpa(q, k, v, _bias(ok))
+    """Shared-position attention, by the branch the JAX package takes at
+    the same shapes: ``_banded`` for windowed self-attention longer than
+    its window (whole chunks), ``_flash`` above ``_FLASH_THRESHOLD`` kv
+    positions, else the full (Sq, Skv) bias."""
+    Sq, Skv = q.shape[1], k.shape[1]
+    if window and Sq == Skv and Sq % min(_CHUNK, Sq) == 0 and Sq > window:
+        return _banded(q, k, v, q_pos, kv_pos, window)
+    if Skv > _FLASH_THRESHOLD:
+        return _flash(q, k, v, q_pos, kv_pos, causal, window)
+    return _sdpa(q, k, v, _mask_bias(q_pos, kv_pos, causal, window))
 
 
 def attend_batched(q, k, v, q_pos, kv_pos, *, causal: bool = True,
@@ -155,6 +238,39 @@ def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
     o = attend(q, cache["k"], cache["v"], p1, cache["pos"], causal=True,
                window=cfg.sliding_window)
     return o.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def _check_ring(S: int, rows: int) -> None:
+    if S > rows:
+        raise ValueError(f"a batched prefill of {S} tokens needs a cache of "
+                         f"at least {S} rows, not {rows}: chunk it "
+                         f"(launch.steps.make_prefill_step)")
+
+
+def gqa_prefill(params, cfg: ModelConfig, x, cache):
+    """Batched prefill of one layer: the whole (B, S, d) prompt attends
+    within itself (forward-style causal attention, ``attend``'s branch)
+    while its S kv rows are written IN PLACE into rows [0, S) of a FRESH
+    cache (``repro.models.layers.attention.gqa_prefill``).  ``cache`` is
+    ``cache_init``'s layer ({k, v (B, Lr, hkv, hd), pos (Lr,) shared
+    tags}) or the slot pool's (pos (B, Lr) per-slot tags); S must fit
+    the ring (S <= Lr)."""
+    B, S, _ = x.shape
+    _check_ring(S, cache["k"].shape[1])
+    q, k, v = _qkv(params, cfg, x)
+    pos1 = torch.arange(S, device=x.device)
+    pvec = pos1[None, :].expand(B, S)
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k = apply_rope(k, pvec, cfg.rope_theta)
+    cache["k"][:, :S] = k.to(cache["k"].dtype)
+    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    tags = pos1.int()
+    if cache["pos"].ndim == 2:          # slot-pool layout: per-slot tags
+        cache["pos"][:, :S] = tags[None, :]
+    else:
+        cache["pos"][:S] = tags
+    o = attend(q, k, v, pos1, pos1, causal=True, window=cfg.sliding_window)
+    return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
 
 
 def gqa_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
@@ -293,6 +409,33 @@ def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
     }
 
 
+def mla_prefill(params, cfg: ModelConfig, x, cache):
+    """Batched MLA prefill of one layer: the expanded (forward-style)
+    attention over the whole prompt while the latent rows [0, S) of a
+    FRESH cache are written IN PLACE, and the position tags where the
+    cache carries them (``repro.models.layers.attention.mla_prefill``)."""
+    B, S, _ = x.shape
+    _check_ring(S, cache["c_kv"].shape[1])
+    h = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    dt = x.dtype
+    pos1 = torch.arange(S, device=x.device)
+    pvec = pos1[None, :].expand(B, S)
+    q_nope, q_pe = _mla_q(params, cfg, x, pvec)
+    c_kv, k_pe = _mla_kv_compress(params, cfg, x, pvec)
+    cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
+    cache["k_pe"][:, :S] = k_pe.to(cache["k_pe"].dtype)
+    if "pos" in cache:
+        cache["pos"][:, :S] = pos1.int()[None, :]
+    k_nope = (c_kv @ params["wk_b"].to(dt)).reshape(B, S, h, nd)
+    v = (c_kv @ params["wv_b"].to(dt)).reshape(B, S, h, vd)
+    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rd)],
+                       -1)
+    q_full = torch.cat([q_nope, q_pe], -1)
+    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0)
+    return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
+
+
 def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
               block_table=None):
     """Serving chunk step for MLA (absorbed latent attention): x (B, C, d)
@@ -355,3 +498,36 @@ def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
         o_lat = torch.einsum("bhct,btk->bchk", p, ck)
     o = torch.einsum("bchk,khv->bchv", o_lat, wv_b)       # absorb W_uv
     return o.reshape(B, C, h * vd) @ params["wo"].to(dt)
+
+
+def mla_decode(params, cfg: ModelConfig, x, cache, pos):
+    """Absorbed decode of one token per sequence at the shared position
+    ``pos`` (a 0-dim int tensor): the latent row ``pos`` is written IN
+    PLACE (its tag too, where the cache carries tags) and attention runs
+    in the latent space over the full ``max_len``, masked by absolute
+    index (t <= pos) (``repro.models.layers.attention.mla_decode``)."""
+    B = x.shape[0]
+    h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
+    kr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dt = x.dtype
+    p1 = pos.reshape(1).long()
+    pvec = p1[None, :].expand(B, 1)
+    q_nope, q_pe = _mla_q(params, cfg, x, pvec)           # (B,1,h,nd/rd)
+    c_kv_t, k_pe_t = _mla_kv_compress(params, cfg, x, pvec)
+    ck, cpe = cache["c_kv"], cache["k_pe"]
+    ck.index_copy_(1, p1, c_kv_t.to(ck.dtype))
+    cpe.index_copy_(1, p1, k_pe_t.to(cpe.dtype))
+    if "pos" in cache:
+        cache["pos"].index_copy_(1, p1, p1.int()[None, :].expand(B, 1))
+    wk_b = params["wk_b"].to(dt).reshape(kr, h, nd)
+    wv_b = params["wv_b"].to(dt).reshape(kr, h, vd)
+    q_lat = torch.einsum("bohd,khd->bhk", q_nope, wk_b)  # absorb W_uk
+    s = (torch.einsum("bhk,btk->bht", q_lat.float(), ck.float())
+         + torch.einsum("bohr,btr->bht", q_pe.float(), cpe.float()))
+    s = s * ((nd + rd) ** -0.5)
+    t_idx = torch.arange(ck.shape[1], device=x.device)
+    s = torch.where(t_idx[None, None, :] <= p1, s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(dt)
+    o_lat = torch.einsum("bht,btk->bhk", p, ck)
+    o = torch.einsum("bhk,khv->bhv", o_lat, wv_b)        # absorb W_uv
+    return o.reshape(B, 1, h * vd) @ params["wo"].to(dt)

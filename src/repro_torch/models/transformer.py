@@ -207,6 +207,72 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
 
 # --------------------------------------------------------------------------
+# the static batch: a batched prefill, then one token per step
+# --------------------------------------------------------------------------
+
+def _static_layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                   cache: Dict, attn_fn, mor: Optional[Dict],
+                   mor_mode: str) -> torch.Tensor:
+    """Every block over ``x`` with ``attn_fn(lp, cfg, h, layer cache)``
+    as its attention; the layers' caches are views of the one stack,
+    indexed by the global layer number.  The expert FFNs run without a
+    token mask, as in the JAX package: every row is real, and expert
+    capacity follows the capacity factor over the B * S tokens."""
+    caches = cache["layers"]
+    g = 0                                   # global layer index
+    for kind, stack, mor_stack, _ in _groups(params, cfg, mor):
+        for l in range(_n_stack(stack)):
+            lp = layer_slice(stack, l)
+            h = apply_norm(cfg.norm, lp["ln1"], x)
+            x = x + attn_fn(lp["attn"], cfg, h, layer_slice(caches, g))
+            h2 = apply_norm(cfg.norm, lp["ln2"], x)
+            f, _ = _ffn(lp, cfg, h2, kind, _layer_plan(mor_stack, l),
+                        mor_mode)
+            x = x + f
+            g += 1
+    return apply_norm(cfg.norm, params["final_norm"], x)
+
+
+def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: Dict, *, mor: Optional[Dict] = None,
+            mor_mode: str = "dense") -> torch.Tensor:
+    """tokens: (B, S) prompt -> last-position logits (B, V).
+
+    One step consumes the whole prompt (``repro.models.transformer.
+    prefill``): forward-style causal attention over the batch while
+    every layer writes its S kv rows into the cache IN PLACE, then
+    ``cache["pos"] += S``.  The MoR predictor runs once a layer over all
+    B * S rows.  The cache is ``cache_init``'s or the slot pool's
+    (``serving.kv_pool.init``); it must be FRESH (every position 0,
+    which is not checked: that would read the device) and hold S rows
+    (S <= the kv ring, which raises)."""
+    _check_family(cfg, decode=True)
+    S = tokens.shape[1]
+    fn = attn.mla_prefill if cfg.mla else attn.gqa_prefill
+    x = params["embed"][tokens.long()].to(cfg.tdtype)
+    x = _static_layers(params, cfg, x, cache, fn, mor, mor_mode)
+    cache["pos"] += S
+    return x[:, -1, :] @ _head(params, cfg).to(x.dtype)
+
+
+def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                cache: Dict, *, mor: Optional[Dict] = None,
+                mor_mode: str = "dense") -> torch.Tensor:
+    """tokens: (B, 1) -> logits (B, V) at the shared position
+    ``cache["pos"]`` of ``cache_init``'s cache, which is UPDATED IN
+    PLACE (``repro.models.transformer.decode_step``)."""
+    _check_family(cfg, decode=True)
+    pos = cache["pos"]
+    fn = attn.mla_decode if cfg.mla else attn.gqa_decode
+    x = params["embed"][tokens.long()].to(cfg.tdtype)
+    x = _static_layers(params, cfg, x, cache,
+                       lambda p, c, h, lc: fn(p, c, h, lc, pos), mor,
+                       mor_mode)
+    cache["pos"] += 1
+    return x[:, 0, :] @ _head(params, cfg).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
 # chunked prefill: C tokens per slot at per-slot positions (serving pool)
 # --------------------------------------------------------------------------
 

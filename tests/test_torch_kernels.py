@@ -85,11 +85,15 @@ def test_mor_tile_mask_counts_one_predictor_eval():
 def _mor_plan_cases():
     """(E, M, K, N, sms): ``chip_smoke.py``'s shapes (granite's gate at
     decode and at 256 rows, deepseek's expert grid at capacity 8 and
-    256, TDS's FC1, the ragged wrapper case), then a seeded sweep."""
+    256, TDS's FC1, the ragged wrapper case, the static prefills:
+    granite's 424 rows, deepseek's layer 0 at 1,464 and its expert grid
+    at capacity 72), then a seeded sweep."""
     cases = [(1, 8, 2048, 8192, 132), (1, 256, 2048, 8192, 132),
              (160, 8, 5120, 1536, 132), (160, 256, 5120, 1536, 132),
              (1, 8192, 144, 384, 132), (1, 24, 104, 256, 132),
-             (1, 16, 100, 128, 114), (4, 72, 96, 256, 78)]
+             (1, 16, 100, 128, 114), (4, 72, 96, 256, 78),
+             (1, 424, 2048, 8192, 132), (1, 1464, 5120, 12288, 132),
+             (160, 72, 5120, 1536, 132)]
     rng = np.random.default_rng(5)
     for _ in range(8):
         cases.append((int(rng.choice([1, 1, 4, 160])),
