@@ -2111,12 +2111,14 @@ def _counted(fn):
     return out, {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
 
-def _want_launches(L, dispatches, paged, mla=False):
+def _want_launches(L, dispatches, paged, mla=False, shadow=0):
     """Per dispatch: every layer's FFN launches the predictor, two
     compacted products (gate, up) and the down product once (a MoE
     layer once for all its experts: the expert grid), and its attention
-    the paged kernel of its kind on the paged layout."""
-    attn = L * dispatches if paged else 0
+    the paged kernel of its kind on the paged layout; each of ``shadow``
+    dense twin dispatches launches the paged attention once a layer
+    more (its MoR work is plain)."""
+    attn = L * (dispatches + shadow) if paged else 0
     return {"mor_tile_mask": L * dispatches,
             "gather_matmul": 2 * L * dispatches,
             "masked_matmul_kdim": L * dispatches,
@@ -2420,7 +2422,196 @@ def phase_slice():
     _static_profile(cfg, params, mor, reqs_s)
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
-    return launches, tokens, static
+    return launches, tokens, static, (cfg, params, mor)
+
+
+# -- observability (obs/, the shadow twin) -----------------------------------
+
+def _obs_engine(cfg, params, mor, reqs, obs=False, shadow_rate=0.0):
+    """A fresh paged kernel-mode engine over ``reqs``, with the obs stack
+    (and a shadow twin sampling 1 in round(1 / shadow_rate) dispatches)
+    or without."""
+    from repro_torch.obs import Observability
+    from repro_torch.serving import Engine
+    return Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=8,
+                  max_len=max(len(p) for p, _ in reqs) + 18,
+                  obs=Observability() if obs else None,
+                  shadow_rate=shadow_rate)
+
+
+def _obs_first_pass(eng, reqs, group="mor_stats"):
+    """One pass, stepped by hand: -> (tokens by request index, the
+    per-layer tiles_skipped that the kernels' counters give, summed over
+    the pass's dispatches off the aux log before the flush)."""
+    import torch
+    for p, g in reqs:
+        eng.submit(p, g)
+    while eng.scheduler.has_work:
+        eng.step()
+    skipped = torch.stack([a[group]["tiles_skipped"]
+                           for a in eng._aux_log]).sum(0)
+    eng._flush_tokens()
+    eng._flush_telemetry()
+    eng._flush_obs()
+    base = min(eng.results)
+    return ({rid - base: t for rid, t in eng.results.items()},
+            skipped.cpu().numpy())
+
+
+def _shadow_sampled(dispatches, every):
+    """Dispatches the shadow twin samples: 0, every, 2 every, ..."""
+    return sum(1 for d in range(dispatches) if d % every == 0)
+
+
+def _block_checks(eng, skipped):
+    """The metrics block against the engine's host counters and the
+    kernels' tile counters -> its read."""
+    import numpy as np
+    dm = eng._last_device_metrics
+    for k in ("dispatches", "prefill_tokens", "decode_tokens"):
+        assert dm[k] == eng.counters[k], (k, dm[k], eng.counters[k])
+    grp = "moe_mor_stats" if eng.cfg.family == "moe" else "mor_stats"
+    got = dm["groups"][grp]["tiles_skipped"]
+    assert np.array_equal(got, skipped), (got, skipped)
+    return dm
+
+
+def phase_obs(model):
+    """The obs path on granite-3-2b whole (40 layers), the shared-prefix
+    trace through the paged engine in kernel mode, three ways, each on a
+    fresh engine with its launches counted: obs off; obs on (metrics
+    block and tracer); obs on with a shadow twin on 1 in 4 dispatches.
+    Tokens must be identical; the block's header equals the engine's
+    counters and its per-layer tiles_skipped the kernels' counters;
+    launches equal the main path's plus the twin's attention; the Chrome
+    trace validates and /metrics answers one scrape on 127.0.0.1.  Then
+    the cost: a timed warm pass of each in turns (off, obs, shadow,
+    shadow, obs, off: host ms a dispatch) and one profiled warm pass of
+    each (device busy).  -> the shadow run's launches."""
+    import urllib.request
+
+    import numpy as np
+    from repro_torch.obs import MetricsServer, validate_chrome_trace
+    cfg, params, mor = model
+    reqs = _shared_prefix_trace(cfg)
+    L = cfg.n_layers
+    runs, engines = {}, {}
+    widths = []                 # the shadow run's (n_valid, C) a dispatch
+    for name, obs, rate in (("off", False, 0.0), ("obs", True, 0.0),
+                            ("shadow", True, 0.25)):
+        eng = _obs_engine(cfg, params, mor, reqs, obs, rate)
+        if rate:
+            build = eng.scheduler.build_batch
+
+            def logged(kind, build=build):
+                out = build(kind)
+                widths.append((out[1].copy(), out[0].shape[1]))
+                return out
+            eng.scheduler.build_batch = logged
+        (toks, skipped), launches = _counted(
+            lambda: _obs_first_pass(eng, reqs))
+        d = eng.counters["dispatches"]
+        shadow = _shadow_sampled(d, 4) if rate else 0
+        want = _want_launches(L, d, paged=True, shadow=shadow)
+        assert launches == want, (name, launches, want)
+        _check_tokens(cfg, reqs, toks)
+        runs[name], engines[name] = (toks, launches, d, skipped), eng
+        log("obs", model=cfg.name, run=name, dispatches=d,
+            shadow_dispatches=shadow, launches=json.dumps(launches))
+    base = runs["off"][0]
+    for name in ("obs", "shadow"):
+        assert runs[name][0] == base, (name, _first_diff(runs[name][0],
+                                                         base))
+    for name in ("obs", "shadow"):
+        eng = engines[name]
+        dm = _block_checks(eng, runs[name][3])
+        assert dm["pages_touched"] > 0 and dm["kv_page_resets"] > 0, dm
+        trace = eng.obs.tracer.to_chrome_trace()
+        assert validate_chrome_trace(trace) == [], "bad chrome trace"
+        log("obs", run=name, block=json.dumps(
+            {k: v for k, v in dm.items() if k != "groups"}),
+            trace_events=len(trace["traceEvents"]),
+            n_registry_families=len(eng.obs.registry.snapshot()))
+    eng = engines["shadow"]
+    dm = eng._last_device_metrics
+    assert dm["shadow_dispatches"] == _shadow_sampled(dm["dispatches"], 4)
+    g = dm["groups"]["mor_stats"]
+    assert g["shadow_tiles"].sum() > 0 and g["truth_live"].sum() > 0
+    # 8-row tiles of the sampled dispatches made of chunk padding only
+    # (rows past a slot's n_valid): truly dead, and never skipped by a
+    # dense FFN's predictor, which gets no row mask
+    pad = sum(int((~(np.arange(C)[None, :] < nv[:, None]).reshape(
+        -1, cfg.mor.tile_m).any(1)).sum())
+        for d, (nv, C) in enumerate(widths) if d % 4 == 0)
+    pad *= L * (cfg.d_ff // cfg.mor.tile_n)
+    with MetricsServer(eng.obs, host="127.0.0.1", port=0) as srv:
+        with urllib.request.urlopen(srv.url + "/metrics", timeout=30) as r:
+            text = r.read().decode()
+    assert "repro_mor_false_skip_total" in text
+    log("obs", run="shadow", shadow_dispatches=dm["shadow_dispatches"],
+        false_skip=int(g["false_skip"].sum()),
+        false_keep=int(g["false_keep"].sum()),
+        truth_live=int(g["truth_live"].sum()),
+        shadow_tiles=int(g["shadow_tiles"].sum()), padding_tiles=pad,
+        false_skip_rate=round(float(g["false_skip"].sum()
+                                    / max(g["truth_live"].sum(), 1)), 6),
+        mean_shadow_err=round(float(np.mean(g["mean_shadow_err"])), 6),
+        mean_sign_agree=round(float(np.mean(g["mean_sign_agree"])), 6),
+        drift=json.dumps(eng.drift.summary()["drifted"]),
+        scrape_bytes=len(text))
+    # the cost: warm passes in turns, then one profiled warm pass each
+    host = {name: [] for name in engines}
+    for name in ("off", "obs", "shadow", "shadow", "obs", "off"):
+        e = engines[name]
+        e.reset_counters()
+        e.run(list(reqs))
+        host[name].append(round(e.counters["wall_s"] * 1e3
+                                / max(e.counters["dispatches"], 1), 3))
+    log("obs", cost="host_ms_per_dispatch", **{k: json.dumps(v)
+                                              for k, v in host.items()})
+    for name, e in engines.items():
+        e.reset_counters()
+        _profile_fn(f"obs-{name}", lambda: e.run(list(reqs)),
+                    lambda: {"dispatches": e.counters["dispatches"],
+                             "host_ms_per_dispatch": round(
+                                 e.counters["wall_s"] * 1e3
+                                 / max(e.counters["dispatches"], 1), 3)})
+    return runs["shadow"][1]
+
+
+def _shadow_cell(cfg, params, mor, reqs, want_tokens, per_dispatch,
+                 path):
+    """A fresh paged kernel-mode engine with obs and a shadow twin on 1
+    in 4 dispatches, counted: its first pass must give ``want_tokens``
+    (the shadow-off engine's first pass), its launches ``per_dispatch``
+    a dispatch plus the twin's attention, its block the kernels' tile
+    counters."""
+    t0 = time.perf_counter()
+    grp = "moe_mor_stats" if cfg.family == "moe" else "mor_stats"
+    eng = _obs_engine(cfg, params, mor, reqs, True, 0.25)
+    (toks, skipped), launches = _counted(
+        lambda: _obs_first_pass(eng, reqs, grp))
+    assert toks == want_tokens, _first_diff(toks, want_tokens)
+    d = eng.counters["dispatches"]
+    shadow = _shadow_sampled(d, 4)
+    attn = {"gqa_paged_flash": 0, "mla_paged_flash": 0}
+    attn_key = "mla_paged_flash" if cfg.mla else "gqa_paged_flash"
+    if per_dispatch.get(attn_key):
+        attn[attn_key] = per_dispatch[attn_key] * shadow
+    want = {k: per_dispatch.get(k, 0) * d + attn.get(k, 0)
+            for k in launches}
+    assert launches == want, (launches, want)
+    dm = _block_checks(eng, skipped)
+    assert dm["shadow_dispatches"] == shadow
+    g = dm["groups"][grp]
+    log("obs", path=path, dispatches=d, shadow_dispatches=shadow,
+        launches=json.dumps(launches),
+        lanes=json.dumps({k: list(v["tiles_total"].shape)
+                          for k, v in dm["groups"].items()}),
+        false_skip=int(g["false_skip"].sum()),
+        truth_live=int(g["truth_live"].sum()),
+        seconds=round(time.perf_counter() - t0, 1))
+    return dm
 
 
 def slice_deepseek():
@@ -2486,6 +2677,13 @@ def slice_deepseek():
             "hit_rate", "prefix_hits", "prefix_queries", "pages_shared",
             "chunks_skipped", "tokens_skipped", "pages_cowed",
             "pages_evicted")}))
+    L = cfg.n_layers
+    dm = _shadow_cell(cfg, params, mor, reqs, tok_k,
+                      {"mor_tile_mask": L, "gather_matmul": 2 * L,
+                       "masked_matmul_kdim": L, "mla_paged_flash": L},
+                      "deepseek shadow")
+    assert dm["groups"]["moe_mor_stats"]["tiles_total"].shape == (
+        L - cfg.first_k_dense, cfg.n_experts)
     tok_t, rep_t, eng_t = _serve(cfg, params, mor, "tiled", reqs)
     tok_d, rep_d, eng_d = _serve(cfg, params, None, "dense", reqs)
     agree_t, agree_d = _agree(tok_k, tok_t), _agree(tok_k, tok_d)
@@ -3045,6 +3243,8 @@ def slice_rwkv():
     launches, _, tok_k = _paged_cell(
         cfg, params, mor, reqs, ("tiled", "dense"), "rwkv paged",
         per_dispatch={"mor_tile_mask": L, "gather_matmul": L})
+    _shadow_cell(cfg, params, mor, reqs, tok_k,
+                 {"mor_tile_mask": L, "gather_matmul": L}, "rwkv shadow")
     tok_s, rep_s, _ = _serve(cfg, params, mor, "kernel", reqs,
                              layout="slotted")
     agree = _agree(tok_k, tok_s)
@@ -3807,7 +4007,10 @@ def main() -> int:
     timed("reference zoo", reference_zoo)
     timed("reference recurrent", reference_recurrent)
     timed("reference paper", reference_paper)
-    granite, granite_tokens, granite_static = timed("granite", phase_slice)
+    granite, granite_tokens, granite_static, granite_model = timed(
+        "granite", phase_slice)
+    granite_obs = timed("obs", phase_obs, granite_model)
+    del granite_model
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)
@@ -3827,6 +4030,7 @@ def main() -> int:
                "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
+               "granite_obs_shadow": granite_obs,
                "granite_static": granite_static,
                "deepseek_static": deepseek_static,
                "qwen2_long_prefill": qwen2_long, "paper_dnns": paper}

@@ -12,6 +12,17 @@ Modes:
            ``gather_matmul``, which only reads live weight tiles under a
            static ``capacity`` budget; the down projection skips dead
            contraction blocks via ``masked_matmul_kdim``.
+  shadow — the dense-oracle scoring twin: propagates the plain dense
+           activations while the predictor runs alongside (plain, with
+           the capacity clip of the plan it shadows) and its tile
+           decisions are scored against the dense truth: false-skip /
+           false-keep tile counts, sign agreement and the output error
+           the skips would cause land in the stats as ``shadow_*``
+           leaves.  The serving engine runs it on 1 in N dispatches.
+  scored — the in-step twin of a ``tiled`` plan: the same scoring, but
+           propagating the tile-masked activations, bitwise equal to
+           ``tiled``; a sampled dispatch runs it in place of the tiled
+           plan.
 
 A plan holds a MoRLayer (possibly layer-stacked) and static knobs.  The
 calibrated per-layer budget ``cap_live`` is a HOST float (or an (L,)
@@ -34,7 +45,14 @@ from repro_torch.core.predictor import (MoRLayer, cols, hybrid_predict,
 from repro_torch.core.policy import (expand_tile_mask,
                                      tile_mask_from_neuron_mask)
 
-MODES = ("dense", "exact", "tiled", "kernel")
+MODES = ("dense", "exact", "tiled", "kernel", "shadow", "scored")
+
+# per-layer predictor-quality leaves the shadow and scored modes add to
+# their stats (int tile counters + float32 fractions; the obs device
+# block packs them into its quality lanes)
+SHADOW_STAT_KEYS = ("shadow_tiles", "shadow_false_skip",
+                    "shadow_false_keep", "shadow_truth_live",
+                    "shadow_sign_agree", "shadow_err")
 
 
 def _act(h: torch.Tensor, activation: str) -> torch.Tensor:
@@ -46,14 +64,21 @@ def _act(h: torch.Tensor, activation: str) -> torch.Tensor:
                      f"{activation!r}")
 
 
-def _dense_stats(device) -> Dict[str, torch.Tensor]:
+def _dense_stats(device, shadow: bool = False) -> Dict[str, torch.Tensor]:
     one = torch.ones((), dtype=torch.float32, device=device)
     z = torch.zeros((), dtype=torch.float32, device=device)
     zi = torch.zeros((), dtype=torch.int32, device=device)
-    return {"frac_computed": one, "frac_tiles_live": one,
-            "frac_tiles_computed": one.clone(),
-            "frac_mispredicted_zero": z, "n_tiles": zi,
-            "tiles_skipped": zi.clone()}
+    out = {"frac_computed": one, "frac_tiles_live": one,
+           "frac_tiles_computed": one.clone(),
+           "frac_mispredicted_zero": z, "n_tiles": zi,
+           "tiles_skipped": zi.clone()}
+    if shadow:
+        # an inactive layer in a shadow-mode stack scores nothing but
+        # emits the same keys, so that per-layer stacking stays regular
+        out.update({"shadow_tiles": zi, "shadow_false_skip": zi,
+                    "shadow_false_keep": zi, "shadow_truth_live": zi,
+                    "shadow_sign_agree": z, "shadow_err": z})
+    return out
 
 
 class MoRPrediction:
@@ -134,6 +159,34 @@ class MoRExecutionPlan:
                 f" calibrated={self.mor is not None},"
                 f" per_layer_capacity={self.cap_live is not None})")
 
+    def _with_mode(self, mode: str) -> "MoRExecutionPlan":
+        return MoRExecutionPlan(self.mor, mode=mode, tile_m=self.tile_m,
+                                tile_n=self.tile_n,
+                                capacity_frac=self.capacity_frac,
+                                cap_live=self.cap_live)
+
+    def as_shadow(self) -> "MoRExecutionPlan":
+        """The dense-oracle scoring twin of this plan: same leaves and
+        budgets, ``mode="shadow"``.  An uncalibrated plan passes through
+        (there is no predictor to score)."""
+        if self.mor is None:
+            return self
+        return self._with_mode("shadow")
+
+    def as_scored(self) -> "MoRExecutionPlan":
+        """The in-step scoring twin of a ``tiled`` plan: the same scoring
+        as ``as_shadow()``, propagating the tile-masked activations,
+        which are bitwise those of the tiled plan (tiled mode computes
+        the dense product and selects), so a scored dispatch can stand
+        in for the tiled one.  Kernel plans cannot be replaced this way
+        (``gather_matmul`` sums in another order) nor exact ones
+        (neuron-granular)."""
+        if self.mor is None:
+            return self
+        assert self.mode in ("tiled", "scored"), \
+            f"as_scored() replaces tiled plans only, not {self.mode!r}"
+        return self._with_mode("scored")
+
     def layer(self, l: int) -> "MoRExecutionPlan":
         """The plan of layer ``l`` of a layer-stacked plan."""
         mor = None if self.mor is None else {k: v[l]
@@ -192,9 +245,11 @@ class MoRExecutionPlan:
             computed = computed & row_mask[..., None]
         tiles = tile_mask_from_neuron_mask(computed, self.tile_m,
                                            self.tile_n)
+        # shadow / scored clip as the plan they shadow would (identity
+        # when uncapped), so that the scored ``kept`` is its decision
         kept = (self._capacity_clip(tiles)
-                if self.mode == "kernel" or self.cap_live is not None
-                else None)
+                if self.mode in ("kernel", "shadow", "scored")
+                or self.cap_live is not None else None)
         return MoRPrediction(computed, tiles, kept=kept)
 
     def _capacity_clip(self, tiles: torch.Tensor) -> torch.Tensor:
@@ -266,8 +321,13 @@ class MoRExecutionPlan:
             pre = x @ w
             y = _act(pre + (residual if residual is not None else 0.0),
                      activation)
-            return y, None, _dense_stats(x.device)
+            return y, None, _dense_stats(
+                x.device, shadow=self.mode in ("shadow", "scored"))
         mor = self.mor
+        if self.mode in ("shadow", "scored"):
+            return self._shadow_relu_matmul(x, w, activation=activation,
+                                            residual=residual,
+                                            row_mask=row_mask)
         if self.mode == "exact":
             pre = (x @ w).float()
             pre_bn = pre * cols(mor["bn_scale"]) + cols(mor["bn_bias"])
@@ -295,6 +355,54 @@ class MoRExecutionPlan:
         y = torch.where(keep, _act(pre_bn, activation), 0.0).to(x.dtype)
         return y, pred, pred.stats()
 
+    def _shadow_relu_matmul(self, x, w, *, activation: str,
+                            residual: Optional[torch.Tensor] = None,
+                            row_mask: Optional[torch.Tensor] = None):
+        """The dense-oracle scoring pass (modes "shadow" / "scored"):
+        the dense pre-activations, the predictor run as the tiled /
+        kernel plan would run it (plain, same capacity clip), and its
+        tile decisions scored against the dense truth.  "shadow"
+        propagates the dense activations, "scored" the tile-masked ones
+        (bitwise the tiled path's: the same elementwise chain on the
+        same dense product inside a kept tile, exact zeros outside)."""
+        mor = self.mor
+        T, N = x.shape[-2], w.shape[-1]
+        pre = (x @ w).float()
+        pre_bn = pre * cols(mor["bn_scale"]) + cols(mor["bn_bias"])
+        if residual is not None:
+            pre_bn = pre_bn + residual
+        pred = self.predict(x, w, residual=residual, row_mask=row_mask)
+        truth = pre_bn > 0
+        if row_mask is not None:
+            truth = truth & row_mask[..., None]
+        truth_tiles = tile_mask_from_neuron_mask(truth, self.tile_m,
+                                                 self.tile_n)
+        stats = pred.stats()
+        lead = truth_tiles.shape[:-2]
+        n_tiles = truth_tiles.shape[-2] * truth_tiles.shape[-1]
+        # exact tile counts: a false skip zeroes a truly-live tile, a
+        # false keep spends compute on a dead one
+        stats["shadow_tiles"] = torch.full(lead, n_tiles, dtype=torch.int32,
+                                           device=x.device)
+        stats["shadow_false_skip"] = (truth_tiles & ~pred.kept).sum(
+            (-2, -1), dtype=torch.int32)
+        stats["shadow_false_keep"] = (pred.kept & ~truth_tiles).sum(
+            (-2, -1), dtype=torch.int32)
+        stats["shadow_truth_live"] = truth_tiles.sum((-2, -1),
+                                                     dtype=torch.int32)
+        stats["shadow_sign_agree"] = (pred.computed == truth).float().mean(
+            (-2, -1))
+        y = _act(pre_bn, activation)
+        # relative output-error norm the plan's skips would cause on this
+        # dispatch (<= 1: the masked output is a subset of the dense one)
+        y_mor = torch.where(pred.keep_mask(T, N, self.tile_m, self.tile_n),
+                            y, 0.0)
+        norm = torch.sqrt(torch.square(y).sum((-2, -1)))
+        stats["shadow_err"] = (torch.sqrt(torch.square(y_mor - y).sum(
+            (-2, -1))) / (norm + 1e-6))
+        out = y_mor if self.mode == "scored" else y
+        return out.to(x.dtype), pred, stats
+
     def ffn(self, x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
             *, activation: str, w_gate: Optional[torch.Tensor] = None,
             row_mask: Optional[torch.Tensor] = None,
@@ -306,7 +414,8 @@ class MoRExecutionPlan:
             g, pred, stats = self._relu_matmul_pred(x, w_gate,
                                                     activation=activation,
                                                     row_mask=row_mask)
-            if pred is not None and self.mode in ("tiled", "kernel"):
+            if pred is not None and self.mode in ("tiled", "kernel",
+                                                  "scored"):
                 u = self.masked_matmul(x, w_up, pred).to(x.dtype)
             else:
                 u = x @ w_up
@@ -351,6 +460,18 @@ def as_plan(mor, *, mode: str = "dense", tile_m: int = 8, tile_n: int = 128,
     return MoRExecutionPlan(mor, mode=mode if mor is not None else "dense",
                             tile_m=tile_m, tile_n=tile_n,
                             capacity_frac=capacity_frac)
+
+
+def map_plans(mor, fn):
+    """Apply ``fn`` to every MoRExecutionPlan of an attached MoR tree
+    ({group -> plan}, a moe model's {"experts": plan}); anything else
+    passes through.  The serving engine derives the shadow twin of its
+    plans with it."""
+    if isinstance(mor, MoRExecutionPlan):
+        return fn(mor)
+    if isinstance(mor, dict):
+        return {k: map_plans(v, fn) for k, v in mor.items()}
+    return mor
 
 
 def _looks_like_mor_layer(mor) -> bool:

@@ -35,6 +35,15 @@ the static-batch path on the same trace (``generate`` on groups of
 ``--batch`` prompts left-padded to the trace maximum: one batched
 prefill, then every slot decodes until its group's longest request is
 done) and reports the engine's speedup over it.
+
+``--obs`` / ``--metrics-json`` / ``--trace-out`` / ``--metrics-port``
+attach the ``repro_torch.obs`` stack to the primary engine: a metrics
+registry (JSON / Prometheus), the metrics block on the device (counted
+in every dispatch, read at flushes only) and the span tracer, whose
+timeline loads in Perfetto or chrome://tracing.  ``--shadow-rate R``
+scores the MoR predictor against the dense oracle on 1 in round(1 / R)
+dispatches (tokens stay those of ``--shadow-rate 0``) and runs the drift
+detector over the scores (``--drift-threshold``).
 """
 from __future__ import annotations
 
@@ -341,6 +350,32 @@ def main(argv=None):
     ap.add_argument("--calibrate-capacity", type=float, default=0.0,
                     help="liveness quantile for per-layer gather capacity "
                          "(0 = static cfg.mor.capacity)")
+    ap.add_argument("--obs", action="store_true",
+                    help="attach the obs stack (metrics registry, device "
+                         "metrics block, request tracer) to the primary "
+                         "engine; implied by the four flags below")
+    ap.add_argument("--metrics-json", default=None,
+                    help="write the obs metrics-registry snapshot "
+                         "(counters, gauges, histogram summaries) to "
+                         "this path as JSON")
+    ap.add_argument("--trace-out", default=None,
+                    help="write the request tracer's timeline to this "
+                         "path as Chrome-trace JSON (load in Perfetto "
+                         "or chrome://tracing)")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="serve GET /metrics (Prometheus text) and GET "
+                         "/metrics.json on 127.0.0.1 at this port for the "
+                         "run's duration (0 = an ephemeral port, printed "
+                         "at start-up)")
+    ap.add_argument("--shadow-rate", type=float, default=0.0,
+                    help="score 1 in round(1/RATE) dispatches against the "
+                         "dense oracle (false skips / false keeps into the "
+                         "device metrics block); tokens stay those of "
+                         "--shadow-rate 0 (needs --mor != dense)")
+    ap.add_argument("--drift-threshold", type=float, default=0.25,
+                    help="per-(layer, expert) EWMA false-skip-rate "
+                         "threshold above which the drift detector flags "
+                         "the series")
     ap.add_argument("--compare", action="store_true",
                     help="also run the dense engine; report token agreement")
     ap.add_argument("--baseline", action="store_true",
@@ -414,60 +449,104 @@ def serve(args, device, group=None):
         capacities = {k: args.capacity for k in mor_group_map(cfg)}
         report["static_capacity"] = args.capacity
 
-    eng, results, rep = run_engine(cfg, params, reqs, mor=mor,
-                                   mor_mode=args.mor, n_slots=args.batch,
-                                   max_len=max_len, capacities=capacities,
-                                   **engine_kw)
-    report.update(rep)
-    say(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
-          f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
-          f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
-          f"{pmin}-{pmax})")
-    if "prefix_cache" in rep:
-        pc = rep["prefix_cache"]
-        say(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "
-              f"({pc['prefix_hits']}/{pc['prefix_queries']} requests), "
-              f"{pc['pages_shared']} pages shared, "
-              f"{pc['chunks_skipped']} prefill chunks skipped, "
-              f"{pc['pages_cowed']} pages copy-on-written")
-    if "sharding" in rep:
-        sh = rep["sharding"]
-        say(f"[serve] page mesh: {sh['n_shards']} shards "
-            f"({sh['backend']}), kv pages hiwater/shard "
-            f"{sh.get('kv_pages_hiwater_per_shard', sh.get('state_pages_hiwater_per_shard'))}")
-    if args.calibrate_capacity > 0 and args.mor != "dense":
-        caps = eng.calibrate_capacities(quantile=args.calibrate_capacity)
-        _, results_cal, rep_cal = run_engine(
-            cfg, params, reqs, mor=mor, mor_mode=args.mor,
-            n_slots=args.batch, max_len=max_len, capacities=caps,
-            **engine_kw)
-        report["per_layer_capacity"] = {
-            k: np.asarray(v).round(4).tolist() for k, v in caps.items()}
-        report["calibrated_tokens_per_s"] = rep_cal["tokens_per_s"]
-        # the clamp drops live tiles past the chosen quantile: its
-        # accuracy cost against the unclamped run, reported apart
-        report["calibrated_token_agreement"] = token_agreement(results_cal,
-                                                               results)
-        say(f"[serve] capacity-calibrated (q={args.calibrate_capacity}): "
-            f"{rep_cal['tokens_per_s']:.1f} tok/s; per-layer capacity "
-            f"{report['per_layer_capacity']}")
-    if args.compare and args.mor != "dense":
-        _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
-                                         mor_mode="dense",
-                                         n_slots=args.batch,
-                                         max_len=max_len, **engine_kw)
-        agree = token_agreement(results, results_d)
-        report["dense_tokens_per_s"] = rep_d["tokens_per_s"]
-        report["token_agreement_vs_dense"] = agree
-        say(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
-              f"token agreement {agree:.3f}")
-    if args.baseline:
-        tok_s, _, _ = static_batch(cfg, params, reqs, n_slots=args.batch,
-                                   mor=mor, mor_mode=args.mor)
-        report["static_batch_tokens_per_s"] = tok_s
-        report["engine_speedup_vs_static"] = report["tokens_per_s"] / tok_s
-        say(f"[serve] static-batch baseline: {tok_s:.1f} tok/s (engine "
-            f"speedup {report['engine_speedup_vs_static']:.2f}x)")
+    if args.shadow_rate > 0 and args.mor == "dense":
+        raise SystemExit("--shadow-rate scores the MoR predictor: pick "
+                         "--mor exact / tiled / kernel")
+    obs = server = None
+    if args.obs or args.metrics_json or args.trace_out or \
+            args.shadow_rate > 0 or args.metrics_port is not None:
+        from repro_torch.obs import Observability
+        obs = Observability()
+    if args.metrics_port is not None and (group is None or group.rank == 0):
+        from repro_torch.obs import MetricsServer
+        server = MetricsServer(obs, port=args.metrics_port)
+        say(f"[serve] metrics endpoint: {server.url}/metrics "
+            f"(+ /metrics.json)")
+
+    try:
+        eng, results, rep = run_engine(cfg, params, reqs, mor=mor,
+                                       mor_mode=args.mor, n_slots=args.batch,
+                                       max_len=max_len, capacities=capacities,
+                                       obs=obs, shadow_rate=args.shadow_rate,
+                                       drift_threshold=args.drift_threshold,
+                                       **engine_kw)
+        report.update(rep)
+        say(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
+              f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
+              f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
+              f"{pmin}-{pmax})")
+        if "quality" in rep:
+            q = rep["quality"]
+            dr = q.get("drift", {})
+            say(f"[serve] shadow oracle: rate {q['shadow_rate']:.4f} "
+                f"(1 in {q['shadow_every']}), "
+                f"{q.get('shadow_dispatches', 0)} dispatches scored, "
+                f"{dr.get('n_drifted', 0)}/{dr.get('n_series', 0)} "
+                f"series drifted")
+        if "prefix_cache" in rep:
+            pc = rep["prefix_cache"]
+            say(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "
+                  f"({pc['prefix_hits']}/{pc['prefix_queries']} requests), "
+                  f"{pc['pages_shared']} pages shared, "
+                  f"{pc['chunks_skipped']} prefill chunks skipped, "
+                  f"{pc['pages_cowed']} pages copy-on-written")
+        if "sharding" in rep:
+            sh = rep["sharding"]
+            hiwater = sh.get('kv_pages_hiwater_per_shard',
+                             sh.get('state_pages_hiwater_per_shard'))
+            say(f"[serve] page mesh: {sh['n_shards']} shards "
+                f"({sh['backend']}), kv pages hiwater/shard {hiwater}")
+        if args.calibrate_capacity > 0 and args.mor != "dense":
+            caps = eng.calibrate_capacities(quantile=args.calibrate_capacity)
+            _, results_cal, rep_cal = run_engine(
+                cfg, params, reqs, mor=mor, mor_mode=args.mor,
+                n_slots=args.batch, max_len=max_len, capacities=caps,
+                **engine_kw)
+            report["per_layer_capacity"] = {
+                k: np.asarray(v).round(4).tolist() for k, v in caps.items()}
+            report["calibrated_tokens_per_s"] = rep_cal["tokens_per_s"]
+            # the clamp drops live tiles past the chosen quantile: its
+            # accuracy cost against the unclamped run, reported apart
+            report["calibrated_token_agreement"] = token_agreement(results_cal,
+                                                                   results)
+            say(f"[serve] capacity-calibrated (q={args.calibrate_capacity}): "
+                f"{rep_cal['tokens_per_s']:.1f} tok/s; per-layer capacity "
+                f"{report['per_layer_capacity']}")
+        if args.compare and args.mor != "dense":
+            _, results_d, rep_d = run_engine(cfg, params, reqs, mor=None,
+                                             mor_mode="dense",
+                                             n_slots=args.batch,
+                                             max_len=max_len, **engine_kw)
+            agree = token_agreement(results, results_d)
+            report["dense_tokens_per_s"] = rep_d["tokens_per_s"]
+            report["token_agreement_vs_dense"] = agree
+            say(f"[serve] dense baseline: {rep_d['tokens_per_s']:.1f} tok/s; "
+                  f"token agreement {agree:.3f}")
+        if args.baseline:
+            tok_s, _, _ = static_batch(cfg, params, reqs, n_slots=args.batch,
+                                       mor=mor, mor_mode=args.mor)
+            report["static_batch_tokens_per_s"] = tok_s
+            report["engine_speedup_vs_static"] = report["tokens_per_s"] / tok_s
+            say(f"[serve] static-batch baseline: {tok_s:.1f} tok/s (engine "
+                f"speedup {report['engine_speedup_vs_static']:.2f}x)")
+        if obs is not None and (group is None or group.rank == 0):
+            # written last, so that the files hold the final flush
+            if args.metrics_json:
+                obs.write_metrics_json(args.metrics_json)
+            if args.trace_out:
+                obs.write_trace(args.trace_out)
+            tr = obs.tracer.summary()
+            ttft = (tr.get("ttft") or {}).get("p50")
+            itl = (tr.get("itl") or {}).get("p50")
+            say(f"[serve] obs: {len(obs.registry.snapshot())} metric families"
+                + (f", ttft p50 {ttft * 1e3:.1f} ms" if ttft else "")
+                + (f", itl p50 {itl * 1e3:.2f} ms" if itl else "")
+                + (f"; metrics -> {args.metrics_json}"
+                   if args.metrics_json else "")
+                + (f"; trace -> {args.trace_out}" if args.trace_out else ""))
+    finally:
+        if server is not None:
+            server.close()
     if args.out_json and (group is None or group.rank == 0):
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=1)

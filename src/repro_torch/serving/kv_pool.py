@@ -218,6 +218,53 @@ def apply_cache_ops(cache: Dict, ops: torch.Tensor, n_reset: int,
         map_state_leaves(node, st)
 
 
+def ops_counts(cache: Dict, ops: torch.Tensor, n_reset: int, n_copy: int,
+               n_st_reset: int = 0, n_st_copy: int = 0) -> Dict:
+    """Count the page edits a packed ops vector performs (the same walk
+    as ``apply_cache_ops``) as four int32 device scalars for the obs
+    metrics block, read off the vector on the device: no host value
+    enters.  A page-sharded rank's vector holds its own pages' edits, so
+    its counts are shard-local."""
+    S = cache["pos"].shape[0]
+    i = S + (cache["block_table"].numel() if "block_table" in cache else 0)
+    i += S if "state_table" in cache else 0
+    out = {}
+    for name, n_res, n_cp in (("kv", n_reset, n_copy),
+                              ("state", n_st_reset, n_st_copy)):
+        reset, dst = ops[i:i + n_res], ops[i + n_res + n_cp:
+                                           i + n_res + 2 * n_cp]
+        out[f"{name}_page_resets"] = (reset >= 0).sum(dtype=torch.int32)
+        out[f"{name}_page_copies"] = (dst >= 0).sum(dtype=torch.int32)
+        i += n_res + 2 * n_cp
+    return out
+
+
+def shadow_view(cache: Dict) -> Dict:
+    """The cache a shadow twin dispatch runs on, leaving ``cache`` as it
+    was: ``pos`` and the recurrent state the dispatch rewrites are
+    copies (on the paged layout only the rows under the slots' state
+    table, gathered into a pool of n_slots pages behind an identity
+    table), while the kv pools and the block table are shared.  Sharing
+    the kv pools is safe because the primary dispatch, run right after
+    on the same tables and ``n_valid``, writes exactly the same (page,
+    row) entries, and each layer writes its rows before it attends."""
+    table = cache.get("state_table")
+    out = {}
+    for k, v in cache.items():
+        if k in _TABLE_KEYS:
+            continue
+        out[k] = map_state_leaves(
+            v, (lambda a: a.clone()) if table is None
+            else (lambda a: a[:, table.long()]))
+    out["pos"] = cache["pos"].clone()
+    if "block_table" in cache:
+        out["block_table"] = cache["block_table"]
+    if table is not None:
+        out["state_table"] = torch.arange(table.shape[0], dtype=table.dtype,
+                                          device=table.device)
+    return out
+
+
 def _scan_structure(cache: Dict) -> Tuple[bool, bool, int]:
     """-> (has_kv, has_state, kv ring length in rows) of a
     ``cache_init`` tree."""
@@ -605,14 +652,19 @@ class PagedPool:
         return (np.concatenate([p.astype(np.int32) for p in parts]),
                 *counts)
 
-    def flush(self, cache: Dict) -> None:
+    def flush(self, cache: Dict):
         """Apply all pending edits to ``cache`` now: one pinned,
         non-blocking host -> device transfer of the packed vector, then
-        ``apply_cache_ops`` on the same stream.  No-op when clean."""
+        ``apply_cache_ops`` on the same stream.  -> (the device vector,
+        its four counts) for ``ops_counts``, or None when clean (a
+        no-op)."""
         drained = self.drain()
-        if drained is not None:
-            ops, *counts = drained
-            apply_cache_ops(cache, upload(ops, self.device), *counts)
+        if drained is None:
+            return None
+        ops, *counts = drained
+        ops = upload(ops, self.device)
+        apply_cache_ops(cache, ops, *counts)
+        return ops, counts
 
     # pending page copies: the src is PINNED (one extra ref) from queueing
     # until ``drain`` emits the pair, so no interleaved eviction/free can

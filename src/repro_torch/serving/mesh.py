@@ -15,7 +15,7 @@ and must be the same bits on every rank: ``check_replicated`` asserts it
 at start-up, ``broadcast`` hands rank 0's calibrated tree to the others,
 and ``check_tokens`` holds the ranks' greedy tokens equal at every
 flush (ranks that disagreed would drive diverging schedulers).  The
-shadow step is ROADMAP queue A 4 of the port.
+page-sharded shadow step is ROADMAP queue A 7 of the port.
 """
 from __future__ import annotations
 

@@ -101,6 +101,58 @@ class ServingTelemetry:
         return out
 
 
+def export_telemetry(registry, tel: ServingTelemetry, *, layout: str,
+                     capacities: Optional[Dict] = None) -> None:
+    """Mirror a ``ServingTelemetry`` summary (and optionally the
+    calibrated per-layer capacities) into an obs
+    ``MetricsRegistry``.
+
+    Every series carries a ``layout`` label and is written with
+    idempotent ``set``: re-exporting the same layout overwrites its own
+    series, and engines of two layouts sharing one registry keep apart
+    series, keyed by ``(layout, group, layer, expert)``."""
+    g_frac = registry.gauge(
+        "repro_telemetry_frac",
+        "mean realised MoR fractions per layer (serving dispatches)",
+        ("layout", "group", "stat", "layer", "expert"))
+    g_disp = registry.gauge(
+        "repro_telemetry_dispatches",
+        "dispatches accumulated into the telemetry histograms",
+        ("layout",))
+    g_disp.set(tel.n_updates, layout=layout)
+
+    def cells(arr, shape):
+        a = np.asarray(arr, np.float64).reshape(shape)
+        if a.ndim == 0:
+            # scalar capacity spec (serve --capacity): one all-layers cell
+            yield "", "", float(a)
+        elif a.ndim == 1:
+            for li in range(a.shape[0]):
+                yield li, "", float(a[li])
+        else:
+            for li in range(a.shape[0]):
+                for e in range(a.shape[1]):
+                    yield li, e, float(a[li, e])
+
+    n = max(tel.n_updates, 1)
+    for key, sums in tel.sums.items():
+        shape = tel.shapes.get(key)
+        for name, acc in sums.items():
+            for li, e, v in cells(acc / n, shape):
+                g_frac.set(v, layout=layout, group=key, stat=name,
+                           layer=li, expert=e)
+    if capacities:
+        g_cap = registry.gauge(
+            "repro_telemetry_capacity",
+            "calibrated per-layer gather_matmul capacity fraction",
+            ("layout", "group", "layer", "expert"))
+        for key, arr in capacities.items():
+            a = np.asarray(arr)
+            for li, e, v in cells(a, a.shape):
+                g_cap.set(v, layout=layout, group=key, layer=li,
+                          expert=e)
+
+
 def calibrate_capacity(tel: ServingTelemetry, *, quantile: float = 0.95,
                        floor: float = 0.05,
                        headroom: float = 0.0) -> Dict[str, np.ndarray]:
