@@ -64,7 +64,14 @@
    ``torch.matmul`` as yardsticks, each kernel timed alone (``ms``) and
    through its ``ops`` wrapper (``wrapper_ms``); ``binary_dot`` also
    bit-equal at its sign edges (-0.0 weights, NaN in x and w, a ragged
-   K of 100);
+   K of 100); then the speculative path's shapes (``kernel_spec``):
+   ``mor_tile_mask`` at a verify's M 40 (8 slots x k + 1 = 5 rows),
+   ``gather_matmul`` at M 8 and 40 under a draft budget of ceil(cap x
+   tiles) at caps 0.5 and 0.25 and ``masked_matmul_kdim`` on the input
+   that clamped gather leaves, ``gqa_paged_flash`` and
+   ``mla_paged_flash`` at a verify of 5 rows a slot over the decode
+   table (GQA's pages also holding stale draft rows past the committed
+   position, which must change no bit);
 4. the references: reduced float32 models served on the card must give
    the CPU plain versions' tokens, telemetry and prefix counters:
    granite on the slotted layout and on the paged layout (sliding
@@ -81,7 +88,13 @@
    four paper DNNs (TDS, CNN10, ResNet18, Darknet19) in exact, tiled and
    kernel mode with every binary rookie enabled: logits within
    LOGIT_RTOL, predictor masks equal except where the CPU's proxy
-   pre-activation or p_hat lies within MARGIN_EPS of 0;
+   pre-activation or p_hat lies within MARGIN_EPS of 0; self-speculative
+   decoding (``reference_spec``, k 3) on reduced granite, rwkv6 and
+   zamba2: greedy drafts in dense mode and kernel mode at draft_cap 0.5
+   (tokens and spec counters equal the CPU's; dense also vanilla's),
+   temperature-1.0 drafts in dense mode (vanilla's greedy tokens) and,
+   on granite and rwkv6, a spill forced mid-speculation; deepseek's one
+   spec pass (``mla_paged_flash`` at 4 rows a slot);
 3b. the shard-window, partial forms of both paged kernels in bf16: each
    pool split into 4 windows (``lo = i n_local``), every window's
    partial launch against its plain version (m bit-equal at the -1e30
@@ -110,6 +123,17 @@
      ``cache_init``'s cache) in kernel (counted) and dense mode against
      ``generate``'s dense tokens; one profiled kernel-mode static decode
      pass (idle share, host ms a step);
+5b. speculation and SLO scheduling on granite-3-2b whole (paged, kernel
+   mode; ``phase_spec`` / ``phase_slo``): the mixed trace with 32 new
+   tokens each, vanilla then spec_k 4 at draft_cap 0 / 0.5 / 0.25
+   (acceptance, tokens a round, pass s, host ms a dispatch, agreement
+   with vanilla, launches over every draft and verify dispatch, a
+   decode's, a draft's and a verify's device ms profiled apart, one
+   profiled warm pass); the
+   same trace on a kv pool 4 pages short (spills, restores, bytes, ms
+   each, agreement with the unpressured run); a ~10 s open-loop Poisson
+   trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
+   p50 / p99 per class, preemptions, rejections, requests lost: 0);
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -497,7 +521,11 @@ def _gather_bare_ms(x, w, mask, cap, flush, cap_live=None):
                   flush)
 
 
-def kernel_case_gather(M, gen, flush, K=2048, N=8192):
+def kernel_case_gather(M, gen, flush, K=2048, N=8192, draft_cap=None):
+    """``draft_cap`` sets the budget as a draft plan's clamp does: the
+    first ceil(draft_cap x tiles) live tiles (row-major); the case then
+    also returns the kept tile mask under ``"_kept"``."""
+    import math
     import torch
     from repro_torch.kernels import gather_matmul as gm
     dev = "cuda"
@@ -506,7 +534,8 @@ def kernel_case_gather(M, gen, flush, K=2048, N=8192):
          * K ** -0.5).bfloat16()
     nm, nn = M // 8, N // 128
     mask = torch.rand((nm, nn), generator=gen, device=dev) < 0.7
-    cap = max(1, int(0.5 * nm * nn))
+    cap = (max(1, int(0.5 * nm * nn)) if draft_cap is None
+           else max(1, math.ceil(draft_cap * nm * nn)))
     err = _gather_checks(x, w, mask, cap)
     call = functools.partial(gm.gather_matmul, x, w, mask, capacity=cap)
     ms, host_ms = _timer(call, flush), _host_ms(call)
@@ -522,11 +551,14 @@ def kernel_case_gather(M, gen, flush, K=2048, N=8192):
     rows = int(kept.any(1).sum())
     nbytes = cols * K * 128 * 2 + rows * 8 * K * 2 + M * N * 2
     bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * K, "bf16")
-    return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "library_ms": lib_ms, "host_ms": host_ms,
-            "library_host_ms": lib_host_ms, "tiles_computed": n_comp,
-            "plan": list(gm.plan(x, w, cap))}
+    r = {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
+         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+         "library_ms": lib_ms, "host_ms": host_ms,
+         "library_host_ms": lib_host_ms, "tiles_computed": n_comp,
+         "plan": list(gm.plan(x, w, cap))}
+    if draft_cap is not None:
+        r.update(capacity=cap, tiles_live=int(mask.sum()), _kept=kept)
+    return r
 
 
 def _kdim_checks(x, w, mask):
@@ -555,11 +587,15 @@ def _kdim_checks(x, w, mask):
     return err
 
 
-def kernel_case_kdim(M, gen, flush, K=8192, N=2048):
+def kernel_case_kdim(M, gen, flush, K=8192, N=2048, mask=None):
+    """``mask`` (M / 8, K / 128): the live (row block, k block) pairs, by
+    default 60% at random."""
     import torch
     from repro_torch.kernels import masked_matmul as mm
     dev = "cuda"
-    mask = torch.rand((M // 8, K // 128), generator=gen, device=dev) < 0.6
+    if mask is None:
+        mask = torch.rand((M // 8, K // 128), generator=gen, device=dev) \
+            < 0.6
     keep = mask.repeat_interleave(8, 0).repeat_interleave(128, 1)
     # the MoR contract: dead hidden blocks are exact zeros (the garbage
     # check in _kdim_checks fills them)
@@ -621,13 +657,16 @@ def kernel_ragged(gen):
 
 
 def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
-                  G=4, D=64):
+                  G=4, D=64, stale=0):
     """A paged pool holding slot b's first ``ctx[b]`` positions (its last
     page partly written), the C query rows ending at position ctx[b] - 1,
     a table that is a column slice of a wider one, ``n_null`` null
     entries inside the written range of every slot but the first (never
     its block 0, so that every query row sees position 0), and slot 1's
-    block 0 pointing at slot 0's (a shared page)."""
+    block 0 pointing at slot 0's (a shared page).  ``stale`` > 0 also
+    tags the rows of positions ctx[b] .. ctx[b] + stale - 1 that the
+    slot's last page holds: the stale drafts a rolled-back speculative
+    round leaves past the committed position."""
     import torch
     B, dev = len(ctx), "cuda"
     n_live = [-(-c // page) for c in ctx]
@@ -643,7 +682,7 @@ def _paged_inputs(gen, ctx, C, W, extra_cols=8, n_null=0, page=8, hkv=8,
         ids = torch.arange(nxt, nxt + n, dtype=torch.int32, device=dev)
         wide[b, :n] = ids
         rows = torch.arange(n * page, device=dev).reshape(n, page)
-        pp[ids.long()] = torch.where(rows < c, rows, -1).int()
+        pp[ids.long()] = torch.where(rows < c + stale, rows, -1).int()
         nxt += n
     wide[1, 0] = wide[0, 0]
     for b in range(1, B):
@@ -684,16 +723,31 @@ def _gqa_plan(q, kp, tbl):
 
 
 def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
-               sweep=False, hkv=8, G=4, D=64):
+               sweep=False, hkv=8, G=4, D=64, stale=0):
+    """``stale`` > 0 (a verify dispatch after a rollback): the pages also
+    hold stale rows past the queries (``_paged_inputs``), and the kernel
+    must give, bit for bit, what it gives with those rows unwritten."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import paged_attention as pa
     q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null,
-                                             hkv=hkv, G=G, D=D)
+                                             hkv=hkv, G=G, D=D, stale=stale)
     assert not tbl.is_contiguous()
     args = (q, kp, vp, pp, tbl, qpos)
     got = pa.gqa_paged_flash(*args, window=window)
     want = pa.gqa_paged_flash_plain(*args, window=window)
+    stale_rows = 0
+    if stale:
+        clean = pp.clone()
+        for b, c in enumerate(ctx):
+            ids = tbl[b][tbl[b] > 0].long()
+            stale_rows += int((pp[ids] >= c).sum())
+            clean[ids] = torch.where(pp[ids] >= c, -1, pp[ids])
+        assert stale_rows > 0, "no stale row landed in a live page"
+        got_clean = pa.gqa_paged_flash(q, kp, vp, clean, tbl, qpos,
+                                       window=window)
+        assert torch.equal(got, got_clean), \
+            "stale rows past the committed position leaked"
     torch.cuda.synchronize()
     B, _, H, D = q.shape
     page, hkv = kp.shape[1], kp.shape[2]
@@ -708,6 +762,8 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
     split, body = _gqa_plan(q, kp, tbl)
     r = {"max_abs_err": err, "B": B, "C": C, "W": W, "window": window,
          "split": split, "body": body, "repeat_bit_equal": True}
+    if stale:
+        r["stale_rows"], r["stale_bit_equal_clean"] = stale_rows, True
     if body == "cuda_cores":
         r["rows_heads"] = list(pa.gqa_heads_plan(H // hkv, D))
     if not time_it:
@@ -1686,6 +1742,48 @@ KERNELS = [
 ]
 
 
+# the speculative path (phase_spec): k = 4 drafts a round over 8 slots,
+# so a draft dispatch has M = 8 rows and a verify 8 x (k + 1) = 40; the
+# drafts run at these capacity fractions of the tile grid
+SPEC_K = 4
+SPEC_M = 8 * (SPEC_K + 1)
+DRAFT_CAPS = (0.5, 0.25)
+
+
+def kernel_spec(gen, flush):
+    """-> {kernel: {case: result}}: the serving kernels at the shapes the
+    speculative path gives them.  mor_tile_mask at the verify's M 40
+    (the draft's M 8 is the m8 row); gather_matmul at M 8 and 40 under a
+    draft budget of ceil(cap x tiles) at each of DRAFT_CAPS, and
+    masked_matmul_kdim on the down product's input as that clamped
+    gather leaves it (its kept tiles); gqa_paged_flash at a verify of
+    k + 1 = 5 rows a slot over the decode case's table (granite's G 4:
+    20 of a 64-pair tile), its pages also holding stale draft rows past
+    the committed position, which must change no bit; mla_paged_flash at
+    the same 5 rows a slot."""
+    decode_ctx = [4096, 3001, 2048, 1500, 777, 300, 64, 4095]
+    out = {"mor_tile_mask": {f"spec_verify_m{SPEC_M}": kernel_case_mor(
+        SPEC_M, gen, flush)}, "gather_matmul": {}, "masked_matmul_kdim": {}}
+    for M in (8, SPEC_M):
+        for cap in DRAFT_CAPS:
+            r = kernel_case_gather(M, gen, flush, draft_cap=cap)
+            kept = r.pop("_kept")
+            tag = f"spec_m{M}_draft_cap{cap}"
+            out["gather_matmul"][tag] = r
+            out["masked_matmul_kdim"][tag] = kernel_case_kdim(
+                M, gen, flush, mask=kept)
+    out["gqa_paged_flash"] = {"spec_verify": paged_case(
+        gen, flush, decode_ctx, SPEC_K + 1, 512, n_null=5, stale=SPEC_K)}
+    out["mla_paged_flash"] = {"spec_verify": mla_case(
+        gen, flush, decode_ctx, SPEC_K + 1, 512, n_null=5)}
+    for name, per in out.items():
+        for case, r in per.items():
+            log("kernel", name=name, case=case,
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+    return out
+
+
 # qwen2-7b's FFN (d 3584, f 18944) at a 16,384-token prompt's rows: the
 # gate / up product (K d, N f) and the down product (K f, N d)
 QWEN2_LONG_WIDTHS = {"mor_tile_mask": dict(K=3584, N=18944),
@@ -1800,6 +1898,10 @@ def phase_kernels(ptxas=None):
     gqa["tc_ptxas"] = {str(D): line for D, line in
                        _tc_ptxas(ptxas).items()}
     rows["mla_paged_flash"] = kernel_mla(gen, flush)
+    for name, per in kernel_spec(gen, flush).items():
+        for case, r in per.items():
+            rows[name][f"at_{case}"] = _fields(r)
+    torch.cuda.empty_cache()
     windows = kernel_windows(gen, flush, ptxas)
     for (name, kind, source, replaces, timed) in (
             ("gqa_paged_flash[partial]", "gqa",
@@ -1956,6 +2058,23 @@ def reference_deepseek():
         dense_frac_tiles_computed=np.round(tel["dense_mor_stats"][
             "frac_tiles_computed"], 4).tolist(),
         **{k: pc[k] for k in ("prefix_hits", "chunks_skipped")})
+    # one speculative pass (k = 3, drafts at half capacity):
+    # mla_paged_flash verifies 4 rows a slot
+    spec = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(cfg, _to(params, dev), mor=_to(mor, dev),
+                     mor_mode="kernel", n_slots=4, max_len=48,
+                     capacities=caps, spec_k=3, draft_cap=0.5)
+        spec[dev] = (eng.run(list(reqs)), eng.spec.report())
+    assert spec["cuda"] == spec["cpu"], \
+        "deepseek spec: card and CPU differ"
+    sp = spec["cuda"][1]
+    assert sp["rounds"] > 0, sp
+    log("reference", model="deepseek-v2-236b reduced f32 paged spec",
+        mode="kernel", draft_cap=0.5, tokens_equal=True,
+        spec_counters_equal=True,
+        **{k: sp[k] for k in ("rounds", "tokens_drafted",
+                              "tokens_accepted")})
 
 
 def _clear_prefix(pool):
@@ -2080,6 +2199,7 @@ def _profile_fn(tag, fn, extra=lambda: {}, top=12):
     for key, us, n in rows[:top]:
         log("profile", path=tag, kernel=repr(key[:60]),
             ms=round(us / 1e3, 3), calls=n, share=round(us / busy, 4))
+    return busy / 1e3, wall_us / 1e3
 
 
 def _agree(a, b):
@@ -2423,6 +2543,283 @@ def phase_slice():
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
     return launches, tokens, static, (cfg, params, mor)
+
+
+# -- self-speculative decoding (serving.spec) --------------------------------
+
+SPEC_NEW = 32                      # new tokens a request on the spec path
+
+
+def _device_busy_ms(fn, n=3):
+    """Mean device busy ms of one call of ``fn``: one warm call, then
+    ``n`` calls under ``torch.profiler`` (device only), their kernels'
+    durations summed off the raw trace events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch._C._autograd.DeviceType.CUDA
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == cuda) / 1e6 / n
+
+
+def _phase_device_ms(eng, reqs, n=3):
+    """Device busy ms of one decode, one draft and one verify dispatch of
+    ``eng`` (spec_k = k), once every slot of ``reqs`` decodes: each
+    dispatch is called ``n`` times at the same positions (its kv rows
+    rewritten, nothing advanced) under the profiler, so that its device
+    time is measured apart from the host's enqueue (the host takes ~7x
+    longer a dispatch; a spin cannot hide it: the launch queue fills).
+    The decode is a 1-row dispatch under the target plans; the draft the
+    same under the draft plans; the verify k + 1 rows a slot of random
+    draft tokens.  -> {kind: ms}; the engine is left mid-trace."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import spec as sp
+    for p, g in reqs:
+        eng.submit(p, g)
+    for _ in range(64):
+        if eng.scheduler.peek_kind() == "decode":
+            break
+        eng.step()
+    dec, pool = eng.spec, eng.pool
+    B, K, e = eng.n_slots, dec.k, (eng.cfg, eng.api, eng.mor_mode)
+    nv = np.ones((B,), np.int32)
+    nvv = np.full((B,), K + 1, np.int32)
+    pool.plan_writes(nvv)
+    cache_v, nvv_t, _ = dec._prepare(nvv)
+    cache_d, nv_t, _ = dec._prepare(nv)
+    toks = torch.randint(0, eng.cfg.vocab_size, (B, K + 1),
+                         device="cuda", dtype=torch.int32)
+    pending = eng._pending.clone()
+    return {
+        "decode": _device_busy_ms(lambda: sp.draft_step_impl(
+            *e, 0.0, 0, eng.params, eng.mor, cache_d, nv_t, pending), n),
+        "draft": _device_busy_ms(lambda: sp.draft_step_impl(
+            *e, 0.0, 0, eng.params, dec.mor_draft, cache_d, nv_t,
+            pending), n),
+        "verify": _device_busy_ms(lambda: sp.verify_step_impl(
+            *e, 0.0, 0, eng.params, eng.mor, cache_v, toks.clone(), nvv_t,
+            pending), n)}
+
+
+def phase_spec(model):
+    """Self-speculative decoding on granite-3-2b whole (40 layers, bf16,
+    paged, kernel mode): the slotted cell's 8 mixed requests with
+    SPEC_NEW new tokens each, vanilla and then with spec_k = SPEC_K at
+    draft_cap 0 (the draft plans are the target's), 0.5 and 0.25 (the
+    drafts' gather budget cut to that fraction of the tile grid).  Each
+    run is one counted pass (launches: ``_want_launches`` over every
+    dispatch, draft and verify included: each launches 40 of each MoR
+    kernel, 80 gather_matmul, and 40 gqa_paged_flash) on a fresh engine,
+    timed: acceptance, tokens a round, rounds, aborts, pass s and decode
+    tokens/s beside vanilla's, host ms a dispatch, greedy agreement with
+    vanilla (AGREE_MIN) and the exact-equal fraction (bf16 near-ties
+    flip between a 1-wide and a 5-wide dispatch: the live-tile mask of a
+    verify is not a decode's); then each config's decode, draft and
+    verify dispatch alone on the device (``_phase_device_ms``), and one
+    profiled warm pass (the second) at draft_cap 0: device busy a
+    round.  ->
+    (launches of the draft_cap 0.5 run, vanilla tokens)."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import Engine
+    cfg, params, mor = model
+    L = cfg.n_layers
+    reqs = [(p, SPEC_NEW) for p, _ in _mixed_trace(cfg)]
+    max_len = max(len(p) for p, _ in reqs) + SPEC_NEW + SPEC_K + 2
+
+    def engine(**kw):
+        return Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=8,
+                      max_len=max_len, **kw)
+
+    def run(eng):
+        emitted = [0]
+        if eng.spec is not None:
+            feed = eng.scheduler.feed_counts
+
+            def counted(c):
+                emitted[0] += int(np.sum(c))
+                return feed(c)
+            eng.scheduler.feed_counts = counted
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = eng.run(list(reqs))
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0, emitted[0]
+
+    runs, out = {}, {}
+    for cap in (None, 0.0) + DRAFT_CAPS:
+        kw = {} if cap is None else dict(spec_k=SPEC_K, draft_cap=cap)
+        eng = engine(**kw)
+        (toks, wall, emitted), launches = _counted(lambda: run(eng))
+        n = eng.counters["dispatches"]
+        want = _want_launches(L, n, paged=True)
+        assert launches == want, (cap, launches, want)
+        _check_tokens(cfg, reqs, toks)
+        tag = "vanilla" if cap is None else f"draft_cap_{cap}"
+        runs[tag] = toks
+        row = {"pass_s": round(wall, 3),
+               "decode_tok_s": round(eng.counters["decode_tokens"] / wall, 2),
+               "dispatches": n,
+               "dispatch_kinds": json.dumps(eng.scheduler.dispatch_kinds),
+               "host_ms_per_dispatch": round(
+                   eng.counters["wall_s"] * 1e3 / n, 3),
+               "launches": json.dumps(launches)}
+        if cap is not None:
+            sp = eng.spec.report()
+            agree = _agree(toks, runs["vanilla"])
+            exact = float(np.mean([toks[r] == runs["vanilla"][r]
+                                   for r in toks]))
+            assert agree >= AGREE_MIN, (cap, agree)
+            row.update(acceptance_rate=round(sp["acceptance_rate"], 4),
+                       tokens_per_round=round(emitted / sp["rounds"], 3),
+                       **{k: sp[k] for k in ("rounds", "tokens_drafted",
+                                             "tokens_accepted", "aborts")},
+                       agreement_vs_vanilla=round(agree, 4),
+                       exact_equal_fraction=round(exact, 4),
+                       speedup_vs_vanilla=round(
+                           out["vanilla"]["pass_s"] / wall, 4))
+        out[tag] = row
+        if cap == 0.0:
+            warm = eng
+        if cap == DRAFT_CAPS[0]:
+            spec_launches = launches
+        log("spec", path="granite spec", config=tag, **row)
+        del eng
+    for cap in (0.0,) + DRAFT_CAPS:
+        ms = _phase_device_ms(engine(spec_k=SPEC_K, draft_cap=cap), reqs)
+        log("spec", path="granite spec", config=f"draft_cap_{cap}",
+            **{f"{k}_device_ms": round(v, 3) for k, v in ms.items()},
+            verify_over_decode=round(ms["verify"] / ms["decode"], 4),
+            draft_over_decode=round(ms["draft"] / ms["decode"], 4))
+    eng = warm
+    eng.reset_counters()
+    busy, _ = _profile_fn(
+        f"{cfg.name}-spec-draft_cap_0.0",
+        lambda: eng.run(list(reqs)),
+        lambda: {"dispatches": eng.counters["dispatches"],
+                 "host_ms_per_dispatch": round(
+                     eng.counters["wall_s"] * 1e3
+                     / max(eng.counters["dispatches"], 1), 3)})
+    log("spec", path="granite spec", config="draft_cap_0.0",
+        profiled_rounds=eng.spec.counters["rounds"],
+        device_busy_ms_per_round=round(
+            busy / max(eng.spec.counters["rounds"], 1), 3))
+    return spec_launches, runs["vanilla"]
+
+
+SLO_SHORT = 4
+
+
+def _timed_calls(obj, name, into):
+    """Wrap ``obj.name`` so that each call's host ms, a device sync
+    included, lands in ``into``."""
+    import torch
+    real = getattr(obj, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        res = real(*a, **kw)
+        torch.cuda.synchronize()
+        into.append((time.perf_counter() - t0) * 1e3)
+        return res
+    setattr(obj, name, call)
+
+
+def phase_slo(model, vanilla):
+    """The SLO layer on granite-3-2b whole (paged, kernel mode): the spec
+    phase's trace (8 requests, SPEC_NEW new tokens each) on a kv pool
+    SLO_SHORT pages short of what the 8 requests hold at their end, so
+    that the engine must spill victims to the host and restore them:
+    spills, restores,
+    bytes moved, ms a spill and a restore (a device sync included), and
+    the tokens against the unpressured run (``vanilla``; exact-equal
+    fraction, AGREE_MIN).  Then open-loop traffic: the rate the engine
+    sustains, measured on a closed-loop pass over a seeded Poisson trace
+    (prompts 8-64, 8-24 new tokens, a quarter at priority 5), and a
+    ~10 s ``run_open_loop`` of a trace at 1.5x that rate, 2% of it
+    oversize, under ``policy="priority"`` with the tracer on: TTFT p50 /
+    p99 per class, preemptions, rejections and requests lost (0)."""
+    import numpy as np
+    import torch
+    from repro_torch.obs import Observability
+    from repro_torch.serving import Engine
+    from repro_torch.serving.loadgen import (latency_stats, poisson_trace,
+                                             run_open_loop)
+    cfg, params, mor = model
+    reqs = [(p, SPEC_NEW) for p, _ in _mixed_trace(cfg)]
+    page = cfg.serve_page
+    max_len = max(len(p) for p, _ in reqs) + SPEC_NEW + SPEC_K + 2
+    need = [-(-(len(p) + g) // page) for p, g in reqs]
+    n_blocks = -(-max_len // page)
+    # SLO_SHORT pages short of what the 8 requests hold at the end: a
+    # much tighter pool ends in PoolExhausted, the reference's own
+    # behaviour (tests/test_torch_slo.py::test_pool_too_small_exhausts_as_jax)
+    pages = sum(need) - SLO_SHORT
+    eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=8,
+                 max_len=max_len, prefix_cache=False,
+                 spare_pages=pages - 8 * n_blocks)
+    assert eng.pool.n_pages - 1 == pages
+    spill_ms, restore_ms = [], []
+    _timed_calls(eng.pool, "spill", spill_ms)
+    _timed_calls(eng.pool, "restore", restore_ms)
+    t0 = time.perf_counter()
+    toks = eng.run(list(reqs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _check_tokens(cfg, reqs, toks)
+    ev = eng.pool.spill_events
+    assert ev["spills"] > 0 and ev["restores"] == ev["spills"], ev
+    eng.pool.kv.check(eng.pool.external_refs("kv"))
+    agree = _agree(toks, vanilla)
+    assert agree >= AGREE_MIN, agree
+    log("slo", path="granite pressured pool", kv_pages=pages,
+        pages_needed=sum(need), pass_s=round(wall, 3),
+        preemptions=eng.counters["preemptions"], **ev,
+        spill_ms_mean=round(float(np.mean(spill_ms)), 3),
+        restore_ms_mean=round(float(np.mean(restore_ms)), 3),
+        agreement_vs_unpressured=round(agree, 4),
+        exact_equal_fraction=round(float(np.mean(
+            [toks[r] == vanilla[r] for r in toks])), 4))
+    del eng
+    shape = dict(vocab_size=cfg.vocab_size, prompt_len=(8, 64),
+                 max_new=(8, 24), hi_pri_frac=0.25)
+    calib = poisson_trace(2.0, 8.0, seed=SEED + 7, **shape)
+    max_len = 64 + 24 + 2
+    eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=8,
+                 max_len=max_len, policy="priority")
+    eng.run([(a.prompt, a.max_new_tokens) for a in calib[:2]])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run([(a.prompt, a.max_new_tokens) for a in calib])
+    torch.cuda.synchronize()
+    sustained = len(calib) / (time.perf_counter() - t0)
+    rate = 1.5 * sustained
+    trace = poisson_trace(rate, 10.0, seed=SEED + 8, oversize_frac=0.02,
+                          max_len=max_len, **shape)
+    obs = Observability(device_metrics=False)
+    eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=8,
+                 max_len=max_len, policy="priority", obs=obs)
+    res = run_open_loop(eng, trace)
+    lost = [rid for rid, i in res.submitted.items()
+            if len(eng.results.get(rid, [])) != trace[i].max_new_tokens]
+    assert not lost, lost
+    st = latency_stats(obs.tracer.request_spans(), res.submitted, trace)
+    log("slo", path="granite open loop", policy="priority",
+        closed_loop_requests=len(calib),
+        sustained_req_s=round(sustained, 3), offered_req_s=round(rate, 3),
+        arrivals=len(trace), submitted=res.n_submitted,
+        rejected=len(res.rejected), wall_s=round(res.wall_s, 3),
+        preemptions=eng.counters["preemptions"],
+        spills=eng.pool.spill_events["spills"], requests_lost=len(lost),
+        ttft=json.dumps({k: {q: round(v, 4) if isinstance(v, float) else v
+                             for q, v in d.items()}
+                         for k, d in st.items()}))
 
 
 # -- observability (obs/, the shadow twin) -----------------------------------
@@ -3202,6 +3599,91 @@ def reference_recurrent():
                                       "pages_shared", "pages_cowed",
                                       "snapshots", "snap_restores")
                    if k in pc})
+
+
+def reference_spec():
+    """Self-speculative decoding (k = 3) on reduced float32 granite-3-2b,
+    rwkv6-3b and zamba2-7b (its published head geometry, as in
+    ``reference_recurrent``), calibrated on the CPU, paged, 4 slots, a
+    shared-prefix trace of 10 new tokens a request, on the card (CUDA
+    kernels) and on the CPU (plain versions): greedy drafts in dense
+    mode and in kernel mode with drafts at draft_cap 0.5 give the CPU's
+    tokens and spec counters (dense: also vanilla decode's tokens);
+    temperature-1.0 drafts in dense mode give vanilla's greedy tokens
+    (their draws, and so their counters, are the card's own; the
+    recurrent families replay); granite and rwkv6 with a spill forced
+    after the first round and the restore give vanilla's tokens on both
+    devices.  Kernel-mode drafts at a temperature are left out: their
+    tokens depend on the draws."""
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.deploy import calibrate_hybrid, calibrate_lm
+    from repro_torch.launch.serve import calib_batches, make_trace
+    from repro_torch.models import get_model
+    from repro_torch.serving import Engine
+    for arch in ("granite-3-2b", "rwkv6-3b", "zamba2-7b"):
+        cfg = _zoo_reduced(arch) if arch == "zamba2-7b" else \
+            reduce_config(get_config(arch))
+        api = get_model(cfg)
+        params = api.init(torch.Generator().manual_seed(SEED), cfg)
+        cal = calibrate_hybrid if cfg.family == "hybrid" else calibrate_lm
+        params, mor, _ = cal(params, cfg, api.forward,
+                             calib_batches(cfg, 4, "cpu"), 2)
+        reqs = make_trace(cfg, 6, 4, 16, 10, 10, SEED, shared_prefix=16)
+
+        def engine(dev, mode, **kw):
+            return Engine(cfg, _to(params, dev),
+                          mor=None if mode == "dense" else _to(mor, dev),
+                          mor_mode=mode, n_slots=4, max_len=48, **kw)
+
+        vanilla = engine("cpu", "dense").run(list(reqs))
+        for mode, cap in (("dense", 0.0), ("kernel", 0.5)):
+            out = {}
+            for dev in ("cpu", "cuda"):
+                eng = engine(dev, mode, spec_k=3, draft_cap=cap)
+                out[dev] = (eng.run(list(reqs)), eng.spec.report(),
+                            dict(eng.scheduler.dispatch_kinds))
+            assert out["cuda"] == out["cpu"], \
+                f"{arch} spec {mode}: card and CPU differ"
+            if mode == "dense":
+                assert out["cuda"][0] == vanilla, f"{arch}: spec != vanilla"
+            sp = out["cuda"][1]
+            assert sp["rounds"] > 0 and sp["aborts"] == 0, sp
+            log("reference", model=f"{arch} reduced f32 paged spec",
+                mode=mode, draft_cap=cap, tokens_equal=True,
+                spec_counters_equal=True, vanilla_equal=mode == "dense",
+                **{k: sp[k] for k in ("rounds", "tokens_drafted",
+                                      "tokens_accepted", "replays")},
+                dispatch_kinds=json.dumps(out["cuda"][2]))
+        eng = engine("cuda", "dense", spec_k=3, spec_draft_temperature=1.0)
+        assert eng.run(list(reqs)) == vanilla, \
+            f"{arch}: temperature-1.0 drafts changed the greedy tokens"
+        sp = eng.spec.report()
+        assert arch == "granite-3-2b" or sp["replays"] > 0, sp
+        log("reference", model=f"{arch} reduced f32 paged spec",
+            draft_temperature=1.0, vanilla_equal=True,
+            **{k: round(v, 4) if isinstance(v, float) else v
+               for k, v in sp.items() if k != "draft_temperature"})
+        if arch == "zamba2-7b":
+            continue
+        for dev in ("cpu", "cuda"):
+            eng = engine(dev, "dense", spec_k=3)
+            rids = [eng.submit(p, g) for p, g in reqs]
+            for _ in range(50):
+                if eng.spec.counters["rounds"]:
+                    break
+                eng.step()
+            eng._preempt(eng.policy.spill_victim(eng.scheduler.slots))
+            while eng.scheduler.has_work:
+                eng.step()
+            eng.drain()
+            assert [eng.results[r] for r in rids] == \
+                [vanilla[r] for r in sorted(vanilla)], \
+                f"{arch} {dev}: preemption mid-speculation changed tokens"
+            assert eng.pool.spill_events["restores"] == 1
+        log("reference", model=f"{arch} reduced f32 paged spec",
+            preempted_mid_speculation=True, vanilla_equal=True,
+            spilled_bytes=eng.pool.spill_events["spilled_bytes"])
 
 
 def _calibrated_logged(cfg, api, params, calibrate):
@@ -4006,10 +4488,13 @@ def main() -> int:
     timed("reference deepseek", reference_deepseek)
     timed("reference zoo", reference_zoo)
     timed("reference recurrent", reference_recurrent)
+    timed("reference spec", reference_spec)
     timed("reference paper", reference_paper)
     granite, granite_tokens, granite_static, granite_model = timed(
         "granite", phase_slice)
     granite_obs = timed("obs", phase_obs, granite_model)
+    granite_spec, spec_vanilla = timed("spec", phase_spec, granite_model)
+    timed("slo", phase_slo, granite_model, spec_vanilla)
     del granite_model
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
@@ -4031,6 +4516,7 @@ def main() -> int:
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
                "granite_obs_shadow": granite_obs,
+               "granite_spec": granite_spec,
                "granite_static": granite_static,
                "deepseek_static": deepseek_static,
                "qwen2_long_prefill": qwen2_long, "paper_dnns": paper}

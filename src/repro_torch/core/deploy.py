@@ -29,7 +29,8 @@ INJECT_SCALE = 4.0
 
 
 def attach_plans(mor, cfg: ModelConfig, mode: str,
-                 capacities: Optional[Dict] = None):
+                 capacities: Optional[Dict] = None,
+                 draft_cap: Optional[float] = None):
     """Wrap calibrated layer-stacked MoR groups ({group -> stacked
     MoRLayer}, or for a MoE model's expert group {"experts": (L, E)-
     stacked MoRLayer}) in execution plans carrying the mode, tile
@@ -37,7 +38,10 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
     (L,) or (L, E) fractions, or a scalar}) attaches the calibrated
     budgets as ``cap_live``: host floats for a dense group, and for the
     expert group one (L, E) float32 tensor on the MoR tree's device,
-    uploaded here once so that no dispatch uploads a budget."""
+    uploaded here once so that no dispatch uploads a budget.
+    ``draft_cap`` (a fraction) also stores the self-speculative draft
+    budget on every plan (``executor.attach_draft_caps``), dormant until
+    the engine derives the drafter with ``as_draft()``."""
     if mor is None or mode == "dense":
         return mor
     caps = capacities or {}
@@ -76,7 +80,11 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
                 cap_live = np.broadcast_to(c, tuple(layer["m"].shape[:1]))
         return plan(layer, cap_live)
 
-    return {k: wrap(v, caps.get(k)) for k, v in mor.items()}
+    out = {k: wrap(v, caps.get(k)) for k, v in mor.items()}
+    if draft_cap is not None:
+        from repro_torch.core.executor import attach_draft_caps
+        out = attach_draft_caps(out, draft_cap)
+    return out
 
 
 def calibrate_lm(params: Dict, cfg: ModelConfig, forward: Callable,

@@ -31,6 +31,12 @@ kernels' slot budgets free of device syncs.  An expert plan (MoE) holds
 an (E,)-stacked MoRLayer per layer and runs ``expert_ffn``: the same
 body with the expert axis written out where the JAX package vmaps, its
 per-expert budget an (E,) float32 device tensor.
+
+``draft_cap`` is a second budget of the same kinds, for the
+self-speculative drafter (``serving.spec``): a plan with ``draft=True``
+(``as_draft``) clamps under ``draft_cap`` where a target plan clamps
+under ``cap_live``, so one set of weights drafts cheaply and verifies
+at full capacity.
 """
 from __future__ import annotations
 
@@ -139,11 +145,14 @@ class MoRExecutionPlan:
     ``capacity_frac`` (static) provisions the gather_matmul slot list;
     ``cap_live`` (host float, or an (L,) array for a layer-stacked plan;
     for an expert plan an (E,) or (L, E) float32 device tensor) is the
-    telemetry-calibrated budget clamped under it."""
+    telemetry-calibrated budget clamped under it.  ``draft_cap`` (the
+    same kinds) is the speculative drafter's budget, in force instead of
+    ``cap_live`` when ``draft`` is set."""
 
     def __init__(self, mor: Optional[MoRLayer], *, mode: str = "dense",
                  tile_m: int = 8, tile_n: int = 128,
-                 capacity_frac: float = 1.0, cap_live=None):
+                 capacity_frac: float = 1.0, cap_live=None,
+                 draft_cap=None, draft: bool = False):
         if mode not in MODES:
             raise ValueError(f"unknown MoR mode {mode!r}")
         self.mor = mor
@@ -152,18 +161,29 @@ class MoRExecutionPlan:
         self.tile_n = tile_n
         self.capacity_frac = capacity_frac
         self.cap_live = cap_live
+        self.draft_cap = draft_cap
+        self.draft = draft
 
     def __repr__(self):
         return (f"MoRExecutionPlan(mode={self.mode!r}, tile_m={self.tile_m},"
                 f" tile_n={self.tile_n}, capacity_frac={self.capacity_frac},"
                 f" calibrated={self.mor is not None},"
-                f" per_layer_capacity={self.cap_live is not None})")
+                f" per_layer_capacity={self.cap_live is not None},"
+                f" draft={self.draft})")
 
-    def _with_mode(self, mode: str) -> "MoRExecutionPlan":
-        return MoRExecutionPlan(self.mor, mode=mode, tile_m=self.tile_m,
-                                tile_n=self.tile_n,
-                                capacity_frac=self.capacity_frac,
-                                cap_live=self.cap_live)
+    def _replace(self, **kw) -> "MoRExecutionPlan":
+        args = dict(mode=self.mode, tile_m=self.tile_m, tile_n=self.tile_n,
+                    capacity_frac=self.capacity_frac, cap_live=self.cap_live,
+                    draft_cap=self.draft_cap, draft=self.draft)
+        mor = kw.pop("mor", self.mor)
+        args.update(kw)
+        return MoRExecutionPlan(mor, **args)
+
+    def as_draft(self) -> "MoRExecutionPlan":
+        """The draft-mode twin of this plan: the same weights and
+        budgets, ``draft=True`` so that ``draft_cap`` is the budget in
+        force (``cap_live`` while it is None)."""
+        return self._replace(draft=True)
 
     def as_shadow(self) -> "MoRExecutionPlan":
         """The dense-oracle scoring twin of this plan: same leaves and
@@ -171,7 +191,7 @@ class MoRExecutionPlan:
         (there is no predictor to score)."""
         if self.mor is None:
             return self
-        return self._with_mode("shadow")
+        return self._replace(mode="shadow")
 
     def as_scored(self) -> "MoRExecutionPlan":
         """The in-step scoring twin of a ``tiled`` plan: the same scoring
@@ -185,27 +205,36 @@ class MoRExecutionPlan:
             return self
         assert self.mode in ("tiled", "scored"), \
             f"as_scored() replaces tiled plans only, not {self.mode!r}"
-        return self._with_mode("scored")
+        return self._replace(mode="scored")
 
     def layer(self, l: int) -> "MoRExecutionPlan":
         """The plan of layer ``l`` of a layer-stacked plan."""
         mor = None if self.mor is None else {k: v[l]
                                              for k, v in self.mor.items()}
-        cap = self.cap_live
-        if torch.is_tensor(cap):
-            cap = cap[l]
-        elif cap is not None:
-            c = np.asarray(cap, np.float32)
-            cap = float(c[l]) if c.ndim else float(c)
-        return MoRExecutionPlan(mor, mode=self.mode, tile_m=self.tile_m,
-                                tile_n=self.tile_n,
-                                capacity_frac=self.capacity_frac,
-                                cap_live=cap)
+
+        def at(cap):
+            if torch.is_tensor(cap):
+                return cap[l]
+            if cap is not None:
+                c = np.asarray(cap, np.float32)
+                return float(c[l]) if c.ndim else float(c)
+            return None
+
+        return self._replace(mor=mor, cap_live=at(self.cap_live),
+                             draft_cap=at(self.draft_cap))
 
     @property
     def active(self) -> bool:
         """True when the predictor actually runs (calibrated + not dense)."""
         return self.mor is not None and self.mode != "dense"
+
+    @property
+    def active_cap(self):
+        """The budget in force: ``draft_cap`` for a drafter that has one,
+        ``cap_live`` otherwise."""
+        if self.draft and self.draft_cap is not None:
+            return self.draft_cap
+        return self.cap_live
 
     # -- the single predictor pass -----------------------------------------
     def predict(self, x: torch.Tensor, w: torch.Tensor, *,
@@ -249,14 +278,14 @@ class MoRExecutionPlan:
         # when uncapped), so that the scored ``kept`` is its decision
         kept = (self._capacity_clip(tiles)
                 if self.mode in ("kernel", "shadow", "scored")
-                or self.cap_live is not None else None)
+                or self.active_cap is not None else None)
         return MoRPrediction(computed, tiles, kept=kept)
 
     def _capacity_clip(self, tiles: torch.Tensor) -> torch.Tensor:
         """Capacity truncation mirroring gather_matmul's slot list: only
         the first ``capacity`` live tiles (row-major) of each FFN (each
         expert) are computed."""
-        cap_live = self.cap_live
+        cap_live = self.active_cap
         if self.capacity_frac >= 1.0 and cap_live is None:
             return tiles
         n_tiles = tiles.shape[-2] * tiles.shape[-1]
@@ -283,7 +312,7 @@ class MoRExecutionPlan:
             from repro_torch.kernels import ops as kops
             pre, n_live, n_comp = kops.gather_matmul(
                 x, w, pred.tiles, capacity_frac=self.capacity_frac,
-                capacity_frac_live=self.cap_live, tile_m=self.tile_m,
+                capacity_frac_live=self.active_cap, tile_m=self.tile_m,
                 tile_n=self.tile_n, with_counts=True)
             pred.kernel_counts = (n_live, n_comp)
             return pre.float()
@@ -460,6 +489,29 @@ def as_plan(mor, *, mode: str = "dense", tile_m: int = 8, tile_n: int = 128,
     return MoRExecutionPlan(mor, mode=mode if mor is not None else "dense",
                             tile_m=tile_m, tile_n=tile_n,
                             capacity_frac=capacity_frac)
+
+
+def attach_draft_caps(mor, draft_cap):
+    """Store a draft budget on every calibrated plan of an attached MoR
+    tree: ``draft_cap`` (a fraction, or anything that broadcasts to a
+    plan's stacked leading dims) lands as an (L,) float32 host array on
+    a layer stack, a float on a hybrid's one shared layer (the worst
+    call site's, as ``deploy.attach_plans`` takes for ``cap_live``), an
+    (L, E) float32 device tensor on an expert plan.  It stays dormant
+    until ``as_draft()`` turns the plan into the drafter."""
+    def one(p):
+        if p.mor is None:
+            return p
+        lead = tuple(p.mor["m"].shape[:-1])
+        c = np.broadcast_to(np.asarray(draft_cap, np.float32), lead)
+        if p.mor["m"].ndim == 3:
+            dc = torch.tensor(np.array(c), device=p.mor["m"].device)
+        elif not lead:
+            dc = float(c)
+        else:
+            dc = np.array(c)
+        return p._replace(draft_cap=dc)
+    return map_plans(mor, one)
 
 
 def map_plans(mor, fn):

@@ -36,6 +36,14 @@ the static-batch path on the same trace (``generate`` on groups of
 prefill, then every slot decodes until its group's longest request is
 done) and reports the engine's speedup over it.
 
+``--temperature`` / ``--top-k`` / ``--sample-seed`` sample instead of
+taking the argmax (the port's seeded noise, not ``jax.random``'s),
+``--spec-k K`` decodes self-speculatively (drafts under ``--draft-cap``
+at ``--spec-draft-temperature``, one verify pass at full capacity),
+``--policy`` / ``--prefill-budget`` pick the admission and preemption
+policy and the cap on a mixed dispatch's prompt tokens, and ``--stream``
+serves request 0 once more through ``Engine.stream``.
+
 ``--obs`` / ``--metrics-json`` / ``--trace-out`` / ``--metrics-port``
 attach the ``repro_torch.obs`` stack to the primary engine: a metrics
 registry (JSON / Prometheus), the metrics block on the device (counted
@@ -240,7 +248,8 @@ def run_engine(cfg, params, reqs, *, mor, mor_mode, n_slots, max_len,
                capacities=None, timed_passes: int = 3, **engine_kw):
     """Serve ``reqs``: one warm-up pass, then the best of
     ``timed_passes`` timed passes (each ends in a flush that waits for
-    the device).  ``engine_kw`` (layout, page, prefix_cache) go to the
+    the device).  ``engine_kw`` (layout, page, prefix_cache, sampling,
+    policy, speculation) go to the
     engine.  -> (engine, {request index: tokens}, report)."""
     eng = Engine(cfg, params, mor=mor, mor_mode=mor_mode, n_slots=n_slots,
                  max_len=max_len, capacities=capacities, **engine_kw)
@@ -341,6 +350,34 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend a shared N-token prefix to every "
                          "request (shared-prompt trace)")
+    ap.add_argument("--stream", action="store_true",
+                    help="serve request 0 once more through Engine.stream() "
+                         "and report the tokens it streamed")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation for temperature sampling (0 = "
+                         "the full distribution)")
+    ap.add_argument("--sample-seed", type=int, default=0)
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="self-speculative decoding: draft up to k tokens "
+                         "a slot a round and verify them in one target "
+                         "pass (0 = off; paged layout only; greedy output "
+                         "is the target's own)")
+    ap.add_argument("--draft-cap", type=float, default=0.0,
+                    help="MoR capacity fraction of the DRAFT pass (0 = "
+                         "draft at the target's capacity)")
+    ap.add_argument("--spec-draft-temperature", type=float, default=None,
+                    help="the draft pass's sampling temperature (default: "
+                         "--temperature)")
+    ap.add_argument("--policy", default="fcfs",
+                    choices=("fcfs", "priority", "sjf"),
+                    help="admission / preemption policy (priority may "
+                         "spill lower classes; sjf = shortest remaining "
+                         "prefill first)")
+    ap.add_argument("--prefill-budget", type=int, default=0,
+                    help="cap on the prompt tokens of a mixed dispatch "
+                         "(0 = unlimited)")
     ap.add_argument("--mor", default="dense",
                     choices=("dense", "exact", "tiled", "kernel"))
     ap.add_argument("--calib-steps", type=int, default=CALIB_STEPS)
@@ -439,7 +476,13 @@ def serve(args, device, group=None):
                       gmin, args.gen_len, args.seed,
                       shared_prefix=args.shared_prefix)
     max_len = args.shared_prefix + pmax + args.gen_len + 2
-    engine_kw = {"layout": args.layout, "chunk": args.chunk}
+    from repro_torch.serving.policy import get_policy
+    engine_kw = {"layout": args.layout, "chunk": args.chunk,
+                 "temperature": args.temperature, "top_k": args.top_k,
+                 "sample_seed": args.sample_seed,
+                 "policy": get_policy(args.policy, args.prefill_budget),
+                 "spec_k": args.spec_k, "draft_cap": args.draft_cap,
+                 "spec_draft_temperature": args.spec_draft_temperature}
     if args.layout != "slotted":
         engine_kw.update(page=args.page, prefix_cache=args.prefix_cache)
     if group is not None:
@@ -471,6 +514,9 @@ def serve(args, device, group=None):
                                        drift_threshold=args.drift_threshold,
                                        **engine_kw)
         report.update(rep)
+        report["policy"] = args.policy
+        if args.prefill_budget:
+            report["prefill_budget"] = args.prefill_budget
         say(f"[serve] {cfg.name} mor={args.mor} layout={args.layout} "
               f"device={device}: {rep['tokens_per_s']:.1f} tok/s over "
               f"{len(reqs)} requests ({rep['dispatches']} dispatches, prompts "
@@ -483,6 +529,19 @@ def serve(args, device, group=None):
                 f"{q.get('shadow_dispatches', 0)} dispatches scored, "
                 f"{dr.get('n_drifted', 0)}/{dr.get('n_series', 0)} "
                 f"series drifted")
+        if "spec" in rep:
+            sp = rep["spec"]
+            say(f"[serve] spec: k={sp['k']} draft_cap={sp['draft_cap']} "
+                f"acceptance {sp['acceptance_rate']:.2f} "
+                f"({sp['tokens_accepted']}/{sp['tokens_drafted']} drafts "
+                f"over {sp['rounds']} rounds, {sp['replays']} replays, "
+                f"{sp['aborts']} aborts)")
+        if args.stream:
+            p0, g0 = reqs[0]
+            streamed = list(eng.stream(p0, g0, interval=1))
+            report["stream"] = {"tokens": len(streamed), "interval": 1}
+            say(f"[serve] --stream: request 0 served again, {len(streamed)} "
+                f"tokens streamed: {streamed}")
         if "prefix_cache" in rep:
             pc = rep["prefix_cache"]
             say(f"[serve] prefix cache: hit rate {pc['hit_rate']:.2f} "

@@ -41,15 +41,33 @@ before the primary dispatch on a view of the cache
 (``kv_pool.shadow_view``), so tokens stay those of shadow-off.  The
 drift detector (``obs.quality``) reads the quality lanes at each flush.
 
-Sampling is greedy.  Speculation and preemption are later slices: where
-the JAX engine would spill a victim to free pages, this one raises
-``PoolExhausted``.
+Sampling: greedy argmax by default; ``temperature`` > 0 samples from
+the temperature / top-k distribution by Gumbel-max, its noise drawn on
+the device from a ``torch.Generator`` reseeded each dispatch from
+(``sample_seed``, dispatch index): no host read, and the same seed gives
+the same tokens (the port's own stream, not ``jax.random``'s).
+
+SLO scheduling: ``policy`` (``serving.policy``: "fcfs", "priority",
+"sjf", or an instance) orders admission; on the paged layout a
+priority arrival may preempt a lower class, and when the pool runs out
+of pages at admission or while planning a dispatch the engine spills a
+victim (``PagedPool.spill``: its exclusive pages and state to the host,
+its shared pages kept by reference) and requeues it at its exact
+progress; ``restore`` brings it back in any free slot.  ``spec_k`` > 0
+replaces decode dispatches with self-speculative rounds
+(``serving.spec``: drafts under the ``draft_cap`` budget, one verify at
+full capacity).
+
+Streaming: ``submit(..., on_token=cb)`` registers a per-request token
+callback, fired in order at the token flush; ``run(stream_interval=N)``
+flushes every N dispatches and ``stream()`` wraps one request as a
+generator.
 """
 from __future__ import annotations
 
 import contextlib
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
@@ -59,18 +77,16 @@ from repro_torch.distributed.decode_attention import page_shard_context
 from repro_torch.models import get_model
 from repro_torch.serving import kv_pool
 from repro_torch.serving import mesh
-from repro_torch.serving.policy import Policy
-from repro_torch.serving.scheduler import Request, RequestRejected, Scheduler
+from repro_torch.serving.policy import Policy, get_policy
+from repro_torch.serving.scheduler import (FREE, Request, RequestRejected,
+                                           Scheduler, new_dispatch_kinds)
+from repro_torch.serving.spec import (SpecDecoder, gumbel_from_uniform,
+                                      sample_step)
 from repro_torch.serving.telemetry import (ServingTelemetry,
                                            calibrate_capacity,
                                            export_telemetry, mor_group_map)
 
 __all__ = ["Engine", "Request", "RequestRejected"]
-
-
-_NO_PREEMPTION = ("the paged pool is exhausted; the JAX engine would "
-                  "spill a victim slot here, and preemption is ROADMAP "
-                  "queue A 5 of the port (raise spare_pages)")
 
 
 def _kernel_launches() -> Dict[str, int]:
@@ -87,7 +103,14 @@ def _kernel_launches() -> Dict[str, int]:
 
 def _zero_counters() -> Dict:
     return {"prefill_tokens": 0, "decode_tokens": 0, "dispatches": 0,
-            "wall_s": 0.0, "requests_rejected": 0}
+            "wall_s": 0.0, "preemptions": 0, "requests_rejected": 0}
+
+
+def _fold(seed: int, index: int) -> int:
+    """The generator seed of dispatch ``index`` under ``seed`` (the
+    port's counterpart of ``jax.random.fold_in``): host arithmetic."""
+    state = np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)
+    return int(state[0] >> np.uint64(1))
 
 
 class Engine:
@@ -109,7 +132,14 @@ class Engine:
     and the tracer; ``shadow_rate`` > 0 (which needs ``obs`` with device
     metrics and a MoR tree) samples dispatches through the predictor's
     shadow twin, and ``drift_threshold`` / ``drift_detector`` set up the
-    drift detector over its scores."""
+    drift detector over its scores.
+
+    ``temperature`` / ``top_k`` / ``sample_seed`` set the sampling,
+    ``policy`` the admission and preemption policy (a name or a
+    ``Policy``), and ``spec_k`` > 0 (paged layout, ``spec_k <= chunk``)
+    self-speculative decoding with drafts under ``draft_cap`` (0: the
+    target plans) at ``spec_draft_temperature`` (default: the
+    target's)."""
 
     def __init__(self, cfg: ModelConfig, params, *, mor: Optional[Dict] = None,
                  mor_mode: str = "dense", n_slots: int = 8,
@@ -118,7 +148,10 @@ class Engine:
                  layout: str = "paged", page: int = 0,
                  prefix_cache: bool = True,
                  spare_pages: Optional[int] = None, temperature: float = 0.0,
-                 policy: Optional[Policy] = None, group=None, obs=None,
+                 top_k: int = 0, sample_seed: int = 0, policy=None,
+                 group=None, obs=None, spec_k: int = 0,
+                 draft_cap: float = 0.0,
+                 spec_draft_temperature: Optional[float] = None,
                  shadow_rate: float = 0.0, drift_threshold: float = 0.25,
                  drift_detector: str = "ewma"):
         if layout not in ("paged", "paged-sharded", "slotted"):
@@ -132,11 +165,8 @@ class Engine:
             raise NotImplementedError(
                 "the page-sharded shadow step is ROADMAP queue A 7 of the "
                 "port: serve with shadow_rate=0 on this layout")
-        if temperature > 0.0:
-            raise NotImplementedError(
-                "temperature sampling comes with the speculation / SLO "
-                "slice of the port (ROADMAP queue A 5); this engine "
-                "samples greedily")
+        if spec_k > 0 and layout != "paged":
+            raise ValueError("speculative decoding runs on layout='paged'")
         self.cfg = cfg
         self.api = get_model(cfg)
         if not self.api.has_decode:
@@ -167,9 +197,21 @@ class Engine:
             self.pool = None
             self.cache = kv_pool.init(cfg, n_slots, max_len, self.chunk,
                                       device=self.device)
+        if isinstance(policy, str):
+            policy = get_policy(policy)
         self.scheduler = Scheduler(n_slots, self.chunk, policy=policy)
         self.policy: Policy = self.scheduler.policy
+        # preemption spills through host copies of one device's pool
+        # leaves: the paged layout only, as in the JAX package
+        self._can_preempt = layout == "paged"
+        self._spilled: Dict[int, kv_pool.SpillRecord] = {}
         self.telemetry = ServingTelemetry() if telemetry else None
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.sample_seed = int(sample_seed)
+        self._gen = torch.Generator(device=self.device)
+        self._stream_cbs: Dict[int, Callable[[int, int], None]] = {}
+        self._stream_done: set = set()
         self._next_rid = 0
         self._aux_log: List[Dict] = []
         self._pending = torch.zeros((n_slots,), dtype=torch.int32,
@@ -180,6 +222,42 @@ class Engine:
         self.counters = _zero_counters()
         self.rejections: Dict[str, int] = {}
         self._init_obs(obs, shadow_rate, drift_threshold, drift_detector)
+        self.spec: Optional[SpecDecoder] = None
+        if spec_k > 0:
+            # draft rows past the committed position must stay inside the
+            # ring's slack of ``chunk`` rows
+            if spec_k > self.chunk:
+                raise ValueError(f"spec_k={spec_k} must be <= chunk="
+                                 f"{self.chunk}")
+            self.spec = SpecDecoder(self, spec_k=spec_k, draft_cap=draft_cap,
+                                    draft_temperature=spec_draft_temperature)
+
+    # -- sampling noise ----------------------------------------------------
+    def _noise(self, B: int, K: int = 0):
+        """This dispatch's draws, on the device from the generator reseeded
+        from (sample_seed, dispatch index): -> ((B, K) uniforms, a
+        verify's acceptance draws, or None when K is 0; (B, V) Gumbel
+        noise)."""
+        self._gen.manual_seed(_fold(self.sample_seed,
+                                    self.counters["dispatches"]))
+
+        def rand(*shape):
+            return torch.rand(shape, generator=self._gen, device=self.device)
+
+        u = rand(B, K) if K else None
+        return u, gumbel_from_uniform(rand(B, self.cfg.vocab_size))
+
+    def _prepare(self, n_valid: np.ndarray):
+        """Apply the pool's pending edits (one upload when dirty) and slice
+        the block table to the width this dispatch needs (the attends
+        never touch the provably-null tail columns; the table itself is
+        only edited host-side, through the flush) -> (cache view, ops)."""
+        ops = self.pool.flush(self.cache)
+        cache = self.cache
+        W = self.pool.active_blocks(n_valid)
+        if W is not None:
+            cache = dict(cache, block_table=cache["block_table"][:, :W])
+        return cache, ops
 
     # -- observability -----------------------------------------------------
     def _init_obs(self, obs, shadow_rate: float, drift_threshold: float,
@@ -249,9 +327,7 @@ class Engine:
         pages touched from the active block table, page edits from the
         ops vector, tile lanes from ``aux``."""
         dec = torch.where(up, nv, 0).sum(dtype=torch.int32)
-        scalars = dict(kv_pool.ops_counts(self.cache, ops[0], *ops[1])
-                       if ops is not None else {},
-                       dispatches=self._one, decode_tokens=dec,
+        scalars = dict(dispatches=self._one, decode_tokens=dec,
                        prefill_tokens=nv.sum(dtype=torch.int32) - dec)
         # an in-step scored dispatch carries the shadow_* leaves: it IS
         # the primary, so the base lanes count once and the quality
@@ -259,6 +335,15 @@ class Engine:
         if any(isinstance(st, dict) and "shadow_false_skip" in st
                for st in aux.values()):
             scalars["shadow_dispatches"] = self._one
+        self._accumulate(scalars, aux, nv, bt, ops)
+
+    def _accumulate(self, scalars: Dict, aux: Dict, nv: torch.Tensor,
+                    bt: Optional[torch.Tensor], ops) -> None:
+        """``scalars`` and ``aux`` into the metrics block, with the page
+        edits of ``ops`` and the pages the active table ``bt`` shows."""
+        if ops is not None:
+            scalars = dict(kv_pool.ops_counts(self.cache, ops[0], *ops[1]),
+                           **scalars)
         if bt is not None:
             scalars["pages_touched"] = ((bt > 0) & (nv > 0)[:, None]).sum(
                 dtype=torch.int32)
@@ -339,6 +424,14 @@ class Engine:
                     "live (slot, block) table entries visible to the paged "
                     "attends, summed over dispatches",
                     ("layout",)).set(dm["pages_touched"], layout=lay)
+        reg.counter("repro_spec_tokens_drafted_total",
+                    "draft tokens proposed by speculative rounds "
+                    "(device-counted)",
+                    ("layout",)).set(dm["tokens_drafted"], layout=lay)
+        reg.counter("repro_spec_tokens_accepted_total",
+                    "draft tokens the target verify accepted "
+                    "(device-counted)",
+                    ("layout",)).set(dm["tokens_accepted"], layout=lay)
         cpe = reg.counter("repro_pool_page_events_total",
                           "device page edits applied by the packed ops",
                           ("layout", "table", "event"))
@@ -412,6 +505,11 @@ class Engine:
                         else 0.0, **lab)
 
     def _mirror_pool(self, reg, lay: str) -> None:
+        cpre = reg.counter("repro_preemptions_total",
+                           "slot preemptions: page spills to host and "
+                           "restores", ("layout", "event"))
+        for k, v in self.pool.spill_events.items():
+            cpre.set(v, layout=lay, event=k)
         cal = reg.counter("repro_pool_alloc_events_total",
                           "host allocator page alloc/free events",
                           ("layout", "table", "event"))
@@ -463,19 +561,39 @@ class Engine:
 
     # -- flushes -----------------------------------------------------------
     def _flush_tokens(self) -> None:
+        """Deliver the token log to ``results`` and the stream callbacks,
+        in order.  Entries are (emits, tokens (B,)) of a vanilla dispatch
+        or (emits, tokens (B, K+1), host counts (B,)) of a speculative
+        round; the whole log comes to the host in ONE transfer."""
         if self._tok_log:
-            toks = torch.stack([e[1] for e in self._tok_log])
             if self.group is not None:
                 # the ranks' schedulers stay in step only while their
                 # tokens agree: raise at the first dispatch that differs
+                toks = torch.stack([e[1] for e in self._tok_log])
                 mesh.check_tokens(toks, self.group, self._tok_checked)
                 self._tok_checked += len(toks)
-            # ONE device -> host transfer for the whole log
-            fetched = toks.cpu()
-            for (emits, _), toks in zip(self._tok_log, fetched.numpy()):
+            flat = torch.cat([e[1].reshape(-1) for e in self._tok_log])
+            flat = flat.cpu().numpy()
+            i = 0
+            for entry in self._tok_log:
+                emits, n = entry[0], entry[1].numel()
+                toks = flat[i:i + n].reshape(entry[1].shape)
+                i += n
                 for s, rid in emits:
-                    self.results.setdefault(rid, []).append(int(toks[s]))
+                    vals = ((toks[s],) if len(entry) == 2
+                            else toks[s, :int(entry[2][s])])
+                    res = self.results.setdefault(rid, [])
+                    cb = self._stream_cbs.get(rid)
+                    for t in vals:
+                        res.append(int(t))
+                        if cb is not None:
+                            cb(rid, int(t))
             self._tok_log.clear()
+        # a flush delivers every logged token, so the finished requests'
+        # callbacks have had their last one
+        for rid in self._stream_done:
+            self._stream_cbs.pop(rid, None)
+        self._stream_done.clear()
 
     def _flush_telemetry(self) -> None:
         if self.telemetry is not None:
@@ -493,9 +611,16 @@ class Engine:
         self.rejections[reason] = self.rejections.get(reason, 0) + 1
         raise RequestRejected(reason, msg)
 
-    def submit(self, prompt, max_new_tokens: int = 16) -> int:
-        """Queue a request; returns its rid.  Unservable requests raise
-        ``RequestRejected`` before touching the queue."""
+    def submit(self, prompt, max_new_tokens: int = 16,
+               on_token: Optional[Callable[[int, int], None]] = None,
+               priority: int = 0) -> int:
+        """Queue a request; returns its rid.  ``on_token(rid, token)`` is
+        called for each generated token, in order, when the engine
+        flushes its token log (the end of ``run``, or every
+        ``stream_interval`` dispatches): streaming adds no device sync.
+        ``priority`` feeds the policy (higher admits first; under
+        ``PriorityPolicy`` it may preempt lower classes).  Unservable
+        requests raise ``RequestRejected`` before touching the queue."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             self._reject("empty_prompt", "prompt must have >= 1 token")
@@ -511,25 +636,85 @@ class Engine:
                          f"[0, {self.cfg.vocab_size})")
         rid = self._next_rid
         self._next_rid += 1
+        if on_token is not None:
+            self._stream_cbs[rid] = on_token
         if self._tr is not None:
             self._tr.on_submit(rid)
-        self.scheduler.add(Request(rid, prompt, max_new_tokens))
+        self.scheduler.add(Request(rid, prompt, max_new_tokens,
+                                   priority=priority))
         return rid
 
-    def _place(self, slot: int, entry) -> int:
-        """Scheduler admission hook (paged layout): prefix-cache
-        admission through the pool; returns the prompt offset to start
-        from."""
-        return self.pool.admit(slot, entry.req.prompt)
+    # -- preemption --------------------------------------------------------
+    def _preempt(self, slot: int) -> None:
+        """Spill ``slot``'s pages to the host and requeue its request at
+        its exact progress.  The slot's pending token (its last sample)
+        rides in the spill record (one read of the device a spill), and
+        ``_place`` puts it back on restore."""
+        if not self._can_preempt:
+            raise ValueError(f"preemption spills pages of layout='paged', "
+                             f"not {self.layout!r}")
+        req = self.scheduler.slots[slot].req
+        rec = self.pool.spill(slot, self.cache)
+        rec.rid = req.rid
+        rec.last_token = int(self._pending[slot].item())
+        self._spilled[req.rid] = rec
+        self.scheduler.preempt(slot)
+        self.counters["preemptions"] += 1
+        if self._tr is not None:
+            self._tr.on_preempt(req.rid, slot)
+
+    def _place(self, slot: int, entry) -> Optional[int]:
+        """Scheduler admission hook (paged layouts): prefix-cache
+        admission for a fresh request, the spill record's restore for a
+        preempted one.  -> the prompt offset to start from, or None to
+        defer the admission (pool exhausted: the engine may spill a
+        victim and retry)."""
+        if entry.resume:
+            rec = self._spilled[entry.req.rid]
+            try:
+                self.pool.restore(slot, rec, self.cache)
+            except kv_pool.PoolExhausted:
+                return None
+            del self._spilled[entry.req.rid]
+            self._pending[slot] = rec.last_token
+            if self._tr is not None:
+                self._tr.on_restore(entry.req.rid, slot)
+            return entry.offset
+        try:
+            return self.pool.admit(slot, entry.req.prompt)
+        except kv_pool.PoolExhausted:
+            return None
 
     @torch.no_grad()
     def step(self) -> List[int]:
-        """One scheduler iteration: admit, dispatch, ingest.  Returns the
-        rids that finished this step."""
+        """One scheduler iteration: admit (preempting victims when the
+        policy or the pool's pressure asks for it), dispatch, ingest.
+        Returns the rids that finished this step."""
         t0 = time.perf_counter()
         sched = self.scheduler
         pool = self.pool
-        admitted = sched.admit(self._place if pool is not None else None)
+        # policy preemption: with no slot free, the policy may evict a
+        # running victim for the head of the (ordered) queue
+        if self._can_preempt and sched.waiting and \
+                not any(s.state is FREE for s in sched.slots):
+            self.policy.order(sched.waiting)
+            victim = self.policy.select_victim(sched.slots, sched.waiting[0])
+            if victim is not None:
+                self._preempt(victim)
+        place = self._place if pool is not None else None
+        admitted = sched.admit(place)
+        if pool is not None:
+            # admission deferred for want of pages: spill victims and
+            # retry, never a slot admitted in this step
+            for _ in range(self.n_slots):
+                if not sched.deferred or not self._can_preempt:
+                    break
+                victim = self.policy.spill_victim(sched.slots,
+                                                  exclude=admitted)
+                if victim is None:
+                    break
+                self._preempt(victim)
+                admitted += sched.admit(place)
         if admitted and pool is None:
             mask = np.zeros((self.n_slots,), bool)
             mask[admitted] = True
@@ -537,7 +722,16 @@ class Engine:
                                 kv_pool.upload(mask, self.device))
         kind = sched.peek_kind()
         if kind is None:
+            if sched.waiting:
+                raise kv_pool.PoolExhausted(
+                    "no waiting request can be admitted and nothing is "
+                    "running: the pool is exhausted with no victim to spill")
             return []
+        # a decode-only step becomes a speculative round (atomic inside
+        # this step, so that a preemption above sees committed state);
+        # ready() backs off one step after a round aborted for pages
+        if self.spec is not None and kind == "decode" and self.spec.ready():
+            return self.spec.round(t0, admitted)
         tokens, n_valid, use_pending, emits, finishing, prefilling = \
             sched.build_batch(kind)
         cache = self.cache
@@ -548,22 +742,36 @@ class Engine:
             # earlier dispatches left in the pool), publish the prefix of
             # windowed prompts about to wrap their ring, then allocate /
             # copy-on-write every page this dispatch will touch and
-            # apply the edits (one upload when dirty, none when clean)
-            for s, off in finishing:
-                pool.maybe_snapshot(s, sched.slots[s].req.prompt, off)
-            for s, off, take in prefilling:
-                pool.maybe_publish_prewrap(s, sched.slots[s].req.prompt,
-                                           off, take)
-            try:
-                pool.plan_writes(n_valid)
-            except kv_pool.PoolExhausted as e:
-                raise kv_pool.PoolExhausted(_NO_PREEMPTION) from e
-            ops = pool.flush(cache)
-            # the attends never touch the provably-null tail columns;
-            # the table itself is only edited host-side, through flush
-            W = pool.active_blocks(n_valid)
-            if W is not None:
-                cache = dict(cache, block_table=cache["block_table"][:, :W])
+            # apply the edits (one upload when dirty, none when clean).
+            # Running out of pages mid-plan spills a victim and rebuilds
+            # the batch (the victim may have been in it); the hooks are
+            # idempotent and the plan resumes past blocks already made
+            # exclusive, so the retry is safe.
+            for _ in range(self.n_slots + 1):
+                for s, off in finishing:
+                    pool.maybe_snapshot(s, sched.slots[s].req.prompt, off)
+                for s, off, take in prefilling:
+                    pool.maybe_publish_prewrap(s, sched.slots[s].req.prompt,
+                                               off, take)
+                try:
+                    pool.plan_writes(n_valid)
+                    break
+                except kv_pool.PoolExhausted:
+                    victim = (self.policy.spill_victim(sched.slots,
+                                                       exclude=admitted)
+                              if self._can_preempt else None)
+                    if victim is None:
+                        raise
+                    self._preempt(victim)
+                    kind = sched.peek_kind()
+                    if kind is None:            # spilled the whole batch
+                        return []
+                    (tokens, n_valid, use_pending, emits, finishing,
+                     prefilling) = sched.build_batch(kind)
+            else:
+                raise kv_pool.PoolExhausted(
+                    "the dispatch does not fit even after spilling victims")
+            cache, ops = self._prepare(n_valid)
         sched.dispatch_kinds[kind] += 1
         ndec = int(use_pending.sum()) if kind == "mixed" else 0
         tok = kv_pool.upload(tokens, self.device)
@@ -595,7 +803,11 @@ class Engine:
                 mor=mor, mor_mode=self.mor_mode)
         last = torch.clamp(nv - 1, min=0).long()
         lg = logits[torch.arange(self.n_slots, device=self.device), last]
-        nxt = torch.argmax(lg, dim=-1).to(torch.int32)   # greedy, first max
+        # the sampling head the speculative verify shares (serving.spec)
+        nxt, _ = sample_step(lg, temperature=self.temperature,
+                             top_k=self.top_k,
+                             gumbel=self._noise(self.n_slots)[1]
+                             if self.temperature > 0.0 else None)
         self._pending = torch.where(nv > 0, nxt, self._pending)
         if self._mblock is not None:
             self._count_dispatch(aux, nv, up, cache.get("block_table"), ops)
@@ -606,6 +818,9 @@ class Engine:
         if self.telemetry is not None and aux:
             self._aux_log.append(aux)
         finished, entering = sched.feed(n_valid)
+        for _, req in finished:
+            if req.rid in self._stream_cbs:
+                self._stream_done.add(req.rid)
         if pool is not None:
             # publish AFTER the dispatch that wrote the prompt's last
             # pages; release AFTER publish so a request finishing in the
@@ -641,7 +856,9 @@ class Engine:
         self.rejections = {}
         self.scheduler.chunks_skipped = 0
         self.scheduler.tokens_skipped = 0
-        self.scheduler.dispatch_kinds = {"mixed": 0, "decode": 0}
+        self.scheduler.dispatch_kinds = new_dispatch_kinds()
+        if self.spec is not None:
+            self.spec.reset()
         if self.pool is not None:
             self.pool.reset_event_counters()
         if self._mblock is not None:
@@ -653,22 +870,62 @@ class Engine:
         if self._tr is not None:
             self._tr.reset()
 
-    def run(self, requests=None) -> Dict[int, List[int]]:
+    def drain(self) -> None:
+        """A flush without serving: deliver the token log (and the stream
+        callbacks) and push the telemetry and obs mirrors.  Open-loop
+        drivers that step the engine themselves call it at the end."""
+        self._flush_tokens()
+        self._flush_telemetry()
+        self._flush_obs()
+
+    def run(self, requests=None,
+            stream_interval: int = 0) -> Dict[int, List[int]]:
         """Drive the queue (plus optional (prompt, max_new) pairs) to
         completion; returns {rid: generated tokens} for the requests
-        submitted by THIS call (all-time results stay in ``results``)."""
+        submitted by THIS call (all-time results stay in ``results``).
+        ``stream_interval`` > 0 flushes the token log (firing the
+        ``on_token`` callbacks) every that many dispatches instead of
+        only at the end: a device sync each time, for incremental
+        delivery."""
         first_rid = self._next_rid
         for prompt, max_new in requests or ():
             self.submit(prompt, max_new)
         while self.scheduler.has_work:
             self.step()
-        self._flush_tokens()
-        self._flush_telemetry()
-        self._flush_obs()
+            if stream_interval > 0 and \
+                    self.counters["dispatches"] % stream_interval == 0:
+                self._flush_tokens()
+        self.drain()
         if requests:
             return {rid: toks for rid, toks in self.results.items()
                     if rid >= first_rid}
         return dict(self.results)
+
+    def stream(self, prompt, max_new_tokens: int = 16,
+               interval: int = 1) -> Iterator[int]:
+        """Submit ONE request now and return a generator of its tokens as
+        they reach the host (the log flushes every ``interval``
+        dispatches).  Other queued requests are served by the same
+        dispatches."""
+        got: List[int] = []
+        self.submit(prompt, max_new_tokens,
+                    on_token=lambda _rid, tok: got.append(tok))
+
+        def gen() -> Iterator[int]:
+            served = 0
+            while self.scheduler.has_work:
+                self.step()
+                if self.counters["dispatches"] % max(interval, 1) == 0:
+                    self._flush_tokens()
+                while served < len(got):
+                    yield got[served]
+                    served += 1
+            self.drain()
+            while served < len(got):
+                yield got[served]
+                served += 1
+
+        return gen()
 
     # -- telemetry-driven capacity calibration -----------------------------
     def calibrate_capacities(self, quantile: float = 0.95,
@@ -686,6 +943,9 @@ class Engine:
         if self._shadow_mor is not None:
             # the shadow twin mirrors the active plans' capacity clip
             self._shadow_mor = self._shadow_tree()
+        if self.spec is not None:
+            # the draft tree wraps the re-attached target plans
+            self.spec.refresh()
         return caps
 
     def update_mor(self, raw_mor: Dict) -> None:
@@ -697,6 +957,8 @@ class Engine:
         self.mor = self._attach(self.capacities)
         if self._shadow_mor is not None:
             self._shadow_mor = self._shadow_tree()
+        if self.spec is not None:
+            self.spec.refresh()
 
     def _prefix_counters(self) -> Dict:
         """Prefix-cache counters merged across the pool (pages, hits)
@@ -733,6 +995,12 @@ class Engine:
             "decode_tokens_per_s": c["decode_tokens"] / wall,
             **c,
         }
+        if self.temperature > 0.0:
+            rep["sampling"] = {"temperature": self.temperature,
+                               "top_k": self.top_k,
+                               "sample_seed": self.sample_seed}
+        if self.spec is not None:
+            rep["spec"] = self.spec.report()
         if self.pool is not None:
             rep["page"] = self.pool.page
             if self.pool.prefix is not None:

@@ -28,11 +28,16 @@ dirty dispatch that ``apply_cache_ops`` applies to the device cache in
 place.  With ``n_shards > 1`` the pool is page-sharded over ranks (the
 ``paged-sharded`` layout): the host half is replicated and
 ownership-aware, and each rank builds and edits only its own page range.
-Preemption (``spill`` / ``restore``) and speculation forks are ROADMAP
-queue A 5 of the port.
+
+Preemption (``spill`` / ``restore``, one device) moves a slot's
+exclusively owned pages and its recurrent state to the host and keeps
+its shared pages by reference (``SpillRecord``); a speculative round
+(``spec_fork`` ... ``spec_abort``) is a block-table operation plus, for
+a model with state, one backup copy of the state page (``SpecFork``).
 """
 from __future__ import annotations
 
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -372,6 +377,14 @@ class BlockAllocator:
         assert page != 0 and self.ref[page] > 0, "retain of unowned page"
         self.ref[page] += 1
 
+    def unalloc(self, page: int) -> None:
+        """Return a just-allocated (sole-ref) page to the free list."""
+        assert self.ref[page] == 1, "unalloc of a shared page"
+        self.ref[page] = 0
+        self._free[self.shard_of(page)].append(page)
+        self.in_use[self.shard_of(page)] -= 1
+        self.events["free"] += 1
+
     def drop(self, page: int) -> bool:
         """Drop one reference; returns True if the page was freed."""
         assert page != 0 and self.ref[page] > 0, "drop of unowned page"
@@ -459,6 +472,49 @@ class BlockAllocator:
                             minlength=self.n_shards)
         assert np.array_equal(owned, self.in_use), \
             f"per-shard in_use {self.in_use} != owned {owned}"
+
+
+# ==========================================================================
+# spill records and speculation forks (host side)
+# ==========================================================================
+
+# the kv-node leaf order shared by the spill gather and the restore
+# scatter (k and v share shape and dtype: only a fixed walk order keeps
+# the flat host lists aligned)
+_KV_KEYS = ("k", "v", "c_kv", "k_pe", "pos")
+
+
+@dataclass
+class SpecFork:
+    """Restore point of one slot's speculative round: the committed
+    position, the block-table row at fork time (rollback drops the
+    blocks the round allocated fresh) and, for a model with state, the
+    backup state page holding the state at the fork (draft and verify
+    dispatches advance the live page in place).  KV pages need no
+    backup: stale rows past the committed position carry tags above any
+    later query's position and mask themselves."""
+    slot: int
+    pos: int
+    kv_row: Optional[np.ndarray] = None
+    st_backup: int = 0
+
+
+@dataclass
+class SpillRecord:
+    """Host image of a preempted slot, enough for ``restore`` to resume
+    the request in any slot: its position, its last sampled token (the
+    engine splices it back into its pending vector), the contents of its
+    exclusively owned kv pages and of its state page (CPU tensors, in
+    ``_KV_KEYS`` walk order), and the (block, page) pairs of its SHARED
+    pages, kept by reference instead of copied."""
+    rid: int = -1
+    pos: int = 0
+    last_token: int = 0
+    kv_kept: List[Tuple[int, int]] = field(default_factory=list)
+    kv_blocks: List[int] = field(default_factory=list)
+    kv_host: List[torch.Tensor] = field(default_factory=list)
+    st_host: List[torch.Tensor] = field(default_factory=list)
+    nbytes: int = 0
 
 
 # ==========================================================================
@@ -557,6 +613,10 @@ class PagedPool:
         self._st_reset: set = set()
         self._st_copies: List[Tuple[int, int]] = []
         self._dirty = False
+        # pages kept alive BY REFERENCE for spilled requests ({page: n})
+        self._spill_kv: Dict[int, int] = {}
+        self.spill_events = {"spills": 0, "restores": 0,
+                             "spilled_bytes": 0}
 
     # -- device cache ------------------------------------------------------
     def local_pages(self) -> Tuple[int, int]:
@@ -684,12 +744,15 @@ class PagedPool:
             prefer: Optional[int]) -> bool:
         return prefer is None or alloc.shard_of(page) == prefer
 
-    def _kv_alloc(self, prefer: Optional[int] = None) -> Optional[int]:
+    def _kv_alloc(self, prefer: Optional[int] = None,
+                  reset: bool = True) -> Optional[int]:
         """Allocate a kv page (on shard ``prefer`` when given), evicting
         LRU prefix-cache entries whose page actually frees (an entry
         still shared into a live slot reclaims nothing: keep it for
         future hits), then state snapshots holding such pages, on that
-        shard."""
+        shard.  ``reset=False`` (a restore, whose content is uploaded
+        from the host) drops any reset still queued on the id instead of
+        queueing one."""
         p = self.kv.alloc(prefer)
         while p is None and self.prefix is not None:
             pg = self.prefix.evict_lru_page(
@@ -708,14 +771,19 @@ class PagedPool:
                 self._drop_snap(e)
             p = self.kv.alloc(prefer)
         if p is not None:
-            self._kv_reset.add(p)
+            if reset:
+                self._kv_reset.add(p)
+            else:
+                self._kv_reset.discard(p)
             self._dirty = True
         return p
 
-    def _st_alloc(self, prefer: Optional[int] = None) -> Optional[int]:
+    def _st_alloc(self, prefer: Optional[int] = None,
+                  reset: bool = True) -> Optional[int]:
         """Allocate a state page (on shard ``prefer`` when given; zeroed
-        by the next flush), evicting LRU snapshots; a snapshot pinned
-        mid-restore (its page's ref > 1) is kept."""
+        by the next flush unless ``reset=False``, as in ``_kv_alloc``),
+        evicting LRU snapshots; a snapshot pinned mid-restore (its
+        page's ref > 1) is kept."""
         p = self.st.alloc(prefer)
         while p is None and self.prefix is not None:
             e = self.prefix.evict_lru_snap(
@@ -726,7 +794,10 @@ class PagedPool:
             self._drop_snap(e)
             p = self.st.alloc(prefer)
         if p is not None:
-            self._st_reset.add(p)
+            if reset:
+                self._st_reset.add(p)
+            else:
+                self._st_reset.discard(p)
             self._dirty = True
         return p
 
@@ -925,26 +996,214 @@ class PagedPool:
         self.pos[slot] = 0
         self._dirty = True
 
-    def spill(self, *args, **kwargs):
-        raise NotImplementedError(
-            "preemption (PagedPool.spill / restore) is ROADMAP queue A 5 "
-            "of the port")
+    # -- preemption: spill / restore ---------------------------------------
+    def _walk_kv(self, cache: Dict, fn) -> None:
+        """``fn(leaf)`` on every kv-pool leaf, in ``_KV_KEYS`` order."""
+        def kv(node):
+            for key in _KV_KEYS:
+                if key in node:
+                    fn(node[key])
+            return node
 
-    restore = spill
+        for node in _cache_nodes(cache):
+            map_kv_nodes(node, kv)
 
-    def spec_fork(self, *args, **kwargs):
-        raise NotImplementedError(
-            "speculative decoding (PagedPool.spec_*) is ROADMAP queue A 5 "
-            "of the port")
+    def _walk_state(self, cache: Dict, fn) -> None:
+        for node in _cache_nodes(cache):
+            map_state_leaves(node, lambda a: (fn(a), a)[1])
+
+    def _to_host(self, parts: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Device -> host copies of ``parts``, waited for once."""
+        out = [a.to("cpu", non_blocking=True) for a in parts]
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def spill(self, slot: int, cache: Dict) -> SpillRecord:
+        """Preempt ``slot``: move its cache contents off the device pool
+        so that its pages can serve other requests, and return a record
+        that ``restore`` replays into any free slot later.  Shared pages
+        (the prefix trie or another slot holds them too) are not copied:
+        the record keeps them by reference.  Exclusive pages and the
+        slot's state page are copied to the host after the pending edits
+        are applied (one wait for the device).  The slot keeps its state
+        page; only the contents move."""
+        if self.n_shards > 1:
+            raise ValueError("spill / restore runs on one device "
+                             "(layout='paged')")
+        self.flush(cache)
+        rec = SpillRecord(pos=int(self.pos[slot]))
+        parts: List[torch.Tensor] = []
+        n_kv = 0
+        if self.has_kv:
+            copied: List[Tuple[int, int]] = []
+            for b in np.nonzero(self.kv.table[slot])[0]:
+                pg = int(self.kv.table[slot, b])
+                if self.kv.ref[pg] > 1:
+                    self.kv.retain(pg)
+                    self._spill_kv[pg] = self._spill_kv.get(pg, 0) + 1
+                    rec.kv_kept.append((int(b), pg))
+                else:
+                    copied.append((int(b), pg))
+            if copied:
+                rec.kv_blocks = [b for b, _ in copied]
+                ids = upload(np.asarray([pg for _, pg in copied], np.int64),
+                             self.device)
+                self._walk_kv(cache, lambda a: parts.append(a[:, ids]))
+                n_kv = len(parts)
+            self.kv.release_slot(slot)
+        if self.has_state:
+            sp = int(self.st.table[slot, 0])
+            self._walk_state(cache, lambda a: parts.append(a[:, sp]))
+        host = self._to_host(parts)
+        rec.kv_host, rec.st_host = host[:n_kv], host[n_kv:]
+        self.pos[slot] = 0
+        self._dirty = True
+        rec.nbytes = int(sum(a.numel() * a.element_size() for a in host))
+        self.spill_events["spills"] += 1
+        self.spill_events["spilled_bytes"] += rec.nbytes
+        return rec
+
+    def restore(self, slot: int, rec: SpillRecord, cache: Dict) -> None:
+        """Re-admit a spilled request into (free) ``slot``: allocate fresh
+        pages for the copied contents, point the table back at the pages
+        kept by reference, copy the host images in (direct copies on the
+        cache's stream) and restore the position.  Every allocation comes
+        before any table edit: on exhaustion the fresh pages go back and
+        ``PoolExhausted`` leaves the pool as it was (the engine may spill
+        another victim and retry)."""
+        if self.n_shards > 1:
+            raise ValueError("spill / restore runs on one device "
+                             "(layout='paged')")
+        fresh: List[int] = []
+        for _ in rec.kv_blocks:
+            p = self._kv_alloc(reset=False)
+            if p is None:
+                for q in fresh:
+                    self.kv.unalloc(q)
+                raise PoolExhausted("paged KV pool exhausted (restore)")
+            fresh.append(p)
+        st_new = 0
+        if self.has_state:
+            st_new = self._st_alloc(reset=False)
+            if st_new is None:
+                for q in fresh:
+                    self.kv.unalloc(q)
+                raise PoolExhausted("paged state pool exhausted (restore)")
+        if self.has_kv:
+            assert not self.kv.table[slot].any(), "restore into a live slot"
+            for b, pg in rec.kv_kept:
+                # the spill's hold becomes the table's reference
+                self.kv.table[slot, b] = pg
+                n = self._spill_kv[pg] - 1
+                if n:
+                    self._spill_kv[pg] = n
+                else:
+                    del self._spill_kv[pg]
+            for b, p in zip(rec.kv_blocks, fresh):
+                self.kv.table[slot, b] = p
+        if self.has_state:
+            old = int(self.st.table[slot, 0])
+            self.st.table[slot, 0] = st_new
+            if old:
+                self.st.drop(old)
+        self.pos[slot] = rec.pos
+        self._dirty = True
+        dev = self.device
+        if rec.kv_host:
+            ids = upload(np.asarray(fresh, np.int64), dev)
+            it = iter(rec.kv_host)
+            self._walk_kv(cache, lambda a: a.index_copy_(
+                1, ids, next(it).to(dev, non_blocking=True)))
+        if rec.st_host:
+            it = iter(rec.st_host)
+            self._walk_state(cache, lambda a: a[:, st_new].copy_(
+                next(it), non_blocking=True))
+        self.spill_events["restores"] += 1
+
+    # -- speculative decoding: fork / rollback ------------------------------
+    # A round is a block-table operation: the fork records the committed
+    # position and the slot's table row (and backs the state page up);
+    # rollback drops the pages the round allocated past the accepted
+    # prefix and truncates the position.  KV contents never move.
+
+    def spec_fork(self, slot: int) -> SpecFork:
+        """Restore point of ``slot`` before a speculative round.  Raises
+        ``PoolExhausted`` when no state page is free for the backup (the
+        round falls back to one vanilla step)."""
+        rec = SpecFork(slot=slot, pos=int(self.pos[slot]))
+        if self.has_kv:
+            rec.kv_row = self.kv.table[slot].copy()
+        if self.has_state:
+            backup = self._st_alloc(reset=False)
+            if backup is None:
+                raise PoolExhausted("paged state pool exhausted (spec fork)")
+            rec.st_backup = backup
+            # the copy rides the next flush, before the first draft
+            # dispatch advances the live page
+            self._push_st_copy(int(self.st.table[slot, 0]), backup)
+        return rec
+
+    def spec_set_pos(self, slot: int, pos: int) -> None:
+        """Override ``slot``'s position (back to the fork before verify,
+        on to the accepted prefix after it); the next flush uploads it."""
+        self.pos[slot] = int(pos)
+        self._dirty = True
+
+    def spec_restore_state(self, rec: SpecFork) -> None:
+        """Queue the backup -> live state-page copy."""
+        if rec.st_backup:
+            self._push_st_copy(rec.st_backup, int(self.st.table[rec.slot, 0]))
+
+    def spec_rollback_pages(self, rec: SpecFork, committed_pos: int) -> int:
+        """Drop the blocks the round allocated FRESH wholly past the
+        accepted prefix (null in the fork row, first position >=
+        ``committed_pos``); blocks copied on write are kept, their stale
+        rows mask themselves.  Fresh blocks exist only before the ring
+        wraps, where block ``b`` holds positions [b page, (b + 1) page).
+        -> the number dropped."""
+        if not self.has_kv:
+            return 0
+        dropped = 0
+        for b in range(self.n_blocks):
+            pg = int(self.kv.table[rec.slot, b])
+            if pg and rec.kv_row[b] == 0 and b * self.page >= committed_pos:
+                self.kv.drop(pg)
+                self.kv.table[rec.slot, b] = 0
+                dropped += 1
+        if dropped:
+            self._dirty = True
+        return dropped
+
+    def spec_drop_backup(self, rec: SpecFork) -> None:
+        """Release the state backup page (safe with a restore copy still
+        queued: ``_push_st_copy`` pinned its source until the flush)."""
+        if rec.st_backup:
+            self.st.drop(rec.st_backup)
+            rec.st_backup = 0
+
+    def spec_abort(self, rec: SpecFork) -> None:
+        """Unwind a round that ran out of pages mid-flight: back to the
+        fork's position, the partial round's fresh pages dropped (the
+        fork row's diff covers what ``write_plan`` touched before it
+        raised), the state backup restored and released."""
+        self.spec_rollback_pages(rec, rec.pos)
+        if rec.st_backup:
+            self.spec_restore_state(rec)
+            self.spec_drop_backup(rec)
+        self.spec_set_pos(rec.slot, rec.pos)
 
     def external_refs(self, table: str = "kv") -> Dict[int, int]:
-        """Refcount holders OUTSIDE the block tables (prefix-trie retains
-        and pending-copy source pins) of the ``"kv"`` or the ``"state"``
-        pages, in the shape ``BlockAllocator.check`` expects."""
+        """Refcount holders OUTSIDE the block tables (prefix-trie retains,
+        pending-copy source pins and, for kv, the pages spilled requests
+        keep by reference) of the ``"kv"`` or the ``"state"`` pages, in
+        the shape ``BlockAllocator.check`` expects."""
         refs: Dict[int, int] = {}
         if table == "kv":
-            held = self.prefix.page_refs() if self.prefix else {}
+            held = dict(self.prefix.page_refs()) if self.prefix else {}
             pending = self._kv_copies
+            for p, n in self._spill_kv.items():
+                held[p] = held.get(p, 0) + n
         else:
             held = self.prefix.state_refs() if self.prefix else {}
             pending = self._st_copies
@@ -972,6 +1231,8 @@ class PagedPool:
         events); occupancy is left intact."""
         for k in self.counters:
             self.counters[k] = 0
+        for k in self.spill_events:
+            self.spill_events[k] = 0
         for al in (self.kv, self.st):
             if al is not None:
                 al.events = {"alloc": 0, "free": 0}
@@ -995,6 +1256,8 @@ class PagedPool:
                "prefix_caching": self.prefix is not None}
         if self.has_kv:
             rep["pages_in_use"] = int(np.sum(self.kv.ref > 0) - 1)
+        if any(self.spill_events.values()):
+            rep.update({f"spill_{k}": v for k, v in self.spill_events.items()})
         if self.n_shards > 1:
             rep["sharding"] = self.shard_report()
         if self.prefix is not None:

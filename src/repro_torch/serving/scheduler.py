@@ -1,5 +1,5 @@
-"""Continuous-batching scheduler (a copy of ``repro.serving.scheduler``
-without preemption and speculation; host numpy only).
+"""Continuous-batching scheduler (a copy of ``repro.serving.scheduler``;
+host numpy only).
 
 Requests share a fixed pool of ``n_slots`` cache slots.  Prompts are
 consumed in fixed-size chunks; a dispatch is MIXED — every prefilling
@@ -9,7 +9,11 @@ is decode, dispatches shrink to (B, 1).  Finished sequences are evicted
 immediately and their slot is recycled.  The scheduler never sees token
 VALUES (count-based), so the engine keeps tokens on the device.  A
 placement hook at admission lets the paged engine start a request's
-prefill past its prefix-cache hit.
+prefill past its prefix-cache hit, or resume a preempted one.
+``preempt(slot)`` requeues a running request at its exact progress
+(prompt offset and generated count); the engine pairs it with
+``PagedPool.spill`` / ``restore``.  ``feed_counts`` advances decoding
+slots by a speculative round's per-slot emit counts.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ class PendingEntry:
     req: Request
     offset: int = 0
     n_generated: int = 0
+    resume: bool = False
     seq: int = 0                        # arrival order (stable ties)
 
 
@@ -54,6 +59,10 @@ class _Slot:
     offset: int = 0                     # prompt tokens already prefilled
     n_generated: int = 0                # tokens emitted so far
     seq: int = 0
+
+
+def new_dispatch_kinds():
+    return {"mixed": 0, "decode": 0, "draft": 0, "verify": 0, "replay": 0}
 
 
 class Scheduler:
@@ -75,7 +84,9 @@ class Scheduler:
         # request's remaining prefill
         self.chunks_skipped = 0
         self.tokens_skipped = 0
-        self.dispatch_kinds = {"mixed": 0, "decode": 0}
+        # per-kind dispatch counts; draft / verify / replay are a
+        # speculative round's (serving.spec)
+        self.dispatch_kinds = new_dispatch_kinds()
 
     def add(self, req: Request) -> None:
         self.waiting.append(PendingEntry(req, seq=self._seq))
@@ -86,9 +97,11 @@ class Scheduler:
         the admitted slot indices.
 
         ``place(slot, entry) -> offset`` is the engine's placement hook:
-        the paged engine binds it to ``PagedPool.admit``, so a
-        prefix-cache hit starts the prefill past the hit (whole chunks
-        whose pages fully hit are never dispatched).  Returning ``None``
+        the paged engine binds it to ``PagedPool.admit`` for a fresh
+        request, so a prefix-cache hit starts the prefill past the hit
+        (whole chunks whose pages fully hit are never dispatched), and
+        to ``PagedPool.restore`` for a preempted one, which resumes at
+        its own offset.  Returning ``None``
         defers admission: the entry stays at the head of the queue,
         ``self.deferred`` is set, and admission stops."""
         self.policy.order(self.waiting)
@@ -107,17 +120,31 @@ class Scheduler:
             off = int(off)
             self.waiting.pop(0)
             P = len(entry.req.prompt)
-            assert 0 <= off < P
-            self.slots[s] = _Slot(state=PREFILL, req=entry.req, offset=off,
+            assert 0 <= off <= P if entry.resume else 0 <= off < P
+            self.slots[s] = _Slot(state=DECODE if off >= P else PREFILL,
+                                  req=entry.req, offset=min(off, P),
                                   n_generated=entry.n_generated,
                                   seq=entry.seq)
-            if off:
+            if off and not entry.resume:
                 cold = -(-P // self.chunk)
                 warm = -(-(P - off) // self.chunk)
                 self.chunks_skipped += cold - warm
                 self.tokens_skipped += off
             newly.append(s)
         return newly
+
+    def preempt(self, slot: int) -> Request:
+        """Evict a running request from ``slot`` and requeue it at its
+        exact progress (front of the queue; the policy re-sorts at the
+        next admit).  The engine spills the slot's pages first: the
+        resume entry carries counts only, never token values."""
+        sl = self.slots[slot]
+        assert sl.state is not FREE and sl.req is not None
+        self.waiting.insert(0, PendingEntry(
+            sl.req, offset=sl.offset, n_generated=sl.n_generated,
+            resume=True, seq=sl.seq))
+        self.slots[slot] = _Slot()
+        return sl.req
 
     @property
     def has_work(self) -> bool:
@@ -207,3 +234,29 @@ class Scheduler:
                 finished.append((s, slot.req))
                 self.slots[s] = _Slot()
         return finished, entering
+
+    def decode_remaining(self, slot: int) -> int:
+        """Tokens ``slot`` may still emit (0 unless it decodes): the
+        speculative decoder caps each slot's draft length with it, so
+        that a round never overshoots a request's budget."""
+        sl = self.slots[slot]
+        if sl.state is not DECODE or sl.req is None:
+            return 0
+        return max(0, sl.req.max_new_tokens - sl.n_generated)
+
+    def feed_counts(self, counts) -> List[Tuple[int, Request]]:
+        """Advance decoding slots by a per-slot count of emitted tokens
+        (a speculative verify emits 1 to k + 1 a slot).  -> finished
+        (slot, request) pairs, whose slots are freed."""
+        finished = []
+        for s, slot in enumerate(self.slots):
+            n = int(counts[s])
+            if n == 0 or slot.state is not DECODE:
+                continue
+            slot.n_generated += n
+            assert slot.n_generated <= slot.req.max_new_tokens, \
+                (s, slot.n_generated, slot.req.max_new_tokens)
+            if slot.n_generated >= slot.req.max_new_tokens:
+                finished.append((s, slot.req))
+                self.slots[s] = _Slot()
+        return finished

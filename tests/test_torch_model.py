@@ -125,8 +125,8 @@ def test_engine_rejects_what_it_does_not_serve(models):
     _, _, _, cfg, _, params = models
     with pytest.raises(ValueError, match="takes that rank's group="):
         Engine(cfg, params, layout="paged-sharded")
-    with pytest.raises(NotImplementedError, match="greedily"):
-        Engine(cfg, params, temperature=0.7)
+    with pytest.raises(ValueError, match="layout='paged'"):
+        Engine(cfg, params, layout="slotted", temperature=0.7, spec_k=2)
     eng = Engine(cfg, params, n_slots=2, max_len=16)
     for prompt, max_new, reason in (([], 4, "empty_prompt"),
                                     ([1, 2], 0, "nonpositive_max_new_tokens"),

@@ -617,17 +617,35 @@ def test_paged_hot_loop_reads_nothing_back_before_the_flush(setup,
 
 
 def test_pool_exhaustion_raises_without_preemption():
-    """Where the JAX engine would spill a victim, the port raises."""
+    """Where its pool runs out of pages the paged engine spills a victim
+    to the host and serves every request with the tokens of an
+    unpressured run; only with no victim to spill (the one running
+    request was admitted in this step) does it raise ``PoolExhausted``.
+    The slotted layout has no pages to spill and refuses a preemption."""
     cfg = reduce_config(get_config(ARCH))
     params = get_model(cfg).init(torch.Generator().manual_seed(0), cfg)
-    eng = Engine(cfg, params, n_slots=2, max_len=32, spare_pages=0,
-                 prefix_cache=False)
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(1, cfg.vocab_size, n).astype(np.int32), 8)
+            for n in (10, 14, 7)]
+    kw = dict(n_slots=2, max_len=32, prefix_cache=False)
+    want = Engine(cfg, params, **kw).run(list(reqs))
+    # 4 blocks a slot: 5 pages for two slots that need up to 3 each
+    eng = Engine(cfg, params, spare_pages=-3, **kw)
+    assert eng.run(list(reqs)) == want
+    assert eng.counters["preemptions"] > 0
+    assert eng.pool.spill_events["restores"] == \
+        eng.pool.spill_events["spills"] > 0
+    eng.pool.kv.check(eng.pool.external_refs())
+    eng = Engine(cfg, params, spare_pages=0, **kw)
     eng.pool.kv.free.clear()
     eng.submit(np.arange(5), 2)
-    with pytest.raises(kv_pool.PoolExhausted, match="queue A 5"):
+    with pytest.raises(kv_pool.PoolExhausted, match="exhausted"):
         eng.step()
-    with pytest.raises(NotImplementedError, match="queue A 5"):
-        eng.pool.spill(0, eng.cache)
+    slotted = Engine(cfg, params, layout="slotted", **kw)
+    slotted.submit(np.arange(5), 2)
+    slotted.step()
+    with pytest.raises(ValueError, match="layout='paged'"):
+        slotted._preempt(0)
     # a page-sharded pool (rank 1 of 2) holds its half of the pages
     shard = kv_pool.PagedPool(cfg, 2, 32, n_shards=2, shard=1,
                               device="cpu")

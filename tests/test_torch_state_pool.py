@@ -411,18 +411,34 @@ def test_serve_cli_recurrent_on_cpu(arch):
 
 
 def test_remaining_refusals_name_current_roadmap_items():
-    """What the port still refuses for the recurrent families names its
-    ROADMAP item: preemption and speculation (A5).  The page-sharded pool
-    is served: rank 1 of 2 holds its half of the state pages and a
-    scratch page."""
+    """Preemption and speculation are served for the recurrent families:
+    a zamba2 pool spills a slot and restores it (state page and kv pages
+    back, refcounts consistent) and forks a speculative round (a backup
+    state page pinned until the fork is aborted).  What remains refused
+    is the reference's own limit, a spill of a page-sharded pool; that
+    pool holds its half of the state pages and a scratch page."""
     _, cfg = _cfgs("zamba2-7b")
     shard = kv_pool.PagedPool(cfg, 2, 32, n_shards=2, shard=1, device="cpu")
     assert shard.local_pages()[1] == shard.n_spages // 2 + 1
+    with pytest.raises(ValueError, match="one device"):
+        shard.spill(0, None)
     pool = kv_pool.PagedPool(cfg, 2, 32, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A 5"):
-        pool.spill(0, None)
-    with pytest.raises(NotImplementedError, match="queue A 5"):
-        pool.spec_fork(0)
+    cache = pool.build()
+    pool.admit(0, np.arange(1, 12, dtype=np.int32))
+    pool.plan_writes(np.array([11, 0]))
+    pool.flush(cache)
+    pool.advance(np.array([11, 0]))
+    rec = pool.spill(0, cache)
+    assert rec.pos == 11 and rec.st_host and rec.nbytes > 0
+    pool.restore(1, rec, cache)
+    assert pool.pos[1] == 11 and pool.spill_events["restores"] == 1
+    fork = pool.spec_fork(1)
+    assert fork.st_backup and pool.st.ref[fork.st_backup] == 1
+    pool.spec_abort(fork)
+    assert fork.st_backup == 0 and pool.pos[1] == 11
+    pool.flush(cache)
+    pool.kv.check(pool.external_refs("kv"))
+    pool.st.check(pool.external_refs("state"))
 
 
 def test_recurrent_warm_prefix_pass_repeats_the_first_as_jax_does():

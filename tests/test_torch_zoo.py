@@ -164,10 +164,10 @@ def test_convert_checks_the_zoo_layouts():
 
 def test_recurrent_families_still_raise():
     """The recurrent families are ported (``tests/test_torch_recurrent.
-    py``): their configs register, reduce and dispatch; what still raises
-    for them is what the whole port refuses, each naming its ROADMAP
-    item (speculation and temperature sampling, A5), and an unknown
-    family; the page-sharded layout asks for its rank's group."""
+    py``): their configs register, reduce and dispatch, and their engines
+    sample at a temperature (seeded: ``tests/test_torch_spec.py``); what
+    still raises is an unknown family, and the page-sharded layout asks
+    for its rank's group."""
     from repro_torch.configs.base import ModelConfig
     for arch in ("rwkv6-3b", "zamba2-7b"):
         cfg = reduce_config(get_config(arch))
@@ -176,8 +176,10 @@ def test_recurrent_families_still_raise():
         params = api.init(torch.Generator().manual_seed(0), cfg)
         with pytest.raises(ValueError, match="takes that rank's group="):
             Engine(cfg, params, layout="paged-sharded")
-        with pytest.raises(NotImplementedError, match="queue A 5"):
-            Engine(cfg, params, temperature=0.5)
+        eng = Engine(cfg, params, temperature=0.5, n_slots=2, max_len=16)
+        out = eng.run([(np.arange(1, 6, dtype=np.int32), 3)])
+        assert len(out[0]) == 3 and all(0 <= t < cfg.vocab_size
+                                        for t in out[0])
     with pytest.raises(ValueError, match="unknown family"):
         get_model(ModelConfig(name="x", family="rnn", n_layers=2,
                               d_model=64))
