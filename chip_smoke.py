@@ -105,6 +105,11 @@
    K/V as a yardstick that computes no statistics) and mixed dispatch,
    qwen2-7b's G 7 at D 128 and zamba2-7b's D 112 under its 4,096 window
    (timed too), and deepseek's MLA (timed at decode);
+4b. the train step's reference (``reference_train``): reduced float32
+   granite, three steps of ``make_train_step`` at grad_accum 2 on the
+   card, each from the CPU's state before it, held to the CPU's step
+   (loss, grad norm, lr, moments, params) within the CPU tests'
+   tolerances, then three free-running steps (loss differences logged);
 5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
    random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
@@ -134,6 +139,20 @@
    each, agreement with the unpressured run); a ~10 s open-loop Poisson
    trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
    p50 / p99 per class, preemptions, rejections, requests lost: 0);
+5c. training (``phase_train``): granite-3-2b whole (40 layers, bf16,
+   remat nothing_saveable, its grad_accum of 4) trained 8 steps on 8 x
+   512 tokens through ``launch.steps.make_train_step`` (AdamW: bf16
+   moments, float32 master): step ms, tokens/s, the model-FLOPs share
+   (6 N T over the step and 989 TFLOP/s), AdamW's device ms, peak
+   memory, losses, grad norm, one profiled step; a resume check at
+   full width cut to 2 layers (4 straight steps against 2, a save of
+   the 2.2 GB state to a temporary directory, a restore into another
+   seed's tree, 2 more: losses within RESUME_TOL); then the train CLI's
+   calibration step (``launch.train.calibrate``: ``calibrate_lm`` on 8
+   batches of 8 x 512 from step 10,000) and the mixed trace served on
+   the trained weights, slotted, in kernel mode (counted: 40 / 80 / 40
+   a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
+   granite phase's random-init ones;
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -2530,6 +2549,8 @@ def phase_slice():
     log("slice", calibrate_s=round(time.perf_counter() - t0, 2),
         **{k: round(v, 4) for k, v in cal.items()})
     eng_sk, eng_sd, reqs_s, engine = slice_slotted(cfg, params, mor)
+    skip = [1 - v for v in
+            eng_sk.report()["telemetry"]["mor_stats"]["frac_tiles_computed"]]
     eng_pk, reqs_p, launches, tokens = slice_paged(cfg, params, mor)
     static = _static_cell(cfg, params, mor, reqs_s, "granite static",
                           ("tiled", "dense"), engine, GRANITE_STATIC)
@@ -2542,7 +2563,7 @@ def phase_slice():
     _static_profile(cfg, params, mor, reqs_s)
     log("slice", peak_mem_gb=round(torch.cuda.max_memory_allocated() / 1e9,
                                    2))
-    return launches, tokens, static, (cfg, params, mor)
+    return launches, tokens, static, (cfg, params, mor), skip
 
 
 # -- self-speculative decoding (serving.spec) --------------------------------
@@ -2820,6 +2841,287 @@ def phase_slo(model, vanilla):
         ttft=json.dumps({k: {q: round(v, 4) if isinstance(v, float) else v
                              for q, v in d.items()}
                          for k, d in st.items()}))
+
+
+# -- training (launch.steps, optim, checkpoint, launch.train) ----------------
+
+# the CPU tests' tolerances (tests/test_torch_train.py): the loss, the
+# gradients and what is linear or quadratic in them (moments, the params
+# after a step other than the first), Adam's first step entry by entry
+TRAIN_LOSS_TOL, TRAIN_GRAD_RTOL, TRAIN_ADAM_TOL = 1e-5, 1e-4, 1e-6
+# the full-width train phase: granite-3-2b's own grad_accum (4) over a
+# global batch of 8 x 512 tokens (micro-batches of 2)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8
+RESUME_TOL = 1e-3
+
+
+def _tree_np(tree):
+    """{key path: float32 numpy copy} of a tree on any device."""
+    from repro_torch.tree import paths
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in paths(tree).items()}
+
+
+def _train_close(got, want, what, first_mu=None, lr=0.0):
+    """Hold ``got`` to ``want`` leaf by leaf at the gradients' tolerance
+    (rtol TRAIN_GRAD_RTOL, absolute floor TRAIN_GRAD_RTOL x the leaf's
+    largest entry).  With ``first_mu`` (the first step's first moment),
+    the params after Adam's first step: within TRAIN_ADAM_TOL where the
+    gradient is above the floor, within 2 lr where it is at the noise
+    level (there the update's sign may differ)."""
+    import numpy as np
+    assert got.keys() == want.keys(), what
+    worst = 0.0
+    for k in want:
+        w, g = want[k], got[k]
+        if first_mu is None:
+            floor = TRAIN_GRAD_RTOL * max(float(np.abs(w).max()), 1e-30)
+            np.testing.assert_allclose(g, w, rtol=TRAIN_GRAD_RTOL,
+                                       atol=floor, err_msg=f"{what} {k}")
+        else:
+            mu = first_mu[k]
+            live = np.abs(mu) >= TRAIN_GRAD_RTOL * np.abs(mu).max()
+            np.testing.assert_allclose(g[live], w[live], rtol=TRAIN_ADAM_TOL,
+                                       atol=TRAIN_ADAM_TOL,
+                                       err_msg=f"{what} {k}")
+            assert np.abs(g - w)[~live].max(initial=0.0) <= \
+                2 * lr + TRAIN_ADAM_TOL, (what, k)
+        worst = max(worst, float(np.abs(g - w).max()))
+    return worst
+
+
+def reference_train():
+    """Reduced float32 granite, three steps of ``make_train_step`` at
+    grad_accum 2 on the card and on the CPU.  Each card step starts from
+    the CPU's state before it (params, moments, step counter copied
+    over), so that each step is held alone: loss, grad norm and lr, the
+    moments and the params after it within the CPU tests' tolerances.
+    Then three free-running card steps from the same init: their losses'
+    largest difference from the CPU's is logged."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim import OptConfig
+    cfg = reduce_config(get_config("granite-3-2b")).replace(grad_accum=2)
+    opt = OptConfig(lr=1e-3, moment_dtype="float32")
+    params, state = steps.init_train_state(
+        torch.Generator().manual_seed(SEED), cfg, opt)
+    free = (_to(params, "cuda"), _to(state, "cuda"))
+    step = steps.make_train_step(cfg, opt, total_steps=10, warmup=1)
+    batches = [{k: torch.as_tensor(v) for k, v in
+                make_batch(cfg, 4, 32, seed=SEED, step=s).items()}
+               for s in range(3)]
+    cpu_losses, worst = [], {}
+    for i, b in enumerate(batches):
+        cp, cs = _to(params, "cuda"), _to(state, "cuda")
+        cp, cs, cm = step(cp, cs, _to(b, "cuda"))
+        params, state, m = step(params, state, b)
+        cpu_losses.append(float(m["loss"]))
+        for name in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(
+                float(cm[name]), float(m[name]),
+                rtol=TRAIN_LOSS_TOL if name == "loss" else TRAIN_GRAD_RTOL,
+                err_msg=f"step {i} {name}")
+        mu = _tree_np(state["mu"])
+        worst[f"mu_{i}"] = _train_close(_tree_np(cs["mu"]), mu, "mu")
+        worst[f"nu_{i}"] = _train_close(_tree_np(cs["nu"]),
+                                        _tree_np(state["nu"]), "nu")
+        worst[f"params_{i}"] = _train_close(
+            _tree_np(cp), _tree_np(params), "params",
+            first_mu=mu if i == 0 else None, lr=float(m["lr"]))
+        assert int(cs["step"]) == int(state["step"]) == i + 1
+    fp, fs = free
+    free_losses = []
+    for b in batches:
+        fp, fs, fm = step(fp, fs, _to(b, "cuda"))
+        free_losses.append(float(fm["loss"]))
+    assert np.all(np.isfinite(free_losses))
+    log("reference", model="granite-3-2b reduced f32 train",
+        grad_accum=cfg.grad_accum, steps=len(batches),
+        losses_cpu=[round(x, 6) for x in cpu_losses],
+        per_step_held=True,
+        max_abs_diff=json.dumps({k: float(f"{v:.3g}")
+                                 for k, v in worst.items()}),
+        free_running_max_loss_diff=float(
+            f"{max(abs(a - b) for a, b in zip(free_losses, cpu_losses)):.3g}"))
+
+
+def _device_batches(cfg, n, start=0, batch=TRAIN_BATCH, seq=TRAIN_SEQ):
+    import torch
+    from repro_torch.data.pipeline import make_batch
+    return [{k: torch.as_tensor(v, device="cuda") for k, v in
+             make_batch(cfg, batch, seq, seed=SEED, step=s).items()}
+            for s in range(start, start + n)]
+
+
+def _resume_check(cfg, opt):
+    """Full width cut to 2 layers: 4 straight steps against 2 steps, a
+    blocking save into a temporary directory, a restore into a fresh
+    tree from another seed, and 2 more steps; -> the log fields."""
+    import tempfile
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import steps
+    c2 = cfg.replace(n_layers=2)
+    step = steps.make_train_step(c2, opt, total_steps=4)
+    batches = _device_batches(c2, 4)
+
+    def run(p, s, lo, hi):
+        out = []
+        for b in batches[lo:hi]:
+            p, s, m = step(p, s, b)
+            out.append(m["loss"])
+        return p, s, [float(x) for x in out]
+
+    def init(seed):
+        return steps.init_train_state(
+            torch.Generator(device="cuda").manual_seed(seed), c2, opt)
+
+    _, _, straight = run(*init(SEED), 0, 4)
+    p, s, first = run(*init(SEED), 0, 2)
+    with tempfile.TemporaryDirectory() as d:
+        mgr = CheckpointManager(d)
+        t0 = time.perf_counter()
+        mgr.save(2, {"params": p, "opt": s}, block=True)
+        save_s = time.perf_counter() - t0
+        disk = sum(f.stat().st_size for f in Path(d).rglob("*")
+                   if f.is_file())
+        del p, s
+        t0 = time.perf_counter()
+        p, s = init(SEED + 1)      # the restore must overwrite every leaf
+        state, extra = mgr.restore({"params": p, "opt": s})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    assert extra["step"] == 2 and int(state["opt"]["step"]) == 2
+    _, _, rest = run(state["params"], state["opt"], 2, 4)
+    diff = max(abs(a - b) for a, b in zip(straight[2:], rest))
+    assert diff <= RESUME_TOL, (straight, first, rest)
+    return {"resume_layers": c2.n_layers, "resume_state_gb": round(
+        disk / 1e9, 3), "save_s": round(save_s, 2),
+        "restore_s": round(restore_s, 2),
+        "straight_losses": [round(x, 5) for x in straight],
+        "resumed_losses": [round(x, 5) for x in first + rest],
+        "resume_max_loss_diff": float(f"{diff:.3g}")}
+
+
+def phase_train(random_skip):
+    """granite-3-2b whole (40 layers, bf16 params, remat
+    nothing_saveable, its grad_accum of 4) trained ``TRAIN_STEPS`` steps
+    on a global batch of 8 x 512 tokens through ``init_train_state`` /
+    ``make_train_step`` (AdamW with bf16 moments and a float32 master
+    copy, as the train CLI sets them for a bf16 model): step ms,
+    tokens/s, the model-FLOPs share (6 N T / step time over the bf16
+    peak), peak memory, AdamW's device ms a step (CUDA events around
+    ``adamw_update``), losses and grad norm; one more step profiled
+    (device busy, idle share, top kernels).  Then the resume check at
+    full width cut to 2 layers, the train CLI's calibration step
+    (``launch.train.calibrate``) on the trained weights and a kernel-mode
+    paged serve of them, the mixed trace's 8 requests (counted), held to
+    tiled mode at AGREE_MIN.  -> the serve's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import calibrate
+    from repro_torch.optim import OptConfig
+    from repro_torch.tree import leaves
+    cfg = get_config("granite-3-2b")
+    assert cfg.grad_accum == 4 and cfg.remat == "nothing_saveable"
+    opt = OptConfig(lr=1e-3, moment_dtype="bfloat16")
+    resident_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    params, state = steps.init_train_state(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in leaves(params))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in leaves(params) + leaves(state)) / 1e9
+    adam_events = []
+    orig = steps.adamw_update
+
+    def timed_adamw(*a, **k):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = orig(*a, **k)
+        e1.record()
+        adam_events.append((e0, e1))
+        return out
+
+    train_step = steps.make_train_step(cfg, opt, total_steps=TRAIN_STEPS)
+    batches = _device_batches(cfg, TRAIN_STEPS)
+    metrics, step_s = [], []
+    steps.adamw_update = timed_adamw
+    try:
+        for b in batches:
+            t0 = time.perf_counter()
+            params, state, m = train_step(params, state, b)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            metrics.append(m)
+    finally:
+        steps.adamw_update = orig
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    assert np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))
+    adam_ms = [e0.elapsed_time(e1) for e0, e1 in adam_events]
+    warm = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train", path="granite train", model=cfg.name, layers=cfg.n_layers,
+        params=n_params, dtype=cfg.dtype, remat=cfg.remat,
+        grad_accum=cfg.grad_accum, micro_batch=TRAIN_BATCH // cfg.grad_accum,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, init_s=round(init_s, 2),
+        resident_before_gb=round(resident_gb, 2),
+        params_and_state_gb=round(state_gb, 2),
+        first_step_s=round(step_s[0], 3),
+        step_ms=round(warm * 1e3, 2),
+        step_ms_all=[round(s * 1e3, 1) for s in step_s],
+        tokens_per_s=round(tokens / warm, 1),
+        model_flops_share=round(6 * n_params * tokens / warm / 989e12, 4),
+        adamw_ms=round(float(np.median(adam_ms[1:])), 2),
+        adamw_ms_all=[round(x, 2) for x in adam_ms],
+        peak_gb=round(peak_gb, 2), loss_first=round(losses[0], 5),
+        loss_last=round(losses[-1], 5), losses=[round(x, 5) for x in losses],
+        grad_norm_last=round(norms[-1], 4))
+    # one more step under the profiler (the device's busy time and idle
+    # share of a step, its top kernels); calibration takes its params
+    _profile_fn(f"{cfg.name}-train-step", lambda: train_step(
+        params, state, batches[0]), lambda: {"steps": 1})
+    del state, metrics, batches, train_step
+    torch.cuda.empty_cache()
+    log("train", path="granite train resume", **_resume_check(cfg, opt))
+    t0 = time.perf_counter()
+    params, mor, cal = calibrate(params, cfg, TRAIN_BATCH, TRAIN_SEQ, SEED,
+                                 "cuda")
+    torch.cuda.synchronize()
+    log("train", path="granite train calibrate",
+        calibrate_s=round(time.perf_counter() - t0, 2),
+        calib_batches=cfg.mor.calib_batches,
+        **{k: round(v, 4) for k, v in cal.items()})
+    reqs = _mixed_trace(cfg)
+    kw = dict(layout="slotted")        # the granite phase's random-init cell
+    (tok_k, rep_k, _), launches = _counted(
+        lambda: _serve(cfg, params, mor, "kernel", reqs, **kw))
+    want = _want_launches(cfg.n_layers, _dispatches(rep_k), paged=False)
+    assert launches == want, (launches, want)
+    _check_tokens(cfg, reqs, tok_k)
+    tok_t, _, _ = _serve(cfg, params, mor, "tiled", reqs, **kw)
+    agree = _agree(tok_k, tok_t)
+    assert agree >= AGREE_MIN, agree
+    skip = [1 - v for v in
+            rep_k["telemetry"]["mor_stats"]["frac_tiles_computed"]]
+    log("train", path="granite train serve", layout="slotted", mode="kernel",
+        trace="mixed", tok_s=round(rep_k["tokens_per_s"], 2),
+        dispatches=rep_k["dispatches"], launches=json.dumps(launches),
+        agreement_kernel_vs_tiled=round(agree, 4),
+        skip_frac_mean_after_training=round(float(np.mean(skip)), 4),
+        skip_frac_mean_random_init=round(float(np.mean(random_skip)), 4),
+        skip_frac_per_layer_after_training=[round(v, 4) for v in skip],
+        note=f"{TRAIN_STEPS} steps at warm-up lr: not a trained model")
+    return launches
 
 
 # -- observability (obs/, the shadow twin) -----------------------------------
@@ -4490,12 +4792,14 @@ def main() -> int:
     timed("reference recurrent", reference_recurrent)
     timed("reference spec", reference_spec)
     timed("reference paper", reference_paper)
-    granite, granite_tokens, granite_static, granite_model = timed(
-        "granite", phase_slice)
+    timed("reference train", reference_train)
+    granite, granite_tokens, granite_static, granite_model, random_skip = \
+        timed("granite", phase_slice)
     granite_obs = timed("obs", phase_obs, granite_model)
     granite_spec, spec_vanilla = timed("spec", phase_spec, granite_model)
     timed("slo", phase_slo, granite_model, spec_vanilla)
     del granite_model
+    granite_train = timed("train", phase_train, random_skip)
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)
@@ -4518,6 +4822,7 @@ def main() -> int:
                "granite_obs_shadow": granite_obs,
                "granite_spec": granite_spec,
                "granite_static": granite_static,
+               "granite_train_serve": granite_train,
                "deepseek_static": deepseek_static,
                "qwen2_long_prefill": qwen2_long, "paper_dnns": paper}
     for name, row in rows.items():

@@ -2,11 +2,14 @@
 generators, so that both packages draw the same data from the same
 seed: Markov-chain tokens (``synthetic_lm_batch``), class-conditional
 images (``synthetic_image_batch``) and formant-like audio frames
-(``synthetic_frames_batch``), and the batch maker's choice among them
-(``make_batch``)."""
+(``synthetic_frames_batch``), the batch maker's choice among them
+(``make_batch``) and the training loop's prefetching iterator over it
+(``make_train_iterator``)."""
 from __future__ import annotations
 
-from typing import Dict
+import queue as _queue
+import threading
+from typing import Dict, Iterator
 
 import numpy as np
 
@@ -86,3 +89,50 @@ def make_batch(cfg: ModelConfig, batch: int, seq: int, *, seed: int,
     if cfg.family == "tds" or cfg.frontend == "audio_stub":
         return synthetic_frames_batch(cfg, batch, seq, **kw)
     return synthetic_lm_batch(cfg, batch, seq, **kw)
+
+
+class _TrainIterator:
+    """Batches from a background thread, in step order; ``close()``
+    stops the thread (it is a daemon, so an unclosed iterator does not
+    hold the process open)."""
+
+    def __init__(self, make, start_step: int, prefetch: int):
+        self._q: _queue.Queue = _queue.Queue(maxsize=prefetch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._work,
+                                        args=(make, start_step), daemon=True)
+        self._thread.start()
+
+    def _work(self, make, step):
+        while not self._stop.is_set():
+            batch = make(step)
+            while not self._stop.is_set():
+                try:
+                    self._q.put(batch, timeout=0.5)
+                    break
+                except _queue.Full:
+                    continue
+            step += 1
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        return self._q.get()
+
+    def close(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        self._thread.join(timeout)
+
+
+def make_train_iterator(cfg: ModelConfig, batch: int, seq: int, *,
+                        seed: int, start_step: int = 0,
+                        prefetch: int = 2) -> Iterator[Dict]:
+    """``repro.data.pipeline.make_train_iterator``: a background thread
+    makes ``make_batch(cfg, batch, seq, seed=seed, step=s)`` for s =
+    start_step, start_step + 1, ... (host numpy, up to ``prefetch``
+    ahead), so that drawing data overlaps the device's step; the stream
+    is deterministic given (seed, start_step)."""
+    return _TrainIterator(
+        lambda s: make_batch(cfg, batch, seq, seed=seed, step=s),
+        start_step, prefetch)

@@ -16,7 +16,8 @@ prompt-length trace (``repro.launch.serve``).
       --reduced --baseline --mor kernel
 
 Initialises the model from a seed (random weights; ``--layers N`` cuts
-the depth to N layers, keeping every width), calibrates the MoR
+the depth to N layers, keeping every width) or restores the params of
+``--ckpt-dir``'s newest checkpoint (``launch.train``'s), calibrates the MoR
 predictor on synthetic batches when ``--mor`` is not dense
 (``calibrate_lm`` for a dense model and for rwkv6-3b's channel mix,
 ``calibrate_moe`` for a moe model, whose dense leading layers and
@@ -312,6 +313,9 @@ def main(argv=None):
     ap.add_argument("--dims", default=None,
                     help="override the widths and depth: d_model,d_ff,"
                          "n_layers")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest committed "
+                         "checkpoint there (launch.train's)")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth cut: serve the first N layers (0 = all)")
     ap.add_argument("--batch", type=int, default=8,
@@ -461,6 +465,11 @@ def serve(args, device, group=None):
         raise SystemExit(f"{cfg.name} is encoder-only: nothing to serve")
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = api.init(gen, cfg)
+    if args.ckpt_dir:
+        from repro_torch.checkpoint import CheckpointManager
+        state, _ = CheckpointManager(args.ckpt_dir).restore(
+            {"params": params})
+        params = state["params"]
 
     mor = None
     report = {"arch": cfg.name, "mor_mode": args.mor, "device": str(device)}

@@ -1,23 +1,121 @@
-"""Serving step functions (``repro.launch.steps``, its serving half):
-the teacher-forced prefill, the static batch's prefill step over the
-slot pool, its width-1 decode step, and the single-token serve step
+"""Step functions (``repro.launch.steps``): the train step (loss,
+gradients and AdamW, with micro-batch accumulation), and the serving
+steps: the teacher-forced prefill, the static batch's prefill step over
+the slot pool, its width-1 decode step, and the single-token serve step
 over ``cache_init``'s cache.
 
-The JAX package compiles each step once (``jax.jit``, the cache
-donated); here a step is a plain function that updates the cache IN
-PLACE and hands it back, so that the two packages' call sites read the
-same.  No step reads a device value back to the host: tokens stay
-device tensors.
+The JAX package compiles each step once (``jax.jit``, the params,
+optimizer state or cache donated); here a step is a plain function that
+updates them IN PLACE and hands them back, so that the two packages'
+call sites read the same.  No step reads a device value back to the
+host: tokens, losses and norms stay device tensors.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import get_model
+from repro_torch.optim import OptConfig, adamw_init, adamw_update
+from repro_torch.optim.schedules import cosine_schedule
+from repro_torch.tree import leaves, unflatten
+
+LB_LOSS_WEIGHT = 0.01
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean over positions of the float32 log-sum-exp minus the gold
+    logit."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return (lse - gold).mean()
+
+
+def make_loss_fn(cfg: ModelConfig) -> Callable:
+    """-> loss_fn(params, batch) -> (loss, aux): the cross entropy of the
+    teacher-forced forward (a vision batch's logits cut to the labels'
+    positions), plus ``LB_LOSS_WEIGHT`` x the mean load-balance loss of
+    a moe model."""
+    api = get_model(cfg)
+
+    def loss_fn(params, batch):
+        logits, aux = api.forward(params, cfg, batch)
+        labels = batch["labels"]
+        if cfg.frontend == "vision_stub":
+            logits = logits[:, -labels.shape[1]:, :]
+        loss = cross_entropy(logits, labels)
+        if cfg.family == "moe" and "lb_loss" in aux:
+            loss = loss + LB_LOSS_WEIGHT * torch.mean(aux["lb_loss"])
+        return loss, aux
+
+    return loss_fn
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
+                    total_steps: int = 10000, warmup: int = 100,
+                    ) -> Callable:
+    """-> train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics), params and state updated IN PLACE.
+
+    ``cfg.grad_accum`` > 1 splits the global batch (leading dim) into
+    that many micro-batches, one forward and backward each, and sums the
+    gradients into float32 accumulators: the live activation set is one
+    micro-batch's.  Gradients and loss are then divided by the count.
+    The learning rate follows ``cosine_schedule(step, total_steps,
+    warmup)``.  metrics: "loss", "grad_norm", "lr" (device tensors)."""
+    loss_fn = make_loss_fn(cfg)
+    accum = max(cfg.grad_accum, 1)
+
+    def grads_of(params, flat, batch):
+        loss, _ = loss_fn(params, batch)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    def train_step(params, opt_state, batch):
+        flat = leaves(params)
+        for p in flat:
+            p.requires_grad_(True)
+        try:
+            if accum > 1:
+                acc = [torch.zeros_like(p, dtype=torch.float32)
+                       for p in flat]
+                loss = torch.zeros((), dtype=torch.float32,
+                                   device=flat[0].device)
+                for i in range(accum):
+                    mb = {k: v.reshape(accum, v.shape[0] // accum,
+                                       *v.shape[1:])[i]
+                          for k, v in batch.items()}
+                    l, gs = grads_of(params, flat, mb)
+                    for a, g in zip(acc, gs):
+                        a.add_(g)
+                    del gs
+                    loss += l
+                grads = [a.div_(accum) for a in acc]
+                loss = loss / accum
+            else:
+                loss, grads = grads_of(params, flat, batch)
+        finally:
+            for p in flat:
+                p.requires_grad_(False)
+        lr_scale = cosine_schedule(opt_state["step"], total_steps, warmup)
+        params, opt_state, metrics = adamw_update(
+            params, unflatten(params, list(grads)), opt_state, opt_cfg,
+            lr_scale)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def init_train_state(gen: torch.Generator, cfg: ModelConfig,
+                     opt_cfg: OptConfig) -> Tuple[Dict, Dict[str, Any]]:
+    """-> (params from ``gen`` on its device, their AdamW state)."""
+    params = get_model(cfg).init(gen, cfg)
+    return params, adamw_init(params, opt_cfg)
 
 
 def _argmax(logits: torch.Tensor) -> torch.Tensor:

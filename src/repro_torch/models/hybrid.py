@@ -31,7 +31,8 @@ from repro_torch.models.layers.norms import (apply_norm, norm_init,
 from repro_torch.models.layers.ssm import (mamba2_cache_init, mamba2_chunk,
                                            mamba2_decode, mamba2_forward,
                                            mamba2_init)
-from repro_torch.models.transformer import _stack_aux, layer_slice
+from repro_torch.models.transformer import (_remat, _stack_aux,
+                                            layer_slice, layer_views)
 
 
 def _seg_counts(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -104,10 +105,21 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
 
-    def mamba_block(key, i, x):
-        lp = layer_slice(params[key], i)
+    views = {key: layer_views(params[key])
+             for key in ("mamba_layers", "tail_layers") if key in params}
+
+    def block(x, lp):
         h = apply_norm(cfg.norm, lp["ln"], x)
         return x + mamba2_forward(lp["mamba"], cfg, h)
+
+    # the reference rematerialises the segments' mamba layers (not the
+    # tail's, nor the shared block) with nothing_saveable
+    seg_block = _remat(block, "none" if cfg.remat == "none"
+                       else "nothing_saveable")
+
+    def mamba_block(key, i, x):
+        fn = seg_block if key == "mamba_layers" else block
+        return fn(x, views[key][i])
 
     ys = []
     for seg in segs:

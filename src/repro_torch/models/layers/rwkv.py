@@ -7,9 +7,10 @@ The wkv recurrence runs in the JAX package's GLA-style chunked form
 between them); decode is one recurrence step.  The reference's scans are
 jnp, so plain torch ops are their port: there is no kernel here.  Every
 ``*_init`` returns weights with a leading layer dim of ``n_layers``; the
-other functions take one layer's views.  The JAX package's serial-scan
-``timemix_forward(chunked=False)`` (a training-memory variant that no
-serving or calibration path calls) is not ported.
+other functions take one layer's views.  ``timemix_forward(chunked=
+False)`` is the reference's serial scan, one position a step, with its
+rematerialised chunks of ``SERIAL_CHUNK`` positions under autograd (a
+training-memory variant: no serving or calibration path calls it).
 """
 from __future__ import annotations
 
@@ -20,9 +21,12 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.common import dense_init
+from repro_torch.models.transformer import _remat
 
 _W_LORA = 64
 _W_MIN = float(torch.exp(torch.tensor(-10.0)))     # the decay clamp, e^-10
+# positions a rematerialised chunk of the serial scan covers
+SERIAL_CHUNK = 256
 
 
 def _heads(cfg: ModelConfig):
@@ -135,12 +139,43 @@ def _wkv6_chunked(r, k, v, w, u, chunk: int = 8, initial_state=None,
     return y
 
 
-def timemix_forward(params: Dict, cfg: ModelConfig, x) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d), the chunked wkv from a zero state."""
+def _wkv6_serial(r, k, v, w, u, S_state):
+    """The recurrence one position at a time from ``S_state`` (B, H, hd,
+    hd) float32: y_t = r_t (S + u k_t v_t^T), S <- w_t S + k_t v_t^T.
+    r, k, v, w: (B, T, H, hd) -> (y (B, T, H, hd) float32, the state
+    after the last position)."""
+    ys = []
+    for t in range(r.shape[1]):
+        kv = torch.einsum("bhk,bhv->bhkv", k[:, t].float(), v[:, t].float())
+        ys.append(torch.einsum("bhk,bhkv->bhv", r[:, t].float(),
+                               S_state + u[None, :, :, None] * kv))
+        S_state = w[:, t].float()[..., None] * S_state + kv
+    return torch.stack(ys, 1), S_state
+
+
+def timemix_forward(params: Dict, cfg: ModelConfig, x, *,
+                    chunked: bool = True) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d), the wkv from a zero state: chunked
+    (``_wkv6_chunked``), or the serial scan over chunks of
+    ``SERIAL_CHUNK`` positions, each recomputed in the backward (the
+    reference's ``jax.checkpoint`` a chunk: one carry saved a chunk)."""
     dt = x.dtype
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, g, w = _timemix_inputs(params, cfg, x, x_prev)
-    y = _wkv6_chunked(r, k, v, w, params["u"])
+    if chunked:
+        y = _wkv6_chunked(r, k, v, w, params["u"])
+    else:
+        B, S, H, hd = r.shape
+        chunk = _remat(_wkv6_serial, "nothing_saveable")
+        S_state = torch.zeros((B, H, hd, hd), dtype=torch.float32,
+                              device=x.device)
+        ys = []
+        for lo in range(0, S, SERIAL_CHUNK):
+            sl = slice(lo, lo + SERIAL_CHUNK)
+            y, S_state = chunk(r[:, sl], k[:, sl], v[:, sl], w[:, sl],
+                               params["u"], S_state)
+            ys.append(y)
+        y = torch.cat(ys, 1)
     y = _group_norm(y, params["ln_scale"]) * g
     return y.to(dt) @ params["Wo"].to(dt)
 

@@ -23,8 +23,9 @@ from repro_torch.models.layers import rwkv
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import (apply_norm, norm_init,
                                              stacked_norm_init)
-from repro_torch.models.transformer import (_layer_plan, _stack_aux,
-                                            layer_slice)
+from repro_torch.models.transformer import (_layer_plan, _remat,
+                                            _stack_aux, layer_slice,
+                                            layer_views)
 
 STATE_KEYS = ("tm_shift", "wkv", "cm_shift")
 
@@ -57,20 +58,26 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     the channel mix's calibration taps "taps" ((L, B*S, N))."""
     x = _embed(params, cfg, batch["tokens"])
     mor_stack = (mor or {}).get("layers")
-    ys = []
-    for l in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], l)
+
+    def block(x, lp, ml):
         h = apply_norm(cfg.norm, lp["ln1"], x)
         x = x + rwkv.timemix_forward(lp["tm"], cfg, h)
         h2 = apply_norm(cfg.norm, lp["ln2"], x)
         h2_prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]
-        f, stats = rwkv.chanmix_forward(lp["cm"], cfg, h2, h2_prev,
-                                        mor=_layer_plan(mor_stack, l),
+        f, stats = rwkv.chanmix_forward(lp["cm"], cfg, h2, h2_prev, mor=ml,
                                         mor_mode=mor_mode)
-        x = x + f
         y: Dict[str, Any] = {"mor_stats": stats} if stats else {}
         if with_taps:
             y["taps"] = rwkv.chanmix_taps(lp["cm"], h2, h2_prev)
+        return x + f, y
+
+    # any policy but "none" recomputes the whole block, as the
+    # reference's nothing_saveable does
+    body = _remat(block, "none" if cfg.remat == "none"
+                  else "nothing_saveable")
+    ys = []
+    for l, lp in enumerate(layer_views(params["layers"])):
+        x, y = body(x, lp, _layer_plan(mor_stack, l))
         ys.append(y)
     aux = _stack_aux(ys, "")
     x = apply_norm(cfg.norm, params["final_norm"], x)

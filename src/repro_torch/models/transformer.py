@@ -8,7 +8,11 @@ stack (the first ``first_k_dense`` layers, a dense FFN) and a
 ``moe_layers`` stack.  Attention is GQA or, with ``cfg.mla``, MLA.  The
 layer loop is a Python loop over views of those stacks; the serving
 cache keeps ONE stack of all ``n_layers`` layers, indexed by the global
-layer number.  The modality frontends are stubs, as in the JAX package:
+layer number.  Under autograd (training) ``forward`` rematerialises each
+block as ``cfg.remat`` says (``_remat``: the reference's
+``jax.checkpoint`` policies), and takes its layer views with one
+``unbind`` a stacked leaf, whose backward stacks the layers' gradients
+in one pass.  The modality frontends are stubs, as in the JAX package:
 the vlm family prepends pre-computed patch embeddings
 (``batch["patch_embeds"]``) to the token embeddings in ``forward`` and
 serves text only; the audio family (an encoder: ``cfg.causal`` False,
@@ -17,9 +21,11 @@ norm (``in_norm``) and has no token embedding in its inputs.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import attention as attn
@@ -83,6 +89,49 @@ def layer_slice(tree, l: int):
     if isinstance(tree, dict):
         return {k: layer_slice(v, l) for k, v in tree.items()}
     return tree[l]
+
+
+def layer_views(tree) -> List:
+    """Every layer's views of a layer-stacked dict tree, one ``unbind``
+    a leaf: the backward of ``unbind`` stacks the layers' gradients in
+    one pass, where ``layer_slice``'s would add each layer's into a
+    zeroed full-size stack."""
+    if isinstance(tree, dict):
+        per_key = {k: layer_views(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[l] for k, v in per_key.items()} for l in range(n)]
+    return list(tree.unbind(0))
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_saveable``: keep the products'
+    outputs, recompute everything else."""
+    policy = _ckpt.CheckpointPolicy
+    return (policy.MUST_SAVE if op in _DOTS
+            else policy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, remat: str) -> Callable:
+    """``fn`` under the activation checkpointing ``remat`` names
+    (``repro.models.transformer._remat``): "none", "nothing_saveable"
+    (every activation inside ``fn`` is recomputed in the backward) or
+    "dots_saveable" (the matmul outputs are kept).  Only while autograd
+    records: serving and calibration run ``fn`` as it is.  ``fn`` draws
+    no random numbers, so the RNG state is not stashed."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw: Dict[str, Any] = {"use_reentrant": False,
+                          "preserve_rng_state": False}
+    if remat == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _save_dots)
+    elif remat != "nothing_saveable":
+        raise ValueError(f"unknown remat policy {remat!r}")
+    return lambda *a: _ckpt.checkpoint(fn, *a, **kw)
 
 
 def _layer_plan(mor, l: int):
@@ -184,21 +233,24 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     attn_fn = attn.mla_forward if cfg.mla else attn.gqa_forward
+
+    def block(x, lp, ml, kind):
+        h = apply_norm(cfg.norm, lp["ln1"], x)
+        x = x + attn_fn(lp["attn"], cfg, h, positions)
+        h2 = apply_norm(cfg.norm, lp["ln2"], x)
+        f, y = _ffn(lp, cfg, h2, kind, ml, mor_mode)
+        if with_taps:
+            y["taps"] = (moe_taps(lp["moe"], cfg, h2) if kind == "moe"
+                         else mlp_taps(lp["mlp"], cfg, h2))
+        return x + f, y
+
+    body = _remat(block, cfg.remat)
     aux: Dict[str, Any] = {}
     for kind, stack, mor_stack, prefix in _groups(params, cfg, mor):
         ys = []
-        for l in range(_n_stack(stack)):
-            lp = layer_slice(stack, l)
-            h = apply_norm(cfg.norm, lp["ln1"], x)
-            x = x + attn_fn(lp["attn"], cfg, h, positions)
-            h2 = apply_norm(cfg.norm, lp["ln2"], x)
-            f, y = _ffn(lp, cfg, h2, kind, _layer_plan(mor_stack, l),
-                        mor_mode)
-            if with_taps:
-                y["taps"] = (moe_taps(lp["moe"], cfg, h2) if kind == "moe"
-                             else mlp_taps(lp["mlp"], cfg, h2))
+        for l, lp in enumerate(layer_views(stack)):
+            x, y = body(x, lp, _layer_plan(mor_stack, l), kind)
             ys.append(y)
-            x = x + f
         aux.update(_stack_aux(ys, prefix))
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if not cfg.vocab_size:

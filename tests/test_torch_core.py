@@ -35,6 +35,7 @@ from repro_torch.core import policy as tpol
 from repro_torch.core import predictor as tpred
 from repro_torch.core.executor import MoRExecutionPlan as TPlan
 from repro_torch.models import get_model
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 

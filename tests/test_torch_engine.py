@@ -23,6 +23,7 @@ from repro.serving import Engine as JEngine
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.serving import Engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 TRACE = [(3, 4), (9, 3), (5, 5), (12, 3)]      # (prompt length, new tokens)

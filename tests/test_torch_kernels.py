@@ -28,6 +28,7 @@ from repro_torch.kernels import mor_predict as tmp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import split_k
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-5
 

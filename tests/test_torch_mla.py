@@ -34,6 +34,7 @@ from repro_torch.kernels import paged_attention as tpk
 from repro_torch.models import get_model
 from repro_torch.models.layers import attention as tattn
 from repro_torch.serving import kv_pool
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "deepseek-v2-236b"
 RTOL = ATOL = 1e-5

@@ -20,6 +20,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.models import get_model
 from repro_torch.serving import kv_pool
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 TOL = 2e-4

@@ -37,6 +37,7 @@ from repro_torch.core.predictor import (predictor_eval_count,
 from repro_torch.models import get_model
 from repro_torch.models.layers import moe as tmoe
 from repro_torch.serving import Engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "deepseek-v2-236b"
 TOL = 2e-4

@@ -47,6 +47,7 @@ from repro_torch.obs import (SCALE, MetricsRegistry, MetricsServer,
                              validate_chrome_trace)
 from repro_torch.serving import Engine
 from repro_torch.serving.telemetry import ServingTelemetry, export_telemetry
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 TRACE = [(3, 4), (9, 3), (5, 5), (12, 3)]      # (prompt length, new tokens)

@@ -38,6 +38,7 @@ from repro_torch.kernels import paged_attention as tpk
 from repro_torch.models import get_model
 from repro_torch.serving import Engine, kv_pool
 from repro_torch.serving.scheduler import Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCH = "granite-3-2b"
 WINDOW = 16

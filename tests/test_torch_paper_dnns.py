@@ -35,6 +35,7 @@ from repro_torch.data import pipeline as tdata
 from repro_torch.kernels import gather_matmul as tgm
 from repro_torch.kernels import mor_predict as tmp
 from repro_torch.models import cnn, get_model, tds
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-4          # through the whole network
 RTOL1 = ATOL1 = 1e-5        # one conv / matmul

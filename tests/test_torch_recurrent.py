@@ -34,6 +34,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import paged_attention as tpk
 from repro_torch.models import get_model
 from repro_torch.models.layers import rwkv, ssm
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RECURRENT = ("rwkv6-3b", "zamba2-7b")
 TOL = 1e-5

@@ -42,6 +42,7 @@ from repro_torch.distributed import collectives
 from repro_torch.kernels import paged_attention as tpk
 from repro_torch.launch.mesh import run_ranks
 from repro_torch.serving import Engine, kv_pool
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RTOL = ATOL = 1e-5
 NEG = -1e30

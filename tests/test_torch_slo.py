@@ -30,6 +30,7 @@ from repro.serving import scheduler as jsched
 from repro_torch import convert
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.serving import Engine, kv_pool, loadgen, policy, scheduler
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 POLICIES = ("fcfs", "priority", "sjf")
 KW = dict(n_slots=2, max_len=48, chunk=8, telemetry=False)

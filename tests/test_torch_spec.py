@@ -44,6 +44,7 @@ from repro_torch.core.executor import attach_draft_caps, map_plans
 from repro_torch.data import pipeline as tpipe
 from repro_torch.serving import Engine
 from repro_torch.serving import spec
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ARCHS = ("granite-3-2b", "rwkv6-3b", "zamba2-7b")
 # per-arch config overrides: zamba2 at 3 layers keeps every part of the

@@ -30,6 +30,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.serving import Engine, kv_pool
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.scheduler import Request, Scheduler
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RECURRENT = ("rwkv6-3b", "zamba2-7b")
 

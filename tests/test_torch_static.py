@@ -49,6 +49,7 @@ from repro_torch.models import transformer as ttrans
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.transformer import layer_slice
 from repro_torch.serving import kv_pool as tkv
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 2e-4
 ATTN_TOL = 1e-5

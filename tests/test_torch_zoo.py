@@ -35,6 +35,7 @@ from repro_torch.data import pipeline as tpipe
 from repro_torch.kernels import paged_attention as tpk
 from repro_torch.models import get_model
 from repro_torch.serving import Engine
+from torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ZOO = ("qwen2-7b", "qwen1.5-110b", "granite-20b", "mixtral-8x7b",
        "phi-3-vision-4.2b", "hubert-xlarge")
