@@ -7,9 +7,11 @@
    ``src/repro_torch/kernels/csrc`` (seconds, one ``-Xptxas -v`` line per
    entry function: registers, shared memory, spills, and any warning);
 3. each kernel against its plain PyTorch version at the slices' shapes,
-   in bf16, each timed on the device (CUDA events, L2 flushed before
-   each launch, the host's enqueue hidden behind a device spin) beside
-   its plain version, a one-call library yardstick and its bound: the
+   in bf16, each timed on the device (``launch/timing.py``: CUDA events,
+   L2 flushed before each launch, the host's enqueue hidden behind a
+   device spin) beside its plain version, a one-call library yardstick
+   and its bound (``launch/roofline.py`` ``bound_ms`` of the kernel's
+   ``work()`` on the case's inputs): the
    MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
    (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots,
    M=256 for 8 slots x chunk 32, M=512 and 2,048 for the static batch's
@@ -153,6 +155,17 @@
    the trained weights, slotted, in kernel mode (counted: 40 / 80 / 40
    a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
    granite phase's random-init ones;
+5d. the dry run (``phase_dryrun``, ``launch/dryrun.py``): granite-3-2b
+   whole, the train phase's cell (8 x 512 tokens, grad_accum 4, remat)
+   and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
+   predicted on the meta device (argument bytes and the peak of the
+   storages the step allocates, ``launch/op_cost.py``; FLOPs; the
+   roofline bound at the H100 SXM's data-sheet rates) and then run on
+   the card: the predicted peak within 10% of ``max_memory_allocated``
+   over what was allocated before, the FLOPs counted on the card equal
+   to meta's, the bound beside the CUDA-event ms; then the 40-cell meta
+   grid, one line a cell (``DRYRUN_GRID_CELLS`` run here, the rest
+   named: they take minutes of the host's CPU);
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -233,10 +246,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-# dense tensor-core rates, and float32 on the CUDA cores (the paper
-# DNNs' float32 products)
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
+# the port's timing and roofline modules (CUDA-event timing; the H100
+# SXM's data-sheet rates and each kernel's bound), imported by main()
+# once the checkout's src/ is on the path
+timing = roofline = None
 # bf16 product tolerance: kernel and plain version both sum bf16
 # products (exact in float32) in float32, in different orders, then round
 # to bf16.  Reassociation moves the float32 sum by far less than one bf16
@@ -249,9 +262,6 @@ RTOL, ATOL_REL = 2.0 ** -7, 1e-3
 # version both sum float32 products in float32, in different orders (no
 # TF32 anywhere): a few float32 steps apart, far inside 1e-5 relative
 RTOL_F32, ATOL_REL_F32 = 1e-5, 1e-5
-# the device spin in _timer, about 0.5 ms at the H100's clocks: longer
-# than the host takes to enqueue one call of any wrapper timed here
-SPIN_CYCLES = 1_000_000
 # greedy-token agreement bar between the full-width kernel run and the
 # tiled / dense / slotted runs.  Kernel and tiled differ only in
 # summation order (bf16 rounding noise), dense also in skipping nothing,
@@ -307,53 +317,6 @@ def phase_build():
 
 # -- phase 3: kernels against their plain versions ---------------------------
 
-def _timer(fn, flush, iters=10):
-    """Mean device ms of ``fn`` over ``iters`` launches, each timed by
-    its own CUDA event pair with the L2 cache flushed before it.  A spin
-    of SPIN_CYCLES on the stream between the flush and the start event
-    lets the host enqueue all of ``fn``'s launches before the device
-    reaches them, so the pair times the device's work and not the host's
-    enqueue (``_host_ms`` times that)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(iters):
-        flush.zero_()
-        torch.cuda._sleep(SPIN_CYCLES)
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
-
-
-def _host_ms(fn, iters=50):
-    """Mean host ms to enqueue one call of ``fn`` (the wrapper's Python
-    and the launches, without waiting for the device)."""
-    import torch
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return t / iters * 1e3
-
-
-def _bound(nbytes, ops, kind):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS[kind]
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
 def _close(got, want, f32=False):
     """Max abs err of ``got`` against ``want``, asserted within the
     tolerance of the operands' type: bfloat16 (RTOL, ATOL_REL), or
@@ -398,14 +361,13 @@ def kernel_case_mor(M, gen, flush, K=2048, N=8192):
     live = float(want.float().mean())
     assert 0.0 < live < 1.0, live
     _repeat_equal(lambda: mp.mor_tile_mask(x, w, coef, pn), "mor_tile_mask")
-    ms = _timer(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
-    plain_ms = _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
+    ms = timing.device_ms(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
+    plain_ms = timing.device_ms(
+        lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
     # the yardstick of the product part: binary_dot's sign product of the
     # same x and w (no one PyTorch call computes the mask: library null)
-    bd_ms = _timer(lambda: bd.binary_dot(x, w), flush)
-    nbytes = (M * K * 2 + K * N * 2 + 6 * N * 4 + M * N
-              + (M // 8) * (N // 128) * 4)
-    bound_ms, by = _bound(nbytes, 2 * M * K * N, "int8")
+    bd_ms = timing.device_ms(lambda: bd.binary_dot(x, w), flush)
+    bound_ms, by = roofline.bound_ms(*mp.work(x, w, coef, pn))
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             "binary_dot_ms": bd_ms, "frac_live": live,
@@ -486,14 +448,13 @@ def mor_edges(gen, flush):
     assert d == 0, f"mor_tile_mask (TDS): {d} mask bits differ"
     live = float(want.float().mean())
     assert 0.0 < live < 1.0, live
-    nbytes = (M * K * 4 + K * N * 4 + 6 * N * 4 + M * N + M * N * 4
-              + (M // 8) * (N // 128) * 4)
-    bound_ms, by = _bound(nbytes, 2 * M * K * N, "int8")
+    bound_ms, by = roofline.bound_ms(*mp.work(x, w, coef, pn, res))
     out["tds_f32_residual"] = {
         "mask_bits_differing": d, "frac_live": live,
-        "ms": _timer(lambda: mp.mor_tile_mask(x, w, coef, pn, res), flush),
-        "plain_ms": _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn,
-                                                          res), flush),
+        "ms": timing.device_ms(
+            lambda: mp.mor_tile_mask(x, w, coef, pn, res), flush),
+        "plain_ms": timing.device_ms(
+            lambda: mp.mor_tile_mask_plain(x, w, coef, pn, res), flush),
         "bound_ms": bound_ms, "bound_by": by,
         "plan": list(mp.plan(1, M, K, N, sms=split_k.sm_count(x.device)))}
     for tag, r in out.items():
@@ -535,7 +496,7 @@ def _gather_bare_ms(x, w, mask, cap, flush, cap_live=None):
     ranks the live tiles itself)."""
     from repro_torch.kernels import gather_matmul as gm
     plan = gm.plan(x, w, cap)
-    return _timer(lambda: gm.launch(x, w, mask, capacity=cap,
+    return timing.device_ms(lambda: gm.launch(x, w, mask, capacity=cap,
                                     cap_live=cap_live, split_plan=plan),
                   flush)
 
@@ -557,19 +518,16 @@ def kernel_case_gather(M, gen, flush, K=2048, N=8192, draft_cap=None):
            else max(1, math.ceil(draft_cap * nm * nn)))
     err = _gather_checks(x, w, mask, cap)
     call = functools.partial(gm.gather_matmul, x, w, mask, capacity=cap)
-    ms, host_ms = _timer(call, flush), _host_ms(call)
+    ms, host_ms = timing.device_ms(call, flush), timing.host_ms(call)
     bare_ms = _gather_bare_ms(x, w, mask, cap, flush)
-    plain_ms = _timer(lambda: gm.gather_matmul_plain(x, w, mask,
+    plain_ms = timing.device_ms(lambda: gm.gather_matmul_plain(x, w, mask,
                                                      capacity=cap), flush)
-    lib_ms = _timer(lambda: torch.matmul(x, w), flush)
-    lib_host_ms = _host_ms(lambda: torch.matmul(x, w))
+    lib_ms = timing.device_ms(lambda: torch.matmul(x, w), flush)
+    lib_host_ms = timing.host_ms(lambda: torch.matmul(x, w))
     flat = mask.reshape(-1)
     kept = (flat & (torch.cumsum(flat, 0) - 1 < cap)).reshape(nm, nn)
     n_comp = int(kept.sum())
-    cols = int(kept.any(0).sum())
-    rows = int(kept.any(1).sum())
-    nbytes = cols * K * 128 * 2 + rows * 8 * K * 2 + M * N * 2
-    bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * K, "bf16")
+    bound_ms, by = roofline.bound_ms(*gm.work(x, w, mask, capacity=cap))
     r = {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
          "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
          "library_ms": lib_ms, "host_ms": host_ms,
@@ -624,17 +582,14 @@ def kernel_case_kdim(M, gen, flush, K=8192, N=2048, mask=None):
          * K ** -0.5).bfloat16()
     err = _kdim_checks(x, w, mask)
     call = functools.partial(mm.masked_matmul_kdim, x, w, mask)
-    ms, host_ms = _timer(call, flush), _host_ms(call)
+    ms, host_ms = timing.device_ms(call, flush), timing.host_ms(call)
     plan = mm.plan(x, w)
-    bare_ms = _timer(lambda: mm.launch_kdim(x, w, mask, plan), flush)
-    plain_ms = _timer(lambda: mm.masked_matmul_kdim_plain(x, w, mask),
-                      flush)
-    lib_ms = _timer(lambda: torch.matmul(x, w), flush)
-    lib_host_ms = _host_ms(lambda: torch.matmul(x, w))
-    n_pairs = int(mask.sum())
-    k_live = int(mask.any(0).sum())
-    nbytes = n_pairs * 8 * 128 * 2 + k_live * 128 * N * 2 + M * N * 2
-    bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * N, "bf16")
+    bare_ms = timing.device_ms(lambda: mm.launch_kdim(x, w, mask, plan), flush)
+    plain_ms = timing.device_ms(
+        lambda: mm.masked_matmul_kdim_plain(x, w, mask), flush)
+    lib_ms = timing.device_ms(lambda: torch.matmul(x, w), flush)
+    lib_host_ms = timing.host_ms(lambda: torch.matmul(x, w))
+    bound_ms, by = roofline.bound_ms(*mm.work_kdim(x, w, mask))
     return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms, "host_ms": host_ms,
@@ -795,29 +750,25 @@ def paged_case(gen, flush, ctx, C, W, window=0, n_null=0, time_it=True,
               .transpose(1, 2).contiguous() for t in (gk, gv))
     qt = q.transpose(1, 2).contiguous()
     mask = ok[:, None]
-    r["ms"] = _timer(lambda: pa.gqa_paged_flash(*args, window=window),
-                     flush)
-    r["plain_ms"] = _timer(lambda: pa.gqa_paged_flash_plain(
+    r["ms"] = timing.device_ms(
+        lambda: pa.gqa_paged_flash(*args, window=window), flush)
+    r["plain_ms"] = timing.device_ms(lambda: pa.gqa_paged_flash_plain(
         *args, window=window), flush)
-    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+    r["library_ms"] = timing.device_ms(lambda: F.scaled_dot_product_attention(
         qt, gk, gv, attn_mask=mask), flush)
-    # bytes: the tags of every distinct live page once, K and V of every
-    # distinct page holding a key some query row admits (a page wholly
-    # outside every row's window is never needed) once, q and the output
-    # once, the table and qpos; operations: q.k and p.v (4 D) for every
-    # (query row, head, key) pair the masks let through
+    # the live pages, and those holding a key some query row admits (a
+    # page wholly outside every row's window is never needed); the bound
+    # is ``gqa_work``'s
     admitted = ok.any(1).reshape(B, -1, page).any(-1)
     n_pages = int(torch.unique(tbl[live]).numel())
     n_kv = int(torch.unique(tbl[live & admitted]).numel())
-    nbytes = (n_kv * page * 2 * hkv * D * 2 + n_pages * page * 4
-              + 2 * q.numel() * 2 + tbl.numel() * 4 + qpos.numel() * 4)
-    pairs = int(ok.sum()) * H
-    r["bound_ms"], r["bound_by"] = _bound(nbytes, pairs * 4 * D, "bf16")
+    r["bound_ms"], r["bound_by"] = roofline.bound_ms(
+        *pa.gqa_work(*args, window=window))
     r["live_pages"], r["kv_pages"] = n_pages, n_kv
     if sweep:
         # the kernel at every split a cluster can take (the plan's rule,
         # PERF.md): device ms by split
-        r["split_sweep_ms"] = {s: round(_timer(lambda s=s: pa.launch(
+        r["split_sweep_ms"] = {s: round(timing.device_ms(lambda s=s: pa.launch(
             *args, window, split=s), flush), 5) for s in range(1, 9)}
     return r
 
@@ -1046,16 +997,15 @@ def expert_case_mor(C, gen, flush, E=160, d=5120, f=1536, k=6,
                   "mor_tile_mask (experts)")
     live = float(want.float().mean())
     assert 0.0 < live < 1.0, live
-    ms = _timer(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
-    plain_ms = _timer(lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
-    # what these inputs need: every proxy state (the early exit reads
-    # them), and for each expert holding a token its rows of x, its
-    # whole gate weight and its coef table; the tile bits out
+    ms = timing.device_ms(lambda: mp.mor_tile_mask(x, w, coef, pn), flush)
+    plain_ms = timing.device_ms(
+        lambda: mp.mor_tile_mask_plain(x, w, coef, pn), flush)
+    # what these inputs need (``mor_predict.work``): every proxy state
+    # (the early exit reads them), and for each expert holding a token
+    # its rows of x, its whole gate weight and its coef table; the tile
+    # bits out
     busy = int((counts > 0).sum())
-    row_blocks = int((-(-counts // 8)).sum())
-    nbytes = (E * C * f + busy * (d * f * 2 + 6 * f * 4)
-              + row_blocks * 8 * d * 2 + E * (C // 8) * (f // 128) * 4)
-    bound_ms, by = _bound(nbytes, row_blocks * 8 * 2 * d * f, "int8")
+    bound_ms, by = roofline.bound_ms(*mp.work(x, w, coef, pn))
     return {"max_abs_err": float(diff), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": None,
             "E": E, "C": C, "d": d, "f": f, "top_k": k,
@@ -1082,20 +1032,18 @@ def expert_case_gather(C, gen, flush, E=160, d=5120, f=1536, k=6,
     cap_live = torch.where(torch.arange(E, device=dev) % 2 == 1,
                            max(1, nm * nn // 2), cap).int()
     err = _gather_checks(x, w, mask, cap, cap_live)
-    ms = _timer(lambda: gm.gather_matmul(x, w, mask, capacity=cap,
+    ms = timing.device_ms(lambda: gm.gather_matmul(x, w, mask, capacity=cap,
                                          cap_live=cap_live), flush)
     bare_ms = _gather_bare_ms(x, w, mask, cap, flush, cap_live)
-    plain_ms = _timer(lambda: gm.gather_matmul_plain(
+    plain_ms = timing.device_ms(lambda: gm.gather_matmul_plain(
         x, w, mask, capacity=cap, cap_live=cap_live), flush)
-    lib_ms = _timer(lambda: torch.bmm(x, w), flush)
+    lib_ms = timing.device_ms(lambda: torch.bmm(x, w), flush)
     flat = mask.reshape(E, -1)
     lim = torch.clamp(cap_live, min=1, max=cap)[:, None]
     kept = (flat & (torch.cumsum(flat, -1) - 1 < lim)).reshape(E, nm, nn)
     n_comp = int(kept.sum())
-    cols = int(kept.any(1).sum())
-    rblocks = int(kept.any(2).sum())
-    nbytes = cols * d * 128 * 2 + rblocks * 8 * d * 2 + E * C * f * 2
-    bound_ms, by = _bound(nbytes, n_comp * 2 * 8 * 128 * d, "bf16")
+    bound_ms, by = roofline.bound_ms(*gm.work(x, w, mask, capacity=cap,
+                                              cap_live=cap_live))
     return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms, "E": E, "C": C, "d": d, "f": f,
@@ -1120,16 +1068,13 @@ def expert_case_kdim(C, gen, flush, E=160, d=5120, f=1536, k=6,
     w = (torch.randn((E, f, d), generator=gen, device=dev)
          * f ** -0.5).bfloat16()
     err = _kdim_checks(h, w, mask)
-    ms = _timer(lambda: mm.masked_matmul_kdim(h, w, mask), flush)
+    ms = timing.device_ms(lambda: mm.masked_matmul_kdim(h, w, mask), flush)
     plan = mm.plan(h, w)
-    bare_ms = _timer(lambda: mm.launch_kdim(h, w, mask, plan), flush)
-    plain_ms = _timer(lambda: mm.masked_matmul_kdim_plain(h, w, mask),
-                      flush)
-    lib_ms = _timer(lambda: torch.bmm(h, w), flush)
-    n_pairs = int(mask.sum())
-    k_live = int(mask.any(1).sum())
-    nbytes = n_pairs * 8 * 128 * 2 + k_live * 128 * d * 2 + E * C * d * 2
-    bound_ms, by = _bound(nbytes, n_pairs * 2 * 8 * 128 * d, "bf16")
+    bare_ms = timing.device_ms(lambda: mm.launch_kdim(h, w, mask, plan), flush)
+    plain_ms = timing.device_ms(
+        lambda: mm.masked_matmul_kdim_plain(h, w, mask), flush)
+    lib_ms = timing.device_ms(lambda: torch.bmm(h, w), flush)
+    bound_ms, by = roofline.bound_ms(*mm.work_kdim(h, w, mask))
     return {"max_abs_err": err, "ms": ms, "bare_ms": bare_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
             "library_ms": lib_ms, "E": E, "C": C, "d": d, "f": f,
@@ -1211,22 +1156,15 @@ def mla_case(gen, flush, ctx, C, W, n_null=0, time_it=True):
     vv = gk.expand(B, h, -1, kr)
     qq = torch.cat([q_lat, q_pe], -1).transpose(1, 2).contiguous()
     mask = ok[:, None]
-    r["ms"] = _timer(lambda: pa.mla_paged_flash(*args, scale=scale), flush)
-    r["plain_ms"] = _timer(lambda: pa.mla_paged_flash_plain(
+    r["ms"] = timing.device_ms(
+        lambda: pa.mla_paged_flash(*args, scale=scale), flush)
+    r["plain_ms"] = timing.device_ms(lambda: pa.mla_paged_flash_plain(
         *args, scale=scale), flush)
-    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+    r["library_ms"] = timing.device_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, scale=scale), flush)
-    # bytes: every distinct live page's latent and rope rows and tags
-    # once, q and the output once, the table and qpos; operations: the
-    # scores (kr + rd) and the latent accumulation (kr), 2 flops each,
-    # for every (query row, head, key) pair the masks let through
     n_pages = int(torch.unique(tbl[live]).numel())
-    nbytes = (n_pages * page * ((kr + rd) * 2 + 4)
-              + (q_lat.numel() + q_pe.numel() + q_lat.numel()) * 2
-              + tbl.numel() * 4 + qpos.numel() * 4)
-    pairs = int(ok.sum()) * h
-    r["bound_ms"], r["bound_by"] = _bound(nbytes,
-                                          pairs * 2 * (2 * kr + rd), "bf16")
+    r["bound_ms"], r["bound_by"] = roofline.bound_ms(
+        *pa.mla_work(*args, scale=scale))
     r["live_pages"] = n_pages
     return r
 
@@ -1356,7 +1294,6 @@ def window_case_gqa(gen, flush, ctx, C, W, hkv=8, G=4, D=64, window=0,
     q, kp, vp, pp, tbl, qpos = _paged_inputs(gen, ctx, C, W, n_null=n_null,
                                              hkv=hkv, G=G, D=D)
     B, _, H, _ = q.shape
-    page = kp.shape[1]
     n_local, los = _windows(kp.shape[0])
     parts, err, n_sent, n_empty, wholly_foreign = [], 0.0, 0, 0, 0
     for lo in los:
@@ -1397,9 +1334,9 @@ def window_case_gqa(gen, flush, ctx, C, W, hkv=8, G=4, D=64, window=0,
             _window_pool(vp, lo, n_local, 0),
             _window_pool(pp, lo, n_local, -1), tbl, qpos)
     kw = dict(window=window, lo=lo, n_local=n_local, partial=True)
-    r["ms"] = _timer(lambda: pa.gqa_paged_flash(*args, **kw), flush)
-    r["plain_ms"] = _timer(lambda: pa.gqa_paged_flash_plain(*args, **kw),
-                           flush)
+    r["ms"] = timing.device_ms(lambda: pa.gqa_paged_flash(*args, **kw), flush)
+    r["plain_ms"] = timing.device_ms(
+        lambda: pa.gqa_paged_flash_plain(*args, **kw), flush)
     live = (tbl > 0) & (tbl >= lo) & (tbl < lo + n_local)
     ok = _gqa_seen(pp, torch.where(live, tbl, 0), qpos, window)
     gk = torch.where(live[..., None, None, None], kp[tbl.long()], 0)
@@ -1407,14 +1344,13 @@ def window_case_gqa(gen, flush, ctx, C, W, hkv=8, G=4, D=64, window=0,
     gk, gv = (t.reshape(B, -1, hkv, D).repeat_interleave(G, 2)
               .transpose(1, 2).contiguous() for t in (gk, gv))
     qt, mask = q.transpose(1, 2).contiguous(), ok[:, None]
-    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+    r["library_ms"] = timing.device_ms(lambda: F.scaled_dot_product_attention(
         qt, gk, gv, attn_mask=mask), flush)
     r["library_computes"] = "the normalised output, not the statistics"
     n_pages = int(torch.unique(tbl[live]).numel())
-    nbytes = (n_pages * page * (2 * hkv * D * 2 + 4) + q.numel() * 2
-              + B * H * C * (D + 2) * 4 + tbl.numel() * 4 + qpos.numel() * 4)
-    r["bound_ms"], r["bound_by"] = _bound(nbytes, int(ok.sum()) * H * 4 * D,
-                                          "bf16")
+    # that window's live pages, q, the statistics (``gqa_work``)
+    r["bound_ms"], r["bound_by"] = roofline.bound_ms(
+        *pa.gqa_work(*args, **kw))
     r["timed_window"], r["timed_live_pages"] = lo // n_local, n_pages
     return r
 
@@ -1472,9 +1408,9 @@ def window_case_mla(gen, flush, ctx, C, W, n_null=0, time_it=False):
     lo = los[max(range(N_WINDOWS), key=counts.__getitem__)]
     kw = dict(scale=scale, lo=lo, n_local=n_local, partial=True)
     wa = window_args(lo)
-    r["ms"] = _timer(lambda: pa.mla_paged_flash(*wa, **kw), flush)
-    r["plain_ms"] = _timer(lambda: pa.mla_paged_flash_plain(*wa, **kw),
-                           flush)
+    r["ms"] = timing.device_ms(lambda: pa.mla_paged_flash(*wa, **kw), flush)
+    r["plain_ms"] = timing.device_ms(
+        lambda: pa.mla_paged_flash_plain(*wa, **kw), flush)
     live = (tbl > 0) & (tbl >= lo) & (tbl < lo + n_local)
     gpw = torch.where(live[..., None], pp[tbl.long()], -1).reshape(B, -1)
     ok = (gpw[:, None, :] >= 0) & (gpw[:, None, :] <= qpos[:, :, None])
@@ -1486,15 +1422,12 @@ def window_case_mla(gen, flush, ctx, C, W, n_null=0, time_it=False):
     vv = gk.expand(B, h, -1, kr)
     qq = torch.cat([q_lat, q_pe], -1).transpose(1, 2).contiguous()
     mask = ok[:, None]
-    r["library_ms"] = _timer(lambda: F.scaled_dot_product_attention(
+    r["library_ms"] = timing.device_ms(lambda: F.scaled_dot_product_attention(
         qq, kk, vv, attn_mask=mask, scale=scale), flush)
     r["library_computes"] = "the normalised output, not the statistics"
     n_pages = int(torch.unique(tbl[live]).numel())
-    nbytes = (n_pages * page * ((kr + rd) * 2 + 4)
-              + (q_lat.numel() + q_pe.numel()) * 2 + B * h * C * (kr + 2) * 4
-              + tbl.numel() * 4 + qpos.numel() * 4)
-    r["bound_ms"], r["bound_by"] = _bound(
-        nbytes, int(ok.sum()) * h * 2 * (2 * kr + rd), "bf16")
+    r["bound_ms"], r["bound_by"] = roofline.bound_ms(
+        *pa.mla_work(*wa, **kw))
     r["timed_window"], r["timed_live_pages"] = lo // n_local, n_pages
     return r
 
@@ -1562,25 +1495,7 @@ def _int_mm_ms(xs, ws, flush):
         M = INT_MM_ROWS
     if M % 32 or K % 32 or ws.shape[1] % 32:
         return None
-    return _timer(lambda: torch._int_mm(xs, ws), flush)
-
-
-def _masked_bound(tiles, M, K, N, elt, kind):
-    """masked_matmul's bound on these tiles: the live tiles' column
-    strips of w and row blocks of x once, the whole output (dead tiles
-    are written as zeros), and 2 K multiply-adds per live output; a tile
-    of the ragged edge counts its real rows and columns."""
-    import torch
-    dev = tiles.device
-    rows = torch.clamp(M - 8 * torch.arange(tiles.shape[0], device=dev),
-                       max=8)
-    cols = torch.clamp(N - 128 * torch.arange(tiles.shape[1], device=dev),
-                       max=128)
-    live = tiles.bool()
-    nbytes = (int((live.any(0) * cols).sum()) * K * elt
-              + int((live.any(1) * rows).sum()) * K * elt + M * N * elt)
-    outs = int((live * rows[:, None] * cols[None, :]).sum())
-    return _bound(nbytes, 2 * K * outs, kind)
+    return timing.device_ms(lambda: torch._int_mm(xs, ws), flush)
 
 
 def binary_cases(x, w, flush, tiles=None):
@@ -1603,7 +1518,6 @@ def binary_cases(x, w, flush, tiles=None):
     M, K = x.shape
     N = w.shape[1]
     elt = x.element_size()
-    kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
     want = binary_preact(x, w)
     got = ops.binary_dot(x, w)
     packed = bdp.pack_signs(w)
@@ -1629,36 +1543,35 @@ def binary_cases(x, w, flush, tiles=None):
     lib_ms = _int_mm_ms(xs, ws, flush)
     lib_note = ({"library_null": INT_MM_RULE} if lib_ms is None else
                 {"library_padded_rows": INT_MM_ROWS} if M <= 16 else {})
-    sign_ops = 2 * M * K * N
     out = {}
-    b_ms, b_by = _bound(M * K * elt + K * N * elt + M * N * 4, sign_ops,
-                        "int8")
+    b_ms, b_by = roofline.bound_ms(*bd.work(x, w))
     out["binary_dot"] = {
         "max_abs_err": float(n_diff),
-        "ms": _timer(lambda: bd.binary_dot(x, w), flush),
-        "wrapper_ms": _timer(lambda: ops.binary_dot(x, w), flush),
-        "plain_ms": _timer(lambda: bd.binary_dot_plain(x, w), flush),
+        "ms": timing.device_ms(lambda: bd.binary_dot(x, w), flush),
+        "wrapper_ms": timing.device_ms(lambda: ops.binary_dot(x, w), flush),
+        "plain_ms": timing.device_ms(lambda: bd.binary_dot_plain(x, w), flush),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         **lib_note, "M": M, "K": K, "N": N}
-    b_ms, b_by = _bound(M * K * elt + K * N // 8 + M * N * 4, sign_ops,
-                        "int8")
+    b_ms, b_by = roofline.bound_ms(*bdp.work(x, packed))
     out["binary_dot_packed"] = {
         "max_abs_err": float(n_diff_p),
-        "ms": _timer(lambda: bdp.binary_dot_packed(x, packed), flush),
-        "plain_ms": _timer(lambda: bdp.binary_dot_packed_plain(x, packed),
-                           flush),
+        "ms": timing.device_ms(lambda: bdp.binary_dot_packed(x, packed),
+                               flush),
+        "plain_ms": timing.device_ms(
+            lambda: bdp.binary_dot_packed_plain(x, packed), flush),
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
         **lib_note, "M": M, "K": K, "N": N,
         "weight_bytes": K * N // 8, "unpacked_weight_bytes": K * N * elt}
-    b_ms, b_by = _masked_bound(tiles, M, K, N, elt, kind)
+    b_ms, b_by = roofline.bound_ms(*mm.work_masked(x, w, tiles))
     out["masked_matmul"] = {
         "max_abs_err": err_m,
-        "ms": _timer(lambda: mm.masked_matmul(x, w, tiles), flush),
-        "wrapper_ms": _timer(lambda: ops.masked_matmul(x, w, tiles), flush),
-        "plain_ms": _timer(lambda: mm.masked_matmul_plain(x, w, tiles),
-                           flush),
+        "ms": timing.device_ms(lambda: mm.masked_matmul(x, w, tiles), flush),
+        "wrapper_ms": timing.device_ms(
+            lambda: ops.masked_matmul(x, w, tiles), flush),
+        "plain_ms": timing.device_ms(
+            lambda: mm.masked_matmul_plain(x, w, tiles), flush),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": _timer(lambda: torch.matmul(x, w), flush),
+        "library_ms": timing.device_ms(lambda: torch.matmul(x, w), flush),
         "M": M, "K": K, "N": N, "frac_live": float(tiles.float().mean())}
     return out
 
@@ -3022,7 +2935,7 @@ def phase_train(random_skip):
     tiled mode at AGREE_MIN.  -> the serve's launches."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import steps
     from repro_torch.launch.train import calibrate
     from repro_torch.optim import OptConfig
@@ -3070,6 +2983,11 @@ def phase_train(random_skip):
     adam_ms = [e0.elapsed_time(e1) for e0, e1 in adam_events]
     warm = float(np.median(step_s[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
+    # 6 N T over the step at the bf16 peak: N the active params of
+    # ``param_count`` (``roofline.model_flops``), and every leaf's numel
+    # (the norm scales too), the share this phase printed before
+    shape = ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mf = roofline.model_flops(cfg, shape, 1)
     log("train", path="granite train", model=cfg.name, layers=cfg.n_layers,
         params=n_params, dtype=cfg.dtype, remat=cfg.remat,
         grad_accum=cfg.grad_accum, micro_batch=TRAIN_BATCH // cfg.grad_accum,
@@ -3080,7 +2998,11 @@ def phase_train(random_skip):
         step_ms=round(warm * 1e3, 2),
         step_ms_all=[round(s * 1e3, 1) for s in step_s],
         tokens_per_s=round(tokens / warm, 1),
-        model_flops_share=round(6 * n_params * tokens / warm / 989e12, 4),
+        model_flops_share=round(mf["model_flops_per_chip"] / warm
+                                / roofline.PEAK_FLOPS, 4),
+        model_flops_share_leaf_numel=round(
+            6 * n_params * tokens / warm / roofline.PEAK_FLOPS, 4),
+        params_active=mf["params_active"],
         adamw_ms=round(float(np.median(adam_ms[1:])), 2),
         adamw_ms_all=[round(x, 2) for x in adam_ms],
         peak_gb=round(peak_gb, 2), loss_first=round(losses[0], 5),
@@ -3122,6 +3044,106 @@ def phase_train(random_skip):
         skip_frac_per_layer_after_training=[round(v, 4) for v in skip],
         note=f"{TRAIN_STEPS} steps at warm-up lr: not a trained model")
     return launches
+
+
+# -- the dry run: meta predictions against the card ------------------------
+
+# the meta grid's cells this phase runs, 1-4 s each on meta: the
+# recurrent and windowed archs' one-token decodes (at 32,768 and 524,288
+# positions of state or ring) and deepseek's decode_32k.  Each of the
+# other run cells takes 6 s to 6 min of the host's CPU on meta (its
+# kernels are Python; PERF.md, the dry run), past this phase's minute:
+# ``python -m repro_torch.launch.dryrun_all`` runs them all.
+DRYRUN_GRID_CELLS = (("rwkv6-3b", "decode_32k"), ("rwkv6-3b", "long_500k"),
+                     ("zamba2-7b", "decode_32k"), ("zamba2-7b", "long_500k"),
+                     ("mixtral-8x7b", "decode_32k"),
+                     ("mixtral-8x7b", "long_500k"),
+                     ("deepseek-v2-236b", "decode_32k"))
+# the meta prediction of a cell's peak against the card's measured peak,
+# whole (arguments and step) and the step's own (the peak over the
+# arguments): a share of the measured, plus an absolute slack for what
+# meta cannot see (the allocator's 512-byte rounding of every block)
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_PEAK_SLACK = 4 << 20
+
+
+def _dryrun_cell(cfg, shape, opt, flush, iters):
+    """One granite cell predicted on meta, then run on the card ->
+    the log fields; the FLOPs counted on the card must equal meta's, and
+    the predicted peak, whole and the step's own, lie within
+    DRYRUN_PEAK_TOL (and DRYRUN_PEAK_SLACK) of the measured."""
+    from repro_torch.launch import dryrun
+    rec = dryrun.measure_cell(cfg, shape, opt_cfg=opt, device="cuda",
+                              flush=flush, time_iters=iters)
+    card = rec["card"]
+    pred, meas = rec["per_device_bytes"], card["peak_bytes"]
+    step_pred, step_meas = rec["peak_temp_bytes"], card["step_peak_bytes"]
+    assert card["flops"] == rec["cost"]["flops"], (card["flops"],
+                                                   rec["cost"]["flops"])
+    assert abs(pred - meas) <= DRYRUN_PEAK_TOL * meas, (pred, meas)
+    assert abs(step_pred - step_meas) <= \
+        DRYRUN_PEAK_TOL * step_meas + DRYRUN_PEAK_SLACK, (step_pred,
+                                                           step_meas)
+    rl = rec["roofline"]
+    return dict(
+        B=shape.global_batch, seq=shape.seq_len,
+        predicted_peak_gb=round(pred / 1e9, 3),
+        measured_peak_gb=round(meas / 1e9, 3),
+        peak_rel_err=round((pred - meas) / meas, 4),
+        argument_gb=round(rec["argument_bytes"] / 1e9, 3),
+        argument_gb_card=round(card["argument_bytes"] / 1e9, 3),
+        predicted_step_peak_gb=round(step_pred / 1e9, 4),
+        measured_step_peak_gb=round(step_meas / 1e9, 4),
+        step_peak_rel_err=round((step_pred - step_meas) / step_meas, 4),
+        bound_ms=round(rl["bound_time_s"] * 1e3, 3), bound_by=rl["dominant"],
+        bytes_counted=rl["bytes_counted"],
+        floor_ms=round(rl["floor_time_s"] * 1e3, 3),
+        floor_by=rl["floor_dominant"],
+        floor_gb=round(rl["floor_bytes"] / 1e9, 3),
+        ms=round(card["ms"], 3), time_iters=iters,
+        flops_meta=rec["cost"]["flops"], flops_card=card["flops"],
+        bytes_meta=rec["cost"]["bytes"], bytes_card=card["bytes"],
+        meta_s=rec["meta_s"])
+
+
+def phase_dryrun():
+    """The dry run (``launch/dryrun.py``) held to the card: granite-3-2b
+    whole, the train phase's cell (8 x 512 tokens, grad_accum 4, remat,
+    AdamW with bf16 moments and the float32 master) and a decode step of
+    ``make_serve_step`` at B 8 over ``cache_init``'s 4,096 positions,
+    each predicted on the meta device, then run on the card: peak GB
+    predicted against measured, bound ms against CUDA-event ms, FLOPs
+    counted on meta against those counted on the card.  Then one line a
+    cell of the 40-cell meta grid: its status, and the cells of
+    DRYRUN_GRID_CELLS run on meta (reckoned from the H100 SXM's
+    data-sheet rates, not measured)."""
+    import torch
+    from repro_torch.configs import SHAPES, ShapeSpec, get_config
+    from repro_torch.launch import dryrun, dryrun_all
+    from repro_torch.optim import OptConfig
+    cfg = get_config("granite-3-2b")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    train = ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
+    log("dryrun", path="granite train cell", **_dryrun_cell(
+        cfg, train, OptConfig(lr=1e-3, moment_dtype="bfloat16"), flush, 2))
+    decode = ShapeSpec("decode_8x4096", 4096, STATIC_SLOTS, "decode")
+    log("dryrun", path="granite decode cell", **_dryrun_cell(
+        cfg, decode, None, flush, 10))
+    del flush
+    torch.cuda.empty_cache()
+    for arch in dryrun_all.ARCHS:
+        for name in dryrun_all.SHAPE_NAMES:
+            status = dryrun.cell_status(get_config(arch), SHAPES[name])
+            if status == "run" and (arch, name) in DRYRUN_GRID_CELLS:
+                rec = dryrun.run_cell(arch, name)
+                assert rec["status"] == "ok", (arch, name, rec["status"],
+                                               rec.get("traceback"))
+                log("dryrun", grid=f"{arch} {name}", meta_s=rec["meta_s"],
+                    cell=dryrun_all.summary(rec), note="reckoned on meta")
+            else:
+                log("dryrun", grid=f"{arch} {name}", cell=status
+                    if status != "run" else "not run here: seconds to "
+                    "minutes of the host's CPU on meta (DRYRUN_GRID_CELLS)")
 
 
 # -- observability (obs/, the shadow twin) -----------------------------------
@@ -3657,8 +3679,8 @@ def _attention_case(branch, cfg, S):
         head_dim=D, window=W, row_rel_err=round(err, 6),
         full_row_rel_err=round(control, 6), bound=round(bound, 6),
         max_abs_err_vs_full=round(max_abs, 6),
-        ms=round(_timer(fn, flush, iters=3), 3),
-        full_ms=round(_timer(full, flush, iters=3), 3),
+        ms=round(timing.device_ms(fn, flush, iters=3), 3),
+        full_ms=round(timing.device_ms(full, flush, iters=3), 3),
         peak_gb=round(got_gb, 3), full_peak_gb=round(want_gb, 3))
     del q, k, v, got, want, flush
     torch.cuda.empty_cache()
@@ -4767,6 +4789,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global timing, roofline
+    from repro_torch.launch import roofline, timing
     # a float32 reference is full float32: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4800,6 +4824,7 @@ def main() -> int:
     timed("slo", phase_slo, granite_model, spec_vanilla)
     del granite_model
     granite_train = timed("train", phase_train, random_skip)
+    timed("dryrun", phase_dryrun)
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)

@@ -2,8 +2,8 @@
 import importlib
 
 from repro_torch.configs.base import (  # noqa: F401
-    ModelConfig, MoRConfig, get_config, param_count, reduce_config,
-    register,
+    ModelConfig, MoRConfig, ShapeSpec, SHAPES, get_config, input_specs,
+    list_archs, param_count, reduce_config, register,
 )
 
 _MODULES = [

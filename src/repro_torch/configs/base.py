@@ -1,8 +1,12 @@
-"""Model and MoR configs, the registry, and the smoke-size reduction.
+"""Model and MoR configs, the shape grid, the registry, and the
+smoke-size reduction.
 
 Field-for-field mirror of ``repro.configs.base`` (``MoRConfig``,
-``ModelConfig``, ``reduce_config``, ``param_count``), so a config built
-here and one built by the JAX package describe the same model.
+``ModelConfig``, ``ShapeSpec`` / ``SHAPES``, ``reduce_config``,
+``param_count``, ``input_specs``), so a config built here and one built
+by the JAX package describe the same model.  ``input_specs`` gives meta
+tensors where the reference gives ``ShapeDtypeStruct``s: shapes and
+dtypes, no memory.
 """
 from __future__ import annotations
 
@@ -142,6 +146,27 @@ class ModelConfig:
 
 
 # --------------------------------------------------------------------------
+# Shape grid (the assigned input-shape set)
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: Dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+# --------------------------------------------------------------------------
 # Parameter counts
 # --------------------------------------------------------------------------
 
@@ -209,6 +234,50 @@ def param_count(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 # --------------------------------------------------------------------------
+# input_specs: meta tensors (no allocation)
+# --------------------------------------------------------------------------
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """A step's model *data* inputs as uninitialised tensors on
+    ``device`` (meta by default: shapes and dtypes only).
+
+    train    -> {tokens, labels [, frontend embeddings]}
+    prefill  -> {tokens [, frontend embeddings]}
+    decode   -> {tokens (B, 1)} (the cache comes from
+                ``models.cache_shapes``)
+    the cnn family -> {images (B, H, W, 3) [, labels (B,)]}."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if cfg.family == "cnn":
+        x = spec((B, cfg.img_size, cfg.img_size, 3), torch.float32)
+        if shape.kind == "train":
+            return {"images": x, "labels": spec((B,), i32)}
+        return {"images": x}
+    out: Dict[str, torch.Tensor] = {}
+    if shape.kind == "decode":
+        out["tokens"] = spec((B, 1), i32)
+        return out
+    if cfg.frontend == "vision_stub":
+        n_txt = max(S - cfg.frontend_tokens, 8)
+        out["tokens"] = spec((B, n_txt), i32)
+        out["patch_embeds"] = spec((B, cfg.frontend_tokens, cfg.d_model),
+                                   cfg.tdtype)
+    elif cfg.frontend == "audio_stub":
+        out["frames"] = spec((B, S, cfg.d_model), cfg.tdtype)
+    else:
+        out["tokens"] = spec((B, S), i32)
+    if shape.kind == "train":
+        out["labels"] = spec((B, S), i32)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Registry
 # --------------------------------------------------------------------------
 
@@ -229,6 +298,12 @@ def get_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs():
+    from repro_torch import configs as _pkg
+    _pkg.load_all()
+    return sorted(_REGISTRY)
 
 
 # --------------------------------------------------------------------------

@@ -17,7 +17,9 @@ tensors) and NCCL alike, and then combines them locally in rank order
 A rank with no resident page for a row (m_i = -1e30, l_i = 0) weighs
 nothing against a real score.  ``counts`` tallies the collectives this
 module and ``decode_attention`` issue, by name, so that a run can show
-exactly one merge per attention layer per dispatch.  The overlapped
+exactly one merge per attention layer per dispatch; ``nbytes`` their
+buffers' bytes by kind ("all-reduce"), which ``launch.roofline.
+collective_wire_bytes`` turns into wire bytes.  The overlapped
 all-gather / reduce-scatter matmuls of tensor parallelism are ROADMAP
 queue A 7 of the port.
 """
@@ -28,16 +30,20 @@ from typing import Dict
 import torch
 import torch.distributed as dist
 
-# collectives issued since the last reset, by name
+# collectives run since the last reset, by name; their buffers' bytes,
+# by kind
 counts: Dict[str, int] = {}
+nbytes: Dict[str, int] = {}
 
 
 def reset_counts() -> None:
     counts.clear()
+    nbytes.clear()
 
 
-def _count(name: str) -> None:
+def _count(name: str, kind: str, x: torch.Tensor) -> None:
     counts[name] = counts.get(name, 0) + 1
+    nbytes[kind] = nbytes.get(kind, 0) + x.numel() * x.element_size()
 
 
 def sum_disjoint(x: torch.Tensor, group, name: str) -> torch.Tensor:
@@ -47,7 +53,7 @@ def sum_disjoint(x: torch.Tensor, group, name: str) -> torch.Tensor:
     on any backend.  -> x."""
     dist.all_reduce(x.view(torch.uint8), op=dist.ReduceOp.SUM,
                     group=group.pg)
-    _count(name)
+    _count(name, "all-reduce", x)
     return x
 
 

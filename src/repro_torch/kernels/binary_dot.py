@@ -17,7 +17,8 @@ import torch
 
 from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
+from repro_torch.kernels.launch import (counted, cuda_stream, dtype_code,
+                                        lib, ptr)
 
 launches = 0
 
@@ -34,6 +35,17 @@ def binary_dot_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return xs @ ws
 
 
+def work(x: torch.Tensor, w: torch.Tensor) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one call: x and w once, the
+    float32 output; a sign product of K an output, on the int8 tensor
+    cores."""
+    M, K = x.shape
+    N = w.shape[1]
+    elt = x.element_size()
+    return M * K * elt + K * N * elt + M * N * 4, 2 * M * K * N, "int8"
+
+
+@counted("binary_dot", work)
 def binary_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K), w (K, N) float32 or bfloat16 -> (M, N) float32: the CUDA
     kernel for a CUDA tensor, the plain version for a CPU tensor, an

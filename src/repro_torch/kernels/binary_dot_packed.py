@@ -17,7 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import binary_dot, split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, dense16, lib, ptr
+from repro_torch.kernels.launch import (counted, cuda_stream, dense16, lib,
+                                        ptr)
 
 launches = 0
 
@@ -52,6 +53,17 @@ def binary_dot_packed_plain(x: torch.Tensor, w_packed: torch.Tensor
     return torch.where(x > 0, 1.0, -1.0).float() @ ws
 
 
+def work(x: torch.Tensor, w_packed: torch.Tensor):
+    """-> (bytes, operations, kind) of one call: x, the packed signs
+    (K N / 8 bytes) and the float32 output once; a sign product of K an
+    output, on the int8 tensor cores."""
+    M, K = x.shape
+    N = w_packed.shape[1]
+    return (M * K * x.element_size() + w_packed.numel() + M * N * 4,
+            2 * M * K * N, "int8")
+
+
+@counted("binary_dot_packed", work)
 def binary_dot_packed(x: torch.Tensor, w_packed: torch.Tensor
                       ) -> torch.Tensor:
     """x (M, K) float32 or bfloat16, w_packed (K/8, N) uint8 -> (M, N)

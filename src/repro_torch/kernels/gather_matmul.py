@@ -22,9 +22,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import (check16, cuda_stream, dense16,
-                                        dtype_code, lib, mask_bytes, ptr,
-                                        require_cuda)
+from repro_torch.kernels.launch import (check16, counted, cuda_stream,
+                                        dense16, dtype_code, lib,
+                                        mask_bytes, ptr, require_cuda)
 
 TILE_M, TILE_N = 8, 128
 
@@ -87,6 +87,25 @@ def gather_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return out, n_live_total, n_comp
 
 
+def work(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor, *,
+         capacity: int, cap_live=None, **_) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one call on these inputs: the
+    128-column strips of w holding a kept tile, once; x's 8-row blocks
+    holding one, once; the whole output (dead tiles are written as
+    zeros).  Operations: 2 x 8 x 128 x K a kept tile, on the tensor
+    cores of x's dtype.  Reads the mask back."""
+    K = x.shape[-1]
+    elt = x.element_size()
+    kept = kept_tiles(tile_mask, capacity=capacity, cap_live=cap_live)[0]
+    cols = int(kept.any(-2).sum())
+    rows = int(kept.any(-1).sum())
+    out = x.numel() // K * w.shape[-1]
+    nbytes = cols * K * TILE_N * elt + rows * TILE_M * K * elt + out * elt
+    kind = "bf16" if x.dtype == torch.bfloat16 else "fp32"
+    return nbytes, int(kept.sum()) * 2 * TILE_M * TILE_N * K, kind
+
+
+@counted("gather_matmul", work)
 def gather_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
                   *, capacity: int, cap_live=None,
                   tile_m: int = TILE_M, tile_n: int = TILE_N):

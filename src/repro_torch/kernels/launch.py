@@ -1,8 +1,11 @@
 """What every CUDA launch wrapper checks before it hands pointers to
-the C interface: device, dtype and contiguity, and the current stream."""
+the C interface: device, dtype and contiguity, and the current stream;
+and ``counted``, through which each kernel entry charges its work to an
+active cost counter (``launch/op_cost.py``)."""
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, List, Optional
 
 import torch
 
@@ -66,3 +69,27 @@ def mask_bytes(m: torch.Tensor) -> torch.Tensor:
     if m.dtype in (torch.bool, torch.uint8) and m.is_contiguous():
         return m
     return (m != 0).contiguous()
+
+
+# the cost counters in force (``launch.op_cost.OpCounter``), innermost
+# last; each counts the aten ops it sees and the kernels' work
+cost_counters: List = []
+
+
+def counted(name: str, work: Callable):
+    """Decorator of a kernel entry: under an active cost counter the
+    call charges ``work(*args, **kw)`` -> (bytes, operations, kind) as
+    one call of kernel ``name``, and the aten ops inside (the plain
+    version on the CPU, the argument packing on the card) are not
+    counted again.  A CUDA kernel called through ctypes is opaque to a
+    dispatch mode; its work is a function of the inputs, the same
+    whichever version runs.  With no counter active the entry runs as
+    it is: nothing is charged and nothing is read back."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def entry(*args, **kw):
+            if not cost_counters:
+                return fn(*args, **kw)
+            return cost_counters[-1].kernel(name, work, fn, args, kw)
+        return entry
+    return deco

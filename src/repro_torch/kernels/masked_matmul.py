@@ -27,9 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import (check16, cuda_stream, dense16,
-                                        dtype_code, lib, mask_bytes, ptr,
-                                        require_cuda)
+from repro_torch.kernels.launch import (check16, counted, cuda_stream,
+                                        dense16, dtype_code, lib,
+                                        mask_bytes, ptr, require_cuda)
 
 TILE_M, TILE_K, TILE_N = 8, 128, 128
 
@@ -52,6 +52,28 @@ def masked_matmul_kdim_plain(x: torch.Tensor, w: torch.Tensor,
     return (xz.float() @ w.float()).to(x.dtype)
 
 
+def _kind(x: torch.Tensor) -> str:
+    return "bf16" if x.dtype == torch.bfloat16 else "fp32"
+
+
+def work_kdim(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
+              **_) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one ``masked_matmul_kdim`` call:
+    x's live (row block, k block) pairs, the 128 weight rows of every k
+    block live in some row block, once, and the output.  Operations: 2
+    x 8 x 128 x N a live pair.  Reads the mask back."""
+    N = w.shape[-1]
+    elt = x.element_size()
+    live = tile_mask.bool()
+    n_pairs = int(live.sum())
+    k_live = int(live.any(-2).sum())
+    out = x.numel() // x.shape[-1] * N
+    nbytes = (n_pairs * TILE_M * TILE_K * elt + k_live * TILE_K * N * elt
+              + out * elt)
+    return nbytes, n_pairs * 2 * TILE_M * TILE_K * N, _kind(x)
+
+
+@counted("masked_matmul_kdim", work_kdim)
 def masked_matmul_kdim(x: torch.Tensor, w: torch.Tensor,
                        tile_mask: torch.Tensor, *, tile_m: int = TILE_M,
                        tile_k: int = TILE_K) -> torch.Tensor:
@@ -132,6 +154,29 @@ def masked_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return torch.where(keep, x.float() @ w.float(), 0.0).to(x.dtype)
 
 
+def work_masked(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor,
+                **_) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one ``masked_matmul`` call: the
+    live tiles' column strips of w and row blocks of x once, the whole
+    output (dead tiles are written as zeros), and 2 K multiply-adds a
+    live output; a tile of the ragged edge counts its real rows and
+    columns.  Reads the mask back."""
+    M, K = x.shape
+    N = w.shape[1]
+    elt = x.element_size()
+    dev = tile_mask.device
+    rows = torch.clamp(M - TILE_M * torch.arange(tile_mask.shape[0],
+                                                 device=dev), max=TILE_M)
+    cols = torch.clamp(N - TILE_N * torch.arange(tile_mask.shape[1],
+                                                 device=dev), max=TILE_N)
+    live = tile_mask.bool()
+    nbytes = (int((live.any(0) * cols).sum()) * K * elt
+              + int((live.any(1) * rows).sum()) * K * elt + M * N * elt)
+    outs = int((live * rows[:, None] * cols[None, :]).sum())
+    return nbytes, 2 * K * outs, _kind(x)
+
+
+@counted("masked_matmul", work_masked)
 def masked_matmul(x: torch.Tensor, w: torch.Tensor, tile_mask: torch.Tensor
                   ) -> torch.Tensor:
     """x (M, K), w (K, N), mask (ceil(M/8), ceil(N/128)): the CUDA kernel

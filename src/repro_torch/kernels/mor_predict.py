@@ -20,8 +20,8 @@ import torch
 from repro_torch.kernels import split_k
 from repro_torch.kernels.binary_dot import RESIDENT
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import (cuda_stream, dense16, dtype_code,
-                                        lib, ptr)
+from repro_torch.kernels.launch import (counted, cuda_stream, dense16,
+                                        dtype_code, lib, ptr)
 
 N_COEF_ROWS = 6
 TILE_M, TILE_N = 8, 128     # the CUDA kernel's fixed mask geometry
@@ -55,6 +55,31 @@ def mor_tile_mask_plain(x: torch.Tensor, w: torch.Tensor,
     return t.any(dim=-1).any(dim=-2).int()
 
 
+def work(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
+         proxy_neg: torch.Tensor, residual: Optional[torch.Tensor] = None,
+         **_) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one call on these inputs: every
+    proxy state (the early exit reads them); for each expert holding a
+    live row (one whose proxy states are not all 2, forced skip) its
+    whole weight and coef table; x's rows of every 8-row block holding
+    a live row; the residual; the tile bits out.  Operations: a sign
+    product of K for each (row of such a block, column), on the int8
+    tensor cores.  Reads the proxy states back."""
+    E = x.shape[0] if x.ndim == 3 else 1
+    M, K = x.shape[-2:]
+    N = w.shape[-1]
+    elt = x.element_size()
+    live = (proxy_neg != 2).any(-1).reshape(E, M // TILE_M, TILE_M)
+    busy = int(live.any(-1).any(-1).sum())
+    row_blocks = int(live.any(-1).sum())
+    nbytes = (proxy_neg.numel() + busy * (K * N * elt + N_COEF_ROWS * N * 4)
+              + row_blocks * TILE_M * K * elt
+              + (0 if residual is None else residual.numel() * 4)
+              + E * (M // TILE_M) * (N // TILE_N) * 4)
+    return nbytes, row_blocks * TILE_M * 2 * K * N, "int8"
+
+
+@counted("mor_tile_mask", work)
 def mor_tile_mask(x: torch.Tensor, w: torch.Tensor, coef: torch.Tensor,
                   proxy_neg: torch.Tensor,
                   residual: Optional[torch.Tensor] = None, *,

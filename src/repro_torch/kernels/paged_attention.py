@@ -30,7 +30,8 @@ import torch
 
 from repro_torch.kernels import split_k
 from repro_torch.kernels.build import check
-from repro_torch.kernels.launch import cuda_stream, dtype_code, lib, ptr
+from repro_torch.kernels.launch import (counted, cuda_stream, dtype_code,
+                                        lib, ptr)
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 96, 112, 128)  # the CUDA kernel's instantiations
@@ -129,6 +130,59 @@ def gqa_paged_flash_plain(q: torch.Tensor, kpool: torch.Tensor,
         return m, l, acc
     o = acc / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 3, 1, 2, 4).reshape(B, C, H, Dv).to(q.dtype)
+
+
+def _seen(tags: torch.Tensor, block_table: torch.Tensor,
+          qpos: torch.Tensor, window: int, lo, n_local):
+    """-> (live (B, W), ok (B, C, W page)): the live table entries, and
+    which of the ring view's keys each query row admits (a live page's
+    written tag, causal, inside the window)."""
+    B = block_table.shape[0]
+    loc, live = _live(block_table, lo, n_local)
+    gp = torch.where(live[..., None], tags[torch.where(live, loc, 0)
+                                           .long()], -1).reshape(B, -1)
+    rel = qpos[:, :, None] - gp[:, None, :]
+    ok = (gp[:, None, :] >= 0) & (rel >= 0)
+    if window > 0:
+        ok = ok & (rel < window)
+    return live, ok
+
+
+def _unique_pages(block_table: torch.Tensor, which: torch.Tensor) -> int:
+    return int(torch.unique(block_table[which]).numel())
+
+
+def gqa_work(q: torch.Tensor, kpool: torch.Tensor, vpool: torch.Tensor,
+             ppool: torch.Tensor, block_table: torch.Tensor,
+             qpos: torch.Tensor, *, window: int = 0,
+             lo: Optional[int] = None, n_local: Optional[int] = None,
+             partial: bool = False) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one ``gqa_paged_flash`` call on
+    these inputs: the tags of every distinct live page once; K and V of
+    every distinct live page holding a key some query row admits (a
+    page wholly outside every row's window is never needed) or, in the
+    partial form, of every distinct live page; q, the table and qpos;
+    the output, or the float32 statistics (m, l, acc).  Operations: q.k
+    and p.v (4 D) for every (query row, head, key) pair the masks let
+    through, on the tensor cores of q's dtype.  Reads the table, tags
+    and positions back."""
+    B, C, H, D = q.shape
+    page, hkv = kpool.shape[1], kpool.shape[2]
+    elt = q.element_size()
+    live, ok = _seen(ppool, block_table, qpos, window, lo, n_local)
+    n_pages = _unique_pages(block_table, live)
+    if partial:
+        n_kv = n_pages
+        out = B * H * C * (D + 2) * 4
+    else:
+        admitted = ok.any(1).reshape(B, -1, page).any(-1)
+        n_kv = _unique_pages(block_table, live & admitted)
+        out = q.numel() * elt
+    nbytes = (n_kv * page * 2 * hkv * D * elt + n_pages * page * 4
+              + q.numel() * elt + out + block_table.numel() * 4
+              + qpos.numel() * 4)
+    kind = "bf16" if q.dtype == torch.bfloat16 else "fp32"
+    return nbytes, int(ok.sum()) * H * 4 * D, kind
 
 
 def gqa_body(dtype: torch.dtype, D: int) -> str:
@@ -249,6 +303,7 @@ def split_ranges(W: int, split: int):
     return [(W * r // split, W * (r + 1) // split) for r in range(split)]
 
 
+@counted("gqa_paged_flash", gqa_work)
 def gqa_paged_flash(q: torch.Tensor, kpool: torch.Tensor,
                     vpool: torch.Tensor, ppool: torch.Tensor,
                     block_table: torch.Tensor, qpos: torch.Tensor, *,
@@ -401,6 +456,32 @@ def mla_plan(B: int, C: int, h: int, W: int, page: int, *,
     return max(1, min(split_k.MAX_SPLIT, W, k_tiles, sms // max(1, tiles)))
 
 
+def mla_work(q_lat: torch.Tensor, q_pe: torch.Tensor,
+             ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
+             cp_pool: torch.Tensor, block_table: torch.Tensor,
+             qpos: torch.Tensor, *, scale: float = 1.0,
+             lo: Optional[int] = None, n_local: Optional[int] = None,
+             partial: bool = False) -> Tuple[int, int, str]:
+    """-> (bytes, operations, kind) of one ``mla_paged_flash`` call:
+    every distinct live page's latent and rope rows and tags once; q
+    (latent and rope), the table and qpos; o_lat, or the float32
+    statistics.  Operations: the scores (kr + rd) and the latent
+    accumulation (kr), 2 each, for every (query row, head, key) pair the
+    masks let through.  Reads the table, tags and positions back."""
+    B, C, h, kr = q_lat.shape
+    rd, page = q_pe.shape[-1], ck_pool.shape[1]
+    elt = q_lat.element_size()
+    live, ok = _seen(cp_pool, block_table, qpos, 0, lo, n_local)
+    n_pages = _unique_pages(block_table, live)
+    out = B * h * C * (kr + 2) * 4 if partial else q_lat.numel() * elt
+    nbytes = (n_pages * page * ((kr + rd) * elt + 4)
+              + (q_lat.numel() + q_pe.numel()) * elt + out
+              + block_table.numel() * 4 + qpos.numel() * 4)
+    kind = "bf16" if q_lat.dtype == torch.bfloat16 else "fp32"
+    return nbytes, int(ok.sum()) * h * 2 * (2 * kr + rd), kind
+
+
+@counted("mla_paged_flash", mla_work)
 def mla_paged_flash(q_lat: torch.Tensor, q_pe: torch.Tensor,
                     ck_pool: torch.Tensor, cpe_pool: torch.Tensor,
                     cp_pool: torch.Tensor, block_table: torch.Tensor,

@@ -73,7 +73,11 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     def grads_of(params, flat, batch):
         loss, _ = loss_fn(params, batch)
-        return loss.detach(), torch.autograd.grad(loss, flat)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+        # a leaf the loss never reads (the audio family's token
+        # embedding) has a zero gradient, as under ``jax.grad``
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(flat, grads)]
 
     def train_step(params, opt_state, batch):
         flat = leaves(params)

@@ -11,6 +11,8 @@
   prefill(params, cfg, tokens (B, S), cache, *, mor, mor_mode)
                 -> last-position logits (B, V), a fresh cache filled in
                 place (the transformer families only)
+``param_shapes`` / ``cache_shapes`` make the same trees on the meta
+device: shapes and dtypes, no memory, nothing drawn.
 The decoder families (dense, moe, vlm) and the recurrent ones (ssm:
 RWKV6; hybrid: Mamba2 + a shared attention block) serve through
 ``cache_init`` and ``prefill_chunk``, and all of them have the
@@ -25,6 +27,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers.common import META
 
 
 @dataclass(frozen=True)
@@ -70,3 +73,17 @@ def supports_long_context(cfg: ModelConfig) -> bool:
     if cfg.family in ("ssm", "hybrid"):
         return True
     return cfg.sliding_window > 0
+
+
+def param_shapes(cfg: ModelConfig):
+    """The params' tree as meta tensors: every leaf's shape and dtype,
+    no allocation (the reference's ``jax.eval_shape`` of ``init``)."""
+    return get_model(cfg).init(META, cfg)
+
+
+def cache_shapes(cfg: ModelConfig, batch: int, max_len: int):
+    """``cache_init``'s tree for ``batch`` sequences of ``max_len`` as
+    meta tensors, in the model's compute dtype."""
+    api = get_model(cfg)
+    assert api.cache_init is not None, f"{cfg.name} has no cache"
+    return api.cache_init(cfg, batch, max_len, cfg.tdtype, "meta")

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.predictor import binarize, binarize_act
+from repro_torch.models.layers.common import randn
 
 _BN_MOMENTUM = 0.9
 _BN_EPS = 1e-5
@@ -87,15 +88,14 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     dev = gen.device
     layers = []
     for i in range(len(ch) - 1):
-        w = torch.randn((_KERNEL, _KERNEL, ch[i], ch[i + 1]), generator=gen,
-                        device=dev) * (_KERNEL * _KERNEL * ch[i]) ** -0.5
+        w = randn(gen, (_KERNEL, _KERNEL, ch[i], ch[i + 1])) \
+            * (_KERNEL * _KERNEL * ch[i]) ** -0.5
         p: Dict[str, Any] = {"w": w}
         if cfg.batchnorm:
             p["bn"] = {"gamma": torch.ones(ch[i + 1], device=dev),
                        "beta": torch.zeros(ch[i + 1], device=dev)}
         layers.append(p)
-    head = torch.randn((ch[-1], cfg.cnn_num_classes), generator=gen,
-                       device=dev) * ch[-1] ** -0.5
+    head = randn(gen, (ch[-1], cfg.cnn_num_classes)) * ch[-1] ** -0.5
     return {"layers": layers, "head": head}
 
 

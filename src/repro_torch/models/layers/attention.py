@@ -8,7 +8,7 @@ model's compute dtype (``repro.models.layers.attention``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -165,15 +165,17 @@ def _banded(q, k, v, q_pos, kv_pos, window: int):
     return torch.cat(outs, 1)
 
 
-def attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0):
+def attend(q, k, v, q_pos, kv_pos, *, causal: bool, window: int = 0,
+           threshold: Optional[int] = None):
     """Shared-position attention, by the branch the JAX package takes at
     the same shapes: ``_banded`` for windowed self-attention longer than
-    its window (whole chunks), ``_flash`` above ``_FLASH_THRESHOLD`` kv
-    positions, else the full (Sq, Skv) bias."""
+    its window (whole chunks), ``_flash`` above ``threshold`` kv
+    positions (the model layers pass ``cfg.flash_threshold``; default
+    ``_FLASH_THRESHOLD``), else the full (Sq, Skv) bias."""
     Sq, Skv = q.shape[1], k.shape[1]
     if window and Sq == Skv and Sq % min(_CHUNK, Sq) == 0 and Sq > window:
         return _banded(q, k, v, q_pos, kv_pos, window)
-    if Skv > _FLASH_THRESHOLD:
+    if Skv > (_FLASH_THRESHOLD if threshold is None else threshold):
         return _flash(q, k, v, q_pos, kv_pos, causal, window)
     return _sdpa(q, k, v, _mask_bias(q_pos, kv_pos, causal, window))
 
@@ -192,7 +194,7 @@ def gqa_forward(params, cfg: ModelConfig, x, positions):
     k = apply_rope(k, positions, cfg.rope_theta)
     pos1 = positions[0] if positions.ndim == 2 else positions
     o = attend(q, k, v, pos1, pos1, causal=cfg.causal,
-               window=cfg.sliding_window)
+               window=cfg.sliding_window, threshold=cfg.flash_threshold)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
 
@@ -236,7 +238,7 @@ def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
     cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
     cache["pos"].index_copy_(0, row, p1.int())
     o = attend(q, cache["k"], cache["v"], p1, cache["pos"], causal=True,
-               window=cfg.sliding_window)
+               window=cfg.sliding_window, threshold=cfg.flash_threshold)
     return o.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
 
 
@@ -269,7 +271,8 @@ def gqa_prefill(params, cfg: ModelConfig, x, cache):
         cache["pos"][:, :S] = tags[None, :]
     else:
         cache["pos"][:S] = tags
-    o = attend(q, k, v, pos1, pos1, causal=True, window=cfg.sliding_window)
+    o = attend(q, k, v, pos1, pos1, causal=True, window=cfg.sliding_window,
+               threshold=cfg.flash_threshold)
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
 
 
@@ -391,7 +394,8 @@ def mla_forward(params, cfg: ModelConfig, x, positions):
                        -1)
     q_full = torch.cat([q_nope, q_pe], -1)
     pos1 = positions[0] if positions.ndim == 2 else positions
-    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0)
+    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0,
+               threshold=cfg.flash_threshold)
     return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
 
 
@@ -432,7 +436,8 @@ def mla_prefill(params, cfg: ModelConfig, x, cache):
     k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rd)],
                        -1)
     q_full = torch.cat([q_nope, q_pe], -1)
-    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0)
+    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0,
+               threshold=cfg.flash_threshold)
     return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
 
 

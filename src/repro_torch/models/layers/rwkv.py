@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers.common import dense_init
+from repro_torch.models.layers.common import dense_init, randn
 from repro_torch.models.transformer import _remat
 
 _W_LORA = 64
@@ -49,7 +49,7 @@ def timemix_init(gen: torch.Generator, cfg: ModelConfig,
         "Wv": dense_init(gen, (L, d, d), pd),
         "Wg": dense_init(gen, (L, d, d), pd),
         "Wo": dense_init(gen, (L, d, d), pd),
-        "u": torch.randn((L, H, hd), generator=gen, device=dev) * 0.1,
+        "u": randn(gen, (L, H, hd)) * 0.1,
         "ln_scale": torch.ones((L, d), device=dev),
     }
 

@@ -18,7 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers.common import dense_init
+from repro_torch.models.layers.common import dense_init, randn
 
 _D_CONV = 4
 
@@ -37,8 +37,7 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig,
     conv_ch = d_in + 2 * N
     return {
         "in_proj": dense_init(gen, (L, d, 2 * d_in + 2 * N + H), pd),
-        "conv_w": (torch.randn((L, _D_CONV, conv_ch), generator=gen,
-                               device=dev) * 0.1).to(pd),
+        "conv_w": (randn(gen, (L, _D_CONV, conv_ch)) * 0.1).to(pd),
         "conv_b": torch.zeros((L, conv_ch), dtype=pd, device=dev),
         "A_log": torch.zeros((L, H), device=dev),
         "D": torch.ones((L, H), device=dev),

@@ -15,7 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.predictor import binarize, binarize_act, binary_preact
-from repro_torch.models.layers.common import dense_init
+from repro_torch.models.layers.common import dense_init, randn
 from repro_torch.models.layers.norms import apply_norm, norm_init
 
 _KERNEL = 5
@@ -29,8 +29,7 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> Dict:
     layers = []
     for _ in range(cfg.n_layers):
         layers.append({
-            "conv_w": torch.randn((_KERNEL, d, d), generator=gen,
-                                  device=dev) * (_KERNEL * d) ** -0.5,
+            "conv_w": randn(gen, (_KERNEL, d, d)) * (_KERNEL * d) ** -0.5,
             "conv_b": torch.zeros(d, device=dev),
             "ln1": norm_init("layernorm", d, dev),
             "fc1": dense_init(gen, (d, f)),
