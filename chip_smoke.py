@@ -112,8 +112,8 @@
    card, each from the CPU's state before it, held to the CPU's step
    (loss, grad norm, lr, moments, params) within the CPU tests'
    tolerances, then three free-running steps (loss differences logged);
-5. the granite slice: granite-3-2b at full width (all 40 layers, bf16,
-   random weights from a seed) is calibrated, then serves
+5. the granite slice: granite-3-2b at full width (12 of its 40 layers,
+   bf16, random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
      mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
    - 12 requests of a 128-token shared prefix plus 8-64 unique tokens
@@ -123,14 +123,14 @@
    - the 8 mixed requests through the static batch (``launch.serve.
      static_batch``, the serve CLI's ``--baseline``: left-padded to the
      longest prompt, one batched ``prefill``, 1-row decode steps) in
-     kernel (counted: 40 / 80 / 40 launches of mor_tile_mask /
+     kernel (counted: 12 / 24 / 12 launches of mor_tile_mask /
      gather_matmul / masked_matmul_kdim a dispatch), tiled and dense
      mode, tokens/s beside the slotted engine's; ``launch.steps.
      make_serve_step`` (``prefill`` then 16 ``decode_step``s over
      ``cache_init``'s cache) in kernel (counted) and dense mode against
      ``generate``'s dense tokens; one profiled kernel-mode static decode
      pass (idle share, host ms a step);
-5b. speculation and SLO scheduling on granite-3-2b whole (paged, kernel
+5b. speculation and SLO scheduling on that granite-3-2b (paged, kernel
    mode; ``phase_spec`` / ``phase_slo``): the mixed trace with 32 new
    tokens each, vanilla then spec_k 4 at draft_cap 0 / 0.5 / 0.25
    (acceptance, tokens a round, pass s, host ms a dispatch, agreement
@@ -141,7 +141,7 @@
    each, agreement with the unpressured run); a ~10 s open-loop Poisson
    trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
    p50 / p99 per class, preemptions, rejections, requests lost: 0);
-5c. training (``phase_train``): granite-3-2b whole (40 layers, bf16,
+5c. training (``phase_train``): granite-3-2b at 12 layers (bf16,
    remat nothing_saveable, its grad_accum of 4) trained 8 steps on 8 x
    512 tokens through ``launch.steps.make_train_step`` (AdamW: bf16
    moments, float32 master): step ms, tokens/s, the model-FLOPs share
@@ -152,12 +152,12 @@
    seed's tree, 2 more: losses within RESUME_TOL); then the train CLI's
    calibration step (``launch.train.calibrate``: ``calibrate_lm`` on 8
    batches of 8 x 512 from step 10,000) and the mixed trace served on
-   the trained weights, slotted, in kernel mode (counted: 40 / 80 / 40
+   the trained weights, slotted, in kernel mode (counted: 12 / 24 / 12
    a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
    granite phase's random-init ones;
 5d. the dry run (``phase_dryrun``, ``launch/dryrun.py``): granite-3-2b
-   whole, the train phase's cell (8 x 512 tokens, grad_accum 4, remat)
-   and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
+   at 12 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
+   remat) and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
    predicted on the meta device (argument bytes and the peak of the
    storages the step allocates, ``launch/op_cost.py``; FLOPs; the
    roofline bound at the H100 SXM's data-sheet rates) and then run on
@@ -180,43 +180,53 @@
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
    gather_matmul (an MoE layer launches each once for all its experts);
-7. the zoo: mixtral-8x7b at its published widths, cut to 8 layers,
+7. the zoo: mixtral-8x7b at its published widths, cut to 4 layers,
    calibrated with ``calibrate_moe``, serves the shared-prefix trace
    plus one 4,160-token prompt (past its 4,096 window) through the
    paged engine in kernel (counted), tiled and dense mode, then a
    profiled pass of each, after one layer's attention at S 8,192 under
    the 4,096 window through ``_banded`` against the full (S, S) mask
    (each row's error over its scale against float32, beside the full
-   bf16 path's; ms, peak memory); qwen2-7b whole (28 layers) the same trace
+   bf16 path's; ms, peak memory); qwen2-7b (8 of 28 layers) the same trace
    in kernel (counted) and dense mode, then one 16,384-token prompt
    through ``make_prefill_step``'s batched ``prefill`` (every layer's
    attention through the chunked softmax ``_flash``; kernel mode
-   counted: 28 / 56 / 28) in kernel and dense mode: seconds and peak
+   counted: 8 / 16 / 8) in kernel and dense mode: seconds and peak
    memory, after one layer's attention at S 4,608 through ``_flash``
    against the full mask; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
    mode (counted): ms and argmax agreement;
-7b. the recurrent families whole: rwkv6-3b (32
+7b. the recurrent families: rwkv6-3b (8 of 32
    layers, d 2560, bf16), calibrated with ``calibrate_lm`` on its
    channel mix, serves the shared-prefix trace paged in kernel
-   (counted: 32 mor_tile_mask and 32 gather_matmul a dispatch), tiled
-   and dense mode and slotted in kernel mode; zamba2-7b (81 layers, d
-   3584, 32 / 32 heads at D 112, bf16), calibrated with
+   (counted: 8 mor_tile_mask and 8 gather_matmul a dispatch), tiled
+   and dense mode and slotted in kernel mode; zamba2-7b (15 of 81
+   layers, d 3584, 32 / 32 heads at D 112, bf16), calibrated with
    ``calibrate_hybrid``, serves the shared-prefix trace plus one
    4,160-token prompt (its shared attention's ring wraps past the 4,096
-   window) paged in kernel (counted: 13 gqa_paged_flash, 13
-   mor_tile_mask, 26 gather_matmul, 13 masked_matmul_kdim a dispatch)
+   window) paged in kernel (counted: 2 gqa_paged_flash, 2
+   mor_tile_mask, 4 gather_matmul, 2 masked_matmul_kdim a dispatch)
    and dense mode; the warm and cold repeats run on state snapshots;
    one profiled pass each;
 7c. this slice's main path, the paged-sharded layout on 2 rank
    processes sharing the card (gloo): reduced float32 granite,
    deepseek, rwkv6 and zamba2, card against CPU in the same page group
    (tokens, telemetry, prefix counters equal; partial launches and
-   merges counted), then granite-3-2b whole in kernel mode on the
-   shared-prefix trace (ranks' tokens equal, agreement with the
-   single-rank paged tokens >= AGREE_MIN, 40 partial gqa_paged_flash
-   launches and 40 merges a dispatch, no other collective, pages on
+   merges counted), then granite-3-2b at 12 layers in kernel mode on
+   the shared-prefix trace (ranks' tokens equal, agreement with the
+   single-rank paged tokens >= AGREE_MIN, 12 partial gqa_paged_flash
+   launches and 12 merges a dispatch, no other collective, pages on
    both shards, each rank's pool half the single-rank one's);
+7d. the (data, model) mesh on 2 gloo rank processes sharing the card:
+   granite-3-2b at full width cut to 2 layers, two train steps on (1,
+   2) and (2, 1) against one device (loss, the clip norm beside a fault
+   planted in it, params after each step) and their float32 twin on
+   (1, 2), its decode on (1, 2) and a reduced float32 granite's tokens
+   equal; deepseek-v2-236b cut to 2 layers, calibrated, expert slicing
+   at 80 experts a rank (per-expert masks and counters bit-equal on a
+   shared input, the whole forward's expert-grid launches on both
+   ranks); where 4 cards are visible, the (2, 2) mesh over them on
+   NCCL (granite at 8 layers, held the same way);
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
@@ -237,6 +247,7 @@ failure.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -270,6 +281,19 @@ RTOL_F32, ATOL_REL_F32 = 1e-5, 1e-5
 # request with it.  A broken kernel gives tokens unrelated to the other
 # path's (agreement near 1/49155), so 0.25 separates the two.
 AGREE_MIN = 0.25
+# Depth of each model served or trained at its published widths (of 40,
+# 28, 32, 32 and 81 layers).  Every check holds at any depth, and the
+# host's enqueue, which takes most of a dispatch, grows with it: at
+# these depths the whole run, the kernels' build included, ends in
+# about half of the 1,200 s it is given.
+DEPTH = {"granite-3-2b": 12, "qwen2-7b": 8, "mixtral-8x7b": 4,
+         "rwkv6-3b": 8, "zamba2-7b": 15}
+
+
+def _cut_config(arch):
+    """``arch``'s published config cut to ``DEPTH[arch]`` layers."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(n_layers=DEPTH[arch])
 
 
 def log(phase: str, **kw) -> None:
@@ -2282,11 +2306,12 @@ def slice_paged(cfg, params, mor):
 
 # -- the static batch (launch.serve.static_batch, launch.steps) -------------
 
-# launches a static dispatch of granite-3-2b whole (40 layers): one
+# launches a static dispatch of granite-3-2b (DEPTH layers): one
 # predictor, two compacted products (gate, up) and one down product a
 # layer
-GRANITE_STATIC = {"mor_tile_mask": 40, "gather_matmul": 80,
-                  "masked_matmul_kdim": 40}
+GRANITE_STATIC = {"mor_tile_mask": DEPTH["granite-3-2b"],
+                  "gather_matmul": 2 * DEPTH["granite-3-2b"],
+                  "masked_matmul_kdim": DEPTH["granite-3-2b"]}
 # deepseek-v2-236b cut to 3 layers: layer 0's dense FFN and each MoE
 # layer's expert grid (one launch for all 160 experts; the shared
 # experts stay dense)
@@ -2442,11 +2467,10 @@ def _static_profile(cfg, params, mor, reqs):
 
 def phase_slice():
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.deploy import calibrate_lm
     from repro_torch.launch.serve import calib_batches
     from repro_torch.models import get_model
-    cfg = get_config("granite-3-2b")
+    cfg = _cut_config("granite-3-2b")
     api = get_model(cfg)
     t0 = time.perf_counter()
     params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
@@ -2542,7 +2566,7 @@ def _phase_device_ms(eng, reqs, n=3):
 
 
 def phase_spec(model):
-    """Self-speculative decoding on granite-3-2b whole (40 layers, bf16,
+    """Self-speculative decoding on granite-3-2b (DEPTH layers, bf16,
     paged, kernel mode): the slotted cell's 8 mixed requests with
     SPEC_NEW new tokens each, vanilla and then with spec_k = SPEC_K at
     draft_cap 0 (the draft plans are the target's), 0.5 and 0.25 (the
@@ -2666,7 +2690,7 @@ def _timed_calls(obj, name, into):
 
 
 def phase_slo(model, vanilla):
-    """The SLO layer on granite-3-2b whole (paged, kernel mode): the spec
+    """The SLO layer on granite-3-2b (paged, kernel mode): the spec
     phase's trace (8 requests, SPEC_NEW new tokens each) on a kv pool
     SLO_SHORT pages short of what the 8 requests hold at their end, so
     that the engine must spill victims to the host and restore them:
@@ -2920,7 +2944,7 @@ def _resume_check(cfg, opt):
 
 
 def phase_train(random_skip):
-    """granite-3-2b whole (40 layers, bf16 params, remat
+    """granite-3-2b at DEPTH layers (bf16 params, remat
     nothing_saveable, its grad_accum of 4) trained ``TRAIN_STEPS`` steps
     on a global batch of 8 x 512 tokens through ``init_train_state`` /
     ``make_train_step`` (AdamW with bf16 moments and a float32 master
@@ -2935,12 +2959,12 @@ def phase_train(random_skip):
     tiled mode at AGREE_MIN.  -> the serve's launches."""
     import numpy as np
     import torch
-    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.configs import ShapeSpec
     from repro_torch.launch import steps
     from repro_torch.launch.train import calibrate
     from repro_torch.optim import OptConfig
     from repro_torch.tree import leaves
-    cfg = get_config("granite-3-2b")
+    cfg = _cut_config("granite-3-2b")
     assert cfg.grad_accum == 4 and cfg.remat == "nothing_saveable"
     opt = OptConfig(lr=1e-3, moment_dtype="bfloat16")
     resident_gb = torch.cuda.memory_allocated() / 1e9
@@ -3108,7 +3132,8 @@ def _dryrun_cell(cfg, shape, opt, flush, iters):
 
 def phase_dryrun():
     """The dry run (``launch/dryrun.py``) held to the card: granite-3-2b
-    whole, the train phase's cell (8 x 512 tokens, grad_accum 4, remat,
+    at DEPTH layers, the train phase's cell (8 x 512 tokens, grad_accum
+    4, remat,
     AdamW with bf16 moments and the float32 master) and a decode step of
     ``make_serve_step`` at B 8 over ``cache_init``'s 4,096 positions,
     each predicted on the meta device, then run on the card: peak GB
@@ -3121,7 +3146,7 @@ def phase_dryrun():
     from repro_torch.configs import SHAPES, ShapeSpec, get_config
     from repro_torch.launch import dryrun, dryrun_all
     from repro_torch.optim import OptConfig
-    cfg = get_config("granite-3-2b")
+    cfg = _cut_config("granite-3-2b")
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     train = ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train")
     log("dryrun", path="granite train cell", **_dryrun_cell(
@@ -3198,7 +3223,7 @@ def _block_checks(eng, skipped):
 
 
 def phase_obs(model):
-    """The obs path on granite-3-2b whole (40 layers), the shared-prefix
+    """The obs path on granite-3-2b (DEPTH layers), the shared-prefix
     trace through the paged engine in kernel mode, three ways, each on a
     fresh engine with its launches counted: obs off; obs on (metrics
     block and tracer); obs on with a shadow twin on 1 in 4 dispatches.
@@ -3753,7 +3778,8 @@ def _long_prefill(cfg, params, mor):
 
 def slice_mixtral():
     """This slice's main path: mixtral-8x7b at its published widths, cut
-    to 8 of its 32 layers (all 32 would take 93 GB of bf16 weights),
+    to DEPTH (4) of its 32 layers (all 32 would take 93 GB of bf16
+    weights),
     calibrated with ``calibrate_moe``, serves the shared-prefix trace and
     one request of 4,160 prompt tokens (keys slide out of the 4,096
     window) through ``Engine(layout="paged")`` with prefix caching, in
@@ -3761,14 +3787,13 @@ def slice_mixtral():
     mor_tile_mask and masked_matmul_kdim, 16 of gather_matmul), tiled
     and dense mode, then one profiled pass of each.  -> launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.deploy import calibrate_moe
     from repro_torch.launch.serve import calib_batches, make_trace
-    cfg = get_config("mixtral-8x7b").replace(n_layers=8)
+    cfg = _cut_config("mixtral-8x7b")
     # one layer's attention at S 8,192 under the 4,096 window, before the
     # weights take the card's memory
     _attention_case("banded", cfg, 8192)
-    api, params = _init_logged(cfg, depth_cut="32 -> 8",
+    api, params = _init_logged(cfg, depth_cut=f"32 -> {cfg.n_layers}",
                                experts=cfg.n_experts, top_k=cfg.top_k,
                                window=cfg.sliding_window)
     t0 = time.perf_counter()
@@ -3792,15 +3817,14 @@ def slice_mixtral():
 
 
 def slice_qwen2():
-    """qwen2-7b whole (28 layers, QKV bias, G 7 at head dim 128),
+    """qwen2-7b at DEPTH (8 of 28) layers (QKV bias, G 7 at head dim 128),
     calibrated with ``calibrate_lm``, serves the shared-prefix trace
     through the paged engine in kernel (counted) and dense mode, then a
     profiled pass of each.  -> launches."""
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core.deploy import calibrate_lm
     from repro_torch.launch.serve import calib_batches
-    cfg = get_config("qwen2-7b")
+    cfg = _cut_config("qwen2-7b")
     # one layer's attention at S 4,608 (past the 4,096 threshold), before
     # the weights take the card's memory
     _attention_case("flash", cfg, 4608)
@@ -4028,19 +4052,19 @@ def _calibrated_logged(cfg, api, params, calibrate):
 
 
 def slice_rwkv():
-    """rwkv6-3b whole (32 layers, d 2560, d_ff 8960, vocab 65,536, bf16;
-    attention-free: the serving cache is state pages only), calibrated
-    with ``calibrate_lm`` on its ReLU^2 channel mix, serves the
+    """rwkv6-3b at DEPTH (8 of 32) layers (d 2560, d_ff 8960, vocab 65,536,
+    bf16; attention-free: the serving cache is state pages only),
+    calibrated with ``calibrate_lm`` on its ReLU^2 channel mix, serves the
     shared-prefix trace through the paged engine in kernel (counted: per
-    dispatch 32 launches of mor_tile_mask and of gather_matmul, none of
-    masked_matmul_kdim: the channel mix's down product stays plain, as
+    dispatch a launch a layer of mor_tile_mask and of gather_matmul, none
+    of masked_matmul_kdim: the channel mix's down product stays plain, as
     in the JAX package), tiled and dense mode, then the slotted engine in
-    kernel mode, each held to greedy agreement with paged kernel mode;
-    one profiled pass of each paged mode.  -> launches."""
+    kernel mode, each held to greedy agreement with paged kernel mode; one
+    profiled pass of each paged mode.  -> launches."""
     import torch
-    from repro_torch.configs import get_config, param_count
+    from repro_torch.configs import param_count
     from repro_torch.core.deploy import calibrate_lm
-    cfg = get_config("rwkv6-3b")
+    cfg = _cut_config("rwkv6-3b")
     api, params = _init_logged(cfg, param_count=param_count(cfg)[0],
                                rwkv_heads=cfg.d_model // cfg.rwkv_head_size)
     params, mor = _calibrated_logged(cfg, api, params, calibrate_lm)
@@ -4066,22 +4090,22 @@ def slice_rwkv():
 
 
 def slice_zamba2():
-    """zamba2-7b whole (81 layers: 13 segments of 6 Mamba2 layers, each
-    followed by the ONE shared attention + SwiGLU block, and a tail of
-    3; d 3584, 32 / 32 heads of 112 under a shared window of 4,096, d_ff
-    14,336, state 64; bf16), calibrated with ``calibrate_hybrid``,
-    serves the shared-prefix trace and one request of 4,160 prompt
-    tokens (the shared attention's ring wraps past its window) through
-    the paged engine, state pages and snapshots beside the kv pages, in
-    kernel (counted: per dispatch 13 launches of gqa_paged_flash,
-    mor_tile_mask and masked_matmul_kdim, 26 of gather_matmul) and dense
-    mode; one profiled pass of each.  -> launches."""
+    """zamba2-7b at DEPTH (15 of 81) layers (2 of its 13 segments of 6
+    Mamba2 layers, each followed by the ONE shared attention + SwiGLU
+    block, and its tail of 3; d 3584, 32 / 32 heads of 112 under a shared
+    window of 4,096, d_ff 14,336, state 64; bf16), calibrated with
+    ``calibrate_hybrid``, serves the shared-prefix trace and one request of
+    4,160 prompt tokens (the shared attention's ring wraps past its window)
+    through the paged engine, state pages and snapshots beside the kv
+    pages, in kernel (counted: per dispatch a launch a segment of
+    gqa_paged_flash, mor_tile_mask and masked_matmul_kdim, two of
+    gather_matmul) and dense mode; one profiled pass of each.  -> launches."""
     import torch
-    from repro_torch.configs import get_config, param_count
+    from repro_torch.configs import param_count
     from repro_torch.core.deploy import calibrate_hybrid
     from repro_torch.launch.serve import make_trace
     from repro_torch.models.layers.ssm import _dims
-    cfg = get_config("zamba2-7b")
+    cfg = _cut_config("zamba2-7b")
     d_in, H, P, N = _dims(cfg)
     n_seg = cfg.n_layers // cfg.shared_attn_every
     # a state page: every mamba layer's SSD state (float32) and conv
@@ -4179,7 +4203,8 @@ def _sharded_pass(cfg, params, mor, reqs, group, **kw):
 def _sharded_rank(group):
     """One rank of the sharded phase: the reduced float32 references on
     the card and on the CPU (the same page group: gloo takes both), then
-    granite-3-2b whole on the card.  Rank 0 calibrates each model and
+    granite-3-2b at DEPTH layers on the card.  Rank 0 calibrates each
+    model and
     hands its tree to the other rank.  -> the rank's results."""
     import numpy as np
     import torch
@@ -4214,7 +4239,7 @@ def _sharded_rank(group):
             k: card["prefix"][k] for k in ("prefix_hits", "chunks_skipped",
                                            "snapshots", "snap_restores")}
         torch.cuda.empty_cache()
-    cfg = get_config("granite-3-2b")
+    cfg = _cut_config("granite-3-2b")
     api = get_model(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4247,11 +4272,11 @@ def slice_sharded(single_tokens):
     Reduced float32 granite, deepseek (MLA), rwkv6 (state only) and
     zamba2 (state and its shared attention at D 112): the card's tokens,
     telemetry, prefix counters and dispatches equal the CPU's; then
-    granite-3-2b whole (40 layers, bf16) on the shared-prefix trace in
+    granite-3-2b at DEPTH layers (bf16) on the shared-prefix trace in
     kernel mode: the ranks' tokens equal (the engine's flush raises
     otherwise), agreement with the single-rank paged engine's tokens
-    (``single_tokens``) >= AGREE_MIN, exactly 40 partial
-    ``gqa_paged_flash`` launches and 40 merges a dispatch and no other
+    (``single_tokens``) >= AGREE_MIN, exactly one partial
+    ``gqa_paged_flash`` launch and one merge a layer and dispatch and no other
     collective, pages on both shards, each rank's pool half the
     single-rank one's (within a page and the scratch page).  -> {kernel:
     launches on the sharded path, rank 0}."""
@@ -4275,18 +4300,19 @@ def slice_sharded(single_tokens):
     g0, g1 = (r["granite"] for r in ranks)
     assert g0["tokens"] == g1["tokens"], "the ranks' tokens differ"
     agree = _agree(g0["tokens"], single_tokens)
+    L = DEPTH["granite-3-2b"]
     for r in ranks:
         g = r["granite"]
         d = g["dispatches"]
         assert g["launches"]["gqa_paged_flash"] == \
-            g["partial"]["gqa_paged_flash"] == 40 * d, g["launches"]
-        assert g["collectives"] == {"flash_merge": 40 * d,
+            g["partial"]["gqa_paged_flash"] == L * d, g["launches"]
+        assert g["collectives"] == {"flash_merge": L * d,
                                     "check_tokens": 1}, g["collectives"]
         hw = g["sharding"]["kv_pages_hiwater_per_shard"]
         assert all(n > 0 for n in hw), hw
         assert abs(g["pool_bytes"] - g["single_pool_bytes"] / 2) <= \
             2 * g["page_bytes"], (g["pool_bytes"], g["single_pool_bytes"])
-        log("sharded", rank=r["rank"], model="granite-3-2b", layers=40,
+        log("sharded", rank=r["rank"], model="granite-3-2b", layers=L,
             mode="kernel", dispatches=d, setup_s=round(r["granite_setup_s"],
                                                        1),
             launches_per_dispatch=json.dumps(g["launches_per_dispatch"]),
@@ -4305,6 +4331,581 @@ def slice_sharded(single_tokens):
     return {"gqa_paged_flash[partial]": g0["partial"]["gqa_paged_flash"],
             "mla_paged_flash[partial]": deepseek["partial"][
                 "mla_paged_flash"]}, g0["launches"]
+
+
+MESH_RANKS = 2
+MESH_GRANITE_LAYERS = 2            # of 40: granite's train / decode here
+MESH_DEEPSEEK_LAYERS = 2           # of 60: layer 0 dense, layer 1 MoE
+MESH_MOE_SHAPES = ((8, 32), (8, 183))   # a dispatch's rows, a prefill's
+MESH_DECODE_PROMPTS, MESH_DECODE_LEN, MESH_DECODE_STEPS = 8, 32, 16
+MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2.0 ** -7, 1e-3   # atol x leaf max
+# the bf16 norm's bound, above bf16's own noise: the (1, 2) mesh rounds
+# each rank's partial products to bf16 before their sum, and moved the
+# norm by up to 3.9e-4 on the card (PERF.md PR 28), while the same step
+# in float32 (MESH_F32_RTOL) and the planted fault (_NormFault) bracket it
+MESH_LOSS_RTOL = MESH_NORM_RTOL = 1e-3
+# the float32 twin of the same step: sums in another order only
+MESH_F32_RTOL = 1e-5
+
+
+def _mesh_gb():
+    """What the phase holds at most on the one card, reckoned on the meta
+    device before anything runs: granite's train state on one device
+    and each rank's half of it, and deepseek's params on two ranks at
+    once (each inits the whole, then keeps its half) plus a rank's own
+    experts of one MoE layer at their whole f (the all-to-all's
+    output)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import tree_bytes
+    from repro_torch.models import param_shapes
+    g = get_config("granite-3-2b").replace(n_layers=MESH_GRANITE_LAYERS)
+    d = get_config("deepseek-v2-236b").replace(n_layers=MESH_DEEPSEEK_LAYERS)
+    pg = tree_bytes(param_shapes(g))
+    # bf16 params + bf16 moments + the float32 master: 5 x the params
+    granite = 5 * pg + 2 * 5 * pg / MESH_RANKS
+    ps = param_shapes(d)
+    pd = tree_bytes(ps)
+    layer = tree_bytes({k: v for k, v in ps["moe_layers"]["moe"].items()
+                        if k != "shared"}) / (d.n_layers - d.first_k_dense)
+    deepseek = MESH_RANKS * (pd + pd / MESH_RANKS + layer / MESH_RANKS)
+    return granite / 1e9, deepseek / 1e9
+
+
+class _NormFault:
+    """While active, each mesh ``global_norm`` (the train step's clip
+    norm) is also taken with a fault planted: every rank counts every
+    leaf, so a leaf replicated over an axis is counted once a rank of
+    it.  The step goes on with the sound norm; ``faulty`` holds the
+    planted one's value a step, and its collective is taken out of the
+    counts."""
+
+    def __enter__(self):
+        from repro_torch.distributed import collectives as co
+        from repro_torch.optim import adamw
+        self._orig = orig = adamw.global_norm
+        faulty = self.faulty = []
+
+        def everywhere(specs):
+            if isinstance(specs, dict):
+                return {k: everywhere(v) for k, v in specs.items()}
+            return (("data", "model"),)
+
+        def global_norm(tree, mesh=None, specs=None):
+            norm = orig(tree, mesh, specs)
+            counts, nbytes = dict(co.counts), dict(co.nbytes)
+            faulty.append(float(orig(tree, mesh, everywhere(specs))))
+            co.counts.clear()
+            co.counts.update(counts)
+            co.nbytes.clear()
+            co.nbytes.update(nbytes)
+            return norm
+        adamw.global_norm = global_norm
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.optim import adamw
+        adamw.global_norm = self._orig
+
+
+def _mesh_train(cfg, opt, mesh, batches, hold=True):
+    """Train steps of granite on ``mesh`` (None: one device) from the
+    seed's weights, one a batch -> (losses, norms, the params after each
+    step gathered on the CPU (``hold``; else None), the learning rate of
+    each step, the last step's device ms, its collectives, their bytes
+    by kind, the norms with ``_NormFault``'s fault planted (mesh
+    only))."""
+    import torch
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import paths
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    specs = None
+    if mesh is not None:
+        specs = steps.mesh_specs(cfg, mesh)
+        params = sr.shard_tree(params, specs, mesh)
+        torch.cuda.empty_cache()
+    state = adamw_init(params, opt)
+    step = steps.make_train_step(cfg, opt, mesh=mesh)
+    losses, norms, lrs, fulls, ms = [], [], [], [], 0.0
+    fault = _NormFault() if mesh is not None else contextlib.nullcontext()
+    with fault:
+        for b in batches:
+            co.reset_counts()
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            params, state, m = step(params, state, b)
+            e1.record()
+            e1.synchronize()
+            ms = e0.elapsed_time(e1)
+            counts, nbytes = dict(co.counts), dict(co.nbytes)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            lrs.append(float(m["lr"]))
+            if not hold:
+                continue
+            whole = (params if mesh is None else
+                     sr.gather_tree(params, specs, mesh))
+            fulls.append({k: v.detach().float().cpu()
+                          for k, v in paths(whole).items()})
+            del whole
+    del params, state
+    torch.cuda.empty_cache()
+    return (losses, norms, fulls if hold else None, lrs, ms, counts,
+            nbytes, getattr(fault, "faulty", None))
+
+
+def _held_train(cfg, opt, mesh, batches, single, hold=True):
+    """``_mesh_train`` on ``mesh``, its params held after each step to
+    ``single`` (the single-device run's, on rank 0: the gathered params
+    are the same bits on every rank; None on the others) where ``hold``
+    -> (losses, norms, the planted fault's norms, each step's share of
+    the params' bound, the last step's ms, its collectives, their bytes
+    by kind, peak GB)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    loss, norm, fulls, lrs, ms, counts, nbytes, faulty = _mesh_train(
+        cfg, opt, mesh, batches, hold)
+    excess = None
+    if single is not None and hold:
+        shape = "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
+        excess = [_close_params(f, w, f"{shape} step {i + 1}",
+                                2 * sum(lrs[:i + 1]) if i else 0.0)
+                  for i, (f, w) in enumerate(zip(fulls, single))]
+    del fulls
+    return (loss, norm, faulty, excess, ms, counts, nbytes,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _check_train(phase, rank, shape, run, want_loss, want_norm, f32):
+    """Log one rank's mesh train run (``_held_train``'s result) and hold
+    it to the single-device run's losses and norms: bf16 at
+    MESH_LOSS_RTOL / MESH_NORM_RTOL, the float32 twin at MESH_F32_RTOL;
+    where ``model`` splits the params, the planted fault must lie past
+    the norm's bound."""
+    loss, norm, faulty, excess, ms, counts, nbytes, peak = run
+    rtol = MESH_F32_RTOL if f32 else MESH_NORM_RTOL
+    loss_diff = [abs(a - b) / abs(b) for a, b in zip(loss, want_loss)]
+    norm_diff = [abs(a - b) / b for a, b in zip(norm, want_norm)]
+    fault_diff = [abs(a - b) / b for a, b in zip(faulty, want_norm)]
+    log(phase, path="granite train", rank=rank, mesh=shape,
+        losses=loss, single_losses=want_loss, loss_rel_diff=loss_diff,
+        grad_norms=norm, single_grad_norms=want_norm,
+        norm_rel_diff=norm_diff, norm_rtol=rtol,
+        planted_fault_norm_rel_diff=fault_diff,
+        params_share_of_bf16_bound=(None if excess is None else
+                                    [round(e, 4) for e in excess]),
+        step_ms=round(ms, 2), peak_gb=round(peak, 3),
+        collectives=json.dumps(counts), bytes_by_kind=json.dumps(nbytes))
+    assert max(loss_diff) <= (MESH_F32_RTOL if f32 else MESH_LOSS_RTOL), \
+        (shape, loss_diff)
+    assert max(norm_diff) <= rtol, (shape, norm_diff)
+    if int(shape.split("_")[0].split("x")[1]) > 1:
+        # the bound lies between the sound run and the fault
+        assert min(fault_diff) > rtol, (shape, fault_diff)
+
+
+def _mesh_decode(cfg, mesh, prompts, n):
+    """Prefill + ``n - 1`` greedy steps of ``cfg`` from the seed's weights
+    on ``mesh`` (None: one device) -> (tokens (B, n) on the CPU, the
+    collectives)."""
+    import torch
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    from repro_torch.models import get_model
+    params = get_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    if mesh is not None:
+        params = sr.shard_tree(params, steps.mesh_specs(cfg, mesh), mesh)
+        torch.cuda.empty_cache()
+    B, P = prompts.shape
+    # P + n rows: even, so that the ring splits over the 2 model ranks
+    cache = steps.init_cache(cfg, B, P + n, "cuda", mesh=mesh)
+    prefill = steps.make_prefill_step(cfg, mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh)
+    co.reset_counts()
+    with torch.no_grad():
+        nxt, cache = prefill(params, cache, prompts)
+        toks = [nxt]
+        for _ in range(n - 1):
+            nxt, cache = serve(params, cache, nxt[:, None])
+            toks.append(nxt)
+    out = torch.stack(toks, 1).cpu()
+    del params, cache
+    torch.cuda.empty_cache()
+    return out, dict(co.counts)
+
+
+class _PredictRecorder:
+    """Records every expert plan's prediction (its tile mask, the kept
+    tiles and gather_matmul's live / computed counters) while active."""
+
+    def __init__(self):
+        self.preds = []
+
+    def __enter__(self):
+        from repro_torch.core.executor import MoRExecutionPlan
+        self._orig = orig = MoRExecutionPlan.predict
+        preds = self.preds
+
+        def predict(plan, *a, **k):
+            p = orig(plan, *a, **k)
+            preds.append(p)
+            return p
+        MoRExecutionPlan.predict = predict
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.executor import MoRExecutionPlan
+        MoRExecutionPlan.predict = self._orig
+
+    def last(self):
+        p = self.preds[-1]
+        n_live, n_comp = p.kernel_counts
+        return {"tiles": p.tiles.cpu(), "kept": p.kept.cpu(),
+                "n_live": n_live.cpu(), "n_comp": n_comp.cpu()}
+
+
+def _moe_layer_run(cfg, lp, ml, x):
+    """One MoE layer (``moe_apply`` in kernel mode) on ``x`` -> (y on the
+    CPU, the expert plan's prediction, slots and counts of the routing
+    at this run's capacity)."""
+    import torch
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.models.layers import moe as tmoe
+    with torch.no_grad(), _PredictRecorder() as rec:
+        y, _ = tmoe.moe_apply(lp, cfg, x, mor=ml, mor_mode="kernel")
+        pred = rec.last()
+    ctx = sr.current()
+    T = x.shape[0] // (ctx.mesh.shape["data"] if ctx else 1)
+    C = max(int(cfg.capacity_factor * T * cfg.top_k / cfg.n_experts), 1)
+    with torch.no_grad():
+        _, _, top = tmoe._route(x, lp["router"], cfg.top_k)
+        slot = tmoe._dispatch_indices(top, cfg.n_experts, C).cpu()
+        counts = tmoe._count(top.reshape(-1), cfg.n_experts).cpu()
+    return y.cpu(), pred, slot, counts
+
+
+def _mesh_rank(group):
+    """One rank of the mesh phase (2 gloo ranks on cuda:0).  Rank 0 runs
+    every single-device reference first and frees it; then both ranks
+    run granite's train step on (1, 2) and on (2, 1), granite's static
+    decode and a reduced float32 granite's on (1, 2), and deepseek's MoE
+    layer and whole forward on (1, 2).  -> the rank's results."""
+    import torch
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    from repro_torch.launch import timing as ttiming
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import calibrate
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import (_layer_plan, full_logits,
+                                                layer_slice, use_layer)
+    from repro_torch.optim import OptConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    lead = group.rank == 0
+    out = {"rank": group.rank, "backend": group.backend}
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    # -- granite-3-2b at full width, 2 layers: the train step, one
+    # micro-batch of 8 x 512 (each micro-batch re-gathers every weight
+    # through the host on (2, 1))
+    cfg = get_config("granite-3-2b").replace(n_layers=MESH_GRANITE_LAYERS,
+                                             grad_accum=1)
+    opt = OptConfig(lr=1e-3, moment_dtype="bfloat16")
+    batches = _device_batches(cfg, 2)
+    # the float32 twin: the same step, its sums in another order only
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    opt32 = OptConfig(lr=1e-3, moment_dtype="float32")
+    if lead:
+        out["single_train"] = _mesh_train(cfg, opt, None, batches)
+        out["single_train_f32"] = _mesh_train(cfg32, opt32, None, batches,
+                                              hold=False)[:2]
+    out["train"] = {}
+    single = out["single_train"][2] if lead else None
+    for mp, c, o in ((2, cfg, opt), (1, cfg, opt), (2, cfg32, opt32)):
+        mesh = make_host_mesh(mp, device=group.device)
+        shape = f"{mesh.shape['data']}x{mp}" + (
+            "_f32" if c is cfg32 else "")
+        out["train"][shape] = _held_train(c, o, mesh, batches, single,
+                                          hold=c is cfg)
+    if lead:
+        loss, norm, _, _, ms = out["single_train"][:5]
+        out["single_train"] = (loss, norm, ms)
+    m12 = make_host_mesh(MESH_RANKS, device=group.device)
+
+    # -- the static decode over the sequence-sharded ring
+    prompts = torch.randint(0, cfg.vocab_size, (MESH_DECODE_PROMPTS,
+                                                MESH_DECODE_LEN),
+                            generator=gen, device="cuda")
+    red = reduce_config(get_config("granite-3-2b")).replace(
+        dtype="float32", param_dtype="float32")
+    rprompts = prompts % red.vocab_size
+    if lead:
+        out["single_decode"] = _mesh_decode(cfg, None, prompts,
+                                            MESH_DECODE_STEPS)[0]
+        out["single_decode_f32"] = _mesh_decode(red, None, rprompts,
+                                                MESH_DECODE_STEPS)[0]
+    t0 = time.perf_counter()
+    out["decode"] = _mesh_decode(cfg, m12, prompts, MESH_DECODE_STEPS)
+    torch.cuda.synchronize()
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_f32"] = _mesh_decode(red, m12, rprompts, MESH_DECODE_STEPS)
+
+    # -- deepseek-v2-236b at full width, 2 layers, calibrated on rank 0
+    dcfg = get_config("deepseek-v2-236b").replace(
+        n_layers=MESH_DEEPSEEK_LAYERS)
+    api = get_model(dcfg)
+    t0 = time.perf_counter()
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), dcfg)
+    params, mor, _ = calibrate(params, dcfg, api, group.device, 8,
+                               m12.group("world"))
+    torch.cuda.synchronize()
+    out["deepseek_setup_s"] = time.perf_counter() - t0
+    xs = [torch.randn((b * s, dcfg.d_model), generator=gen, device="cuda"
+                      ).bfloat16() for b, s in MESH_MOE_SHAPES]
+    tokens = torch.randint(0, dcfg.vocab_size, (8, 64), generator=gen,
+                           device="cuda")
+    lp0 = layer_slice(params["moe_layers"], 0)
+    ml0 = _layer_plan(mor["moe_layers"], 0)
+    if lead:
+        out["single_moe"] = [_moe_layer_run(dcfg, lp0["moe"], ml0, x)
+                             for x in xs]
+        with torch.no_grad():
+            logits, _ = api.forward(params, dcfg, {"tokens": tokens},
+                                    mor=mor, mor_mode="kernel")
+        out["single_forward"] = logits.float().cpu()
+        del logits
+    specs = steps.mesh_specs(dcfg, m12)
+    loc = sr.shard_tree(params, specs, m12)
+    del params, lp0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lspec = sr.layer_specs(specs["moe_layers"])
+    lp = layer_slice(loc["moe_layers"], 0)
+    out["moe"] = []
+    with sr.activation_context(m12, specs=specs):
+        for x in xs:
+            used = use_layer(lp, lspec, dcfg, "moe", ml0, "kernel",
+                             x.shape[0])
+            out["moe"].append(_moe_layer_run(dcfg, used["moe"], ml0, x))
+            del used
+        with torch.no_grad():
+            (logits, _), launches = _counted(lambda: api.forward(
+                loc, dcfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
+        logits = full_logits(logits, dcfg).float().cpu()
+        out["forward_tokens"] = logits.argmax(-1)
+        if lead:
+            ref = out.pop("single_forward")
+            out["forward_agreement"] = float(
+                (out["forward_tokens"] == ref.argmax(-1)).float().mean())
+            out["forward_max_abs_err"] = float((logits - ref).abs().max())
+            del ref
+        out["forward_launches"] = launches
+        y = torch.randn((tokens.numel(), dcfg.d_model), generator=gen,
+                        device="cuda").bfloat16()
+        g = m12.group("model")
+        out["all_reduce_ms"] = ttiming.device_ms(
+            lambda: co.all_reduce(y, g, "timed"), flush, iters=5)
+        out["all_reduce_bytes"] = y.numel() * y.element_size()
+    out["deepseek_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del loc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _close_params(got, want, what, flips=0.0):
+    """Every leaf within one bf16 step: rtol 2^-7, atol 1e-3 x its
+    largest entry, plus ``flips``: Adam's update is about lr x sign(g),
+    so a gradient at bf16's noise level that takes the other sign moves
+    a master copy by 2 lr a step (2 x the sum of the steps' learning
+    rates; the first step is held without it).  -> the largest share of
+    the bound taken."""
+    import torch
+    worst = 0.0
+    for k, w in want.items():
+        tol = MESH_PARAM_RTOL * w.abs() + MESH_PARAM_ATOL * float(
+            w.abs().max()) + flips
+        excess = float(((got[k] - w).abs() / torch.clamp(tol, min=1e-30)
+                        ).max())
+        worst = max(worst, excess)
+        assert excess <= 1.0, (what, k, excess)
+    return worst
+
+
+def _mesh_kernel_cases(rows):
+    """The three expert-grid kernels at deepseek's widths with E_loc = 80
+    experts (one rank's half of 160), C = 8 and 256, beside the E = 160
+    rows of the kernel phase."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 80)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for name, _, _, _, expert_case in KERNELS:
+        for C in (8, 256):
+            r = expert_case(C, gen, flush, E=80)
+            rows[name][f"at_experts_eloc80_c{C}"] = _fields(r)
+            log("kernel", name=name, grid="experts", E_loc=80,
+                note="one rank's experts of deepseek-v2-236b under model 2",
+                **{k: (round(v, 5) if isinstance(v, float) else v)
+                   for k, v in r.items()})
+            torch.cuda.empty_cache()
+
+
+def slice_mesh(rows):
+    """The (data, model) mesh (``launch.mesh.make_host_mesh`` over 2 gloo
+    ranks on the one card: NCCL refuses two ranks on one device, and
+    gloo stages every collective through the host, so no time here is
+    the mesh's speed).  granite-3-2b at full width cut to 2 layers: the
+    train step on (1, 2) and (2, 1) against the single-device step
+    (loss, norm, updated params), its static decode on (1, 2)
+    (``_tp_flash_decode``) at AGREE_MIN and a reduced float32 granite's
+    tokens equal; deepseek-v2-236b at full width cut to 2 layers,
+    calibrated: one MoE layer on two shared inputs (tile masks and
+    gather_matmul's counters of each rank's 80 experts bit-equal to the
+    single-device run's rows, slots and counts exact, y within one bf16
+    step) and the whole forward (expert-grid launches on both ranks,
+    greedy agreement).  -> {kernel: launches on rank 0's forward}."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import page_backend, run_ranks
+    granite_gb, deepseek_gb = _mesh_gb()
+    log("mesh", ranks=MESH_RANKS, backend=page_backend("cuda", MESH_RANKS),
+        granite_state_gb_reckoned=round(granite_gb, 2),
+        deepseek_gb_reckoned=round(deepseek_gb, 2),
+        note="two ranks share cuda:0 over gloo: every collective is "
+             "staged through the host, so no time here is the mesh's "
+             "speed")
+    assert granite_gb < 70 and deepseek_gb < 70, (granite_gb, deepseek_gb)
+    _mesh_kernel_cases(rows)
+    ranks = run_ranks(_mesh_rank, MESH_RANKS, "cuda")
+    single = ranks[0]
+    s_loss, s_norm, s_ms = single["single_train"]
+    f_loss, f_norm = single["single_train_f32"]
+    log("mesh", path="granite train", mesh="single",
+        layers=MESH_GRANITE_LAYERS, losses=s_loss,
+        grad_norms=s_norm, step_ms=round(s_ms, 2), f32_losses=f_loss,
+        f32_grad_norms=f_norm)
+    for r in ranks:
+        for shape, run in r["train"].items():
+            f32 = shape.endswith("_f32")
+            _check_train("mesh", r["rank"], shape, run,
+                         f_loss if f32 else s_loss,
+                         f_norm if f32 else s_norm, f32)
+    cfg = get_config("granite-3-2b")
+    want, want32 = single["single_decode"], single["single_decode_f32"]
+    for r in ranks:
+        toks, counts = r["decode"]
+        agree = float((toks == want).float().mean())
+        diff = (toks != want).nonzero()
+        first = None if len(diff) == 0 else [int(v) for v in diff[0]]
+        t32, c32 = r["decode_f32"]
+        log("mesh", path="granite decode", rank=r["rank"], mesh="1x2",
+            layers=MESH_GRANITE_LAYERS, prompts=MESH_DECODE_PROMPTS,
+            steps=MESH_DECODE_STEPS, agreement_vs_single=round(agree, 4),
+            first_divergence=first, agree_min=AGREE_MIN,
+            decode_s=round(r["decode_s"], 2),
+            collectives=json.dumps(counts),
+            f32_reduced_tokens_equal=bool(torch.equal(t32, want32)))
+        assert agree >= AGREE_MIN, agree
+        assert counts["flash_merge"] == MESH_GRANITE_LAYERS * (
+            MESH_DECODE_STEPS - 1), counts
+        assert torch.equal(t32, want32), (t32, want32)
+    E_loc = None
+    for i, (b, s) in enumerate(MESH_MOE_SHAPES):
+        y1, p1, slot1, cnt1 = single["single_moe"][i]
+        for r in ranks:
+            y, p, slot, cnt = r["moe"][i]
+            E_loc = p["tiles"].shape[0]
+            lo = r["rank"] * E_loc
+            for key in ("tiles", "kept", "n_live", "n_comp"):
+                assert torch.equal(p[key], p1[key][lo:lo + E_loc]), \
+                    (i, r["rank"], key)
+            assert torch.equal(slot, slot1) and torch.equal(cnt, cnt1)
+            y, y1 = y.float(), y1.float()
+            err = float((y - y1).abs().max())
+            # each rank's partial is rounded to bf16 before the sum, and
+            # the single device adds its k experts in bf16: one bf16 step
+            # at the output's scale
+            bound = MESH_PARAM_RTOL * (y1.abs() + float(y1.abs().max()))
+            assert bool(((y - y1).abs() <= bound).all()), (i, err)
+            log("mesh", path="deepseek moe layer", rank=r["rank"],
+                tokens=b * s, experts_local=E_loc, mode="kernel",
+                tile_masks_bit_equal=True, counters_bit_equal=True,
+                slots_equal=True, live_tiles=int(p["n_live"].sum()),
+                computed_tiles=int(p["n_comp"].sum()), y_max_abs_err=err)
+    agree = single["forward_agreement"]
+    for r in ranks:
+        assert torch.equal(r["forward_tokens"], single["forward_tokens"])
+        launches = {k: v for k, v in r["forward_launches"].items() if v}
+        for k in ("mor_tile_mask", "gather_matmul", "masked_matmul_kdim"):
+            assert r["forward_launches"][k] > 0, (r["rank"], launches)
+        log("mesh", path="deepseek forward", rank=r["rank"], mesh="1x2",
+            layers=MESH_DEEPSEEK_LAYERS, experts_local=E_loc,
+            mode="kernel", launches=json.dumps(launches),
+            greedy_agreement_vs_single=round(agree, 4),
+            logits_max_abs_err=single["forward_max_abs_err"],
+            setup_s=round(r["deepseek_setup_s"], 1),
+            peak_gb=round(r["deepseek_peak_gb"], 2),
+            model_all_reduce_ms=round(r["all_reduce_ms"], 3),
+            all_reduce_bytes=r["all_reduce_bytes"])
+        assert agree >= AGREE_MIN, agree
+    return ranks[0]["forward_launches"]
+
+
+MESH4_LAYERS = 8                   # of 40: granite on (2, 2), 4 cards
+
+
+def _mesh4_rank(group):
+    """One rank of the 4-card mesh (NCCL, one rank a card): rank 0 runs
+    granite's single-card steps first, then every rank the (2, 2)
+    mesh's, held as the ``mesh`` phase holds (1, 2)'s."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import OptConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-3-2b").replace(n_layers=MESH4_LAYERS,
+                                             grad_accum=1)
+    opt = OptConfig(lr=1e-3, moment_dtype="bfloat16")
+    batches = _device_batches(cfg, 2)
+    out = {"rank": group.rank, "backend": group.backend}
+    single = None
+    if group.rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        loss, norm, single, _, ms = _mesh_train(cfg, opt, None,
+                                                batches)[:5]
+        out["single_train"] = (loss, norm, ms,
+                               torch.cuda.max_memory_allocated() / 1e9)
+    mesh = make_host_mesh(2, device=group.device)
+    out["train"] = _held_train(cfg, opt, mesh, batches, single)
+    return out
+
+
+def slice_mesh4():
+    """The (data 2, model 2) mesh over 4 cards, one rank a card on NCCL
+    (run only where 4 cards are visible): granite-3-2b at full width
+    cut to MESH4_LAYERS, two train steps against one card's (loss,
+    norm beside its planted fault, params after each step), with the
+    step's ms, peak GB and collectives a rank."""
+    from repro_torch.launch.mesh import page_backend, run_ranks
+    log("mesh4", ranks=4, backend=page_backend("cuda", 4),
+        layers=MESH4_LAYERS)
+    ranks = run_ranks(_mesh4_rank, 4, "cuda")
+    s_loss, s_norm, s_ms, s_peak = ranks[0]["single_train"]
+    log("mesh4", path="granite train", mesh="single", losses=s_loss,
+        grad_norms=s_norm, step_ms=round(s_ms, 2), peak_gb=round(s_peak, 3))
+    for r in ranks:
+        assert r["backend"] == "nccl", r["backend"]
+        _check_train("mesh4", r["rank"], "2x2", r["train"], s_loss, s_norm,
+                     False)
 
 
 TIMED_LAYERS = (("darknet19_l13", "paper-darknet19", 13, (128, 4608, 1024)),
@@ -4827,6 +5428,9 @@ def main() -> int:
     timed("dryrun", phase_dryrun)
     sharded, granite_sharded = timed("sharded", slice_sharded,
                                      granite_tokens)
+    deepseek_mesh = timed("mesh", slice_mesh, rows)
+    if torch.cuda.device_count() >= 4:
+        timed("mesh4", slice_mesh4)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)
     mixtral = timed("mixtral", slice_mixtral)
     qwen2, qwen2_long = timed("qwen2", slice_qwen2)
@@ -4844,6 +5448,7 @@ def main() -> int:
                "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
+               "deepseek_mesh": deepseek_mesh,
                "granite_obs_shadow": granite_obs,
                "granite_spec": granite_spec,
                "granite_static": granite_static,

@@ -8,10 +8,13 @@ keep-last-k, an async background writer and auto-resume.
     restarted after a kill resumes from the last durable state;
   * ``restore`` takes a *template* tree (the freshly initialised state)
     and gives each leaf its template leaf's shape check, dtype and
-    device.
-
-The re-placement onto another mesh (``shardings``) is ROADMAP queue A 7
-of the port.
+    device;
+  * on a mesh (``shardings``: the state's spec tree, and the ``mesh``)
+    ``save`` gathers every leaf whole (``sharding_rules.gather_leaf``)
+    and rank 0 writes the reference's mesh-agnostic payload, and
+    ``restore`` hands every rank its block under the specs of the mesh
+    it runs on now: a checkpoint saved on one mesh restores on another,
+    or in one process.
 """
 from __future__ import annotations
 
@@ -36,11 +39,25 @@ class CheckpointManager:
 
     # ---------- write path ----------
     def save(self, step: int, state: Any, extra: Dict | None = None,
-             block: bool = False) -> None:
+             block: bool = False, shardings: Any = None,
+             mesh=None) -> None:
         """The snapshot is taken synchronously (a host copy of every
         leaf, so that training may go on updating the tensors in place);
-        the disk write happens on the background thread."""
+        the disk write happens on the background thread.  With
+        ``shardings`` (``state``'s spec tree on ``mesh``) every rank
+        joins the gathers, rank 0 alone writes, at once, and every rank
+        returns once the step is committed."""
         self.wait()                       # one in-flight save at a time
+        if shardings is not None and getattr(mesh, "groups", None):
+            from repro_torch.distributed import sharding_rules as sr
+            host_state = tree_map(
+                lambda x, s: sr.gather_leaf(x.detach(), s, mesh).to(
+                    "cpu", copy=True), state, shardings)
+            if mesh.rank == 0:
+                self.save(step, host_state, extra, block=True)
+            import torch.distributed as dist
+            dist.barrier(group=mesh.group("world").pg)
+            return
         host_state = tree_map(lambda x: x.detach().to("cpu", copy=True),
                               state)
 
@@ -90,14 +107,25 @@ class CheckpointManager:
                 steps.append(int(m.group(1)))
         return max(steps) if steps else None
 
-    def restore(self, template: Any, step: Optional[int] = None
-                ) -> Tuple[Any, Dict]:
-        """Load into ``template``'s structure -> (state, extra)."""
+    def restore(self, template: Any, step: Optional[int] = None,
+                shardings: Any = None, mesh=None) -> Tuple[Any, Dict]:
+        """Load into ``template``'s structure -> (state, extra).  With
+        ``shardings`` (the spec tree of ``template`` on ``mesh``, the
+        mesh this job runs on) each rank takes its block of every leaf:
+        the elastic re-placement; ``template`` holds the blocks."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
+        place = None
+        if shardings is not None and getattr(mesh, "groups", None):
+            from repro_torch.distributed import sharding_rules as sr
+            spec_of = sr.spec_paths(shardings)
+
+            def place(key, full):
+                return sr.shard_leaf(full, spec_of[key], mesh)
         return load_pytree(template,
-                           os.path.join(self._step_dir(step), "state"))
+                           os.path.join(self._step_dir(step), "state"),
+                           place=place)
 
     # ---------- internals ----------
     def _step_dir(self, step: int) -> str:

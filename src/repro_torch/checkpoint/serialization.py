@@ -55,9 +55,11 @@ def save_pytree(tree, path: str, extra_meta: Dict | None = None) -> None:
         json.dump(meta, f)
 
 
-def load_pytree(template, path: str) -> Tuple[Any, Dict]:
+def load_pytree(template, path: str, place=None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``template`` (shapes must match);
-    each leaf takes its template leaf's dtype and device."""
+    each leaf takes its template leaf's dtype and device.  ``place(key,
+    tensor)``, where given, maps each stored (whole) leaf to the part
+    the template holds before the check."""
     with open(path + ".json") as f:
         meta = json.load(f)
     dtypes = meta.get("dtypes")
@@ -71,9 +73,11 @@ def load_pytree(template, path: str) -> Tuple[Any, Dict]:
         for key, leaf in tmpl.items():
             i = index[key]
             a = payload[f"a{i}"]
-            if tuple(a.shape) != tuple(leaf.shape):
-                raise ValueError(f"{key}: ckpt {a.shape} != template "
-                                 f"{tuple(leaf.shape)}")
             t = _from_numpy(a, dtypes[i] if dtypes else a.dtype.name)
+            if place is not None:
+                t = place(key, t)
+            if tuple(t.shape) != tuple(leaf.shape):
+                raise ValueError(f"{key}: ckpt {tuple(t.shape)} != "
+                                 f"template {tuple(leaf.shape)}")
             out.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return unflatten(template, out), meta["extra"]

@@ -18,14 +18,28 @@ A rank with no resident page for a row (m_i = -1e30, l_i = 0) weighs
 nothing against a real score.  ``counts`` tallies the collectives this
 module and ``decode_attention`` issue, by name, so that a run can show
 exactly one merge per attention layer per dispatch; ``nbytes`` their
-buffers' bytes by kind ("all-reduce"), which ``launch.roofline.
-collective_wire_bytes`` turns into wire bytes.  The overlapped
-all-gather / reduce-scatter matmuls of tensor parallelism are ROADMAP
-queue A 7 of the port.
+buffers' bytes by kind ("all-reduce", "all-gather", "reduce-scatter",
+"all-to-all", "collective-permute"), which
+``launch.roofline.collective_wire_bytes`` turns into wire bytes.
+
+The mesh's collectives (``launch.mesh.HostMesh``; a ``PageGroup`` an
+axis) follow the group's stated backend, never a caught error.  NCCL
+runs ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
+``all_to_all_single`` and the ring's ``batch_isend_irecv`` as they are.
+On gloo an all-gather is the exact all-reduce of a zero buffer in which
+each rank fills its own slot (``all_ranks``), a reduce-scatter an
+all-reduce of which each rank keeps its block, and the all-to-all and
+the ring's point-to-point steps of a CUDA tensor go through a host
+copy.  The bytes counted are what moved.  ``all_gather_dim`` /
+``all_reduce_sum`` / ``copy_to_model`` are the autograd Functions the
+tensor-parallel layers use (Megatron's ``g`` / ``f`` pair and the FSDP
+gather), ``all_to_all_dim`` expert slicing's reshard of the expert
+weights; ``ag_matmul_overlapped`` and ``psum_scatter_matmul`` are the
+reference's explicit-schedule matmuls.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import torch
 import torch.distributed as dist
@@ -87,3 +101,247 @@ def flash_merge(m: torch.Tensor, l: torch.Tensor, acc: torch.Tensor,
                         acc.float()], -1)
     allp = all_ranks(packed, group, "flash_merge")
     return merge_stacked(allp[..., 0], allp[..., 1], allp[..., 2:])
+
+
+# --- the mesh's collectives ---------------------------------------------------
+
+def _nccl(group) -> bool:
+    return group.backend == "nccl"
+
+
+def all_gather(x: torch.Tensor, dim: int, group, name: str) -> torch.Tensor:
+    """The group's blocks of ``x`` concatenated along ``dim``, in group
+    rank order; the same bits on every rank."""
+    if group.size == 1:
+        return x
+    if _nccl(group):
+        out = torch.empty((group.size,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous(), group=group.pg)
+        _count(name, "all-gather", out)
+    else:
+        out = all_ranks(x.contiguous(), group, name)
+    return torch.cat(out.unbind(0), dim)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group,
+                   name: str) -> torch.Tensor:
+    """The sum over the group of ``x``, this rank's block along ``dim``."""
+    if group.size == 1:
+        return x
+    n = x.shape[dim] // group.size
+    if _nccl(group):
+        xs = torch.stack(x.split(n, dim), 0).contiguous()
+        out = torch.empty_like(xs[0])
+        dist.reduce_scatter_tensor(out, xs, group=group.pg)
+        _count(name, "reduce-scatter", xs)
+        return out
+    return all_reduce(x, group, name).narrow(dim, group.rank * n, n)
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group,
+               name: str) -> torch.Tensor:
+    """``x`` cut along ``split_dim`` into the group's size of blocks,
+    block s sent to rank s; the blocks received concatenated along
+    ``cat_dim`` in group rank order.  One ``all_to_all_single`` (a CUDA
+    tensor on gloo travels through a host copy); each element moves to
+    one rank only, bit for bit."""
+    if group.size == 1:
+        return x
+    stage = x.is_cuda and not _nccl(group)
+    src = torch.stack(x.chunk(group.size, split_dim), 0)
+    src = src.cpu() if stage else src.contiguous()
+    out = torch.empty_like(src)
+    dist.all_to_all_single(out, src, group=group.pg)
+    _count(name, "all-to-all", src)
+    if stage:
+        out = out.to(x.device)
+    return torch.cat(out.unbind(0), cat_dim)
+
+
+def all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    """The group's sum of ``x`` (a new tensor)."""
+    if group.size == 1:
+        return x
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
+    _count(name, "all-reduce", out)
+    return out
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's elementwise max of ``x`` (a new tensor; no
+    gradient)."""
+    if group is None or group.size == 1:
+        return x
+    out = x.detach().contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group.pg)
+    _count("all_reduce_max", "all-reduce", out)
+    return out
+
+
+class _AllGatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, reduce_grad):
+        ctx.dim, ctx.group, ctx.reduce_grad = dim, group, reduce_grad
+        return all_gather(x, dim, group, "all_gather_dim")
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim = ctx.group, ctx.dim
+        if ctx.reduce_grad:
+            out = reduce_scatter(g, dim, group, "all_gather_dim.grad")
+        else:
+            n = g.shape[dim] // group.size
+            out = g.narrow(dim, group.rank * n, n).contiguous()
+        return out, None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group,
+                   reduce_grad: bool = True) -> torch.Tensor:
+    """All-gather along ``dim`` over ``group``.  Backward: the gradient
+    reduce-scattered (summed) over the group where the ranks fed
+    different inputs (``reduce_grad``), else this rank's block of it
+    (the ranks computed the same thing, each holding the whole
+    gradient)."""
+    if group is None or group.size == 1:
+        return x
+    return _AllGatherDim.apply(x, dim, group, reduce_grad)
+
+
+class _AllToAllDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, cat_dim, group):
+        ctx.dims, ctx.group = (split_dim, cat_dim), group
+        return all_to_all(x, split_dim, cat_dim, group, "all_to_all_dim")
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return (all_to_all(g, cat_dim, split_dim, ctx.group,
+                           "all_to_all_dim.grad"), None, None, None)
+
+
+def all_to_all_dim(x: torch.Tensor, split_dim: int, cat_dim: int,
+                   group) -> torch.Tensor:
+    """``all_to_all`` with its inverse as the backward: the gradient goes
+    back to the ranks its blocks came from (a reshard, no sum)."""
+    if group is None or group.size == 1:
+        return x
+    return _AllToAllDim.apply(x, split_dim, cat_dim, group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x, group, "all_reduce_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "copy_to_model.grad"), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``g``: the group's sum in the forward, the identity in
+    the backward (each rank's partial gets the whole gradient).  Closes
+    a tensor-parallel region."""
+    if group is None or group.size == 1:
+        return x
+    return _AllReduceSum.apply(x, group)
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's ``f``: the identity in the forward, the group's sum of
+    the gradient in the backward (each rank's partial region contributed
+    part of it).  Opens a tensor-parallel region."""
+    if group is None or group.size == 1 or not torch.is_grad_enabled():
+        return x
+    return _CopyToModel.apply(x, group)
+
+
+# --- explicit-schedule matmuls (``repro.distributed.collectives``) ------------
+
+def _ring_steps(p: int) -> int:
+    return max((p + 1) // 2 + (0 if p % 2 else 1), 1)
+
+
+def _permute_pair(fwd: torch.Tensor, bwd: torch.Tensor, group,
+                  ) -> List[torch.Tensor]:
+    """One bidirectional ring step: ``fwd`` goes to the previous rank and
+    ``bwd`` to the next, by ``batch_isend_irecv``; -> the pair received.
+    A CUDA tensor on gloo travels through a host copy."""
+    p, r = group.size, group.rank
+    stage = fwd.is_cuda and not _nccl(group)
+    dev = fwd.device
+    send = [t.cpu() if stage else t.contiguous() for t in (fwd, bwd)]
+    recv = [torch.empty_like(t) for t in send]
+    ranks = dist.get_process_group_ranks(group.pg)
+    ops = [dist.P2POp(dist.isend, send[0], ranks[(r - 1) % p], group.pg),
+           dist.P2POp(dist.isend, send[1], ranks[(r + 1) % p], group.pg),
+           dist.P2POp(dist.irecv, recv[0], ranks[(r + 1) % p], group.pg),
+           dist.P2POp(dist.irecv, recv[1], ranks[(r - 1) % p], group.pg)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    counts["ag_matmul_overlapped"] = counts.get("ag_matmul_overlapped",
+                                                0) + 1
+    nbytes["collective-permute"] = nbytes.get("collective-permute", 0) + \
+        2 * fwd.numel() * fwd.element_size()
+    return [t.to(dev) if stage else t for t in recv]
+
+
+def ag_matmul_overlapped(x: torch.Tensor, w_local: torch.Tensor, mesh,
+                         axis: str = "model") -> torch.Tensor:
+    """x (M, K), this rank's own; w_local (K/P, N), this rank's K block
+    of w over ``axis`` (as FSDP leaves it) -> x @ w_full (M, N), without
+    materialising the all-gathered weight: the bidirectional ring of the
+    reference (``_ring_ag_matmul``).  At each of ``(P + 1) // 2 + (0 if P
+    odd else 1)`` steps the resident shard pair is multiplied against
+    its matching column blocks of x while the next pair moves, one
+    ``batch_isend_irecv`` a step (counted as "ag_matmul_overlapped", its
+    bytes as "collective-permute"); the backward shard is used from the
+    second step on, and not where it is the forward one.  Accumulates in
+    float32, returns x's dtype."""
+    group = mesh.group(axis)
+    p, idx = group.size, group.rank
+    kb = w_local.shape[0]
+    acc = torch.zeros((x.shape[0], w_local.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    if p == 1:
+        return (acc + (x @ w_local).float()).to(x.dtype)
+    fwd = bwd = w_local
+    n_steps = _ring_steps(p)
+    for i in range(n_steps):
+        k_fwd, k_bwd = (idx + i) % p, (idx - i) % p
+        nxt = None
+        if i + 1 < n_steps:
+            # the next pair moves while the resident one is multiplied
+            # (the exchange is issued first; eager code has no overlap
+            # of its own on one stream)
+            nxt = _permute_pair(fwd, bwd, group)
+        acc += (x[:, k_fwd * kb:(k_fwd + 1) * kb] @ fwd).float()
+        if i > 0 and k_bwd != k_fwd:
+            acc += (x[:, k_bwd * kb:(k_bwd + 1) * kb] @ bwd).float()
+        if nxt is not None:
+            fwd, bwd = nxt
+    return acc.to(x.dtype)
+
+
+def psum_scatter_matmul(x_local: torch.Tensor, w_local: torch.Tensor,
+                        mesh, axis: str = "model") -> torch.Tensor:
+    """Tensor-parallel down projection: x_local (M, F/P), w_local (F/P,
+    N) -> this rank's (M, N/P) block of the sum over ``axis`` of the
+    local products: the local product, then one reduce-scatter along
+    dim 1 (counted as "psum_scatter_matmul")."""
+    return reduce_scatter(x_local @ w_local, 1, mesh.group(axis),
+                          "psum_scatter_matmul")

@@ -4,8 +4,10 @@ host), compares each host's last step with the median, and recommends
 an action when one host's time exceeds the threshold for ``patience``
 consecutive steps: shift part of its micro-batch share to the others
 (rebalance), then mark it for eviction.  The training loop feeds it one
-host's times.  ``ElasticPlan`` (the mesh and batch plan after a resize)
-is ROADMAP queue A 7 of the port.
+host's times.  ``ElasticPlan`` computes the new mesh and batch split
+after a node-count change; the restore then goes through
+``CheckpointManager.restore`` with the new mesh's specs (a
+mesh-agnostic payload).
 """
 from __future__ import annotations
 
@@ -66,3 +68,31 @@ class StragglerMonitor:
         others = [h for h in range(self.n_hosts) if h != straggler]
         for h in others:
             self.microbatch_share[h] += delta / len(others)
+
+
+@dataclass(frozen=True)
+class ElasticPlan:
+    """Mesh + batch plan after an elastic resize."""
+    n_devices: int
+    mesh_shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    global_batch: int
+
+    @staticmethod
+    def plan(n_devices: int, model_parallel: int, global_batch: int,
+             multi_pod_size: int = 0) -> "ElasticPlan":
+        """Keep TP fixed (model weights' shard layout is the expensive
+        thing to reshuffle); absorb node loss in the data axis.  Batch is
+        kept divisible by the new dp size by rounding down."""
+        if n_devices % model_parallel != 0:
+            raise ValueError(
+                f"{n_devices} devices not divisible by TP={model_parallel}")
+        dp = n_devices // model_parallel
+        if multi_pod_size and dp % multi_pod_size == 0:
+            shape = (multi_pod_size, dp // multi_pod_size, model_parallel)
+            names = ("pod", "data", "model")
+        else:
+            shape = (dp, model_parallel)
+            names = ("data", "model")
+        gb = (global_batch // dp) * dp
+        return ElasticPlan(n_devices, shape, names, max(gb, dp))

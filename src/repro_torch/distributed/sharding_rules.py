@@ -1,0 +1,466 @@
+"""Sharding rules (``repro.distributed.sharding_rules``): the logical-axis
+-> mesh-axis mapping of params and activations (DP + FSDP + TP, the pod
+axis an extra DP dim), and the port's realisation of them on a mesh of
+processes.
+
+The rule tables, ``ShardingRules.resolve``, ``default_rules``,
+``param_sharding`` and ``batch_sharding`` are the reference's: a spec is
+a tuple with one entry a dim, each None, a mesh axis name, or a tuple of
+names (a ``PartitionSpec``'s entries), matched on the '/'-joined key path
+of the leaf, right-aligned over a layer stack, a dim left unsharded
+where its axis does not divide it.
+
+The reference hands those specs to GSPMD: XLA reads the
+``NamedSharding``s and inserts the collectives.  Eager PyTorch has no
+such compiler, so the port realises the same layouts by hand:
+
+  * every rank is one process (``launch.mesh.make_host_mesh`` over
+    ``torch.distributed``'s world) and holds only its own block of every
+    leaf (``shard_leaf``; ``gather_leaf`` rebuilds the whole);
+  * a leaf's dims on ``data``, and its ``model`` dims that no
+    tensor-parallel code consumes, are all-gathered layer by layer where
+    they are used (``use``: FSDP, ZeRO-3 style; the backward
+    reduce-scatters the gradient over ``data``);
+  * the tensor-parallel layers (GQA attention, the dense FFN, the
+    vocabulary-parallel embedding, head and loss, the experts of
+    ``moe_apply_a2a``) consume their ``model`` blocks and issue their
+    collectives themselves (``distributed.collectives``).
+
+``torch.distributed.tensor`` (DTensor) is deliberately not the route:
+the hand-written kernels take plain local tensors through ``ctypes``, and
+every collective is counted and every integer output (dispatch slots,
+tile masks, greedy tokens) held bit for bit against one device, which an
+op-propagation layer would hide.
+
+``activation_context`` is the thread-local the layers consult, as the
+reference's ``_TLS.ctx`` is.  ``_ACT_SPECS`` states each activation's
+layout; ``constrain`` / ``constrain_grad`` are identities here, because
+the explicit code above realises those layouts itself.
+"""
+from __future__ import annotations
+
+import contextlib
+import re
+import threading
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.tree import tree_map
+
+_TLS = threading.local()
+
+# Mesh axis the serving page pools shard over: physical kv / state pages
+# partitioned, block tables, params and activations replicated.
+# Deliberately distinct from the train-time axes ('pod', 'data',
+# 'model'), so that _dp_axes / 'tp' resolution never capture it.
+PAGE_AXIS = "pages"
+
+Spec = Tuple[Any, ...]
+
+
+def mesh_axes(mesh) -> Tuple[str, ...]:
+    return tuple(mesh.axis_names)
+
+
+def _dp_axes(mesh):
+    """Data-parallel axes: ('pod','data') when a pod axis exists."""
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+@dataclass(frozen=True)
+class ShardingRules:
+    """Pattern (regex on '/'-joined param path) -> spec factory.
+
+    Specs may reference the logical axes 'dp' (data+pod), 'tp' ('model');
+    they are resolved against the active mesh."""
+    rules: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...]
+    sequence_parallel: bool = False
+
+    def resolve(self, spec: Tuple[Optional[str], ...], mesh) -> Spec:
+        out = []
+        for ax in spec:
+            if ax is None:
+                out.append(None)
+            elif ax == "dp":
+                dp = _dp_axes(mesh)
+                out.append(dp if len(dp) > 1 else (dp[0] if dp else None))
+            elif ax == "tp":
+                out.append("model" if "model" in mesh.axis_names else None)
+            else:
+                out.append(ax if ax in mesh.axis_names else None)
+        return tuple(out)
+
+
+# Parameter rules: matched against the '/'-joined path, first match wins.
+# Layout: TP on the 'model' axis over heads/d_ff/experts/vocab, FSDP over
+# 'data' on the other major dim (ZeRO-3).
+_PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    # embeddings / unembedding
+    (r"embed$", ("tp", "dp")),
+    (r"lm_head$", ("dp", "tp")),
+    # attention (GQA + MLA)
+    (r"(wq|wk|wv)$", ("dp", "tp")),
+    (r"wo$", ("tp", "dp")),
+    (r"(bq|bk|bv)$", ("tp",)),
+    (r"wq_a$", ("dp", "tp")),
+    (r"wq_b$", ("dp", "tp")),
+    (r"wkv_a$", ("dp", "tp")),
+    (r"(wk_b|wv_b)$", ("dp", "tp")),
+    # dense FFN
+    (r"(w_gate|w_up)$", ("dp", "tp")),
+    (r"w_down$", ("tp", "dp")),
+    # MoE experts: EP handled by moe-specific rule injected per-config
+    (r"router$", ("dp", "tp")),
+    (r"moe_ep/(w_gate|w_up)$", ("tp", "dp", None)),
+    (r"moe_ep/w_down$", ("tp", "dp", None)),
+    (r"moe_tp/(w_gate|w_up)$", (None, "dp", "tp")),
+    (r"moe_tp/w_down$", (None, "tp", "dp")),
+    # mamba2 / rwkv
+    (r"in_proj$", ("dp", "tp")),
+    (r"out_proj$", ("tp", "dp")),
+    (r"(Wr|Wk|Wv|Wg|Wo|wA|wB)$", ("dp", "tp")),
+    (r"conv_w$", (None, "tp")),
+    (r"conv_b$", ("tp",)),
+    (r"norm_scale$", ("tp",)),
+    # MoR predictor tables: per-output-neuron vectors follow d_ff (tp)
+    (r"mor/.*(m|b|enable|proxy_slot|is_proxy|perm|inv_perm|bn_scale|bn_bias)$",
+     ("tp",)),
+    # everything else (norms, scalars, small tables): replicated
+    (r".*", ()),
+)
+
+
+# Alternative layout: weights sharded on the CONTRACTION dim over
+# 'model', FSDP over 'data' on the other dim.  A/B-able via
+# param_sharding(layout=...).
+_PARAM_RULES_CONTRACT: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+    (r"embed$", ("tp", "dp")),
+    (r"lm_head$", ("tp", "dp")),
+    (r"(wq|wk|wv)$", ("tp", "dp")),
+    (r"wo$", ("dp", "tp")),
+    (r"(bq|bk|bv)$", ()),
+    (r"wq_a$", ("tp", "dp")),
+    (r"wq_b$", ("tp", "dp")),
+    (r"wkv_a$", ("tp", "dp")),
+    (r"(wk_b|wv_b)$", ("tp", "dp")),
+    (r"(w_gate|w_up)$", ("tp", "dp")),
+    (r"w_down$", ("dp", "tp")),
+    (r"router$", ("tp", None)),
+    (r"moe_ep/(w_gate|w_up)$", ("tp", "dp", None)),
+    (r"moe_ep/w_down$", ("tp", None, "dp")),
+    (r"moe_tp/(w_gate|w_up)$", (None, "tp", "dp")),
+    (r"moe_tp/w_down$", (None, "dp", "tp")),
+    (r"in_proj$", ("tp", "dp")),
+    (r"out_proj$", ("dp", "tp")),
+    (r"(Wr|Wk|Wv|Wg|Wo|wA|wB)$", ("tp", "dp")),
+    (r"conv_w$", (None, "tp")),
+    (r"conv_b$", ("tp",)),
+    (r"norm_scale$", ("tp",)),
+    (r"mor/.*", ("tp",)),
+    (r".*", ()),
+)
+
+
+def default_rules(sequence_parallel: bool = False,
+                  layout: str = "fsdp_tp") -> ShardingRules:
+    rules = (_PARAM_RULES_CONTRACT if layout == "contract_tp"
+             else _PARAM_RULES)
+    return ShardingRules(rules=rules, sequence_parallel=sequence_parallel)
+
+
+def _axes_size(mesh, ax) -> int:
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    size = 1
+    for a in axes:
+        size *= mesh.shape[a]
+    return size
+
+
+def moe_mode_of(cfg) -> str:
+    """The ``moe_mode`` of ``param_sharding`` a config's
+    ``expert_sharding`` asks for ("tp", "ep" or "ep_shmap")."""
+    return cfg.expert_sharding if cfg.expert_sharding in (
+        "tp", "ep", "ep_shmap") else "tp"
+
+
+def param_sharding(params, mesh, rules: Optional[ShardingRules] = None,
+                   moe_mode: str = "tp", layout: str = "fsdp_tp"):
+    """A tree of specs matching ``params`` (tensors, meta tensors or
+    anything with ``.shape``), each a tuple of axis entries."""
+    rules = rules or default_rules(layout=layout)
+
+    def spec_for(p: str, shape) -> Spec:
+        ndim = len(shape)
+        # tag expert tensors so EP/TP rules can disambiguate
+        if re.search(r"moe/(w_gate|w_up|w_down)$", p):
+            mode = moe_mode
+            if moe_mode == "ep_shmap":
+                # expert dim is leaf dim -3 for (L, E, d, f) stacks
+                e_dim = shape[-3]
+                mp = mesh.shape.get("model", 1)
+                mode = "ep" if e_dim % mp == 0 else "tp"
+            p = p.replace("moe/", f"moe_{mode}/")
+        for pat, spec in rules.rules:
+            if re.search(pat, p):
+                specs = list(rules.resolve(spec, mesh))
+                # rules describe the LOGICAL per-layer shape; a layer
+                # stack's leading L dim stays unsharded (right-aligned)
+                if ndim > len(specs):
+                    specs = [None] * (ndim - len(specs)) + specs
+                specs = specs[:ndim]
+                # drop sharding on dims that don't divide evenly
+                for i, ax in enumerate(specs):
+                    if ax is not None and shape[i] % _axes_size(mesh, ax):
+                        specs[i] = None
+                return tuple(specs)
+        return ()
+
+    def walk(tree, prefix: str):
+        if isinstance(tree, dict):
+            return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, f"{prefix}{i}/")
+                              for i, v in enumerate(tree))
+        return spec_for(prefix[:-1], tuple(tree.shape))
+
+    return walk(params, "")
+
+
+def batch_sharding(batch, mesh):
+    """Shard the leading (global-batch) dim over all DP axes: a spec a
+    leaf, () where the dim does not divide (replicated)."""
+    dp = _dp_axes(mesh)
+    spec = dp if len(dp) > 1 else (dp[0] if dp else None)
+
+    def one(x):
+        if x.ndim == 0 or (spec and x.shape[0] % _dp_size(mesh) != 0):
+            return ()
+        return (spec,)
+    return tree_map(one, batch)
+
+
+def _dp_size(mesh) -> int:
+    s = 1
+    for a in _dp_axes(mesh):
+        s *= mesh.shape[a]
+    return s
+
+
+# --- activation context -----------------------------------------------------
+
+@dataclass
+class MeshContext:
+    """What the layers consult under ``activation_context``: the mesh,
+    the sequence-parallel flag, and the spec tree of the params the
+    layers are handed (their rank-local blocks)."""
+    mesh: Any
+    sequence_parallel: bool = False
+    specs: Any = None
+
+
+@contextlib.contextmanager
+def activation_context(mesh, sequence_parallel: bool = False, specs=None):
+    """Run the model code under ``mesh``: the layers gather and split
+    their params as ``specs`` (``param_sharding``'s tree of the params
+    they are handed) says.  Nests; restores the outer context."""
+    prev = getattr(_TLS, "ctx", None)
+    _TLS.ctx = MeshContext(mesh, sequence_parallel, specs)
+    try:
+        yield
+    finally:
+        _TLS.ctx = prev
+
+
+def bind(fn):
+    """``fn`` run under the context active now, wherever it is called
+    from: a rematerialised block is recomputed by the autograd engine,
+    which runs a CUDA backward on a thread of its own (where this
+    thread's context is not set)."""
+    ctx = getattr(_TLS, "ctx", None)
+    if ctx is None:
+        return fn
+
+    def run(*args, **kwargs):
+        prev = getattr(_TLS, "ctx", None)
+        _TLS.ctx = ctx
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _TLS.ctx = prev
+    return run
+
+
+def current() -> Optional[MeshContext]:
+    """The active context, or None outside one and on a one-rank mesh."""
+    ctx = getattr(_TLS, "ctx", None)
+    if ctx is None or getattr(ctx.mesh, "groups", None) is None:
+        return None
+    return ctx
+
+
+def model_group(ctx: Optional[MeshContext] = None):
+    """The context's ``model`` axis group, or None where it has one
+    rank."""
+    ctx = ctx or current()
+    if ctx is None:
+        return None
+    g = ctx.mesh.group("model")
+    return g if g.size > 1 else None
+
+
+_ACT_SPECS: Dict[str, Tuple] = {
+    # (B, S, D) residual stream; S over model axis if sequence-parallel
+    "residual": ("dp", "sp_seq", None),
+    "residual_decode": ("dp", None, None),
+    "logits": ("dp", None, "tp"),
+    "ffn_hidden": ("dp", None, "tp"),
+    "heads": ("dp", None, "tp", None),       # (B, S, H, hd)
+    "kv_cache": ("dp", None, "tp", None),
+    "expert_buf": ("tp", None, None),        # (E, C, d) under EP
+    "expert_hidden_ep": ("tp", None, None),  # (E, C, f) under EP
+    "expert_hidden_tp": (None, None, "tp"),  # (E, C, f) under TP
+    # TP-standard FFN/attention interior layouts (2D flattened tokens):
+    # input gathered on model, hidden sharded over model -> single
+    # all-reduce of the (T, d) down-projection partials
+    "ffn_in_2d": ("dp", None),
+    "ffn_hidden_2d": ("dp", "tp"),
+    "w_down_grad": ("tp", "dp"),
+    "attn_in": ("dp", None, None),
+}
+
+
+def constrain(x, kind: str):
+    """The reference pins ``x`` (and its cotangent) to ``_ACT_SPECS[kind]``
+    for GSPMD; the port's layers realise those layouts explicitly, so
+    this is the identity."""
+    return x
+
+
+def constrain_grad(x, kind: str):
+    """The identity (see ``constrain``)."""
+    return x
+
+
+# --- rank-local blocks --------------------------------------------------------
+
+def _block_index(mesh, ax) -> int:
+    axes = (ax,) if isinstance(ax, str) else tuple(ax)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + mesh.index(a)
+    return idx
+
+
+def shard_leaf(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """This rank's block of ``full`` under ``spec`` (a contiguous copy)."""
+    out = full
+    for i, ax in enumerate(spec):
+        if ax is None:
+            continue
+        n = _axes_size(mesh, ax)
+        if n == 1:
+            continue
+        c = full.shape[i] // n
+        out = out.narrow(i, _block_index(mesh, ax) * c, c)
+    return out.contiguous().clone() if out is full else out.contiguous()
+
+
+def _axis_groups(mesh, ax):
+    if not isinstance(ax, str):
+        raise NotImplementedError(
+            f"a dim over the axes {ax} (the pod mesh): ROADMAP queue A 7")
+    return mesh.group(ax)
+
+
+def gather_leaf(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
+    """The whole leaf from every rank's block (``local`` is this rank's),
+    one all-gather a sharded dim; the same bits on every rank."""
+    from repro_torch.distributed import collectives as co
+    out = local
+    for i, ax in enumerate(spec):
+        if ax is None or _axes_size(mesh, ax) == 1:
+            continue
+        out = co.all_gather(out, i, _axis_groups(mesh, ax), "gather_leaf")
+    return out
+
+
+def shard_tree(tree, specs, mesh):
+    return tree_map(lambda x, s: shard_leaf(x, s, mesh), tree, specs)
+
+
+def gather_tree(tree, specs, mesh):
+    return tree_map(lambda x, s: gather_leaf(x, s, mesh), tree, specs)
+
+
+def spec_paths(specs, prefix: str = "") -> Dict[str, Spec]:
+    """{'/'-joined key path: spec} of a spec tree, in ``tree.paths``'
+    order (the spec tuples are its leaves)."""
+    if isinstance(specs, dict):
+        out: Dict[str, Spec] = {}
+        for k in sorted(specs):
+            out.update(spec_paths(specs[k], f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: specs}
+
+
+def layer_specs(specs):
+    """The specs of one layer's views of a layer-stacked spec tree (the
+    stack's leading dim, never sharded, dropped)."""
+    if isinstance(specs, dict):
+        return {k: layer_specs(v) for k, v in specs.items()}
+    assert not specs or specs[0] is None, specs
+    return tuple(specs[1:])
+
+
+def use(tree, specs, keep=frozenset(), prefix: str = ""):
+    """Gather-on-use: every dim of ``tree``'s leaves that ``specs`` puts
+    on a mesh axis of more than one rank is all-gathered
+    (``collectives.all_gather_dim``), except the ``model`` dims of the
+    leaves whose '/'-joined paths (under ``prefix``) are in ``keep``:
+    those the tensor-parallel layers consume, and which carry their
+    group (``split_group``).  A ``data`` gather's
+    backward reduce-scatters the gradient (each data rank saw its own
+    batch); a ``model`` gather's takes this rank's block of it (the
+    ranks of a row computed the same thing)."""
+    ctx = current()
+    if ctx is None or specs is None:
+        return tree
+    from repro_torch.distributed import collectives as co
+    mesh = ctx.mesh
+
+    def walk(t, s, p):
+        if isinstance(t, dict):
+            return {k: walk(v, s[k], f"{p}{k}/") for k, v in t.items()}
+        out = t
+        split = None
+        for i, ax in enumerate(s):
+            if ax is None or _axes_size(mesh, ax) == 1:
+                continue
+            if ax == "model" and p[:-1] in keep:
+                split = mesh.group("model")
+                continue
+            out = co.all_gather_dim(out, i, _axis_groups(mesh, ax),
+                                    reduce_grad=ax != "model")
+        if split is not None:
+            if out is t:
+                out = t.view_as(t)
+            out._model_split = split
+        return out
+
+    return walk(tree, specs, prefix)
+
+
+def split_group(t: torch.Tensor):
+    """The ``model`` group a leaf handed out by ``use`` stays split
+    over (its tensor-parallel consumer's collectives run on it), or
+    None for a whole leaf."""
+    return getattr(t, "_model_split", None)
+
+
+def on_model(specs, name: str, dim: int) -> bool:
+    """Whether leaf ``name`` of ``specs`` is split over ``model`` on
+    ``dim``."""
+    s = specs.get(name) if isinstance(specs, dict) else None
+    return bool(s) and len(s) >= abs(dim) and s[dim] == "model"

@@ -9,15 +9,27 @@ optimizer state or cache donated); here a step is a plain function that
 updates them IN PLACE and hands them back, so that the two packages'
 call sites read the same.  No step reads a device value back to the
 host: tokens, losses and norms stay device tensors.
+
+Every step takes an optional ``mesh`` (``launch.mesh.make_host_mesh``):
+the params, optimizer state and cache it is handed are then this
+rank's blocks (``sharding_rules.shard_tree`` over ``mesh_specs``), the
+batch is the global one, of which each data rank runs its
+``batch_sharding`` slice, and the model code runs under
+``activation_context`` (gather-on-use, tensor parallelism, expert
+slicing, the sequence-sharded decode).  Tokens come back whole on
+every rank.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as co
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import get_model
 from repro_torch.optim import OptConfig, adamw_init, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
@@ -26,14 +38,70 @@ from repro_torch.tree import leaves, unflatten
 LB_LOSS_WEIGHT = 0.01
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
-                  ) -> torch.Tensor:
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: Optional[int] = None) -> torch.Tensor:
     """Mean over positions of the float32 log-sum-exp minus the gold
-    logit."""
+    logit.  Under a mesh whose head left the vocabulary split (``logits``
+    narrower than ``vocab``), the vocabulary-parallel loss of the
+    reference's "TP-friendly" form: the max, the sum of exponentials and
+    the gold logit (picked where this rank holds the label's column)
+    are each reduced over ``model``, so that the logits are never
+    gathered."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
-    return (lse - gold).mean()
+    group = sr.model_group()
+    if group is None or vocab is None or lf.shape[-1] == vocab:
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+        return (lse - gold).mean()
+    n = lf.shape[-1]
+    with torch.no_grad():
+        m = co.all_reduce_max(lf.amax(-1), group)
+    sumexp = co.all_reduce_sum(torch.exp(lf - m[..., None]).sum(-1), group)
+    t = labels.long() - group.rank * n
+    ok = (t >= 0) & (t < n)
+    gold = torch.gather(lf, -1, torch.clamp(t, 0, n - 1)[..., None])[..., 0]
+    gold = co.all_reduce_sum(torch.where(ok, gold, 0.0), group)
+    return (torch.log(sumexp) + m - gold).mean()
+
+
+def mesh_specs(cfg: ModelConfig, mesh):
+    """``param_sharding`` of the config's params (their shapes on the
+    meta device) on ``mesh``, the expert mode its ``expert_sharding``
+    asks for, in the "fsdp_tp" layout (the reference's train.py's)."""
+    from repro_torch.models import param_shapes
+    return sr.param_sharding(param_shapes(cfg), mesh,
+                             moe_mode=sr.moe_mode_of(cfg))
+
+
+def opt_specs(opt_state, specs):
+    """The optimizer state's specs: each moment and the master copy
+    follow their param's; the step counter is replicated."""
+    out = {k: specs for k in opt_state if k != "step"}
+    out["step"] = ()
+    return out
+
+
+def _context(mesh, specs):
+    if mesh is None:
+        return contextlib.nullcontext()
+    return sr.activation_context(mesh, specs=specs)
+
+
+def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's ``batch_sharding`` slice of a global batch leaf
+    (the whole leaf where the data ranks do not divide it)."""
+    if mesh is None or getattr(mesh, "groups", None) is None:
+        return x
+    spec = sr.batch_sharding({"x": x}, mesh)["x"]
+    return sr.shard_leaf(x, spec, mesh) if spec else x
+
+
+def _whole_rows(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """The data ranks' rows back in one tensor of ``n`` rows."""
+    if mesh is None or getattr(mesh, "groups", None) is None or \
+            x.shape[0] == n:
+        return x
+    return co.all_gather(x, 0, mesh.group("data"), "tokens")
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
@@ -48,7 +116,7 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
         labels = batch["labels"]
         if cfg.frontend == "vision_stub":
             logits = logits[:, -labels.shape[1]:, :]
-        loss = cross_entropy(logits, labels)
+        loss = cross_entropy(logits, labels, cfg.vocab_size)
         if cfg.family == "moe" and "lb_loss" in aux:
             loss = loss + LB_LOSS_WEIGHT * torch.mean(aux["lb_loss"])
         return loss, aux
@@ -58,7 +126,7 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     total_steps: int = 10000, warmup: int = 100,
-                    ) -> Callable:
+                    mesh=None) -> Callable:
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), params and state updated IN PLACE.
 
@@ -67,9 +135,20 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     gradients into float32 accumulators: the live activation set is one
     micro-batch's.  Gradients and loss are then divided by the count.
     The learning rate follows ``cosine_schedule(step, total_steps,
-    warmup)``.  metrics: "loss", "grad_norm", "lr" (device tensors)."""
+    warmup)``.  metrics: "loss", "grad_norm", "lr" (device tensors).
+
+    On a ``mesh`` the params and state are this rank's blocks of
+    ``mesh_specs(cfg, mesh)`` and ``batch`` the global batch:
+    each data rank runs its slice, a leaf replicated over ``data`` has
+    its gradient all-reduced and a leaf placed on ``data`` comes out of
+    the gather-on-use reduce-scattered, both then divided by the data
+    ranks; the clip is the single-device clip (``global_norm`` over the
+    mesh), and "loss" the mean over the data ranks."""
     loss_fn = make_loss_fn(cfg)
     accum = max(cfg.grad_accum, 1)
+    specs = mesh_specs(cfg, mesh) if mesh is not None else None
+    flat_specs = (list(sr.spec_paths(specs).values())
+                  if specs is not None else None)
 
     def grads_of(params, flat, batch):
         loss, _ = loss_fn(params, batch)
@@ -80,39 +159,65 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                                for p, g in zip(flat, grads)]
 
     def train_step(params, opt_state, batch):
+        batch = {k: local_rows(v, mesh) for k, v in batch.items()}
         flat = leaves(params)
         for p in flat:
             p.requires_grad_(True)
         try:
-            if accum > 1:
-                acc = [torch.zeros_like(p, dtype=torch.float32)
-                       for p in flat]
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=flat[0].device)
-                for i in range(accum):
-                    mb = {k: v.reshape(accum, v.shape[0] // accum,
-                                       *v.shape[1:])[i]
-                          for k, v in batch.items()}
-                    l, gs = grads_of(params, flat, mb)
-                    for a, g in zip(acc, gs):
-                        a.add_(g)
-                    del gs
-                    loss += l
-                grads = [a.div_(accum) for a in acc]
-                loss = loss / accum
-            else:
-                loss, grads = grads_of(params, flat, batch)
+            with _context(mesh, specs):
+                if accum > 1:
+                    acc = [torch.zeros_like(p, dtype=torch.float32)
+                           for p in flat]
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=flat[0].device)
+                    for i in range(accum):
+                        mb = {k: v.reshape(accum, v.shape[0] // accum,
+                                           *v.shape[1:])[i]
+                              for k, v in batch.items()}
+                        l, gs = grads_of(params, flat, mb)
+                        for a, g in zip(acc, gs):
+                            a.add_(g)
+                        del gs
+                        loss += l
+                    grads = [a.div_(accum) for a in acc]
+                    loss = loss / accum
+                else:
+                    loss, grads = grads_of(params, flat, batch)
         finally:
             for p in flat:
                 p.requires_grad_(False)
+        if specs is not None:
+            grads = _data_reduce(grads, flat_specs, mesh)
+            loss = _data_mean(loss, mesh)
         lr_scale = cosine_schedule(opt_state["step"], total_steps, warmup)
         params, opt_state, metrics = adamw_update(
             params, unflatten(params, list(grads)), opt_state, opt_cfg,
-            lr_scale)
+            lr_scale, mesh=mesh, specs=specs)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
     return train_step
+
+
+def _data_reduce(grads, flat_specs, mesh):
+    """The data ranks' mean gradient: a leaf placed on ``data`` was
+    summed by its gather's backward, any other is all-reduced here."""
+    group = mesh.group("data")
+    if group.size == 1:
+        return grads
+    out = []
+    for g, spec in zip(grads, flat_specs):
+        if "data" not in spec:
+            g = co.all_reduce(g, group, "grad_mean")
+        out.append(g / group.size)
+    return out
+
+
+def _data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    group = mesh.group("data")
+    if group.size == 1:
+        return x
+    return co.all_reduce(x, group, "loss_mean") / group.size
 
 
 def init_train_state(gen: torch.Generator, cfg: ModelConfig,
@@ -142,7 +247,7 @@ def make_prefill(cfg: ModelConfig, mor=None, mor_mode: str = "dense"
 
 
 def make_prefill_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
-                      chunk: int = 0) -> Callable:
+                      chunk: int = 0, mesh=None) -> Callable:
     """prefill_step(params, cache, prompts (B, P)) -> (next tokens (B,),
     cache) on the slot pool (``serving.kv_pool.init``).
 
@@ -151,12 +256,21 @@ def make_prefill_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
     and prompts longer than the sliding window run chunked prefill:
     fixed-shape (B, ``chunk``) dispatches of ``api.prefill_chunk``, the
     last one ragged through ``n_valid``.  Both give the teacher-forced
-    forward's logits."""
+    forward's logits.  On a ``mesh``: the rank's blocks of the params
+    and of the cache (``init_cache``), the global prompts, of which each
+    data rank prefills its rows; the tokens come back whole."""
     api = get_model(cfg)
     chunk = chunk or cfg.serve_chunk
     assert api.prefill_chunk is not None, f"{cfg.name} has no chunk step"
+    specs = mesh_specs(cfg, mesh) if mesh is not None else None
 
     def prefill_step(params, cache, prompts):
+        n = prompts.shape[0]
+        with _context(mesh, specs):
+            nxt, cache = _prefill(params, cache, local_rows(prompts, mesh))
+        return _whole_rows(nxt, mesh, n), cache
+
+    def _prefill(params, cache, prompts):
         B, P = prompts.shape
         if api.prefill is not None and \
                 (not cfg.sliding_window or P <= cfg.sliding_window):
@@ -179,35 +293,63 @@ def make_prefill_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense"
-                     ) -> Callable:
+def make_decode_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
+                     mesh=None) -> Callable:
     """decode_step(params, cache, tokens (B, 1)) -> (next tokens, cache,
     aux) on the slot pool: a chunk dispatch of width 1, so that decode
-    runs the serving path (and yields its MoR skip stats in ``aux``)."""
+    runs the serving path (and yields its MoR skip stats in ``aux``).
+    On a ``mesh`` the chunk step gathers every layer whole (the slot
+    pool is not sharded) and each data rank decodes its slots' rows of
+    ``tokens`` (its own slot pool)."""
     api = get_model(cfg)
     assert api.prefill_chunk is not None, f"{cfg.name} has no chunk step"
+    specs = mesh_specs(cfg, mesh) if mesh is not None else None
 
     def decode_step(params, cache, tokens):
+        n = tokens.shape[0]
+        tokens = local_rows(tokens, mesh)
         n_valid = torch.ones((tokens.shape[0],), dtype=torch.int32,
                              device=tokens.device)
-        logits, aux = api.prefill_chunk(params, cfg, tokens, cache,
-                                        n_valid=n_valid, mor=mor,
-                                        mor_mode=mor_mode)
-        return _argmax(logits[:, 0]), cache, aux
+        with _context(mesh, specs):
+            logits, aux = api.prefill_chunk(params, cfg, tokens, cache,
+                                            n_valid=n_valid, mor=mor,
+                                            mor_mode=mor_mode)
+        return _whole_rows(_argmax(logits[:, 0]), mesh, n), cache, aux
 
     return decode_step
 
 
-def make_serve_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense"
-                    ) -> Callable:
+def make_serve_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
+                    mesh=None) -> Callable:
     """serve_step(params, cache, tokens (B, 1)) -> (next tokens, cache)
-    over ``cache_init``'s cache (one shared position)."""
+    over ``cache_init``'s cache (one shared position).  On a ``mesh``
+    the params and the cache (``init_cache``) are the rank's blocks: the
+    tensor-parallel decode over the sequence-sharded ring
+    (``attention._tp_decode``); each data rank decodes its rows of
+    ``tokens`` and the tokens come back whole."""
     api = get_model(cfg)
     assert api.decode_step is not None, f"{cfg.name} has no decode step"
+    specs = mesh_specs(cfg, mesh) if mesh is not None else None
 
     def serve_step(params, cache, tokens):
-        logits = api.decode_step(params, cfg, tokens, cache, mor=mor,
-                                 mor_mode=mor_mode)
-        return _argmax(logits), cache
+        n = tokens.shape[0]
+        with _context(mesh, specs):
+            logits = api.decode_step(params, cfg, local_rows(tokens, mesh),
+                                     cache, mor=mor, mor_mode=mor_mode)
+        return _whole_rows(_argmax(logits), mesh, n), cache
 
     return serve_step
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
+               mesh=None, dtype=None) -> Dict:
+    """``cache_init``'s cache for ``batch`` sequences; on a ``mesh`` this
+    rank's block of it (its data shard's rows, its ring rows)."""
+    api = get_model(cfg)
+    if mesh is not None and getattr(mesh, "groups", None) is not None:
+        dp = mesh.shape["data"]
+        if batch % dp == 0:
+            batch //= dp
+    with _context(mesh, None):
+        return api.cache_init(cfg, batch, max_len, dtype or cfg.tdtype,
+                              device)

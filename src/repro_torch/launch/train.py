@@ -16,9 +16,21 @@ a straight run would.  As in the reference, the CLI trains with
 config's own ``grad_accum`` is the library path.  ``--calibrate`` runs
 ``calibrate_lm`` on batches from step 10,000 on and, with
 ``--ckpt-dir``, saves the calibrated (permuted) params as step
-``--steps + 1``, which ``launch.serve --ckpt-dir`` serves.  The port has
-one layout, the host's (``--mesh host --model-parallel 1``); sharded
-training is ROADMAP queue A 7.
+``--steps + 1``, which ``launch.serve --ckpt-dir`` serves.
+
+``--mesh host --model-parallel N`` trains on the ``(data, model)`` host
+mesh (``launch.mesh.make_host_mesh``): one rank a visible card (NCCL),
+or, with ``--device cpu`` or where the ranks share a card, ``--ranks
+R`` gloo ranks (JAX takes the count from its devices); R / N data ranks
+of N model ranks each.  Every rank draws the same initial weights and
+the same global batches and keeps its blocks of the params and the
+optimizer state (``launch.steps.mesh_specs``); rank 0 prints, writes
+``--out-json`` and the checkpoints (gathered whole: a checkpoint saved
+on one mesh resumes on another).  ``--mesh pod`` (256 ranks) is ROADMAP
+queue A 7.
+
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --reduced --ranks 4 --model-parallel 2 --steps 20
 """
 from __future__ import annotations
 
@@ -35,7 +47,7 @@ from repro_torch.data.pipeline import make_batch, make_train_iterator
 from repro_torch.distributed.fault_tolerance import StragglerMonitor
 from repro_torch.launch.steps import init_train_state, make_train_step
 from repro_torch.models import get_model
-from repro_torch.optim import OptConfig
+from repro_torch.optim import OptConfig, adamw_init
 
 CALIB_START = 10_000                 # the calibration batches' first step
 
@@ -75,21 +87,49 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="host", choices=("host", "pod"))
     ap.add_argument("--model-parallel", type=int, default=1)
+    ap.add_argument("--ranks", type=int, default=0,
+                    help="gloo rank processes of the host mesh on the CPU "
+                         "or on a shared card (default: one rank a "
+                         "visible card; JAX takes this from its device "
+                         "count)")
     ap.add_argument("--calibrate", action="store_true",
                     help="run MoR calibration after training")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out-json", default=None)
     args = ap.parse_args(argv)
 
-    if args.mesh != "host" or args.model_parallel != 1:
+    if args.mesh != "host":
         raise NotImplementedError(
-            "sharded training (--mesh pod, --model-parallel > 1) is "
-            "ROADMAP queue A 7 of the port: train with --mesh host "
-            "--model-parallel 1")
+            "--mesh pod needs 256 ranks: ROADMAP queue A 7 of the port "
+            "(train with --mesh host --model-parallel N)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to train on the CPU)")
+    ranks = args.ranks or (torch.cuda.device_count()
+                           if device.type == "cuda" else 1)
+    if ranks % args.model_parallel:
+        raise ValueError(f"--ranks {ranks} is not a multiple of "
+                         f"--model-parallel {args.model_parallel}")
+    if ranks == 1:
+        return _train(args, device, None)
+    from repro_torch.launch.mesh import run_ranks
+    return run_ranks(_train_rank, ranks, device, args)[0]
+
+
+def _train_rank(group, args):
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(args.model_parallel, device=group.device)
+    return _train(args, group.device, mesh)
+
+
+def _train(args, device, mesh):
+    """The training loop on one process (``mesh`` None) or on this
+    rank of ``mesh``; -> the report (rank 0's prints)."""
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch.steps import mesh_specs, opt_specs
+    lead = mesh is None or mesh.rank == 0
+    say = print if lead else (lambda *a, **k: None)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
@@ -99,15 +139,27 @@ def main(argv=None):
 
     mgr = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params, opt_state = init_train_state(gen, cfg, opt_cfg)
+    specs = state_specs = None
+    if mesh is None:
+        params, opt_state = init_train_state(gen, cfg, opt_cfg)
+    else:
+        # every rank draws the whole init and keeps its blocks
+        specs = mesh_specs(cfg, mesh)
+        params = sr.shard_tree(get_model(cfg).init(gen, cfg), specs, mesh)
+        opt_state = adamw_init(params, opt_cfg)
+        state_specs = {"params": specs, "opt": opt_specs(opt_state, specs)}
+    save_kw = {} if mesh is None else {"shardings": state_specs,
+                                       "mesh": mesh}
     start_step = 0
     if mgr and mgr.latest_step() is not None:
-        state, extra = mgr.restore({"params": params, "opt": opt_state})
+        state, extra = mgr.restore({"params": params, "opt": opt_state},
+                                   **save_kw)
         params, opt_state = state["params"], state["opt"]
         start_step = extra["step"]
-        print(f"[train] resumed from step {start_step}")
+        say(f"[train] resumed from step {start_step}")
 
-    train_step = make_train_step(cfg, opt_cfg, total_steps=args.steps)
+    train_step = make_train_step(cfg, opt_cfg, total_steps=args.steps,
+                                 mesh=mesh)
     monitor = StragglerMonitor(n_hosts=1)
     losses = []
     t_start = time.time()
@@ -123,26 +175,33 @@ def main(argv=None):
             monitor.record_step({0: dt})
             losses.append(loss)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"[train] step {step:5d} loss {loss:.4f} "
+                say(f"[train] step {step:5d} loss {loss:.4f} "
                       f"gnorm {float(metrics['grad_norm']):.3f} "
                       f"({dt*1e3:.0f} ms)", flush=True)
             if mgr and (step + 1) % args.save_every == 0:
-                mgr.save(step + 1, {"params": params, "opt": opt_state})
+                mgr.save(step + 1, {"params": params, "opt": opt_state},
+                         **save_kw)
     finally:
         data.close()
     if mgr:
         mgr.save(args.steps, {"params": params, "opt": opt_state},
-                 block=True)
+                 block=True, **save_kw)
         mgr.wait()
 
     report = {
         "arch": cfg.name, "steps": args.steps, "device": str(device),
+        "mesh": None if mesh is None else dict(mesh.shape),
+        "losses": losses,
         "loss_first": losses[0] if losses else None,
         "loss_last": float(np.mean(losses[-10:])) if losses else None,
         "wall_s": round(time.time() - t_start, 1),
     }
 
     if args.calibrate:
+        if mesh is not None:
+            raise NotImplementedError(
+                "--calibrate on a mesh: calibrate the checkpoint in one "
+                "process (launch.serve --ckpt-dir)")
         params2, _, cal = calibrate(params, cfg, args.batch, args.seq,
                                     args.seed, device)
         report["calibration"] = cal
@@ -151,8 +210,9 @@ def main(argv=None):
                      {"params": params2, "opt": opt_state}, block=True)
         print("[train] calibration:", cal)
 
-    print("[train] done:", report)
-    if args.out_json:
+    say("[train] done:", {k: v for k, v in report.items()
+                          if k != "losses"})
+    if args.out_json and lead:
         with open(args.out_json, "w") as f:
             json.dump(report, f, indent=1)
     return report

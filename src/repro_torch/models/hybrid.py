@@ -31,8 +31,10 @@ from repro_torch.models.layers.norms import (apply_norm, norm_init,
 from repro_torch.models.layers.ssm import (mamba2_cache_init, mamba2_chunk,
                                            mamba2_decode, mamba2_forward,
                                            mamba2_init)
-from repro_torch.models.transformer import (_remat, _stack_aux,
-                                            layer_slice, layer_views)
+from repro_torch.distributed import sharding_rules as sr
+from repro_torch.models.transformer import (_group_specs, _remat,
+                                            _stack_aux, layer_slice,
+                                            layer_views, use_top)
 
 
 def _seg_counts(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -98,7 +100,10 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     """batch["tokens"] (B, S) -> (logits (B, S, V), aux): aux carries the
     shared MLP's "mor_stats" (n_seg-stacked: one entry per application)
     and, with ``with_taps``, its taps (n_seg, B*S, N), which
-    ``deploy.calibrate_hybrid`` folds over the segment axis."""
+    ``deploy.calibrate_hybrid`` folds over the segment axis.  Under a
+    mesh every leaf is gathered where it is used (the mamba layers one
+    by one, the shared block once a forward)."""
+    params = use_top(params, cfg, tp=False)
     x = params["embed"][batch["tokens"].long()].to(cfg.tdtype)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
@@ -108,18 +113,21 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     views = {key: layer_views(params[key])
              for key in ("mamba_layers", "tail_layers") if key in params}
 
-    def block(x, lp):
+    lspecs = {key: _group_specs(key) for key in views}
+
+    def block(x, lp, lspec):
+        lp = sr.use(lp, lspec)
         h = apply_norm(cfg.norm, lp["ln"], x)
         return x + mamba2_forward(lp["mamba"], cfg, h)
 
     # the reference rematerialises the segments' mamba layers (not the
     # tail's, nor the shared block) with nothing_saveable
-    seg_block = _remat(block, "none" if cfg.remat == "none"
+    seg_block = _remat(sr.bind(block), "none" if cfg.remat == "none"
                        else "nothing_saveable")
 
     def mamba_block(key, i, x):
         fn = seg_block if key == "mamba_layers" else block
-        return fn(x, views[key][i])
+        return fn(x, views[key][i], lspecs[key])
 
     ys = []
     for seg in segs:

@@ -5,6 +5,20 @@ serving chunk step over the slotted cache or the paged pool.
 
 Scores and softmax statistics are float32; activations stay in the
 model's compute dtype (``repro.models.layers.attention``).
+
+Under a mesh (``distributed.sharding_rules.activation_context``) GQA is
+tensor-parallel where the layer loop left its projections split over
+``model`` (``tp_keep``): ``wq`` (and ``wk`` / ``wv`` where the kv heads
+divide; else they are whole and each rank takes the kv heads its query
+heads read) by head, ``wo`` by row, one ``all_reduce_sum`` after it.
+The static decode over a sequence-sharded ring (``gqa_cache_init`` under
+the mesh: rank j holds ring rows [j Lr / MP, (j + 1) Lr / MP) of every
+kv head) is the reference's ``_tp_flash_decode``: q and the new row's
+k, v gathered over heads, the row written by its owner only, each
+rank's flash statistics over its rows merged exactly by
+``collectives.flash_merge`` (one collective, where the reference takes
+a pmax and two psums).  MLA has no tensor-parallel form: its weights
+are gathered whole (ROADMAP queue A 7).
 """
 from __future__ import annotations
 
@@ -13,7 +27,9 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as co
 from repro_torch.distributed import decode_attention as da
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.kernels.paged_attention import (gqa_paged_flash,
                                                  mla_paged_flash)
 from repro_torch.models.layers.common import dense_init
@@ -41,6 +57,77 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig,
                             ("bv", hkv * hd)):
             p[name] = torch.zeros((L, width), dtype=pd, device=gen.device)
     return p
+
+
+def tp_keep(cfg: ModelConfig, specs, mp: int, prefix: str = "attn/"
+            ) -> set:
+    """The attention leaves whose ``model`` dims the tensor-parallel GQA
+    consumes: ``wq`` / ``bq`` by head and ``wo`` by row where the query
+    heads divide over ``mp`` ranks, ``wk`` / ``wv`` / ``bk`` / ``bv``
+    too where the kv heads do; none for MLA or another layout."""
+    if cfg.mla or mp == 1 or not isinstance(specs, dict):
+        return set()
+    if cfg.n_heads % mp or not (sr.on_model(specs, "wq", -1)
+                                and sr.on_model(specs, "wo", -2)):
+        return set()
+    keep = {"wq", "wo"} | ({"bq"} if cfg.qkv_bias else set())
+    if cfg.n_kv_heads % mp == 0 and sr.on_model(specs, "wk", -1) and \
+            sr.on_model(specs, "wv", -1):
+        keep |= {"wk", "wv"} | ({"bk", "bv"} if cfg.qkv_bias else set())
+    return {prefix + k for k in keep}
+
+
+def _tp_heads(params, cfg: ModelConfig):
+    """-> (model group, first local query head, local query heads) of a
+    tensor-parallel layer, or None."""
+    group = sr.split_group(params["wq"])
+    if group is None:
+        return None
+    h_loc = params["wq"].shape[-1] // cfg.head_dim
+    return group, group.rank * h_loc, h_loc
+
+
+def _proj(x, params, w: str, b: str, cfg: ModelConfig):
+    y = x @ params[w].to(x.dtype)
+    if cfg.qkv_bias:
+        y = y + params[b].to(x.dtype)
+    B, S = x.shape[:2]
+    return y.reshape(B, S, -1, cfg.head_dim)
+
+
+def _qkv_tp(params, cfg: ModelConfig, x, tp):
+    """The local heads' q (B, S, H/MP, D), and the k, v they read: the
+    local kv heads where ``wk`` / ``wv`` are split, else the whole kv
+    projection computed on every rank (the replicated region) and the
+    heads the local query heads read taken after ``copy_to_model``.
+    -> (q, k, v, full k, full v) (the last two None when split)."""
+    group, h0, h_loc = tp
+    xf = co.copy_to_model(x, group)
+    q = _proj(xf, params, "wq", "bq", cfg)
+    if sr.split_group(params["wk"]) is not None:
+        return (q, _proj(xf, params, "wk", "bk", cfg),
+                _proj(xf, params, "wv", "bv", cfg), None, None)
+    k_all = _proj(x, params, "wk", "bk", cfg)
+    v_all = _proj(x, params, "wv", "bv", cfg)
+    G = cfg.n_heads // cfg.n_kv_heads
+    k_loc, v_loc = co.copy_to_model(k_all, group), \
+        co.copy_to_model(v_all, group)
+    if h0 % G == 0 and h_loc % G == 0:              # whole kv groups
+        sel = slice(h0 // G, (h0 + h_loc) // G)
+        return q, k_loc[:, :, sel], v_loc[:, :, sel], k_all, v_all
+    if h0 // G == (h0 + h_loc - 1) // G:            # one kv head
+        sel = slice(h0 // G, h0 // G + 1)
+        return q, k_loc[:, :, sel], v_loc[:, :, sel], k_all, v_all
+    idx = torch.arange(h0, h0 + h_loc, device=x.device) // G
+    return q, k_loc[:, :, idx], v_loc[:, :, idx], k_all, v_all
+
+
+def _tp_out(o, params, tp, x):
+    """The row-parallel ``wo`` over the local heads' output, summed over
+    ``model``."""
+    B, S = x.shape[:2]
+    y = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    return co.all_reduce_sum(y, tp[0])
 
 
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor):
@@ -189,12 +276,18 @@ def attend_batched(q, k, v, q_pos, kv_pos, *, causal: bool = True,
 
 
 def gqa_forward(params, cfg: ModelConfig, x, positions):
-    q, k, v = _qkv(params, cfg, x)
+    tp = _tp_heads(params, cfg)
+    if tp is not None:
+        q, k, v, _, _ = _qkv_tp(params, cfg, x, tp)
+    else:
+        q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     pos1 = positions[0] if positions.ndim == 2 else positions
     o = attend(q, k, v, pos1, pos1, causal=cfg.causal,
                window=cfg.sliding_window, threshold=cfg.flash_threshold)
+    if tp is not None:
+        return _tp_out(o, params, tp, x)
     B, S = x.shape[:2]
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
 
@@ -209,16 +302,28 @@ def ring_rows(cfg: ModelConfig, max_len: int) -> int:
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                    n_layers: int, device) -> Dict[str, torch.Tensor]:
+    """The static batch's ring: (L, B, Lr, hkv, hd) k and v and (L, Lr)
+    position tags.  Under a mesh of MP > 1 ``model`` ranks where MP
+    divides the ring, this rank's block of Lr / MP rows, and a
+    ``ring_lo`` leaf (L,) holding the block's first row: the layout of
+    the sequence-sharded decode."""
     Lr = ring_rows(cfg, max_len)
     hkv, hd = cfg.n_kv_heads, cfg.head_dim
-    return {
+    group = sr.model_group()
+    out = {}
+    if group is not None and Lr % group.size == 0:
+        Lr //= group.size
+        out["ring_lo"] = torch.full((n_layers,), group.rank * Lr,
+                                    dtype=torch.int32, device=device)
+    out.update({
         "k": torch.zeros((n_layers, batch, Lr, hkv, hd), dtype=dtype,
                          device=device),
         "v": torch.zeros((n_layers, batch, Lr, hkv, hd), dtype=dtype,
                          device=device),
         "pos": torch.full((n_layers, Lr), -1, dtype=torch.int32,
                           device=device),
-    }
+    })
+    return out
 
 
 def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
@@ -226,8 +331,11 @@ def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
     int tensor) over ``gqa_cache_init``'s layout for one layer ({k, v
     (B, Lr, hkv, hd), pos (Lr,)}): writes ring row ``pos % Lr`` IN PLACE
     and returns the attention output (B, 1, d)
-    (``repro.models.layers.attention.gqa_decode``)."""
+    (``repro.models.layers.attention.gqa_decode``).  Under a mesh:
+    ``_tp_decode``."""
     B = x.shape[0]
+    if sr.model_group() is not None:
+        return _tp_decode(params, cfg, x, cache, pos)
     q, k, v = _qkv(params, cfg, x)
     p1 = pos.reshape(1).long()
     pvec = p1[None, :].expand(B, 1)
@@ -240,6 +348,100 @@ def gqa_decode(params, cfg: ModelConfig, x, cache, pos):
     o = attend(q, cache["k"], cache["v"], p1, cache["pos"], causal=True,
                window=cfg.sliding_window, threshold=cfg.flash_threshold)
     return o.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+
+
+def _full_heads(params, cfg: ModelConfig, x, tp):
+    """q, k, v of every head on every rank (B, S, heads, D): the local
+    heads' all-gathered over ``model`` (a few KB at decode), or the
+    whole projections of a layer with no split."""
+    if tp is None:
+        return _qkv(params, cfg, x)
+    group = tp[0]
+    q, k, v, k_all, v_all = _qkv_tp(params, cfg, x, tp)
+    q = co.all_gather(q, 2, group, "decode_heads")
+    if k_all is None:
+        k_all = co.all_gather(k, 2, group, "decode_heads")
+        v_all = co.all_gather(v, 2, group, "decode_heads")
+    return q, k_all, v_all
+
+
+def _owned_write(buf, dim: int, row, lo: int, new) -> None:
+    """Write ``new`` at global ring row ``row`` (a 1-element device
+    tensor) of ``buf``'s local block [lo, lo + rows) along ``dim``, IN
+    PLACE, where this rank owns it; elsewhere the row is written back
+    unchanged (no host read of the position)."""
+    rows = buf.shape[dim]
+    loc = row - lo
+    own = (loc >= 0) & (loc < rows)
+    loc = torch.clamp(loc, 0, rows - 1)
+    old = buf.index_select(dim, loc)
+    buf.index_copy_(dim, loc, torch.where(own, new.to(buf.dtype), old))
+
+
+def _local_stats(q, k, v, q_pos, kv_pos, window: int):
+    """Flash statistics of one query row over this rank's kv rows:
+    q (B, 1, H, D), k / v (B, T, Hkv, D) -> m, l (B, Hkv, G, 1) and the
+    unnormalised acc (B, Hkv, G, 1, D), float32 (a rank whose rows are
+    all masked has m = -1e30 and weighs nothing in the merge)."""
+    B, Sq, H, D = q.shape
+    Hkv = k.shape[2]
+    qf = q.reshape(B, Sq, Hkv, H // Hkv, D)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qf.float(), k.float())
+    s = s * (D ** -0.5) + _mask_bias(q_pos, kv_pos, True, window)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqt,btkd->bkgqd", p.to(v.dtype), v).float()
+    return m, p.sum(-1), acc
+
+
+def _tp_flash_decode(q, k, v, kv_pos, pos, window: int, group):
+    """Decode attention over a sequence-sharded kv ring (the reference's
+    ``_tp_flash_decode``): q (B, 1, H, D) every head; k, v (B, T, Hkv, D)
+    and kv_pos (T,) this rank's rows; pos (1,) the query's position.
+    Each rank's flash statistics over its rows, merged exactly over
+    ``group`` by ``collectives.flash_merge`` (one collective, in rank
+    order) -> (B, 1, H, D) float32, the same bits on every rank."""
+    m, l, acc = _local_stats(q, k, v, pos, kv_pos, window)
+    o = co.flash_merge(m, l, acc, group)           # (B, Hkv, G, 1, D)
+    return o.permute(0, 3, 1, 2, 4).reshape(q.shape)
+
+
+def _tp_decode(params, cfg: ModelConfig, x, cache, pos):
+    """``gqa_decode`` under a mesh of MP > 1 ``model`` ranks (the
+    reference's ``_tp_flash_decode`` where the ring is sequence-sharded,
+    its present path otherwise): every head's q and new k, v on every
+    rank, the row written by its owner, attention over the local rows
+    merged over ``model`` (or over the whole ring), then ``wo`` by row
+    where the layer is tensor-parallel."""
+    B = x.shape[0]
+    tp = _tp_heads(params, cfg)
+    q, k, v = _full_heads(params, cfg, x, tp)
+    p1 = pos.reshape(1).long()
+    pvec = p1[None, :].expand(B, 1)
+    q = apply_rope(q, pvec, cfg.rope_theta)
+    k = apply_rope(k, pvec, cfg.rope_theta)
+    if "ring_lo" in cache:
+        group = sr.model_group()
+        rows = cache["k"].shape[1]
+        lo = group.rank * rows
+        row = p1 % (rows * group.size)
+        _owned_write(cache["k"], 1, row, lo, k)
+        _owned_write(cache["v"], 1, row, lo, v)
+        _owned_write(cache["pos"], 0, row, lo, p1.int())
+        o = _tp_flash_decode(q, cache["k"], cache["v"], cache["pos"], p1,
+                             cfg.sliding_window, group).to(x.dtype)
+    else:
+        row = p1 % cache["k"].shape[1]
+        cache["k"].index_copy_(1, row, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, row, v.to(cache["v"].dtype))
+        cache["pos"].index_copy_(0, row, p1.int())
+        o = attend(q, cache["k"], cache["v"], p1, cache["pos"],
+                   causal=True, window=cfg.sliding_window,
+                   threshold=cfg.flash_threshold)
+    if tp is None:
+        return o.reshape(B, 1, -1) @ params["wo"].to(x.dtype)
+    _, h0, h_loc = tp
+    return _tp_out(o[:, :, h0:h0 + h_loc], params, tp, x)
 
 
 def _check_ring(S: int, rows: int) -> None:
@@ -258,21 +460,43 @@ def gqa_prefill(params, cfg: ModelConfig, x, cache):
     tags}) or the slot pool's (pos (B, Lr) per-slot tags); S must fit
     the ring (S <= Lr)."""
     B, S, _ = x.shape
-    _check_ring(S, cache["k"].shape[1])
-    q, k, v = _qkv(params, cfg, x)
+    group = sr.model_group()
+    shard = "ring_lo" in cache
+    _check_ring(S, cache["k"].shape[1] * (group.size if shard else 1))
+    tp = _tp_heads(params, cfg) if group is not None else None
+    k_all = v_all = None
+    if tp is not None:
+        q, k, v, k_all, v_all = _qkv_tp(params, cfg, x, tp)
+    else:
+        q, k, v = _qkv(params, cfg, x)
     pos1 = torch.arange(S, device=x.device)
     pvec = pos1[None, :].expand(B, S)
     q = apply_rope(q, pvec, cfg.rope_theta)
     k = apply_rope(k, pvec, cfg.rope_theta)
-    cache["k"][:, :S] = k.to(cache["k"].dtype)
-    cache["v"][:, :S] = v.to(cache["v"].dtype)
+    ck, cv = k, v
+    if tp is not None:
+        # the cache holds every kv head
+        if k_all is None:
+            ck = co.all_gather(k, 2, group, "decode_heads")
+            cv = co.all_gather(v, 2, group, "decode_heads")
+        else:
+            ck, cv = apply_rope(k_all, pvec, cfg.rope_theta), v_all
     tags = pos1.int()
+    lo, n = 0, S
+    if shard:                           # this rank's rows of [0, S)
+        rows = cache["k"].shape[1]
+        lo = group.rank * rows
+        n = max(0, min(S, lo + rows) - lo)
+    cache["k"][:, :n] = ck[:, lo:lo + n].to(cache["k"].dtype)
+    cache["v"][:, :n] = cv[:, lo:lo + n].to(cache["v"].dtype)
     if cache["pos"].ndim == 2:          # slot-pool layout: per-slot tags
-        cache["pos"][:, :S] = tags[None, :]
+        cache["pos"][:, :n] = tags[None, lo:lo + n]
     else:
-        cache["pos"][:S] = tags
+        cache["pos"][:n] = tags[lo:lo + n]
     o = attend(q, k, v, pos1, pos1, causal=True, window=cfg.sliding_window,
                threshold=cfg.flash_threshold)
+    if tp is not None:
+        return _tp_out(o, params, tp, x)
     return o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
 
 

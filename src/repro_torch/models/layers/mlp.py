@@ -3,6 +3,14 @@
 ``mlp_apply`` runs the dense math unless an active MoR plan is supplied
 and the activation is ReLU-family, in which case it routes through
 ``MoRExecutionPlan.ffn``.
+
+Under a mesh (``distributed.sharding_rules.activation_context``) whose
+layer loop left ``w_gate`` / ``w_up`` split over ``model`` by column and
+``w_down`` by row (``tp_keep``), the dense math is Megatron's
+tensor-parallel FFN: the input enters through ``copy_to_model``, each
+rank computes its f / MP hidden columns, and one ``all_reduce_sum`` over
+``model`` sums the down projection's partials.  An active MoR plan
+keeps the weights whole (its proxies may lie on another rank's columns).
 """
 from __future__ import annotations
 
@@ -11,6 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.layers.common import activation_fn, dense_init, is_glu
 
 
@@ -38,6 +47,19 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
             "w_down": dense_init(gen, (L, f, d), pd)}
 
 
+def tp_keep(specs, mor_active: bool, prefix: str = "") -> set:
+    """The FFN leaves whose ``model`` dims the tensor-parallel FFN
+    consumes: all of them where the up projections are split by column
+    and the down projection by row and no MoR plan runs, else none."""
+    if mor_active or not isinstance(specs, dict):
+        return set()
+    up = [k for k in ("w_gate", "w_up") if k in specs]
+    if not (all(sr.on_model(specs, k, -1) for k in up)
+            and sr.on_model(specs, "w_down", -2)):
+        return set()
+    return {prefix + k for k in up + ["w_down"]}
+
+
 def mlp_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
               mor=None, mor_mode: str = "dense",
               ) -> Tuple[torch.Tensor, Dict]:
@@ -58,11 +80,19 @@ def mlp_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
         return y.reshape(*lead, -1).to(dt), stats
 
     fn = activation_fn(act_name)
+    # column-parallel up projections, row-parallel down projection
+    group = sr.split_group(params["w_down"])
+    if group is not None:
+        from repro_torch.distributed.collectives import copy_to_model
+        x2 = copy_to_model(x2, group)
     if is_glu(act_name):
         h = fn(x2 @ params["w_gate"].to(dt)) * (x2 @ params["w_up"].to(dt))
     else:
         h = fn(x2 @ params["w_up"].to(dt))
     y = h.to(dt) @ params["w_down"].to(dt)
+    if group is not None:
+        from repro_torch.distributed.collectives import all_reduce_sum
+        y = all_reduce_sum(y, group)
     return y.reshape(*lead, -1), {}
 
 

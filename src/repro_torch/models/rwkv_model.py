@@ -23,9 +23,10 @@ from repro_torch.models.layers import rwkv
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.norms import (apply_norm, norm_init,
                                              stacked_norm_init)
-from repro_torch.models.transformer import (_layer_plan, _remat,
-                                            _stack_aux, layer_slice,
-                                            layer_views)
+from repro_torch.distributed import sharding_rules as sr
+from repro_torch.models.transformer import (_group_specs, _layer_plan,
+                                            _remat, _stack_aux, layer_slice,
+                                            layer_views, use_top)
 
 STATE_KEYS = ("tm_shift", "wkv", "cm_shift")
 
@@ -55,11 +56,15 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             with_taps: bool = False) -> Tuple[torch.Tensor, Dict]:
     """batch["tokens"] (B, S) -> (logits (B, S, V), aux): aux carries the
     layer-stacked "mor_stats" of an active plan and, with ``with_taps``,
-    the channel mix's calibration taps "taps" ((L, B*S, N))."""
+    the channel mix's calibration taps "taps" ((L, B*S, N)).  Under a
+    mesh every leaf is gathered where it is used (layer by layer)."""
+    params = use_top(params, cfg, tp=False)
     x = _embed(params, cfg, batch["tokens"])
     mor_stack = (mor or {}).get("layers")
+    lspec = _group_specs("layers")
 
     def block(x, lp, ml):
+        lp = sr.use(lp, lspec)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         x = x + rwkv.timemix_forward(lp["tm"], cfg, h)
         h2 = apply_norm(cfg.norm, lp["ln2"], x)
@@ -73,7 +78,7 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
     # any policy but "none" recomputes the whole block, as the
     # reference's nothing_saveable does
-    body = _remat(block, "none" if cfg.remat == "none"
+    body = _remat(sr.bind(block), "none" if cfg.remat == "none"
                   else "nothing_saveable")
     ys = []
     for l, lp in enumerate(layer_views(params["layers"])):

@@ -18,6 +18,18 @@ the vlm family prepends pre-computed patch embeddings
 serves text only; the audio family (an encoder: ``cfg.causal`` False,
 no decode) takes frame embeddings (``batch["frames"]``) through an input
 norm (``in_norm``) and has no token embedding in its inputs.
+
+Under a mesh (``distributed.sharding_rules.activation_context`` with
+the params' spec tree) the params are this rank's blocks: each layer's
+leaves are gathered where they are used (``use_layer``, inside the
+rematerialised block, so that one gathered layer is live at a time),
+except the ``model`` dims the tensor-parallel attention, FFN and
+experts consume; the embedding is vocabulary-parallel (a masked local
+lookup and one ``all_reduce_sum``) and the head column-parallel where
+the rules split the vocabulary, and ``forward`` then returns this
+rank's vocabulary block of the logits (``launch.steps.cross_entropy``
+reduces it); the serving steps gather the logits whole.  The serving
+chunk step runs every layer gathered whole.
 """
 from __future__ import annotations
 
@@ -28,7 +40,11 @@ import torch
 from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as co
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.layers import attention as attn
+from repro_torch.models.layers import mlp as mlp_mod
+from repro_torch.models.layers import moe as moe_mod
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init, mlp_taps
 from repro_torch.models.layers.moe import moe_apply, moe_init, moe_taps
@@ -161,6 +177,103 @@ def _groups(params: Dict, cfg: ModelConfig, mor: Optional[Dict]
     return [("dense", params["layers"], mor.get("layers"), "")]
 
 
+def _stack_key(kind: str, prefix: str) -> str:
+    """The params key of a ``_groups`` entry."""
+    return "moe_layers" if kind == "moe" else (
+        "dense_layers" if prefix == "dense_" else "layers")
+
+
+def _group_specs(key: str):
+    """One layer's specs of the stack ``key`` under the active mesh, or
+    None."""
+    ctx = sr.current()
+    if ctx is None or ctx.specs is None:
+        return None
+    return sr.layer_specs(ctx.specs[key])
+
+
+def use_layer(lp: Dict, lspec, cfg: ModelConfig, kind: str, ml,
+              mor_mode: str, T_loc: int, masked: bool = False,
+              tp: bool = True) -> Dict:
+    """Gather-on-use of one layer's leaves (``sharding_rules.use``),
+    leaving split the ``model`` dims its tensor-parallel attention, FFN
+    or experts consume (``tp``; none on the serving chunk path)."""
+    if lspec is None:
+        return lp
+    from repro_torch.core.executor import as_expert_plan, as_plan
+    mesh = sr.current().mesh
+    keep: set = set()
+    if tp:
+        keep |= attn.tp_keep(cfg, lspec["attn"], mesh.shape["model"])
+        if kind == "moe":
+            em = ml.get("experts") if isinstance(ml, dict) else None
+            active = as_expert_plan(
+                em, mode=mor_mode, tile_m=cfg.mor.tile_m,
+                tile_n=cfg.mor.tile_n).active
+            keep |= moe_mod.tp_keep(cfg, lspec["moe"], mesh, T_loc, masked,
+                                    active)
+        else:
+            active = as_plan(ml, mode=mor_mode, tile_m=cfg.mor.tile_m,
+                             tile_n=cfg.mor.tile_n).active
+            keep |= mlp_mod.tp_keep(lspec["mlp"], active, "mlp/")
+    return sr.use(lp, lspec, keep)
+
+
+def use_top(params: Dict, cfg: ModelConfig, tp: bool = True) -> Dict:
+    """The params outside the layer stacks, gathered for use: the
+    embedding's vocabulary dim and the head's stay split over ``model``
+    where the rules put them there (``tp``)."""
+    ctx = sr.current()
+    if ctx is None or ctx.specs is None:
+        return params
+    top = {k: v for k, v in params.items() if not k.endswith("layers")}
+    specs = {k: ctx.specs[k] for k in top}
+    keep = set()
+    if tp and cfg.vocab_size:
+        if sr.on_model(specs, "embed", 0):
+            keep.add("embed")
+        if "lm_head" in specs and sr.on_model(specs, "lm_head", -1):
+            keep.add("lm_head")
+    out = dict(params)
+    out.update(sr.use(top, specs, keep))
+    return out
+
+
+def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``embed[tokens]``; on a vocabulary-parallel embedding (this rank's
+    rows [r V / MP, (r + 1) V / MP)) a masked local lookup summed over
+    ``model`` (the rows are disjoint: the sum is exact)."""
+    group = sr.split_group(embed)
+    if group is None:
+        return embed[tokens.long()]
+    n = embed.shape[0]
+    t = tokens.long() - group.rank * n
+    ok = (t >= 0) & (t < n)
+    x = embed[torch.clamp(t, 0, n - 1)] * ok[..., None].to(embed.dtype)
+    return co.all_reduce_sum(x, group)
+
+
+def head_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> torch.Tensor:
+    """x @ the head; a column-parallel head gives this rank's vocabulary
+    block (its input entering through ``copy_to_model``)."""
+    head = _head(params, cfg)
+    src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    group = sr.split_group(src)
+    if group is not None:
+        x = co.copy_to_model(x, group)
+    return x @ head.to(x.dtype)
+
+
+def full_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The whole vocabulary of logits a vocabulary-parallel head left
+    split (gathered over ``model``), else ``logits``."""
+    group = sr.model_group()
+    if group is None or logits.shape[-1] == cfg.vocab_size:
+        return logits
+    return co.all_gather(logits, logits.ndim - 1, group, "logits")
+
+
 def _n_stack(stacked: Dict) -> int:
     return stacked["ln1"]["scale"].shape[0]
 
@@ -212,7 +325,7 @@ def _embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
     if cfg.frontend == "audio_stub":
         return apply_norm(cfg.norm, params["in_norm"],
                           batch["frames"].to(dt))
-    x = params["embed"][batch["tokens"].long()].to(dt)
+    x = embed_tokens(params["embed"], batch["tokens"]).to(dt)
     if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
         x = torch.cat([batch["patch_embeds"].to(dt), x], 1)
     return x
@@ -229,12 +342,14 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     E, B*S, f) for the MoE stack; a moe model's dense layers put theirs
     under "dense_taps")."""
     _check_family(cfg)
+    params = use_top(params, cfg)
     x = _embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     attn_fn = attn.mla_forward if cfg.mla else attn.gqa_forward
 
-    def block(x, lp, ml, kind):
+    def block(x, lp, ml, kind, lspec):
+        lp = use_layer(lp, lspec, cfg, kind, ml, mor_mode, B * S)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         x = x + attn_fn(lp["attn"], cfg, h, positions)
         h2 = apply_norm(cfg.norm, lp["ln2"], x)
@@ -244,18 +359,19 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
                          else mlp_taps(lp["mlp"], cfg, h2))
         return x + f, y
 
-    body = _remat(block, cfg.remat)
+    body = _remat(sr.bind(block), cfg.remat)
     aux: Dict[str, Any] = {}
     for kind, stack, mor_stack, prefix in _groups(params, cfg, mor):
         ys = []
+        lspec = _group_specs(_stack_key(kind, prefix))
         for l, lp in enumerate(layer_views(stack)):
-            x, y = body(x, lp, _layer_plan(mor_stack, l), kind)
+            x, y = body(x, lp, _layer_plan(mor_stack, l), kind, lspec)
             ys.append(y)
         aux.update(_stack_aux(ys, prefix))
     x = apply_norm(cfg.norm, params["final_norm"], x)
     if not cfg.vocab_size:
         return x, aux
-    return x @ _head(params, cfg).to(x.dtype), aux
+    return head_logits(params, cfg, x), aux
 
 
 # --------------------------------------------------------------------------
@@ -272,9 +388,12 @@ def _static_layers(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     capacity follows the capacity factor over the B * S tokens."""
     caches = cache["layers"]
     g = 0                                   # global layer index
-    for kind, stack, mor_stack, _ in _groups(params, cfg, mor):
+    T = x.shape[0] * x.shape[1]
+    for kind, stack, mor_stack, prefix in _groups(params, cfg, mor):
+        lspec = _group_specs(_stack_key(kind, prefix))
         for l in range(_n_stack(stack)):
-            lp = layer_slice(stack, l)
+            lp = use_layer(layer_slice(stack, l), lspec, cfg, kind,
+                           _layer_plan(mor_stack, l), mor_mode, T)
             h = apply_norm(cfg.norm, lp["ln1"], x)
             x = x + attn_fn(lp["attn"], cfg, h, layer_slice(caches, g))
             h2 = apply_norm(cfg.norm, lp["ln2"], x)
@@ -301,10 +420,11 @@ def prefill(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_family(cfg, decode=True)
     S = tokens.shape[1]
     fn = attn.mla_prefill if cfg.mla else attn.gqa_prefill
-    x = params["embed"][tokens.long()].to(cfg.tdtype)
+    params = use_top(params, cfg)
+    x = embed_tokens(params["embed"], tokens).to(cfg.tdtype)
     x = _static_layers(params, cfg, x, cache, fn, mor, mor_mode)
     cache["pos"] += S
-    return x[:, -1, :] @ _head(params, cfg).to(x.dtype)
+    return full_logits(head_logits(params, cfg, x[:, -1, :]), cfg)
 
 
 def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -316,12 +436,13 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     _check_family(cfg, decode=True)
     pos = cache["pos"]
     fn = attn.mla_decode if cfg.mla else attn.gqa_decode
-    x = params["embed"][tokens.long()].to(cfg.tdtype)
+    params = use_top(params, cfg)
+    x = embed_tokens(params["embed"], tokens).to(cfg.tdtype)
     x = _static_layers(params, cfg, x, cache,
                        lambda p, c, h, lc: fn(p, c, h, lc, pos), mor,
                        mor_mode)
     cache["pos"] += 1
-    return x[:, 0, :] @ _head(params, cfg).to(x.dtype)
+    return full_logits(head_logits(params, cfg, x[:, 0, :]), cfg)
 
 
 # --------------------------------------------------------------------------
@@ -354,6 +475,7 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     valid = torch.arange(C, device=tokens.device)[None, :] < \
         n_valid[:, None]
     vm = valid[..., None]
+    params = use_top(params, cfg, tp=False)
     x = params["embed"][tokens.long()].to(cfg.tdtype)
     x = torch.where(vm, x, torch.zeros((), dtype=x.dtype, device=x.device))
     caches = cache["layers"]
@@ -362,8 +484,10 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     g = 0                                   # global layer index
     for kind, stack, mor_stack, prefix in _groups(params, cfg, mor):
         ys = []
+        lspec = _group_specs(_stack_key(kind, prefix))
         for l in range(_n_stack(stack)):
-            lp = layer_slice(stack, l)
+            lp = use_layer(layer_slice(stack, l), lspec, cfg, kind, None,
+                           mor_mode, B * C, masked=True, tp=False)
             h = apply_norm(cfg.norm, lp["ln1"], x)
             a = chunk_fn(lp["attn"], cfg, h, layer_slice(caches, g), pos,
                          valid, block_table)
@@ -389,7 +513,10 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
                device) -> Dict:
     """The slotted decode cache: one stack of all ``n_layers`` layers
-    (GQA ring rows, or MLA latent rows over the full ``max_len``)."""
+    (GQA ring rows, or MLA latent rows over the full ``max_len``).
+    Under a mesh of MP > 1 ``model`` ranks this rank's block of the GQA
+    ring (``attention.gqa_cache_init``); ``batch`` is the rank's own
+    (its data shard's) count."""
     _check_family(cfg, decode=True)
     init = attn.mla_cache_init if cfg.mla else attn.gqa_cache_init
     return {"pos": torch.zeros((), dtype=torch.int32, device=device),

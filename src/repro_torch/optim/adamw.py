@@ -57,16 +57,38 @@ def adamw_init(params, cfg: OptConfig) -> Dict[str, Any]:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in float32."""
-    norms = [torch.linalg.vector_norm(l, dtype=torch.float32)
-             for l in leaves(tree)]
-    return torch.linalg.vector_norm(torch.stack(norms))
+def global_norm(tree, mesh=None, specs=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in float32.  On a
+    ``mesh`` whose ranks hold their blocks of ``tree`` (``specs``, its
+    spec tree): each rank sums the squares of its blocks, a leaf
+    replicated over an axis counted on that axis' first rank only, and
+    one all-reduce over the world adds them; the same value on every
+    rank."""
+    if mesh is None or getattr(mesh, "groups", None) is None or \
+            mesh.group("world").size == 1:
+        norms = [torch.linalg.vector_norm(l, dtype=torch.float32)
+                 for l in leaves(tree)]
+        return torch.linalg.vector_norm(torch.stack(norms))
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed.sharding_rules import spec_paths
+    sq = []
+    for l, spec in zip(leaves(tree), spec_paths(specs).values()):
+        split = {a for ax in spec if ax is not None
+                 for a in ((ax,) if isinstance(ax, str) else ax)}
+        if all(mesh.index(a) == 0 for a in mesh.axis_names
+               if a not in split):
+            sq.append(torch.linalg.vector_norm(l, dtype=torch.float32)
+                      .square())
+    dev = leaves(tree)[0].device
+    total = torch.stack(sq).sum() if sq else torch.zeros((), device=dev)
+    return torch.sqrt(co.all_reduce(total, mesh.group("world"),
+                                    "global_norm"))
 
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: OptConfig,
-                 lr_scale: torch.Tensor | float = 1.0,
+                 lr_scale: torch.Tensor | float = 1.0, mesh=None,
+                 specs=None,
                  ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """-> (params, state, metrics), params and state updated IN PLACE.
 
@@ -75,10 +97,12 @@ def adamw_update(params, grads, state, cfg: OptConfig,
     stacked norm scale (L, d) is a 2-D leaf and is decayed too, as the
     reference's is.  ``grads`` may be in any float dtype; they are read
     in float32.  metrics: "grad_norm" (before clipping) and "lr", float32
-    device tensors."""
+    device tensors.  On a ``mesh`` the trees are this rank's blocks of
+    ``specs``'s layout and the norm is ``global_norm``'s over the mesh
+    (the single-device clip); the update itself is elementwise."""
     step = state["step"]
     step.add_(1)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, mesh, specs)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip > 0 else 1.0)
     b1, b2 = cfg.b1, cfg.b2

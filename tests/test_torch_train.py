@@ -454,8 +454,15 @@ def test_train_main_reduces_loss():
 @pytest.mark.parametrize("layout", (["--mesh", "pod"],
                                     ["--model-parallel", "2"]))
 def test_train_main_refuses_sharded_layouts(layout):
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        _train(["--steps", "1"] + layout)
+    """``--mesh pod`` (256 ranks) stays queue A 7; ``--model-parallel
+    2`` on one rank does not divide (the host mesh itself runs on
+    ``--ranks``: tests/test_torch_mesh.py)."""
+    if "--mesh" in layout:
+        with pytest.raises(NotImplementedError, match="queue A 7"):
+            _train(["--steps", "1"] + layout)
+    else:
+        with pytest.raises(ValueError, match="not a multiple"):
+            _train(["--steps", "1"] + layout)
 
 
 def test_train_main_resume_matches_straight_run(tmp_path):
