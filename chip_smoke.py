@@ -166,6 +166,12 @@
    to meta's, the bound beside the CUDA-event ms; then the 40-cell meta
    grid, one line a cell (``DRYRUN_GRID_CELLS`` run here, the rest
    named: they take minutes of the host's CPU);
+5e. the production mesh's dry run (``phase_dryrun_mesh``), each in a
+   process of its own on torch's fake process group: rank 0 of the
+   256-rank pod for granite-3-2b train_4k and deepseek-v2-236b
+   decode_32k (GiB a rank, fits, the roofline with its collective
+   term split between NVLink and InfiniBand: reckoned, not measured),
+   and the prediction of 7d's (1, 2) granite step, held there;
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -216,7 +222,12 @@
    the shared-prefix trace (ranks' tokens equal, agreement with the
    single-rank paged tokens >= AGREE_MIN, 12 partial gqa_paged_flash
    launches and 12 merges a dispatch, no other collective, pages on
-   both shards, each rank's pool half the single-rank one's);
+   both shards, each rank's pool half the single-rank one's); the
+   page-sharded shadow step (the dense twin at 1 in 4) on reduced
+   float32 granite and rwkv6 and on granite at 12 layers: tokens equal
+   shadow-off's, the metrics block's counters equal to one device's
+   paged engine with the twin on (the float32 references: every lane),
+   the twin's partial launches and merges counted;
 7d. the (data, model) mesh on 2 gloo rank processes sharing the card:
    granite-3-2b at full width cut to 2 layers, two train steps on (1,
    2) and (2, 1) against one device (loss, the clip norm beside a fault
@@ -225,7 +236,9 @@
    equal; deepseek-v2-236b cut to 2 layers, calibrated, expert slicing
    at 80 experts a rank (per-expert masks and counters bit-equal on a
    shared input, the whole forward's expert-grid launches on both
-   ranks); where 4 cards are visible, the (2, 2) mesh over them on
+   ranks); the (1, 2) granite step as 5e predicted it (collectives,
+   bytes by kind, FLOPs and argument bytes equal; the step's peak
+   within 10%); where 4 cards are visible, the (2, 2) mesh over them on
    NCCL (granite at 8 layers, held the same way);
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
@@ -250,6 +263,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3171,6 +3185,126 @@ def phase_dryrun():
                     "minutes of the host's CPU on meta (DRYRUN_GRID_CELLS)")
 
 
+# -- the production mesh's dry run (launch/dryrun.py --mesh) ------------------
+
+# rank 0 of the 256-rank pod on torch's fake process group, on meta (no
+# card): a train cell and a decode cell of the reference's grid
+MESH_DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
+                     ("deepseek-v2-236b", "decode_32k"))
+MESH_DRYRUN_TIMEOUT = 300
+
+
+def _mesh_step_cell():
+    """(config, shape, optimizer) of the ``mesh`` phase's granite train
+    step: full width cut to MESH_GRANITE_LAYERS, one micro-batch of
+    TRAIN_BATCH x TRAIN_SEQ, bf16 moments."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.optim import OptConfig
+    cfg = get_config("granite-3-2b").replace(n_layers=MESH_GRANITE_LAYERS,
+                                             grad_accum=1)
+    return (cfg, ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train"),
+            OptConfig(lr=1e-3, moment_dtype="bfloat16"))
+
+
+def predict_mesh_step(path):
+    """The dry run's prediction of the ``mesh`` phase's (1, 2) granite
+    step, rank by rank, on meta under torch's fake process group with
+    gloo's collectives modelled (run in a process of its own by
+    ``phase_dryrun_mesh``) -> JSON at ``path``: collectives by name,
+    their bytes by kind, FLOPs, argument bytes by tree, peak temp."""
+    from repro_torch.distributed import collectives as co
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import dry_mesh
+    cfg, shape, opt = _mesh_step_cell()
+    out = {}
+    for rank in range(MESH_RANKS):
+        with dry_mesh({"data": 1, "model": MESH_RANKS}, rank=rank,
+                      backend="gloo") as mesh:
+            co.reset_counts()
+            c = dryrun.count_cell(cfg, shape, opt_cfg=opt,
+                                  on=dryrun.MeshArgs(mesh, False, "fsdp_tp"))
+            out[str(rank)] = {"counts": dict(co.counts),
+                              "nbytes": dict(co.nbytes), "args": c.args,
+                              "flops": c.counter.flops,
+                              "peak_temp": c.counter.peak_live_bytes}
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_dryrun_mesh():
+    """The dry run on the production mesh, each in a process of its own
+    (the fake process group is a process's one group), side by side:
+    ``python -m repro_torch.launch.dryrun --mesh pod`` for
+    MESH_DRYRUN_CELLS (rank 0 of 256, reckoned on meta from the H100's
+    data-sheet rates, the collective term split between NVLink and
+    InfiniBand: not measured), and ``predict_mesh_step`` (the ``mesh``
+    phase's own (1, 2) step predicted, held there to what the ranks
+    count).  -> the prediction."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as tmp:
+        cmds = {}
+        for arch, shape in MESH_DRYRUN_CELLS:
+            cmds[f"{arch} {shape}"] = [
+                "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                "--shape", shape, "--mesh", "pod", "--out",
+                os.path.join(tmp, f"{arch}_{shape}.json")]
+        pred = os.path.join(tmp, "predict.json")
+        cmds["predict"] = ["-c", f"import sys; sys.path[:0] = "
+                           f"[{str(ROOT)!r}, {str(ROOT / 'src')!r}]; "
+                           f"import chip_smoke; "
+                           f"chip_smoke.predict_mesh_step({pred!r})"]
+        procs = {}
+        try:
+            for name, argv in cmds.items():
+                out = open(os.path.join(tmp, f"{len(procs)}.log"), "w")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable] + argv, env=env, cwd=tmp, stdout=out,
+                    stderr=subprocess.STDOUT), out)
+            for name, (proc, out) in procs.items():
+                rc = proc.wait(timeout=MESH_DRYRUN_TIMEOUT)
+                out.close()
+                with open(out.name) as f:
+                    text = f.read()
+                assert rc == 0, (name, rc, text[-3000:])
+        finally:
+            for proc, out in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                out.close()
+        for arch, shape in MESH_DRYRUN_CELLS:
+            with open(os.path.join(tmp, f"{arch}_{shape}.json")) as f:
+                rec = json.load(f)
+            assert rec["status"] == "ok", rec.get("traceback")
+            rl = rec["roofline"]
+            log("dryrun_mesh", cell=f"{arch} {shape}", mesh="pod",
+                n_chips=rec["n_chips"], layout=rec["layout"],
+                seq_parallel=rec["seq_parallel"],
+                argument_gib=round(rec["argument_bytes"] / 2 ** 30, 3),
+                temp_gib=round(rec["peak_temp_bytes"] / 2 ** 30, 3),
+                per_device_gib=rec["per_device_gib"],
+                fits_80gb=rec["fits_80gb"], dominant=rl["dominant"],
+                t_compute_ms=round(rl["t_compute_s"] * 1e3, 3),
+                t_memory_ms=round(rl["t_memory_s"] * 1e3, 3),
+                t_collective_ms=round(rl["t_collective_s"] * 1e3, 3),
+                t_collective_nvlink_ms=round(
+                    rl["t_collective_nvlink_s"] * 1e3, 3),
+                t_collective_ib_ms=round(rl["t_collective_ib_s"] * 1e3, 3),
+                floor_ms=round(rl["floor_time_s"] * 1e3, 3),
+                floor_by=rl["floor_dominant"],
+                collective_bytes=json.dumps(
+                    rec["collectives"]["bytes_by_kind"]),
+                ib_bytes=json.dumps(rec["collectives"]["ib_bytes_by_kind"]),
+                cache_layout_vs_reference=json.dumps(
+                    rec.get("cache_layout_vs_reference", {})),
+                meta_s=rec["meta_s"],
+                note="rank 0 of 16 x 16 on a fake process group, on "
+                     "meta: reckoned from data-sheet rates, not measured")
+        with open(pred) as f:
+            return json.load(f)
+
+
 # -- observability (obs/, the shadow twin) -----------------------------------
 
 def _obs_engine(cfg, params, mor, reqs, obs=False, shadow_rate=0.0):
@@ -4138,6 +4272,10 @@ def slice_zamba2():
 SHARDS = 2
 SHARDED_REFERENCES = ("granite-3-2b", "deepseek-v2-236b", "rwkv6-3b",
                       "zamba2-7b")
+# the page-sharded shadow step: the twin samples 1 dispatch in 4; the
+# reduced float32 references it runs on (a GQA stack, a state-only one)
+SHARDED_SHADOW_RATE = 0.25
+SHADOW_REFERENCES = ("granite-3-2b", "rwkv6-3b")
 
 
 def _layout_counts(eng):
@@ -4161,17 +4299,56 @@ def _layout_counts(eng):
     return attn[0], leaves[0]
 
 
-def _sharded_pass(cfg, params, mor, reqs, group, **kw):
+def _flat_block(dm):
+    """A metrics block's read -> {lane: numpy array} ("groups/<g>/<k>"
+    for a group's lanes)."""
+    import numpy as np
+    out = {}
+    for k, v in dm.items():
+        if k == "groups":
+            for g, d in v.items():
+                for kk, vv in d.items():
+                    out[f"groups/{g}/{kk}"] = np.asarray(vv)
+        else:
+            out[k] = np.asarray(v)
+    return out
+
+
+def _shadow_engine_kw(shadow: bool) -> dict:
+    """The engine's obs and shadow arguments of a shadow pass."""
+    if not shadow:
+        return {}
+    from repro_torch.obs import Observability
+    return {"obs": Observability(), "shadow_rate": SHARDED_SHADOW_RATE}
+
+
+def _single_shadow(cfg, params, mor, reqs, n_slots=8):
+    """The kernel-mode single-device paged engine with the shadow twin
+    on ``reqs`` (the sharded pass's slots and lengths) -> (tokens, its
+    metrics block, flat)."""
+    from repro_torch.serving import Engine
+    eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=n_slots,
+                 max_len=max(len(p) for p, _ in reqs) + 18, layout="paged",
+                 **_shadow_engine_kw(True))
+    toks = eng.run(list(reqs))
+    return toks, _flat_block(eng._last_device_metrics)
+
+
+def _sharded_pass(cfg, params, mor, reqs, group, shadow=False, **kw):
     """One pass of the kernel-mode sharded engine on ``reqs``, its
     launches (partial ones apart) and collectives counted from just after
-    the engine is built to the end of its flush.  -> dict."""
+    the engine is built to the end of its flush; with ``shadow`` obs on
+    and the dense twin at SHARDED_SHADOW_RATE (its merges and state
+    gathers counted beside the primary's, its metrics block read).
+    -> dict."""
     import torch
     from repro_torch.distributed import collectives
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.serving import Engine
     eng = Engine(cfg, params, mor=mor, mor_mode="kernel", n_slots=kw.pop(
         "n_slots", 8), max_len=max(len(p) for p, _ in reqs) + 18,
-        layout="paged-sharded", group=group, **kw)
+        layout="paged-sharded", group=group, **_shadow_engine_kw(shadow),
+        **kw)
     collectives.reset_counts()
     pa.partial_launches = pa.mla_partial_launches = 0
     t0 = time.perf_counter()
@@ -4179,13 +4356,18 @@ def _sharded_pass(cfg, params, mor, reqs, group, **kw):
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    counts = dict(collectives.counts)      # the report reads the block again
     rep = eng.report()
     attn, leaves = _layout_counts(eng)
     d = rep["dispatches"]
-    want = {k: n * d for k, n in (("flash_merge", attn),
-                                  ("state_take", leaves)) if n}
-    counts = dict(collectives.counts)
-    assert counts == dict(want, check_tokens=1), (counts, want)
+    block = _flat_block(eng._last_device_metrics) if shadow else None
+    twin = int(block["shadow_dispatches"]) if shadow else 0
+    want = {k: n * (d + twin) for k, n in (("flash_merge", attn),
+                                           ("state_take", leaves)) if n}
+    want["check_tokens"] = 1
+    if shadow:
+        want["obs_block"] = 1
+    assert counts == want, (counts, want)
     pool_bytes = sum(t.nbytes for k, v in eng.cache.items()
                      if k not in ("pos", "block_table", "state_table")
                      for t in _leaves(v))
@@ -4197,7 +4379,8 @@ def _sharded_pass(cfg, params, mor, reqs, group, **kw):
                         "mla_paged_flash": pa.mla_partial_launches},
             "collectives": counts, "sharding": rep["sharding"],
             "pool_bytes": pool_bytes, "host_ms_per_dispatch":
-            wall / max(d, 1) * 1e3, "pool": eng.pool}
+            wall / max(d, 1) * 1e3, "pool": eng.pool, "block": block,
+            "twin": twin}
 
 
 def _sharded_rank(group):
@@ -4235,6 +4418,17 @@ def _sharded_rank(group):
             k: card[k] for k in ("dispatches", "attention_layers",
                                  "state_leaves", "collectives", "partial",
                                  "sharding", "host_ms_per_dispatch")}
+        if arch in SHADOW_REFERENCES:
+            # the page-sharded shadow step on the card, against shadow-off
+            # and (rank 0) one device's paged engine with the twin on
+            sh = _sharded_pass(cfg, _to(params, "cuda"), _to(mor, "cuda"),
+                               reqs, group, shadow=True, n_slots=4)
+            assert sh["tokens"] == card["tokens"], f"{arch}: shadow tokens"
+            out["references"][arch]["shadow"] = {
+                k: sh[k] for k in ("block", "twin", "collectives")}
+            if group.rank == 0:
+                out["references"][arch]["single_shadow"] = _single_shadow(
+                    cfg, _to(params, "cuda"), _to(mor, "cuda"), reqs, 4)
         out["references"][arch]["prefix"] = {
             k: card["prefix"][k] for k in ("prefix_hits", "chunks_skipped",
                                            "snapshots", "snap_restores")}
@@ -4250,6 +4444,18 @@ def _sharded_rank(group):
     out["granite_setup_s"] = time.perf_counter() - t0
     reqs = _shared_prefix_trace(cfg)
     g = _sharded_pass(cfg, params, mor, reqs, group)
+    # the page-sharded shadow step at full width (kernel mode: the dense
+    # twin on the view of each rank's shard), and one device's paged
+    # engine with the twin on the same trace (rank 0)
+    gs = _sharded_pass(cfg, params, mor, reqs, group, shadow=True)
+    assert gs["tokens"] == g["tokens"], "shadow-on tokens differ"
+    out["granite_shadow"] = {k: gs[k] for k in (
+        "block", "twin", "collectives", "launches", "partial",
+        "dispatches")}
+    del gs
+    if group.rank == 0:
+        out["granite_single_shadow"] = _single_shadow(cfg, params, mor,
+                                                      reqs)
     # the single-rank pool of the same configuration, from its host half
     single = kv_pool.PagedPool(cfg, 8, max(len(p) for p, _ in reqs) + 18,
                                device="meta")
@@ -4278,8 +4484,17 @@ def slice_sharded(single_tokens):
     (``single_tokens``) >= AGREE_MIN, exactly one partial
     ``gqa_paged_flash`` launch and one merge a layer and dispatch and no other
     collective, pages on both shards, each rank's pool half the
-    single-rank one's (within a page and the scratch page).  -> {kernel:
-    launches on the sharded path, rank 0}."""
+    single-rank one's (within a page and the scratch page).  The
+    page-sharded shadow step (obs on, the dense twin at
+    SHARDED_SHADOW_RATE): on the reduced float32 SHADOW_REFERENCES and
+    on granite at DEPTH, tokens equal shadow-off's on every rank, the
+    metrics block's counters (the ranks' rows summed at the flush) equal
+    one device's paged engine's with the twin on (on the float32
+    references its fixed-point means too, within 1 / SCALE; at full
+    width their largest difference is logged), and the twin's partial
+    attention launches and merges are counted beside the primary's.
+    -> ({kernel: launches on the sharded path, rank 0}, granite's
+    launches, its launches with the twin on)."""
     from repro_torch.launch.mesh import page_backend, run_ranks
     backend = page_backend("cuda", SHARDS)
     log("sharded", ranks=SHARDS, backend=backend,
@@ -4297,10 +4512,43 @@ def slice_sharded(single_tokens):
                                     if "hiwater" in k}),
                 prefix=json.dumps(ref["prefix"]),
                 host_ms_per_dispatch=round(ref["host_ms_per_dispatch"], 2))
+    for arch in SHADOW_REFERENCES:
+        single_toks, single = ranks[0]["references"][arch]["single_shadow"]
+        for r in ranks:
+            sh = r["references"][arch]["shadow"]
+            _same_shadow_block(sh["block"], single)
+            log("sharded", rank=r["rank"], model=f"{arch} reduced f32",
+                shadow_rate=SHARDED_SHADOW_RATE, twin_dispatches=sh["twin"],
+                tokens_equal_shadow_off=True,
+                block_equal_single_device_paged=True,
+                shadow=json.dumps(_shadow_lanes(sh["block"])),
+                collectives=json.dumps(sh["collectives"]))
     g0, g1 = (r["granite"] for r in ranks)
     assert g0["tokens"] == g1["tokens"], "the ranks' tokens differ"
     agree = _agree(g0["tokens"], single_tokens)
+    _, single = ranks[0]["granite_single_shadow"]
     L = DEPTH["granite-3-2b"]
+    for r in ranks:
+        gs = r["granite_shadow"]
+        d, twin = gs["dispatches"], gs["twin"]
+        assert twin == (d + 3) // 4, (d, twin)
+        assert gs["launches"]["gqa_paged_flash"] == \
+            gs["partial"]["gqa_paged_flash"] == L * (d + twin), gs["launches"]
+        assert gs["launches"]["mor_tile_mask"] == L * d, gs["launches"]
+        # the per-element means follow the activations, which the bf16
+        # merge moves (tokens agree with one device's at AGREE_MIN, not
+        # bit for bit): counted, not held to one rounding
+        means_diff = _same_shadow_block(gs["block"], single, means=False)
+        log("sharded", rank=r["rank"], model="granite-3-2b", layers=L,
+            mode="kernel", shadow_rate=SHARDED_SHADOW_RATE,
+            tokens_equal_shadow_off=True, dispatches=d, twin_dispatches=twin,
+            launches=json.dumps({k: v for k, v in gs["launches"].items()
+                                 if v}),
+            collectives=json.dumps(gs["collectives"]),
+            counters_equal_single_device_paged=True,
+            means_max_abs_diff=round(means_diff, 6),
+            shadow=json.dumps(_shadow_lanes(gs["block"])),
+            single_device_paged_shadow=json.dumps(_shadow_lanes(single)))
     for r in ranks:
         g = r["granite"]
         d = g["dispatches"]
@@ -4328,9 +4576,42 @@ def slice_sharded(single_tokens):
         agreement_vs_single_rank_paged=round(agree, 4), agree_min=AGREE_MIN)
     assert agree >= AGREE_MIN, agree
     deepseek = ranks[0]["references"]["deepseek-v2-236b"]
-    return {"gqa_paged_flash[partial]": g0["partial"]["gqa_paged_flash"],
-            "mla_paged_flash[partial]": deepseek["partial"][
-                "mla_paged_flash"]}, g0["launches"]
+    return ({"gqa_paged_flash[partial]": g0["partial"]["gqa_paged_flash"],
+             "mla_paged_flash[partial]": deepseek["partial"][
+                 "mla_paged_flash"]}, g0["launches"],
+            ranks[0]["granite_shadow"]["launches"])
+
+
+def _shadow_lanes(block):
+    """The shadow oracle's lanes of a flat metrics block, summed over
+    layers (JSON-ready)."""
+    return {k.rsplit("/", 1)[-1]: (round(float(v.sum()), 4)
+                                   if v.dtype.kind == "f" else int(v.sum()))
+            for k, v in block.items()
+            if "shadow" in k or k.endswith(("false_skip", "false_keep",
+                                            "truth_live"))}
+
+
+def _same_shadow_block(got, want, means=True):
+    """A sharded engine's metrics block (each rank's row gathered and
+    summed at the flush) against one device's paged engine's: every
+    integer lane (the counters) equal; with ``means`` the fixed-point
+    lanes (rates, sign agreement, shadow error) within one rounding of
+    ``frac * SCALE`` (1 / SCALE).  -> the fixed-point lanes' largest
+    difference."""
+    import numpy as np
+    from repro_torch.obs import SCALE
+    assert set(want) == set(got), set(want) ^ set(got)
+    worst = 0.0
+    for k in want:
+        g, w = np.asarray(got[k]), np.asarray(want[k])
+        if w.dtype.kind in "iub":
+            assert np.array_equal(g, w), (k, g, w)
+            continue
+        worst = max(worst, float(np.abs(g - w).max()) if g.size else 0.0)
+        if means:
+            assert np.allclose(g, w, rtol=0, atol=1 / SCALE), (k, g, w)
+    return worst
 
 
 MESH_RANKS = 2
@@ -4392,12 +4673,12 @@ class _NormFault:
 
         def global_norm(tree, mesh=None, specs=None):
             norm = orig(tree, mesh, specs)
-            counts, nbytes = dict(co.counts), dict(co.nbytes)
+            kept = [(d, dict(d)) for d in (co.counts, co.nbytes,
+                                           co.ib_nbytes)]
             faulty.append(float(orig(tree, mesh, everywhere(specs))))
-            co.counts.clear()
-            co.counts.update(counts)
-            co.nbytes.clear()
-            co.nbytes.update(nbytes)
+            for d, was in kept:
+                d.clear()
+                d.update(was)
             return norm
         adamw.global_norm = global_norm
         return self
@@ -4642,6 +4923,20 @@ def _mesh_rank(group):
         out["single_train"] = (loss, norm, ms)
     m12 = make_host_mesh(MESH_RANKS, device=group.device)
 
+    # -- the (1, 2) step as the dry run counts it, on the card
+    from repro_torch.launch import dryrun
+    scfg, sshape, sopt = _mesh_step_cell()
+    torch.cuda.empty_cache()
+    co.reset_counts()
+    counted = dryrun.count_cell(scfg, sshape, opt_cfg=sopt, device="cuda",
+                                on=dryrun.MeshArgs(m12, False, "fsdp_tp"))
+    out["step_counted"] = {"counts": dict(co.counts),
+                           "nbytes": dict(co.nbytes), "args": counted.args,
+                           "flops": counted.counter.flops,
+                           "card": counted.card}
+    del counted
+    torch.cuda.empty_cache()
+
     # -- the static decode over the sequence-sharded ring
     prompts = torch.randint(0, cfg.vocab_size, (MESH_DECODE_PROMPTS,
                                                 MESH_DECODE_LEN),
@@ -4759,7 +5054,35 @@ def _mesh_kernel_cases(rows):
             torch.cuda.empty_cache()
 
 
-def slice_mesh(rows):
+def _check_mesh_prediction(ranks, predicted):
+    """The dry run's fake-group prediction of the (1, 2) granite step
+    (``predict_mesh_step``) against what each rank counted running it
+    on the card: collectives and their bytes by kind (also the train
+    runs' own last step's), FLOPs and argument bytes equal; the step's
+    peak over its arguments within DRYRUN_PEAK_TOL (+ DRYRUN_PEAK_SLACK)
+    of the measured, as the ``dryrun`` phase holds one card's."""
+    for r in ranks:
+        p, c = predicted[str(r["rank"])], r["step_counted"]
+        meas = c["card"]["peak_bytes"] - c["card"]["argument_bytes"]
+        assert p["counts"] == c["counts"], (p["counts"], c["counts"])
+        assert p["nbytes"] == c["nbytes"] == r["train"]["1x2"][6], \
+            (p["nbytes"], c["nbytes"], r["train"]["1x2"][6])
+        assert p["flops"] == c["flops"], (p["flops"], c["flops"])
+        assert p["args"] == c["args"], (p["args"], c["args"])
+        assert abs(p["peak_temp"] - meas) <= \
+            DRYRUN_PEAK_TOL * meas + DRYRUN_PEAK_SLACK, (p["peak_temp"], meas)
+        log("mesh", path="granite train dry-run prediction", rank=r["rank"],
+            mesh="1x2", layers=MESH_GRANITE_LAYERS,
+            collectives_equal=True, bytes_by_kind=json.dumps(p["nbytes"]),
+            flops_equal=True, argument_bytes=sum(p["args"].values()),
+            argument_bytes_card=c["card"]["argument_bytes"],
+            predicted_step_peak_gb=round(p["peak_temp"] / 1e9, 4),
+            measured_step_peak_gb=round(meas / 1e9, 4),
+            step_peak_rel_err=round((p["peak_temp"] - meas) / meas, 4),
+            note="predicted on meta under a fake process group of 2")
+
+
+def slice_mesh(rows, predicted):
     """The (data, model) mesh (``launch.mesh.make_host_mesh`` over 2 gloo
     ranks on the one card: NCCL refuses two ranks on one device, and
     gloo stages every collective through the host, so no time here is
@@ -4786,6 +5109,7 @@ def slice_mesh(rows):
     assert granite_gb < 70 and deepseek_gb < 70, (granite_gb, deepseek_gb)
     _mesh_kernel_cases(rows)
     ranks = run_ranks(_mesh_rank, MESH_RANKS, "cuda")
+    _check_mesh_prediction(ranks, predicted)
     single = ranks[0]
     s_loss, s_norm, s_ms = single["single_train"]
     f_loss, f_norm = single["single_train_f32"]
@@ -5426,9 +5750,10 @@ def main() -> int:
     del granite_model
     granite_train = timed("train", phase_train, random_skip)
     timed("dryrun", phase_dryrun)
-    sharded, granite_sharded = timed("sharded", slice_sharded,
-                                     granite_tokens)
-    deepseek_mesh = timed("mesh", slice_mesh, rows)
+    predicted = timed("dryrun_mesh", phase_dryrun_mesh)
+    sharded, granite_sharded, granite_sharded_shadow = timed(
+        "sharded", slice_sharded, granite_tokens)
+    deepseek_mesh = timed("mesh", slice_mesh, rows, predicted)
     if torch.cuda.device_count() >= 4:
         timed("mesh4", slice_mesh4)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)
@@ -5448,6 +5773,7 @@ def main() -> int:
                "mixtral_paged": mixtral, "qwen2_paged": qwen2,
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
+               "granite_sharded_shadow": granite_sharded_shadow,
                "deepseek_mesh": deepseek_mesh,
                "granite_obs_shadow": granite_obs,
                "granite_spec": granite_spec,

@@ -20,7 +20,12 @@ module and ``decode_attention`` issue, by name, so that a run can show
 exactly one merge per attention layer per dispatch; ``nbytes`` their
 buffers' bytes by kind ("all-reduce", "all-gather", "reduce-scatter",
 "all-to-all", "collective-permute"), which
-``launch.roofline.collective_wire_bytes`` turns into wire bytes.
+``launch.roofline.collective_wire_bytes`` turns into wire bytes;
+``ib_nbytes`` the part of them that crossed a node, by kind: the bytes
+of a collective whose group's ranks lie on more than one node
+(``launch.mesh.PageGroup.spans_nodes``: 8 cards a node on NVLink, the
+nodes on InfiniBand), the port's counterpart of the reference's DCI
+share (``repro.launch.roofline._replica_group_size``).
 
 The mesh's collectives (``launch.mesh.HostMesh``; a ``PageGroup`` an
 axis) follow the group's stated backend, never a caught error.  NCCL
@@ -35,7 +40,15 @@ copy.  The bytes counted are what moved.  ``all_gather_dim`` /
 tensor-parallel layers use (Megatron's ``g`` / ``f`` pair and the FSDP
 gather), ``all_to_all_dim`` expert slicing's reshard of the expert
 weights; ``ag_matmul_overlapped`` and ``psum_scatter_matmul`` are the
-reference's explicit-schedule matmuls.
+reference's explicit-schedule matmuls.  ``reduce_scatter_dim`` and
+``split_dim`` are sequence parallelism's pair (``sharding_rules``):
+the sum of the ranks' partials cut along S, and this rank's rows of a
+whole tensor.
+
+Every collective runs as well on meta tensors under torch's fake
+process group (``launch.mesh.dry_mesh``): the calls return at once and
+move nothing, and the counts and bytes recorded are what the ranks of
+the modelled backend would move.
 """
 from __future__ import annotations
 
@@ -45,19 +58,27 @@ import torch
 import torch.distributed as dist
 
 # collectives run since the last reset, by name; their buffers' bytes,
-# by kind
+# by kind; the bytes of those whose group spans nodes, by kind
 counts: Dict[str, int] = {}
 nbytes: Dict[str, int] = {}
+ib_nbytes: Dict[str, int] = {}
 
 
 def reset_counts() -> None:
     counts.clear()
     nbytes.clear()
+    ib_nbytes.clear()
 
 
-def _count(name: str, kind: str, x: torch.Tensor) -> None:
+def _count(name: str, kind: str, x: torch.Tensor, group=None,
+           n: int = 0) -> None:
+    """One collective ``name`` of ``kind`` over ``group`` moving ``x``'s
+    bytes (or ``n``)."""
     counts[name] = counts.get(name, 0) + 1
-    nbytes[kind] = nbytes.get(kind, 0) + x.numel() * x.element_size()
+    b = n or x.numel() * x.element_size()
+    nbytes[kind] = nbytes.get(kind, 0) + b
+    if getattr(group, "spans_nodes", False):
+        ib_nbytes[kind] = ib_nbytes.get(kind, 0) + b
 
 
 def sum_disjoint(x: torch.Tensor, group, name: str) -> torch.Tensor:
@@ -67,7 +88,7 @@ def sum_disjoint(x: torch.Tensor, group, name: str) -> torch.Tensor:
     on any backend.  -> x."""
     dist.all_reduce(x.view(torch.uint8), op=dist.ReduceOp.SUM,
                     group=group.pg)
-    _count(name, "all-reduce", x)
+    _count(name, "all-reduce", x, group)
     return x
 
 
@@ -118,7 +139,7 @@ def all_gather(x: torch.Tensor, dim: int, group, name: str) -> torch.Tensor:
         out = torch.empty((group.size,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
         dist.all_gather_into_tensor(out, x.contiguous(), group=group.pg)
-        _count(name, "all-gather", out)
+        _count(name, "all-gather", out, group)
     else:
         out = all_ranks(x.contiguous(), group, name)
     return torch.cat(out.unbind(0), dim)
@@ -134,7 +155,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group,
         xs = torch.stack(x.split(n, dim), 0).contiguous()
         out = torch.empty_like(xs[0])
         dist.reduce_scatter_tensor(out, xs, group=group.pg)
-        _count(name, "reduce-scatter", xs)
+        _count(name, "reduce-scatter", xs, group)
         return out
     return all_reduce(x, group, name).narrow(dim, group.rank * n, n)
 
@@ -153,7 +174,7 @@ def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group,
     src = src.cpu() if stage else src.contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group.pg)
-    _count(name, "all-to-all", src)
+    _count(name, "all-to-all", src, group)
     if stage:
         out = out.to(x.device)
     return torch.cat(out.unbind(0), cat_dim)
@@ -165,7 +186,7 @@ def all_reduce(x: torch.Tensor, group, name: str) -> torch.Tensor:
         return x
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group.pg)
-    _count(name, "all-reduce", out)
+    _count(name, "all-reduce", out, group)
     return out
 
 
@@ -176,7 +197,7 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
         return x
     out = x.detach().contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group.pg)
-    _count("all_reduce_max", "all-reduce", out)
+    _count("all_reduce_max", "all-reduce", out, group)
     return out
 
 
@@ -207,6 +228,51 @@ def all_gather_dim(x: torch.Tensor, dim: int, group,
     if group is None or group.size == 1:
         return x
     return _AllGatherDim.apply(x, dim, group, reduce_grad)
+
+
+class _ReduceScatterDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group, "reduce_scatter_dim")
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.dim, ctx.group,
+                           "reduce_scatter_dim.grad"), None, None)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's sum of the ranks' partial ``x``, this rank's block
+    along ``dim`` (sequence parallelism's close of a tensor-parallel
+    region).  Backward: the rows' gradients all-gathered, whole on
+    every rank (each rank's partial fed every row)."""
+    if group is None or group.size == 1:
+        return x
+    return _ReduceScatterDim.apply(x, dim, group)
+
+
+class _SplitDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        n = x.shape[dim] // group.size
+        return x.narrow(dim, group.rank * n, n).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather(g.contiguous(), ctx.dim, ctx.group,
+                           "split_dim.grad"), None, None)
+
+
+def split_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of an ``x`` every rank of the
+    group holds whole; no collective forward.  Backward: the blocks'
+    gradients all-gathered, so that upstream sees the whole gradient on
+    every rank, as it would without the split."""
+    if group is None or group.size == 1:
+        return x
+    return _SplitDim.apply(x, dim, group)
 
 
 class _AllToAllDim(torch.autograd.Function):
@@ -293,10 +359,8 @@ def _permute_pair(fwd: torch.Tensor, bwd: torch.Tensor, group,
            dist.P2POp(dist.irecv, recv[1], ranks[(r - 1) % p], group.pg)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    counts["ag_matmul_overlapped"] = counts.get("ag_matmul_overlapped",
-                                                0) + 1
-    nbytes["collective-permute"] = nbytes.get("collective-permute", 0) + \
-        2 * fwd.numel() * fwd.element_size()
+    _count("ag_matmul_overlapped", "collective-permute", fwd, group,
+           2 * fwd.numel() * fwd.element_size())
     return [t.to(dev) if stage else t for t in recv]
 
 

@@ -32,6 +32,26 @@ every collective is counted and every integer output (dispatch slots,
 tile masks, greedy tokens) held bit for bit against one device, which an
 op-propagation layer would hide.
 
+A dim over the data-parallel tuple ``("pod", "data")`` (the multi-pod
+mesh) is one data-parallel group, laid out pod outer as the reference's
+``_dp_axes`` resolve it (``dp_group``); a dim that does not divide its
+axes stays whole.
+
+Sequence parallelism (``activation_context(sequence_parallel=True)``,
+the reference's ``"residual": ("dp", "sp_seq", None)``): between blocks
+each ``model`` rank holds its S / MP rows of the residual stream.  A
+tensor-parallel layer all-gathers its normed input over S (the
+backward reduce-scatters, summing the ranks' partial gradients), opens
+its region with no ``copy_to_model`` (``tp_enter``; a whole weight used
+inside it sums its gradient over ``model`` instead: ``tp_weight``) and
+closes it with a reduce-scatter over S in place of the all-reduce
+(``tp_exit``).  A layer the mesh gathers whole gathers S, does its whole
+work with the flag off and keeps this rank's rows (``seq_call``); the
+replicated weights used on the S shards (the norms) sum their
+gradients over ``model`` (``seq_weights``).  A forward whose S does not
+divide over ``model`` runs with the flag off (``seq_sharded``), and the
+decode never S-shards.
+
 ``activation_context`` is the thread-local the layers consult, as the
 reference's ``_TLS.ctx`` is.  ``_ACT_SPECS`` states each activation's
 layout; ``constrain`` / ``constrain_grad`` are identities here, because
@@ -40,6 +60,7 @@ the explicit code above realises those layouts itself.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import re
 import threading
 from dataclasses import dataclass
@@ -248,6 +269,19 @@ def _dp_size(mesh) -> int:
     return s
 
 
+def dp_group(mesh):
+    """The group of every data-parallel rank of this rank's model index:
+    the ``data`` axis, or the ``("pod", "data")`` tuple on a multi-pod
+    mesh (pod outer)."""
+    return mesh.group(_dp_axes(mesh))
+
+
+def on_dp(spec: Spec) -> bool:
+    """Whether ``spec`` puts a dim on a data-parallel axis."""
+    return any(a in ("pod", "data") for ax in spec if ax is not None
+               for a in ((ax,) if isinstance(ax, str) else ax))
+
+
 # --- activation context -----------------------------------------------------
 
 @dataclass
@@ -310,6 +344,125 @@ def model_group(ctx: Optional[MeshContext] = None):
     return g if g.size > 1 else None
 
 
+def sp_group(ctx: Optional[MeshContext] = None):
+    """The ``model`` group the residual stream is S-sharded over, or None
+    where sequence parallelism is off (or ``model`` has one rank)."""
+    ctx = ctx or current()
+    if ctx is None or not ctx.sequence_parallel:
+        return None
+    return model_group(ctx)
+
+
+@contextlib.contextmanager
+def sequence_parallel(on: bool):
+    """The active context with its sequence-parallel flag ``on``
+    (restored on exit); nothing outside a context."""
+    ctx = getattr(_TLS, "ctx", None)
+    if ctx is None or ctx.sequence_parallel == on:
+        yield
+        return
+    _TLS.ctx = dataclasses.replace(ctx, sequence_parallel=on)
+    try:
+        yield
+    finally:
+        _TLS.ctx = ctx
+
+
+def seq_sharded(seq_len: int):
+    """The context of a forward over ``seq_len`` positions: sequence
+    parallelism stays on only where ``model`` divides them (a dim that
+    does not divide stays whole, as the reference's constraints
+    leave it)."""
+    g = sp_group()
+    return sequence_parallel(g is not None and seq_len % g.size == 0)
+
+
+def seq_split(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's S rows of a whole (replicated) activation; the
+    backward all-gathers the rows' gradients whole."""
+    g = sp_group()
+    if g is None:
+        return x
+    from repro_torch.distributed import collectives as co
+    return co.split_dim(x, dim, g)
+
+
+def seq_gather(x: torch.Tensor, partial_grad: bool, dim: int = 1
+               ) -> torch.Tensor:
+    """The whole S of an S-sharded activation.  ``partial_grad``: what
+    consumes it is a tensor-parallel region whose ranks each hold a
+    part of its gradient (the backward reduce-scatters their sum), else
+    every rank computes the same from it (the backward keeps this
+    rank's rows of the whole gradient)."""
+    g = sp_group()
+    if g is None:
+        return x
+    from repro_torch.distributed import collectives as co
+    return co.all_gather_dim(x, dim, g, reduce_grad=partial_grad)
+
+
+def seq_call(fn, tp: bool, h: torch.Tensor, dim: int = 1):
+    """``fn(h)`` on an S-sharded ``h`` under sequence parallelism (else
+    as it is): a tensor-parallel layer (``tp``) on the gathered rows,
+    closing its region with ``tp_exit``'s reduce-scatter; any other on
+    the gathered rows with the flag off, this rank's rows of its
+    output kept.  ``fn`` returns a tensor or a tuple whose first entry
+    is the output."""
+    g = sp_group()
+    if g is None:
+        return fn(h)
+    hf = seq_gather(h, tp, dim)
+    if tp:
+        return fn(hf)
+    with sequence_parallel(False):
+        out = fn(hf)
+    if isinstance(out, tuple):
+        return (seq_split(out[0], dim),) + tuple(out[1:])
+    return seq_split(out, dim)
+
+
+def seq_weights(tree):
+    """Replicated weights applied to S-sharded activations (the norms):
+    under sequence parallelism each leaf's gradient is summed over
+    ``model`` (``copy_to_model``), each rank having seen its rows only."""
+    g = sp_group()
+    if g is None:
+        return tree
+    from repro_torch.distributed import collectives as co
+    return tree_map(lambda w: co.copy_to_model(w, g), tree)
+
+
+def tp_enter(x: torch.Tensor, group) -> torch.Tensor:
+    """Open a tensor-parallel region over ``group``: Megatron's ``f``
+    (``copy_to_model``), or under sequence parallelism nothing (the
+    input was gathered over S with a reduce-scatter backward)."""
+    from repro_torch.distributed import collectives as co
+    if sp_group() is not None:
+        return x
+    return co.copy_to_model(x, group)
+
+
+def tp_weight(w: torch.Tensor, group) -> torch.Tensor:
+    """A whole weight used inside a tensor-parallel region: under
+    sequence parallelism each rank's gradient of it is a part, summed
+    over ``group``; else it is already whole."""
+    from repro_torch.distributed import collectives as co
+    if sp_group() is None:
+        return w
+    return co.copy_to_model(w, group)
+
+
+def tp_exit(y: torch.Tensor, group, seq_dim: int = 1) -> torch.Tensor:
+    """Close a tensor-parallel region: the ranks' partial sums added,
+    whole (``all_reduce_sum``), or under sequence parallelism this
+    rank's S rows of the sum (``reduce_scatter_dim`` along
+    ``seq_dim``)."""
+    from repro_torch.distributed import collectives as co
+    if sp_group() is not None:
+        return co.reduce_scatter_dim(y, seq_dim, group)
+    return co.all_reduce_sum(y, group)
+
+
 _ACT_SPECS: Dict[str, Tuple] = {
     # (B, S, D) residual stream; S over model axis if sequence-parallel
     "residual": ("dp", "sp_seq", None),
@@ -367,13 +520,6 @@ def shard_leaf(full: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     return out.contiguous().clone() if out is full else out.contiguous()
 
 
-def _axis_groups(mesh, ax):
-    if not isinstance(ax, str):
-        raise NotImplementedError(
-            f"a dim over the axes {ax} (the pod mesh): ROADMAP queue A 7")
-    return mesh.group(ax)
-
-
 def gather_leaf(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     """The whole leaf from every rank's block (``local`` is this rank's),
     one all-gather a sharded dim; the same bits on every rank."""
@@ -382,7 +528,7 @@ def gather_leaf(local: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
     for i, ax in enumerate(spec):
         if ax is None or _axes_size(mesh, ax) == 1:
             continue
-        out = co.all_gather(out, i, _axis_groups(mesh, ax), "gather_leaf")
+        out = co.all_gather(out, i, mesh.group(ax), "gather_leaf")
     return out
 
 
@@ -441,7 +587,7 @@ def use(tree, specs, keep=frozenset(), prefix: str = ""):
             if ax == "model" and p[:-1] in keep:
                 split = mesh.group("model")
                 continue
-            out = co.all_gather_dim(out, i, _axis_groups(mesh, ax),
+            out = co.all_gather_dim(out, i, mesh.group(ax),
                                     reduce_grad=ax != "model")
         if split is not None:
             if out is t:

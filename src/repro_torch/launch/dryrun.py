@@ -21,13 +21,34 @@ with random weights and adds the measured peak (``max_memory_allocated``
 over what was allocated before), the CUDA-event time and the FLOPs
 counted there.
 
+With ``--mesh pod`` (16 x 16 = 256 ranks) or ``--mesh multipod`` (2 x
+16 x 16 = 512) the dry run is rank 0's: this process joins torch's fake
+process group as rank 0 of the production mesh (``launch.mesh.
+dry_mesh``, NCCL's collectives modelled), builds that rank's blocks on
+the meta device (the params and optimizer state under
+``param_sharding`` in ``--param-layout``, by default the config's, with
+``--moe-sharding`` as the expert mode; its rows of the batch under
+``batch_sharding``; the port's own decode cache under the mesh) and runs
+the step under ``op_cost`` inside ``activation_context(mesh,
+sequence_parallel=not --no-seq-parallel)``, every collective called for
+real on meta tensors and counted (``collectives.nbytes``, the bytes of
+groups that span nodes apart: ``ib_nbytes``).  The record holds the
+reference's keys per rank (``n_chips``, ``memory_analysis``' argument
+and temp bytes, ``per_device_gib``, ``fits_80gb`` a rank, the roofline
+with its collective term split between NVLink and InfiniBand,
+``floor_time_s``) and names the cache leaves whose rank block differs
+from the reference's heuristic ``_cache_sharding``
+(``cache_layout_vs_reference``).  As the reference's, a mesh run needs a
+process of its own (the fake group is the process's one group).
+
 Usage (no card needed):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
-      --shape decode_32k [--mor-mode dense|tiled] [--remat ...]
-      [--grad-accum N] [--flash-threshold N] [--out file.json]
-The reference's mesh flags (``--mesh pod|multipod``, ``--no-seq-parallel``,
-``--param-layout``, ``--moe-sharding tp|ep_shmap``) need a device mesh
-and raise: ROADMAP queue A 7.
+      --shape decode_32k [--mesh 1xh100|pod|multipod] [--no-seq-parallel]
+      [--param-layout fsdp_tp|contract_tp] [--moe-sharding ep|tp|ep_shmap]
+      [--mor-mode dense|tiled] [--remat ...] [--grad-accum N]
+      [--flash-threshold N] [--out file.json]
+On one H100 (``1xh100``) the mesh flags change nothing (one card holds
+every block whole) and are recorded.
 """
 from __future__ import annotations
 
@@ -37,14 +58,16 @@ import os
 import sys
 import time
 import traceback
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten
 
 from repro_torch.configs import SHAPES, get_config, input_specs
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.launch import op_cost, roofline
+from repro_torch.distributed import sharding_rules as sr
+from repro_torch.launch import op_cost, roofline, steps
+from repro_torch.launch.mesh import dry_mesh, make_production_mesh
 from repro_torch.launch.steps import (make_prefill, make_serve_step,
                                       make_train_step)
 from repro_torch.models import (cache_shapes, get_model, param_shapes,
@@ -52,11 +75,19 @@ from repro_torch.models import (cache_shapes, get_model, param_shapes,
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.tree import leaves
 
-MESH = "1xh100"                    # the one layout this port runs
+MESH = "1xh100"                    # the default: one card, no mesh
+MESH_KINDS = (MESH, "pod", "multipod")
 SEED = 0                           # the card's random weights and inputs
 CARD_BYTES = 80 * 2 ** 30          # one H100 80GB
-MESH_QUEUE = ("needs a device mesh: ROADMAP queue A 7 of the port (the "
-              "dry run models one H100)")
+
+
+def mesh_shape(mesh_kind: str) -> Optional[Dict[str, int]]:
+    """The production mesh's axis sizes for ``--mesh pod|multipod``,
+    None for one card."""
+    if mesh_kind == MESH:
+        return None
+    return dict(make_production_mesh(
+        multi_pod=mesh_kind == "multipod").shape)
 
 
 def cell_status(cfg: ModelConfig, shape: ShapeSpec) -> str:
@@ -89,36 +120,110 @@ def _random_inputs(specs: Dict[str, torch.Tensor], cfg: ModelConfig,
     return out
 
 
+class MeshArgs(NamedTuple):
+    """A cell's place on a mesh: this rank's ``mesh`` (a
+    ``launch.mesh.HostMesh``: ``dry_mesh``'s on meta, or a real one),
+    the sequence-parallel flag and the param layout."""
+    mesh: Any
+    sequence_parallel: bool = True
+    layout: str = "fsdp_tp"
+
+
+def rank_trees(cfg: ModelConfig, mesh, layout: str, params,
+               data) -> Tuple[Any, Dict[str, torch.Tensor]]:
+    """-> (this rank's blocks of ``params`` under ``param_sharding`` in
+    ``layout`` with the config's expert mode, its ``batch_sharding``
+    rows of the global batch ``data``)."""
+    params = sr.shard_tree(params, steps.mesh_specs(cfg, mesh, layout),
+                           mesh)
+    return params, {k: steps.local_rows(v, mesh) for k, v in data.items()}
+
+
 def _cell(cfg: ModelConfig, shape: ShapeSpec, mor_mode: str,
-          opt_cfg: OptConfig, device, gen=None):
+          opt_cfg: OptConfig, device, gen=None, on: MeshArgs = None):
     """-> (step thunk, argument trees) of the cell on ``device``: meta
-    trees, or real ones on the card (random weights from ``gen``)."""
+    trees, or real ones on the card (random weights from ``gen``); on a
+    mesh (``on``) this rank's blocks of them (the step is handed the
+    global batch and takes its rows)."""
     api = get_model(cfg)
     meta = torch.device(device).type == "meta"
     params = param_shapes(cfg) if meta else api.init(gen, cfg)
     specs = input_specs(cfg, shape, device="meta")
     data = specs if meta else _random_inputs(specs, cfg, gen, device)
+    local, kw = data, {}
+    if on is not None:
+        params, local = rank_trees(cfg, on.mesh, on.layout, params, data)
+        kw = dict(mesh=on.mesh, sequence_parallel=on.sequence_parallel,
+                  param_layout=on.layout)
     if shape.kind == "train":
         opt = adamw_init(params, opt_cfg)
-        step = make_train_step(cfg, opt_cfg)
+        step = make_train_step(cfg, opt_cfg, **kw)
         return (lambda: step(params, opt, data)), {
-            "params": params, "opt": opt, "inputs": data}
+            "params": params, "opt": opt, "inputs": local}
     if shape.kind == "prefill":
-        fn = make_prefill(cfg, mor_mode=mor_mode)
+        fn = make_prefill(cfg, mor_mode=mor_mode, **kw)
 
         def prefill():
             with torch.no_grad():
                 return fn(params, data)
-        return prefill, {"params": params, "inputs": data}
-    cache = (cache_shapes(cfg, shape.global_batch, shape.seq_len) if meta
-             else api.cache_init(cfg, shape.global_batch, shape.seq_len,
-                                 cfg.tdtype, device))
-    step = make_serve_step(cfg, mor_mode=mor_mode)
+        return prefill, {"params": params, "inputs": local}
+    if on is not None:
+        cache = steps.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                 device, mesh=on.mesh)
+    elif meta:
+        cache = cache_shapes(cfg, shape.global_batch, shape.seq_len)
+    else:
+        cache = api.cache_init(cfg, shape.global_batch, shape.seq_len,
+                               cfg.tdtype, device)
+    step = make_serve_step(cfg, mor_mode=mor_mode, **kw)
 
     def serve():
         with torch.no_grad():
             return step(params, cache, data["tokens"])
-    return serve, {"params": params, "cache": cache, "inputs": data}
+    return serve, {"params": params, "cache": cache, "inputs": local}
+
+
+def _reference_cache_spec(shape: Tuple[int, ...], mesh) -> Tuple:
+    """The reference's heuristic ``_cache_sharding`` of one cache leaf
+    (``repro.launch.dryrun._cache_sharding``): dim 1 over the
+    data-parallel axes where they divide it, the largest later dim
+    that ``model`` divides over ``model``."""
+    dp_axes = sr._dp_axes(mesh)
+    dp = sr._dp_size(mesh)
+    mp = mesh.shape.get("model", 1)
+    spec = [None] * len(shape)
+    if len(shape) >= 2 and shape[1] % dp == 0 and shape[1] >= dp:
+        spec[1] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    best, best_dim = 0, -1
+    for i in range(2, len(shape)):
+        if shape[i] % mp == 0 and shape[i] > best:
+            best, best_dim = shape[i], i
+    if best_dim >= 0 and mp > 1:
+        spec[best_dim] = "model"
+    return tuple(spec)
+
+
+def cache_layout_vs_reference(cfg: ModelConfig, shape: ShapeSpec,
+                              local_cache, mesh) -> Dict[str, Dict]:
+    """{cache leaf: {"port", "reference_heuristic"} block shapes} of the
+    leaves whose rank block under the port's own cache layout (the
+    sequence-sharded GQA ring, the data rank's rows) differs from the
+    reference's heuristic ``_cache_sharding`` block."""
+    from repro_torch.tree import paths
+    whole = paths(cache_shapes(cfg, shape.global_batch, shape.seq_len))
+    mine = paths(local_cache)
+    out = {}
+    for k in sorted(set(whole) | set(mine)):
+        ref = None
+        if k in whole:
+            full = tuple(whole[k].shape)
+            spec = _reference_cache_spec(full, mesh)
+            ref = tuple(n // (sr._axes_size(mesh, ax) if ax else 1)
+                        for n, ax in zip(full, spec))
+        got = tuple(mine[k].shape) if k in mine else None
+        if got != ref:
+            out[k] = {"port": got, "reference_heuristic": ref}
+    return out
 
 
 class Counted(NamedTuple):
@@ -153,10 +258,10 @@ def result_bytes(out, cache=None) -> int:
 
 def count_cell(cfg: ModelConfig, shape: ShapeSpec, *,
                mor_mode: str = "dense", opt_cfg: Optional[OptConfig] = None,
-               device="meta") -> Counted:
+               device="meta", on: MeshArgs = None) -> Counted:
     """Build the cell's arguments on ``device`` (meta trees, or random
-    weights from ``SEED`` elsewhere) and run its step once under an
-    ``OpCounter``."""
+    weights from ``SEED`` elsewhere; this rank's blocks on a mesh,
+    ``on``) and run its step once under an ``OpCounter``."""
     opt_cfg = opt_cfg or OptConfig()
     on_card = torch.device(device).type == "cuda"
     gen = (None if torch.device(device).type == "meta"
@@ -164,7 +269,7 @@ def count_cell(cfg: ModelConfig, shape: ShapeSpec, *,
     if on_card:
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
-    step, trees = _cell(cfg, shape, mor_mode, opt_cfg, device, gen)
+    step, trees = _cell(cfg, shape, mor_mode, opt_cfg, device, gen, on)
     args = {k: tree_bytes(v) for k, v in trees.items()}
     card = None
     if on_card:
@@ -184,8 +289,8 @@ def count_cell(cfg: ModelConfig, shape: ShapeSpec, *,
 
 def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
                  mor_mode: str = "dense", opt_cfg: Optional[OptConfig] = None,
-                 device="meta", flush=None,
-                 time_iters: int = 10) -> Dict[str, Any]:
+                 device="meta", flush=None, time_iters: int = 10,
+                 on: MeshArgs = None) -> Dict[str, Any]:
     """The cell's record: memory (``argument_bytes`` by tree,
     ``peak_temp_bytes``, ``per_device_bytes``, ``fits_80gb``), the
     op-level cost and its roofline summary with the implementation's
@@ -194,13 +299,25 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
     arguments' and the peak bytes allocated over what was allocated
     before, the step's own peak, FLOPs and bytes counted there, mean ms
     of a step over ``time_iters`` calls timed by ``timing.device_ms``
-    with the L2 ``flush`` buffer)."""
+    with the L2 ``flush`` buffer).  On a mesh (``on``) every number is
+    this rank's, and the record adds ``n_chips``, the collectives run
+    (``collectives``: counts, bytes by kind, the bytes of groups that
+    span nodes) and, for a decode, ``cache_layout_vs_reference``."""
+    from repro_torch.distributed import collectives as co
     t0 = time.perf_counter()
-    counted = count_cell(cfg, shape, mor_mode=mor_mode, opt_cfg=opt_cfg)
+    co.reset_counts()
+    counted = count_cell(cfg, shape, mor_mode=mor_mode, opt_cfg=opt_cfg,
+                         on=on)
     cost = counted.counter.result()
     arg_bytes = sum(counted.args.values())
     per_dev = arg_bytes + cost["peak_live_bytes"]
-    rec = {"argument_bytes": arg_bytes,
+    n_chips = 1 if on is None else on.mesh.size
+    rec = {"n_chips": n_chips,
+           "memory_analysis": {
+               "argument_size_in_bytes": arg_bytes,
+               "temp_size_in_bytes": cost["peak_live_bytes"],
+               "output_size_in_bytes": counted.results},
+           "argument_bytes": arg_bytes,
            "argument_bytes_by_tree": counted.args,
            "result_bytes": counted.results,
            "peak_temp_bytes": cost["peak_live_bytes"],
@@ -209,9 +326,18 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
            "fits_80gb": per_dev < CARD_BYTES,
            "cost": cost,
            "roofline": roofline.summarize(
-               cost, cfg, shape, 1,
+               cost, cfg, shape, n_chips,
                floor_bytes=arg_bytes + counted.results),
            "meta_s": round(time.perf_counter() - t0, 3)}
+    if on is not None:
+        rec["collectives"] = {"counts": dict(co.counts),
+                              "bytes_by_kind": dict(co.nbytes),
+                              "ib_bytes_by_kind": dict(co.ib_nbytes)}
+        if shape.kind == "decode":
+            cache = steps.init_cache(cfg, shape.global_batch, shape.seq_len,
+                                     "meta", mesh=on.mesh)
+            rec["cache_layout_vs_reference"] = cache_layout_vs_reference(
+                cfg, shape, cache, on.mesh)
     if torch.device(device).type == "cuda":
         rec["card"] = _on_card(cfg, shape, mor_mode, opt_cfg, device,
                                flush, time_iters)
@@ -237,28 +363,28 @@ def _on_card(cfg, shape, mor_mode, opt_cfg, device, flush,
             "ms": ms, "time_iters": time_iters}
 
 
-def _check_mesh(mesh_kind, seq_parallel, layout, moe_sharding) -> None:
-    if mesh_kind != MESH or not seq_parallel or layout is not None \
-            or moe_sharding not in (None, "ep"):
-        raise NotImplementedError(
-            f"mesh {mesh_kind!r}, seq_parallel {seq_parallel}, "
-            f"param_layout {layout!r}, moe_sharding {moe_sharding!r}: "
-            f"{MESH_QUEUE}")
-
-
 def run_cell(arch: str, shape_name: str, mesh_kind: str = MESH, *,
              seq_parallel: bool = True, mor_mode: str = "dense",
              remat: str = None, grad_accum: int = None,
              moe_sharding: str = None, out_path: str = None,
              layout: str = None, flash_threshold: int = None) -> dict:
-    """The reference's ``run_cell`` on one H100, on the meta device: the
-    cell's record (``status`` "ok", a skip reason or "error: ..."),
-    written to ``out_path`` when given.  ``flash_threshold`` overrides
-    the config's (the attention layers read it from the config, as the
-    train and serve paths do).  A mesh argument raises (queue A 7); "ep"
-    expert sharding is what one card holds (every expert local)."""
-    _check_mesh(mesh_kind, seq_parallel, layout, moe_sharding)
+    """The reference's ``run_cell`` on the meta device: the cell's record
+    (``status`` "ok", a skip reason or "error: ..."), written to
+    ``out_path`` when given.  ``mesh_kind`` "pod" / "multipod" runs rank
+    0 of the production mesh on the fake process group (``dry_mesh``:
+    this process must hold no other process group), "1xh100" one card.
+    ``layout`` (default: the config's ``param_layout``) and
+    ``moe_sharding`` (the config's ``expert_sharding``) place the
+    params, ``seq_parallel`` S-shards the residual stream; on one card
+    they change nothing.  ``flash_threshold`` overrides the config's
+    (the attention layers read it from the config, as the train and
+    serve paths do)."""
+    if mesh_kind not in MESH_KINDS:
+        raise ValueError(f"mesh {mesh_kind!r}: one of {MESH_KINDS}")
     cfg = get_config(arch)
+    layout = layout or cfg.param_layout
+    if moe_sharding:
+        cfg = cfg.replace(expert_sharding=moe_sharding)
     if remat:
         cfg = cfg.replace(remat=remat)
     if grad_accum:
@@ -267,8 +393,10 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = MESH, *,
         cfg = cfg.replace(flash_threshold=flash_threshold)
     shape = SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind,
+           "seq_parallel": seq_parallel, "layout": layout,
            "mor_mode": mor_mode, "remat": cfg.remat,
            "grad_accum": cfg.grad_accum, "moe_sharding": moe_sharding,
+           "expert_sharding": cfg.expert_sharding,
            "flash_threshold": cfg.flash_threshold, "device": "meta"}
     status = cell_status(cfg, shape)
     if status != "run":
@@ -277,14 +405,26 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = MESH, *,
         _write(rec, out_path)
         return rec
     try:
-        rec.update(measure_cell(cfg, shape, mor_mode=mor_mode))
+        mshape = mesh_shape(mesh_kind)
+        if mshape is None:
+            rec.update(measure_cell(cfg, shape, mor_mode=mor_mode))
+        else:
+            with dry_mesh(mshape, backend="nccl") as mesh:
+                rec.update(measure_cell(cfg, shape, mor_mode=mor_mode,
+                                        on=MeshArgs(mesh, seq_parallel,
+                                                    layout)))
+            rec["mesh_shape"] = mshape
         rec["status"] = "ok"
         rl = rec["roofline"]
+        coll = ""
+        if "n_chips" in rec and rec["n_chips"] > 1:
+            coll = (f"collective {rl['t_collective_s'] * 1e3:.3f} ms "
+                    f"(InfiniBand {rl['t_collective_ib_s'] * 1e3:.3f} ms), ")
         print(f"[dryrun] {arch} x {shape_name} x {mesh_kind}: OK "
               f"({rec['meta_s']:.1f}s on meta, {rec['per_device_gib']} "
               f"GiB/dev, fits_80gb={rec['fits_80gb']}, "
               f"dominant={rl['dominant']}, "
-              f"roofline_frac={rl['roofline_fraction']:.3f}, floor "
+              f"roofline_frac={rl['roofline_fraction']:.3f}, {coll}floor "
               f"{rl['floor_dominant']} {rl['floor_time_s'] * 1e3:.3f} ms)")
     except Exception as e:  # noqa: BLE001 -- record the failure, go on
         rec["status"] = f"error: {type(e).__name__}: {e}"
@@ -306,8 +446,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", required=True, choices=sorted(SHAPES))
-    ap.add_argument("--mesh", default=MESH,
-                    choices=(MESH, "pod", "multipod"))
+    ap.add_argument("--mesh", default=MESH, choices=MESH_KINDS)
     ap.add_argument("--out", default=None)
     ap.add_argument("--no-seq-parallel", action="store_true")
     ap.add_argument("--mor-mode", default="dense", choices=("dense", "tiled"))

@@ -1,6 +1,8 @@
 """The meshes (``repro.launch.mesh``): the ``("data", "model")`` host
-mesh of training and tensor-parallel serving (``make_host_mesh``), the
-production mesh's shape (``make_production_mesh``), the page group of
+mesh of training and tensor-parallel serving, with a ``"pod"`` axis
+outside them on the multi-pod layout (``make_host_mesh``), the
+production mesh's shape (``make_production_mesh``) and its ranks on a
+fake process group for the dry run (``dry_mesh``), the page group of
 the ``paged-sharded`` serving layout (``make_page_mesh``'s counterpart:
 a mesh over the page axis, ``distributed.PAGE_AXIS``), and the launcher
 of their rank processes (``run_ranks``).
@@ -14,9 +16,16 @@ gloo on the CPU and where ranks share a card (NCCL refuses two ranks on
 one device; gloo stages CUDA tensors through the host).  The rendezvous
 is a ``file://`` in the run's temporary directory, so no port is chosen
 and no network is used.
+
+Every group knows its world ranks, so that the collectives can tell the
+bytes that cross a node (``NODE_CARDS`` cards on NVLink a node, nodes
+joined by InfiniBand: ``PageGroup.spans_nodes``) from those that stay
+inside one, as the reference tells a pod's ICI from the DCI between
+pods.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import tempfile
 from dataclasses import dataclass
@@ -25,18 +34,29 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+# cards a node: an HGX / DGX H100 node joins 8 cards by NVLink (NVSwitch);
+# its nodes are joined by InfiniBand
+NODE_CARDS = 8
+
 
 @dataclass
 class PageGroup:
     """One rank's place in a group of ranks (the page group, or one axis
     of a host mesh): its index in the group, the group's size, the
     process group its collectives run on (None for a group of one), its
-    device and the backend."""
+    device, the backend, and its members' world ranks in group order."""
     rank: int
     size: int
     pg: Any
     device: torch.device
     backend: str
+    ranks: Tuple[int, ...] = ()
+
+    @property
+    def spans_nodes(self) -> bool:
+        """Whether the group's ranks lie on more than one node of
+        ``NODE_CARDS`` cards (world rank // NODE_CARDS)."""
+        return len({r // NODE_CARDS for r in self.ranks}) > 1
 
 
 def page_backend(device, n_shards: int) -> str:
@@ -62,7 +82,8 @@ def make_page_group(n_shards: int, rank: int, init_file: str,
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             world_size=n_shards, rank=rank)
-    return PageGroup(rank, n_shards, dist.group.WORLD, device, backend)
+    return PageGroup(rank, n_shards, dist.group.WORLD, device, backend,
+                     tuple(range(n_shards)))
 
 
 @dataclass
@@ -83,73 +104,148 @@ class MeshShape:
 
 @dataclass
 class HostMesh(MeshShape):
-    """This rank's place on a ``("data", "model")`` mesh of processes:
-    its world rank, its coordinates, and the process groups of its row
-    (``groups["model"]``: the ranks of its data index), of its column
-    (``groups["data"]``) and of every rank (``groups["world"]``)."""
+    """This rank's place on a ``("data", "model")`` (or ``("pod",
+    "data", "model")``) mesh of processes: its world rank, its
+    coordinates, and the process groups of its row (``groups["model"]``:
+    the ranks of its data index), of its column (``groups["data"]``), of
+    its pod column (``groups["pod"]``), of every data-parallel rank of
+    its model index (``groups[("pod", "data")]``: the tuple axis, pod
+    outer) and of every rank (``groups["world"]``)."""
     rank: int = 0
     coords: Dict[str, int] = None
-    groups: Dict[str, PageGroup] = None
+    groups: Dict[Any, PageGroup] = None
     device: torch.device = None
     backend: str = "gloo"
 
-    def index(self, axis: str) -> int:
-        return self.coords[axis]
+    def index(self, axis) -> int:
+        """The rank's coordinate on ``axis``, or on a tuple of axes its
+        index in their row-major product (the first axis outer)."""
+        if isinstance(axis, str):
+            return self.coords[axis]
+        idx = 0
+        for a in axis:
+            idx = idx * self.shape[a] + self.coords[a]
+        return idx
 
-    def group(self, axis: str) -> PageGroup:
-        return self.groups[axis]
+    def group(self, axis) -> PageGroup:
+        """The group of ``axis``: a name, or a tuple of names (one name
+        in a tuple is that axis)."""
+        if not isinstance(axis, str) and len(axis) == 1:
+            axis = axis[0]
+        return self.groups[axis if isinstance(axis, str) else tuple(axis)]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
     """16 x 16 = 256 chips a pod; 2 pods = 512 chips multi-pod: the
-    shape and names only.  The port runs no such mesh (ROADMAP queue A
-    7: ``--mesh pod`` needs 256 ranks)."""
+    shape and names (``dry_mesh`` joins its ranks on a fake process
+    group; ``make_host_mesh(16, pods=)`` on a world of as many ranks)."""
     if multi_pod:
         return MeshShape(("pod", "data", "model"),
                          {"pod": 2, "data": 16, "model": 16})
     return MeshShape(("data", "model"), {"data": 16, "model": 16})
 
 
-def make_host_mesh(model_parallel: int = 1, device=None) -> HostMesh:
-    """The ``(data, model)`` mesh over this job's ranks: every rank of
+def make_host_mesh(model_parallel: int = 1, device=None, pods: int = 1,
+                   backend: Optional[str] = None) -> HostMesh:
+    """The ``(data, model)`` mesh over this job's ranks (``("pod",
+    "data", "model")`` where ``pods`` > 1): every rank of
     ``torch.distributed``'s world (one process and no groups when it is
-    not initialised), ``model_parallel`` ranks a row.  Ranks are laid
-    out as ``jax.make_mesh`` lays out devices, row-major: rank = data
-    index x model_parallel + model index.  Every rank must call it, in
-    the same order as any other group it makes: it makes one process
-    group a row and one a column (a group of one rank has none)."""
+    not initialised), ``model_parallel`` ranks a row, ``pods`` pods.
+    Ranks are laid out as ``jax.make_mesh`` lays out devices, row-major,
+    the pod outer: rank = (pod x data + data index) x model_parallel +
+    model index.  Every rank must call it, in the same order as any
+    other group it makes: it makes one process group a row, a column, a
+    pod column and a data-parallel tuple (a group of one rank has none).
+    ``backend`` states the collectives' backend where the world's
+    differs from it (``dry_mesh``'s fake group models NCCL or gloo)."""
     init = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if init else 1
     rank = dist.get_rank() if init else 0
-    if model_parallel < 1 or world % model_parallel:
-        raise ValueError(f"{world} ranks do not divide into rows of "
-                         f"model_parallel={model_parallel}")
-    dp, mp = world // model_parallel, model_parallel
-    backend = dist.get_backend() if init else "gloo"
+    if model_parallel < 1 or pods < 1 or world % (model_parallel * pods):
+        raise ValueError(f"{world} ranks do not divide into {pods} pod(s) "
+                         f"of rows of model_parallel={model_parallel}")
+    pp, mp = pods, model_parallel
+    dp = world // (mp * pp)
+    backend = backend or (dist.get_backend() if init else "gloo")
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if torch.cuda.is_available() and backend == "nccl"
                   else torch.device("cpu"))
     device = torch.device(device)
-    di, mi = divmod(rank, mp)
-    groups: Dict[str, PageGroup] = {}
-    rows = [[i * mp + j for j in range(mp)] for i in range(dp)]
-    cols = [[i * mp + j for i in range(dp)] for j in range(mp)]
-    for axis, sets, mine, idx in (("model", rows, di, mi),
-                                  ("data", cols, mi, di)):
-        n = len(sets[0])
-        pg = None
-        for k, group_ranks in enumerate(sets):
-            g = dist.new_group(group_ranks) if n > 1 else None
-            if k == mine:
-                pg = g
-        groups[axis] = PageGroup(idx, n, pg, device, backend)
+    names = ("pod", "data", "model") if pp > 1 else ("data", "model")
+    shape = {"pod": pp, "data": dp, "model": mp}
+    pi, rest = divmod(rank, dp * mp)
+    di, mi = divmod(rest, mp)
+    coords = {"pod": pi, "data": di, "model": mi}
+
+    def at(c):
+        return (c["pod"] * dp + c["data"]) * mp + c["model"]
+
+    groups: Dict[Any, PageGroup] = {}
+    # one group each over the axes ``vary``, one per value of the others
+    for key, vary in (("model", ("model",)), ("data", ("data",)),
+                      ("pod", ("pod",)), (("pod", "data"), ("pod", "data"))):
+        if "pod" in vary and pp == 1:
+            continue
+        fixed = [a for a in ("pod", "data", "model") if a not in vary]
+        n = 1
+        for a in vary:
+            n *= shape[a]
+        mine = None
+        for fix in _product([shape[a] for a in fixed]):
+            members = []
+            for var in _product([shape[a] for a in vary]):
+                c = dict(zip(fixed, fix))
+                c.update(zip(vary, var))
+                members.append(at(c))
+            pg = dist.new_group(members) if n > 1 else None
+            if all(coords[a] == v for a, v in zip(fixed, fix)):
+                mine = PageGroup(members.index(rank), n, pg, device,
+                                 backend, tuple(members))
+        groups[key] = mine
+    if pp == 1:
+        # one pod: the data-parallel tuple is the data axis
+        groups[("pod", "data")] = groups["data"]
     groups["world"] = PageGroup(rank, world,
                                 dist.group.WORLD if init else None,
-                                device, backend)
-    return HostMesh(("data", "model"), {"data": dp, "model": mp},
-                    rank=rank, coords={"data": di, "model": mi},
-                    groups=groups, device=device, backend=backend)
+                                device, backend, tuple(range(world)))
+    return HostMesh(names, {a: shape[a] for a in names}, rank=rank,
+                    coords={a: coords[a] for a in names}, groups=groups,
+                    device=device, backend=backend)
+
+
+def _product(sizes):
+    """Every index tuple of a grid of ``sizes``, row-major."""
+    out = [()]
+    for n in sizes:
+        out = [t + (i,) for t in out for i in range(n)]
+    return out
+
+
+@contextlib.contextmanager
+def dry_mesh(shape: Dict[str, int], rank: int = 0, backend: str = "nccl"):
+    """This process as rank ``rank`` of a mesh of ``shape`` ({"data",
+    "model"} and optionally "pod", e.g. ``make_production_mesh()
+    .shape``) on torch's fake process group: the same groups as
+    ``make_host_mesh`` builds, on the meta device, whose collectives
+    return at once and move nothing, so that one process can run one
+    rank's step on meta tensors under the real collective calls (the
+    dry run: ``launch.dryrun``; never a serving or training path).
+    ``backend`` is the one the collectives model: "nccl" (a cluster of
+    one rank a card) or "gloo" (the ranks of ``run_ranks``).  The
+    process group is destroyed on exit.  Needs a process of its own
+    (no other process group may be live)."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = 1
+    for v in shape.values():
+        world *= v
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world)
+    try:
+        yield make_host_mesh(shape["model"], device="meta",
+                             pods=shape.get("pod", 1), backend=backend)
+    finally:
+        dist.destroy_process_group()
 
 
 def _rank_main(rank: int, fn: Callable, n_shards: int, device: str,

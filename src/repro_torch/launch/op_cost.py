@@ -36,7 +36,8 @@ meta, CPU and CUDA tensors alike.
   inside still count as live (on the card its result and any padded
   operand; on the CPU the plain version's temporaries too).
 - **Collectives**: the bytes ``distributed.collectives`` records by kind
-  while the step runs (``coll_bytes_by_type``).
+  while the step runs (``coll_bytes_by_type``), and the part of them
+  whose group spans nodes (``coll_ib_bytes_by_type``: InfiniBand).
 """
 from __future__ import annotations
 
@@ -134,7 +135,8 @@ class OpCounter(TorchDispatchMode):
     After the ``with`` block: ``flops``, ``bytes``, ``peak_live_bytes``,
     ``by_op`` {op: {"calls", "flops", "bytes"}}, ``kernels`` {name:
     {"calls", "bytes", "ops", "kind"}}, ``coll_bytes_by_type`` {kind:
-    bytes}.  ``result()`` gathers them."""
+    bytes}, ``coll_ib_bytes_by_type`` (those that crossed a node).
+    ``result()`` gathers them."""
 
     def __init__(self):
         super().__init__()
@@ -146,9 +148,11 @@ class OpCounter(TorchDispatchMode):
         self.live = 0
         self.peak_live_bytes = 0
         self.coll_bytes_by_type: Dict[str, int] = {}
+        self.coll_ib_bytes_by_type: Dict[str, int] = {}
         self._tracked: Dict[int, Any] = {}
         self._hidden = 0
         self._coll0: Dict[str, int] = {}
+        self._ib0: Dict[str, int] = {}
 
     # -- the storages an op allocates ---------------------------------
     def _release(self, key: int, nbytes: int) -> None:
@@ -229,15 +233,16 @@ class OpCounter(TorchDispatchMode):
     def __enter__(self):
         from repro_torch.distributed import collectives
         self._coll0 = dict(collectives.nbytes)
+        self._ib0 = dict(collectives.ib_nbytes)
         kernel_launch.cost_counters.append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
         from repro_torch.distributed import collectives
         kernel_launch.cost_counters.remove(self)
-        self.coll_bytes_by_type = {
-            k: v - self._coll0.get(k, 0) for k, v in
-            collectives.nbytes.items() if v != self._coll0.get(k, 0)}
+        self.coll_bytes_by_type = _since(collectives.nbytes, self._coll0)
+        self.coll_ib_bytes_by_type = _since(collectives.ib_nbytes,
+                                            self._ib0)
         return super().__exit__(*exc)
 
     def result(self, top: int = 20) -> Dict[str, Any]:
@@ -246,9 +251,15 @@ class OpCounter(TorchDispatchMode):
         return {"flops": float(self.flops), "bytes": float(self.bytes),
                 "coll_bytes_by_type": dict(self.coll_bytes_by_type),
                 "coll_bytes": float(sum(self.coll_bytes_by_type.values())),
+                "coll_ib_bytes_by_type": dict(self.coll_ib_bytes_by_type),
                 "peak_live_bytes": int(self.peak_live_bytes),
                 "by_op": {k: dict(v) for k, v in ranked[:top]},
                 "kernels": {k: dict(v) for k, v in self.kernels.items()}}
+
+
+def _since(now: Dict[str, int], then: Dict[str, int]) -> Dict[str, int]:
+    return {k: v - then.get(k, 0) for k, v in now.items()
+            if v != then.get(k, 0)}
 
 
 def analyze(fn: Callable, *args, top: int = 20, **kwargs) -> Dict[str, Any]:

@@ -4,12 +4,17 @@
 Three terms a step, in seconds a step a card:
   compute    = FLOPs / PEAK_FLOPS (the dense bf16 tensor-core rate)
   memory     = bytes / HBM_BW
-  collective = wire bytes / NVLINK_BW
+  collective = wire bytes inside a node / NVLINK_BW
+               + wire bytes that cross nodes / IB_BW
 
 The FLOPs and bytes come from ``launch.op_cost`` (the aten ops a step
 runs, loops counted per trip), the wire bytes from the collectives the
 step ran (``distributed.collectives.nbytes``) times the reference's
-ring factors (``collective_wire_bytes``).  Those bytes are the eager op
+ring factors (``collective_wire_bytes``); a collective whose group's
+ranks lie on more than one 8-card node is charged whole at the
+InfiniBand rate (``collectives.ib_nbytes``: the reference charges a
+collective whose replica group spans pods at its DCI rate the same
+way), the others at NVLink's.  Those bytes are the eager op
 stream's (every op's operands and results, unfused), so the memory term
 and ``bound_time_s`` read the program as it runs: fusing ops lowers
 them with its time.  ``summarize(..., floor_bytes=)`` adds a floor that
@@ -32,6 +37,10 @@ PEAK_FLOPS = PEAK_OPS["bf16"]      # a bf16 model's products
 HBM_BW = 3.35e12                   # bytes/s: HBM3, H100 SXM5 data sheet
 NVLINK_BW = 450e9                  # bytes/s a direction: NVLink 4, 900
                                    # GB/s bidirectional (data sheet)
+# bytes/s a card between nodes: one NDR InfiniBand port of 400 Gb/s a
+# card (NVIDIA DGX H100 data sheet: 8 single-port ConnectX-7 VPI
+# adapters, up to 400 Gb/s InfiniBand each, for the compute fabric)
+IB_BW = 400e9 / 8
 
 # ring-wire factors (the reference's ``_FACTORS``): an all-reduce moves
 # its buffer about twice, the others about once
@@ -49,11 +58,18 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> Tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def collective_wire_bytes(nbytes_by_kind: Dict[str, float]) -> Dict:
-    """Buffer bytes by collective kind -> {kind: wire bytes,
-    "total_wire_bytes"}, with the reference's ring factors."""
+def collective_wire_bytes(nbytes_by_kind: Dict[str, float],
+                          ib_by_kind: Dict[str, float] = None) -> Dict:
+    """Buffer bytes by collective kind (and the part of them whose group
+    spans nodes, ``ib_by_kind``) -> {kind: wire bytes,
+    "total_wire_bytes", and given ``ib_by_kind`` "ib_wire_bytes"}, with the reference's ring
+    factors; ``ib_wire_bytes`` is the port's counterpart of the
+    reference's ``dci_bytes``."""
     out = {k: _FACTORS[k] * float(v) for k, v in nbytes_by_kind.items()}
     out["total_wire_bytes"] = sum(out.values())
+    if ib_by_kind is not None:
+        out["ib_wire_bytes"] = sum(_FACTORS[k] * float(v)
+                                   for k, v in ib_by_kind.items())
     return out
 
 
@@ -64,18 +80,24 @@ def roofline_terms(cost: Dict, collectives: Dict) -> Dict:
     flops = float(cost.get("flops", 0.0))
     hbm = float(cost.get("bytes accessed", 0.0))
     wire = float(collectives.get("total_wire_bytes", 0.0))
+    ib = float(collectives.get("ib_wire_bytes", 0.0))
     t_compute = flops / PEAK_FLOPS
     t_memory = hbm / HBM_BW
-    t_coll = wire / NVLINK_BW
+    t_nvlink = (wire - ib) / NVLINK_BW
+    t_ib = ib / IB_BW
+    t_coll = t_nvlink + t_ib
     dominant = max((("compute", t_compute), ("memory", t_memory),
                     ("collective", t_coll)), key=lambda kv: kv[1])[0]
     return {
         "flops_per_chip": flops,
         "bytes_per_chip": hbm,
         "wire_bytes_per_chip": wire,
+        "ib_wire_bytes_per_chip": ib,
         "t_compute_s": t_compute,
         "t_memory_s": t_memory,
         "t_collective_s": t_coll,
+        "t_collective_nvlink_s": t_nvlink,
+        "t_collective_ib_s": t_ib,
         "dominant": dominant,
         "bound_time_s": max(t_compute, t_memory, t_coll),
     }
@@ -120,7 +142,8 @@ def summarize(cost: Dict, cfg, shape, n_chips: int = 1,
     the model needs (``useful_flop_ratio``), the model FLOPs' time at
     peak over the bound (``roofline_fraction``) and, given
     ``floor_bytes``, the step's floor (``floor_terms``)."""
-    colls = collective_wire_bytes(cost.get("coll_bytes_by_type", {}))
+    colls = collective_wire_bytes(cost.get("coll_bytes_by_type", {}),
+                                  cost.get("coll_ib_bytes_by_type", {}))
     terms = roofline_terms({"flops": cost["flops"],
                             "bytes accessed": cost["bytes"]}, colls)
     mf = model_flops(cfg, shape, n_chips)

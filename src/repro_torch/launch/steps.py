@@ -17,7 +17,20 @@ batch is the global one, of which each data rank runs its
 ``batch_sharding`` slice, and the model code runs under
 ``activation_context`` (gather-on-use, tensor parallelism, expert
 slicing, the sequence-sharded decode).  Tokens come back whole on
-every rank.
+every rank.  The mesh may be the multi-pod one (``make_host_mesh(...,
+pods=)``): the data-parallel reductions then run over the ``("pod",
+"data")`` tuple (``sharding_rules.dp_group``).
+
+``make_train_step`` and ``make_prefill`` take ``sequence_parallel``
+(the residual stream S-sharded over ``model`` between blocks:
+``sharding_rules``) and ``param_layout``: "fsdp_tp" (the reference's
+train.py's) or "contract_tp" (``_PARAM_RULES_CONTRACT``: the weights'
+contraction dim on ``model``).  The tensor-parallel layers consume
+"fsdp_tp"'s splits only (heads, d_ff and vocabulary on the output dim);
+where a layer's tensor-parallel form does not consume a leaf's split,
+as none consumes "contract_tp"'s contraction splits (the vocabulary
+split of the embedding apart), the leaf is gathered whole where it is
+used, and the layer computes as one device would.
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as co
 from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models import get_model
+from repro_torch.models.transformer import full_logits
 from repro_torch.optim import OptConfig, adamw_init, adamw_update
 from repro_torch.optim.schedules import cosine_schedule
 from repro_torch.tree import leaves, unflatten
@@ -64,13 +78,14 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return (torch.log(sumexp) + m - gold).mean()
 
 
-def mesh_specs(cfg: ModelConfig, mesh):
+def mesh_specs(cfg: ModelConfig, mesh, layout: str = "fsdp_tp"):
     """``param_sharding`` of the config's params (their shapes on the
     meta device) on ``mesh``, the expert mode its ``expert_sharding``
-    asks for, in the "fsdp_tp" layout (the reference's train.py's)."""
+    asks for, in ``layout`` (by default "fsdp_tp", the reference's
+    train.py's)."""
     from repro_torch.models import param_shapes
     return sr.param_sharding(param_shapes(cfg), mesh,
-                             moe_mode=sr.moe_mode_of(cfg))
+                             moe_mode=sr.moe_mode_of(cfg), layout=layout)
 
 
 def opt_specs(opt_state, specs):
@@ -81,10 +96,10 @@ def opt_specs(opt_state, specs):
     return out
 
 
-def _context(mesh, specs):
+def _context(mesh, specs, sequence_parallel: bool = False):
     if mesh is None:
         return contextlib.nullcontext()
-    return sr.activation_context(mesh, specs=specs)
+    return sr.activation_context(mesh, sequence_parallel, specs=specs)
 
 
 def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -101,7 +116,7 @@ def _whole_rows(x: torch.Tensor, mesh, n: int) -> torch.Tensor:
     if mesh is None or getattr(mesh, "groups", None) is None or \
             x.shape[0] == n:
         return x
-    return co.all_gather(x, 0, mesh.group("data"), "tokens")
+    return co.all_gather(x, 0, sr.dp_group(mesh), "tokens")
 
 
 def make_loss_fn(cfg: ModelConfig) -> Callable:
@@ -126,7 +141,8 @@ def make_loss_fn(cfg: ModelConfig) -> Callable:
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
                     total_steps: int = 10000, warmup: int = 100,
-                    mesh=None) -> Callable:
+                    mesh=None, sequence_parallel: bool = False,
+                    param_layout: str = "fsdp_tp") -> Callable:
     """-> train_step(params, opt_state, batch) -> (params, opt_state,
     metrics), params and state updated IN PLACE.
 
@@ -138,7 +154,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     warmup)``.  metrics: "loss", "grad_norm", "lr" (device tensors).
 
     On a ``mesh`` the params and state are this rank's blocks of
-    ``mesh_specs(cfg, mesh)`` and ``batch`` the global batch:
+    ``mesh_specs(cfg, mesh, param_layout)`` and ``batch`` the global
+    batch (the residual stream S-sharded where ``sequence_parallel``):
     each data rank runs its slice, a leaf replicated over ``data`` has
     its gradient all-reduced and a leaf placed on ``data`` comes out of
     the gather-on-use reduce-scattered, both then divided by the data
@@ -146,7 +163,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
     mesh), and "loss" the mean over the data ranks."""
     loss_fn = make_loss_fn(cfg)
     accum = max(cfg.grad_accum, 1)
-    specs = mesh_specs(cfg, mesh) if mesh is not None else None
+    specs = (mesh_specs(cfg, mesh, param_layout) if mesh is not None
+             else None)
     flat_specs = (list(sr.spec_paths(specs).values())
                   if specs is not None else None)
 
@@ -164,7 +182,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         for p in flat:
             p.requires_grad_(True)
         try:
-            with _context(mesh, specs):
+            with _context(mesh, specs, sequence_parallel):
                 if accum > 1:
                     acc = [torch.zeros_like(p, dtype=torch.float32)
                            for p in flat]
@@ -200,21 +218,22 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
 
 def _data_reduce(grads, flat_specs, mesh):
-    """The data ranks' mean gradient: a leaf placed on ``data`` was
-    summed by its gather's backward, any other is all-reduced here."""
-    group = mesh.group("data")
+    """The data ranks' mean gradient: a leaf placed on a data-parallel
+    axis was summed by its gather's backward, any other is all-reduced
+    here."""
+    group = sr.dp_group(mesh)
     if group.size == 1:
         return grads
     out = []
     for g, spec in zip(grads, flat_specs):
-        if "data" not in spec:
+        if not sr.on_dp(spec):
             g = co.all_reduce(g, group, "grad_mean")
         out.append(g / group.size)
     return out
 
 
 def _data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
-    group = mesh.group("data")
+    group = sr.dp_group(mesh)
     if group.size == 1:
         return x
     return co.all_reduce(x, group, "loss_mean") / group.size
@@ -231,17 +250,32 @@ def _argmax(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
-def make_prefill(cfg: ModelConfig, mor=None, mor_mode: str = "dense"
-                 ) -> Callable:
+def make_prefill(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
+                 mesh=None, sequence_parallel: bool = False,
+                 param_layout: str = "fsdp_tp") -> Callable:
     """prefill(params, batch) -> the greedy next token (B,) after the
     teacher-forced forward (or the forward's output, for a model without
-    a vocabulary)."""
+    a vocabulary).  On a ``mesh``: the rank's blocks of the params
+    (``mesh_specs(cfg, mesh, param_layout)``), the global batch, of
+    which each data rank runs its rows (S-sharded between blocks where
+    ``sequence_parallel``); the tokens (or this data rank's outputs)
+    come back whole."""
     api = get_model(cfg)
+    specs = (mesh_specs(cfg, mesh, param_layout) if mesh is not None
+             else None)
 
     def prefill(params, batch):
-        logits, _ = api.forward(params, cfg, batch, mor=mor,
-                                mor_mode=mor_mode)
-        return _argmax(logits[:, -1, :]) if logits.ndim == 3 else logits
+        n = next(iter(batch.values())).shape[0]
+        with _context(mesh, specs, sequence_parallel):
+            logits, _ = api.forward(params, cfg, {
+                k: local_rows(v, mesh) for k, v in batch.items()},
+                mor=mor, mor_mode=mor_mode)
+            if logits.ndim != 3:
+                return logits
+            last = logits[:, -1, :]
+            if cfg.vocab_size:
+                last = full_logits(last, cfg)
+        return _whole_rows(_argmax(last), mesh, n)
 
     return prefill
 
@@ -320,16 +354,22 @@ def make_decode_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
 
 
 def make_serve_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
-                    mesh=None) -> Callable:
+                    mesh=None, sequence_parallel: bool = False,
+                    param_layout: str = "fsdp_tp") -> Callable:
     """serve_step(params, cache, tokens (B, 1)) -> (next tokens, cache)
     over ``cache_init``'s cache (one shared position).  On a ``mesh``
-    the params and the cache (``init_cache``) are the rank's blocks: the
-    tensor-parallel decode over the sequence-sharded ring
-    (``attention._tp_decode``); each data rank decodes its rows of
-    ``tokens`` and the tokens come back whole."""
+    the params (``mesh_specs(cfg, mesh, param_layout)``) and the cache
+    (``init_cache``) are the rank's blocks: the tensor-parallel decode
+    over the sequence-sharded ring (``attention._tp_decode``); each data
+    rank decodes its rows of ``tokens`` and the tokens come back whole.
+    A decode's residual is never S-sharded (the reference's
+    ``residual_decode``): ``sequence_parallel`` is taken and the step
+    runs with it off."""
     api = get_model(cfg)
     assert api.decode_step is not None, f"{cfg.name} has no decode step"
-    specs = mesh_specs(cfg, mesh) if mesh is not None else None
+    del sequence_parallel
+    specs = (mesh_specs(cfg, mesh, param_layout) if mesh is not None
+             else None)
 
     def serve_step(params, cache, tokens):
         n = tokens.shape[0]
@@ -347,7 +387,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device,
     rank's block of it (its data shard's rows, its ring rows)."""
     api = get_model(cfg)
     if mesh is not None and getattr(mesh, "groups", None) is not None:
-        dp = mesh.shape["data"]
+        dp = sr.dp_group(mesh).size
         if batch % dp == 0:
             batch //= dp
     with _context(mesh, None):

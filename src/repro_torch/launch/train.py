@@ -26,8 +26,12 @@ of N model ranks each.  Every rank draws the same initial weights and
 the same global batches and keeps its blocks of the params and the
 optimizer state (``launch.steps.mesh_specs``); rank 0 prints, writes
 ``--out-json`` and the checkpoints (gathered whole: a checkpoint saved
-on one mesh resumes on another).  ``--mesh pod`` (256 ranks) is ROADMAP
-queue A 7.
+on one mesh resumes on another).  ``--mesh pod`` trains on the
+production mesh, 16 x 16 (``launch.mesh.make_production_mesh``), and
+``--mesh multipod`` on 2 pods of it: ``--model-parallel`` is 16 and the
+run needs 256 (512) ranks, and raises ``ValueError`` naming that count
+on fewer.  As the reference's, the CLI trains without sequence
+parallelism.
 
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --reduced --ranks 4 --model-parallel 2 --steps 20
@@ -85,7 +89,8 @@ def main(argv=None):
     ap.add_argument("--save-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--mesh", default="host", choices=("host", "pod"))
+    ap.add_argument("--mesh", default="host",
+                    choices=("host", "pod", "multipod"))
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--ranks", type=int, default=0,
                     help="gloo rank processes of the host mesh on the CPU "
@@ -98,16 +103,22 @@ def main(argv=None):
     ap.add_argument("--out-json", default=None)
     args = ap.parse_args(argv)
 
-    if args.mesh != "host":
-        raise NotImplementedError(
-            "--mesh pod needs 256 ranks: ROADMAP queue A 7 of the port "
-            "(train with --mesh host --model-parallel N)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is visible "
                          "(pass --device cpu to train on the CPU)")
     ranks = args.ranks or (torch.cuda.device_count()
                            if device.type == "cuda" else 1)
+    args.pods = 1
+    if args.mesh != "host":
+        from repro_torch.launch.mesh import make_production_mesh
+        shape = make_production_mesh(multi_pod=args.mesh == "multipod")
+        if ranks != shape.size:
+            raise ValueError(
+                f"--mesh {args.mesh} runs on {shape.size} ranks "
+                f"({shape.shape}); this run has {ranks}")
+        args.model_parallel = shape.shape["model"]
+        args.pods = shape.shape.get("pod", 1)
     if ranks % args.model_parallel:
         raise ValueError(f"--ranks {ranks} is not a multiple of "
                          f"--model-parallel {args.model_parallel}")
@@ -119,7 +130,8 @@ def main(argv=None):
 
 def _train_rank(group, args):
     from repro_torch.launch.mesh import make_host_mesh
-    mesh = make_host_mesh(args.model_parallel, device=group.device)
+    mesh = make_host_mesh(args.model_parallel, device=group.device,
+                          pods=args.pods)
     return _train(args, group.device, mesh)
 
 

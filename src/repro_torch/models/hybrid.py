@@ -102,10 +102,20 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     and, with ``with_taps``, its taps (n_seg, B*S, N), which
     ``deploy.calibrate_hybrid`` folds over the segment axis.  Under a
     mesh every leaf is gathered where it is used (the mamba layers one
-    by one, the shared block once a forward)."""
+    by one, the shared block once a forward), and under sequence
+    parallelism every block runs whole on the gathered rows."""
+    with sr.seq_sharded(batch["tokens"].shape[1]):
+        return _forward(params, cfg, batch, mor, mor_mode, with_taps)
+
+
+def _forward(params, cfg, batch, mor, mor_mode, with_taps):
+    """``forward``'s body; under sequence parallelism the residual stream
+    between blocks holds this rank's S rows and each block (a mamba
+    layer, the shared block) runs whole on the gathered rows
+    (``sharding_rules.seq_call``)."""
     params = use_top(params, cfg, tp=False)
-    x = params["embed"][batch["tokens"].long()].to(cfg.tdtype)
-    B, S, _ = x.shape
+    B, S = batch["tokens"].shape
+    x = sr.seq_split(params["embed"][batch["tokens"].long()].to(cfg.tdtype))
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
@@ -117,8 +127,12 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
     def block(x, lp, lspec):
         lp = sr.use(lp, lspec)
-        h = apply_norm(cfg.norm, lp["ln"], x)
-        return x + mamba2_forward(lp["mamba"], cfg, h)
+
+        def whole(x):
+            h = apply_norm(cfg.norm, lp["ln"], x)
+            return x + mamba2_forward(lp["mamba"], cfg, h)
+        # the block's input and output are this rank's rows
+        return sr.seq_call(whole, False, x)
 
     # the reference rematerialises the segments' mamba layers (not the
     # tail's, nor the shared block) with nothing_saveable
@@ -133,15 +147,17 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     for seg in segs:
         for key, i in seg:
             x = mamba_block(key, i, x)
-        x, stats, taps = _shared_block(params["shared"], cfg, x, positions,
-                                       shared_mor, mor_mode, with_taps)
+        x, stats, taps = sr.seq_call(
+            lambda x: _shared_block(params["shared"], cfg, x, positions,
+                                    shared_mor, mor_mode, with_taps),
+            False, x)
         y: Dict[str, Any] = {"mor_stats": stats} if stats else {}
         if with_taps:
             y["taps"] = taps
         ys.append(y)
     for key, i in tail:
         x = mamba_block(key, i, x)
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = apply_norm(cfg.norm, params["final_norm"], sr.seq_gather(x, False))
     return x @ params["lm_head"].to(x.dtype), _stack_aux(ys, "")
 
 

@@ -18,7 +18,10 @@ k, v gathered over heads, the row written by its owner only, each
 rank's flash statistics over its rows merged exactly by
 ``collectives.flash_merge`` (one collective, where the reference takes
 a pmax and two psums).  MLA has no tensor-parallel form: its weights
-are gathered whole (ROADMAP queue A 7).
+are gathered whole (ROADMAP queue A 7).  Under sequence parallelism the
+tensor-parallel GQA takes its input gathered over S and closes with a
+reduce-scatter over S (``sharding_rules.tp_enter`` / ``tp_exit``); the
+caller gathers and splits (``sharding_rules.seq_call``).
 """
 from __future__ import annotations
 
@@ -102,16 +105,18 @@ def _qkv_tp(params, cfg: ModelConfig, x, tp):
     heads the local query heads read taken after ``copy_to_model``.
     -> (q, k, v, full k, full v) (the last two None when split)."""
     group, h0, h_loc = tp
-    xf = co.copy_to_model(x, group)
+    xf = sr.tp_enter(x, group)
     q = _proj(xf, params, "wq", "bq", cfg)
     if sr.split_group(params["wk"]) is not None:
         return (q, _proj(xf, params, "wk", "bk", cfg),
                 _proj(xf, params, "wv", "bv", cfg), None, None)
-    k_all = _proj(x, params, "wk", "bk", cfg)
-    v_all = _proj(x, params, "wv", "bv", cfg)
+    whole = dict(params, **{n: sr.tp_weight(params[n], group)
+                            for n in ("wk", "wv", "bk", "bv")
+                            if n in params})
+    k_all = _proj(x, whole, "wk", "bk", cfg)
+    v_all = _proj(x, whole, "wv", "bv", cfg)
     G = cfg.n_heads // cfg.n_kv_heads
-    k_loc, v_loc = co.copy_to_model(k_all, group), \
-        co.copy_to_model(v_all, group)
+    k_loc, v_loc = sr.tp_enter(k_all, group), sr.tp_enter(v_all, group)
     if h0 % G == 0 and h_loc % G == 0:              # whole kv groups
         sel = slice(h0 // G, (h0 + h_loc) // G)
         return q, k_loc[:, :, sel], v_loc[:, :, sel], k_all, v_all
@@ -124,10 +129,11 @@ def _qkv_tp(params, cfg: ModelConfig, x, tp):
 
 def _tp_out(o, params, tp, x):
     """The row-parallel ``wo`` over the local heads' output, summed over
-    ``model``."""
+    ``model`` (under sequence parallelism: this rank's S rows of the
+    sum, ``sharding_rules.tp_exit``)."""
     B, S = x.shape[:2]
     y = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
-    return co.all_reduce_sum(y, tp[0])
+    return sr.tp_exit(y, tp[0], 1)
 
 
 def _qkv(params, cfg: ModelConfig, x: torch.Tensor):

@@ -81,19 +81,19 @@ def mlp_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
 
     fn = activation_fn(act_name)
     # column-parallel up projections, row-parallel down projection
+    # (under sequence parallelism x holds every S row and the sum comes
+    # back as this rank's rows: ``sharding_rules.tp_exit``)
     group = sr.split_group(params["w_down"])
     if group is not None:
-        from repro_torch.distributed.collectives import copy_to_model
-        x2 = copy_to_model(x2, group)
+        x2 = sr.tp_enter(x2, group)
     if is_glu(act_name):
         h = fn(x2 @ params["w_gate"].to(dt)) * (x2 @ params["w_up"].to(dt))
     else:
         h = fn(x2 @ params["w_up"].to(dt))
-    y = h.to(dt) @ params["w_down"].to(dt)
+    y = (h.to(dt) @ params["w_down"].to(dt)).reshape(*lead, -1)
     if group is not None:
-        from repro_torch.distributed.collectives import all_reduce_sum
-        y = all_reduce_sum(y, group)
-    return y.reshape(*lead, -1), {}
+        y = sr.tp_exit(y, group, max(len(lead) - 1, 0))
+    return y, {}
 
 
 def mlp_taps(params: Dict, cfg: ModelConfig, x: torch.Tensor) -> Dict:

@@ -234,9 +234,10 @@ def moe_apply_a2a(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
                        )[:, None].expand(T_loc, k).reshape(-1)
     smap = torch.full((E_loc * C_loc + 1,), T_loc, dtype=torch.int32,
                       device=dev)
-    flat_loc = loc.reshape(-1)
-    keep = flat_loc < E_loc * C_loc
-    smap[flat_loc[keep]] = tok[keep]
+    # the other ranks' slots all land on the sentinel entry, which no
+    # expert row reads (no boolean mask: its size would be data-
+    # dependent, which the meta device of the dry run cannot hold)
+    smap[loc.reshape(-1)] = tok
     xr = co.copy_to_model(xf, group)          # the experts' region
     xpad = torch.cat([xr, torch.zeros((1, d), dtype=dt, device=dev)])
     eb = xpad[smap[:E_loc * C_loc].long()].reshape(E_loc, C_loc, d)
@@ -303,7 +304,7 @@ def _moe_mesh(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     where the layer loop left them so (``copy_to_model`` in, one
     ``all_reduce_sum`` out), this data rank's rows taken back."""
     ctx = sr.current()
-    dgroup = ctx.mesh.group("data")
+    dgroup = sr.dp_group(ctx.mesh)
     lead = x.shape[:-1]
     d = x.shape[-1]
     xf = x.reshape(-1, d)

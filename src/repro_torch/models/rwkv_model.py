@@ -57,9 +57,19 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     """batch["tokens"] (B, S) -> (logits (B, S, V), aux): aux carries the
     layer-stacked "mor_stats" of an active plan and, with ``with_taps``,
     the channel mix's calibration taps "taps" ((L, B*S, N)).  Under a
-    mesh every leaf is gathered where it is used (layer by layer)."""
+    mesh every leaf is gathered where it is used (layer by layer), and
+    under sequence parallelism every block runs whole on the gathered
+    rows."""
+    with sr.seq_sharded(batch["tokens"].shape[1]):
+        return _forward(params, cfg, batch, mor, mor_mode, with_taps)
+
+
+def _forward(params, cfg, batch, mor, mor_mode, with_taps):
+    """``forward``'s body; under sequence parallelism the residual stream
+    between blocks holds this rank's S rows and each block runs whole on
+    the gathered rows (``sharding_rules.seq_call``)."""
     params = use_top(params, cfg, tp=False)
-    x = _embed(params, cfg, batch["tokens"])
+    x = sr.seq_split(_embed(params, cfg, batch["tokens"]))
     mor_stack = (mor or {}).get("layers")
     lspec = _group_specs("layers")
 
@@ -78,14 +88,18 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
 
     # any policy but "none" recomputes the whole block, as the
     # reference's nothing_saveable does
-    body = _remat(sr.bind(block), "none" if cfg.remat == "none"
+    def sp_block(x, lp, ml):
+        # the block's input and output are this rank's rows
+        return sr.seq_call(lambda x: block(x, lp, ml), False, x)
+
+    body = _remat(sr.bind(sp_block), "none" if cfg.remat == "none"
                   else "nothing_saveable")
     ys = []
     for l, lp in enumerate(layer_views(params["layers"])):
         x, y = body(x, lp, _layer_plan(mor_stack, l))
         ys.append(y)
     aux = _stack_aux(ys, "")
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = apply_norm(cfg.norm, params["final_norm"], sr.seq_gather(x, False))
     return x @ params["lm_head"].to(x.dtype), aux
 
 

@@ -242,7 +242,8 @@ def use_top(params: Dict, cfg: ModelConfig, tp: bool = True) -> Dict:
 def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """``embed[tokens]``; on a vocabulary-parallel embedding (this rank's
     rows [r V / MP, (r + 1) V / MP)) a masked local lookup summed over
-    ``model`` (the rows are disjoint: the sum is exact)."""
+    ``model`` (the rows are disjoint: the sum is exact), under sequence
+    parallelism this rank's S rows of the sum (a reduce-scatter)."""
     group = sr.split_group(embed)
     if group is None:
         return embed[tokens.long()]
@@ -250,7 +251,7 @@ def embed_tokens(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     t = tokens.long() - group.rank * n
     ok = (t >= 0) & (t < n)
     x = embed[torch.clamp(t, 0, n - 1)] * ok[..., None].to(embed.dtype)
-    return co.all_reduce_sum(x, group)
+    return sr.tp_exit(x, group, 1)
 
 
 def head_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
@@ -261,7 +262,7 @@ def head_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor
     src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     group = sr.split_group(src)
     if group is not None:
-        x = co.copy_to_model(x, group)
+        x = sr.tp_enter(x, group)
     return x @ head.to(x.dtype)
 
 
@@ -320,15 +321,29 @@ def _embed_inputs(params: Dict, cfg: ModelConfig, batch: Dict
     """The residual stream's input (``repro.models.transformer.
     _embed_inputs``): normed frames for the audio stub, else the token
     embeddings, after the patch embeddings where a vision batch has
-    them."""
+    them; under sequence parallelism this rank's S rows."""
     dt = cfg.tdtype
     if cfg.frontend == "audio_stub":
-        return apply_norm(cfg.norm, params["in_norm"],
-                          batch["frames"].to(dt))
-    x = embed_tokens(params["embed"], batch["tokens"]).to(dt)
+        return sr.seq_split(apply_norm(cfg.norm, params["in_norm"],
+                                       batch["frames"].to(dt)))
     if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
-        x = torch.cat([batch["patch_embeds"].to(dt), x], 1)
-    return x
+        with sr.sequence_parallel(False):
+            x = embed_tokens(params["embed"], batch["tokens"]).to(dt)
+        return sr.seq_split(torch.cat([batch["patch_embeds"].to(dt), x],
+                                      1))
+    x = embed_tokens(params["embed"], batch["tokens"]).to(dt)
+    return x if sr.split_group(params["embed"]) is not None else \
+        sr.seq_split(x)
+
+
+def _seq_len(cfg: ModelConfig, batch: Dict) -> Tuple[int, int]:
+    """(B, S) of the residual stream a batch makes."""
+    if cfg.frontend == "audio_stub":
+        return tuple(batch["frames"].shape[:2])
+    B, S = batch["tokens"].shape
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        S += batch["patch_embeds"].shape[1]
+    return B, S
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
@@ -342,21 +357,39 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     E, B*S, f) for the MoE stack; a moe model's dense layers put theirs
     under "dense_taps")."""
     _check_family(cfg)
+    B, S = _seq_len(cfg, batch)
+    with sr.seq_sharded(S):
+        return _forward(params, cfg, batch, mor, mor_mode, with_taps, B, S)
+
+
+def _forward(params, cfg, batch, mor, mor_mode, with_taps, B, S):
+    """``forward``'s body; under sequence parallelism the residual
+    stream between blocks holds this rank's S / MP rows: each block
+    gathers S for its attention and its FFN (``sharding_rules.
+    seq_call``: the tensor-parallel ones reduce-scatter their output,
+    the others keep their rows of it), and the head reads them
+    gathered."""
     params = use_top(params, cfg)
     x = _embed_inputs(params, cfg, batch)
-    B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
     attn_fn = attn.mla_forward if cfg.mla else attn.gqa_forward
 
     def block(x, lp, ml, kind, lspec):
         lp = use_layer(lp, lspec, cfg, kind, ml, mor_mode, B * S)
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        x = x + attn_fn(lp["attn"], cfg, h, positions)
-        h2 = apply_norm(cfg.norm, lp["ln2"], x)
-        f, y = _ffn(lp, cfg, h2, kind, ml, mor_mode)
-        if with_taps:
-            y["taps"] = (moe_taps(lp["moe"], cfg, h2) if kind == "moe"
-                         else mlp_taps(lp["mlp"], cfg, h2))
+        h = apply_norm(cfg.norm, sr.seq_weights(lp["ln1"]), x)
+        x = x + sr.seq_call(
+            lambda h: attn_fn(lp["attn"], cfg, h, positions),
+            not cfg.mla and attn._tp_heads(lp["attn"], cfg) is not None, h)
+        h2 = apply_norm(cfg.norm, sr.seq_weights(lp["ln2"]), x)
+
+        def ffn(h2):
+            f, y = _ffn(lp, cfg, h2, kind, ml, mor_mode)
+            if with_taps:
+                y["taps"] = (moe_taps(lp["moe"], cfg, h2) if kind == "moe"
+                             else mlp_taps(lp["mlp"], cfg, h2))
+            return f, y
+        f, y = sr.seq_call(ffn, kind != "moe" and sr.split_group(
+            lp["mlp"]["w_down"]) is not None, h2)
         return x + f, y
 
     body = _remat(sr.bind(block), cfg.remat)
@@ -368,9 +401,11 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
             x, y = body(x, lp, _layer_plan(mor_stack, l), kind, lspec)
             ys.append(y)
         aux.update(_stack_aux(ys, prefix))
-    x = apply_norm(cfg.norm, params["final_norm"], x)
+    x = apply_norm(cfg.norm, sr.seq_weights(params["final_norm"]), x)
     if not cfg.vocab_size:
-        return x, aux
+        return sr.seq_gather(x, False), aux
+    src = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    x = sr.seq_gather(x, sr.split_group(src) is not None)
     return head_logits(params, cfg, x), aux
 
 

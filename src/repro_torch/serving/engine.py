@@ -38,8 +38,10 @@ oracle on 1 in ``round(1 / shadow_rate)`` dispatches: tiled plans run
 the sampled dispatch itself through their ``scored`` twin (bitwise the
 tiled path), kernel and exact plans run a dense ``shadow`` twin just
 before the primary dispatch on a view of the cache
-(``kv_pool.shadow_view``), so tokens stay those of shadow-off.  The
-drift detector (``obs.quality``) reads the quality lanes at each flush.
+(``kv_pool.shadow_view``), so tokens stay those of shadow-off.  On the
+page-sharded layout every rank runs the twin inside the page-shard
+context on the view of its own shard.  The drift detector
+(``obs.quality``) reads the quality lanes at each flush.
 
 Sampling: greedy argmax by default; ``temperature`` > 0 samples from
 the temperature / top-k distribution by Gumbel-max, its noise drawn on
@@ -161,10 +163,6 @@ class Engine:
                 "layout='paged-sharded' runs on every rank of a page group "
                 "and takes that rank's group= (launch.mesh.make_page_group, "
                 "or launch.mesh.run_ranks); the other layouts take none")
-        if shadow_rate > 0.0 and layout == "paged-sharded":
-            raise NotImplementedError(
-                "the page-sharded shadow step is ROADMAP queue A 7 of the "
-                "port: serve with shadow_rate=0 on this layout")
         if spec_k > 0 and layout != "paged":
             raise ValueError("speculative decoding runs on layout='paged'")
         self.cfg = cfg
@@ -352,10 +350,19 @@ class Engine:
     def _shadow_dispatch(self, tok, nv, cache) -> None:
         """The dense twin of this dispatch on a view of the cache (the
         live cache is left as it was): only its ``shadow_*`` stat leaves
-        go into the metrics block."""
-        _, aux = self.api.prefill_chunk(
-            self.params, self.cfg, tok, kv_pool.shadow_view(cache),
-            n_valid=nv, mor=self._shadow_mor, mor_mode=self.mor_mode)
+        go into the metrics block.  On the page-sharded layout every rank
+        runs it inside the page-shard context on the view of its own
+        shard (``kv_pool.shadow_view``): the same merge collective a
+        attention layer and the same state gather a leaf as the primary
+        step, the same dispatches sampled on every rank, each rank's
+        counters in its own row of the block (the reference's
+        ``make_sharded_shadow_step``)."""
+        with (contextlib.nullcontext() if self.group is None else
+              page_shard_context(self.group)):
+            _, aux = self.api.prefill_chunk(
+                self.params, self.cfg, tok,
+                kv_pool.shadow_view(cache, self.group), n_valid=nv,
+                mor=self._shadow_mor, mor_mode=self.mor_mode)
         qaux = {}
         for g, st in (aux or {}).items():
             if isinstance(st, dict):

@@ -244,7 +244,7 @@ def ops_counts(cache: Dict, ops: torch.Tensor, n_reset: int, n_copy: int,
     return out
 
 
-def shadow_view(cache: Dict) -> Dict:
+def shadow_view(cache: Dict, group=None) -> Dict:
     """The cache a shadow twin dispatch runs on, leaving ``cache`` as it
     was: ``pos`` and the recurrent state the dispatch rewrites are
     copies (on the paged layout only the rows under the slots' state
@@ -252,8 +252,19 @@ def shadow_view(cache: Dict) -> Dict:
     table), while the kv pools and the block table are shared.  Sharing
     the kv pools is safe because the primary dispatch, run right after
     on the same tables and ``n_valid``, writes exactly the same (page,
-    row) entries, and each layer writes its rows before it attends."""
+    row) entries, and each layer writes its rows before it attends.
+
+    ``group``: the rank's page group of the page-sharded layout, whose
+    state pools hold its page shard and a scratch page.  Each rank's
+    view pool then holds n_slots pages and a scratch page: at slot b's
+    page the rows this rank owns (zeros where another rank does),
+    behind a table naming slot b's owner (owner x n_slots + b), so that
+    the twin's ``state_take`` gathers the same rows with the same one
+    collective a leaf as the primary step and its ``state_put`` writes
+    into the view; no collective builds it."""
     table = cache.get("state_table")
+    if table is not None and group is not None:
+        return _sharded_shadow_view(cache, table, group)
     out = {}
     for k, v in cache.items():
         if k in _TABLE_KEYS:
@@ -267,6 +278,35 @@ def shadow_view(cache: Dict) -> Dict:
     if table is not None:
         out["state_table"] = torch.arange(table.shape[0], dtype=table.dtype,
                                           device=table.device)
+    return out
+
+
+def _sharded_shadow_view(cache: Dict, table: torch.Tensor, group) -> Dict:
+    """``shadow_view`` of a page-sharded rank's cache (see there)."""
+    B = table.shape[0]
+    t = table.long()
+
+    def view(a):
+        n_local = a.shape[1] - 1
+        loc = t - group.rank * n_local
+        ok = (loc >= 0) & (loc < n_local)
+        rows = a[:, torch.where(ok, loc, 0)]
+        mask = ok.reshape((1, -1) + (1,) * (rows.ndim - 2))
+        rows = torch.where(mask, rows, torch.zeros((), dtype=a.dtype,
+                                                   device=a.device))
+        return torch.cat([rows, torch.zeros_like(rows[:, :1])], 1)
+
+    out = {k: map_state_leaves(v, view) for k, v in cache.items()
+           if k not in _TABLE_KEYS}
+    leaves = []
+    for v in _cache_nodes(cache):
+        map_state_leaves(v, lambda a: leaves.append(a) or a)
+    owner = torch.div(t, leaves[0].shape[1] - 1, rounding_mode="floor")
+    out["state_table"] = (owner * B + torch.arange(
+        B, device=t.device)).to(table.dtype)
+    out["pos"] = cache["pos"].clone()
+    if "block_table" in cache:
+        out["block_table"] = cache["block_table"]
     return out
 
 

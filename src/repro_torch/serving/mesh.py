@@ -15,7 +15,9 @@ and must be the same bits on every rank: ``check_replicated`` asserts it
 at start-up, ``broadcast`` hands rank 0's calibrated tree to the others,
 and ``check_tokens`` holds the ranks' greedy tokens equal at every
 flush (ranks that disagreed would drive diverging schedulers).  The
-page-sharded shadow step is ROADMAP queue A 7 of the port.
+shadow-oracle twin (``shadow_rate`` > 0) runs the same way, inside the
+page-shard context on each rank's view of its shard
+(``kv_pool.shadow_view``): the reference's ``make_sharded_shadow_step``.
 """
 from __future__ import annotations
 

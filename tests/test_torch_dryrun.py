@@ -8,6 +8,7 @@ One layout differs on purpose, and the test names it: the port's MLA
 cache (deepseek) keeps a position tag a cached row, (L, B, max_len)
 int32, which the reference's absorbed-latent cache does not hold.
 """
+import contextlib
 import json
 import math
 
@@ -310,12 +311,60 @@ def test_attention_layers_take_the_config_threshold(arch, monkeypatch):
     (["--param-layout", "fsdp_tp"], dict(layout="fsdp_tp")),
     (["--moe-sharding", "tp"], dict(moe_sharding="tp")),
     (["--moe-sharding", "ep_shmap"], dict(moe_sharding="ep_shmap"))])
-def test_mesh_flags_raise_naming_queue_a7(argv, kw):
+def test_mesh_flags_raise_naming_queue_a7(argv, kw, monkeypatch):
+    """The mesh flags the port refused until queue A 7's second part
+    now run: ``main`` hands each to ``run_cell``, and ``run_cell``
+    measures the cell on the production mesh's rank 0 for ``--mesh
+    pod|multipod`` (the fake process group replaced here by a stand-in:
+    a test worker may not hold it; tests/test_torch_mesh_pod.py runs the
+    real one in a process of its own) with the layout, the expert mode
+    and the sequence-parallel flag it was given, on one card for the
+    others."""
     base = ["--arch", "granite-3-2b", "--shape", "decode_32k"]
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        dryrun.main(base + argv)
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        dryrun.run_cell("granite-3-2b", "decode_32k", **kw)
+    seen = []
+    real_run_cell = dryrun.run_cell
+    monkeypatch.setattr(dryrun, "run_cell", lambda *a, **k: seen.append(
+        (a, k)) or {"status": "ok"})
+    dryrun.main(base + argv)
+    (args, got), = seen
+    want = {"mesh_kind": "1xh100", "seq_parallel": True, "layout": None,
+            "moe_sharding": None, **kw}
+    assert args[2] == want.pop("mesh_kind")
+    assert {k: got[k] for k in want} == want
+
+    calls = []
+
+    @contextlib.contextmanager
+    def stand_in(shape, rank=0, backend="nccl"):
+        calls.append((shape, backend))
+        yield "mesh"
+
+    def measure(cfg, shape, mor_mode="dense", on=None, **_):
+        calls.append((cfg.expert_sharding, on))
+        return {"per_device_gib": 1.0, "fits_80gb": True, "meta_s": 0.0,
+                "roofline": {"dominant": "memory", "roofline_fraction": 0.0,
+                             "t_collective_s": 0.0, "t_collective_ib_s": 0.0,
+                             "floor_dominant": "memory",
+                             "floor_time_s": 0.0}}
+    monkeypatch.setattr(dryrun, "dry_mesh", stand_in)
+    monkeypatch.setattr(dryrun, "measure_cell", measure)
+    rec = real_run_cell("granite-3-2b", "decode_32k", **kw)
+    assert rec["status"] == "ok", rec
+    mesh_kind = kw.get("mesh_kind", "1xh100")
+    assert rec["mesh"] == mesh_kind
+    assert rec["layout"] == kw.get("layout", "contract_tp")
+    assert rec["seq_parallel"] == kw.get("seq_parallel", True)
+    assert rec["expert_sharding"] == kw.get("moe_sharding", "tp")
+    if mesh_kind == "1xh100":
+        assert calls == [(rec["expert_sharding"], None)]
+    else:
+        shape = dryrun.mesh_shape(mesh_kind)
+        assert calls == [(shape, "nccl"), (rec["expert_sharding"],
+                                           dryrun.MeshArgs("mesh", True,
+                                                           "contract_tp"))]
+        assert rec["mesh_shape"] == shape
+        assert math.prod(shape.values()) == (512 if mesh_kind == "multipod"
+                                             else 256)
 
 
 def test_grid_sweep_records_failures_and_skips_cached_cells(

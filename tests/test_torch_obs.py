@@ -420,7 +420,9 @@ def test_recurrent_shadow_twin_leaves_the_cache_as_it_was(recurrent, arch,
 def test_moe_expert_lanes_and_shadow_twin():
     """Reduced deepseek-v2-236b, paged kernel mode: the block holds the
     dense layers' (L_dense,) and the experts' (L, E) lanes, and the
-    shadow twin leaves the tokens alone."""
+    shadow twin leaves the tokens alone.  (The page-sharded layout runs
+    the twin too since it left queue A 7: its tokens and block against
+    one device's are tests/test_torch_sharded_shadow.py's.)"""
     cfg, params, mor, reqs = _port_calibrated("deepseek-v2-236b",
                                               moe_d_ff=256)
     kw = dict(mor_mode="kernel", n_slots=2, max_len=48)
@@ -436,9 +438,6 @@ def test_moe_expert_lanes_and_shadow_twin():
         (cfg.first_k_dense,)
     assert groups["moe_mor_stats"]["tiles_skipped"].sum() > 0
     assert groups["moe_mor_stats"]["shadow_tiles"].sum() > 0
-    with pytest.raises(NotImplementedError, match="queue A 7"):
-        Engine(cfg, params, mor=mor, layout="paged-sharded", group=object(),
-               obs=Observability(), shadow_rate=0.5, **kw)
 
 
 def test_drift_fires_at_the_same_flush_as_jax(granite):

@@ -454,11 +454,12 @@ def test_train_main_reduces_loss():
 @pytest.mark.parametrize("layout", (["--mesh", "pod"],
                                     ["--model-parallel", "2"]))
 def test_train_main_refuses_sharded_layouts(layout):
-    """``--mesh pod`` (256 ranks) stays queue A 7; ``--model-parallel
-    2`` on one rank does not divide (the host mesh itself runs on
-    ``--ranks``: tests/test_torch_mesh.py)."""
+    """``--mesh pod`` runs on the production mesh's 256 ranks and
+    refuses one, naming the count; ``--model-parallel 2`` on one rank
+    does not divide (the host mesh itself runs on ``--ranks``:
+    tests/test_torch_mesh.py)."""
     if "--mesh" in layout:
-        with pytest.raises(NotImplementedError, match="queue A 7"):
+        with pytest.raises(ValueError, match="runs on 256 ranks"):
             _train(["--steps", "1"] + layout)
     else:
         with pytest.raises(ValueError, match="not a multiple"):
