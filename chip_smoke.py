@@ -112,7 +112,7 @@
    card, each from the CPU's state before it, held to the CPU's step
    (loss, grad norm, lr, moments, params) within the CPU tests'
    tolerances, then three free-running steps (loss differences logged);
-5. the granite slice: granite-3-2b at full width (12 of its 40 layers,
+5. the granite slice: granite-3-2b at full width (8 of its 40 layers,
    bf16, random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
      mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
@@ -123,7 +123,7 @@
    - the 8 mixed requests through the static batch (``launch.serve.
      static_batch``, the serve CLI's ``--baseline``: left-padded to the
      longest prompt, one batched ``prefill``, 1-row decode steps) in
-     kernel (counted: 12 / 24 / 12 launches of mor_tile_mask /
+     kernel (counted: 8 / 16 / 8 launches of mor_tile_mask /
      gather_matmul / masked_matmul_kdim a dispatch), tiled and dense
      mode, tokens/s beside the slotted engine's; ``launch.steps.
      make_serve_step`` (``prefill`` then 16 ``decode_step``s over
@@ -141,7 +141,7 @@
    each, agreement with the unpressured run); a ~10 s open-loop Poisson
    trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
    p50 / p99 per class, preemptions, rejections, requests lost: 0);
-5c. training (``phase_train``): granite-3-2b at 12 layers (bf16,
+5c. training (``phase_train``): granite-3-2b at 8 layers (bf16,
    remat nothing_saveable, its grad_accum of 4) trained 8 steps on 8 x
    512 tokens through ``launch.steps.make_train_step`` (AdamW: bf16
    moments, float32 master): step ms, tokens/s, the model-FLOPs share
@@ -152,11 +152,11 @@
    seed's tree, 2 more: losses within RESUME_TOL); then the train CLI's
    calibration step (``launch.train.calibrate``: ``calibrate_lm`` on 8
    batches of 8 x 512 from step 10,000) and the mixed trace served on
-   the trained weights, slotted, in kernel mode (counted: 12 / 24 / 12
+   the trained weights, slotted, in kernel mode (counted: 8 / 16 / 8
    a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
    granite phase's random-init ones;
 5d. the dry run (``phase_dryrun``, ``launch/dryrun.py``): granite-3-2b
-   at 12 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
+   at 8 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
    remat) and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
    predicted on the meta device (argument bytes and the peak of the
    storages the step allocates, ``launch/op_cost.py``; FLOPs; the
@@ -171,7 +171,8 @@
    256-rank pod for granite-3-2b train_4k and deepseek-v2-236b
    decode_32k (GiB a rank, fits, the roofline with its collective
    term split between NVLink and InfiniBand: reckoned, not measured),
-   and the prediction of 7d's (1, 2) granite step, held there;
+   and the prediction of 7d's (1, 2) granite, rwkv6-3b and zamba2-7b
+   steps, held there;
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -186,7 +187,7 @@
    read just after: per dispatch one launch per layer of the predictor,
    the down product and the layer's paged attention, two of
    gather_matmul (an MoE layer launches each once for all its experts);
-7. the zoo: mixtral-8x7b at its published widths, cut to 4 layers,
+7. the zoo: mixtral-8x7b at its published widths, cut to 2 layers,
    calibrated with ``calibrate_moe``, serves the shared-prefix trace
    plus one 4,160-token prompt (past its 4,096 window) through the
    paged engine in kernel (counted), tiled and dense mode, then a
@@ -202,29 +203,29 @@
    against the full mask; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
    mode (counted): ms and argmax agreement;
-7b. the recurrent families: rwkv6-3b (8 of 32
+7b. the recurrent families: rwkv6-3b (4 of 32
    layers, d 2560, bf16), calibrated with ``calibrate_lm`` on its
    channel mix, serves the shared-prefix trace paged in kernel
-   (counted: 8 mor_tile_mask and 8 gather_matmul a dispatch), tiled
-   and dense mode and slotted in kernel mode; zamba2-7b (15 of 81
+   (counted: 4 mor_tile_mask and 4 gather_matmul a dispatch), tiled
+   and dense mode and slotted in kernel mode; zamba2-7b (9 of 81
    layers, d 3584, 32 / 32 heads at D 112, bf16), calibrated with
    ``calibrate_hybrid``, serves the shared-prefix trace plus one
    4,160-token prompt (its shared attention's ring wraps past the 4,096
-   window) paged in kernel (counted: 2 gqa_paged_flash, 2
-   mor_tile_mask, 4 gather_matmul, 2 masked_matmul_kdim a dispatch)
+   window) paged in kernel (counted: 1 gqa_paged_flash, 1
+   mor_tile_mask, 2 gather_matmul, 1 masked_matmul_kdim a dispatch)
    and dense mode; the warm and cold repeats run on state snapshots;
    one profiled pass each;
 7c. this slice's main path, the paged-sharded layout on 2 rank
    processes sharing the card (gloo): reduced float32 granite,
    deepseek, rwkv6 and zamba2, card against CPU in the same page group
    (tokens, telemetry, prefix counters equal; partial launches and
-   merges counted), then granite-3-2b at 12 layers in kernel mode on
+   merges counted), then granite-3-2b at 8 layers in kernel mode on
    the shared-prefix trace (ranks' tokens equal, agreement with the
-   single-rank paged tokens >= AGREE_MIN, 12 partial gqa_paged_flash
-   launches and 12 merges a dispatch, no other collective, pages on
+   single-rank paged tokens >= AGREE_MIN, 8 partial gqa_paged_flash
+   launches and 8 merges a dispatch, no other collective, pages on
    both shards, each rank's pool half the single-rank one's); the
    page-sharded shadow step (the dense twin at 1 in 4) on reduced
-   float32 granite and rwkv6 and on granite at 12 layers: tokens equal
+   float32 granite and rwkv6 and on granite at 8 layers: tokens equal
    shadow-off's, the metrics block's counters equal to one device's
    paged engine with the twin on (the float32 references: every lane),
    the twin's partial launches and merges counted;
@@ -238,8 +239,20 @@
    shared input, the whole forward's expert-grid launches on both
    ranks); the (1, 2) granite step as 5e predicted it (collectives,
    bytes by kind, FLOPs and argument bytes equal; the step's peak
-   within 10%); where 4 cards are visible, the (2, 2) mesh over them on
-   NCCL (granite at 8 layers, held the same way);
+   within 10%); this slice's tensor-parallel families at their
+   published widths (``MESH_FAMILIES``): deepseek-v2-236b cut to 2
+   layers and 8 routed experts (head-parallel MLA), rwkv6-3b cut to 2
+   layers and zamba2-7b to 7 (one shared block), each a (1, 2) train
+   step against one device, a first step from the seed's weights on
+   each of two batches (loss and norm at granite's bf16 bound, deepseek's
+   float32 twin at 1e-5, rwkv6's and zamba2's params within one bf16
+   step), its kernel-mode forward on (1, 2) after a
+   calibration (MoR launches counted on both ranks, tokens equal on
+   them, agreement with one device's) and its step as 5e predicted it;
+   every family's step ms and peak GB a rank beside the same step with
+   its splits gathered (``_splits_gathered``); where 4 cards are
+   visible, the (2, 2) mesh over them on NCCL (granite at 8 layers,
+   held the same way);
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
@@ -300,8 +313,8 @@ AGREE_MIN = 0.25
 # host's enqueue, which takes most of a dispatch, grows with it: at
 # these depths the whole run, the kernels' build included, ends in
 # about half of the 1,200 s it is given.
-DEPTH = {"granite-3-2b": 12, "qwen2-7b": 8, "mixtral-8x7b": 4,
-         "rwkv6-3b": 8, "zamba2-7b": 15}
+DEPTH = {"granite-3-2b": 8, "qwen2-7b": 8, "mixtral-8x7b": 2,
+         "rwkv6-3b": 4, "zamba2-7b": 9}
 
 
 def _cut_config(arch):
@@ -3194,39 +3207,45 @@ MESH_DRYRUN_CELLS = (("granite-3-2b", "train_4k"),
 MESH_DRYRUN_TIMEOUT = 300
 
 
-def _mesh_step_cell():
-    """(config, shape, optimizer) of the ``mesh`` phase's granite train
-    step: full width cut to MESH_GRANITE_LAYERS, one micro-batch of
+def _mesh_step_cell(arch="granite-3-2b"):
+    """(config, shape, optimizer) of a ``mesh`` phase train step: granite
+    at full width cut to MESH_GRANITE_LAYERS, or a family of
+    MESH_FAMILIES as ``_family_cfg`` cuts it; one micro-batch of
     TRAIN_BATCH x TRAIN_SEQ, bf16 moments."""
     from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.optim import OptConfig
-    cfg = get_config("granite-3-2b").replace(n_layers=MESH_GRANITE_LAYERS,
-                                             grad_accum=1)
+    cfg = (get_config(arch).replace(n_layers=MESH_GRANITE_LAYERS,
+                                    grad_accum=1)
+           if arch == "granite-3-2b" else _family_cfg(arch))
     return (cfg, ShapeSpec("train_8x512", TRAIN_SEQ, TRAIN_BATCH, "train"),
             OptConfig(lr=1e-3, moment_dtype="bfloat16"))
 
 
 def predict_mesh_step(path):
-    """The dry run's prediction of the ``mesh`` phase's (1, 2) granite
-    step, rank by rank, on meta under torch's fake process group with
-    gloo's collectives modelled (run in a process of its own by
-    ``phase_dryrun_mesh``) -> JSON at ``path``: collectives by name,
-    their bytes by kind, FLOPs, argument bytes by tree, peak temp."""
+    """The dry run's prediction of the ``mesh`` phase's (1, 2) train
+    steps (granite's and MESH_FAMILY_PREDICTED's), rank by rank, on meta
+    under torch's fake process group with gloo's collectives modelled
+    (run in a process of its own by ``phase_dryrun_mesh``) -> JSON at
+    ``path``, {arch: {rank: ...}}: collectives by name, their bytes by
+    kind, FLOPs, argument bytes by tree, peak temp."""
     from repro_torch.distributed import collectives as co
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import dry_mesh
-    cfg, shape, opt = _mesh_step_cell()
     out = {}
-    for rank in range(MESH_RANKS):
-        with dry_mesh({"data": 1, "model": MESH_RANKS}, rank=rank,
-                      backend="gloo") as mesh:
-            co.reset_counts()
-            c = dryrun.count_cell(cfg, shape, opt_cfg=opt,
-                                  on=dryrun.MeshArgs(mesh, False, "fsdp_tp"))
-            out[str(rank)] = {"counts": dict(co.counts),
-                              "nbytes": dict(co.nbytes), "args": c.args,
-                              "flops": c.counter.flops,
-                              "peak_temp": c.counter.peak_live_bytes}
+    for arch in ("granite-3-2b",) + MESH_FAMILY_PREDICTED:
+        cfg, shape, opt = _mesh_step_cell(arch)
+        out[arch] = {}
+        for rank in range(MESH_RANKS):
+            with dry_mesh({"data": 1, "model": MESH_RANKS}, rank=rank,
+                          backend="gloo") as mesh:
+                co.reset_counts()
+                c = dryrun.count_cell(cfg, shape, opt_cfg=opt,
+                                      on=dryrun.MeshArgs(mesh, False,
+                                                         "fsdp_tp"))
+                out[arch][str(rank)] = {
+                    "counts": dict(co.counts), "nbytes": dict(co.nbytes),
+                    "args": c.args, "flops": c.counter.flops,
+                    "peak_temp": c.counter.peak_live_bytes}
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -3912,13 +3931,13 @@ def _long_prefill(cfg, params, mor):
 
 def slice_mixtral():
     """This slice's main path: mixtral-8x7b at its published widths, cut
-    to DEPTH (4) of its 32 layers (all 32 would take 93 GB of bf16
+    to DEPTH (2) of its 32 layers (all 32 would take 93 GB of bf16
     weights),
     calibrated with ``calibrate_moe``, serves the shared-prefix trace and
     one request of 4,160 prompt tokens (keys slide out of the 4,096
     window) through ``Engine(layout="paged")`` with prefix caching, in
-    kernel (counted: per dispatch 8 launches of gqa_paged_flash,
-    mor_tile_mask and masked_matmul_kdim, 16 of gather_matmul), tiled
+    kernel (counted: per dispatch a launch a layer of gqa_paged_flash,
+    mor_tile_mask and masked_matmul_kdim, two of gather_matmul), tiled
     and dense mode, then one profiled pass of each.  -> launches."""
     import torch
     from repro_torch.core.deploy import calibrate_moe
@@ -4186,7 +4205,7 @@ def _calibrated_logged(cfg, api, params, calibrate):
 
 
 def slice_rwkv():
-    """rwkv6-3b at DEPTH (8 of 32) layers (d 2560, d_ff 8960, vocab 65,536,
+    """rwkv6-3b at DEPTH (4 of 32) layers (d 2560, d_ff 8960, vocab 65,536,
     bf16; attention-free: the serving cache is state pages only),
     calibrated with ``calibrate_lm`` on its ReLU^2 channel mix, serves the
     shared-prefix trace through the paged engine in kernel (counted: per
@@ -4224,9 +4243,9 @@ def slice_rwkv():
 
 
 def slice_zamba2():
-    """zamba2-7b at DEPTH (15 of 81) layers (2 of its 13 segments of 6
-    Mamba2 layers, each followed by the ONE shared attention + SwiGLU
-    block, and its tail of 3; d 3584, 32 / 32 heads of 112 under a shared
+    """zamba2-7b at DEPTH (9 of 81) layers (1 of its 13 segments of 6
+    Mamba2 layers, followed by the ONE shared attention + SwiGLU block,
+    and a tail of 3; d 3584, 32 / 32 heads of 112 under a shared
     window of 4,096, d_ff 14,336, state 64; bf16), calibrated with
     ``calibrate_hybrid``, serves the shared-prefix trace and one request of
     4,160 prompt tokens (the shared attention's ring wraps past its window)
@@ -4627,6 +4646,20 @@ MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2.0 ** -7, 1e-3   # atol x leaf max
 MESH_LOSS_RTOL = MESH_NORM_RTOL = 1e-3
 # the float32 twin of the same step: sums in another order only
 MESH_F32_RTOL = 1e-5
+# this slice's families on (1, 2), at their published widths, cut so
+# that one device's train state and both ranks' fit the card in turn:
+# deepseek to 2 layers (layer 0 dense, layer 1 MoE) and 8 of its 160
+# routed experts (the 160-expert forward stays the one above; each
+# step's expert all-to-all crosses gloo's host staging), rwkv6 to 2
+# layers, zamba2 to 7 (one segment of 6 mamba layers, the shared block
+# once, one tail layer)
+MESH_FAMILIES = {"deepseek-v2-236b": {"n_layers": 2, "n_experts": 8},
+                 "rwkv6-3b": {"n_layers": 2},
+                 "zamba2-7b": {"n_layers": 7}}
+# the families whose (1, 2) step the dry run predicts (5e) and whose
+# params are held after each step (deepseek's 1.8e9 would cross gloo's
+# host staging at each hold: its loss, norm and float32 twin are held)
+MESH_FAMILY_PREDICTED = ("rwkv6-3b", "zamba2-7b")
 
 
 def _mesh_gb():
@@ -4649,7 +4682,14 @@ def _mesh_gb():
     layer = tree_bytes({k: v for k, v in ps["moe_layers"]["moe"].items()
                         if k != "shared"}) / (d.n_layers - d.first_k_dense)
     deepseek = MESH_RANKS * (pd + pd / MESH_RANKS + layer / MESH_RANKS)
-    return granite / 1e9, deepseek / 1e9
+    # a family's float32 twin (deepseek's): params, two moments and the
+    # gradient, 16 bytes a param on one device; bf16 with the master, 12
+    families = 0
+    for arch in MESH_FAMILIES:
+        n = tree_bytes(param_shapes(_family_cfg(arch))) / 2
+        families = max(families, n * (16 if arch == "deepseek-v2-236b"
+                                      else 12))
+    return granite / 1e9, deepseek / 1e9, families / 1e9
 
 
 class _NormFault:
@@ -4762,18 +4802,20 @@ def _held_train(cfg, opt, mesh, batches, single, hold=True):
             torch.cuda.max_memory_allocated() / 1e9)
 
 
-def _check_train(phase, rank, shape, run, want_loss, want_norm, f32):
+def _check_train(phase, rank, shape, run, want_loss, want_norm, f32,
+                 path="granite train"):
     """Log one rank's mesh train run (``_held_train``'s result) and hold
     it to the single-device run's losses and norms: bf16 at
     MESH_LOSS_RTOL / MESH_NORM_RTOL, the float32 twin at MESH_F32_RTOL;
-    where ``model`` splits the params, the planted fault must lie past
-    the norm's bound."""
+    where ``model`` splits granite's params, the planted fault must lie
+    past the norm's bound (a family's is logged: how far it lies depends
+    on the share of its replicated leaves in the norm)."""
     loss, norm, faulty, excess, ms, counts, nbytes, peak = run
     rtol = MESH_F32_RTOL if f32 else MESH_NORM_RTOL
     loss_diff = [abs(a - b) / abs(b) for a, b in zip(loss, want_loss)]
     norm_diff = [abs(a - b) / b for a, b in zip(norm, want_norm)]
     fault_diff = [abs(a - b) / b for a, b in zip(faulty, want_norm)]
-    log(phase, path="granite train", rank=rank, mesh=shape,
+    log(phase, path=path, rank=rank, mesh=shape,
         losses=loss, single_losses=want_loss, loss_rel_diff=loss_diff,
         grad_norms=norm, single_grad_norms=want_norm,
         norm_rel_diff=norm_diff, norm_rtol=rtol,
@@ -4785,7 +4827,8 @@ def _check_train(phase, rank, shape, run, want_loss, want_norm, f32):
     assert max(loss_diff) <= (MESH_F32_RTOL if f32 else MESH_LOSS_RTOL), \
         (shape, loss_diff)
     assert max(norm_diff) <= rtol, (shape, norm_diff)
-    if int(shape.split("_")[0].split("x")[1]) > 1:
+    if int(shape.split("_")[0].split("x")[1]) > 1 and \
+            path == "granite train":
         # the bound lies between the sound run and the fault
         assert min(fault_diff) > rtol, (shape, fault_diff)
 
@@ -5014,7 +5057,179 @@ def _mesh_rank(group):
     out["deepseek_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del loc
     torch.cuda.empty_cache()
+
+    # -- this slice's families on (1, 2): head-parallel MLA, RWKV6's time
+    # mix by head and channel mix by column, Mamba2 by head and zamba2's
+    # shared block
+    out["families"] = {arch: _family_rank(arch, m12, lead)
+                       for arch in MESH_FAMILIES}
     return out
+
+
+def _family_cfg(arch):
+    """``arch``'s published config cut as MESH_FAMILIES says, one
+    micro-batch a step."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(grad_accum=1, **MESH_FAMILIES[arch])
+
+
+@contextlib.contextmanager
+def _splits_gathered():
+    """While active, the families' layers gather their ``model`` splits
+    whole, as the mesh did before their tensor-parallel forms: MLA's
+    and the shared block's attention, RWKV6's, Mamba2's and the shared
+    MLP's keeps emptied here (the package has no such knob); the dense
+    FFN's and the experts' stay as they were."""
+    from repro_torch.models import hybrid
+    from repro_torch.models.layers import attention, rwkv
+    none = lambda *a, **k: set()          # noqa: E731
+    saved = [(m, n, getattr(m, n)) for m, n in (
+        (attention, "tp_keep"), (rwkv, "tp_keep"), (hybrid, "ssm_tp_keep"),
+        (hybrid, "mlp_tp_keep"))]
+    for m, n, _ in saved:
+        setattr(m, n, none)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def _family_rank(arch, mesh, lead):
+    """One rank's part of a family's checks on (1, 2): rank 0 runs the
+    single-device steps first; the (1, 2) steps with the family's
+    tensor-parallel forms and deepseek's float32 twin (``_first_steps``:
+    each from the same params, so that neither inherits the other's
+    noise through a second step: a consecutive bf16 second step of
+    rwkv6 moved the norm by 3.3e-3 on (1, 2) on an H100 at 700 W;
+    params held where MESH_FAMILY_PREDICTED), the bf16 step with its
+    splits gathered (``_splits_gathered``: ms and peak only), the step as the
+    dry run counts it (MESH_FAMILY_PREDICTED), and rwkv6's / zamba2's
+    kernel-mode forward on (1, 2) after a calibration (rank 0
+    calibrates, its plan broadcast), launches counted.  -> the rank's
+    results."""
+    import torch
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.serve import calibrate
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import full_logits
+    from repro_torch.optim import OptConfig
+    cfg, shape, opt = _mesh_step_cell(arch)
+    batches = _device_batches(cfg, 2)
+    twins = (("", cfg, opt, arch in MESH_FAMILY_PREDICTED),) + ((
+        ("_f32", cfg.replace(dtype="float32", param_dtype="float32"),
+         OptConfig(lr=1e-3, moment_dtype="float32"), False),)
+        if arch == "deepseek-v2-236b" else ())
+    out = {}
+    for tag, c, o, hold in twins:
+        single = None
+        if lead:
+            run = _first_steps(c, o, None, batches, hold)
+            single = run[2]
+            out["single" + tag] = (run[0], run[1], run[4], run[8])
+        # both ranks start the mesh's steps together: a step's ms is not
+        # rank 1's wait for rank 0's single-device runs
+        torch.distributed.barrier(group=mesh.group("model").pg)
+        loss, norm, fulls, lrs, ms, counts, nbytes, faulty, peak = \
+            _first_steps(c, o, mesh, batches, hold)
+        shares = None
+        if single is not None:
+            # a leaf drawn as zeros (a LayerNorm's bias, Mamba2's conv_b,
+            # dt_bias, A_log) holds only its Adam update: an entry whose
+            # bf16 gradient is at the noise level may take the other sign
+            # and move by 2 lr
+            shares = [_bound_share(f, w, 2 * lr)
+                      for f, w, lr in zip(fulls, single, lrs)]
+        del fulls, single
+        out["tp" + tag] = (loss, norm, faulty, shares and [
+            v for v, _ in shares], ms, counts, nbytes, peak)
+        out["tp_worst_leaf" + tag] = shares and [k for _, k in shares]
+    with _splits_gathered():
+        out["gathered"] = _first_steps(cfg, opt, mesh, batches[:1], False)
+    if arch in MESH_FAMILY_PREDICTED:
+        torch.cuda.empty_cache()
+        co.reset_counts()
+        counted = dryrun.count_cell(cfg, shape, opt_cfg=opt, device="cuda",
+                                    on=dryrun.MeshArgs(mesh, False,
+                                                       "fsdp_tp"))
+        out["step_counted"] = {"counts": dict(co.counts),
+                               "nbytes": dict(co.nbytes),
+                               "args": counted.args,
+                               "flops": counted.counter.flops,
+                               "card": counted.card}
+        del counted
+        torch.cuda.empty_cache()
+    if arch == "deepseek-v2-236b":
+        return out
+    # the kernel-mode forward: the channel mix (rwkv6) and the shared
+    # MLP (zamba2) stay gathered under an active plan, the time mix, the
+    # mamba layers and the shared attention tensor-parallel
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    params, mor, _ = calibrate(params, cfg, api, mesh.device, 8,
+                               mesh.group("world"))
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), generator=torch.
+                           Generator(device="cuda").manual_seed(SEED + 1),
+                           device="cuda")
+    ref = None
+    if lead:
+        with torch.no_grad():
+            ref = api.forward(params, cfg, {"tokens": tokens}, mor=mor,
+                              mor_mode="kernel")[0].float().cpu()
+    specs = steps.mesh_specs(cfg, mesh)
+    loc = sr.shard_tree(params, specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with sr.activation_context(mesh, specs=specs), torch.no_grad():
+        co.reset_counts()
+        (logits, _), launches = _counted(lambda: api.forward(
+            loc, cfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
+        logits = full_logits(logits, cfg).float().cpu()
+    out["forward"] = {"tokens": logits.argmax(-1), "launches": launches,
+                      "collectives": dict(co.counts),
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if lead:
+        out["forward"]["agreement"] = float(
+            (logits.argmax(-1) == ref.argmax(-1)).float().mean())
+        out["forward"]["max_abs_err"] = float((logits - ref).abs().max())
+    del loc
+    torch.cuda.empty_cache()
+    return out
+
+
+def _first_steps(cfg, opt, mesh, batches, hold):
+    """One train step from the seed's weights on each batch, on ``mesh``
+    (None: one device), each step starting from the same params: ->
+    (losses, norms, the params after each step on the CPU (``hold``;
+    else None), the learning rates, each step's device ms, the last
+    step's collectives and bytes by kind, the planted fault's norms
+    (mesh only), peak GB)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    runs = [_mesh_train(cfg, opt, mesh, [b], hold) for b in batches]
+    return ([r[0][0] for r in runs], [r[1][0] for r in runs],
+            [r[2][0] for r in runs] if hold else None,
+            [r[3][0] for r in runs], [r[4] for r in runs], runs[-1][5],
+            runs[-1][6], None if mesh is None else [r[7][0] for r in runs],
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def _bound_share(got, want, flips):
+    """-> (the largest share of ``_close_params``' bound any leaf takes,
+    that leaf), asserting nothing: the caller holds it after logging."""
+    import torch
+    worst, leaf = 0.0, None
+    for k, w in want.items():
+        tol = MESH_PARAM_RTOL * w.abs() + MESH_PARAM_ATOL * float(
+            w.abs().max()) + flips
+        excess = float(((got[k] - w).abs() / torch.clamp(tol, min=1e-30)
+                        ).max())
+        if not excess <= worst:           # a NaN too
+            worst, leaf = excess, k
+    return worst, leaf
 
 
 def _close_params(got, want, what, flips=0.0):
@@ -5024,15 +5239,8 @@ def _close_params(got, want, what, flips=0.0):
     a master copy by 2 lr a step (2 x the sum of the steps' learning
     rates; the first step is held without it).  -> the largest share of
     the bound taken."""
-    import torch
-    worst = 0.0
-    for k, w in want.items():
-        tol = MESH_PARAM_RTOL * w.abs() + MESH_PARAM_ATOL * float(
-            w.abs().max()) + flips
-        excess = float(((got[k] - w).abs() / torch.clamp(tol, min=1e-30)
-                        ).max())
-        worst = max(worst, excess)
-        assert excess <= 1.0, (what, k, excess)
+    worst, leaf = _bound_share(got, want, flips)
+    assert worst <= 1.0, (what, leaf, worst)
     return worst
 
 
@@ -5061,18 +5269,26 @@ def _check_mesh_prediction(ranks, predicted):
     runs' own last step's), FLOPs and argument bytes equal; the step's
     peak over its arguments within DRYRUN_PEAK_TOL (+ DRYRUN_PEAK_SLACK)
     of the measured, as the ``dryrun`` phase holds one card's."""
-    for r in ranks:
-        p, c = predicted[str(r["rank"])], r["step_counted"]
+    for r, arch in ((r, a) for a in predicted for r in ranks):
+        if arch == "granite-3-2b":
+            c, trained, layers = r["step_counted"], r["train"]["1x2"], \
+                MESH_GRANITE_LAYERS
+        else:
+            fam = r["families"][arch]
+            c, trained, layers = fam["step_counted"], fam["tp"], \
+                MESH_FAMILIES[arch]["n_layers"]
+        p = predicted[arch][str(r["rank"])]
         meas = c["card"]["peak_bytes"] - c["card"]["argument_bytes"]
-        assert p["counts"] == c["counts"], (p["counts"], c["counts"])
-        assert p["nbytes"] == c["nbytes"] == r["train"]["1x2"][6], \
-            (p["nbytes"], c["nbytes"], r["train"]["1x2"][6])
-        assert p["flops"] == c["flops"], (p["flops"], c["flops"])
-        assert p["args"] == c["args"], (p["args"], c["args"])
+        assert p["counts"] == c["counts"], (arch, p["counts"], c["counts"])
+        assert p["nbytes"] == c["nbytes"] == trained[6], \
+            (arch, p["nbytes"], c["nbytes"], trained[6])
+        assert p["flops"] == c["flops"], (arch, p["flops"], c["flops"])
+        assert p["args"] == c["args"], (arch, p["args"], c["args"])
         assert abs(p["peak_temp"] - meas) <= \
-            DRYRUN_PEAK_TOL * meas + DRYRUN_PEAK_SLACK, (p["peak_temp"], meas)
-        log("mesh", path="granite train dry-run prediction", rank=r["rank"],
-            mesh="1x2", layers=MESH_GRANITE_LAYERS,
+            DRYRUN_PEAK_TOL * meas + DRYRUN_PEAK_SLACK, \
+            (arch, p["peak_temp"], meas)
+        log("mesh", path=f"{arch.split('-')[0]} train dry-run prediction",
+            rank=r["rank"], mesh="1x2", layers=layers,
             collectives_equal=True, bytes_by_kind=json.dumps(p["nbytes"]),
             flops_equal=True, argument_bytes=sum(p["args"].values()),
             argument_bytes_card=c["card"]["argument_bytes"],
@@ -5095,18 +5311,22 @@ def slice_mesh(rows, predicted):
     gather_matmul's counters of each rank's 80 experts bit-equal to the
     single-device run's rows, slots and counts exact, y within one bf16
     step) and the whole forward (expert-grid launches on both ranks,
-    greedy agreement).  -> {kernel: launches on rank 0's forward}."""
+    greedy agreement); then this slice's families (``_check_families``).
+    -> {path: {kernel: launches on rank 0's forward}}: deepseek's, and
+    rwkv6's and zamba2's kernel-mode forwards on (1, 2)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import page_backend, run_ranks
-    granite_gb, deepseek_gb = _mesh_gb()
+    granite_gb, deepseek_gb, families_gb = _mesh_gb()
     log("mesh", ranks=MESH_RANKS, backend=page_backend("cuda", MESH_RANKS),
         granite_state_gb_reckoned=round(granite_gb, 2),
         deepseek_gb_reckoned=round(deepseek_gb, 2),
+        families_single_state_gb_reckoned=round(families_gb, 2),
         note="two ranks share cuda:0 over gloo: every collective is "
              "staged through the host, so no time here is the mesh's "
              "speed")
-    assert granite_gb < 70 and deepseek_gb < 70, (granite_gb, deepseek_gb)
+    assert max(granite_gb, deepseek_gb, families_gb) < 70, \
+        (granite_gb, deepseek_gb, families_gb)
     _mesh_kernel_cases(rows)
     ranks = run_ranks(_mesh_rank, MESH_RANKS, "cuda")
     _check_mesh_prediction(ranks, predicted)
@@ -5181,7 +5401,81 @@ def slice_mesh(rows, predicted):
             model_all_reduce_ms=round(r["all_reduce_ms"], 3),
             all_reduce_bytes=r["all_reduce_bytes"])
         assert agree >= AGREE_MIN, agree
-    return ranks[0]["forward_launches"]
+    _check_families(ranks)
+    return {"deepseek_mesh": ranks[0]["forward_launches"],
+            **{f"{arch.split('-')[0]}_mesh": ranks[0]["families"][arch][
+                "forward"]["launches"] for arch in MESH_FAMILIES
+               if arch != "deepseek-v2-236b"}}
+
+
+def _check_families(ranks):
+    """Log and hold this slice's families on (1, 2): each step against
+    one device's (bf16 at MESH_LOSS_RTOL / MESH_NORM_RTOL, deepseek's
+    float32 twin at MESH_F32_RTOL, the params of MESH_FAMILY_PREDICTED within
+    one bf16 step), its ms and peak GB a rank beside the same step with
+    the splits gathered, and rwkv6's / zamba2's kernel-mode forward: MoR
+    launches on both ranks, the ranks' tokens equal, agreement with one
+    device's at AGREE_MIN."""
+    import torch
+    for arch in MESH_FAMILIES:
+        single = ranks[0]["families"][arch]
+        name = arch.split("-")[0]
+        tags = [t for t in ("", "_f32") if "single" + t in single]
+        for tag in tags:
+            s_loss, s_norm, s_ms, s_peak = single["single" + tag]
+            log("mesh", path=f"{name} train", mesh="single" + tag,
+                layers=MESH_FAMILIES[arch]["n_layers"],
+                cut=json.dumps(MESH_FAMILIES[arch]),
+                note="a first step on each batch", losses=s_loss,
+                grad_norms=s_norm, step_ms=[round(v, 2) for v in s_ms],
+                peak_gb=round(s_peak, 3))
+        for r in ranks:
+            fam = r["families"][arch]
+            for tag in tags:
+                want_loss, want_norm = single["single" + tag][:2]
+                run = fam["tp" + tag]
+                _check_train("mesh", r["rank"], "1x2" + tag,
+                             run[:4] + (run[4][-1],) + run[5:], want_loss,
+                             want_norm, tag == "_f32", path=f"{name} train")
+            tp, gathered = fam["tp"], fam["gathered"]
+            if tp[3] is not None:
+                log("mesh", path=f"{name} train params", rank=r["rank"],
+                    mesh="1x2", share_of_bf16_bound=[round(v, 4)
+                                                     for v in tp[3]],
+                    worst_leaf=fam["tp_worst_leaf"])
+                assert all(v <= 1.0 for v in tp[3]), (arch, tp[3],
+                                                      fam["tp_worst_leaf"])
+            log("mesh", path=f"{name} train splits", rank=r["rank"],
+                mesh="1x2", step_ms=round(tp[4][0], 2),
+                step_ms_splits_gathered=round(gathered[4][0], 2),
+                peak_gb=round(tp[7], 3),
+                peak_gb_splits_gathered=round(gathered[8], 3),
+                collectives=json.dumps(tp[5]),
+                collectives_splits_gathered=json.dumps(gathered[5]),
+                bytes_by_kind=json.dumps(tp[6]),
+                bytes_by_kind_splits_gathered=json.dumps(gathered[6]),
+                note="two gloo ranks share the card: ms follows the host's "
+                     "staging of every collective")
+            if "forward" not in fam:
+                continue
+            fwd = fam["forward"]
+            assert torch.equal(fwd["tokens"],
+                               single["forward"]["tokens"]), (arch, r["rank"])
+            want = ("mor_tile_mask", "gather_matmul") + (
+                ("masked_matmul_kdim",) if arch == "zamba2-7b" else ())
+            for k in want:
+                assert fwd["launches"][k] > 0, (arch, r["rank"],
+                                                fwd["launches"])
+            agree = single["forward"]["agreement"]
+            log("mesh", path=f"{name} forward", rank=r["rank"], mesh="1x2",
+                layers=MESH_FAMILIES[arch]["n_layers"], mode="kernel",
+                launches=json.dumps({k: v for k, v in
+                                     fwd["launches"].items() if v}),
+                collectives=json.dumps(fwd["collectives"]),
+                greedy_agreement_vs_single=round(agree, 4),
+                logits_max_abs_err=single["forward"]["max_abs_err"],
+                peak_gb=round(fwd["peak_gb"], 3))
+            assert agree >= AGREE_MIN, (arch, agree)
 
 
 MESH4_LAYERS = 8                   # of 40: granite on (2, 2), 4 cards
@@ -5753,7 +6047,7 @@ def main() -> int:
     predicted = timed("dryrun_mesh", phase_dryrun_mesh)
     sharded, granite_sharded, granite_sharded_shadow = timed(
         "sharded", slice_sharded, granite_tokens)
-    deepseek_mesh = timed("mesh", slice_mesh, rows, predicted)
+    mesh_launches = timed("mesh", slice_mesh, rows, predicted)
     if torch.cuda.device_count() >= 4:
         timed("mesh4", slice_mesh4)
     deepseek, deepseek_static = timed("deepseek", slice_deepseek)
@@ -5774,7 +6068,7 @@ def main() -> int:
                "hubert": hubert, "deepseek_paged": deepseek,
                "granite_paged": granite, "granite_sharded": granite_sharded,
                "granite_sharded_shadow": granite_sharded_shadow,
-               "deepseek_mesh": deepseek_mesh,
+               **mesh_launches,
                "granite_obs_shadow": granite_obs,
                "granite_spec": granite_spec,
                "granite_static": granite_static,

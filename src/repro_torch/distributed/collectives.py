@@ -297,6 +297,58 @@ def all_to_all_dim(x: torch.Tensor, split_dim: int, cat_dim: int,
     return _AllToAllDim.apply(x, split_dim, cat_dim, group)
 
 
+class _AllToAllV(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, send, recv, group):
+        ctx.sizes, ctx.group = (send, recv), group
+        return _all_to_all_v(x, send, recv, group, "regroup")
+
+    @staticmethod
+    def backward(ctx, g):
+        send, recv = ctx.sizes
+        return (_all_to_all_v(g, recv, send, ctx.group, "regroup.grad"),
+                None, None, None)
+
+
+def _all_to_all_v(x: torch.Tensor, send, recv, group, name: str
+                  ) -> torch.Tensor:
+    """x's rows (dim 0) cut into ``send[q]`` rows for rank q; -> the rows
+    received, ``recv[s]`` from rank s, in group rank order.  One
+    ``all_to_all_single`` (a CUDA tensor on gloo travels through a host
+    copy)."""
+    stage = x.is_cuda and not _nccl(group)
+    src = x.contiguous().cpu() if stage else x.contiguous()
+    out = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+    dist.all_to_all_single(out, src, output_split_sizes=list(recv),
+                           input_split_sizes=list(send), group=group.pg)
+    _count(name, "all-to-all", src, group)
+    return out.to(x.device) if stage else out
+
+
+def regroup(x: torch.Tensor, dim: int, need, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of a leaf split evenly over
+    ``group`` -> the leaf's indices along ``dim`` that ``need(rank)`` (a
+    sorted CPU int64 tensor of global indices) names for this rank, in
+    that order, each from the rank that holds it: one all-to-all of
+    uneven parts in place of gathering the leaf whole.  Backward: the
+    reverse all-to-all, the gradients of an index sent to several ranks
+    summed on its holder."""
+    c, n = x.shape[dim], group.size
+    lo = group.rank * c
+    parts = []
+    for q in range(n):
+        want = need(q)
+        idx = want[(want >= lo) & (want < lo + c)] - lo
+        parts.append(x.index_select(dim, idx.to(x.device)))
+    mine = need(group.rank)
+    recv = [int(((mine >= q * c) & (mine < (q + 1) * c)).sum())
+            for q in range(n)]
+    send = [p.shape[dim] for p in parts]
+    out = _AllToAllV.apply(torch.cat(parts, dim).movedim(dim, 0), send,
+                           recv, group)
+    return out.movedim(0, dim)
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -325,6 +377,28 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     if group is None or group.size == 1:
         return x
     return _AllReduceSum.apply(x, group)
+
+
+class _AllReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group, "all_reduce_partial")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group, "all_reduce_partial.grad"), None
+
+
+def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """The group's sum of the ranks' partial ``x``, used inside a
+    tensor-parallel region by every rank's own part of the work (the
+    psum of a statistic over a split dim: Mamba2's gated-norm sum of
+    squares).  Backward: the sum again, each rank's part having seen
+    only its own share of the gradient."""
+    if group is None or group.size == 1:
+        return x
+    return _AllReducePartial.apply(x, group)
 
 
 def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:

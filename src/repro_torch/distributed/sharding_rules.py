@@ -21,10 +21,19 @@ such compiler, so the port realises the same layouts by hand:
     tensor-parallel code consumes, are all-gathered layer by layer where
     they are used (``use``: FSDP, ZeRO-3 style; the backward
     reduce-scatters the gradient over ``data``);
-  * the tensor-parallel layers (GQA attention, the dense FFN, the
+  * the tensor-parallel layers consume their ``model`` blocks and issue
+    their collectives themselves (``distributed.collectives``): GQA
+    attention and MLA by head, the dense FFN (MoR off) and RWKV6's
+    channel mix by d_ff column, RWKV6's time mix and Mamba2 by head
+    (each where its heads divide over ``model``), the
     vocabulary-parallel embedding, head and loss, the experts of
-    ``moe_apply_a2a``) consume their ``model`` blocks and issue their
-    collectives themselves (``distributed.collectives``).
+    ``moe_apply_a2a``.  Each family's ``tp_keep`` names the leaves it
+    consumes.  A split that does not fall on a form's boundaries is
+    redistributed (Mamba2's ``in_proj``, whose [z | xBC | dt] columns
+    it cuts mid-segment: ``collectives.regroup``) or gathered and
+    sliced (RWKV6's ``Wo``, split by column and used by row:
+    ``tp_slice``, as the replicated per-head vectors are, RWKV6's ``u``
+    and Mamba2's ``A_log``).
 
 ``torch.distributed.tensor`` (DTensor) is deliberately not the route:
 the hand-written kernels take plain local tensors through ``ctypes``, and
@@ -452,6 +461,38 @@ def tp_weight(w: torch.Tensor, group) -> torch.Tensor:
     return co.copy_to_model(w, group)
 
 
+def tp_shared(w: torch.Tensor, group) -> torch.Tensor:
+    """A whole weight applied inside a tensor-parallel region to the
+    entered input, by every rank for its own heads (RWKV6's lerps and
+    decay LoRA, Mamba2's B / C columns): each rank's gradient is a part,
+    summed over ``group`` with or without sequence parallelism
+    (``copy_to_model``)."""
+    from repro_torch.distributed import collectives as co
+    return co.copy_to_model(w, group)
+
+
+def tp_slice(w: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of a leaf it holds whole (a
+    replicated per-head vector, or a weight gathered over ``model``
+    whose split is on another dim): the forward a slice, the backward
+    the blocks' gradients all-gathered, so that the leaf's gradient is
+    whole and the same on every rank (``collectives.split_dim``)."""
+    from repro_torch.distributed import collectives as co
+    return co.split_dim(w, dim, group)
+
+
+def seq_rows(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """This rank's S rows of an activation gathered over S for a
+    tensor-parallel region (a plain slice: its gradient stays in those
+    rows, and the gather's reduce-scatter adds it to the ranks'
+    partials), or ``x`` itself without sequence parallelism."""
+    g = sp_group()
+    if g is None:
+        return x
+    n = x.shape[dim] // g.size
+    return x.narrow(dim, g.rank * n, n)
+
+
 def tp_exit(y: torch.Tensor, group, seq_dim: int = 1) -> torch.Tensor:
     """Close a tensor-parallel region: the ranks' partial sums added,
     whole (``all_reduce_sum``), or under sequence parallelism this
@@ -560,13 +601,20 @@ def layer_specs(specs):
     return tuple(specs[1:])
 
 
+# the leaves ``use`` gathered over ``model`` since the last
+# ``model_gathers.clear()``, by '/'-joined path within what it was handed
+# (a count each): the splits no tensor-parallel form consumed
+model_gathers: Dict[str, int] = {}
+
+
 def use(tree, specs, keep=frozenset(), prefix: str = ""):
     """Gather-on-use: every dim of ``tree``'s leaves that ``specs`` puts
     on a mesh axis of more than one rank is all-gathered
     (``collectives.all_gather_dim``), except the ``model`` dims of the
     leaves whose '/'-joined paths (under ``prefix``) are in ``keep``:
     those the tensor-parallel layers consume, and which carry their
-    group (``split_group``).  A ``data`` gather's
+    group (``split_group``); each ``model`` gather is tallied in
+    ``model_gathers``.  A ``data`` gather's
     backward reduce-scatters the gradient (each data rank saw its own
     batch); a ``model`` gather's takes this rank's block of it (the
     ranks of a row computed the same thing)."""
@@ -587,6 +635,8 @@ def use(tree, specs, keep=frozenset(), prefix: str = ""):
             if ax == "model" and p[:-1] in keep:
                 split = mesh.group("model")
                 continue
+            if ax == "model":
+                model_gathers[p[:-1]] = model_gathers.get(p[:-1], 0) + 1
             out = co.all_gather_dim(out, i, mesh.group(ax),
                                     reduce_grad=ax != "model")
         if split is not None:

@@ -302,10 +302,14 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
     with the L2 ``flush`` buffer).  On a mesh (``on``) every number is
     this rank's, and the record adds ``n_chips``, the collectives run
     (``collectives``: counts, bytes by kind, the bytes of groups that
-    span nodes) and, for a decode, ``cache_layout_vs_reference``."""
+    span nodes), the leaves gathered over ``model`` (``model_gathered``:
+    the splits no tensor-parallel form consumed, rwkv6-3b's time mix on
+    the pod's model 16, whose 40 heads do not divide) and, for a decode,
+    ``cache_layout_vs_reference``."""
     from repro_torch.distributed import collectives as co
     t0 = time.perf_counter()
     co.reset_counts()
+    sr.model_gathers.clear()
     counted = count_cell(cfg, shape, mor_mode=mor_mode, opt_cfg=opt_cfg,
                          on=on)
     cost = counted.counter.result()
@@ -333,6 +337,8 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
         rec["collectives"] = {"counts": dict(co.counts),
                               "bytes_by_kind": dict(co.nbytes),
                               "ib_bytes_by_kind": dict(co.ib_nbytes)}
+        # the layers' leaves no tensor-parallel form consumed
+        rec["model_gathered"] = sorted(sr.model_gathers)
         if shape.kind == "decode":
             cache = steps.init_cache(cfg, shape.global_batch, shape.seq_len,
                                      "meta", mesh=on.mesh)
@@ -426,6 +432,9 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = MESH, *,
               f"dominant={rl['dominant']}, "
               f"roofline_frac={rl['roofline_fraction']:.3f}, {coll}floor "
               f"{rl['floor_dominant']} {rl['floor_time_s'] * 1e3:.3f} ms)")
+        if rec.get("model_gathered"):
+            print(f"[dryrun] gathered whole over model: "
+                  f"{' '.join(rec['model_gathered'])}")
     except Exception as e:  # noqa: BLE001 -- record the failure, go on
         rec["status"] = f"error: {type(e).__name__}: {e}"
         rec["traceback"] = traceback.format_exc()[-4000:]

@@ -26,11 +26,17 @@ pods=)``): the data-parallel reductions then run over the ``("pod",
 ``sharding_rules``) and ``param_layout``: "fsdp_tp" (the reference's
 train.py's) or "contract_tp" (``_PARAM_RULES_CONTRACT``: the weights'
 contraction dim on ``model``).  The tensor-parallel layers consume
-"fsdp_tp"'s splits only (heads, d_ff and vocabulary on the output dim);
-where a layer's tensor-parallel form does not consume a leaf's split,
-as none consumes "contract_tp"'s contraction splits (the vocabulary
-split of the embedding apart), the leaf is gathered whole where it is
-used, and the layer computes as one device would.
+"fsdp_tp"'s splits only (heads, d_ff and vocabulary on the output dim):
+GQA and MLA by head, the dense FFN (MoR off) by d_ff, RWKV6's time mix
+by head and its channel mix (MoR off) by d_ff, Mamba2 by head,
+zamba2's shared GQA + FFN, the vocabulary-parallel embedding and head,
+the experts of ``moe_apply_a2a``; each where its heads divide over
+``model``.  Where a layer's tensor-parallel form does not consume a
+leaf's split, as none consumes "contract_tp"'s contraction splits (the
+vocabulary split of the embedding apart), the leaf is gathered whole
+where it is used, and the layer computes as one device would.  The
+static decode keeps GQA's, MLA's, the FFN's and zamba2's shared
+block's splits; RWKV6 and the mamba layers decode whole on every rank.
 """
 from __future__ import annotations
 

@@ -26,11 +26,13 @@ from repro_torch.distributed.decode_attention import state_put, state_take
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init, mlp_taps
+from repro_torch.models.layers.mlp import tp_keep as mlp_tp_keep
 from repro_torch.models.layers.norms import (apply_norm, norm_init,
                                              stacked_norm_init)
 from repro_torch.models.layers.ssm import (mamba2_cache_init, mamba2_chunk,
                                            mamba2_decode, mamba2_forward,
                                            mamba2_init)
+from repro_torch.models.layers.ssm import tp_keep as ssm_tp_keep
 from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.transformer import (_group_specs, _remat,
                                             _stack_aux, layer_slice,
@@ -86,12 +88,53 @@ def _mamba_layers(cfg: ModelConfig):
 
 def _shared_block(sp: Dict, cfg: ModelConfig, x, positions, mor, mor_mode,
                   with_taps: bool = False):
-    h = apply_norm(cfg.norm, sp["ln1"], x)
-    x = x + attn.gqa_forward(sp["attn"], _swa_cfg(cfg), h, positions)
-    h2 = apply_norm(cfg.norm, sp["ln2"], x)
-    f, stats = mlp_apply(sp["mlp"], cfg, h2, mor=mor, mor_mode=mor_mode)
-    taps = mlp_taps(sp["mlp"], cfg, h2) if with_taps else None
+    """The shared attention + MLP on ``x`` (this rank's rows under
+    sequence parallelism: each of the two runs on the gathered rows,
+    ``sharding_rules.seq_call``, tensor-parallel where ``use_shared``
+    left its splits)."""
+    h = apply_norm(cfg.norm, sr.seq_weights(sp["ln1"]), x)
+    x = x + sr.seq_call(
+        lambda h: attn.gqa_forward(sp["attn"], _swa_cfg(cfg), h, positions),
+        attn.tp_group(sp["attn"]) is not None, h)
+    h2 = apply_norm(cfg.norm, sr.seq_weights(sp["ln2"]), x)
+
+    def ffn(h2):
+        f, stats = mlp_apply(sp["mlp"], cfg, h2, mor=mor, mor_mode=mor_mode)
+        return f, stats, (mlp_taps(sp["mlp"], cfg, h2) if with_taps
+                          else None)
+    f, stats, taps = sr.seq_call(
+        ffn, sr.split_group(sp["mlp"]["w_down"]) is not None, h2)
     return x + f, stats, taps
+
+
+def use_shared(params: Dict, cfg: ModelConfig, mor, mor_mode: str,
+               tp: bool = True) -> Dict:
+    """The params outside the mamba stacks gathered for use
+    (``transformer.use_top``, the vocabulary whole), the shared block's
+    GQA and MLP leaving split the ``model`` dims their tensor-parallel
+    forms consume (``tp``: ``attention.tp_keep``, ``mlp.tp_keep``)."""
+    ctx = sr.current()
+    keep: set = set()
+    if tp and ctx is not None and ctx.specs is not None:
+        from repro_torch.core.executor import as_plan
+        specs = ctx.specs["shared"]
+        active = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
+                         tile_n=cfg.mor.tile_n).active
+        keep = (attn.tp_keep(_swa_cfg(cfg), specs["attn"],
+                             ctx.mesh.shape["model"], "shared/attn/")
+                | mlp_tp_keep(specs["mlp"], active, "shared/mlp/"))
+    return use_top(params, cfg, tp=False, keep=frozenset(keep))
+
+
+def use_mamba(lp: Dict, lspec, cfg: ModelConfig, tp: bool = True) -> Dict:
+    """Gather-on-use of one mamba block's leaves, leaving split the
+    ``model`` dims its tensor-parallel form consumes (``tp``:
+    ``ssm.tp_keep``)."""
+    if lspec is None:
+        return lp
+    keep = (ssm_tp_keep(cfg, lspec["mamba"], sr.current().mesh.shape[
+        "model"]) if tp else set())
+    return sr.use(lp, lspec, keep)
 
 
 def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
@@ -102,22 +145,25 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     and, with ``with_taps``, its taps (n_seg, B*S, N), which
     ``deploy.calibrate_hybrid`` folds over the segment axis.  Under a
     mesh every leaf is gathered where it is used (the mamba layers one
-    by one, the shared block once a forward), and under sequence
-    parallelism every block runs whole on the gathered rows."""
+    by one, the shared block once a forward), but for the ``model``
+    splits the tensor-parallel Mamba2, GQA and MLP consume; under
+    sequence parallelism each mamba layer, attention and MLP runs on
+    the gathered rows."""
     with sr.seq_sharded(batch["tokens"].shape[1]):
         return _forward(params, cfg, batch, mor, mor_mode, with_taps)
 
 
 def _forward(params, cfg, batch, mor, mor_mode, with_taps):
     """``forward``'s body; under sequence parallelism the residual stream
-    between blocks holds this rank's S rows and each block (a mamba
-    layer, the shared block) runs whole on the gathered rows
-    (``sharding_rules.seq_call``)."""
-    params = use_top(params, cfg, tp=False)
+    between blocks holds this rank's S rows and each mamba layer, the
+    shared attention and its MLP run on the gathered rows
+    (``sharding_rules.seq_call``: a tensor-parallel one reduce-scatters
+    its output, another keeps its rows of it)."""
+    shared_mor = None if mor is None else mor.get("shared")
+    params = use_shared(params, cfg, shared_mor, mor_mode)
     B, S = batch["tokens"].shape
     x = sr.seq_split(params["embed"][batch["tokens"].long()].to(cfg.tdtype))
     positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-    shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
 
     views = {key: layer_views(params[key])
@@ -126,13 +172,12 @@ def _forward(params, cfg, batch, mor, mor_mode, with_taps):
     lspecs = {key: _group_specs(key) for key in views}
 
     def block(x, lp, lspec):
-        lp = sr.use(lp, lspec)
-
-        def whole(x):
-            h = apply_norm(cfg.norm, lp["ln"], x)
-            return x + mamba2_forward(lp["mamba"], cfg, h)
         # the block's input and output are this rank's rows
-        return sr.seq_call(whole, False, x)
+        lp = use_mamba(lp, lspec, cfg)
+        h = apply_norm(cfg.norm, sr.seq_weights(lp["ln"]), x)
+        return x + sr.seq_call(
+            lambda h: mamba2_forward(lp["mamba"], cfg, h),
+            sr.split_group(lp["mamba"]["out_proj"]) is not None, h)
 
     # the reference rematerialises the segments' mamba layers (not the
     # tail's, nor the shared block) with nothing_saveable
@@ -147,10 +192,8 @@ def _forward(params, cfg, batch, mor, mor_mode, with_taps):
     for seg in segs:
         for key, i in seg:
             x = mamba_block(key, i, x)
-        x, stats, taps = sr.seq_call(
-            lambda x: _shared_block(params["shared"], cfg, x, positions,
-                                    shared_mor, mor_mode, with_taps),
-            False, x)
+        x, stats, taps = _shared_block(params["shared"], cfg, x, positions,
+                                       shared_mor, mor_mode, with_taps)
         y: Dict[str, Any] = {"mor_stats": stats} if stats else {}
         if with_taps:
             y["taps"] = taps
@@ -195,7 +238,8 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     read (every layer of a leaf at once: one collective per leaf when the
     pool is page-sharded) and written through its state page, and the
     shared attention's ring through its kv pages (``gqa_paged_flash``).  aux["mor_stats"]
-    is n_seg-stacked, one entry per application of the shared MLP."""
+    is n_seg-stacked, one entry per application of the shared MLP.
+    Under a mesh every leaf is gathered whole."""
     dt = cfg.tdtype
     B, C = tokens.shape
     pos = cache["pos"]
@@ -207,17 +251,20 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
         n_valid[:, None]
     vm = valid[..., None]
     zero = torch.zeros((), dtype=dt, device=tokens.device)
+    shared_mor = None if mor is None else mor.get("shared")
+    params = use_shared(params, cfg, shared_mor, mor_mode, tp=False)
     x = torch.where(vm, params["embed"][tokens.long()].to(dt), zero)
     swa = _swa_cfg(cfg)
     sp = params["shared"]
-    shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
     taken = {key: {k: state_take(a, table)
                    for k, a in cache[name].items()}
              for key, name in _CACHE_OF.items() if name in cache}
+    lspecs = {key: _group_specs(key) for key in _CACHE_OF if key in params}
 
     def mamba_block(key, i, x):
-        lp = layer_slice(params[key], i)
+        lp = use_mamba(layer_slice(params[key], i), lspecs[key], cfg,
+                       tp=False)
         leaves = cache[_CACHE_OF[key]]
         st = {k: a[i] for k, a in taken[key].items()}
         h = apply_norm(cfg.norm, lp["ln"], x)
@@ -252,16 +299,23 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, *, mor: Optional[Dict] = None,
                 mor_mode: str = "dense") -> torch.Tensor:
     """One token per sequence: tokens (B, 1) -> logits (B, V), the
-    ``cache_init`` cache UPDATED IN PLACE (pos a scalar)."""
+    ``cache_init`` cache UPDATED IN PLACE (pos a scalar).  Under a mesh
+    the shared block is tensor-parallel as in ``forward`` (its decode
+    over the sequence-sharded ring: ``attention._tp_decode``) and each
+    rank decodes the whole of every mamba layer (its state is not split
+    by head)."""
     pos = cache["pos"]
+    shared_mor = None if mor is None else mor.get("shared")
+    params = use_shared(params, cfg, shared_mor, mor_mode)
     x = params["embed"][tokens.long()].to(cfg.tdtype)     # (B, 1, d)
     swa = _swa_cfg(cfg)
     sp = params["shared"]
-    shared_mor = None if mor is None else mor.get("shared")
     segs, tail = _mamba_layers(cfg)
+    lspecs = {key: _group_specs(key) for key in _CACHE_OF if key in params}
 
     def mamba_block(key, i, x):
-        lp = layer_slice(params[key], i)
+        lp = use_mamba(layer_slice(params[key], i), lspecs[key], cfg,
+                       tp=False)
         leaves = cache[_CACHE_OF[key]]
         h = apply_norm(cfg.norm, lp["ln"], x)
         y, new = mamba2_decode(lp["mamba"], cfg, h,

@@ -17,11 +17,20 @@ kv head) is the reference's ``_tp_flash_decode``: q and the new row's
 k, v gathered over heads, the row written by its owner only, each
 rank's flash statistics over its rows merged exactly by
 ``collectives.flash_merge`` (one collective, where the reference takes
-a pmax and two psums).  MLA has no tensor-parallel form: its weights
-are gathered whole (ROADMAP queue A 7).  Under sequence parallelism the
-tensor-parallel GQA takes its input gathered over S and closes with a
-reduce-scatter over S (``sharding_rules.tp_enter`` / ``tp_exit``); the
-caller gathers and splits (``sharding_rules.seq_call``).
+a pmax and two psums).  MLA is tensor-parallel by head where its heads
+divide over ``model``: ``wq_b``, ``wk_b`` and ``wv_b`` by head column,
+``wo`` by row.  Its latents (the query's ``wq_a`` + ``q_norm``, the kv's
+``wkv_a`` + ``kv_norm`` and the rope key) are shared by every head, so
+they are computed whole on every rank from the gathered ``wq_a`` /
+``wkv_a`` (which ``wkv_a``'s split, cutting the latent mid-way, could
+not serve) and enter the region together, one collective in the
+backward (``_mla_latents``); the rank expands and attends its own heads
+only.  The static prefill and decode take the same form: the latent
+cache is whole on every rank.  Under sequence parallelism the
+tensor-parallel GQA and MLA take their input gathered over S and close
+with a reduce-scatter over S (``sharding_rules.tp_enter`` /
+``tp_exit``); the caller gathers and splits
+(``sharding_rules.seq_call``).
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.kernels.paged_attention import (gqa_paged_flash,
 from repro_torch.models.layers.common import dense_init
 from repro_torch.models.layers.norms import apply_norm, stacked_norm_init
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.tree import tree_map
 
 NEG_INF = -1e30
 _FLASH_THRESHOLD = 4096   # the chunked softmax above this many kv positions
@@ -64,20 +74,34 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig,
 
 def tp_keep(cfg: ModelConfig, specs, mp: int, prefix: str = "attn/"
             ) -> set:
-    """The attention leaves whose ``model`` dims the tensor-parallel GQA
-    consumes: ``wq`` / ``bq`` by head and ``wo`` by row where the query
-    heads divide over ``mp`` ranks, ``wk`` / ``wv`` / ``bk`` / ``bv``
-    too where the kv heads do; none for MLA or another layout."""
-    if cfg.mla or mp == 1 or not isinstance(specs, dict):
+    """The attention leaves whose ``model`` dims the tensor-parallel
+    attention consumes, where the query heads divide over ``mp`` ranks
+    (else none: the layer is gathered whole).  GQA: ``wq`` / ``bq`` by
+    head and ``wo`` by row, ``wk`` / ``wv`` / ``bk`` / ``bv`` too where
+    the kv heads divide.  MLA: ``wq_b``, ``wk_b`` and ``wv_b`` by head
+    and ``wo`` by row."""
+    if mp == 1 or not isinstance(specs, dict) or cfg.n_heads % mp:
         return set()
-    if cfg.n_heads % mp or not (sr.on_model(specs, "wq", -1)
-                                and sr.on_model(specs, "wo", -2)):
+    if cfg.mla:
+        keep = {"wq_b", "wk_b", "wv_b", "wo"}
+        if not all(sr.on_model(specs, k, -1) for k in ("wq_b", "wk_b",
+                                                       "wv_b")) or \
+                not sr.on_model(specs, "wo", -2):
+            return set()
+        return {prefix + k for k in keep}
+    if not (sr.on_model(specs, "wq", -1) and sr.on_model(specs, "wo", -2)):
         return set()
     keep = {"wq", "wo"} | ({"bq"} if cfg.qkv_bias else set())
     if cfg.n_kv_heads % mp == 0 and sr.on_model(specs, "wk", -1) and \
             sr.on_model(specs, "wv", -1):
         keep |= {"wk", "wv"} | ({"bk", "bv"} if cfg.qkv_bias else set())
     return {prefix + k for k in keep}
+
+
+def tp_group(params):
+    """The ``model`` group a tensor-parallel attention layer (GQA or
+    MLA) runs over, or None for a layer gathered whole."""
+    return sr.split_group(params["wo"])
 
 
 def _tp_heads(params, cfg: ModelConfig):
@@ -589,44 +613,73 @@ def mla_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _mla_q(params, cfg: ModelConfig, x, positions):
-    B, S, _ = x.shape
-    h = cfg.n_heads
-    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
-    dt = x.dtype
-    cq = apply_norm(cfg.norm, params["q_norm"], x @ params["wq_a"].to(dt))
-    q = (cq @ params["wq_b"].to(dt)).reshape(B, S, h, nd + rd)
-    q_nope, q_pe = q[..., :nd], q[..., nd:]
-    return q_nope, apply_rope(q_pe, positions, cfg.rope_theta)
-
-
-def _mla_kv_compress(params, cfg: ModelConfig, x, positions):
-    kr = cfg.kv_lora_rank
-    kv = x @ params["wkv_a"].to(x.dtype)
-    c_kv = apply_norm(cfg.norm, params["kv_norm"], kv[..., :kr])
+def _mla_latents(params, cfg: ModelConfig, x, positions):
+    """-> (cq (B, S, q_lora_rank), c_kv (B, S, kv_lora_rank), k_pe (B, S,
+    rd) roped): what every head shares.  Under tensor parallelism they
+    are the replicated region, computed whole on every rank (the whole
+    weights through ``sharding_rules.tp_weight``), and enter the region
+    as one tensor (``tp_enter``: one all-reduce of their gradient)."""
+    kr, dt = cfg.kv_lora_rank, x.dtype
+    group = tp_group(params)
+    w = params if group is None else {
+        n: tree_map(lambda t: sr.tp_weight(t, group), params[n])
+        for n in ("wq_a", "q_norm", "wkv_a", "kv_norm")}
+    cq = apply_norm(cfg.norm, w["q_norm"], x @ w["wq_a"].to(dt))
+    kv = x @ w["wkv_a"].to(dt)
+    c_kv = apply_norm(cfg.norm, w["kv_norm"], kv[..., :kr])
     k_pe = apply_rope(kv[..., kr:][:, :, None, :], positions,
                       cfg.rope_theta)[:, :, 0, :]
-    return c_kv, k_pe
+    if group is None:
+        return cq, c_kv, k_pe
+    lat = sr.tp_enter(torch.cat([cq, c_kv, k_pe], -1), group)
+    return lat.split([cq.shape[-1], kr, k_pe.shape[-1]], -1)
 
 
-def mla_forward(params, cfg: ModelConfig, x, positions):
-    """Teacher-forced path: expand the latent kv to per-head k / v."""
-    B, S, _ = x.shape
-    h = cfg.n_heads
+def _mla_q(params, cfg: ModelConfig, cq, positions):
+    """The query heads this rank holds (all of them on one device):
+    (q_nope (B, S, h, nd), q_pe (B, S, h, rd) roped)."""
+    B, S = cq.shape[:2]
+    nd, rd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    q = (cq @ params["wq_b"].to(cq.dtype)).reshape(B, S, -1, nd + rd)
+    return q[..., :nd], apply_rope(q[..., nd:], positions, cfg.rope_theta)
+
+
+def _mla_out(o, params, x):
+    """``wo`` over the heads' output o (B, S, h, vd): on a
+    tensor-parallel layer the rank's rows, summed over ``model`` (this
+    rank's S rows of the sum under sequence parallelism)."""
+    B, S = o.shape[:2]
+    y = o.reshape(B, S, -1) @ params["wo"].to(x.dtype)
+    group = tp_group(params)
+    return y if group is None else sr.tp_exit(y, group, 1)
+
+
+def _mla_expanded(params, cfg: ModelConfig, q_nope, q_pe, c_kv, k_pe,
+                  pos1):
+    """The teacher-forced attention of the heads ``wk_b`` / ``wv_b``
+    hold: the latent kv expanded to per-head k / v, the rope dims riding
+    in k and q so that the shared attend serves -> o (B, S, h, vd)."""
+    B, S = c_kv.shape[:2]
     nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    dt = x.dtype
-    q_nope, q_pe = _mla_q(params, cfg, x, positions)
-    c_kv, k_pe = _mla_kv_compress(params, cfg, x, positions)
-    k_nope = (c_kv @ params["wk_b"].to(dt)).reshape(B, S, h, nd)
-    v = (c_kv @ params["wv_b"].to(dt)).reshape(B, S, h, vd)
-    # the rope dims ride in k / q so that the shared attend serves
+    dt = c_kv.dtype
+    k_nope = (c_kv @ params["wk_b"].to(dt)).reshape(B, S, -1, nd)
+    v = (c_kv @ params["wv_b"].to(dt)).reshape(B, S, -1, vd)
+    h = k_nope.shape[2]
     k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rd)],
                        -1)
     q_full = torch.cat([q_nope, q_pe], -1)
+    return attend(q_full, k_full, v, pos1, pos1, causal=True, window=0,
+                  threshold=cfg.flash_threshold)
+
+
+def mla_forward(params, cfg: ModelConfig, x, positions):
+    """Teacher-forced path: expand the latent kv to per-head k / v (the
+    rank's heads on a tensor-parallel layer)."""
+    cq, c_kv, k_pe = _mla_latents(params, cfg, x, positions)
+    q_nope, q_pe = _mla_q(params, cfg, cq, positions)
     pos1 = positions[0] if positions.ndim == 2 else positions
-    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0,
-               threshold=cfg.flash_threshold)
-    return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
+    o = _mla_expanded(params, cfg, q_nope, q_pe, c_kv, k_pe, pos1)
+    return _mla_out(o, params, x)
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -647,28 +700,21 @@ def mla_prefill(params, cfg: ModelConfig, x, cache):
     """Batched MLA prefill of one layer: the expanded (forward-style)
     attention over the whole prompt while the latent rows [0, S) of a
     FRESH cache are written IN PLACE, and the position tags where the
-    cache carries them (``repro.models.layers.attention.mla_prefill``)."""
+    cache carries them (``repro.models.layers.attention.mla_prefill``).
+    A tensor-parallel layer attends its own heads: the latents, and so
+    the cache, are whole on every rank."""
     B, S, _ = x.shape
     _check_ring(S, cache["c_kv"].shape[1])
-    h = cfg.n_heads
-    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    dt = x.dtype
     pos1 = torch.arange(S, device=x.device)
     pvec = pos1[None, :].expand(B, S)
-    q_nope, q_pe = _mla_q(params, cfg, x, pvec)
-    c_kv, k_pe = _mla_kv_compress(params, cfg, x, pvec)
+    cq, c_kv, k_pe = _mla_latents(params, cfg, x, pvec)
+    q_nope, q_pe = _mla_q(params, cfg, cq, pvec)
     cache["c_kv"][:, :S] = c_kv.to(cache["c_kv"].dtype)
     cache["k_pe"][:, :S] = k_pe.to(cache["k_pe"].dtype)
     if "pos" in cache:
         cache["pos"][:, :S] = pos1.int()[None, :]
-    k_nope = (c_kv @ params["wk_b"].to(dt)).reshape(B, S, h, nd)
-    v = (c_kv @ params["wv_b"].to(dt)).reshape(B, S, h, vd)
-    k_full = torch.cat([k_nope, k_pe[:, :, None, :].expand(B, S, h, rd)],
-                       -1)
-    q_full = torch.cat([q_nope, q_pe], -1)
-    o = attend(q_full, k_full, v, pos1, pos1, causal=True, window=0,
-               threshold=cfg.flash_threshold)
-    return o.reshape(B, S, h * vd) @ params["wo"].to(dt)
+    o = _mla_expanded(params, cfg, q_nope, q_pe, c_kv, k_pe, pos1)
+    return _mla_out(o, params, x)
 
 
 def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
@@ -694,8 +740,8 @@ def mla_chunk(params, cfg: ModelConfig, x, cache, pos, valid,
     dt = x.dtype
     scale = (nd + rd) ** -0.5
     qpos = pos[:, None].long() + torch.arange(C, device=x.device)[None, :]
-    q_nope, q_pe = _mla_q(params, cfg, x, qpos)           # (B,C,h,nd/rd)
-    c_kv_t, k_pe_t = _mla_kv_compress(params, cfg, x, qpos)
+    cq, c_kv_t, k_pe_t = _mla_latents(params, cfg, x, qpos)
+    q_nope, q_pe = _mla_q(params, cfg, cq, qpos)          # (B,C,h,nd/rd)
     wk_b = params["wk_b"].to(dt).reshape(kr, h, nd)
     wv_b = params["wv_b"].to(dt).reshape(kr, h, vd)
     q_lat = torch.einsum("bchd,khd->bchk", q_nope, wk_b)  # absorb W_uk
@@ -740,22 +786,24 @@ def mla_decode(params, cfg: ModelConfig, x, cache, pos):
     ``pos`` (a 0-dim int tensor): the latent row ``pos`` is written IN
     PLACE (its tag too, where the cache carries tags) and attention runs
     in the latent space over the full ``max_len``, masked by absolute
-    index (t <= pos) (``repro.models.layers.attention.mla_decode``)."""
+    index (t <= pos) (``repro.models.layers.attention.mla_decode``).  A
+    tensor-parallel layer absorbs and attends its own heads over the
+    whole latent cache, one all-reduce after ``wo``."""
     B = x.shape[0]
-    h, nd, vd = cfg.n_heads, cfg.qk_nope_head_dim, cfg.v_head_dim
-    kr, rd = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nd, rd, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kr = cfg.kv_lora_rank
     dt = x.dtype
     p1 = pos.reshape(1).long()
     pvec = p1[None, :].expand(B, 1)
-    q_nope, q_pe = _mla_q(params, cfg, x, pvec)           # (B,1,h,nd/rd)
-    c_kv_t, k_pe_t = _mla_kv_compress(params, cfg, x, pvec)
+    cq, c_kv_t, k_pe_t = _mla_latents(params, cfg, x, pvec)
+    q_nope, q_pe = _mla_q(params, cfg, cq, pvec)          # (B,1,h,nd/rd)
     ck, cpe = cache["c_kv"], cache["k_pe"]
     ck.index_copy_(1, p1, c_kv_t.to(ck.dtype))
     cpe.index_copy_(1, p1, k_pe_t.to(cpe.dtype))
     if "pos" in cache:
         cache["pos"].index_copy_(1, p1, p1.int()[None, :].expand(B, 1))
-    wk_b = params["wk_b"].to(dt).reshape(kr, h, nd)
-    wv_b = params["wv_b"].to(dt).reshape(kr, h, vd)
+    wk_b = params["wk_b"].to(dt).reshape(kr, -1, nd)
+    wv_b = params["wv_b"].to(dt).reshape(kr, -1, vd)
     q_lat = torch.einsum("bohd,khd->bhk", q_nope, wk_b)  # absorb W_uk
     s = (torch.einsum("bhk,btk->bht", q_lat.float(), ck.float())
          + torch.einsum("bohr,btr->bht", q_pe.float(), cpe.float()))
@@ -765,4 +813,4 @@ def mla_decode(params, cfg: ModelConfig, x, cache, pos):
     p = torch.softmax(s, dim=-1).to(dt)
     o_lat = torch.einsum("bht,btk->bhk", p, ck)
     o = torch.einsum("bhk,khv->bhv", o_lat, wv_b)        # absorb W_uv
-    return o.reshape(B, 1, h * vd) @ params["wo"].to(dt)
+    return _mla_out(o[:, None], params, x)

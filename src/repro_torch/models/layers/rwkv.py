@@ -11,6 +11,22 @@ other functions take one layer's views.  ``timemix_forward(chunked=
 False)`` is the reference's serial scan, one position a step, with its
 rematerialised chunks of ``SERIAL_CHUNK`` positions under autograd (a
 training-memory variant: no serving or calibration path calls it).
+
+Under a mesh whose layer loop left their ``model`` splits (``tp_keep``)
+the teacher-forced forms are tensor-parallel.  The time mix runs by
+head: the input enters the region once (``tp_enter``), every rank forms
+the five lerps and the decay LoRA's ``tanh(x wA)`` with the whole
+``mu`` / ``wA`` (``sharding_rules.tp_shared``), its column blocks of
+``Wr``, ``Wk``, ``Wv``, ``Wg`` and ``wB`` give its heads' r, k, v, gate
+and decay, its slices of ``w0``, ``u`` and ``ln_scale``
+(``tp_slice``) its heads' WKV6 and group norm, and ``Wo`` closes the
+region with one reduction.  ``Wo``'s ``model`` split is on its output
+columns; the rank needs its heads' rows, so ``Wo`` is gathered (d^2
+weights a layer) and sliced by row, rather than all-gathering y and
+the output (2 B S d activations a layer, far more at training
+shapes).  The channel mix (MoR off) is Megatron's FFN: ``w_up`` by
+column, ``w_down`` by row, the ``Wr`` gate (gathered whole) applied to
+the reduced sum, on this rank's rows under sequence parallelism.
 """
 from __future__ import annotations
 
@@ -20,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.layers.common import dense_init, randn
 from repro_torch.models.transformer import _remat
 
@@ -58,23 +75,57 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu
 
 
+def tp_keep(cfg: ModelConfig, specs, mp: int, mor_active: bool) -> set:
+    """The block's leaves whose ``model`` dims the tensor-parallel forms
+    consume: the time mix's ``Wr``, ``Wk``, ``Wv``, ``Wg`` and ``wB`` by
+    column where its heads divide over ``mp`` (rwkv6-3b's 40 heads do
+    not over 16: its time mix then stays gathered whole), the channel
+    mix's ``w_up`` by column and ``w_down`` by row where no MoR plan
+    runs (as ``mlp.tp_keep``: the plan's proxies may lie on another
+    rank's columns)."""
+    if mp == 1 or not isinstance(specs, dict):
+        return set()
+    keep = set()
+    tm = ("Wr", "Wk", "Wv", "Wg", "wB")
+    if _heads(cfg)[0] % mp == 0 and all(sr.on_model(specs["tm"], k, -1)
+                                        for k in tm):
+        keep |= {"tm/" + k for k in tm}
+    if not mor_active and sr.on_model(specs["cm"], "w_up", -1) and \
+            sr.on_model(specs["cm"], "w_down", -2):
+        keep |= {"cm/w_up", "cm/w_down"}
+    return keep
+
+
+def _tp_local(params, group):
+    """The time mix's params as the rank's heads use them: the column
+    blocks as they are, ``mu`` / ``wA`` whole (their gradients summed),
+    the rank's slices of ``w0``, ``u``, ``ln_scale`` and rows of the
+    gathered ``Wo``."""
+    out = dict(params)
+    for k in ("mu", "wA"):
+        out[k] = sr.tp_shared(params[k], group)
+    for k in ("w0", "u", "ln_scale", "Wo"):
+        out[k] = sr.tp_slice(params[k], 0, group)
+    return out
+
+
 def _timemix_inputs(params, cfg: ModelConfig, x, x_prev):
     """x, x_prev: (..., d) current and token-shifted activations ->
     (r, k, v (..., H, hd) in x's dtype, g (..., d) float32, w (..., H,
     hd) float32 decays)."""
     lead = x.shape[:-1]
-    H, hd = _heads(cfg)
+    hd = cfg.rwkv_head_size
     dt = x.dtype
     mu = params["mu"].to(dt)
     xr, xk, xv, xg, xw = (_mix(x, x_prev, mu[i]) for i in range(5))
-    r = (xr @ params["Wr"].to(dt)).reshape(*lead, H, hd)
-    k = (xk @ params["Wk"].to(dt)).reshape(*lead, H, hd)
-    v = (xv @ params["Wv"].to(dt)).reshape(*lead, H, hd)
+    r = (xr @ params["Wr"].to(dt)).reshape(*lead, -1, hd)
+    k = (xk @ params["Wk"].to(dt)).reshape(*lead, -1, hd)
+    v = (xv @ params["Wv"].to(dt)).reshape(*lead, -1, hd)
     g = F.silu((xg @ params["Wg"].to(dt)).float())
     # Finch data-dependent decay: w = exp(-exp(w0 + tanh(xw A) B))
     dd = torch.tanh(xw @ params["wA"].to(dt)) @ params["wB"].to(dt)
     w = torch.exp(-torch.exp(params["w0"] + dd.float()))
-    return r, k, v, g, w.reshape(*lead, H, hd)
+    return r, k, v, g, w.reshape(*lead, -1, hd)
 
 
 def _group_norm(y, scale, eps: float = 1e-6):
@@ -158,8 +209,15 @@ def timemix_forward(params: Dict, cfg: ModelConfig, x, *,
     """x: (B, S, d) -> (B, S, d), the wkv from a zero state: chunked
     (``_wkv6_chunked``), or the serial scan over chunks of
     ``SERIAL_CHUNK`` positions, each recomputed in the backward (the
-    reference's ``jax.checkpoint`` a chunk: one carry saved a chunk)."""
+    reference's ``jax.checkpoint`` a chunk: one carry saved a chunk).
+    On a tensor-parallel layer x holds every row (the region is entered
+    here) and the output is the sum over ``model`` (this rank's S rows of
+    it under sequence parallelism: ``sharding_rules.tp_exit``)."""
     dt = x.dtype
+    group = sr.split_group(params["Wr"])
+    if group is not None:
+        x = sr.tp_enter(x, group)
+        params = _tp_local(params, group)
     x_prev = F.pad(x, (0, 0, 1, 0))[:, :-1]
     r, k, v, g, w = _timemix_inputs(params, cfg, x, x_prev)
     if chunked:
@@ -177,7 +235,8 @@ def timemix_forward(params: Dict, cfg: ModelConfig, x, *,
             ys.append(y)
         y = torch.cat(ys, 1)
     y = _group_norm(y, params["ln_scale"]) * g
-    return y.to(dt) @ params["Wo"].to(dt)
+    out = y.to(dt) @ params["Wo"].to(dt)
+    return out if group is None else sr.tp_exit(out, group, 1)
 
 
 def timemix_chunk(params: Dict, cfg: ModelConfig, x, shift0, wkv0,
@@ -241,9 +300,16 @@ def chanmix_forward(params: Dict, cfg: ModelConfig, x, x_prev, *,
     """x, x_prev: (..., d).  The ReLU^2 channel mix with the MoR hook:
     the up projection goes through the plan (kernel mode:
     ``mor_tile_mask`` then ``gather_matmul``); the down projection stays
-    a plain product, as in the JAX package.  -> (y, mor_stats)."""
+    a plain product, as in the JAX package.  On a tensor-parallel layer
+    (MoR off): the rank's ``w_up`` columns and ``w_down`` rows on the
+    entered input, summed over ``model`` (this rank's S rows under
+    sequence parallelism), then gated by the whole ``Wr``'s gate.  ->
+    (y, mor_stats)."""
     from repro_torch.core.executor import as_plan
     dt = x.dtype
+    group = sr.split_group(params["w_down"])
+    if group is not None:
+        return _chanmix_tp(params, x, x_prev, group), {}
     mu = params["mu"].to(dt)
     xk = _mix(x, x_prev, mu[0])
     xr = _mix(x, x_prev, mu[1])
@@ -261,6 +327,24 @@ def chanmix_forward(params: Dict, cfg: ModelConfig, x, x_prev, *,
         h = torch.square(F.relu(xk @ params["w_up"].to(dt)))
     y = gate.to(dt) * (h.to(dt) @ params["w_down"].to(dt))
     return y, stats
+
+
+def _chanmix_tp(params: Dict, x, x_prev, group) -> torch.Tensor:
+    """The tensor-parallel channel mix: x, x_prev (B, S, d) every row.
+    The gate is the replicated region (its whole weights through
+    ``tp_weight``), on this rank's rows under sequence parallelism
+    (``seq_rows``); x and x_prev enter the region together (one
+    collective in the backward)."""
+    dt = x.dtype
+    mu = sr.tp_weight(params["mu"], group).to(dt)
+    xr = _mix(sr.seq_rows(x), sr.seq_rows(x_prev), mu[1])
+    gate = torch.sigmoid((xr @ sr.tp_weight(params["Wr"], group).to(dt))
+                         .float())
+    xf, xpf = sr.tp_enter(torch.stack([x, x_prev]), group).unbind(0)
+    xk = _mix(xf, xpf, sr.tp_shared(params["mu"], group).to(dt)[0])
+    h = torch.square(F.relu(xk @ params["w_up"].to(dt)))
+    y = sr.tp_exit(h.to(dt) @ params["w_down"].to(dt), group, x.ndim - 2)
+    return gate.to(dt) * y
 
 
 def chanmix_taps(params: Dict, x, x_prev) -> Dict:

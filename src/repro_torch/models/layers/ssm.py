@@ -9,6 +9,20 @@ out_proj.  The reference's scans are jnp, so plain torch ops are their
 port: there is no kernel here.  ``mamba2_init`` returns weights with a
 leading layer dim of ``n_layers``; the other functions take one layer's
 views.
+
+Under a mesh whose layer loop left its leaves split over ``model``
+(``tp_keep``: where the SSD heads divide) the forward runs by head.
+The input enters the region once.  ``in_proj``'s split cuts the
+concatenated [z | xBC | dt] columns, and ``conv_w`` / ``conv_b``'s the
+channels, mid-segment, so one uneven all-to-all each hands every rank
+its heads' z, x and dt columns (its x channels) and the B / C ones
+every head shares (``collectives.regroup``, in place of gathering the
+leaf whole; the B / C gradients are summed on their holders).  The
+rank's SSD heads run with its slices of ``A_log``, ``D`` and
+``dt_bias``; the gated RMSNorm over the whole ``d_in`` sums its
+squares with one all-reduce of (B, S, 1)
+(``collectives.all_reduce_partial``) before ``norm_scale``'s block, and
+``out_proj`` by row closes the region (``sharding_rules.tp_exit``).
 """
 from __future__ import annotations
 
@@ -18,6 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives as co
+from repro_torch.distributed import sharding_rules as sr
 from repro_torch.models.layers.common import dense_init, randn
 
 _D_CONV = 4
@@ -47,17 +63,73 @@ def mamba2_init(gen: torch.Generator, cfg: ModelConfig,
     }
 
 
-def _split_proj(zxbcdt, cfg: ModelConfig):
+_TP_LEAVES = ("in_proj", "conv_w", "conv_b", "norm_scale", "out_proj")
+
+
+def tp_keep(cfg: ModelConfig, specs, mp: int, prefix: str = "mamba/"
+            ) -> set:
+    """The Mamba2 leaves whose ``model`` dims the tensor-parallel form
+    consumes, where the SSD heads divide over ``mp`` ranks and every
+    leaf of ``_TP_LEAVES`` is split over ``model`` (``out_proj`` by row,
+    the others on their last dim); else none."""
+    H = _dims(cfg)[1]
+    if mp == 1 or not isinstance(specs, dict) or H % mp or not (
+            sr.on_model(specs, "out_proj", -2) and all(
+                sr.on_model(specs, k, -1) for k in _TP_LEAVES[:4])):
+        return set()
+    return {prefix + k for k in _TP_LEAVES}
+
+
+def _tp_local(params, cfg: ModelConfig, group):
+    """The layer's params as the rank's heads use them: ``in_proj``'s
+    columns [z | x | B | C | dt] and the conv's channels [x | B | C] of
+    its heads (``collectives.regroup``), its slices of the per-head
+    vectors; ``norm_scale`` and ``out_proj`` are its blocks already."""
     d_in, H, P, N = _dims(cfg)
-    return (zxbcdt[..., :d_in], zxbcdt[..., d_in:2 * d_in + 2 * N],
-            zxbcdt[..., 2 * d_in + 2 * N:])
+    n = group.size
+    dl, hl = d_in // n, H // n
+
+    def spans(*ranges):
+        return torch.cat([torch.arange(a, b) for a, b in ranges])
+
+    def cols(q):                        # [z | x | B | C | dt] of q's heads
+        dt0 = 2 * d_in + 2 * N
+        return spans((q * dl, (q + 1) * dl),
+                     (d_in + q * dl, d_in + (q + 1) * dl),
+                     (2 * d_in, dt0), (dt0 + q * hl, dt0 + (q + 1) * hl))
+
+    def chans(q):                       # [x | B | C]
+        return spans((q * dl, (q + 1) * dl), (d_in, d_in + 2 * N))
+
+    out = dict(params, in_proj=co.regroup(params["in_proj"], -1, cols,
+                                          group))
+    for k in ("conv_w", "conv_b"):
+        out[k] = co.regroup(params[k], -1, chans, group)
+    for k in ("A_log", "D", "dt_bias"):
+        out[k] = sr.tp_slice(params[k], 0, group)
+    return out
 
 
-def _gated_norm(y, z, scale, eps: float = 1e-6):
+def _split_proj(zxbcdt, cfg: ModelConfig):
+    """[z | xBC | dt] of the heads whose columns ``zxbcdt`` holds (all of
+    them on one device)."""
+    N = cfg.ssm_state
+    dl = (zxbcdt.shape[-1] - 2 * N) * cfg.ssm_head_dim // (
+        2 * cfg.ssm_head_dim + 1)
+    return (zxbcdt[..., :dl], zxbcdt[..., dl:2 * dl + 2 * N],
+            zxbcdt[..., 2 * dl + 2 * N:])
+
+
+def _gated_norm(y, z, scale, group=None, eps: float = 1e-6):
+    """RMSNorm of y * silu(z) over the whole d_in: on a tensor-parallel
+    layer the rank's channels' sum of squares summed over ``group``."""
     g = y * F.silu(z.float())
-    r = torch.reciprocal(torch.sqrt(torch.mean(g * g, -1, keepdim=True)
-                                    + eps))
-    return g * r * scale
+    if group is None:
+        ms = torch.mean(g * g, -1, keepdim=True)
+    else:
+        ms = co.all_reduce_partial(torch.sum(g * g, -1, keepdim=True),
+                                   group) / (g.shape[-1] * group.size)
+    return g * torch.reciprocal(torch.sqrt(ms + eps)) * scale
 
 
 def _ssd(xbar, Bc, Cc, la, S0):
@@ -72,7 +144,11 @@ def _ssd(xbar, Bc, Cc, la, S0):
     rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (B, nc, i, j, H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                 device=xbar.device))
-    Lm = torch.where(tri[:, :, None], torch.exp(rel), 0.0)
+    # masked before the exponential: above the diagonal rel is a sum of
+    # positive decays (past 88 at zamba2's chunk of 256, float32's exp
+    # overflows), and the reference's where(tri, exp(rel), 0) has the same
+    # forward but a NaN gradient there (0 x inf)
+    Lm = torch.exp(torch.where(tri[:, :, None], rel, float("-inf")))
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores[..., None] * Lm,
                            xbar)
     # inter-chunk state carry
@@ -102,8 +178,9 @@ def _ssd_inputs(params, cfg: ModelConfig, conv, dtd):
     """conv (B, S, ch) float32, dtd (B, S, H) -> (xs (B, S, H, P), B_,
     C_ (B, S, N) float32, log-decay (B, S, H), xbar (B, S, H, P))."""
     Bsz, S = conv.shape[:2]
-    d_in, H, P, N = _dims(cfg)
-    xs = conv[..., :d_in].reshape(Bsz, S, H, P)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
+    d_in = conv.shape[-1] - 2 * N
+    xs = conv[..., :d_in].reshape(Bsz, S, -1, P)
     B_ = conv[..., d_in:d_in + N]
     C_ = conv[..., d_in + N:]
     dt_soft = F.softplus(dtd.float() + params["dt_bias"])
@@ -131,21 +208,31 @@ def _chunked(cfg: ModelConfig, xbar, B_, C_, loga, S0):
 
 
 def mamba2_forward(params: Dict, cfg: ModelConfig, x) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d) from a zero state."""
+    """x: (B, S, d) -> (B, S, d) from a zero state.  On a
+    tensor-parallel layer x holds every row (the region is entered here)
+    and the output is the sum over ``model`` of the rank's heads' (this
+    rank's S rows of it under sequence parallelism)."""
     Bsz, S, d = x.shape
-    d_in, H, P, N = _dims(cfg)
+    P, N = cfg.ssm_head_dim, cfg.ssm_state
     dt_ = x.dtype
+    group = sr.split_group(params["out_proj"])
+    if group is not None:
+        x = sr.tp_enter(x, group)
+        params = _tp_local(params, cfg, group)
     zxbcdt = x @ params["in_proj"].to(dt_)
     z, xBC, dtd = _split_proj(zxbcdt, cfg)
     hist = F.pad(xBC, (0, 0, _D_CONV - 1, 0))
     conv = _conv(hist, params, S, dt_)
     xs, B_, C_, loga, xbar = _ssd_inputs(params, cfg, conv, dtd)
+    H = xs.shape[2]
     y, _ = _chunked(cfg, xbar, B_, C_, loga,
                     torch.zeros((Bsz, H, N, P), dtype=torch.float32,
                                 device=x.device))
     y = y + params["D"][None, None, :, None] * xs
-    y = _gated_norm(y.reshape(Bsz, S, d_in), z, params["norm_scale"])
-    return y.to(dt_) @ params["out_proj"].to(dt_)
+    y = _gated_norm(y.reshape(Bsz, S, H * P), z, params["norm_scale"],
+                    group)
+    out = y.to(dt_) @ params["out_proj"].to(dt_)
+    return out if group is None else sr.tp_exit(out, group, 1)
 
 
 def mamba2_cache_init(cfg: ModelConfig, batch: int, n_layers: int, dtype,

@@ -57,42 +57,48 @@ def forward(params: Dict, cfg: ModelConfig, batch: Dict, *,
     """batch["tokens"] (B, S) -> (logits (B, S, V), aux): aux carries the
     layer-stacked "mor_stats" of an active plan and, with ``with_taps``,
     the channel mix's calibration taps "taps" ((L, B*S, N)).  Under a
-    mesh every leaf is gathered where it is used (layer by layer), and
-    under sequence parallelism every block runs whole on the gathered
-    rows."""
+    mesh every leaf is gathered where it is used (layer by layer), but
+    for the ``model`` splits the tensor-parallel time mix and channel
+    mix consume (``rwkv.tp_keep``); under sequence parallelism each of
+    the two runs on the gathered rows."""
     with sr.seq_sharded(batch["tokens"].shape[1]):
         return _forward(params, cfg, batch, mor, mor_mode, with_taps)
 
 
 def _forward(params, cfg, batch, mor, mor_mode, with_taps):
     """``forward``'s body; under sequence parallelism the residual stream
-    between blocks holds this rank's S rows and each block runs whole on
-    the gathered rows (``sharding_rules.seq_call``)."""
+    between blocks holds this rank's S rows, and the time mix and the
+    channel mix each run on the gathered rows (``sharding_rules.
+    seq_call``: a tensor-parallel one reduce-scatters its output, another
+    keeps its rows of it)."""
     params = use_top(params, cfg, tp=False)
     x = sr.seq_split(_embed(params, cfg, batch["tokens"]))
     mor_stack = (mor or {}).get("layers")
     lspec = _group_specs("layers")
 
     def block(x, lp, ml):
-        lp = sr.use(lp, lspec)
-        h = apply_norm(cfg.norm, lp["ln1"], x)
-        x = x + rwkv.timemix_forward(lp["tm"], cfg, h)
-        h2 = apply_norm(cfg.norm, lp["ln2"], x)
-        h2_prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]
-        f, stats = rwkv.chanmix_forward(lp["cm"], cfg, h2, h2_prev, mor=ml,
-                                        mor_mode=mor_mode)
-        y: Dict[str, Any] = {"mor_stats": stats} if stats else {}
-        if with_taps:
-            y["taps"] = rwkv.chanmix_taps(lp["cm"], h2, h2_prev)
+        lp = use_block(lp, lspec, cfg, ml, mor_mode)
+        h = apply_norm(cfg.norm, sr.seq_weights(lp["ln1"]), x)
+        x = x + sr.seq_call(lambda h: rwkv.timemix_forward(lp["tm"], cfg, h),
+                            sr.split_group(lp["tm"]["Wr"]) is not None, h)
+        h2 = apply_norm(cfg.norm, sr.seq_weights(lp["ln2"]), x)
+
+        def cm(h2):
+            h2_prev = F.pad(h2, (0, 0, 1, 0))[:, :-1]
+            f, stats = rwkv.chanmix_forward(lp["cm"], cfg, h2, h2_prev,
+                                            mor=ml, mor_mode=mor_mode)
+            y: Dict[str, Any] = {"mor_stats": stats} if stats else {}
+            if with_taps:
+                y["taps"] = rwkv.chanmix_taps(lp["cm"], h2, h2_prev)
+            return f, y
+        f, y = sr.seq_call(cm, sr.split_group(lp["cm"]["w_down"])
+                           is not None, h2)
         return x + f, y
 
     # any policy but "none" recomputes the whole block, as the
-    # reference's nothing_saveable does
-    def sp_block(x, lp, ml):
-        # the block's input and output are this rank's rows
-        return sr.seq_call(lambda x: block(x, lp, ml), False, x)
-
-    body = _remat(sr.bind(sp_block), "none" if cfg.remat == "none"
+    # reference's nothing_saveable does; the block's input and output
+    # are this rank's rows
+    body = _remat(sr.bind(block), "none" if cfg.remat == "none"
                   else "nothing_saveable")
     ys = []
     for l, lp in enumerate(layer_views(params["layers"])):
@@ -101,6 +107,24 @@ def _forward(params, cfg, batch, mor, mor_mode, with_taps):
     aux = _stack_aux(ys, "")
     x = apply_norm(cfg.norm, params["final_norm"], sr.seq_gather(x, False))
     return x @ params["lm_head"].to(x.dtype), aux
+
+
+def use_block(lp: Dict, lspec, cfg: ModelConfig, ml, mor_mode: str,
+              tp: bool = True) -> Dict:
+    """Gather-on-use of one block's leaves (``sharding_rules.use``),
+    leaving split the ``model`` dims its tensor-parallel time mix and
+    channel mix consume (``tp``; none on the serving and decode
+    paths)."""
+    if lspec is None:
+        return lp
+    keep: set = set()
+    if tp:
+        from repro_torch.core.executor import as_plan
+        active = as_plan(ml, mode=mor_mode, tile_m=cfg.mor.tile_m,
+                         tile_n=cfg.mor.tile_n).active
+        keep = rwkv.tp_keep(cfg, lspec, sr.current().mesh.shape["model"],
+                            active)
+    return sr.use(lp, lspec, keep)
 
 
 def cache_init(cfg: ModelConfig, batch: int, max_len: int, dtype,
@@ -131,7 +155,8 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     top-level ``state_table`` is the paged layout: each slot's state rows
     are read (every layer at once, one collective per leaf when the pool
     is page-sharded: ``decode_attention.state_take``) and written back
-    layer by layer through its entry."""
+    layer by layer through its entry.  Under a mesh every block is
+    gathered whole (``use_block(..., tp=False)``)."""
     dt = cfg.tdtype
     B, C = tokens.shape
     table = cache.get("state_table")
@@ -143,12 +168,15 @@ def prefill_chunk(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     nv = n_valid.long()
     last = torch.clamp(nv - 1, min=0)
     zero = torch.zeros((), dtype=dt, device=tokens.device)
+    params = use_top(params, cfg, tp=False)
+    lspec = _group_specs("layers")
     x = torch.where(vm, _embed(params, cfg, tokens), zero)
     mor_stack = (mor or {}).get("layers")
     taken = {k: state_take(cache[k], table) for k in STATE_KEYS}
     ys = []
     for l in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], l)
+        lp = use_block(layer_slice(params["layers"], l), lspec, cfg, None,
+                       mor_mode, tp=False)
         st = {k: taken[k][l] for k in STATE_KEYS}
         h = apply_norm(cfg.norm, lp["ln1"], x)
         y, tm_new, wkv_new = rwkv.timemix_chunk(
@@ -178,12 +206,17 @@ def decode_step(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: Dict, *, mor: Optional[Dict] = None,
                 mor_mode: str = "dense") -> torch.Tensor:
     """One token per sequence: tokens (B, 1) -> logits (B, V), the
-    ``cache_init`` state UPDATED IN PLACE (pos a scalar)."""
+    ``cache_init`` state UPDATED IN PLACE (pos a scalar).  Under a mesh
+    every block is gathered whole: each rank decodes the whole layer
+    (its state is not split by head)."""
     dt = cfg.tdtype
+    params = use_top(params, cfg, tp=False)
+    lspec = _group_specs("layers")
     x = _embed(params, cfg, tokens[:, 0])                # (B, d)
     mor_stack = (mor or {}).get("layers")
     for l in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], l)
+        lp = use_block(layer_slice(params["layers"], l), lspec, cfg, None,
+                       mor_mode, tp=False)
         h = apply_norm(cfg.norm, lp["ln1"], x)
         y, tm_state = rwkv.timemix_decode(
             lp["tm"], cfg, h, {"shift": cache["tm_shift"][l],

@@ -23,13 +23,15 @@ Under a mesh (``distributed.sharding_rules.activation_context`` with
 the params' spec tree) the params are this rank's blocks: each layer's
 leaves are gathered where they are used (``use_layer``, inside the
 rematerialised block, so that one gathered layer is live at a time),
-except the ``model`` dims the tensor-parallel attention, FFN and
-experts consume; the embedding is vocabulary-parallel (a masked local
+except the ``model`` dims the tensor-parallel attention (GQA and MLA),
+FFN and experts consume; the embedding is vocabulary-parallel (a masked local
 lookup and one ``all_reduce_sum``) and the head column-parallel where
 the rules split the vocabulary, and ``forward`` then returns this
 rank's vocabulary block of the logits (``launch.steps.cross_entropy``
-reduces it); the serving steps gather the logits whole.  The serving
-chunk step runs every layer gathered whole.
+reduces it); the serving steps gather the logits whole.  The static
+prefill and decode keep the same splits (``attention._tp_decode``,
+``mla_decode``); the serving chunk step runs every layer gathered
+whole.
 """
 from __future__ import annotations
 
@@ -219,16 +221,18 @@ def use_layer(lp: Dict, lspec, cfg: ModelConfig, kind: str, ml,
     return sr.use(lp, lspec, keep)
 
 
-def use_top(params: Dict, cfg: ModelConfig, tp: bool = True) -> Dict:
+def use_top(params: Dict, cfg: ModelConfig, tp: bool = True,
+            keep: frozenset = frozenset()) -> Dict:
     """The params outside the layer stacks, gathered for use: the
     embedding's vocabulary dim and the head's stay split over ``model``
-    where the rules put them there (``tp``)."""
+    where the rules put them there (``tp``), as do the leaves named in
+    ``keep`` (their '/'-joined paths: zamba2's shared block)."""
     ctx = sr.current()
     if ctx is None or ctx.specs is None:
         return params
     top = {k: v for k, v in params.items() if not k.endswith("layers")}
     specs = {k: ctx.specs[k] for k in top}
-    keep = set()
+    keep = set(keep)
     if tp and cfg.vocab_size:
         if sr.on_model(specs, "embed", 0):
             keep.add("embed")
@@ -379,7 +383,7 @@ def _forward(params, cfg, batch, mor, mor_mode, with_taps, B, S):
         h = apply_norm(cfg.norm, sr.seq_weights(lp["ln1"]), x)
         x = x + sr.seq_call(
             lambda h: attn_fn(lp["attn"], cfg, h, positions),
-            not cfg.mla and attn._tp_heads(lp["attn"], cfg) is not None, h)
+            attn.tp_group(lp["attn"]) is not None, h)
         h2 = apply_norm(cfg.norm, sr.seq_weights(lp["ln2"]), x)
 
         def ffn(h2):

@@ -4,6 +4,7 @@ its results written as JSON to the path named on the command line.
 
   PYTHONPATH=src python tests/dry_mesh_probe.py sizes out.json
   PYTHONPATH=src python tests/dry_mesh_probe.py counts out.json
+  PYTHONPATH=src python tests/dry_mesh_probe.py families out.json
 
 ``sizes``: rank 0's and the last rank's parameter and batch bytes under
 ``dryrun.rank_trees`` for every config, on the ``SIZE_MESHES``, both
@@ -12,6 +13,8 @@ param layouts and the three expert modes (``train_4k``'s batch).
 (2, 2) mesh modelling gloo's collectives: each ``COUNT_CELLS`` step's
 collective counts and bytes by kind, op_cost's FLOPs and its peak
 temp, rank by rank, sequence parallelism on and off.
+``families``: the same for the tensor-parallel MLA, RWKV6 and Mamba2
+families (``FAMILY_ARCHS``) on a dry (1, 2) mesh.
 """
 import json
 import os
@@ -23,6 +26,8 @@ LAYOUTS = ("fsdp_tp", "contract_tp")
 MODES = ("tp", "ep", "ep_shmap")
 COUNT_ARCHS = ("granite-3-2b", "deepseek-v2-236b")
 COUNT_MESH = {"data": 2, "model": 2}
+FAMILY_ARCHS = ("deepseek-v2-236b", "rwkv6-3b", "zamba2-7b")
+FAMILY_MESH = {"data": 1, "model": 2}
 # (name, seq_len, global_batch, kind): S and B divide the (2, 2) mesh
 COUNT_CELLS = (("train_16", 16, 4, "train"), ("prefill_16", 16, 4,
                                               "prefill"))
@@ -66,16 +71,16 @@ def sizes():
     return out
 
 
-def counts():
+def counts(archs=COUNT_ARCHS, shape=COUNT_MESH):
     from repro_torch import configs
     from repro_torch.configs.base import ShapeSpec
     from repro_torch.distributed import collectives as co
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import dry_mesh
     out = {}
-    for rank in range(4):
-        with dry_mesh(COUNT_MESH, rank=rank, backend="gloo") as mesh:
-            for arch in COUNT_ARCHS:
+    for rank in range(shape["data"] * shape["model"]):
+        with dry_mesh(shape, rank=rank, backend="gloo") as mesh:
+            for arch in archs:
                 cfg = count_cfg(configs, arch)
                 for name, S, B, kind in COUNT_CELLS:
                     for sp in (False, True):
@@ -95,7 +100,8 @@ def counts():
 if __name__ == "__main__":
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
     task, path = sys.argv[1], sys.argv[2]
-    res = {"sizes": sizes, "counts": counts}[task]()
+    res = {"sizes": sizes, "counts": counts,
+           "families": lambda: counts(FAMILY_ARCHS, FAMILY_MESH)}[task]()
     with open(path + ".tmp", "w") as f:
         json.dump(res, f)
     os.replace(path + ".tmp", path)

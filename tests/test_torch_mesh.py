@@ -485,7 +485,7 @@ def _params_close(got, want, grads_tiny=()):
 def test_sharded_train_step_matches_reference(run, arch, name):
     """Two train steps on the mesh (FSDP gather-on-use, tensor-parallel
     GQA / FFN / vocabulary, expert slicing for deepseek at a lossless
-    capacity, MLA gathered whole) against the reference's
+    capacity, head-parallel MLA) against the reference's
     ``make_loss_fn`` + ``jax.value_and_grad`` + ``adamw_update`` with
     the data shards' gradients averaged (deepseek's expert capacity and
     load-balance loss are each shard's, as in ``moe_apply_a2a``): the
