@@ -112,7 +112,7 @@
    card, each from the CPU's state before it, held to the CPU's step
    (loss, grad norm, lr, moments, params) within the CPU tests'
    tolerances, then three free-running steps (loss differences logged);
-5. the granite slice: granite-3-2b at full width (8 of its 40 layers,
+5. the granite slice: granite-3-2b at full width (6 of its 40 layers,
    bf16, random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
      mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
@@ -123,7 +123,7 @@
    - the 8 mixed requests through the static batch (``launch.serve.
      static_batch``, the serve CLI's ``--baseline``: left-padded to the
      longest prompt, one batched ``prefill``, 1-row decode steps) in
-     kernel (counted: 8 / 16 / 8 launches of mor_tile_mask /
+     kernel (counted: 6 / 12 / 6 launches of mor_tile_mask /
      gather_matmul / masked_matmul_kdim a dispatch), tiled and dense
      mode, tokens/s beside the slotted engine's; ``launch.steps.
      make_serve_step`` (``prefill`` then 16 ``decode_step``s over
@@ -141,7 +141,7 @@
    each, agreement with the unpressured run); a ~10 s open-loop Poisson
    trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
    p50 / p99 per class, preemptions, rejections, requests lost: 0);
-5c. training (``phase_train``): granite-3-2b at 8 layers (bf16,
+5c. training (``phase_train``): granite-3-2b at 6 layers (bf16,
    remat nothing_saveable, its grad_accum of 4) trained 8 steps on 8 x
    512 tokens through ``launch.steps.make_train_step`` (AdamW: bf16
    moments, float32 master): step ms, tokens/s, the model-FLOPs share
@@ -152,11 +152,11 @@
    seed's tree, 2 more: losses within RESUME_TOL); then the train CLI's
    calibration step (``launch.train.calibrate``: ``calibrate_lm`` on 8
    batches of 8 x 512 from step 10,000) and the mixed trace served on
-   the trained weights, slotted, in kernel mode (counted: 8 / 16 / 8
+   the trained weights, slotted, in kernel mode (counted: 6 / 12 / 6
    a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
    granite phase's random-init ones;
 5d. the dry run (``phase_dryrun``, ``launch/dryrun.py``): granite-3-2b
-   at 8 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
+   at 6 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
    remat) and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
    predicted on the meta device (argument bytes and the peak of the
    storages the step allocates, ``launch/op_cost.py``; FLOPs; the
@@ -171,8 +171,8 @@
    256-rank pod for granite-3-2b train_4k and deepseek-v2-236b
    decode_32k (GiB a rank, fits, the roofline with its collective
    term split between NVLink and InfiniBand: reckoned, not measured),
-   and the prediction of 7d's (1, 2) granite, rwkv6-3b and zamba2-7b
-   steps, held there;
+   and the prediction of 7d's (1, 2) granite (under "fsdp_tp" and
+   "contract_tp"), rwkv6-3b and zamba2-7b steps, held there;
 6. the deepseek slice: deepseek-v2-236b at its published widths,
    cut to 3 layers, calibrated with ``calibrate_moe``, serves the same
    shared-prefix trace through ``Engine(layout="paged")`` in kernel,
@@ -194,20 +194,20 @@
    profiled pass of each, after one layer's attention at S 8,192 under
    the 4,096 window through ``_banded`` against the full (S, S) mask
    (each row's error over its scale against float32, beside the full
-   bf16 path's; ms, peak memory); qwen2-7b (8 of 28 layers) the same trace
+   bf16 path's; ms, peak memory); qwen2-7b (6 of 28 layers) the same trace
    in kernel (counted) and dense mode, then one 16,384-token prompt
    through ``make_prefill_step``'s batched ``prefill`` (every layer's
    attention through the chunked softmax ``_flash``; kernel mode
-   counted: 8 / 16 / 8) in kernel and dense mode: seconds and peak
+   counted: 6 / 12 / 6) in kernel and dense mode: seconds and peak
    memory, after one layer's attention at S 4,608 through ``_flash``
    against the full mask; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
    mode (counted): ms and argmax agreement;
-7b. the recurrent families: rwkv6-3b (4 of 32
+7b. the recurrent families: rwkv6-3b (2 of 32
    layers, d 2560, bf16), calibrated with ``calibrate_lm`` on its
    channel mix, serves the shared-prefix trace paged in kernel
-   (counted: 4 mor_tile_mask and 4 gather_matmul a dispatch), tiled
-   and dense mode and slotted in kernel mode; zamba2-7b (9 of 81
+   (counted: 2 mor_tile_mask and 2 gather_matmul a dispatch), tiled
+   and dense mode and slotted in kernel mode; zamba2-7b (7 of 81
    layers, d 3584, 32 / 32 heads at D 112, bf16), calibrated with
    ``calibrate_hybrid``, serves the shared-prefix trace plus one
    4,160-token prompt (its shared attention's ring wraps past the 4,096
@@ -219,13 +219,13 @@
    processes sharing the card (gloo): reduced float32 granite,
    deepseek, rwkv6 and zamba2, card against CPU in the same page group
    (tokens, telemetry, prefix counters equal; partial launches and
-   merges counted), then granite-3-2b at 8 layers in kernel mode on
+   merges counted), then granite-3-2b at 6 layers in kernel mode on
    the shared-prefix trace (ranks' tokens equal, agreement with the
-   single-rank paged tokens >= AGREE_MIN, 8 partial gqa_paged_flash
-   launches and 8 merges a dispatch, no other collective, pages on
+   single-rank paged tokens >= AGREE_MIN, 6 partial gqa_paged_flash
+   launches and 6 merges a dispatch, no other collective, pages on
    both shards, each rank's pool half the single-rank one's); the
    page-sharded shadow step (the dense twin at 1 in 4) on reduced
-   float32 granite and rwkv6 and on granite at 8 layers: tokens equal
+   float32 granite and rwkv6 and on granite at 6 layers: tokens equal
    shadow-off's, the metrics block's counters equal to one device's
    paged engine with the twin on (the float32 references: every lane),
    the twin's partial launches and merges counted;
@@ -250,9 +250,19 @@
    calibration (MoR launches counted on both ranks, tokens equal on
    them, agreement with one device's) and its step as 5e predicted it;
    every family's step ms and peak GB a rank beside the same step with
-   its splits gathered (``_splits_gathered``); where 4 cards are
-   visible, the (2, 2) mesh over them on NCCL (granite at 8 layers,
-   held the same way);
+   its splits gathered (``_splits_gathered``); rwkv6's and zamba2's
+   float32 twins at 1e-5 (``MESH_F32_CUTS``: rwkv6 2 layers, zamba2
+   one mamba layer and the shared block), the planted fault past the
+   bound; "contract_tp" (``sharding_rules.use`` moving the contraction
+   splits onto the forms' dims): granite's 2-layer train step on (1, 2)
+   in bf16 (1e-3, params held) and float32 (1e-5) against one device,
+   its ms and peak GB beside the same step with the moves off
+   (``_moves_off``), its float32 twin's greedy tokens equal to one
+   device's, its step as 5e predicted it, and a kernel-mode forward
+   after a calibration (the FFN gathered whole under its plan: 2 / 4 /
+   2 launches of rows 1-3 a rank); zamba2 cut as its float32 twin, its
+   bf16 step at 1e-3; where 4 cards are visible, the (2, 2) mesh over
+   them on NCCL (granite at 8 layers, held the same way);
 8. the paper's slice: the four DNNs at full width (random init, BN
    stats from train-mode forwards, calibrated), 128 images
    (TDS 32 x 256 frames) in dense, exact, tiled and kernel mode:
@@ -313,8 +323,8 @@ AGREE_MIN = 0.25
 # host's enqueue, which takes most of a dispatch, grows with it: at
 # these depths the whole run, the kernels' build included, ends in
 # about half of the 1,200 s it is given.
-DEPTH = {"granite-3-2b": 8, "qwen2-7b": 8, "mixtral-8x7b": 2,
-         "rwkv6-3b": 4, "zamba2-7b": 9}
+DEPTH = {"granite-3-2b": 6, "qwen2-7b": 6, "mixtral-8x7b": 2,
+         "rwkv6-3b": 2, "zamba2-7b": 7}
 
 
 def _cut_config(arch):
@@ -3221,6 +3231,10 @@ def _mesh_step_cell(arch="granite-3-2b"):
             OptConfig(lr=1e-3, moment_dtype="bfloat16"))
 
 
+# the prediction's key of granite's (1, 2) step under "contract_tp"
+CONTRACT_PREDICTED = "granite-3-2b|contract_tp"
+
+
 def predict_mesh_step(path):
     """The dry run's prediction of the ``mesh`` phase's (1, 2) train
     steps (granite's and MESH_FAMILY_PREDICTED's), rank by rank, on meta
@@ -3232,17 +3246,19 @@ def predict_mesh_step(path):
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import dry_mesh
     out = {}
-    for arch in ("granite-3-2b",) + MESH_FAMILY_PREDICTED:
+    for key in ("granite-3-2b", CONTRACT_PREDICTED) + \
+            MESH_FAMILY_PREDICTED:
+        arch, _, layout = key.partition("|")
         cfg, shape, opt = _mesh_step_cell(arch)
-        out[arch] = {}
+        out[key] = {}
         for rank in range(MESH_RANKS):
             with dry_mesh({"data": 1, "model": MESH_RANKS}, rank=rank,
                           backend="gloo") as mesh:
                 co.reset_counts()
                 c = dryrun.count_cell(cfg, shape, opt_cfg=opt,
-                                      on=dryrun.MeshArgs(mesh, False,
-                                                         "fsdp_tp"))
-                out[arch][str(rank)] = {
+                                      on=dryrun.MeshArgs(
+                                          mesh, False, layout or "fsdp_tp"))
+                out[key][str(rank)] = {
                     "counts": dict(co.counts), "nbytes": dict(co.nbytes),
                     "args": c.args, "flops": c.counter.flops,
                     "peak_temp": c.counter.peak_live_bytes}
@@ -3970,7 +3986,7 @@ def slice_mixtral():
 
 
 def slice_qwen2():
-    """qwen2-7b at DEPTH (8 of 28) layers (QKV bias, G 7 at head dim 128),
+    """qwen2-7b at DEPTH (6 of 28) layers (QKV bias, G 7 at head dim 128),
     calibrated with ``calibrate_lm``, serves the shared-prefix trace
     through the paged engine in kernel (counted) and dense mode, then a
     profiled pass of each.  -> launches."""
@@ -4205,7 +4221,7 @@ def _calibrated_logged(cfg, api, params, calibrate):
 
 
 def slice_rwkv():
-    """rwkv6-3b at DEPTH (4 of 32) layers (d 2560, d_ff 8960, vocab 65,536,
+    """rwkv6-3b at DEPTH (2 of 32) layers (d 2560, d_ff 8960, vocab 65,536,
     bf16; attention-free: the serving cache is state pages only),
     calibrated with ``calibrate_lm`` on its ReLU^2 channel mix, serves the
     shared-prefix trace through the paged engine in kernel (counted: per
@@ -4243,9 +4259,9 @@ def slice_rwkv():
 
 
 def slice_zamba2():
-    """zamba2-7b at DEPTH (9 of 81) layers (1 of its 13 segments of 6
+    """zamba2-7b at DEPTH (7 of 81) layers (1 of its 13 segments of 6
     Mamba2 layers, followed by the ONE shared attention + SwiGLU block,
-    and a tail of 3; d 3584, 32 / 32 heads of 112 under a shared
+    and a tail of 1; d 3584, 32 / 32 heads of 112 under a shared
     window of 4,096, d_ff 14,336, state 64; bf16), calibrated with
     ``calibrate_hybrid``, serves the shared-prefix trace and one request of
     4,160 prompt tokens (the shared attention's ring wraps past its window)
@@ -4638,6 +4654,9 @@ MESH_GRANITE_LAYERS = 2            # of 40: granite's train / decode here
 MESH_DEEPSEEK_LAYERS = 2           # of 60: layer 0 dense, layer 1 MoE
 MESH_MOE_SHAPES = ((8, 32), (8, 183))   # a dispatch's rows, a prefill's
 MESH_DECODE_PROMPTS, MESH_DECODE_LEN, MESH_DECODE_STEPS = 8, 32, 16
+# granite's "contract_tp" float32 decode: 8 prompts of 8 tokens through
+# the serve step, then 4 greedy tokens
+CONTRACT_DECODE, CONTRACT_DECODE_STEPS = (8, 8), 4
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2.0 ** -7, 1e-3   # atol x leaf max
 # the bf16 norm's bound, above bf16's own noise: the (1, 2) mesh rounds
 # each rank's partial products to bf16 before their sum, and moved the
@@ -4660,6 +4679,13 @@ MESH_FAMILIES = {"deepseek-v2-236b": {"n_layers": 2, "n_experts": 8},
 # params are held after each step (deepseek's 1.8e9 would cross gloo's
 # host staging at each hold: its loss, norm and float32 twin are held)
 MESH_FAMILY_PREDICTED = ("rwkv6-3b", "zamba2-7b")
+# each family's float32 twin of the (1, 2) step, at 1e-5, where it is
+# cut further than its bf16 step (deepseek's runs at MESH_FAMILIES'):
+# rwkv6 at its 2 layers, zamba2 to one mamba layer and the shared block
+MESH_F32_CUTS = {"zamba2-7b": {"n_layers": 1, "shared_attn_every": 1}}
+# the families whose bf16 (1, 2) step runs under "contract_tp" too (its
+# splits moved onto the forms' dims), cut as here
+MESH_CONTRACT_CUTS = {"zamba2-7b": {"n_layers": 1, "shared_attn_every": 1}}
 
 
 def _mesh_gb():
@@ -4682,13 +4708,16 @@ def _mesh_gb():
     layer = tree_bytes({k: v for k, v in ps["moe_layers"]["moe"].items()
                         if k != "shared"}) / (d.n_layers - d.first_k_dense)
     deepseek = MESH_RANKS * (pd + pd / MESH_RANKS + layer / MESH_RANKS)
-    # a family's float32 twin (deepseek's): params, two moments and the
-    # gradient, 16 bytes a param on one device; bf16 with the master, 12
+    # a family's float32 twin (MESH_F32_CUTS): params, two moments and
+    # the gradient, 16 bytes a param on one device; bf16 with the
+    # master, 12
     families = 0
     for arch in MESH_FAMILIES:
-        n = tree_bytes(param_shapes(_family_cfg(arch))) / 2
-        families = max(families, n * (16 if arch == "deepseek-v2-236b"
-                                      else 12))
+        cfg = _family_cfg(arch)
+        n = tree_bytes(param_shapes(cfg)) / 2
+        n32 = tree_bytes(param_shapes(cfg.replace(
+            **MESH_F32_CUTS.get(arch, {})))) / 2
+        families = max(families, n * 12, n32 * 16)
     return granite / 1e9, deepseek / 1e9, families / 1e9
 
 
@@ -4728,13 +4757,13 @@ class _NormFault:
         adamw.global_norm = self._orig
 
 
-def _mesh_train(cfg, opt, mesh, batches, hold=True):
-    """Train steps of granite on ``mesh`` (None: one device) from the
-    seed's weights, one a batch -> (losses, norms, the params after each
-    step gathered on the CPU (``hold``; else None), the learning rate of
-    each step, the last step's device ms, its collectives, their bytes
-    by kind, the norms with ``_NormFault``'s fault planted (mesh
-    only))."""
+def _mesh_train(cfg, opt, mesh, batches, hold=True, layout="fsdp_tp"):
+    """Train steps of granite on ``mesh`` (None: one device; the params
+    in ``layout``) from the seed's weights, one a batch -> (losses,
+    norms, the params after each step gathered on the CPU (``hold``;
+    else None), the learning rate of each step, the last step's device
+    ms, its collectives, their bytes by kind, the norms with
+    ``_NormFault``'s fault planted (mesh only))."""
     import torch
     from repro_torch.distributed import collectives as co
     from repro_torch.distributed import sharding_rules as sr
@@ -4746,11 +4775,11 @@ def _mesh_train(cfg, opt, mesh, batches, hold=True):
         torch.Generator(device="cuda").manual_seed(SEED), cfg)
     specs = None
     if mesh is not None:
-        specs = steps.mesh_specs(cfg, mesh)
+        specs = steps.mesh_specs(cfg, mesh, layout)
         params = sr.shard_tree(params, specs, mesh)
         torch.cuda.empty_cache()
     state = adamw_init(params, opt)
-    step = steps.make_train_step(cfg, opt, mesh=mesh)
+    step = steps.make_train_step(cfg, opt, mesh=mesh, param_layout=layout)
     losses, norms, lrs, fulls, ms = [], [], [], [], 0.0
     fault = _NormFault() if mesh is not None else contextlib.nullcontext()
     with fault:
@@ -4780,8 +4809,10 @@ def _mesh_train(cfg, opt, mesh, batches, hold=True):
             nbytes, getattr(fault, "faulty", None))
 
 
-def _held_train(cfg, opt, mesh, batches, single, hold=True):
-    """``_mesh_train`` on ``mesh``, its params held after each step to
+def _held_train(cfg, opt, mesh, batches, single, hold=True,
+                layout="fsdp_tp"):
+    """``_mesh_train`` on ``mesh`` (in ``layout``), its params held after
+    each step to
     ``single`` (the single-device run's, on rank 0: the gathered params
     are the same bits on every rank; None on the others) where ``hold``
     -> (losses, norms, the planted fault's norms, each step's share of
@@ -4790,7 +4821,7 @@ def _held_train(cfg, opt, mesh, batches, single, hold=True):
     import torch
     torch.cuda.reset_peak_memory_stats()
     loss, norm, fulls, lrs, ms, counts, nbytes, faulty = _mesh_train(
-        cfg, opt, mesh, batches, hold)
+        cfg, opt, mesh, batches, hold, layout)
     excess = None
     if single is not None and hold:
         shape = "x".join(str(mesh.shape[a]) for a in mesh.axis_names)
@@ -4807,9 +4838,10 @@ def _check_train(phase, rank, shape, run, want_loss, want_norm, f32,
     """Log one rank's mesh train run (``_held_train``'s result) and hold
     it to the single-device run's losses and norms: bf16 at
     MESH_LOSS_RTOL / MESH_NORM_RTOL, the float32 twin at MESH_F32_RTOL;
-    where ``model`` splits granite's params, the planted fault must lie
-    past the norm's bound (a family's is logged: how far it lies depends
-    on the share of its replicated leaves in the norm)."""
+    where ``model`` splits granite's params, and in rwkv6's and zamba2's
+    float32 twins, the planted fault must lie past the norm's bound (a
+    family's bf16 step's and deepseek's are logged: how far it lies
+    depends on the share of its replicated leaves in the norm)."""
     loss, norm, faulty, excess, ms, counts, nbytes, peak = run
     rtol = MESH_F32_RTOL if f32 else MESH_NORM_RTOL
     loss_diff = [abs(a - b) / abs(b) for a, b in zip(loss, want_loss)]
@@ -4827,8 +4859,9 @@ def _check_train(phase, rank, shape, run, want_loss, want_norm, f32,
     assert max(loss_diff) <= (MESH_F32_RTOL if f32 else MESH_LOSS_RTOL), \
         (shape, loss_diff)
     assert max(norm_diff) <= rtol, (shape, norm_diff)
-    if int(shape.split("_")[0].split("x")[1]) > 1 and \
-            path == "granite train":
+    if int(shape.split("_")[0].split("x")[1]) > 1 and (
+            path == "granite train" or f32 and path in (
+                "rwkv6 train", "zamba2 train")):
         # the bound lies between the sound run and the fault
         assert min(fault_diff) > rtol, (shape, fault_diff)
 
@@ -4915,6 +4948,144 @@ def _moe_layer_run(cfg, lp, ml, x):
     return y.cpu(), pred, slot, counts
 
 
+@contextlib.contextmanager
+def _moves_off():
+    """While active, GQA's and the dense FFN's ``tp_keep`` keep only the
+    splits that already lie on their forms' dims: under "contract_tp"
+    none, so every layer gathers its splits whole, as the mesh did
+    before ``sharding_rules.use`` moved them (the package has no such
+    knob)."""
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.models.layers import attention, mlp
+    saved = [(m, m.tp_keep) for m in (attention, mlp)]
+
+    def where_they_lie(keep, specs, prefix):
+        return {k: d for k, d in keep.items()
+                if sr.on_model(specs, k[len(prefix):], d)}
+    attention.tp_keep = lambda cfg, specs, mp, prefix="attn/": \
+        where_they_lie(saved[0][1](cfg, specs, mp, prefix), specs, prefix)
+    mlp.tp_keep = lambda specs, active, prefix="": where_they_lie(
+        saved[1][1](specs, active, prefix), specs, prefix)
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.tp_keep = f
+
+
+def _serve_tokens(cfg, params, mesh, prompts, n, layout="fsdp_tp"):
+    """Greedy tokens of ``make_serve_step`` over ``init_cache``'s cache,
+    one step a prompt token then ``n - 1`` more, on ``mesh`` (None: one
+    device; the params in ``layout``) -> (tokens (B, n) on the CPU, the
+    collectives)."""
+    import torch
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    B, P = prompts.shape
+    if mesh is not None:
+        params = sr.shard_tree(params, steps.mesh_specs(cfg, mesh, layout),
+                               mesh)
+    cache = steps.init_cache(cfg, B, P + n, "cuda", mesh=mesh)
+    serve = steps.make_serve_step(cfg, mesh=mesh, param_layout=layout)
+    co.reset_counts()
+    with torch.no_grad():
+        for t in range(P):
+            nxt, cache = serve(params, cache, prompts[:, t:t + 1])
+        toks = [nxt]
+        for _ in range(n - 1):
+            nxt, cache = serve(params, cache, nxt[:, None])
+            toks.append(nxt)
+    out = torch.stack(toks, 1).cpu()
+    del params, cache
+    torch.cuda.empty_cache()
+    return out, dict(co.counts)
+
+
+def _contract_rank(mesh, lead, cfg, opt, cfg32, batches):
+    """One rank's part of granite's "contract_tp" checks on (1, 2) beyond
+    the held steps: one step split (its splits moved) and one with the
+    moves off (``_moves_off``: ms and peak GB only), the step as the
+    dry run counts it, a greedy decode of the float32 twin against one
+    device's, and a kernel-mode forward after a calibration (rank 0
+    calibrates, its plan broadcast: the FFN stays gathered whole under
+    its active plan, so each rank launches the three MoR kernels on
+    every layer), launches counted.  -> the rank's results."""
+    import torch
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.serve import calibrate
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import full_logits
+    out = {}
+    torch.distributed.barrier(group=mesh.group("model").pg)
+    out["split"] = _first_steps(cfg, opt, mesh, batches[:1], False,
+                                "contract_tp")
+    with _moves_off():
+        out["moves_off"] = _first_steps(cfg, opt, mesh, batches[:1], False,
+                                        "contract_tp")
+    scfg, sshape, sopt = _mesh_step_cell()
+    torch.cuda.empty_cache()
+    co.reset_counts()
+    counted = dryrun.count_cell(scfg, sshape, opt_cfg=sopt, device="cuda",
+                                on=dryrun.MeshArgs(mesh, False,
+                                                   "contract_tp"))
+    out["step_counted"] = {"counts": dict(co.counts),
+                           "nbytes": dict(co.nbytes), "args": counted.args,
+                           "flops": counted.counter.flops,
+                           "card": counted.card}
+    del counted
+    torch.cuda.empty_cache()
+    # the float32 twin's greedy tokens, prompts through the serve step
+    api = get_model(cfg32)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED),
+                      cfg32)
+    prompts = torch.randint(0, cfg.vocab_size, CONTRACT_DECODE, generator=
+                            torch.Generator(device="cuda").manual_seed(
+                                SEED + 2), device="cuda")
+    if lead:
+        out["single_decode_f32"] = _serve_tokens(
+            cfg32, params, None, prompts, CONTRACT_DECODE_STEPS)[0]
+    out["decode_f32"] = _serve_tokens(cfg32, params, mesh, prompts,
+                                      CONTRACT_DECODE_STEPS, "contract_tp")
+    del params
+    torch.cuda.empty_cache()
+    # the kernel-mode forward
+    api = get_model(cfg)
+    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
+    params, mor, _ = calibrate(params, cfg, api, mesh.device, 8,
+                               mesh.group("world"))
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), generator=torch.
+                           Generator(device="cuda").manual_seed(SEED + 1),
+                           device="cuda")
+    ref = None
+    if lead:
+        with torch.no_grad():
+            ref = api.forward(params, cfg, {"tokens": tokens}, mor=mor,
+                              mor_mode="kernel")[0].float().cpu()
+    specs = steps.mesh_specs(cfg, mesh, "contract_tp")
+    loc = sr.shard_tree(params, specs, mesh)
+    del params
+    torch.cuda.empty_cache()
+    sr.model_gathers.clear()
+    with sr.activation_context(mesh, specs=specs), torch.no_grad():
+        co.reset_counts()
+        (logits, _), launches = _counted(lambda: api.forward(
+            loc, cfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
+        logits = full_logits(logits, cfg).float().cpu()
+    out["forward"] = {"tokens": logits.argmax(-1), "launches": launches,
+                      "collectives": dict(co.counts),
+                      "gathered": sorted(sr.model_gathers)}
+    if lead:
+        out["forward"]["agreement"] = float(
+            (logits.argmax(-1) == ref.argmax(-1)).float().mean())
+        out["forward"]["max_abs_err"] = float((logits - ref).abs().max())
+    del loc
+    torch.cuda.empty_cache()
+    return out
+
+
 def _mesh_rank(group):
     """One rank of the mesh phase (2 gloo ranks on cuda:0).  Rank 0 runs
     every single-device reference first and frees it; then both ranks
@@ -4955,12 +5126,17 @@ def _mesh_rank(group):
                                               hold=False)[:2]
     out["train"] = {}
     single = out["single_train"][2] if lead else None
-    for mp, c, o in ((2, cfg, opt), (1, cfg, opt), (2, cfg32, opt32)):
+    for mp, c, o, layout in ((2, cfg, opt, "fsdp_tp"),
+                             (1, cfg, opt, "fsdp_tp"),
+                             (2, cfg32, opt32, "fsdp_tp"),
+                             (2, cfg, opt, "contract_tp"),
+                             (2, cfg32, opt32, "contract_tp")):
         mesh = make_host_mesh(mp, device=group.device)
         shape = f"{mesh.shape['data']}x{mp}" + (
-            "_f32" if c is cfg32 else "")
+            "_f32" if c is cfg32 else "") + (
+            "_contract" if layout == "contract_tp" else "")
         out["train"][shape] = _held_train(c, o, mesh, batches, single,
-                                          hold=c is cfg)
+                                          hold=c is cfg, layout=layout)
     if lead:
         loss, norm, _, _, ms = out["single_train"][:5]
         out["single_train"] = (loss, norm, ms)
@@ -4979,6 +5155,10 @@ def _mesh_rank(group):
                            "card": counted.card}
     del counted
     torch.cuda.empty_cache()
+
+    # -- granite under "contract_tp" on (1, 2): its splits moved onto
+    # the forms' dims (the held steps are in out["train"] above)
+    out["contract"] = _contract_rank(m12, lead, cfg, opt, cfg32, batches)
 
     # -- the static decode over the sequence-sharded ring
     prompts = torch.randint(0, cfg.vocab_size, (MESH_DECODE_PROMPTS,
@@ -5082,7 +5262,7 @@ def _splits_gathered():
     FFN's and the experts' stay as they were."""
     from repro_torch.models import hybrid
     from repro_torch.models.layers import attention, rwkv
-    none = lambda *a, **k: set()          # noqa: E731
+    none = lambda *a, **k: {}             # noqa: E731
     saved = [(m, n, getattr(m, n)) for m, n in (
         (attention, "tp_keep"), (rwkv, "tp_keep"), (hybrid, "ssm_tp_keep"),
         (hybrid, "mlp_tp_keep"))]
@@ -5118,22 +5298,33 @@ def _family_rank(arch, mesh, lead):
     from repro_torch.optim import OptConfig
     cfg, shape, opt = _mesh_step_cell(arch)
     batches = _device_batches(cfg, 2)
-    twins = (("", cfg, opt, arch in MESH_FAMILY_PREDICTED),) + ((
-        ("_f32", cfg.replace(dtype="float32", param_dtype="float32"),
-         OptConfig(lr=1e-3, moment_dtype="float32"), False),)
-        if arch == "deepseek-v2-236b" else ())
+    f32_cut = MESH_F32_CUTS.get(arch, {})
+    # (tag, its cut, config, optimizer, params held, layout, batches):
+    # the float32 twin and the contract step take the first batch only
+    # (deepseek's twin both batches)
+    twins = [("", {}, cfg, opt, arch in MESH_FAMILY_PREDICTED, "fsdp_tp",
+              batches),
+             ("_f32", f32_cut, cfg.replace(dtype="float32",
+                                           param_dtype="float32", **f32_cut),
+              OptConfig(lr=1e-3, moment_dtype="float32"), False, "fsdp_tp",
+              batches if arch == "deepseek-v2-236b" else batches[:1])]
+    if arch in MESH_CONTRACT_CUTS:
+        cut = MESH_CONTRACT_CUTS[arch]
+        twins.append(("_contract", cut, cfg.replace(**cut), opt, False,
+                      "contract_tp", batches[:1]))
     out = {}
-    for tag, c, o, hold in twins:
+    for tag, cut, c, o, hold, layout, bs in twins:
+        out["cut" + tag] = dict(MESH_FAMILIES[arch], **cut)
         single = None
         if lead:
-            run = _first_steps(c, o, None, batches, hold)
+            run = _first_steps(c, o, None, bs, hold)
             single = run[2]
             out["single" + tag] = (run[0], run[1], run[4], run[8])
         # both ranks start the mesh's steps together: a step's ms is not
         # rank 1's wait for rank 0's single-device runs
         torch.distributed.barrier(group=mesh.group("model").pg)
         loss, norm, fulls, lrs, ms, counts, nbytes, faulty, peak = \
-            _first_steps(c, o, mesh, batches, hold)
+            _first_steps(c, o, mesh, bs, hold, layout)
         shares = None
         if single is not None:
             # a leaf drawn as zeros (a LayerNorm's bias, Mamba2's conv_b,
@@ -5200,16 +5391,18 @@ def _family_rank(arch, mesh, lead):
     return out
 
 
-def _first_steps(cfg, opt, mesh, batches, hold):
+def _first_steps(cfg, opt, mesh, batches, hold, layout="fsdp_tp"):
     """One train step from the seed's weights on each batch, on ``mesh``
-    (None: one device), each step starting from the same params: ->
+    (None: one device; the params in ``layout``), each step starting
+    from the same params: ->
     (losses, norms, the params after each step on the CPU (``hold``;
     else None), the learning rates, each step's device ms, the last
     step's collectives and bytes by kind, the planted fault's norms
     (mesh only), peak GB)."""
     import torch
     torch.cuda.reset_peak_memory_stats()
-    runs = [_mesh_train(cfg, opt, mesh, [b], hold) for b in batches]
+    runs = [_mesh_train(cfg, opt, mesh, [b], hold, layout)
+            for b in batches]
     return ([r[0][0] for r in runs], [r[1][0] for r in runs],
             [r[2][0] for r in runs] if hold else None,
             [r[3][0] for r in runs], [r[4] for r in runs], runs[-1][5],
@@ -5273,6 +5466,9 @@ def _check_mesh_prediction(ranks, predicted):
         if arch == "granite-3-2b":
             c, trained, layers = r["step_counted"], r["train"]["1x2"], \
                 MESH_GRANITE_LAYERS
+        elif arch == CONTRACT_PREDICTED:
+            c, trained, layers = r["contract"]["step_counted"], \
+                r["train"]["1x2_contract"], MESH_GRANITE_LAYERS
         else:
             fam = r["families"][arch]
             c, trained, layers = fam["step_counted"], fam["tp"], \
@@ -5287,7 +5483,8 @@ def _check_mesh_prediction(ranks, predicted):
         assert abs(p["peak_temp"] - meas) <= \
             DRYRUN_PEAK_TOL * meas + DRYRUN_PEAK_SLACK, \
             (arch, p["peak_temp"], meas)
-        log("mesh", path=f"{arch.split('-')[0]} train dry-run prediction",
+        log("mesh", path=f"{arch.split('-')[0]} train dry-run prediction"
+            + (" contract_tp" if arch == CONTRACT_PREDICTED else ""),
             rank=r["rank"], mesh="1x2", layers=layers,
             collectives_equal=True, bytes_by_kind=json.dumps(p["nbytes"]),
             flops_equal=True, argument_bytes=sum(p["args"].values()),
@@ -5339,7 +5536,7 @@ def slice_mesh(rows, predicted):
         f32_grad_norms=f_norm)
     for r in ranks:
         for shape, run in r["train"].items():
-            f32 = shape.endswith("_f32")
+            f32 = "_f32" in shape
             _check_train("mesh", r["rank"], shape, run,
                          f_loss if f32 else s_loss,
                          f_norm if f32 else s_norm, f32)
@@ -5401,11 +5598,82 @@ def slice_mesh(rows, predicted):
             model_all_reduce_ms=round(r["all_reduce_ms"], 3),
             all_reduce_bytes=r["all_reduce_bytes"])
         assert agree >= AGREE_MIN, agree
+    _check_contract(ranks)
     _check_families(ranks)
     return {"deepseek_mesh": ranks[0]["forward_launches"],
+            "granite_contract_mesh": ranks[0]["contract"]["forward"][
+                "launches"],
             **{f"{arch.split('-')[0]}_mesh": ranks[0]["families"][arch][
                 "forward"]["launches"] for arch in MESH_FAMILIES
                if arch != "deepseek-v2-236b"}}
+
+
+def _check_contract(ranks):
+    """Log and hold granite's "contract_tp" checks on (1, 2) beyond its
+    held steps: every split consumed (its moves counted in the step, no
+    GQA or FFN leaf gathered over ``model``), its ms and peak GB a rank
+    beside the same step with the moves off, the float32 twin's greedy
+    tokens equal to one device's, and the kernel-mode forward: the FFN
+    gathered whole under its active plan, so each rank launches
+    ``mor_tile_mask``, ``gather_matmul`` (gate and up) and
+    ``masked_matmul_kdim`` once a layer (1 / 2 / 1), the ranks' tokens
+    equal, agreement with one device's at AGREE_MIN."""
+    import torch
+    from repro_torch.configs import get_config
+    remat = get_config("granite-3-2b").remat
+    single = ranks[0]["contract"]
+    want_launches = {"mor_tile_mask": MESH_GRANITE_LAYERS,
+                     "gather_matmul": 2 * MESH_GRANITE_LAYERS,
+                     "masked_matmul_kdim": MESH_GRANITE_LAYERS}
+    for r in ranks:
+        c = r["contract"]
+        split, off = c["split"], c["moves_off"]
+        moves = split[5].get("model_move", 0)
+        log("mesh", path="granite contract train splits", rank=r["rank"],
+            mesh="1x2", layers=MESH_GRANITE_LAYERS,
+            step_ms=round(split[4][0], 2),
+            step_ms_moves_off=round(off[4][0], 2),
+            peak_gb=round(split[8], 3), peak_gb_moves_off=round(off[8], 3),
+            collectives=json.dumps(split[5]),
+            collectives_moves_off=json.dumps(off[5]),
+            bytes_by_kind=json.dumps(split[6]),
+            bytes_by_kind_moves_off=json.dumps(off[6]),
+            note="two gloo ranks share the card: ms follows the host's "
+                 "staging of every collective")
+        # 7 leaves a layer moved in the forward (again in its recompute,
+        # under remat), their gradients moved back in the backward; with
+        # the moves off none
+        n = 7 * MESH_GRANITE_LAYERS
+        assert moves == n * (1 + (remat != "none")), split[5]
+        assert split[5]["model_move.grad"] == n, split[5]
+        assert "model_move" not in off[5], off[5]
+        toks, counts = c["decode_f32"]
+        log("mesh", path="granite contract decode", rank=r["rank"],
+            mesh="1x2", layers=MESH_GRANITE_LAYERS, dtype="float32",
+            prompts=list(CONTRACT_DECODE), steps=CONTRACT_DECODE_STEPS,
+            tokens_equal_single=bool(torch.equal(
+                toks, single["single_decode_f32"])),
+            collectives=json.dumps(counts))
+        assert torch.equal(toks, single["single_decode_f32"]), \
+            (toks, single["single_decode_f32"])
+        assert counts["model_move"] > 0, counts
+        fwd = c["forward"]
+        launches = {k: v for k, v in fwd["launches"].items() if v}
+        log("mesh", path="granite contract forward", rank=r["rank"],
+            mesh="1x2", layers=MESH_GRANITE_LAYERS, mode="kernel",
+            launches=json.dumps(launches),
+            launches_expected=json.dumps(want_launches),
+            gathered=fwd["gathered"],
+            collectives=json.dumps(fwd["collectives"]),
+            greedy_agreement_vs_single=round(
+                single["forward"]["agreement"], 4),
+            logits_max_abs_err=single["forward"]["max_abs_err"])
+        assert launches == want_launches, (r["rank"], launches)
+        assert fwd["gathered"] == ["mlp/w_down", "mlp/w_gate",
+                                   "mlp/w_up"], fwd["gathered"]
+        assert torch.equal(fwd["tokens"], single["forward"]["tokens"])
+        assert single["forward"]["agreement"] >= AGREE_MIN, \
+            single["forward"]["agreement"]
 
 
 def _check_families(ranks):
@@ -5420,12 +5688,13 @@ def _check_families(ranks):
     for arch in MESH_FAMILIES:
         single = ranks[0]["families"][arch]
         name = arch.split("-")[0]
-        tags = [t for t in ("", "_f32") if "single" + t in single]
+        tags = [t for t in ("", "_f32", "_contract")
+                if "single" + t in single]
         for tag in tags:
             s_loss, s_norm, s_ms, s_peak = single["single" + tag]
             log("mesh", path=f"{name} train", mesh="single" + tag,
-                layers=MESH_FAMILIES[arch]["n_layers"],
-                cut=json.dumps(MESH_FAMILIES[arch]),
+                layers=single["cut" + tag]["n_layers"],
+                cut=json.dumps(single["cut" + tag]),
                 note="a first step on each batch", losses=s_loss,
                 grad_norms=s_norm, step_ms=[round(v, 2) for v in s_ms],
                 peak_gb=round(s_peak, 3))
@@ -5437,6 +5706,9 @@ def _check_families(ranks):
                 _check_train("mesh", r["rank"], "1x2" + tag,
                              run[:4] + (run[4][-1],) + run[5:], want_loss,
                              want_norm, tag == "_f32", path=f"{name} train")
+            if "_contract" in tags:
+                assert fam["tp_contract"][5].get("model_move", 0) > 0, \
+                    fam["tp_contract"][5]
             tp, gathered = fam["tp"], fam["gathered"]
             if tp[3] is not None:
                 log("mesh", path=f"{name} train params", rank=r["rank"],

@@ -39,7 +39,8 @@ copy.  The bytes counted are what moved.  ``all_gather_dim`` /
 ``all_reduce_sum`` / ``copy_to_model`` are the autograd Functions the
 tensor-parallel layers use (Megatron's ``g`` / ``f`` pair and the FSDP
 gather), ``all_to_all_dim`` expert slicing's reshard of the expert
-weights; ``ag_matmul_overlapped`` and ``psum_scatter_matmul`` are the
+weights and the move of a ``"contract_tp"`` split onto the dim its form
+consumes; ``ag_matmul_overlapped`` and ``psum_scatter_matmul`` are the
 reference's explicit-schedule matmuls.  ``reduce_scatter_dim`` and
 ``split_dim`` are sequence parallelism's pair (``sharding_rules``):
 the sum of the ranks' partials cut along S, and this rank's rows of a
@@ -277,24 +278,27 @@ def split_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 class _AllToAllDim(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split_dim, cat_dim, group):
-        ctx.dims, ctx.group = (split_dim, cat_dim), group
-        return all_to_all(x, split_dim, cat_dim, group, "all_to_all_dim")
+    def forward(ctx, x, split_dim, cat_dim, group, name):
+        ctx.dims, ctx.group, ctx.name = (split_dim, cat_dim), group, name
+        return all_to_all(x, split_dim, cat_dim, group, name)
 
     @staticmethod
     def backward(ctx, g):
         split_dim, cat_dim = ctx.dims
         return (all_to_all(g, cat_dim, split_dim, ctx.group,
-                           "all_to_all_dim.grad"), None, None, None)
+                           ctx.name + ".grad"), None, None, None, None)
 
 
 def all_to_all_dim(x: torch.Tensor, split_dim: int, cat_dim: int,
-                   group) -> torch.Tensor:
+                   group, name: str = "all_to_all_dim") -> torch.Tensor:
     """``all_to_all`` with its inverse as the backward: the gradient goes
-    back to the ranks its blocks came from (a reshard, no sum)."""
+    back to the ranks its blocks came from (a reshard, no sum).  Counted
+    as ``name`` (its backward as ``name + ".grad"``): expert slicing's
+    reshard of the expert weights, or ``sharding_rules.use``'s move of a
+    contraction split ("model_move")."""
     if group is None or group.size == 1:
         return x
-    return _AllToAllDim.apply(x, split_dim, cat_dim, group)
+    return _AllToAllDim.apply(x, split_dim, cat_dim, group, name)
 
 
 class _AllToAllV(torch.autograd.Function):

@@ -27,13 +27,32 @@ such compiler, so the port realises the same layouts by hand:
     channel mix by d_ff column, RWKV6's time mix and Mamba2 by head
     (each where its heads divide over ``model``), the
     vocabulary-parallel embedding, head and loss, the experts of
-    ``moe_apply_a2a``.  Each family's ``tp_keep`` names the leaves it
-    consumes.  A split that does not fall on a form's boundaries is
-    redistributed (Mamba2's ``in_proj``, whose [z | xBC | dt] columns
-    it cuts mid-segment: ``collectives.regroup``) or gathered and
-    sliced (RWKV6's ``Wo``, split by column and used by row:
-    ``tp_slice``, as the replicated per-head vectors are, RWKV6's ``u``
-    and Mamba2's ``A_log``).
+    ``moe_apply_a2a`` and the f columns of ``_moe_mesh``'s.  Each
+    family's ``tp_keep`` names the leaves it consumes and the dim it
+    consumes each on: the input projections (``wq`` / ``wk`` / ``wv``,
+    ``w_gate`` / ``w_up``, ``lm_head``, the experts' up projections) by
+    output column, the output projections (``wo``, ``w_down``,
+    ``out_proj``) by input row.  The default layout, ``"fsdp_tp"``
+    (``_PARAM_RULES``), puts ``model`` on exactly those dims.
+    ``"contract_tp"`` (``_PARAM_RULES_CONTRACT``) puts it on the other
+    dim of each: the input projections' input (contraction) dim, the
+    output projections' output dim.  ``use`` then moves such a split
+    onto the dim its form consumes, once the leaf's ``data`` dims are
+    gathered, with one all-to-all over ``model``
+    (``collectives.all_to_all_dim``, counted as "model_move"), so that
+    every form receives the block ``"fsdp_tp"`` would have handed it
+    and runs unchanged; the stored blocks and the optimizer state keep
+    the layout's own.  The forms that consume ``"contract_tp"``'s
+    splits so are GQA, the dense FFN (MoR off), Mamba2, zamba2's shared
+    block, hubert's encoder, the ``moe_tp`` experts and the head; MLA's
+    and RWKV6's ``"contract_tp"`` splits (``wq_a`` / ``wkv_a``, the time
+    mix's ``Wr`` / ``Wk`` / ...) stay gathered whole.  A split that
+    does not fall on a form's boundaries is redistributed (Mamba2's
+    ``in_proj``, whose [z | xBC | dt] columns ``"fsdp_tp"`` cuts
+    mid-segment and ``"contract_tp"`` splits by row: ``ssm._tp_local``)
+    or gathered and sliced (RWKV6's ``Wo``, split by column and used by
+    row: ``tp_slice``, as the replicated per-head vectors are, RWKV6's
+    ``u``, Mamba2's ``A_log`` and ``"contract_tp"``'s qkv biases).
 
 ``torch.distributed.tensor`` (DTensor) is deliberately not the route:
 the hand-written kernels take plain local tensors through ``ctypes``, and
@@ -162,9 +181,12 @@ _PARAM_RULES: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
 )
 
 
-# Alternative layout: weights sharded on the CONTRACTION dim over
-# 'model', FSDP over 'data' on the other dim.  A/B-able via
-# param_sharding(layout=...).
+# Alternative layout: 'model' on the dim _PARAM_RULES leaves to 'data',
+# and the reverse: the input projections' (wq / wk / wv, w_gate / w_up,
+# in_proj, lm_head, the experts' up projections) CONTRACTION dim and the
+# output projections' (wo, w_down, out_proj) output dim; FSDP over
+# 'data' on the other dim.  A/B-able via param_sharding(layout=...);
+# ``use`` moves each 'model' split onto the dim its form consumes.
 _PARAM_RULES_CONTRACT: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
     (r"embed$", ("tp", "dp")),
     (r"lm_head$", ("tp", "dp")),
@@ -607,42 +629,61 @@ def layer_specs(specs):
 model_gathers: Dict[str, int] = {}
 
 
-def use(tree, specs, keep=frozenset(), prefix: str = ""):
+def use(tree, specs, keep=None, prefix: str = ""):
     """Gather-on-use: every dim of ``tree``'s leaves that ``specs`` puts
     on a mesh axis of more than one rank is all-gathered
     (``collectives.all_gather_dim``), except the ``model`` dims of the
-    leaves whose '/'-joined paths (under ``prefix``) are in ``keep``:
-    those the tensor-parallel layers consume, and which carry their
-    group (``split_group``); each ``model`` gather is tallied in
-    ``model_gathers``.  A ``data`` gather's
-    backward reduce-scatters the gradient (each data rank saw its own
-    batch); a ``model`` gather's takes this rank's block of it (the
-    ranks of a row computed the same thing)."""
+    leaves named in ``keep`` ({'/'-joined path under ``prefix``: the dim
+    its tensor-parallel form consumes the split on}): those stay split
+    and carry their group (``split_group``).  A kept leaf whose split
+    lies on another dim than its form's (``"contract_tp"``'s
+    contraction splits) has it moved there once its ``data`` dims are
+    gathered: one all-to-all over ``model``
+    (``collectives.all_to_all_dim``, counted as "model_move"; its
+    backward moves the gradient back), after which it is the block the
+    ``"fsdp_tp"`` layout would have handed the same form.  A move whose
+    target dim does not divide over ``model`` gathers the leaf whole
+    instead.  Each ``model`` gather is tallied in ``model_gathers``.  A
+    ``data`` gather's backward reduce-scatters the gradient (each data
+    rank saw its own batch); a ``model`` gather's takes this rank's
+    block of it (the ranks of a row computed the same thing)."""
     ctx = current()
     if ctx is None or specs is None:
         return tree
     from repro_torch.distributed import collectives as co
     mesh = ctx.mesh
+    keep = keep or {}
 
     def walk(t, s, p):
         if isinstance(t, dict):
             return {k: walk(v, s[k], f"{p}{k}/") for k, v in t.items()}
+        name = p[:-1]
+        mi = next((i for i, ax in enumerate(s) if ax == "model"), None)
+        group = mesh.group("model") if mi is not None else None
+        target = None
+        if name in keep and group is not None and group.size > 1:
+            target = keep[name] % len(s)
+            whole = t.shape[target] * (1 if s[target] is None else
+                                       _axes_size(mesh, s[target]))
+            if whole % group.size:
+                target = None           # the form's dim does not divide
         out = t
-        split = None
         for i, ax in enumerate(s):
-            if ax is None or _axes_size(mesh, ax) == 1:
-                continue
-            if ax == "model" and p[:-1] in keep:
-                split = mesh.group("model")
+            if ax is None or _axes_size(mesh, ax) == 1 or (
+                    i == mi and target is not None):
                 continue
             if ax == "model":
-                model_gathers[p[:-1]] = model_gathers.get(p[:-1], 0) + 1
+                model_gathers[name] = model_gathers.get(name, 0) + 1
             out = co.all_gather_dim(out, i, mesh.group(ax),
                                     reduce_grad=ax != "model")
-        if split is not None:
-            if out is t:
-                out = t.view_as(t)
-            out._model_split = split
+        if target is None:
+            return out
+        if target != mi:
+            out = co.all_to_all_dim(out, target, mi, group, "model_move")
+        elif out is t:
+            out = t.view_as(t)
+        out._model_split = group
+        out._model_dim = target - len(s)
         return out
 
     return walk(tree, specs, prefix)
@@ -653,6 +694,23 @@ def split_group(t: torch.Tensor):
     over (its tensor-parallel consumer's collectives run on it), or
     None for a whole leaf."""
     return getattr(t, "_model_split", None)
+
+
+def split_on(t: torch.Tensor):
+    """The dim (negative) of a leaf handed out by ``use`` that is split
+    over ``model``, or None for a whole leaf."""
+    return getattr(t, "_model_dim", None)
+
+
+def model_dim(specs, name: str):
+    """The dim (negative) of leaf ``name`` of ``specs`` split over
+    ``model``, or None: where a form finds the split it consumes (on
+    its own dim, or on another that ``use`` moves it from)."""
+    s = specs.get(name) if isinstance(specs, dict) else None
+    for i, ax in enumerate(s or ()):
+        if ax == "model":
+            return i - len(s)
+    return None
 
 
 def on_model(specs, name: str, dim: int) -> bool:

@@ -32,7 +32,11 @@ the meta device (the params and optimizer state under
 the step under ``op_cost`` inside ``activation_context(mesh,
 sequence_parallel=not --no-seq-parallel)``, every collective called for
 real on meta tensors and counted (``collectives.nbytes``, the bytes of
-groups that span nodes apart: ``ib_nbytes``).  The record holds the
+groups that span nodes apart: ``ib_nbytes``).  Under "contract_tp" those
+include each layer's moves of its splits onto the dims its forms
+consume (all-to-all bytes: ``sharding_rules.use``), and
+``model_gathered`` names the leaves still gathered whole over
+``model``.  The record holds the
 reference's keys per rank (``n_chips``, ``memory_analysis``' argument
 and temp bytes, ``per_device_gib``, ``fits_80gb`` a rank, the roofline
 with its collective term split between NVLink and InfiniBand,
@@ -72,6 +76,8 @@ from repro_torch.launch.steps import (make_prefill, make_serve_step,
                                       make_train_step)
 from repro_torch.models import (cache_shapes, get_model, param_shapes,
                                 supports_long_context)
+from repro_torch.models.layers.common import is_glu
+from repro_torch.models.layers.mlp import effective_activation
 from repro_torch.optim import OptConfig, adamw_init
 from repro_torch.tree import leaves
 
@@ -305,7 +311,9 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
     span nodes), the leaves gathered over ``model`` (``model_gathered``:
     the splits no tensor-parallel form consumed, rwkv6-3b's time mix on
     the pod's model 16, whose 40 heads do not divide) and, for a decode,
-    ``cache_layout_vs_reference``."""
+    ``cache_layout_vs_reference``; a dense model's decode under
+    ``"contract_tp"`` also ``contract_decode_bytes``: the weights' moves'
+    all-to-all bytes counted, beside ``activation_form_bytes``."""
     from repro_torch.distributed import collectives as co
     t0 = time.perf_counter()
     co.reset_counts()
@@ -344,10 +352,36 @@ def measure_cell(cfg: ModelConfig, shape: ShapeSpec, *,
                                      "meta", mesh=on.mesh)
             rec["cache_layout_vs_reference"] = cache_layout_vs_reference(
                 cfg, shape, cache, on.mesh)
+            if on.layout == "contract_tp" and cfg.family == "dense":
+                rec["contract_decode_bytes"] = {
+                    "move": co.nbytes.get("all-to-all", 0),
+                    "activation_form": activation_form_bytes(
+                        cfg, shape.global_batch // sr.dp_group(on.mesh).size)}
     if torch.device(device).type == "cuda":
         rec["card"] = _on_card(cfg, shape, mor_mode, opt_cfg, device,
                                flush, time_iters)
     return rec
+
+
+def activation_form_bytes(cfg: ModelConfig, tokens: int) -> int:
+    """The bytes a decode step of a dense model would move a rank under
+    ``"contract_tp"`` had its layers kept the weights where the layout
+    puts them and moved the activations instead (Megatron's form for
+    those splits), reckoned from the shapes for ``tokens`` rows a rank:
+    a layer's input projections split on their contraction dim each
+    sum a (tokens, width) partial product over ``model`` (q, k, v, gate
+    and up), and its output projections split on their output dim each
+    take their whole (tokens, width) input (the heads' output, the FFN's
+    hidden), in the compute dtype; an untied head sums its (tokens,
+    vocab) partial logits.  The weights' move (``sharding_rules.use``)
+    is what the dry run counts beside it."""
+    hd, f = cfg.head_dim, cfg.d_ff
+    q, kv = cfg.n_heads * hd, cfg.n_kv_heads * hd
+    up = 2 * f if is_glu(effective_activation(cfg)) else f
+    width = cfg.n_layers * (q + 2 * kv + up + q + f)
+    if not cfg.tie_embeddings:
+        width += cfg.vocab_size
+    return tokens * width * cfg.tdtype.itemsize
 
 
 def _on_card(cfg, shape, mor_mode, opt_cfg, device, flush,

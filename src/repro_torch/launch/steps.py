@@ -23,20 +23,29 @@ pods=)``): the data-parallel reductions then run over the ``("pod",
 
 ``make_train_step`` and ``make_prefill`` take ``sequence_parallel``
 (the residual stream S-sharded over ``model`` between blocks:
-``sharding_rules``) and ``param_layout``: "fsdp_tp" (the reference's
-train.py's) or "contract_tp" (``_PARAM_RULES_CONTRACT``: the weights'
-contraction dim on ``model``).  The tensor-parallel layers consume
-"fsdp_tp"'s splits only (heads, d_ff and vocabulary on the output dim):
-GQA and MLA by head, the dense FFN (MoR off) by d_ff, RWKV6's time mix
-by head and its channel mix (MoR off) by d_ff, Mamba2 by head,
-zamba2's shared GQA + FFN, the vocabulary-parallel embedding and head,
-the experts of ``moe_apply_a2a``; each where its heads divide over
-``model``.  Where a layer's tensor-parallel form does not consume a
-leaf's split, as none consumes "contract_tp"'s contraction splits (the
-vocabulary split of the embedding apart), the leaf is gathered whole
-where it is used, and the layer computes as one device would.  The
-static decode keeps GQA's, MLA's, the FFN's and zamba2's shared
-block's splits; RWKV6 and the mamba layers decode whole on every rank.
+``sharding_rules``), and they and ``make_serve_step`` take
+``param_layout``: "fsdp_tp" (the reference's train.py's: ``model`` on
+the input projections' output dim and the output projections' input
+dim) or "contract_tp" (``_PARAM_RULES_CONTRACT``: ``model`` on the
+input projections' contraction dim and the output projections' output
+dim).  The tensor-parallel layers consume "fsdp_tp"'s splits as they
+lie: GQA and MLA by head, the dense FFN (MoR off) by d_ff, RWKV6's
+time mix by head and its channel mix (MoR off) by d_ff, Mamba2 by
+head, zamba2's shared GQA + FFN, the vocabulary-parallel embedding and
+head, the experts of ``moe_apply_a2a`` and ``_moe_mesh``'s f columns;
+each where its heads divide over ``model``.  Under "contract_tp" each
+layer moves its splits onto those dims first (one all-to-all over
+``model`` a leaf: ``sharding_rules.use``), so that GQA, the dense FFN
+(MoR off), Mamba2, zamba2's shared block, hubert's encoder, the
+``moe_tp`` experts and the head run on the rank's own heads or
+columns as under "fsdp_tp"; its MLA and RWKV6 splits are not moved.
+Where a layer's tensor-parallel form does not consume a leaf's split
+(a form's dim that does not divide over ``model``, an FFN under an
+active MoR plan, MLA and RWKV6 under "contract_tp"), the leaf is
+gathered whole where it is used, and the layer computes as one device
+would.  The static decode keeps (and under "contract_tp" moves) GQA's,
+MLA's, the FFN's and zamba2's shared block's splits; RWKV6 and the
+mamba layers decode whole on every rank.
 """
 from __future__ import annotations
 

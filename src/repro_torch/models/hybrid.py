@@ -114,16 +114,16 @@ def use_shared(params: Dict, cfg: ModelConfig, mor, mor_mode: str,
     GQA and MLP leaving split the ``model`` dims their tensor-parallel
     forms consume (``tp``: ``attention.tp_keep``, ``mlp.tp_keep``)."""
     ctx = sr.current()
-    keep: set = set()
+    keep: dict = {}
     if tp and ctx is not None and ctx.specs is not None:
         from repro_torch.core.executor import as_plan
         specs = ctx.specs["shared"]
         active = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
                          tile_n=cfg.mor.tile_n).active
-        keep = (attn.tp_keep(_swa_cfg(cfg), specs["attn"],
-                             ctx.mesh.shape["model"], "shared/attn/")
-                | mlp_tp_keep(specs["mlp"], active, "shared/mlp/"))
-    return use_top(params, cfg, tp=False, keep=frozenset(keep))
+        keep = dict(attn.tp_keep(_swa_cfg(cfg), specs["attn"],
+                                 ctx.mesh.shape["model"], "shared/attn/"),
+                    **mlp_tp_keep(specs["mlp"], active, "shared/mlp/"))
+    return use_top(params, cfg, tp=False, keep=keep)
 
 
 def use_mamba(lp: Dict, lspec, cfg: ModelConfig, tp: bool = True) -> Dict:
@@ -133,7 +133,7 @@ def use_mamba(lp: Dict, lspec, cfg: ModelConfig, tp: bool = True) -> Dict:
     if lspec is None:
         return lp
     keep = (ssm_tp_keep(cfg, lspec["mamba"], sr.current().mesh.shape[
-        "model"]) if tp else set())
+        "model"]) if tp else {})
     return sr.use(lp, lspec, keep)
 
 

@@ -11,6 +11,10 @@ tensor-parallel where the layer loop left its projections split over
 ``model`` (``tp_keep``): ``wq`` (and ``wk`` / ``wv`` where the kv heads
 divide; else they are whole and each rank takes the kv heads its query
 heads read) by head, ``wo`` by row, one ``all_reduce_sum`` after it.
+Under either param layout the form sees the same blocks: the
+``"contract_tp"`` splits (``wq`` / ``wk`` / ``wv`` on their input dim,
+``wo`` on its output dim) are moved onto the heads by
+``sharding_rules.use``.
 The static decode over a sequence-sharded ring (``gqa_cache_init`` under
 the mesh: rank j holds ring rows [j Lr / MP, (j + 1) Lr / MP) of every
 kv head) is the reference's ``_tp_flash_decode``: q and the new row's
@@ -73,29 +77,43 @@ def gqa_init(gen: torch.Generator, cfg: ModelConfig,
 
 
 def tp_keep(cfg: ModelConfig, specs, mp: int, prefix: str = "attn/"
-            ) -> set:
-    """The attention leaves whose ``model`` dims the tensor-parallel
-    attention consumes, where the query heads divide over ``mp`` ranks
-    (else none: the layer is gathered whole).  GQA: ``wq`` / ``bq`` by
-    head and ``wo`` by row, ``wk`` / ``wv`` / ``bk`` / ``bv`` too where
-    the kv heads divide.  MLA: ``wq_b``, ``wk_b`` and ``wv_b`` by head
-    and ``wo`` by row."""
+            ) -> dict:
+    """The attention leaves whose ``model`` splits the tensor-parallel
+    attention consumes, each with the dim it consumes it on
+    (``sharding_rules.use``), where the query heads divide over ``mp``
+    ranks (else none: the layer is gathered whole).
+
+    GQA: ``wq`` by head column (dim -1) and ``wo`` by head row (dim -2);
+    ``wk`` / ``wv`` by head column too where the kv heads divide (else
+    they are gathered whole, and each rank takes the kv heads its query
+    heads read).  Under ``"fsdp_tp"`` the splits lie there already, and
+    ``bq`` (``bk`` / ``bv``) is split by head as well.  Under
+    ``"contract_tp"`` ``wq`` / ``wk`` / ``wv`` are split on their input
+    dim and ``wo`` on its output dim, and ``use`` moves each onto the
+    form's dim; the biases are replicated, and the form takes its heads'
+    slice of them (``_qkv_tp``).  MLA (``"fsdp_tp"`` only): ``wq_b``,
+    ``wk_b`` and ``wv_b`` by head column and ``wo`` by row; under
+    ``"contract_tp"``, whose ``wq_a`` / ``wkv_a`` / ``wq_b`` splits no
+    MLA form consumes, the layer is gathered whole."""
     if mp == 1 or not isinstance(specs, dict) or cfg.n_heads % mp:
-        return set()
+        return {}
     if cfg.mla:
-        keep = {"wq_b", "wk_b", "wv_b", "wo"}
-        if not all(sr.on_model(specs, k, -1) for k in ("wq_b", "wk_b",
-                                                       "wv_b")) or \
-                not sr.on_model(specs, "wo", -2):
-            return set()
-        return {prefix + k for k in keep}
-    if not (sr.on_model(specs, "wq", -1) and sr.on_model(specs, "wo", -2)):
-        return set()
-    keep = {"wq", "wo"} | ({"bq"} if cfg.qkv_bias else set())
-    if cfg.n_kv_heads % mp == 0 and sr.on_model(specs, "wk", -1) and \
-            sr.on_model(specs, "wv", -1):
-        keep |= {"wk", "wv"} | ({"bk", "bv"} if cfg.qkv_bias else set())
-    return {prefix + k for k in keep}
+        keep = {"wq_b": -1, "wk_b": -1, "wv_b": -1, "wo": -2}
+        if not all(sr.on_model(specs, k, d) for k, d in keep.items()):
+            return {}
+        return {prefix + k: d for k, d in keep.items()}
+    if sr.model_dim(specs, "wq") is None or \
+            sr.model_dim(specs, "wo") is None:
+        return {}
+    keep = {"wq": -1, "wo": -2}
+    if cfg.qkv_bias and sr.on_model(specs, "bq", -1):
+        keep["bq"] = -1
+    if cfg.n_kv_heads % mp == 0 and sr.model_dim(specs, "wk") is not None \
+            and sr.model_dim(specs, "wv") is not None:
+        keep.update(wk=-1, wv=-1)
+        if cfg.qkv_bias and sr.on_model(specs, "bk", -1):
+            keep.update(bk=-1, bv=-1)
+    return {prefix + k: d for k, d in keep.items()}
 
 
 def tp_group(params):
@@ -122,6 +140,19 @@ def _proj(x, params, w: str, b: str, cfg: ModelConfig):
     return y.reshape(B, S, -1, cfg.head_dim)
 
 
+def _tp_biases(params, names, group):
+    """``params`` with the rank's head slice of each bias in ``names``
+    that the layer loop left whole (``"contract_tp"`` replicates them):
+    ``sharding_rules.tp_slice``, whose backward gathers the slices'
+    gradients, so that the whole bias's is the same on every rank."""
+    whole = [n for n in names if n in params
+             and sr.split_group(params[n]) is None]
+    if not whole:
+        return params
+    return dict(params, **{n: sr.tp_slice(params[n], -1, group)
+                           for n in whole})
+
+
 def _qkv_tp(params, cfg: ModelConfig, x, tp):
     """The local heads' q (B, S, H/MP, D), and the k, v they read: the
     local kv heads where ``wk`` / ``wv`` are split, else the whole kv
@@ -129,9 +160,12 @@ def _qkv_tp(params, cfg: ModelConfig, x, tp):
     heads the local query heads read taken after ``copy_to_model``.
     -> (q, k, v, full k, full v) (the last two None when split)."""
     group, h0, h_loc = tp
+    split_kv = sr.split_group(params["wk"]) is not None
+    params = _tp_biases(params, ("bq", "bk", "bv") if split_kv else ("bq",),
+                        group)
     xf = sr.tp_enter(x, group)
     q = _proj(xf, params, "wq", "bq", cfg)
-    if sr.split_group(params["wk"]) is not None:
+    if split_kv:
         return (q, _proj(xf, params, "wk", "bk", cfg),
                 _proj(xf, params, "wv", "bv", cfg), None, None)
     whole = dict(params, **{n: sr.tp_weight(params[n], group)

@@ -6,8 +6,9 @@ and the activation is ReLU-family, in which case it routes through
 
 Under a mesh (``distributed.sharding_rules.activation_context``) whose
 layer loop left ``w_gate`` / ``w_up`` split over ``model`` by column and
-``w_down`` by row (``tp_keep``), the dense math is Megatron's
-tensor-parallel FFN: the input enters through ``copy_to_model``, each
+``w_down`` by row (``tp_keep``; under ``"contract_tp"`` moved there from
+the contraction splits), the dense math is Megatron's tensor-parallel
+FFN: the input enters through ``copy_to_model``, each
 rank computes its f / MP hidden columns, and one ``all_reduce_sum`` over
 ``model`` sums the down projection's partials.  An active MoR plan
 keeps the weights whole (its proxies may lie on another rank's columns).
@@ -47,17 +48,21 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
             "w_down": dense_init(gen, (L, f, d), pd)}
 
 
-def tp_keep(specs, mor_active: bool, prefix: str = "") -> set:
-    """The FFN leaves whose ``model`` dims the tensor-parallel FFN
-    consumes: all of them where the up projections are split by column
-    and the down projection by row and no MoR plan runs, else none."""
+def tp_keep(specs, mor_active: bool, prefix: str = "") -> dict:
+    """The FFN leaves whose ``model`` splits the tensor-parallel FFN
+    consumes, each with the dim it consumes it on: ``w_gate`` / ``w_up``
+    by d_ff column (dim -1) and ``w_down`` by d_ff row (dim -2), where
+    every one of them is split over ``model`` and no MoR plan runs, else
+    none.  ``"fsdp_tp"`` splits them there; ``"contract_tp"`` splits the
+    up projections' input dim and the down projection's output dim, and
+    ``sharding_rules.use`` moves each onto the form's dim."""
     if mor_active or not isinstance(specs, dict):
-        return set()
+        return {}
     up = [k for k in ("w_gate", "w_up") if k in specs]
-    if not (all(sr.on_model(specs, k, -1) for k in up)
-            and sr.on_model(specs, "w_down", -2)):
-        return set()
-    return {prefix + k for k in up + ["w_down"]}
+    if any(sr.model_dim(specs, k) is None for k in up + ["w_down"]):
+        return {}
+    return {prefix + k: (-2 if k == "w_down" else -1)
+            for k in up + ["w_down"]}
 
 
 def mlp_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,

@@ -25,9 +25,11 @@ Under a mesh (``distributed.sharding_rules.activation_context``):
     its E / MP experts);
   * otherwise the single-device semantics: the tokens all-gathered over
     ``data`` (routing is over the global batch), the experts whole, or
-    split over ``model`` by f column where the rules put f there and no
-    expert plan runs (a plan's proxies may lie on another rank's
-    columns), then this rank's rows taken back.
+    split over ``model`` by f column where the rules put f or d there
+    (``"contract_tp"``'s d split moved onto f by
+    ``sharding_rules.use``) and no expert plan runs (a plan's proxies
+    may lie on another rank's columns), then this rank's rows taken
+    back.
 """
 from __future__ import annotations
 
@@ -112,24 +114,29 @@ def _a2a_form(cfg: ModelConfig, mesh, T_loc: int):
 
 
 def tp_keep(cfg: ModelConfig, specs, mesh, T_loc: int, masked: bool,
-            plan_active: bool, prefix: str = "moe/") -> set:
-    """The MoE leaves whose ``model`` dims stay split for this call: the
-    expert dim (expert slicing) or the f dim (f slicing) of the expert
-    weights where ``moe_apply_a2a`` runs them, the f dim where the plain
-    path splits it (no expert plan), and the shared experts' as
-    ``mlp.tp_keep`` says.  The router is always whole."""
-    keep = set()
+            plan_active: bool, prefix: str = "moe/") -> dict:
+    """The MoE leaves whose ``model`` splits stay split for this call,
+    each with the dim its form consumes it on: the expert dim (-3,
+    expert slicing) or the f dim (f slicing: ``w_gate`` / ``w_up`` on
+    -1, ``w_down`` on -2) of the expert weights where ``moe_apply_a2a``
+    runs them, the f dim where the plain path splits it (no expert
+    plan), and the shared experts' as ``mlp.tp_keep`` says.  Under
+    ``"contract_tp"`` the ``moe_tp`` experts are split on d, their
+    contraction dim for ``w_gate`` / ``w_up`` and their output dim for
+    ``w_down``; ``sharding_rules.use`` moves each onto f.  The router is
+    always whole."""
+    keep = {}
     if isinstance(specs.get("shared"), dict):
-        keep |= mlp_tp_keep(specs["shared"], False, prefix + "shared/")
+        keep.update(mlp_tp_keep(specs["shared"], False, prefix + "shared/"))
     experts = [k for k in _EXPERT if k in specs]
-    on_f = all(sr.on_model(specs, k, -1 if k != "w_down" else -2)
-               for k in experts)
+    f_dims = {k: -1 if k != "w_down" else -2 for k in experts}
+    on_f = all(sr.model_dim(specs, k) in (-1, -2) for k in experts)
     form = (_a2a_form(cfg, mesh, T_loc)
             if cfg.expert_sharding == "ep_shmap" and not masked else None)
     if form == "ep" and all(sr.on_model(specs, k, -3) for k in experts):
-        keep |= {prefix + k for k in experts}
+        keep.update({prefix + k: -3 for k in experts})
     elif on_f and (form is not None or not plan_active):
-        keep |= {prefix + k for k in experts}
+        keep.update({prefix + k: f_dims[k] for k in experts})
     return keep
 
 

@@ -75,24 +75,27 @@ def _mix(x, x_prev, mu):
     return x + (x_prev - x) * mu
 
 
-def tp_keep(cfg: ModelConfig, specs, mp: int, mor_active: bool) -> set:
-    """The block's leaves whose ``model`` dims the tensor-parallel forms
-    consume: the time mix's ``Wr``, ``Wk``, ``Wv``, ``Wg`` and ``wB`` by
-    column where its heads divide over ``mp`` (rwkv6-3b's 40 heads do
-    not over 16: its time mix then stays gathered whole), the channel
-    mix's ``w_up`` by column and ``w_down`` by row where no MoR plan
-    runs (as ``mlp.tp_keep``: the plan's proxies may lie on another
-    rank's columns)."""
+def tp_keep(cfg: ModelConfig, specs, mp: int, mor_active: bool) -> dict:
+    """The block's leaves whose ``model`` splits the tensor-parallel
+    forms consume, each with the dim it consumes it on: the time mix's
+    ``Wr``, ``Wk``, ``Wv``, ``Wg`` and ``wB`` by column (dim -1) where
+    its heads divide over ``mp`` (rwkv6-3b's 40 heads do not over 16:
+    its time mix then stays gathered whole), the channel mix's ``w_up``
+    by column and ``w_down`` by row where no MoR plan runs (as
+    ``mlp.tp_keep``: the plan's proxies may lie on another rank's
+    columns).  Only ``"fsdp_tp"``'s splits are consumed: under
+    ``"contract_tp"`` (the time mix's projections split on their input
+    dim) the block is gathered whole."""
     if mp == 1 or not isinstance(specs, dict):
-        return set()
-    keep = set()
+        return {}
+    keep = {}
     tm = ("Wr", "Wk", "Wv", "Wg", "wB")
     if _heads(cfg)[0] % mp == 0 and all(sr.on_model(specs["tm"], k, -1)
                                         for k in tm):
-        keep |= {"tm/" + k for k in tm}
+        keep.update({"tm/" + k: -1 for k in tm})
     if not mor_active and sr.on_model(specs["cm"], "w_up", -1) and \
             sr.on_model(specs["cm"], "w_down", -2):
-        keep |= {"cm/w_up", "cm/w_down"}
+        keep.update({"cm/w_up": -1, "cm/w_down": -2})
     return keep
 
 

@@ -13,11 +13,12 @@ views.
 Under a mesh whose layer loop left its leaves split over ``model``
 (``tp_keep``: where the SSD heads divide) the forward runs by head.
 The input enters the region once.  ``in_proj``'s split cuts the
-concatenated [z | xBC | dt] columns, and ``conv_w`` / ``conv_b``'s the
-channels, mid-segment, so one uneven all-to-all each hands every rank
-its heads' z, x and dt columns (its x channels) and the B / C ones
-every head shares (``collectives.regroup``, in place of gathering the
-leaf whole; the B / C gradients are summed on their holders).  The
+concatenated [z | xBC | dt] columns (``"fsdp_tp"``) or its input rows
+(``"contract_tp"``), and ``conv_w`` / ``conv_b``'s the channels,
+mid-segment, so one all-to-all each hands every rank its heads' z, x
+and dt columns (its x channels) and the B / C ones every head shares
+(``_tp_local``, in place of gathering the leaf whole; the B / C
+gradients are summed on their holders).  The
 rank's SSD heads run with its slices of ``A_log``, ``D`` and
 ``dt_bias``; the gated RMSNorm over the whole ``d_in`` sums its
 squares with one all-reduce of (B, S, 1)
@@ -67,24 +68,50 @@ _TP_LEAVES = ("in_proj", "conv_w", "conv_b", "norm_scale", "out_proj")
 
 
 def tp_keep(cfg: ModelConfig, specs, mp: int, prefix: str = "mamba/"
-            ) -> set:
-    """The Mamba2 leaves whose ``model`` dims the tensor-parallel form
-    consumes, where the SSD heads divide over ``mp`` ranks and every
-    leaf of ``_TP_LEAVES`` is split over ``model`` (``out_proj`` by row,
-    the others on their last dim); else none."""
+            ) -> dict:
+    """The Mamba2 leaves whose ``model`` splits the tensor-parallel form
+    consumes, each with the dim it consumes it on, where the SSD heads
+    divide over ``mp`` ranks and every leaf of ``_TP_LEAVES`` is split
+    over ``model``; else none.  ``conv_w``, ``conv_b`` and
+    ``norm_scale`` carry the same splits under both layouts (their
+    channels).  ``out_proj`` is consumed by row (dim -2): ``"fsdp_tp"``
+    splits it there, ``"contract_tp"`` on its output dim, and
+    ``sharding_rules.use`` moves it.  ``in_proj`` stays where the layout
+    put it (its columns under ``"fsdp_tp"``, its input rows under
+    ``"contract_tp"``): ``_tp_local`` routes the rank's columns to it
+    from either."""
     H = _dims(cfg)[1]
-    if mp == 1 or not isinstance(specs, dict) or H % mp or not (
-            sr.on_model(specs, "out_proj", -2) and all(
-                sr.on_model(specs, k, -1) for k in _TP_LEAVES[:4])):
-        return set()
-    return {prefix + k for k in _TP_LEAVES}
+    if mp == 1 or not isinstance(specs, dict) or H % mp or any(
+            sr.model_dim(specs, k) is None for k in _TP_LEAVES) or not all(
+                sr.on_model(specs, k, -1) for k in _TP_LEAVES[1:4]):
+        return {}
+    keep = {k: -1 for k in _TP_LEAVES[1:4]}
+    keep.update(in_proj=sr.model_dim(specs, "in_proj"), out_proj=-2)
+    return {prefix + k: d for k, d in keep.items()}
 
 
 def _tp_local(params, cfg: ModelConfig, group):
     """The layer's params as the rank's heads use them: ``in_proj``'s
-    columns [z | x | B | C | dt] and the conv's channels [x | B | C] of
-    its heads (``collectives.regroup``), its slices of the per-head
-    vectors; ``norm_scale`` and ``out_proj`` are its blocks already."""
+    columns [z | x | B | C | dt] of its heads and the conv's channels
+    [x | B | C], its slices of the per-head vectors; ``norm_scale`` and
+    ``out_proj`` are its blocks already.
+
+    The conv's channels are split evenly, as are ``in_proj``'s columns
+    under ``"fsdp_tp"``, cutting the segments mid-way: one uneven
+    all-to-all each (``collectives.regroup``) hands every rank the
+    indices it needs from their holders.  Under ``"contract_tp"``
+    ``in_proj`` arrives split by input row, every column on every rank
+    (``in_proj[d_r, :]``): each rank cuts out the columns of every
+    rank's heads, ``cols(q)``, side by side, and one even all-to-all
+    (``collectives.all_to_all_dim``, counted as "model_move") hands rank
+    q the d / MP rows of ``cols(q)`` from every rank, i.e.
+    ``in_proj[:, cols(q)]``.  Its backward moves the gradients back, and
+    the column selection's adds the B / C columns' over the ranks.  This
+    one exchange moves (MP - 1) / MP x d x |cols| elements a rank, where
+    |cols| = 2 d_in / MP + 2 N + H / MP; moving the split onto the
+    columns first and regrouping after would move (MP - 1) / MP x d x
+    (2 d_in + 2 N + H) / MP and then the columns of ``cols(r)`` outside
+    the rank's even block: 1.5x to 2x as many at zamba2-7b's MP 16."""
     d_in, H, P, N = _dims(cfg)
     n = group.size
     dl, hl = d_in // n, H // n
@@ -101,8 +128,14 @@ def _tp_local(params, cfg: ModelConfig, group):
     def chans(q):                       # [x | B | C]
         return spans((q * dl, (q + 1) * dl), (d_in, d_in + 2 * N))
 
-    out = dict(params, in_proj=co.regroup(params["in_proj"], -1, cols,
-                                          group))
+    w = params["in_proj"]
+    if sr.split_on(w) == -2:
+        idx = torch.cat([cols(q) for q in range(n)]).to(w.device)
+        w = co.all_to_all_dim(w.index_select(-1, idx), -1, -2, group,
+                              "model_move")
+    else:
+        w = co.regroup(w, -1, cols, group)
+    out = dict(params, in_proj=w)
     for k in ("conv_w", "conv_b"):
         out[k] = co.regroup(params[k], -1, chans, group)
     for k in ("A_log", "D", "dt_bias"):

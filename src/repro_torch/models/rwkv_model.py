@@ -117,7 +117,7 @@ def use_block(lp: Dict, lspec, cfg: ModelConfig, ml, mor_mode: str,
     paths)."""
     if lspec is None:
         return lp
-    keep: set = set()
+    keep: dict = {}
     if tp:
         from repro_torch.core.executor import as_plan
         active = as_plan(ml, mode=mor_mode, tile_m=cfg.mor.tile_m,

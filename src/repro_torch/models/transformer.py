@@ -198,46 +198,52 @@ def use_layer(lp: Dict, lspec, cfg: ModelConfig, kind: str, ml,
               mor_mode: str, T_loc: int, masked: bool = False,
               tp: bool = True) -> Dict:
     """Gather-on-use of one layer's leaves (``sharding_rules.use``),
-    leaving split the ``model`` dims its tensor-parallel attention, FFN
-    or experts consume (``tp``; none on the serving chunk path)."""
+    leaving split the ``model`` splits its tensor-parallel attention,
+    FFN or experts consume (``tp``; none on the serving chunk path),
+    moved onto the dims those forms consume them on where the layout
+    put them elsewhere (``"contract_tp"``)."""
     if lspec is None:
         return lp
     from repro_torch.core.executor import as_expert_plan, as_plan
     mesh = sr.current().mesh
-    keep: set = set()
+    keep: dict = {}
     if tp:
-        keep |= attn.tp_keep(cfg, lspec["attn"], mesh.shape["model"])
+        keep.update(attn.tp_keep(cfg, lspec["attn"], mesh.shape["model"]))
         if kind == "moe":
             em = ml.get("experts") if isinstance(ml, dict) else None
             active = as_expert_plan(
                 em, mode=mor_mode, tile_m=cfg.mor.tile_m,
                 tile_n=cfg.mor.tile_n).active
-            keep |= moe_mod.tp_keep(cfg, lspec["moe"], mesh, T_loc, masked,
-                                    active)
+            keep.update(moe_mod.tp_keep(cfg, lspec["moe"], mesh, T_loc,
+                                        masked, active))
         else:
             active = as_plan(ml, mode=mor_mode, tile_m=cfg.mor.tile_m,
                              tile_n=cfg.mor.tile_n).active
-            keep |= mlp_mod.tp_keep(lspec["mlp"], active, "mlp/")
+            keep.update(mlp_mod.tp_keep(lspec["mlp"], active, "mlp/"))
     return sr.use(lp, lspec, keep)
 
 
 def use_top(params: Dict, cfg: ModelConfig, tp: bool = True,
-            keep: frozenset = frozenset()) -> Dict:
+            keep=None) -> Dict:
     """The params outside the layer stacks, gathered for use: the
     embedding's vocabulary dim and the head's stay split over ``model``
-    where the rules put them there (``tp``), as do the leaves named in
-    ``keep`` (their '/'-joined paths: zamba2's shared block)."""
+    (``tp``), as do the leaves named in ``keep`` ({'/'-joined path: the
+    dim its form consumes}: zamba2's shared block).  Under
+    ``"fsdp_tp"`` the head is split by vocabulary column; under
+    ``"contract_tp"`` by input row, and ``sharding_rules.use`` moves it
+    onto the vocabulary (dim -1) where the vocabulary divides over
+    ``model``.  The embedding is split by vocabulary row under both."""
     ctx = sr.current()
     if ctx is None or ctx.specs is None:
         return params
     top = {k: v for k, v in params.items() if not k.endswith("layers")}
     specs = {k: ctx.specs[k] for k in top}
-    keep = set(keep)
+    keep = dict(keep or {})
     if tp and cfg.vocab_size:
         if sr.on_model(specs, "embed", 0):
-            keep.add("embed")
-        if "lm_head" in specs and sr.on_model(specs, "lm_head", -1):
-            keep.add("lm_head")
+            keep["embed"] = 0
+        if "lm_head" in specs and sr.model_dim(specs, "lm_head") is not None:
+            keep["lm_head"] = -1
     out = dict(params)
     out.update(sr.use(top, specs, keep))
     return out

@@ -12,7 +12,8 @@ param layouts and the three expert modes (``train_4k``'s batch).
 ``counts``: reduced float32 granite-3-2b and deepseek-v2-236b on a dry
 (2, 2) mesh modelling gloo's collectives: each ``COUNT_CELLS`` step's
 collective counts and bytes by kind, op_cost's FLOPs and its peak
-temp, rank by rank, sequence parallelism on and off.
+temp, rank by rank, sequence parallelism on and off; granite under
+"contract_tp" too (``CONTRACT_COUNT_ARCHS``).
 ``families``: the same for the tensor-parallel MLA, RWKV6 and Mamba2
 families (``FAMILY_ARCHS``) on a dry (1, 2) mesh.
 """
@@ -25,6 +26,10 @@ SIZE_MESHES = {"4x4": {"data": 4, "model": 4},
 LAYOUTS = ("fsdp_tp", "contract_tp")
 MODES = ("tp", "ep", "ep_shmap")
 COUNT_ARCHS = ("granite-3-2b", "deepseek-v2-236b")
+# the archs ``counts`` also runs under "contract_tp" (its splits moved
+# onto the forms' dims: ``sharding_rules.use``), keyed with a
+# "|contract_tp" suffix
+CONTRACT_COUNT_ARCHS = ("granite-3-2b",)
 COUNT_MESH = {"data": 2, "model": 2}
 FAMILY_ARCHS = ("deepseek-v2-236b", "rwkv6-3b", "zamba2-7b")
 FAMILY_MESH = {"data": 1, "model": 2}
@@ -80,15 +85,18 @@ def counts(archs=COUNT_ARCHS, shape=COUNT_MESH):
     out = {}
     for rank in range(shape["data"] * shape["model"]):
         with dry_mesh(shape, rank=rank, backend="gloo") as mesh:
-            for arch in archs:
+            for arch, layout in [(a, "fsdp_tp") for a in archs] + [
+                    (a, "contract_tp") for a in archs
+                    if a in CONTRACT_COUNT_ARCHS]:
                 cfg = count_cfg(configs, arch)
+                tag = "" if layout == "fsdp_tp" else "|" + layout
                 for name, S, B, kind in COUNT_CELLS:
                     for sp in (False, True):
                         co.reset_counts()
                         c = dryrun.count_cell(
                             cfg, ShapeSpec(name, S, B, kind),
-                            on=dryrun.MeshArgs(mesh, sp, "fsdp_tp"))
-                        out[f"{arch}|{name}|{sp}|{rank}"] = {
+                            on=dryrun.MeshArgs(mesh, sp, layout))
+                        out[f"{arch}|{name}|{sp}|{rank}{tag}"] = {
                             "counts": dict(co.counts),
                             "nbytes": dict(co.nbytes),
                             "flops": c.counter.flops,

@@ -59,12 +59,8 @@ def train_batches(cfg):
 
 def main(wpath, path):
     import jax
-    import jax.numpy as jnp
     from repro import configs as jc
-    from repro.launch import steps as jsteps
     from repro.models import get_model
-    from repro.optim import OptConfig, adamw_init, adamw_update
-    from repro.optim.schedules import cosine_schedule
 
     cfgs = {a: family_cfg(jc, a) for a in ARCHS}
     params0 = {a: jax.jit(lambda k, c=c: get_model(c).init(k, c))(
@@ -73,6 +69,19 @@ def main(wpath, path):
     for a, p in params0.items():
         _flat(a, p, weights)
     _save(wpath, weights)
+    two_steps(cfgs, params0, path)
+
+
+def two_steps(cfgs, params0, path):
+    """The reference's two single-device steps of each ``cfgs[arch]``
+    from ``params0[arch]``, at each data-parallel width of ``DPS``, to
+    ``path``."""
+    import jax
+    import jax.numpy as jnp
+    from repro.launch import steps as jsteps
+    from repro.optim import OptConfig, adamw_init, adamw_update
+    from repro.optim.schedules import cosine_schedule
+
     out = {}
     opt_cfg = OptConfig(lr=TRAIN_LR, moment_dtype="float32")
     update = jax.jit(lambda p, g, o: adamw_update(

@@ -356,32 +356,36 @@ def _pod_specs(arch):
 def test_tp_keep_at_the_pod(arch):
     """At the pod's model 16 under ``"fsdp_tp"``: deepseek's 128 heads
     and zamba2's 112 SSM heads and 32 attention heads divide, and every
-    split their forms consume is kept; rwkv6-3b's 40 heads do not, so its
-    time mix stays gathered whole while its channel mix (MoR off) is
-    kept; a MoR plan keeps RWKV's channel mix whole too."""
+    split their forms consume is kept, on the dim it lies on; rwkv6-3b's
+    40 heads do not, so its time mix stays gathered whole while its
+    channel mix (MoR off) is kept; a MoR plan keeps RWKV's channel mix
+    whole too."""
     cfg, specs = _pod_specs(arch)
     if arch == "deepseek-v2-236b":
         lspec = sr.layer_specs(specs["moe_layers"])
         assert tattn.tp_keep(cfg, lspec["attn"], 16) == {
-            "attn/wq_b", "attn/wk_b", "attn/wv_b", "attn/wo"}
+            "attn/wq_b": -1, "attn/wk_b": -1, "attn/wv_b": -1,
+            "attn/wo": -2}
         assert tattn.tp_keep(cfg.replace(n_heads=40), lspec["attn"],
-                             16) == set()
+                             16) == {}
     elif arch == "rwkv6-3b":
         lspec = sr.layer_specs(specs["layers"])
         assert trwkv._heads(cfg)[0] == 40
-        assert trwkv.tp_keep(cfg, lspec, 16, False) == {"cm/w_up",
-                                                        "cm/w_down"}
-        assert trwkv.tp_keep(cfg, lspec, 16, True) == set()
+        assert trwkv.tp_keep(cfg, lspec, 16, False) == {"cm/w_up": -1,
+                                                        "cm/w_down": -2}
+        assert trwkv.tp_keep(cfg, lspec, 16, True) == {}
         assert trwkv.tp_keep(cfg, lspec, 8, False) == {
-            "tm/Wr", "tm/Wk", "tm/Wv", "tm/Wg", "tm/wB", "cm/w_up",
-            "cm/w_down"}
+            "tm/Wr": -1, "tm/Wk": -1, "tm/Wv": -1, "tm/Wg": -1,
+            "tm/wB": -1, "cm/w_up": -1, "cm/w_down": -2}
     else:
         lspec = sr.layer_specs(specs["mamba_layers"])
         assert tssm.tp_keep(cfg, lspec["mamba"], 16) == {
-            "mamba/" + k for k in ("in_proj", "conv_w", "conv_b",
-                                   "norm_scale", "out_proj")}
+            "mamba/in_proj": -1, "mamba/conv_w": -1, "mamba/conv_b": -1,
+            "mamba/norm_scale": -1, "mamba/out_proj": -2}
         sp = specs["shared"]
         assert tattn.tp_keep(cfg, sp["attn"], 16, "shared/attn/") == {
-            "shared/attn/" + k for k in ("wq", "wk", "wv", "wo")}
+            "shared/attn/wq": -1, "shared/attn/wk": -1,
+            "shared/attn/wv": -1, "shared/attn/wo": -2}
         assert tmlp.tp_keep(sp["mlp"], False, "shared/mlp/") == {
-            "shared/mlp/" + k for k in ("w_gate", "w_up", "w_down")}
+            "shared/mlp/w_gate": -1, "shared/mlp/w_up": -1,
+            "shared/mlp/w_down": -2}

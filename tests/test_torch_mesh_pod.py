@@ -31,7 +31,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(__file__))
 import mesh_reference as MR  # noqa: E402
-from dry_mesh_probe import COUNT_ARCHS, COUNT_CELLS, count_cfg  # noqa: E402
+from dry_mesh_probe import (COUNT_ARCHS, COUNT_CELLS,  # noqa: E402
+                            CONTRACT_COUNT_ARCHS, count_cfg)
 from test_torch_mesh import _params_close, _sub_mesh  # noqa: E402
 from repro_torch import configs as tc  # noqa: E402
 from repro_torch.configs.base import ShapeSpec  # noqa: E402
@@ -106,6 +107,16 @@ def _rank(group, weights):
                     "counts": dict(co.counts), "nbytes": dict(co.nbytes),
                     "flops": c.counter.flops, "args": c.args,
                     "peak_temp": c.counter.peak_live_bytes}
+                if arch not in CONTRACT_COUNT_ARCHS:
+                    continue
+                co.reset_counts()
+                c = dryrun.count_cell(cfg, ShapeSpec(name, S, B, kind),
+                                      device="cpu",
+                                      on=dryrun.MeshArgs(m22, sp,
+                                                         "contract_tp"))
+                out[("count", arch, name, sp, "contract_tp")] = {
+                    "counts": dict(co.counts), "nbytes": dict(co.nbytes),
+                    "flops": c.counter.flops, "args": c.args}
     return out
 
 
@@ -247,3 +258,25 @@ def test_dry_run_counts_equal_real_ranks(run, arch, cell, sp):
         if sp and cell.startswith("train"):
             off = dry[f"{arch}|{cell}|False|{r['rank']}"]
             assert got["peak_temp"] < off["peak_temp"]
+
+
+@pytest.mark.parametrize("sp", [False, True])
+@pytest.mark.parametrize("cell", [c[0] for c in COUNT_CELLS])
+@pytest.mark.parametrize("arch", CONTRACT_COUNT_ARCHS)
+def test_dry_run_counts_equal_real_ranks_contract(run, arch, cell, sp):
+    """The same under ``"contract_tp"``, whose splits each layer moves
+    onto the dims its tensor-parallel forms consume (one all-to-all a
+    leaf, "model_move"): the fake group's collectives, bytes by kind,
+    FLOPs and argument bytes equal each real rank's, and the moves ran
+    (their gradients moved back in the train step)."""
+    _, ranks, dry = run
+    for r in ranks:
+        got = dry[f"{arch}|{cell}|{sp}|{r['rank']}|contract_tp"]
+        want = r[("count", arch, cell, sp, "contract_tp")]
+        assert got["counts"] == want["counts"]
+        assert got["nbytes"] == want["nbytes"]
+        assert got["flops"] == want["flops"]
+        assert got["args"] == want["args"]
+        assert want["counts"]["model_move"] > 0, want["counts"]
+        assert ("model_move.grad" in want["counts"]) == \
+            cell.startswith("train")
