@@ -13,7 +13,9 @@
    and its bound (``launch/roofline.py`` ``bound_ms`` of the kernel's
    ``work()`` on the case's inputs): the
    MoR kernels at granite-3-2b gate/up (K=2048, N=8192) and down
-   (K=8192, N=2048) widths, M=8 rows for a decode dispatch of 8 slots,
+   (K=8192, N=2048) widths and at one model rank's half of them (N
+   4,096 gate / up columns, K 4,096 down rows: the mesh's split FFN),
+   M=8 rows for a decode dispatch of 8 slots,
    M=256 for 8 slots x chunk 32, M=512 and 2,048 for the static batch's
    prefill (8 prompts of 64 and of 256 tokens), the static cells' own
    prefills (``static_prefill_shapes``: granite's M = 8 x 53 = 424, a
@@ -112,7 +114,7 @@
    card, each from the CPU's state before it, held to the CPU's step
    (loss, grad norm, lr, moments, params) within the CPU tests'
    tolerances, then three free-running steps (loss differences logged);
-5. the granite slice: granite-3-2b at full width (6 of its 40 layers,
+5. the granite slice: granite-3-2b at full width (4 of its 40 layers,
    bf16, random weights from a seed) is calibrated, then serves
    - 8 mixed requests through ``Engine(layout="slotted",
      mor_mode="kernel")``, then tiled, dense and kernel at capacity 0.5;
@@ -123,7 +125,7 @@
    - the 8 mixed requests through the static batch (``launch.serve.
      static_batch``, the serve CLI's ``--baseline``: left-padded to the
      longest prompt, one batched ``prefill``, 1-row decode steps) in
-     kernel (counted: 6 / 12 / 6 launches of mor_tile_mask /
+     kernel (counted: 4 / 8 / 4 launches of mor_tile_mask /
      gather_matmul / masked_matmul_kdim a dispatch), tiled and dense
      mode, tokens/s beside the slotted engine's; ``launch.steps.
      make_serve_step`` (``prefill`` then 16 ``decode_step``s over
@@ -141,7 +143,7 @@
    each, agreement with the unpressured run); a ~10 s open-loop Poisson
    trace at 1.5x the sustained rate under ``policy="priority"`` (TTFT
    p50 / p99 per class, preemptions, rejections, requests lost: 0);
-5c. training (``phase_train``): granite-3-2b at 6 layers (bf16,
+5c. training (``phase_train``): granite-3-2b at 4 layers (bf16,
    remat nothing_saveable, its grad_accum of 4) trained 8 steps on 8 x
    512 tokens through ``launch.steps.make_train_step`` (AdamW: bf16
    moments, float32 master): step ms, tokens/s, the model-FLOPs share
@@ -152,11 +154,11 @@
    seed's tree, 2 more: losses within RESUME_TOL); then the train CLI's
    calibration step (``launch.train.calibrate``: ``calibrate_lm`` on 8
    batches of 8 x 512 from step 10,000) and the mixed trace served on
-   the trained weights, slotted, in kernel mode (counted: 6 / 12 / 6
+   the trained weights, slotted, in kernel mode (counted: 4 / 8 / 4
    a dispatch) held to tiled at AGREE_MIN, skip fractions beside the
    granite phase's random-init ones;
 5d. the dry run (``phase_dryrun``, ``launch/dryrun.py``): granite-3-2b
-   at 6 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
+   at 4 layers, the train phase's cell (8 x 512 tokens, grad_accum 4,
    remat) and a ``make_serve_step`` decode at B 8 over 4,096 positions, each
    predicted on the meta device (argument bytes and the peak of the
    storages the step allocates, ``launch/op_cost.py``; FLOPs; the
@@ -194,11 +196,11 @@
    profiled pass of each, after one layer's attention at S 8,192 under
    the 4,096 window through ``_banded`` against the full (S, S) mask
    (each row's error over its scale against float32, beside the full
-   bf16 path's; ms, peak memory); qwen2-7b (6 of 28 layers) the same trace
+   bf16 path's; ms, peak memory); qwen2-7b (4 of 28 layers) the same trace
    in kernel (counted) and dense mode, then one 16,384-token prompt
    through ``make_prefill_step``'s batched ``prefill`` (every layer's
    attention through the chunked softmax ``_flash``; kernel mode
-   counted: 6 / 12 / 6) in kernel and dense mode: seconds and peak
+   counted: 4 / 8 / 4) in kernel and dense mode: seconds and peak
    memory, after one layer's attention at S 4,608 through ``_flash``
    against the full mask; and hubert-xlarge whole (48 layers)
    calibrated on frames, one 8 x 512 frame forward in dense and kernel
@@ -219,13 +221,13 @@
    processes sharing the card (gloo): reduced float32 granite,
    deepseek, rwkv6 and zamba2, card against CPU in the same page group
    (tokens, telemetry, prefix counters equal; partial launches and
-   merges counted), then granite-3-2b at 6 layers in kernel mode on
+   merges counted), then granite-3-2b at 4 layers in kernel mode on
    the shared-prefix trace (ranks' tokens equal, agreement with the
-   single-rank paged tokens >= AGREE_MIN, 6 partial gqa_paged_flash
-   launches and 6 merges a dispatch, no other collective, pages on
+   single-rank paged tokens >= AGREE_MIN, 4 partial gqa_paged_flash
+   launches and 4 merges a dispatch, no other collective, pages on
    both shards, each rank's pool half the single-rank one's); the
    page-sharded shadow step (the dense twin at 1 in 4) on reduced
-   float32 granite and rwkv6 and on granite at 6 layers: tokens equal
+   float32 granite and rwkv6 and on granite at 4 layers: tokens equal
    shadow-off's, the metrics block's counters equal to one device's
    paged engine with the twin on (the float32 references: every lane),
    the twin's partial launches and merges counted;
@@ -247,8 +249,12 @@
    each of two batches (loss and norm at granite's bf16 bound, deepseek's
    float32 twin at 1e-5, rwkv6's and zamba2's params within one bf16
    step), its kernel-mode forward on (1, 2) after a
-   calibration (MoR launches counted on both ranks, tokens equal on
-   them, agreement with one device's) and its step as 5e predicted it;
+   calibration (rwkv6's channel mix with every odd tile dead and
+   zamba2's shared MLP split by column under the plan: MoR launches
+   counted on both ranks, each rank's tile masks, kept tiles and
+   summed counters held to its column block of one device's
+   (``_check_mor_masks``), tokens equal on the ranks, agreement with
+   one device's) and its step as 5e predicted it;
    every family's step ms and peak GB a rank beside the same step with
    its splits gathered (``_splits_gathered``); rwkv6's and zamba2's
    float32 twins at 1e-5 (``MESH_F32_CUTS``: rwkv6 2 layers, zamba2
@@ -258,9 +264,18 @@
    in bf16 (1e-3, params held) and float32 (1e-5) against one device,
    its ms and peak GB beside the same step with the moves off
    (``_moves_off``), its float32 twin's greedy tokens equal to one
-   device's, its step as 5e predicted it, and a kernel-mode forward
-   after a calibration (the FFN gathered whole under its plan: 2 / 4 /
-   2 launches of rows 1-3 a rank); zamba2 cut as its float32 twin, its
+   device's, its step as 5e predicted it, and granite's MoR-active
+   FFN split by column (``_mesh_mor_granite``: calibrated in float32,
+   every odd tile dead, ``cap_live`` 0.34 biting mid-row): the bf16
+   kernel-mode forward's tile masks, kept tiles and summed counters
+   against each rank's column block of one device's (a differing tile
+   only where a proxy's ReLU input lies within float32 rounding of
+   zero), 2 / 4 / 2 launches of rows 1-3 a rank, the exchanges' counts
+   and bytes by name, ms and peak GB beside the same forward with the
+   FFN gathered whole, the float32 twin's greedy decode under the plan
+   equal to one device's and the bf16 one's at AGREE_MIN, and the
+   calibrated plan's live and proxy tiles by column block at model 2
+   and 16; zamba2 cut as its float32 twin, its
    bf16 step at 1e-3; where 4 cards are visible, the (2, 2) mesh over
    them on NCCL (granite at 8 layers, held the same way);
 8. the paper's slice: the four DNNs at full width (random init, BN
@@ -323,7 +338,7 @@ AGREE_MIN = 0.25
 # host's enqueue, which takes most of a dispatch, grows with it: at
 # these depths the whole run, the kernels' build included, ends in
 # about half of the 1,200 s it is given.
-DEPTH = {"granite-3-2b": 6, "qwen2-7b": 6, "mixtral-8x7b": 2,
+DEPTH = {"granite-3-2b": 4, "qwen2-7b": 4, "mixtral-8x7b": 2,
          "rwkv6-3b": 2, "zamba2-7b": 7}
 
 
@@ -1784,6 +1799,11 @@ QWEN2_LONG_WIDTHS = {"mor_tile_mask": dict(K=3584, N=18944),
                      "masked_matmul_kdim": dict(K=18944, N=3584)}
 
 
+# one model rank's half of granite-3-2b's FFN at model 2 (the mesh's
+# MoR-active tensor-parallel FFN): N 4,096 gate / up columns, K 4,096
+# down rows
+HALF_WIDTHS = {"mor_tile_mask": dict(N=4096), "gather_matmul": dict(N=4096),
+               "masked_matmul_kdim": dict(K=4096)}
 # the expert grid at mixtral-8x7b's widths: 8 experts, top-2
 MIXTRAL_GRID = dict(E=8, d=4096, f=14336, k=2)
 # deepseek-v2-236b's dense FFN (layer 0: d 5120, f 12288)
@@ -1831,6 +1851,11 @@ def phase_kernels(ptxas=None):
             log("kernel", name=name, M=M,
                 **{k: (round(v, 5) if isinstance(v, float) else v)
                    for k, v in r.items()})
+        for M in (8, 256):
+            per[f"half_m{M}"] = r = case(M, gen, flush, **HALF_WIDTHS[name])
+            log("kernel", name=name, M=M, widths="granite-3-2b, one rank "
+                "of model 2", **{k: (round(v, 5) if isinstance(v, float)
+                                     else v) for k, v in r.items()})
         per[f"deepseek_m{m_deepseek}"] = r = case(
             m_deepseek, gen, flush, **DEEPSEEK_DENSE_WIDTHS[name])
         log("kernel", name=name, M=m_deepseek, widths="deepseek-v2-236b",
@@ -3986,7 +4011,7 @@ def slice_mixtral():
 
 
 def slice_qwen2():
-    """qwen2-7b at DEPTH (6 of 28) layers (QKV bias, G 7 at head dim 128),
+    """qwen2-7b at DEPTH (4 of 28) layers (QKV bias, G 7 at head dim 128),
     calibrated with ``calibrate_lm``, serves the shared-prefix trace
     through the paged engine in kernel (counted) and dense mode, then a
     profiled pass of each.  -> launches."""
@@ -4657,6 +4682,12 @@ MESH_DECODE_PROMPTS, MESH_DECODE_LEN, MESH_DECODE_STEPS = 8, 32, 16
 # granite's "contract_tp" float32 decode: 8 prompts of 8 tokens through
 # the serve step, then 4 greedy tokens
 CONTRACT_DECODE, CONTRACT_DECODE_STEPS = (8, 8), 4
+# granite's MoR-active contract forward on (1, 2): every odd tile dead,
+# cap_live 0.34 (it bites mid-row); a tile whose mask differs from one
+# device's must hold a proxy ReLU input v with |v| <= K x 2^-24 x
+# sum_k |x_k w_k| |bn_scale| (float32 rounding of the proxy's product)
+MESH_MOR_CAP, MESH_MOR_K = 0.34, 64
+MESH_MOR_TOKENS = (8, 64)
 MESH_PARAM_RTOL, MESH_PARAM_ATOL = 2.0 ** -7, 1e-3   # atol x leaf max
 # the bf16 norm's bound, above bf16's own noise: the (1, 2) mesh rounds
 # each rank's partial products to bf16 before their sum, and moved the
@@ -4973,10 +5004,12 @@ def _moves_off():
             m.tp_keep = f
 
 
-def _serve_tokens(cfg, params, mesh, prompts, n, layout="fsdp_tp"):
+def _serve_tokens(cfg, params, mesh, prompts, n, layout="fsdp_tp",
+                  mor=None):
     """Greedy tokens of ``make_serve_step`` over ``init_cache``'s cache,
     one step a prompt token then ``n - 1`` more, on ``mesh`` (None: one
-    device; the params in ``layout``) -> (tokens (B, n) on the CPU, the
+    device; the params in ``layout``), under the kernel-mode plans
+    ``mor`` where given -> (tokens (B, n) on the CPU, the
     collectives)."""
     import torch
     from repro_torch.distributed import collectives as co
@@ -4987,7 +5020,8 @@ def _serve_tokens(cfg, params, mesh, prompts, n, layout="fsdp_tp"):
         params = sr.shard_tree(params, steps.mesh_specs(cfg, mesh, layout),
                                mesh)
     cache = steps.init_cache(cfg, B, P + n, "cuda", mesh=mesh)
-    serve = steps.make_serve_step(cfg, mesh=mesh, param_layout=layout)
+    serve = steps.make_serve_step(cfg, mor=mor, mor_mode="kernel",
+                                  mesh=mesh, param_layout=layout)
     co.reset_counts()
     with torch.no_grad():
         for t in range(P):
@@ -5002,22 +5036,228 @@ def _serve_tokens(cfg, params, mesh, prompts, n, layout="fsdp_tp"):
     return out, dict(co.counts)
 
 
+def _dead_odd_tiles(layer):
+    """Every odd 128-column tile statically dead: no proxy, the binary
+    rookie enabled, an intercept far below zero."""
+    import torch
+    dead = (torch.arange(layer["m"].shape[-1], device=layer["m"].device)
+            // 128) % 2 == 1
+    return dict(layer, bn_bias=torch.where(dead, -1e3, layer["bn_bias"]),
+                enable=layer["enable"] | dead,
+                is_proxy=layer["is_proxy"] & ~dead,
+                proxy_slot=torch.where(dead, -1, layer["proxy_slot"]))
+
+
+class _MoRRecorder:
+    """Every dense MoR plan's prediction while active, on the CPU: its
+    tile mask, kept tiles and gather_matmul's counters; with ``ratios``
+    also, per tile, how near float32 rounding of zero its members'
+    proxy ReLU inputs lie (``_proxy_ratio``) on the inputs it predicted
+    on."""
+
+    def __init__(self, ratios=False):
+        self.ratios, self.seen = ratios, []
+
+    def __enter__(self):
+        from repro_torch.core.executor import MoRExecutionPlan
+        self._orig = orig = MoRExecutionPlan.predict
+
+        def predict(plan, x, w, **k):
+            p = orig(plan, x, w, **k)
+            r = _proxy_ratio(x, w, plan.mor) if self.ratios else None
+            self.seen.append((p, r))
+            return p
+        MoRExecutionPlan.predict = predict
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.executor import MoRExecutionPlan
+        MoRExecutionPlan.predict = self._orig
+        self.seen = [{"tiles": p.tiles.cpu(), "kept": p.kept.cpu(),
+                      "counts": tuple(int(c) for c in p.kernel_counts),
+                      "ratio": r} for p, r in self.seen]
+
+
+def _proxy_ratio(x, w, mor):
+    """(T / 8, N / 128) per tile: the least |proxy ReLU input| of its
+    members over MESH_MOR_K x 2^-24 x sum_k |x_k w_k| |bn_scale| of the
+    proxy (inf where no member has a proxy): a tile whose mask flips
+    under another order of the float32 product holds one at or below 1."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.core.predictor import proxy_relu_in
+    slot = torch.clamp(mor["proxy_slot"], min=0).long()
+    v = proxy_relu_in(x, w, mor).abs()
+    mag = (x.float().abs() @ w[:, slot].float().abs()) * \
+        mor["bn_scale"][slot].abs()
+    r = v / (MESH_MOR_K * 2.0 ** -24 * mag)
+    r = torch.where((mor["proxy_slot"] < 0)[None, :], float("inf"), r)
+    r = F.pad(r, (0, 0, 0, (-r.shape[0]) % 8), value=float("inf"))
+    return (-F.max_pool2d(-r[None], (8, 128)))[0].cpu()
+
+
+@contextlib.contextmanager
+def _bytes_by_name():
+    """While active, the collectives' bytes by name (``collectives``
+    tallies them by kind): -> the dict it fills."""
+    from repro_torch.distributed import collectives as co
+    named, count = {}, co._count
+
+    def tally(name, kind, x, group=None, n=0):
+        named[name] = named.get(name, 0) + (n or x.numel() * x.element_size())
+        count(name, kind, x, group, n)
+    co._count = tally
+    try:
+        yield named
+    finally:
+        co._count = count
+
+
+@contextlib.contextmanager
+def _mor_ffn_whole():
+    """While active, a dense FFN under an active MoR plan is gathered
+    whole on every rank, as before the split (the package has no such
+    knob): ``mlp.tp_keep`` keeps nothing."""
+    from repro_torch.models.layers import mlp
+    keep = mlp.tp_keep
+    mlp.tp_keep = lambda specs, whole, prefix="": keep(specs, True, prefix)
+    try:
+        yield
+    finally:
+        mlp.tp_keep = keep
+
+
+def _mor_block_stats(tiles, proxy, M):
+    """-> [per column block of M: live tile fraction, tiles holding a
+    proxy (always computed)]."""
+    nt = tiles.shape[-1] // M
+    return [[round(float(tiles[:, b * nt:(b + 1) * nt].float().mean()), 4),
+             int(proxy[b * nt:(b + 1) * nt].sum())] for b in range(M)]
+
+
+def _mesh_mor_granite(mesh, lead, cfg):
+    """granite-3-2b at full width cut to MESH_GRANITE_LAYERS, calibrated
+    in float32 (rank 0 calibrates, its plan broadcast), under its own
+    "contract_tp" on (1, 2) with its FFN split by column under the
+    active plan: every odd tile dead and ``cap_live`` MESH_MOR_CAP.  The
+    bf16 kernel-mode forward (one device's on rank 0 with each tile's
+    proxy ratio, ``_proxy_ratio``; the mesh's counted, its exchanges'
+    bytes by name, ms and peak GB beside the same forward with the FFN
+    gathered whole, ``_mor_ffn_whole``), the float32 twin's and the bf16
+    greedy static decodes under the plan, and the calibrated plan's
+    live tiles and proxy tiles by column block at model 2 and 16 (one
+    device's bf16 forward, no budget).  -> the rank's results."""
+    import torch
+    from repro_torch.core.deploy import attach_plans
+    from repro_torch.distributed import collectives as co
+    from repro_torch.distributed import sharding_rules as sr
+    from repro_torch.launch import steps
+    from repro_torch.launch.serve import calibrate
+    from repro_torch.models import get_model, param_shapes
+    from repro_torch.models.transformer import full_logits
+    from repro_torch.tree import tree_map
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    api = get_model(cfg)
+    params32 = get_model(cfg32).init(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg32)
+    params32, mor, _ = calibrate(params32, cfg32, get_model(cfg32),
+                                 mesh.device, 8, mesh.group("world"))
+    params = tree_map(lambda t, m: t.to(m.dtype), params32,
+                      param_shapes(cfg))
+    plans = attach_plans({"layers": _dead_odd_tiles(mor["layers"])}, cfg,
+                         "kernel", capacities={"layers": MESH_MOR_CAP})
+    out = {"n_proxy": [int(v) for v in plans["layers"].n_proxy]}
+    tokens = torch.randint(0, cfg.vocab_size, MESH_MOR_TOKENS, generator=
+                           torch.Generator(device="cuda").manual_seed(
+                               SEED + 3), device="cuda")
+    if lead:
+        with torch.no_grad(), _MoRRecorder(ratios=True) as one:
+            ref = api.forward(params, cfg, {"tokens": tokens}, mor=plans,
+                              mor_mode="kernel")[0].float().cpu()
+        out["single"] = one.seen
+        calib = attach_plans(mor, cfg, "kernel")
+        with torch.no_grad(), _MoRRecorder() as nat:
+            api.forward(params, cfg, {"tokens": tokens}, mor=calib,
+                        mor_mode="kernel")
+        out["imbalance"] = []
+        for l, p in enumerate(nat.seen):
+            plan = calib["layers"].layer(l)
+            proxy = plan.mor["is_proxy"].reshape(-1, 128).any(-1).cpu()
+            out["imbalance"].append({
+                "n_proxy": plan.n_proxy,
+                "frac_live": round(float(p["tiles"].float().mean()), 4),
+                **{f"model{M}": _mor_block_stats(p["tiles"], proxy, M)
+                   for M in (2, 16)}})
+        del calib
+    specs = steps.mesh_specs(cfg, mesh, "contract_tp")
+    loc = sr.shard_tree(params, specs, mesh)
+    torch.cuda.empty_cache()
+
+    def forward():
+        return api.forward(loc, cfg, {"tokens": tokens}, mor=plans,
+                           mor_mode="kernel")
+
+    fwd = {}
+    with sr.activation_context(mesh, specs=specs), torch.no_grad():
+        for whole in (False, True):
+            ctx = _mor_ffn_whole() if whole else contextlib.nullcontext()
+            with ctx:
+                forward()                                      # warm
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                sr.model_gathers.clear()
+                co.reset_counts()
+                t0 = time.perf_counter()
+                with _MoRRecorder() as rec, _bytes_by_name() as named:
+                    (logits, _), launches = _counted(forward)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            tag = "_whole" if whole else ""
+            fwd["ms" + tag] = ms
+            fwd["peak_gb" + tag] = torch.cuda.max_memory_allocated() / 1e9
+            fwd["launches" + tag] = launches
+            fwd["gathered" + tag] = sorted(sr.model_gathers)
+            fwd["collectives" + tag] = dict(co.counts)
+            fwd["bytes" + tag] = named
+            if not whole:
+                fwd["preds"] = rec.seen
+                logits = full_logits(logits, cfg).float().cpu()
+                fwd["tokens"] = logits.argmax(-1)
+                if lead:
+                    fwd["agreement"] = float(
+                        (fwd["tokens"] == ref.argmax(-1)).float().mean())
+                    fwd["max_abs_err"] = float((logits - ref).abs().max())
+    out["forward"] = fwd
+    del loc
+    torch.cuda.empty_cache()
+    prompts = torch.randint(0, cfg.vocab_size, CONTRACT_DECODE, generator=
+                            torch.Generator(device="cuda").manual_seed(
+                                SEED + 4), device="cuda")
+    for tag, c, p in (("_f32", cfg32, params32), ("", cfg, params)):
+        if lead:
+            out["single_decode" + tag] = _serve_tokens(
+                c, p, None, prompts, CONTRACT_DECODE_STEPS, mor=plans)[0]
+        out["decode" + tag] = _serve_tokens(
+            c, p, mesh, prompts, CONTRACT_DECODE_STEPS, "contract_tp",
+            mor=plans)
+    del params, params32
+    torch.cuda.empty_cache()
+    return out
+
+
 def _contract_rank(mesh, lead, cfg, opt, cfg32, batches):
     """One rank's part of granite's "contract_tp" checks on (1, 2) beyond
     the held steps: one step split (its splits moved) and one with the
     moves off (``_moves_off``: ms and peak GB only), the step as the
     dry run counts it, a greedy decode of the float32 twin against one
-    device's, and a kernel-mode forward after a calibration (rank 0
-    calibrates, its plan broadcast: the FFN stays gathered whole under
-    its active plan, so each rank launches the three MoR kernels on
-    every layer), launches counted.  -> the rank's results."""
+    device's, and the MoR-active forward and decodes with the FFN split
+    by column under the plan (``_mesh_mor_granite``).  -> the rank's
+    results."""
     import torch
     from repro_torch.distributed import collectives as co
     from repro_torch.distributed import sharding_rules as sr
     from repro_torch.launch import dryrun, steps
-    from repro_torch.launch.serve import calibrate
     from repro_torch.models import get_model
-    from repro_torch.models.transformer import full_logits
     out = {}
     torch.distributed.barrier(group=mesh.group("model").pg)
     out["split"] = _first_steps(cfg, opt, mesh, batches[:1], False,
@@ -5051,38 +5291,9 @@ def _contract_rank(mesh, lead, cfg, opt, cfg32, batches):
                                       CONTRACT_DECODE_STEPS, "contract_tp")
     del params
     torch.cuda.empty_cache()
-    # the kernel-mode forward
-    api = get_model(cfg)
-    params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
-    params, mor, _ = calibrate(params, cfg, api, mesh.device, 8,
-                               mesh.group("world"))
-    tokens = torch.randint(0, cfg.vocab_size, (8, 64), generator=torch.
-                           Generator(device="cuda").manual_seed(SEED + 1),
-                           device="cuda")
-    ref = None
-    if lead:
-        with torch.no_grad():
-            ref = api.forward(params, cfg, {"tokens": tokens}, mor=mor,
-                              mor_mode="kernel")[0].float().cpu()
-    specs = steps.mesh_specs(cfg, mesh, "contract_tp")
-    loc = sr.shard_tree(params, specs, mesh)
-    del params
-    torch.cuda.empty_cache()
-    sr.model_gathers.clear()
-    with sr.activation_context(mesh, specs=specs), torch.no_grad():
-        co.reset_counts()
-        (logits, _), launches = _counted(lambda: api.forward(
-            loc, cfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
-        logits = full_logits(logits, cfg).float().cpu()
-    out["forward"] = {"tokens": logits.argmax(-1), "launches": launches,
-                      "collectives": dict(co.counts),
-                      "gathered": sorted(sr.model_gathers)}
-    if lead:
-        out["forward"]["agreement"] = float(
-            (logits.argmax(-1) == ref.argmax(-1)).float().mean())
-        out["forward"]["max_abs_err"] = float((logits - ref).abs().max())
-    del loc
-    torch.cuda.empty_cache()
+    # the MoR-active kernel-mode forward and decodes, the FFN split
+    out["mor"] = _mesh_mor_granite(mesh, lead, cfg)
+    out["forward"] = out["mor"]["forward"]
     return out
 
 
@@ -5094,6 +5305,7 @@ def _mesh_rank(group):
     layer and whole forward on (1, 2).  -> the rank's results."""
     import torch
     from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.deploy import attach_plans
     from repro_torch.distributed import collectives as co
     from repro_torch.distributed import sharding_rules as sr
     from repro_torch.launch import steps
@@ -5194,12 +5406,15 @@ def _mesh_rank(group):
                            device="cuda")
     lp0 = layer_slice(params["moe_layers"], 0)
     ml0 = _layer_plan(mor["moe_layers"], 0)
+    # the forward's plans, attached once: a dense layer's FFN split by
+    # column under its plan reads the plan's proxy count
+    plans = attach_plans(mor, dcfg, "kernel")
     if lead:
         out["single_moe"] = [_moe_layer_run(dcfg, lp0["moe"], ml0, x)
                              for x in xs]
         with torch.no_grad():
             logits, _ = api.forward(params, dcfg, {"tokens": tokens},
-                                    mor=mor, mor_mode="kernel")
+                                    mor=plans, mor_mode="kernel")
         out["single_forward"] = logits.float().cpu()
         del logits
     specs = steps.mesh_specs(dcfg, m12)
@@ -5218,7 +5433,7 @@ def _mesh_rank(group):
             del used
         with torch.no_grad():
             (logits, _), launches = _counted(lambda: api.forward(
-                loc, dcfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
+                loc, dcfg, {"tokens": tokens}, mor=plans, mor_mode="kernel"))
         logits = full_logits(logits, dcfg).float().cpu()
         out["forward_tokens"] = logits.argmax(-1)
         if lead:
@@ -5289,6 +5504,7 @@ def _family_rank(arch, mesh, lead):
     calibrates, its plan broadcast), launches counted.  -> the rank's
     results."""
     import torch
+    from repro_torch.core.deploy import attach_plans
     from repro_torch.distributed import collectives as co
     from repro_torch.distributed import sharding_rules as sr
     from repro_torch.launch import dryrun, steps
@@ -5354,33 +5570,41 @@ def _family_rank(arch, mesh, lead):
         torch.cuda.empty_cache()
     if arch == "deepseek-v2-236b":
         return out
-    # the kernel-mode forward: the channel mix (rwkv6) and the shared
-    # MLP (zamba2) stay gathered under an active plan, the time mix, the
-    # mamba layers and the shared attention tensor-parallel
+    # the kernel-mode forward: the channel mix (rwkv6, every odd tile
+    # made dead) and the shared MLP (zamba2) split by column under the
+    # active plan, as the time mix, the mamba layers and the shared
+    # attention are by head; the masks of each rank held to its block of
+    # one device's
     api = get_model(cfg)
     params = api.init(torch.Generator(device="cuda").manual_seed(SEED), cfg)
     params, mor, _ = calibrate(params, cfg, api, mesh.device, 8,
                                mesh.group("world"))
+    if arch == "rwkv6-3b":
+        mor = {"layers": _dead_odd_tiles(mor["layers"])}
+    mor = attach_plans(mor, cfg, "kernel")
     tokens = torch.randint(0, cfg.vocab_size, (8, 64), generator=torch.
                            Generator(device="cuda").manual_seed(SEED + 1),
                            device="cuda")
-    ref = None
+    ref = single_preds = None
     if lead:
-        with torch.no_grad():
+        with torch.no_grad(), _MoRRecorder(ratios=True) as one:
             ref = api.forward(params, cfg, {"tokens": tokens}, mor=mor,
                               mor_mode="kernel")[0].float().cpu()
+        single_preds = one.seen
     specs = steps.mesh_specs(cfg, mesh)
     loc = sr.shard_tree(params, specs, mesh)
     del params
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    with sr.activation_context(mesh, specs=specs), torch.no_grad():
+    with sr.activation_context(mesh, specs=specs), torch.no_grad(), \
+            _MoRRecorder() as rec:
         co.reset_counts()
         (logits, _), launches = _counted(lambda: api.forward(
             loc, cfg, {"tokens": tokens}, mor=mor, mor_mode="kernel"))
         logits = full_logits(logits, cfg).float().cpu()
     out["forward"] = {"tokens": logits.argmax(-1), "launches": launches,
-                      "collectives": dict(co.counts),
+                      "collectives": dict(co.counts), "preds": rec.seen,
+                      "single_preds": single_preds,
                       "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     if lead:
         out["forward"]["agreement"] = float(
@@ -5613,11 +5837,16 @@ def _check_contract(ranks):
     held steps: every split consumed (its moves counted in the step, no
     GQA or FFN leaf gathered over ``model``), its ms and peak GB a rank
     beside the same step with the moves off, the float32 twin's greedy
-    tokens equal to one device's, and the kernel-mode forward: the FFN
-    gathered whole under its active plan, so each rank launches
-    ``mor_tile_mask``, ``gather_matmul`` (gate and up) and
-    ``masked_matmul_kdim`` once a layer (1 / 2 / 1), the ranks' tokens
-    equal, agreement with one device's at AGREE_MIN."""
+    tokens equal to one device's, and the MoR-active kernel-mode forward
+    (``_mesh_mor_granite``): the FFN split by column under its plan, so
+    each rank launches ``mor_tile_mask``, ``gather_matmul`` (gate and
+    up) and ``masked_matmul_kdim`` once a layer (1 / 2 / 1) on its own
+    columns, nothing gathered over ``model``, the exchanges' counts and
+    bytes as the shapes give them, its masks against its block of one
+    device's (``_check_mor_masks``), ms and peak GB beside the FFN
+    gathered whole, the ranks' tokens equal, agreement with one
+    device's at AGREE_MIN; the float32 twin's decode under the plan
+    equal to one device's, the bf16 one's at AGREE_MIN."""
     import torch
     from repro_torch.configs import get_config
     remat = get_config("granite-3-2b").remat
@@ -5659,21 +5888,139 @@ def _check_contract(ranks):
         assert counts["model_move"] > 0, counts
         fwd = c["forward"]
         launches = {k: v for k, v in fwd["launches"].items() if v}
+        whole = {k: v for k, v in fwd["launches_whole"].items() if v}
         log("mesh", path="granite contract forward", rank=r["rank"],
             mesh="1x2", layers=MESH_GRANITE_LAYERS, mode="kernel",
+            tokens=list(MESH_MOR_TOKENS), cap_live=MESH_MOR_CAP,
             launches=json.dumps(launches),
             launches_expected=json.dumps(want_launches),
             gathered=fwd["gathered"],
             collectives=json.dumps(fwd["collectives"]),
+            bytes_by_name=json.dumps(fwd["bytes"]),
+            ms=round(fwd["ms"], 2), peak_gb=round(fwd["peak_gb"], 3),
             greedy_agreement_vs_single=round(
                 single["forward"]["agreement"], 4),
             logits_max_abs_err=single["forward"]["max_abs_err"])
-        assert launches == want_launches, (r["rank"], launches)
-        assert fwd["gathered"] == ["mlp/w_down", "mlp/w_gate",
-                                   "mlp/w_up"], fwd["gathered"]
+        log("mesh", path="granite contract forward ffn whole",
+            rank=r["rank"], mesh="1x2", launches=json.dumps(whole),
+            gathered=fwd["gathered_whole"],
+            collectives=json.dumps(fwd["collectives_whole"]),
+            bytes_by_name=json.dumps(fwd["bytes_whole"]),
+            ms=round(fwd["ms_whole"], 2),
+            peak_gb=round(fwd["peak_gb_whole"], 3),
+            note="the same forward with the FFN gathered whole on each "
+                 "rank (the smoke's own switch); two gloo ranks share "
+                 "the card: no ms is the mesh's speed")
+        assert launches == want_launches == whole, (r["rank"], launches,
+                                                    whole)
+        assert fwd["gathered"] == [], fwd["gathered"]
+        assert fwd["gathered_whole"] == ["mlp/w_down", "mlp/w_gate",
+                                         "mlp/w_up"], fwd["gathered_whole"]
+        # the exchanges, a layer: the proxy block (every rank's T x
+        # min(N / 2, P) float32 slot of gloo's gathered buffer), the row
+        # counts (T / 8 int32 a rank, the budget bites) and the stats
+        # (two float64 sums)
+        T = MESH_MOR_TOKENS[0] * MESH_MOR_TOKENS[1]
+        n = get_config("granite-3-2b").d_ff // 2
+        L = MESH_GRANITE_LAYERS
+        want_bytes = {"mor_proxy": sum(2 * T * min(n, P) * 4
+                                       for P in c["mor"]["n_proxy"]),
+                      "mor_rows": L * 2 * (T // 8) * 4,
+                      "mor_stats": L * 2 * 8}
+        for k, v in want_bytes.items():
+            assert fwd["collectives"][k] == L, (k, fwd["collectives"])
+            assert fwd["bytes"][k] == v, (k, fwd["bytes"][k], v)
         assert torch.equal(fwd["tokens"], single["forward"]["tokens"])
         assert single["forward"]["agreement"] >= AGREE_MIN, \
             single["forward"]["agreement"]
+        for tag in ("_f32", ""):
+            toks, counts = c["mor"]["decode" + tag]
+            want = single["mor"]["single_decode" + tag]
+            agree = float((toks == want).float().mean())
+            log("mesh", path="granite contract mor decode", rank=r["rank"],
+                mesh="1x2", layers=L, dtype="float32" if tag else "bf16",
+                mode="kernel", cap_live=MESH_MOR_CAP,
+                agreement_vs_single=round(agree, 4),
+                collectives=json.dumps(counts))
+            assert counts["mor_proxy"] > 0, counts
+            if tag:
+                assert torch.equal(toks, want), (toks, want)
+            assert agree >= AGREE_MIN, agree
+    _check_mor_masks("granite contract forward", single["mor"]["single"],
+                     [r["contract"]["forward"]["preds"] for r in ranks])
+    _log_mor_bytes([im["n_proxy"] for im in single["mor"]["imbalance"]])
+    for l, im in enumerate(single["mor"]["imbalance"]):
+        log("mesh", path="granite mor imbalance", layer=l,
+            n_proxy=im["n_proxy"], frac_live=im["frac_live"],
+            model2_live_and_proxy_tiles=json.dumps(im["model2"]),
+            model16_live_and_proxy_tiles=json.dumps(im["model16"]),
+            note="the calibrated plan (no dead tiles, no budget), one "
+                 "device's bf16 forward, its tiles by column block")
+
+
+def _log_mor_bytes(n_proxy):
+    """Log, reckoned from granite-3-2b's shapes and the calibrated plan's
+    proxy counts ``n_proxy`` (a layer each; not measured), the bytes a
+    rank receives a layer at model 2 and 16 in bf16: the FFN gathered
+    whole (its other ranks' blocks of the three leaves), the activation
+    route of the proxy block (each other rank's T x min(f / MP, P)
+    float32 slot of the all-gather; T x P x 4 its floor) at T = 8 (a
+    decode_32k dispatch's rows a data rank) and 2,048 (a prefill), the
+    weight route (the proxy columns gathered, d x P x 2), and the T
+    where the activation route passes the weight route."""
+    from repro_torch.configs import get_config
+    cfg = get_config("granite-3-2b")
+    d, f = cfg.d_model, cfg.d_ff
+    for l, P in enumerate(n_proxy):
+        for mp in (2, 16):
+            slot = min(f // mp, P) * 4 * (mp - 1)
+            weight = d * P * 2
+            log("mesh", path="granite mor bytes reckoned", layer=l,
+                model=mp, n_proxy=P,
+                ffn_gather_bytes=3 * d * f * 2 * (mp - 1) // mp,
+                activation_bytes_t8=8 * slot,
+                activation_bytes_t2048=2048 * slot,
+                activation_floor_bytes_t8=8 * P * 4,
+                activation_floor_bytes_t2048=2048 * P * 4,
+                weight_route_bytes=weight,
+                crossover_rows=round(weight / slot, 1))
+
+
+def _check_mor_masks(path, single, preds):
+    """Each rank's (``preds[m]``, rank m of model 2) tile masks and kept
+    tiles of every layer against its column block of one device's
+    (``single``), their counters summed.  A differing tile is printed
+    with its proxy ratio (``_proxy_ratio``) and must lie within float32
+    rounding of zero (ratio <= 1); where no tile differs, the kept tiles
+    and the summed counters are one device's.  Each layer's line prints
+    the counts, zeros included, and each rank's live and kept
+    fractions."""
+    for l, one in enumerate(single):
+        n_diff = kept_diff = 0
+        live, kept = [], []
+        for m, rank in enumerate(preds):
+            p = rank[l]
+            nt = p["tiles"].shape[-1]
+            cols = slice(m * nt, (m + 1) * nt)
+            for i, j in (p["tiles"] != one["tiles"][:, cols]).nonzero(
+                    ).tolist():
+                ratio = float(one["ratio"][i, m * nt + j])
+                log("mesh", path=path, layer=l, rank=m,
+                    differing_tile=[i, m * nt + j], proxy_ratio=ratio)
+                assert ratio <= 1.0, (path, l, m, i, j, ratio)
+                n_diff += 1
+            kept_diff += int((p["kept"] != one["kept"][:, cols]).sum())
+            live.append(round(float(p["tiles"].float().mean()), 4))
+            kept.append(round(float(p["kept"].float().mean()), 4))
+        summed = tuple(sum(rank[l]["counts"][k] for rank in preds)
+                       for k in (0, 1))
+        log("mesh", path=path, layer=l, tiles_differing=n_diff,
+            kept_differing=kept_diff, counters_summed=list(summed),
+            counters_single=list(one["counts"]), frac_live_by_rank=live,
+            frac_kept_by_rank=kept)
+        if n_diff == 0:
+            assert kept_diff == 0 and summed == one["counts"], \
+                (path, l, kept_diff, summed, one["counts"])
 
 
 def _check_families(ranks):
@@ -5738,6 +6085,7 @@ def _check_families(ranks):
             for k in want:
                 assert fwd["launches"][k] > 0, (arch, r["rank"],
                                                 fwd["launches"])
+            assert "mor_proxy" in fwd["collectives"], fwd["collectives"]
             agree = single["forward"]["agreement"]
             log("mesh", path=f"{name} forward", rank=r["rank"], mesh="1x2",
                 layers=MESH_FAMILIES[arch]["n_layers"], mode="kernel",
@@ -5748,6 +6096,10 @@ def _check_families(ranks):
                 logits_max_abs_err=single["forward"]["max_abs_err"],
                 peak_gb=round(fwd["peak_gb"], 3))
             assert agree >= AGREE_MIN, (arch, agree)
+        if "forward" in single:
+            _check_mor_masks(f"{name} forward", single["forward"][
+                "single_preds"], [r["families"][arch]["forward"]["preds"]
+                                  for r in ranks])
 
 
 MESH4_LAYERS = 8                   # of 40: granite on (2, 2), 4 cards

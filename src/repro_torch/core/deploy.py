@@ -20,7 +20,7 @@ from repro_torch.core.calibration import (finalize_regression,
                                           init_accumulator,
                                           update_accumulator)
 from repro_torch.core.clustering import cluster_layer
-from repro_torch.core.executor import MoRExecutionPlan
+from repro_torch.core.executor import MoRExecutionPlan, proxy_count
 from repro_torch.core.policy import build_mor_layer
 
 # calibrate_moe's dead-column injection, in observed pre-activation
@@ -41,16 +41,21 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
     uploaded here once so that no dispatch uploads a budget.
     ``draft_cap`` (a fraction) also stores the self-speculative draft
     budget on every plan (``executor.attach_draft_caps``), dormant until
-    the engine derives the drafter with ``as_draft()``."""
+    the engine derives the drafter with ``as_draft()``.  A dense
+    group's plan also carries its proxy block's width (``n_proxy``, read
+    here once), which its FFN exchanges where a mesh splits it by
+    column."""
     if mor is None or mode == "dense":
         return mor
     caps = capacities or {}
 
-    def plan(layer, cap_live):
+    def plan(layer, cap_live, expert=False):
+        split = not expert and "proxy_slot" in layer
         return MoRExecutionPlan(layer, mode=mode, tile_m=cfg.mor.tile_m,
                                 tile_n=cfg.mor.tile_n,
                                 capacity_frac=cfg.mor.capacity,
-                                cap_live=cap_live)
+                                cap_live=cap_live,
+                                n_proxy=proxy_count(layer) if split else None)
 
     def wrap(layer, cap):
         if layer is None:
@@ -68,7 +73,7 @@ def attach_plans(mor, cfg: ModelConfig, mode: str,
                 c = np.broadcast_to(c.reshape(lead) if c.ndim else c, lead)
                 cap_live = torch.tensor(np.array(c),
                                         device=inner["m"].device)
-            return {"experts": plan(inner, cap_live)}
+            return {"experts": plan(inner, cap_live, expert=True)}
         cap_live = None
         if cap is not None:
             c = np.asarray(cap, np.float32)

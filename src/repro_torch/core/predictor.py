@@ -95,10 +95,19 @@ def estimate_preact(p_bin: torch.Tensor, mor: MoRLayer,
 
 def proxy_relu_in(x: torch.Tensor, w_perm: torch.Tensor, mor: MoRLayer,
                   preact_full: Optional[torch.Tensor] = None,
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  residual: Optional[torch.Tensor] = None,
+                  proxy_block: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """The proxy rookie's ReLU input for every column: its proxy's
-    base-precision pre-activation (+ BN fold, + residual), float32."""
+    base-precision pre-activation (+ BN fold, + residual), float32.
+    ``proxy_block`` (T, P): those inputs of the proxy columns [0, P),
+    already folded, gathered from the ranks that hold them where the
+    FFN is split by column (``executor.MoRExecutionPlan.for_rank``);
+    ``w_perm`` and ``mor`` are then the rank's blocks, ``proxy_slot``
+    global."""
     slot = torch.clamp(mor["proxy_slot"], min=0).long()
+    if proxy_block is not None:
+        return proxy_block[..., slot]
     if preact_full is None:
         # preferred_element_type=f32: f32 operands give the f32 sum of
         # the (exact) products
@@ -114,13 +123,17 @@ def proxy_relu_in(x: torch.Tensor, w_perm: torch.Tensor, mor: MoRLayer,
 
 def hybrid_predict(x: torch.Tensor, w_perm: torch.Tensor, mor: MoRLayer,
                    preact_full: Optional[torch.Tensor] = None,
-                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   residual: Optional[torch.Tensor] = None,
+                   proxy_block: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Boolean mask (..., T, N): True where the neuron MUST be computed,
     False where both rookies agree the ReLU output is zero.  Every
-    operand may carry a leading expert dim."""
+    operand may carry a leading expert dim.  ``proxy_block``: the
+    gathered proxy inputs of a column-split FFN (``proxy_relu_in``)."""
     note_predictor_eval()
-    proxy_says_zero = (proxy_relu_in(x, w_perm, mor, preact_full, residual)
-                       < 0.0) | cols(mor["proxy_slot"] < 0)
+    proxy_says_zero = (proxy_relu_in(x, w_perm, mor, preact_full, residual,
+                                     proxy_block) < 0.0
+                       ) | cols(mor["proxy_slot"] < 0)
     p_bin = binary_preact(x, w_perm)
     p_hat = estimate_preact(p_bin, mor, residual)
     binary_says_zero = p_hat < 0.0

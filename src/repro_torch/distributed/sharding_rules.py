@@ -23,8 +23,12 @@ such compiler, so the port realises the same layouts by hand:
     reduce-scatters the gradient over ``data``);
   * the tensor-parallel layers consume their ``model`` blocks and issue
     their collectives themselves (``distributed.collectives``): GQA
-    attention and MLA by head, the dense FFN (MoR off) and RWKV6's
-    channel mix by d_ff column, RWKV6's time mix and Mamba2 by head
+    attention and MLA by head, the dense FFN and RWKV6's channel mix by
+    d_ff column (under an active MoR plan too, where d_ff divides over
+    ``model`` in whole ``tile_n`` tiles: the rank's plan is its column
+    block of the plan's per-neuron tables, ``neuron_block``, and the
+    plan exchanges its proxies' inputs and its tile rows' live counts,
+    ``core.executor``), RWKV6's time mix and Mamba2 by head
     (each where its heads divide over ``model``), the
     vocabulary-parallel embedding, head and loss, the experts of
     ``moe_apply_a2a`` and the f columns of ``_moe_mesh``'s.  Each
@@ -43,8 +47,9 @@ such compiler, so the port realises the same layouts by hand:
     every form receives the block ``"fsdp_tp"`` would have handed it
     and runs unchanged; the stored blocks and the optimizer state keep
     the layout's own.  The forms that consume ``"contract_tp"``'s
-    splits so are GQA, the dense FFN (MoR off), Mamba2, zamba2's shared
-    block, hubert's encoder, the ``moe_tp`` experts and the head; MLA's
+    splits so are GQA, the dense FFN (MoR on or off), Mamba2, zamba2's
+    shared block, hubert's encoder, the ``moe_tp`` experts and the head;
+    MLA's
     and RWKV6's ``"contract_tp"`` splits (``wq_a`` / ``wkv_a``, the time
     mix's ``Wr`` / ``Wk`` / ...) stay gathered whole.  A split that
     does not fall on a form's boundaries is redistributed (Mamba2's
@@ -81,7 +86,11 @@ divide over ``model`` runs with the flag off (``seq_sharded``), and the
 decode never S-shards.
 
 ``activation_context`` is the thread-local the layers consult, as the
-reference's ``_TLS.ctx`` is.  ``_ACT_SPECS`` states each activation's
+reference's ``_TLS.ctx`` is.  Its ``rows_split`` says whether the data
+ranks hold distinct rows of one batch (a batch the data ranks do not
+divide is run whole on each: ``launch.steps.local_rows``), which a MoR
+plan's capacity clip over the global batch reads.  ``_ACT_SPECS``
+states each activation's
 layout; ``constrain`` / ``constrain_grad`` are identities here, because
 the explicit code above realises those layouts itself.
 """
@@ -318,20 +327,25 @@ def on_dp(spec: Spec) -> bool:
 @dataclass
 class MeshContext:
     """What the layers consult under ``activation_context``: the mesh,
-    the sequence-parallel flag, and the spec tree of the params the
-    layers are handed (their rank-local blocks)."""
+    the sequence-parallel flag, the spec tree of the params the layers
+    are handed (their rank-local blocks), and whether the data ranks
+    hold distinct rows (``rows_split``)."""
     mesh: Any
     sequence_parallel: bool = False
     specs: Any = None
+    rows_split: bool = True
 
 
 @contextlib.contextmanager
-def activation_context(mesh, sequence_parallel: bool = False, specs=None):
+def activation_context(mesh, sequence_parallel: bool = False, specs=None,
+                       rows_split: bool = True):
     """Run the model code under ``mesh``: the layers gather and split
     their params as ``specs`` (``param_sharding``'s tree of the params
-    they are handed) says.  Nests; restores the outer context."""
+    they are handed) says; each data rank runs its own rows of one
+    batch, or (``rows_split`` False) every data rank the same rows.
+    Nests; restores the outer context."""
     prev = getattr(_TLS, "ctx", None)
-    _TLS.ctx = MeshContext(mesh, sequence_parallel, specs)
+    _TLS.ctx = MeshContext(mesh, sequence_parallel, specs, rows_split)
     try:
         yield
     finally:
@@ -687,6 +701,14 @@ def use(tree, specs, keep=None, prefix: str = ""):
         return out
 
     return walk(tree, specs, prefix)
+
+
+def neuron_block(v: torch.Tensor, group) -> torch.Tensor:
+    """This rank's block of a per-neuron leaf (..., N) whose FFN is
+    split over ``group`` by d_ff column (the reference's ``mor/...``
+    rule, ``("tp",)``): columns [r N / MP, (r + 1) N / MP), a view."""
+    n = v.shape[-1] // group.size
+    return v.narrow(-1, group.rank * n, n)
 
 
 def split_group(t: torch.Tensor):

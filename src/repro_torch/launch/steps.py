@@ -29,23 +29,35 @@ the input projections' output dim and the output projections' input
 dim) or "contract_tp" (``_PARAM_RULES_CONTRACT``: ``model`` on the
 input projections' contraction dim and the output projections' output
 dim).  The tensor-parallel layers consume "fsdp_tp"'s splits as they
-lie: GQA and MLA by head, the dense FFN (MoR off) by d_ff, RWKV6's
-time mix by head and its channel mix (MoR off) by d_ff, Mamba2 by
-head, zamba2's shared GQA + FFN, the vocabulary-parallel embedding and
-head, the experts of ``moe_apply_a2a`` and ``_moe_mesh``'s f columns;
-each where its heads divide over ``model``.  Under "contract_tp" each
-layer moves its splits onto those dims first (one all-to-all over
-``model`` a leaf: ``sharding_rules.use``), so that GQA, the dense FFN
-(MoR off), Mamba2, zamba2's shared block, hubert's encoder, the
-``moe_tp`` experts and the head run on the rank's own heads or
-columns as under "fsdp_tp"; its MLA and RWKV6 splits are not moved.
-Where a layer's tensor-parallel form does not consume a leaf's split
-(a form's dim that does not divide over ``model``, an FFN under an
-active MoR plan, MLA and RWKV6 under "contract_tp"), the leaf is
-gathered whole where it is used, and the layer computes as one device
-would.  The static decode keeps (and under "contract_tp" moves) GQA's,
-MLA's, the FFN's and zamba2's shared block's splits; RWKV6 and the
-mamba layers decode whole on every rank.
+lie: GQA and MLA by head, the dense FFN by d_ff, RWKV6's time mix by
+head and its channel mix by d_ff, Mamba2 by head, zamba2's shared GQA
++ FFN, the vocabulary-parallel embedding and head, the experts of
+``moe_apply_a2a`` and ``_moe_mesh``'s f columns; each where its heads
+divide over ``model``.  A dense FFN or channel mix under an active MoR
+plan (``mor``, ``mor_mode``: every mode; plans attached by
+``core.deploy.attach_plans``, which carry their proxy counts) runs on
+the rank's own d_ff columns where they divide over ``model`` in whole
+``tile_n`` tiles:
+the rank's plan predicts and computes its column block of one device's
+tile mask after two exchanges, its proxies' ReLU inputs over ``model``
+and, where a budget can bite, its tile rows' live counts over the mesh
+(``core.executor``).  Under "contract_tp" each layer moves its splits
+onto those dims first (one all-to-all over ``model`` a leaf:
+``sharding_rules.use``), so that GQA, the dense FFN, Mamba2, zamba2's
+shared block, hubert's encoder, the ``moe_tp`` experts and the head
+run on the rank's own heads or columns as under "fsdp_tp"; its MLA
+and RWKV6 splits are not moved.  Where a layer's tensor-parallel form
+does not consume a leaf's split (a form's dim that does not divide
+over ``model``, an FFN under an active MoR plan whose d_ff does not
+divide into whole tiles, an expert plan on ``_moe_mesh``'s f split,
+MLA and RWKV6 under "contract_tp"), the leaf is gathered whole where
+it is used, and the layer computes as one device would.  The static
+decode keeps (and under "contract_tp" moves) GQA's, MLA's, the FFN's
+and zamba2's shared block's splits; RWKV6 and the mamba layers decode
+whole on every rank.  Each data rank runs its rows of the batch (the
+whole batch where the data ranks do not divide it: the context's
+``rows_split``), and a MoR plan's capacity clip counts over the global
+batch, as one device's does.
 """
 from __future__ import annotations
 
@@ -111,10 +123,22 @@ def opt_specs(opt_state, specs):
     return out
 
 
-def _context(mesh, specs, sequence_parallel: bool = False):
+def _context(mesh, specs, sequence_parallel: bool = False, rows=None):
+    """The step's ``activation_context``; ``rows``: a global batch leaf,
+    whose ``local_rows`` say whether the data ranks hold distinct rows."""
     if mesh is None:
         return contextlib.nullcontext()
-    return sr.activation_context(mesh, sequence_parallel, specs=specs)
+    split = rows is None or _rows_split(rows, mesh)
+    return sr.activation_context(mesh, sequence_parallel, specs=specs,
+                                 rows_split=split)
+
+
+def _rows_split(x: torch.Tensor, mesh) -> bool:
+    """Whether ``local_rows`` hands the data ranks distinct rows of
+    ``x``."""
+    if getattr(mesh, "groups", None) is None:
+        return False
+    return bool(sr.batch_sharding({"x": x}, mesh)["x"])
 
 
 def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
@@ -281,7 +305,8 @@ def make_prefill(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
 
     def prefill(params, batch):
         n = next(iter(batch.values())).shape[0]
-        with _context(mesh, specs, sequence_parallel):
+        with _context(mesh, specs, sequence_parallel,
+                      next(iter(batch.values()))):
             logits, _ = api.forward(params, cfg, {
                 k: local_rows(v, mesh) for k, v in batch.items()},
                 mor=mor, mor_mode=mor_mode)
@@ -315,7 +340,7 @@ def make_prefill_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
 
     def prefill_step(params, cache, prompts):
         n = prompts.shape[0]
-        with _context(mesh, specs):
+        with _context(mesh, specs, rows=prompts):
             nxt, cache = _prefill(params, cache, local_rows(prompts, mesh))
         return _whole_rows(nxt, mesh, n), cache
 
@@ -356,10 +381,11 @@ def make_decode_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
 
     def decode_step(params, cache, tokens):
         n = tokens.shape[0]
+        context = _context(mesh, specs, rows=tokens)
         tokens = local_rows(tokens, mesh)
         n_valid = torch.ones((tokens.shape[0],), dtype=torch.int32,
                              device=tokens.device)
-        with _context(mesh, specs):
+        with context:
             logits, aux = api.prefill_chunk(params, cfg, tokens, cache,
                                             n_valid=n_valid, mor=mor,
                                             mor_mode=mor_mode)
@@ -388,7 +414,7 @@ def make_serve_step(cfg: ModelConfig, mor=None, mor_mode: str = "dense",
 
     def serve_step(params, cache, tokens):
         n = tokens.shape[0]
-        with _context(mesh, specs):
+        with _context(mesh, specs, rows=tokens):
             logits = api.decode_step(params, cfg, local_rows(tokens, mesh),
                                      cache, mor=mor, mor_mode=mor_mode)
         return _whole_rows(_argmax(logits), mesh, n), cache

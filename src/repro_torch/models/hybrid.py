@@ -26,6 +26,7 @@ from repro_torch.distributed.decode_attention import state_put, state_take
 from repro_torch.models.layers import attention as attn
 from repro_torch.models.layers.common import dense_init, embed_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init, mlp_taps
+from repro_torch.models.layers.mlp import mor_whole
 from repro_torch.models.layers.mlp import tp_keep as mlp_tp_keep
 from repro_torch.models.layers.norms import (apply_norm, norm_init,
                                              stacked_norm_init)
@@ -112,7 +113,9 @@ def use_shared(params: Dict, cfg: ModelConfig, mor, mor_mode: str,
     """The params outside the mamba stacks gathered for use
     (``transformer.use_top``, the vocabulary whole), the shared block's
     GQA and MLP leaving split the ``model`` dims their tensor-parallel
-    forms consume (``tp``: ``attention.tp_keep``, ``mlp.tp_keep``)."""
+    forms consume (``tp``: ``attention.tp_keep``, ``mlp.tp_keep``; the
+    MLP under an active MoR plan too, where its d_ff divides over
+    ``model`` in whole tiles, ``mlp.mor_whole``)."""
     ctx = sr.current()
     keep: dict = {}
     if tp and ctx is not None and ctx.specs is not None:
@@ -120,9 +123,11 @@ def use_shared(params: Dict, cfg: ModelConfig, mor, mor_mode: str,
         specs = ctx.specs["shared"]
         active = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
                          tile_n=cfg.mor.tile_n).active
-        keep = dict(attn.tp_keep(_swa_cfg(cfg), specs["attn"],
-                                 ctx.mesh.shape["model"], "shared/attn/"),
-                    **mlp_tp_keep(specs["mlp"], active, "shared/mlp/"))
+        mp = ctx.mesh.shape["model"]
+        keep = dict(attn.tp_keep(_swa_cfg(cfg), specs["attn"], mp,
+                                 "shared/attn/"),
+                    **mlp_tp_keep(specs["mlp"], mor_whole(cfg, mp, active),
+                                  "shared/mlp/"))
     return use_top(params, cfg, tp=False, keep=keep)
 
 

@@ -7,11 +7,17 @@ and the activation is ReLU-family, in which case it routes through
 Under a mesh (``distributed.sharding_rules.activation_context``) whose
 layer loop left ``w_gate`` / ``w_up`` split over ``model`` by column and
 ``w_down`` by row (``tp_keep``; under ``"contract_tp"`` moved there from
-the contraction splits), the dense math is Megatron's tensor-parallel
-FFN: the input enters through ``copy_to_model``, each
-rank computes its f / MP hidden columns, and one ``all_reduce_sum`` over
-``model`` sums the down projection's partials.  An active MoR plan
-keeps the weights whole (its proxies may lie on another rank's columns).
+the contraction splits), the FFN is Megatron's tensor-parallel FFN: the
+input enters through ``copy_to_model``, each rank computes its f / MP
+hidden columns, and one ``all_reduce_sum`` over ``model`` sums the down
+projection's partials.  An active MoR plan runs so too, in every mode,
+where f divides over ``model`` in whole ``tile_n`` tiles (``mor_whole``):
+the rank's plan (``executor.MoRExecutionPlan.for_rank``) predicts, clips
+and computes its own column block of one device's tile mask, after two
+small exchanges over the mesh (its proxies' ReLU inputs, "mor_proxy",
+and, where a budget can bite, its tile rows' live counts, "mor_rows").
+Where f does not divide so, the FFN under an active plan is gathered
+whole (``sharding_rules.model_gathers`` names its leaves).
 """
 from __future__ import annotations
 
@@ -48,15 +54,23 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, n_layers: int,
             "w_down": dense_init(gen, (L, f, d), pd)}
 
 
-def tp_keep(specs, mor_active: bool, prefix: str = "") -> dict:
+def mor_whole(cfg: ModelConfig, mp: int, mor_active: bool) -> bool:
+    """Whether the config's FFN is gathered whole over ``mp`` model
+    ranks for its MoR plan: where the plan is active and its d_ff
+    columns do not divide into whole ``tile_n`` tiles a rank."""
+    return mor_active and cfg.d_ff % (mp * cfg.mor.tile_n) != 0
+
+
+def tp_keep(specs, whole: bool, prefix: str = "") -> dict:
     """The FFN leaves whose ``model`` splits the tensor-parallel FFN
     consumes, each with the dim it consumes it on: ``w_gate`` / ``w_up``
     by d_ff column (dim -1) and ``w_down`` by d_ff row (dim -2), where
-    every one of them is split over ``model`` and no MoR plan runs, else
-    none.  ``"fsdp_tp"`` splits them there; ``"contract_tp"`` splits the
-    up projections' input dim and the down projection's output dim, and
+    every one of them is split over ``model`` and the FFN is not kept
+    ``whole`` for its MoR plan (``mor_whole``), else none.
+    ``"fsdp_tp"`` splits them there; ``"contract_tp"`` splits the up
+    projections' input dim and the down projection's output dim, and
     ``sharding_rules.use`` moves each onto the form's dim."""
-    if mor_active or not isinstance(specs, dict):
+    if whole or not isinstance(specs, dict):
         return {}
     up = [k for k in ("w_gate", "w_up") if k in specs]
     if any(sr.model_dim(specs, k) is None for k in up + ["w_down"]):
@@ -76,21 +90,26 @@ def mlp_apply(params: Dict, cfg: ModelConfig, x: torch.Tensor, *,
     x2 = x.reshape(-1, x.shape[-1])
     plan = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
                    tile_n=cfg.mor.tile_n, capacity_frac=cfg.mor.capacity)
-    if plan.active and act_name in ("relu", "relu2", "relu_glu"):
-        base = "relu" if act_name == "relu_glu" else act_name
-        y, stats = plan.ffn(
-            x2, params["w_up"].to(dt), params["w_down"].to(dt),
-            activation=base,
-            w_gate=params.get("w_gate") if is_glu(act_name) else None)
-        return y.reshape(*lead, -1).to(dt), stats
-
-    fn = activation_fn(act_name)
     # column-parallel up projections, row-parallel down projection
     # (under sequence parallelism x holds every S row and the sum comes
     # back as this rank's rows: ``sharding_rules.tp_exit``)
     group = sr.split_group(params["w_down"])
     if group is not None:
         x2 = sr.tp_enter(x2, group)
+    if plan.active and act_name in ("relu", "relu2", "relu_glu"):
+        base = "relu" if act_name == "relu_glu" else act_name
+        if group is not None:
+            plan = plan.for_rank(group)
+        y, stats = plan.ffn(
+            x2, params["w_up"].to(dt), params["w_down"].to(dt),
+            activation=base,
+            w_gate=params.get("w_gate") if is_glu(act_name) else None)
+        y = y.reshape(*lead, -1).to(dt)
+        if group is not None:
+            y = sr.tp_exit(y, group, max(len(lead) - 1, 0))
+        return y, stats
+
+    fn = activation_fn(act_name)
     if is_glu(act_name):
         h = fn(x2 @ params["w_gate"].to(dt)) * (x2 @ params["w_up"].to(dt))
     else:

@@ -27,9 +27,12 @@ Under a mesh (``distributed.sharding_rules.activation_context``):
     ``data`` (routing is over the global batch), the experts whole, or
     split over ``model`` by f column where the rules put f or d there
     (``"contract_tp"``'s d split moved onto f by
-    ``sharding_rules.use``) and no expert plan runs (a plan's proxies
-    may lie on another rank's columns), then this rank's rows taken
-    back.
+    ``sharding_rules.use``) and no expert plan runs, then this rank's
+    rows taken back.  An expert plan keeps the experts whole here, as
+    the reference keeps ``moe_apply_a2a``'s f-sliced form dense: the
+    column split of a plan (``executor.MoRExecutionPlan.for_rank``) is
+    the dense FFN's, and the expert grid's goes with this path's token
+    gather.
 """
 from __future__ import annotations
 

@@ -24,9 +24,15 @@ region with one reduction.  ``Wo``'s ``model`` split is on its output
 columns; the rank needs its heads' rows, so ``Wo`` is gathered (d^2
 weights a layer) and sliced by row, rather than all-gathering y and
 the output (2 B S d activations a layer, far more at training
-shapes).  The channel mix (MoR off) is Megatron's FFN: ``w_up`` by
-column, ``w_down`` by row, the ``Wr`` gate (gathered whole) applied to
-the reduced sum, on this rank's rows under sequence parallelism.
+shapes).  The channel mix is Megatron's FFN: ``w_up`` by column,
+``w_down`` by row, the ``Wr`` gate (gathered whole) applied to the
+reduced sum, on this rank's rows under sequence parallelism.  Under an
+active MoR plan it runs so too where d_ff divides over ``model`` in
+whole ``tile_n`` tiles: the rank's plan (``executor.MoRExecutionPlan.
+for_rank``) runs ``relu_matmul`` (relu2) on its columns, after the
+plan's exchanges of its proxies' inputs and its tile rows' live
+counts; the down projection stays a plain product, as in the
+reference.  Its decode gathers the block whole on every rank.
 """
 from __future__ import annotations
 
@@ -81,11 +87,12 @@ def tp_keep(cfg: ModelConfig, specs, mp: int, mor_active: bool) -> dict:
     ``Wr``, ``Wk``, ``Wv``, ``Wg`` and ``wB`` by column (dim -1) where
     its heads divide over ``mp`` (rwkv6-3b's 40 heads do not over 16:
     its time mix then stays gathered whole), the channel mix's ``w_up``
-    by column and ``w_down`` by row where no MoR plan runs (as
-    ``mlp.tp_keep``: the plan's proxies may lie on another rank's
-    columns).  Only ``"fsdp_tp"``'s splits are consumed: under
-    ``"contract_tp"`` (the time mix's projections split on their input
-    dim) the block is gathered whole."""
+    by column and ``w_down`` by row unless a MoR plan runs on a d_ff
+    that does not divide over ``mp`` in whole tiles (``mlp.mor_whole``:
+    rwkv6-3b's 8,960 columns over 16).  Only ``"fsdp_tp"``'s splits are
+    consumed: under ``"contract_tp"`` (the time mix's projections split
+    on their input dim) the block is gathered whole."""
+    from repro_torch.models.layers.mlp import mor_whole
     if mp == 1 or not isinstance(specs, dict):
         return {}
     keep = {}
@@ -93,7 +100,8 @@ def tp_keep(cfg: ModelConfig, specs, mp: int, mor_active: bool) -> dict:
     if _heads(cfg)[0] % mp == 0 and all(sr.on_model(specs["tm"], k, -1)
                                         for k in tm):
         keep.update({"tm/" + k: -1 for k in tm})
-    if not mor_active and sr.on_model(specs["cm"], "w_up", -1) and \
+    if not mor_whole(cfg, mp, mor_active) and \
+            sr.on_model(specs["cm"], "w_up", -1) and \
             sr.on_model(specs["cm"], "w_down", -2):
         keep.update({"cm/w_up": -1, "cm/w_down": -2})
     return keep
@@ -303,23 +311,24 @@ def chanmix_forward(params: Dict, cfg: ModelConfig, x, x_prev, *,
     """x, x_prev: (..., d).  The ReLU^2 channel mix with the MoR hook:
     the up projection goes through the plan (kernel mode:
     ``mor_tile_mask`` then ``gather_matmul``); the down projection stays
-    a plain product, as in the JAX package.  On a tensor-parallel layer
-    (MoR off): the rank's ``w_up`` columns and ``w_down`` rows on the
-    entered input, summed over ``model`` (this rank's S rows under
-    sequence parallelism), then gated by the whole ``Wr``'s gate.  ->
-    (y, mor_stats)."""
+    a plain product, as in the JAX package.  On a tensor-parallel layer:
+    the rank's ``w_up`` columns (through the rank's plan where one is
+    active) and ``w_down`` rows on the entered input, summed over
+    ``model`` (this rank's S rows under sequence parallelism), then
+    gated by the whole ``Wr``'s gate.  -> (y, mor_stats)."""
     from repro_torch.core.executor import as_plan
     dt = x.dtype
+    plan = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
+                   tile_n=cfg.mor.tile_n, capacity_frac=cfg.mor.capacity)
     group = sr.split_group(params["w_down"])
     if group is not None:
-        return _chanmix_tp(params, x, x_prev, group), {}
+        return _chanmix_tp(params, x, x_prev, group,
+                           plan.for_rank(group) if plan.active else None)
     mu = params["mu"].to(dt)
     xk = _mix(x, x_prev, mu[0])
     xr = _mix(x, x_prev, mu[1])
     gate = torch.sigmoid((xr @ params["Wr"].to(dt)).float())
     stats: Dict = {}
-    plan = as_plan(mor, mode=mor_mode, tile_m=cfg.mor.tile_m,
-                   tile_n=cfg.mor.tile_n, capacity_frac=cfg.mor.capacity)
     if plan.active:
         lead = xk.shape[:-1]
         h, stats = plan.relu_matmul(xk.reshape(-1, xk.shape[-1]),
@@ -332,12 +341,13 @@ def chanmix_forward(params: Dict, cfg: ModelConfig, x, x_prev, *,
     return y, stats
 
 
-def _chanmix_tp(params: Dict, x, x_prev, group) -> torch.Tensor:
+def _chanmix_tp(params: Dict, x, x_prev, group, plan=None) -> Tuple:
     """The tensor-parallel channel mix: x, x_prev (B, S, d) every row.
     The gate is the replicated region (its whole weights through
     ``tp_weight``), on this rank's rows under sequence parallelism
     (``seq_rows``); x and x_prev enter the region together (one
-    collective in the backward)."""
+    collective in the backward).  ``plan``: the rank's MoR plan, or
+    None.  -> (y, mor_stats)."""
     dt = x.dtype
     mu = sr.tp_weight(params["mu"], group).to(dt)
     xr = _mix(sr.seq_rows(x), sr.seq_rows(x_prev), mu[1])
@@ -345,9 +355,16 @@ def _chanmix_tp(params: Dict, x, x_prev, group) -> torch.Tensor:
                          .float())
     xf, xpf = sr.tp_enter(torch.stack([x, x_prev]), group).unbind(0)
     xk = _mix(xf, xpf, sr.tp_shared(params["mu"], group).to(dt)[0])
-    h = torch.square(F.relu(xk @ params["w_up"].to(dt)))
+    stats: Dict = {}
+    if plan is not None:
+        h, stats = plan.relu_matmul(xk.reshape(-1, xk.shape[-1]),
+                                    params["w_up"].to(dt),
+                                    activation="relu2")
+        h = h.reshape(*xk.shape[:-1], -1)
+    else:
+        h = torch.square(F.relu(xk @ params["w_up"].to(dt)))
     y = sr.tp_exit(h.to(dt) @ params["w_down"].to(dt), group, x.ndim - 2)
-    return gate.to(dt) * y
+    return gate.to(dt) * y, stats
 
 
 def chanmix_taps(params: Dict, x, x_prev) -> Dict:

@@ -113,8 +113,9 @@ def use_block(lp: Dict, lspec, cfg: ModelConfig, ml, mor_mode: str,
               tp: bool = True) -> Dict:
     """Gather-on-use of one block's leaves (``sharding_rules.use``),
     leaving split the ``model`` dims its tensor-parallel time mix and
-    channel mix consume (``tp``; none on the serving and decode
-    paths)."""
+    channel mix consume (``tp``; none on the serving and decode paths;
+    the channel mix under an active MoR plan too, where its d_ff divides
+    over ``model`` in whole tiles: ``rwkv.tp_keep``)."""
     if lspec is None:
         return lp
     keep: dict = {}

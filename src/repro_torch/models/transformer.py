@@ -201,7 +201,9 @@ def use_layer(lp: Dict, lspec, cfg: ModelConfig, kind: str, ml,
     leaving split the ``model`` splits its tensor-parallel attention,
     FFN or experts consume (``tp``; none on the serving chunk path),
     moved onto the dims those forms consume them on where the layout
-    put them elsewhere (``"contract_tp"``)."""
+    put them elsewhere (``"contract_tp"``).  A dense FFN under an active
+    MoR plan stays split where its d_ff divides over ``model`` in whole
+    tiles (``mlp.mor_whole``), and is gathered whole elsewhere."""
     if lspec is None:
         return lp
     from repro_torch.core.executor import as_expert_plan, as_plan
@@ -219,7 +221,9 @@ def use_layer(lp: Dict, lspec, cfg: ModelConfig, kind: str, ml,
         else:
             active = as_plan(ml, mode=mor_mode, tile_m=cfg.mor.tile_m,
                              tile_n=cfg.mor.tile_n).active
-            keep.update(mlp_mod.tp_keep(lspec["mlp"], active, "mlp/"))
+            keep.update(mlp_mod.tp_keep(
+                lspec["mlp"], mlp_mod.mor_whole(cfg, mesh.shape["model"],
+                                                active), "mlp/"))
     return sr.use(lp, lspec, keep)
 
 

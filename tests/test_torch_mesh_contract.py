@@ -185,15 +185,20 @@ class _Predictions:
 
 def _kernel_forward(weights, mesh):
     """granite calibrated (``calibrate_lm``, the same on every rank),
-    then one kernel-mode forward on one device and one on ``mesh`` under
-    ``"contract_tp"`` -> (one device's predictions, the mesh's, the
-    leaves the mesh gathered over ``model``)."""
-    from repro_torch.core.deploy import calibrate_lm
+    every odd 128-column tile made statically dead
+    (``test_torch_mesh_mor._dead_odd_tiles``), then one kernel-mode
+    forward on one device and one on ``mesh`` under ``"contract_tp"``
+    -> (one device's predictions, the mesh's, the leaves the mesh
+    gathered over ``model``)."""
+    from repro_torch.core.deploy import attach_plans, calibrate_lm
     from repro_torch.launch.serve import calib_batches
+    from test_torch_mesh_mor import _dead_odd_tiles
     cfg = _cfg("granite-3-2b")
     api = get_model(cfg)
     params, mor, _ = calibrate_lm(_tree(weights), cfg, api.forward,
                                   calib_batches(cfg, 4, "cpu"), 2)
+    mor = attach_plans({"layers": _dead_odd_tiles(mor["layers"])}, cfg,
+                       "kernel")
     batch = {"tokens": _batches(cfg)[0]["tokens"]}
     with torch.no_grad(), _Predictions() as one:
         api.forward(params, cfg, batch, mor=mor, mor_mode="kernel")
@@ -390,21 +395,30 @@ def test_contract_decode_tokens_equal_one_device(run, arch):
 
 
 def test_contract_kernel_forward_masks_equal_one_device(run):
-    """granite calibrated, one kernel-mode forward on (1, 2) under
-    ``"contract_tp"``: the attention by head on the moved splits, the
-    FFN under its active plan gathered whole (its proxies may lie on
-    another rank's columns), so every rank runs the three MoR kernels'
-    forms on the whole FFN; the tile masks, kept tiles and
-    ``gather_matmul``'s counters of every layer are bit-equal to one
-    device's."""
+    """granite calibrated with every odd tile statically dead, one
+    kernel-mode forward on (1, 2) under ``"contract_tp"``: the attention
+    by head and the FFN under its active plan by column, both on the
+    moved splits (nothing gathered over ``model``), so each rank runs
+    the three MoR kernels' forms on its own 128 columns; one device's
+    tile masks hold dead and live tiles, each rank's tile masks and kept
+    tiles of every layer are its column block of one device's, and the
+    two ranks' ``gather_matmul`` counters sum to one device's."""
     _, _, ranks = run
-    for r in ranks[:2]:
+    L = _cfg("granite-3-2b").n_layers
+    for m, r in enumerate(ranks[:2]):
         one, split, gathered = r["kernel"]
-        assert gathered == _FFN, gathered
-        assert len(split) == len(one) == _cfg("granite-3-2b").n_layers
+        assert gathered == set(), gathered
+        assert len(split) == len(one) == L
         for a, b in zip(split, one):
-            for x, y in zip(a, b):
-                np.testing.assert_array_equal(x, y)
+            assert b[0].any() and not b[0].all(), b[0]
+            n = a[0].shape[1]
+            for x, y in zip(a[:2], b[:2]):
+                np.testing.assert_array_equal(x, y[:, m * n:(m + 1) * n])
+    for layer in range(L):
+        one = ranks[0]["kernel"][0][layer]
+        for j in (2, 3):
+            assert sum(int(r["kernel"][1][layer][j]) for r in ranks[:2]) \
+                == int(one[j])
 
 
 def test_use_moves_a_split_whose_block_does_not_divide(run):
